@@ -1,0 +1,81 @@
+"""The port stands alone: it loads no JAX and nothing of the JAX package, and
+its entry points never drop to the CPU on their own."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "repro") or n.startswith("jax"))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    for module in ("repro_torch.quickstart", "repro_torch.convert",
+                   "repro_torch.optim.simcluster", "repro_torch.kernels.sdca.ops",
+                   "repro_torch.kernels.sdca.build", "repro_torch.core.hemingway"):
+        assert module in report["imported"]
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    """chip_smoke.py names neither package in its imports."""
+    source = (ROOT / "chip_smoke.py").read_text()
+    for line in source.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro"), line
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    from repro_torch import quickstart
+    from repro_torch.configs import cocoa_mnist
+    from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
+    from repro_torch.optim import make_mnist_svm
+
+    X = np.zeros((4, 2), np.float32)
+    y = np.ones(4, np.float32)
+    calls = [
+        lambda: make_mnist_svm(cocoa_mnist.smoke_config()),
+        lambda: problem_from_numpy(X, y, 1e-3),
+        lambda: cocoa_state_from_numpy(X[None], y[None], y[None], X[0]),
+        lambda: quickstart.main(["--n", "64", "--d", "4", "--ms", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_explicit_cpu_runs_without_a_card(no_card):
+    from repro_torch import quickstart
+
+    result = quickstart.main(["--device", "cpu", "--n", "256", "--d", "8",
+                              "--ms", "1", "2", "4", "--iters", "12",
+                              "--ref-iters", "30"])
+    assert result["fastest_to_epsilon"][1] in (1, 2, 4)
+    assert result["best_within_budget"][1] in (1, 2, 4)
+    assert set(result["t_iter"]) == {1, 2, 4}
