@@ -3,34 +3,59 @@
 
   python3 chip_smoke.py
 
-Phases, each of which exits non-zero on failure:
-  1. device: requires a CUDA card and prints its name and power limit;
-  2. build:  compiles every kernel of the main path from the sources here;
-  3. kernel vs plain: each kernel against its plain PyTorch version on the
-     card, at the main path's shapes, within the stated tolerances;
-  4. small-input check: CoCoA rounds on the card against the plain version
-     on the CPU, with the same coordinate orders;
-  5. main path: the Hemingway loop (repro_torch.quickstart) on the paper's
-     workload, 60000 x 784, m = 1..128, with the kernels' launch counts
-     checked against the rounds it ran;
-  6. timings: each kernel's time per launch against its bound and its plain
-     version's time;
-  7. device busy share of CoCoA rounds at m = 1, 16 and 128.
-The last lines are one JSON object per kernel summary, the card's
+It drives the port's two paths, each with every kernel launch count set to 0
+just before it and read just after: the Hemingway loop on the local SDCA
+kernel (K1), and serving qwen3-14b at full width through the
+continuous-batching engine on the flash forward (K3) and paged decode (K2)
+kernels.  Phases, each of which exits non-zero on failure:
+
+   1. device: requires a CUDA card and prints its name and power limit;
+   2. build: compiles every kernel from the sources here, one nvcc each, all
+      started together, and prints what -Xptxas -v reports;
+   3. K1 against its plain PyTorch version on the card, at the Hemingway
+      loop's shapes, within the stated tolerances;
+   4. small-input check of the loop: CoCoA rounds on the card against the
+      plain version on the CPU, with the same coordinate orders;
+   5. K1's time per launch against its bound and its plain version's time;
+   6. the Hemingway loop (repro_torch.quickstart) on the paper's workload,
+      60000 x 784, m = 1..128, K1's launches checked against its rounds;
+   7. device busy share of CoCoA rounds at m = 1, 16 and 128;
+   8. K3 and K2 against their plain versions on the card, in bf16, at
+      qwen3-14b's shapes, within the stated tolerances;
+   9. small-input check of the LM: the smoke qwen3-14b on the card against
+      the plain versions on the CPU, with the same weights;
+  10. the serve path at full width: ``python -m repro_torch.launch.serve
+      --arch qwen3-14b --continuous`` in process (all 40 layers, d_model
+      5120), with K3 launches = 40 x prefills and K2 launches = 40 x decode
+      steps;
+  11. a longer serve run at full width: 8 requests of 1024-token prompts
+      arriving together, 64 tokens each, max_batch 8 (time to first token,
+      decode step time, tokens/s, peak memory, a window of decode steps
+      profiled for device activity only);
+  11b. prefill over row blocks at full width: a short prompt's prefill
+      padded to one block of 256, 512, 1024 rows and max_seq, against no
+      padding; a 1024-token prompt in blocks of each size; and a two-block prompt
+      that reuses a one-block prompt's pages, bit for bit against a cold
+      engine;
+  12. K3's and K2's times per launch against their bounds, their plain
+      versions' times, and one PyTorch call's time for the same function.
+The last lines are one JSON object with every kernel's summary, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM, NVIDIA's data sheet: HBM3 rate and float32 rate outside the
-# tensor cores, at the full 700 W power limit.
+# H100 SXM, NVIDIA's data sheet: HBM3 rate, float32 rate outside the tensor
+# cores, and the dense bf16 tensor-core rate, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # Quickstart's rounds (repro_torch.quickstart.SIM_ITERS / REF_ITERS) as run here.
 SIM_ITERS = 40
@@ -44,6 +69,31 @@ DW_RTOL_OF_MAX = 1e-5   # max |dw_kernel - dw_plain| <= 1e-5 * max |dw_plain|
 A_ATOL = 1e-5           # max |a_kernel - a_plain|
 PRIMAL_RTOL = 1e-5      # P(w + combined dw), kernel vs plain
 CURVE_RTOL = 1e-4       # objective curves of the small-input check
+
+# K2 and K3 against their plain versions on the card: both run float32
+# arithmetic on bf16 inputs, summed in another order, and round the output to
+# bf16 once.  The float32 difference can move that rounding by one step (one
+# bf16 ulp of the output), and it is itself an absolute error of the order of
+# float32's epsilon times the summands, which are p_j v_j with the p_j summing
+# to 1: for n keys about sqrt(n) * 1.2e-7 * max|v| (3.8e-6 max|v| at n = 1024).
+# Where a row's output is near 0 by cancellation, that is several ulps of the
+# output itself (5 measured at Sq = 1024 on an H100).  So the limit is one
+# bf16 ulp of the output plus 2^-14 (6.1e-5) of max|v|, sixteen times the
+# estimate; a fault of the kernel shows as errors of order max|v|.
+MAX_BF16_ULPS = 1
+V_ATOL_OF_MAX = 2.0 ** -14
+# The smoke LM on the card against the plain versions on the CPU, same
+# weights: both round every activation to bf16, cuBLAS and the CPU's library
+# sum the products in other orders, so single activations differ by bf16
+# steps (2^-8 relative) that the residual stream carries on.  The port against
+# the JAX package on the CPU measured max 1.0% and mean 0.2% of the largest
+# logit (tests/test_torch_lm.py); the same limits as there: 3% and 0.5%.
+LM_MAX_OF_SCALE = 3e-2
+LM_MEAN_OF_SCALE = 5e-3
+
+# The serve paths
+ARCH = "qwen3-14b"
+LONG_PROMPT, LONG_GEN, LONG_BATCH = 1024, 64, 8
 
 
 def fail(message: str) -> None:
@@ -75,37 +125,64 @@ def sdca_bytes_and_flops(m, nl, d, idx):
     return nbytes, flops
 
 
-def main() -> None:
+def bf16_ulps(got, want, atol: float = 0.0) -> float:
+    """Largest difference, less ``atol``, in units of the bf16 spacing at the
+    larger of the two magnitudes, 2 ** (floor(log2 |x|) - 7)."""
     import torch
 
-    phase("device")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
-    sys.path.insert(0, str(ROOT / "src"))
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float((((got - want).abs() - atol).clamp_min(0) / ulp).max())
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean ms per call by CUDA events, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def build_all(libraries) -> None:
+    """One nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        results = list(pool.map(lambda lib: lib.build(), libraries))
+    print(f"built {len(libraries)} libraries in {time.perf_counter() - t0:.1f} s (in parallel)")
+    for lib, built in zip(libraries, results):
+        print(f"{lib.source.name}: nvcc {built['seconds']:.1f} s -> {built['path']}")
+        entry = ""
+        for line in built["log"].splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas: {entry[:60]}: {line.strip()}")
+        lib.load()
+
+
+def hemingway_path(dev):
+    """Phases 3-7: K1 and the Hemingway loop.  Returns K1's summary."""
+    import torch
+
     from repro_torch import quickstart
-    from repro_torch.kernels.sdca import build, ops
+    from repro_torch.convert import problem_from_numpy
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.sdca import ops
     from repro_torch.kernels.sdca.ref import local_sdca_ref
     from repro_torch.optim import CocoaConfig, make_mnist_svm, run_cocoa
-    from repro_torch.convert import problem_from_numpy
     from repro_torch.optim.cocoa import draw_indices, partition
     from repro_torch.optim.problems import synthetic_mnist
 
-    smi = nvidia_smi_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {smi}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
-    dev = torch.device("cuda")
-
-    phase("build")
-    built = build.build()
-    print(f"sdca.cu: built in {built['seconds']:.1f} s -> {built['path']}")
-    for line in built["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    build.load()
-
-    phase("kernel vs plain (60000 x 784 shards)")
+    phase("K1 kernel vs plain (60000 x 784 shards)")
     problem = make_mnist_svm(device=dev)
     lam, n = problem.lam, float(problem.n)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -164,19 +241,10 @@ def main() -> None:
         print(f"plus={plus}: primal {recs[0].primal[-1]:.7f} (card) vs "
               f"{recs[1].primal[-1]:.7f} (cpu), gap {recs[0].gap[-1]:.3e}")
 
-    phase("timings (m=16, CUDA events, after warm-up)")
+    phase("K1 timings (m=16, CUDA events, after warm-up)")
     Xs, ys, a, w, idx, sp, loss = inputs_16
     m, nl, d = Xs.shape
-    for _ in range(3):
-        ops.local_sdca(Xs, ys, a, w, idx, sp, lam, n, loss)
-    reps = 10
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        ops.local_sdca(Xs, ys, a, w, idx, sp, lam, n, loss)
-    stop.record()
-    torch.cuda.synchronize()
-    kernel_ms = start.elapsed_time(stop) / reps
+    kernel_ms = cuda_ms(lambda: ops.local_sdca(Xs, ys, a, w, idx, sp, lam, n, loss), reps=10)
     t0 = time.perf_counter()
     local_sdca_ref(Xs, ys, a, w, idx, sp, lam, n, loss)
     torch.cuda.synchronize()
@@ -190,15 +258,17 @@ def main() -> None:
           f"{ops_ms:.4f} ms), kernel at {100 * bound_ms / kernel_ms:.2f}% of bound; "
           "no single PyTorch call computes this")
 
-    phase("main path: Hemingway loop, 60000 x 784, m = 1..128")
+    phase("main path 1: Hemingway loop, 60000 x 784, m = 1..128")
     ms = (1, 2, 4, 8, 16, 32, 64, 128)
     for name, ours, default in (("CoCoA rounds per m", SIM_ITERS, quickstart.SIM_ITERS),
                                 ("P* rounds", REF_ITERS, quickstart.REF_ITERS)):
         if ours != default:
             print(f"cut: {name} {default} -> {ours} (n, d and m are not cut)")
-    ops.local_sdca.launches = 0
+    ops.local_sdca.launches = fa_ops.flash_fwd.launches = fd_ops.paged_decode.launches = 0
     result = quickstart.run(ms=ms, iters=SIM_ITERS, ref_iters=REF_ITERS, device=dev)
     launches = ops.local_sdca.launches
+    if fa_ops.flash_fwd.launches or fd_ops.paged_decode.launches:
+        fail("the Hemingway loop launched a serve kernel")
     # P*, then per m a warm-up round, the timed rounds, and the dispatch
     # floor's warm-up and three timed rounds
     rounds = REF_ITERS + sum(1 + SIM_ITERS + 1 + 3 for _ in ms)
@@ -230,7 +300,7 @@ def main() -> None:
         if busy_ms <= 0:
             fail("the profiler saw no device time")
 
-    print(json.dumps({"kernels": [{
+    return {
         "name": "local_sdca",
         "route": "cuda",
         "source": "src/repro_torch/kernels/sdca/csrc/sdca.cu",
@@ -242,7 +312,435 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-    }]}))
+    }
+
+
+def random_pages(torch, gen, dev, b, npp, n_pages):
+    """Page tables drawing distinct pages 1.. in a shuffled order."""
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    return perm[: b * npp].reshape(b, npp).to(torch.int32).contiguous()
+
+
+def serve_kernels_vs_plain(dev, cfg):
+    """Phase 8.  Returns the largest absolute error of each kernel."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_stream
+
+    phase(f"K3 and K2 vs plain (bf16, {ARCH}: Hk {cfg.n_kv_heads}, "
+          f"G {cfg.n_heads // cfg.n_kv_heads}, head_dim {cfg.head_dim})")
+    hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    errs = {"flash_fwd": 0.0, "paged_decode": 0.0}
+    for sq, skv, lens, q_offset in ((1, 1, None, 0), (17, 17, None, 0), (1024, 1024, None, 0),
+                                    (48, 160, [150, 97], 112)):
+        b = 1 if lens is None else len(lens)
+        q, k, v = bf16(b, hk * g, sq, d), bf16(b, hk, skv, d), bf16(b, hk, skv, d)
+        kv_lens = torch.tensor(lens or [skv] * b, dtype=torch.int32, device=dev)
+        got = fa_ops.flash_fwd(q, k, v, kv_lens, sm_scale=d ** -0.5, q_offset=q_offset)
+        torch.cuda.synchronize()
+        want = flash_fwd_ref(q, k, v, kv_lens, causal=True, sm_scale=d ** -0.5,
+                             q_offset=q_offset, block_q=16, block_k=16)
+        atol = V_ATOL_OF_MAX * float(v.float().abs().max())
+        ulps, err = bf16_ulps(got, want, atol), float((got.float() - want.float()).abs().max())
+        print(f"flash_fwd B={b} Sq={sq} Skv={skv} kv_lens={lens} q_offset={q_offset}: "
+              f"max|d|={err:.3e}, {bf16_ulps(got, want):.0f} bf16 ulp, "
+              f"{ulps:.0f} bf16 ulp beyond {atol:.2e}")
+        if not torch.isfinite(got.float()).all() or ulps > MAX_BF16_ULPS:
+            fail(f"flash_fwd disagrees with its plain version at Sq={sq}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], err)
+
+    lengths = [1, 1, 5, 16, 17, 333, 1088, 1120]  # two scratch rows, ragged, page-unaligned
+    b, page, npp = len(lengths), 16, 70  # npp = 70 is not a multiple of ppp = 4
+    n_pages = 1 + b * npp
+    kp, vp = bf16(n_pages, hk, page, d), bf16(n_pages, hk, page, d)
+    tables = random_pages(torch, gen, dev, b, npp, n_pages)  # out of order
+    tables[:2] = 0  # idle slots: every entry the scratch page
+    q = bf16(b, hk, g, d)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5, pages_per_program=4)
+    torch.cuda.synchronize()
+    want = paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5, pages_per_program=4)
+    atol = V_ATOL_OF_MAX * float(vp.float().abs().max())
+    ulps, err = bf16_ulps(got, want, atol), float((got.float() - want.float()).abs().max())
+    print(f"paged_decode B={b} lengths={lengths} npp={npp} ppp=4: max|d|={err:.3e}, "
+          f"{bf16_ulps(got, want):.0f} bf16 ulp, {ulps:.0f} bf16 ulp beyond {atol:.2e}")
+    if not torch.isfinite(got.float()).all() or ulps > MAX_BF16_ULPS:
+        fail("paged_decode disagrees with its plain version")
+    errs["paged_decode"] = err
+    print(f"tolerance: at most {MAX_BF16_ULPS} bf16 ulp of the output beyond "
+          f"{V_ATOL_OF_MAX:.2e} max|v|")
+    return errs
+
+
+def small_lm_check(dev):
+    """Phase 9: the smoke LM on the card against the plain versions on the
+    CPU, same weights: prefill logits, then 8 teacher-forced decode steps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import LM
+    from repro_torch.serve.cache import init_paged_cache, write_prefill
+
+    phase("small-input check: smoke LM on the card vs the plain versions on the CPU")
+    cfg = get_smoke_config(ARCH)
+    cpu = LM(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.RandomState(0)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 37)))
+    forced = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 2)))
+    tables = torch.tensor([[3, 7, 1, 10], [5, 2, 11, 8]], dtype=torch.int32)
+    worst = [0.0, 0.0]
+
+    def compare(got, want, what):
+        want = want.float()
+        scale = float(want.abs().max())
+        err = (got.float().cpu() - want).abs()
+        worst[0] = max(worst[0], float(err.max()) / scale)
+        worst[1] = max(worst[1], float(err.mean()) / scale)
+        if not torch.isfinite(got.float()).all() or float(err.max()) > LM_MAX_OF_SCALE * scale \
+                or float(err.mean()) > LM_MEAN_OF_SCALE * scale:
+            fail(f"small LM {what}: max |d| {float(err.max())}, mean {float(err.mean())}, "
+                 f"max |logit| {scale}")
+
+    caches = []
+    for model in (card, cpu):
+        cache = init_paged_cache(model, num_pages=12, page_size=16, max_batch=2)
+        for slot, n in enumerate((37, 21)):
+            _, pre = model.prefill(prompt[:, :n])
+            write_prefill(cache, pre, page_ids=list(tables[slot, :-(-n // 16)]),
+                          page_size=16)
+        caches.append(cache)
+    compare(card.prefill(prompt)[0], cpu.prefill(prompt)[0], "prefill")
+    lengths = torch.tensor([37, 21], dtype=torch.int32)
+    for step in range(8):
+        got, _ = card.decode_step_paged(forced[step], lengths.to(dev), caches[0], tables.to(dev))
+        want, _ = cpu.decode_step_paged(forced[step], lengths, caches[1], tables)
+        compare(got, want, f"decode step {step}")
+        lengths += 1
+    print(f"prefill + 8 decode steps: max |d| {worst[0]:.4f}, mean |d| {worst[1]:.5f} of the "
+          f"largest logit (limits {LM_MAX_OF_SCALE}, {LM_MEAN_OF_SCALE})")
+
+
+def serve_cli_path(dev):
+    """Phase 10: the CLI's --continuous path at full width.  Returns the
+    model, the launches and the CLI's result."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.sdca import ops as sdca_ops
+    from repro_torch.launch import serve
+
+    phase(f"main path 2: python -m repro_torch.launch.serve --arch {ARCH} --continuous "
+          "(full width, all layers)")
+    sdca_ops.local_sdca.launches = fa_ops.flash_fwd.launches = fd_ops.paged_decode.launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = serve.main(["--arch", ARCH, "--continuous"])
+    except SystemExit as e:
+        fail(f"the serve CLI exited with {e.code}")
+    seconds = time.perf_counter() - t0
+    launches = {"flash_fwd": fa_ops.flash_fwd.launches,
+                "paged_decode": fd_ops.paged_decode.launches}
+    warm, cold = result["engines"]
+    cfg = warm.cfg
+    prefills = sum(e.prefills_run for e in (warm, cold))
+    steps = sum(e.stats()["decode_steps"] for e in (warm, cold))
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{sum(p.numel() for p in warm.lm.parameters()) / 1e9:.3f} B parameters; "
+          f"CLI ran in {seconds:.1f} s")
+    print(f"flash_fwd launches {launches['flash_fwd']} = {cfg.n_layers} x {prefills} prefills; "
+          f"paged_decode launches {launches['paged_decode']} = {cfg.n_layers} x {steps} "
+          "decode steps")
+    if result["served"] != result["requests"] or result["served"] != 8:
+        fail(f"served {result['served']}/{result['requests']}")
+    if cfg.d_model != 5120 or cfg.n_layers != 40:
+        fail("the serve path did not run qwen3-14b at full width")
+    if sdca_ops.local_sdca.launches:
+        fail("the serve path launched K1")
+    if launches["flash_fwd"] != cfg.n_layers * prefills or prefills == 0:
+        fail("flash_fwd launches do not match the prefills run")
+    if launches["paged_decode"] != cfg.n_layers * steps or steps == 0:
+        fail("paged_decode launches do not match the decode steps run")
+    if result["plan"] is None:
+        fail("no capacity plan")
+    return warm.lm, launches, result
+
+
+def long_serve_run(lm):
+    """Phase 11: 8 requests of 1024-token prompts arriving together, 64
+    generated tokens each, max_batch 8, at full width."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.serve import ServeEngine
+
+    phase(f"long serve run: {LONG_BATCH} x {LONG_PROMPT}-token prompts, {LONG_GEN} tokens "
+          f"each, max_batch {LONG_BATCH}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(ARCH, lm=lm, max_batch=LONG_BATCH, max_seq=LONG_PROMPT + LONG_GEN)
+    rng = np.random.RandomState(1)
+    reqs = [eng.submit(rng.randint(0, lm.cfg.vocab_size, LONG_PROMPT), LONG_GEN)
+            for _ in range(LONG_BATCH)]
+    fa_ops.flash_fwd.launches = fd_ops.paged_decode.launches = 0
+    profiled_steps = range(48, 52)
+    t0 = time.perf_counter()
+    prof = None
+    while not eng.scheduler.drained:
+        if eng.step_count == profiled_steps.start:
+            # device activity only: tracing the host's operators as well
+            # slows the host, which sets this step's time
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        eng.step()
+        if eng.step_count == profiled_steps.stop:
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t_prof) * 1e3
+            prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if any(len(r.generated) != LONG_GEN for r in reqs):
+        fail("the long run did not generate every token")
+    ttft = np.cumsum([r.prefill_s for r in sorted(reqs, key=lambda r: r.rid)])
+    steps = [e for e in eng.events("serve_step") if e.batch > 0]
+    timed = [e.step_s for e in steps if e.batch == LONG_BATCH and e.step not in profiled_steps]
+    stats = eng.stats()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    k2_ms = sum(e.self_device_time_total for e in events if "paged_decode" in e.key) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in events
+                  if "gemm" in e.key.lower() or "gemv" in e.key.lower()
+                  or "cutlass" in e.key.lower() or "nvjet" in e.key.lower()) / 1e3
+    out = {
+        "ttft_ms_p50": float(np.median(ttft)) * 1e3,
+        "ttft_ms_max": float(ttft.max()) * 1e3,
+        "prefill_ms_mean": float(np.mean([r.prefill_s for r in reqs])) * 1e3,
+        "decode_step_ms_b8_median": float(np.median(timed)) * 1e3,
+        "decode_step_ms_b8_mean": float(np.mean(timed)) * 1e3,
+        "decode_tok_per_s": stats["decode_tok_per_s"],
+        "tokens_per_s_end_to_end": LONG_BATCH * LONG_GEN / wall,
+        "wall_s": wall,
+        "peak_memory_gb": peak / 1e9,
+        "flash_fwd_launches": fa_ops.flash_fwd.launches,
+        "paged_decode_launches": fd_ops.paged_decode.launches,
+        "profiled_decode_steps": len(profiled_steps),
+        "profiled_wall_ms": prof_wall_ms,
+        "profiled_device_busy_ms": busy_ms,
+        "profiled_device_busy_share": busy_ms / prof_wall_ms,
+        # the profiled steps' device time over the unprofiled steps' time
+        "device_busy_share_of_median_step": busy_ms / len(profiled_steps)
+        / (float(np.median(timed)) * 1e3),
+        "profiled_paged_decode_ms": k2_ms,
+        "profiled_gemm_ms": gemm_ms,
+    }
+    print(json.dumps({"long_run": out}))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"  device {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:5d}  {e.key[:90]}")
+    if fa_ops.flash_fwd.launches != lm.cfg.n_layers * LONG_BATCH:
+        fail("long run: flash_fwd launches do not match its prefills")
+    if fd_ops.paged_decode.launches != lm.cfg.n_layers * stats["decode_steps"]:
+        fail("long run: paged_decode launches do not match its decode steps")
+    if busy_ms <= 0:
+        fail("the profiler saw no device time")
+    return out
+
+
+def prefill_row_blocks(lm):
+    """Phase 11b: what the engine's prefill row blocks cost and keep."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    max_seq = LONG_PROMPT + LONG_GEN
+    phase(f"prefill over row blocks at full width (max_seq {max_seq})")
+    eng = ServeEngine(ARCH, lm=lm, max_batch=2, max_seq=max_seq, collect_logits=True)
+    rows = eng.rt.prefill_rows
+    rng = np.random.RandomState(2)
+    vocab = lm.cfg.vocab_size
+
+    def prefill_ms(n_prompt, n_rows, block):
+        tokens = torch.zeros((1, n_rows), dtype=torch.int64)
+        tokens[0, :n_prompt] = torch.from_numpy(rng.randint(0, vocab, n_prompt))
+        tokens = tokens.to(lm.device)
+        rt = dataclasses.replace(eng.rt, prefill_rows=block)
+        times = []
+        for _ in range(4):  # the first is warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.prefill(tokens, n_valid=n_prompt, rt=rt)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    short, blocks = 32, (256, 512, 1024)
+    out = {
+        "engine_block_rows": rows,
+        f"prefill_ms_{short}_tokens": {
+            "unpadded": prefill_ms(short, short, short),
+            **{f"block_{b}": prefill_ms(short, b, b) for b in blocks + (max_seq,)}},
+        f"prefill_ms_{LONG_PROMPT}_tokens": {
+            f"block_{b}": prefill_ms(LONG_PROMPT, LONG_PROMPT, b) for b in blocks},
+    }
+    print(json.dumps({"prefill_row_blocks": out}))
+
+    head = rng.randint(0, vocab, 2 * eng.page_size)
+    prompt_a = np.concatenate([head, rng.randint(0, vocab, 5)])
+    prompt_b = np.concatenate([head, rng.randint(0, vocab, rows + 12)])
+    eng.submit(prompt_a, 4)
+    eng.run()
+    r_warm = eng.submit(prompt_b, 4)
+    eng.run()
+    cold = ServeEngine(ARCH, lm=lm, max_batch=2, max_seq=max_seq, collect_logits=True)
+    r_cold = cold.submit(prompt_b, 4)
+    cold.run()
+    exact = len(r_warm.logits_trace) == len(r_cold.logits_trace) == 4 and all(
+        np.array_equal(a, b) for a, b in zip(r_warm.logits_trace, r_cold.logits_trace))
+    print(f"prefix reuse across row blocks: prompts of {len(prompt_a)} and {len(prompt_b)} "
+          f"tokens ({rows}-row blocks), shared_pages={r_warm.n_shared_pages} "
+          f"bit_identical={'yes' if exact else 'NO'}")
+    if r_warm.n_shared_pages != 2 or not exact:
+        fail("prefix reuse across prefill row blocks is not bit-identical")
+    return out
+
+
+def serve_kernel_timings(dev, cfg):
+    """Phase 12.  Returns {kernel: (ms, plain_ms, library_ms, bound_ms,
+    bound_by, shape)} for K2 at the long run's decode shape and K3 at
+    Sq = Skv = 2048 (1024 printed too)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_stream
+
+    phase("K3 and K2 timings (CUDA events, after warm-up)")
+    hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    hq = hk * g
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    timings = {}
+    for s in (1024, 2048):
+        q, k, v = bf16(1, hq, s, d), bf16(1, hk, s, d), bf16(1, hk, s, d)
+        lens = torch.tensor([s], dtype=torch.int32, device=dev)
+        ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, lens, sm_scale=d ** -0.5), reps=10)
+        plain = cuda_ms(lambda: flash_fwd_ref(q, k, v, lens, causal=True, sm_scale=d ** -0.5,
+                                              q_offset=0, block_q=16, block_k=16),
+                        reps=2, warmup=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True), reps=20)
+        nbytes = (2 * hq + 2 * hk) * s * d * 2  # q, k, v read once, out written once
+        flops = 4 * hq * d * s * (s + 1) // 2  # the causal pairs this input needs
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"flash_fwd Sq=Skv={s} Hq={hq} Hk={hk} D={d}: kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, SDPA {lib:.3f} ms, bound {bound:.4f} ms ({by}: "
+              f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms), "
+              f"kernel at {100 * bound / ms:.2f}% of bound")
+        timings["flash_fwd"] = (ms, plain, lib, bound, by, f"Sq=Skv={s}")
+
+    b, ctx, page, ppp = LONG_BATCH, LONG_PROMPT + LONG_GEN, 16, 4
+    npp = ctx // page
+    n_pages = 1 + b * npp
+    kp, vp = bf16(n_pages, hk, page, d), bf16(n_pages, hk, page, d)
+    tables = random_pages(torch, gen, dev, b, npp, n_pages)
+    lens = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    q = bf16(b, hk, g, d)
+    ms = cuda_ms(lambda: fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5,
+                                             pages_per_program=ppp), reps=50)
+    plain = cuda_ms(lambda: paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5,
+                                                pages_per_program=ppp), reps=5, warmup=1)
+    idx = tables.long()
+    k_dense = kp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
+    v_dense = vp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
+    q_sdpa = q.reshape(b, hq, 1, d)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q_sdpa, k_dense, v_dense,
+                                                         enable_gqa=True), reps=50)
+    nbytes = 2 * b * hk * ctx * d * 2 + 2 * b * hq * d * 2 + b * npp * 4 + b * 4
+    flops = 4 * b * hq * ctx * d
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"paged_decode B={b} context={ctx} Hk={hk} G={g} D={d} ppp={ppp}: kernel {ms:.4f} ms, "
+          f"plain {plain:.3f} ms, SDPA on the gathered dense KV {lib:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s), "
+          f"kernel at {100 * bound / ms:.2f}% of bound; grid {b * hk} blocks on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    timings["paged_decode"] = (ms, plain, lib, bound, by, f"B={b} context={ctx}")
+    return timings
+
+
+def main() -> None:
+    import torch
+
+    phase("device")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.sdca import build as sdca_build
+
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {smi}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    dev = torch.device("cuda")
+
+    phase("build")
+    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY])
+
+    k1 = hemingway_path(dev)
+    torch.cuda.empty_cache()
+
+    cfg = get_config(ARCH)
+    errs = serve_kernels_vs_plain(dev, cfg)
+    small_lm_check(dev)
+    lm, launches, _ = serve_cli_path(dev)
+    long_serve_run(lm)
+    prefill_row_blocks(lm)
+    del lm
+    torch.cuda.empty_cache()
+    timings = serve_kernel_timings(dev, cfg)
+
+    kernels = [k1]
+    for name, source, replaces in (
+            ("flash_fwd", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+             "src/repro/kernels/flash_attention/kernel.py:92"),
+            ("paged_decode", "src/repro_torch/kernels/flash_decode/csrc/paged_decode.cu",
+             "src/repro/kernels/flash_decode/kernel.py:214")):
+        ms, plain, lib, bound, by, _ = timings[name]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,17 +1,19 @@
 """Carry the JAX package's data and state (as numpy arrays) into the port.
 
 Both packages meet only through numpy: the reference hands over its arrays,
-and these functions place them on the port's device as contiguous float32
-tensors.  Later slices extend this module with LM parameters.
+and these functions place them on the port's device as contiguous tensors:
+float32 for the optimisation problems, the config's dtype for LM weights.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import LM
 from repro_torch.optim.problems import ERMProblem, LossName
 
 
@@ -36,3 +38,40 @@ def cocoa_state_from_numpy(X: np.ndarray, y: np.ndarray, a: np.ndarray,
     w (d,)) as float32 tensors on ``device`` (the card when None)."""
     device = resolve_device(device)
     return tuple(_f32(t, device) for t in (X, y, a, w))
+
+
+@torch.no_grad()
+def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
+                         device: DeviceLike = None) -> LM:
+    """The port's ``LM`` for ``cfg`` on ``device`` (the card when None),
+    holding the reference's parameters.
+
+    ``params`` is the reference's param tree (``repro.models.model.LM.init``)
+    with numpy leaves: ``embed``, ``final_norm``, ``lm_head`` and
+    ``periods``, whose ``pos<i>/{ln1, mixer/{wq, wk, wv, wo, q_norm, k_norm},
+    ln2, ffn/{w_gate, w_up, w_down}}`` leaves are stacked over the periods.
+    Layer l is period l // P, position l % P of a period of length P.  Each
+    leaf is cast to the dtype the port stores it in (the config's dtype for
+    matrices, float32 for norm scales)."""
+    lm = LM(cfg, device)
+
+    def put(dst: torch.Tensor, src) -> None:
+        src = np.asarray(src)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"shape {src.shape} does not fit {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+
+    put(lm.embed, params["embed"])
+    put(lm.final_norm, params["final_norm"])
+    if lm.lm_head is not None:
+        put(lm.lm_head, params["lm_head"])
+    period = len(cfg.period)
+    for i, layer in enumerate(lm.layers):
+        src = params["periods"][f"pos{i % period}"]
+        n = i // period
+        put(layer.ln1, src["ln1"][n])
+        put(layer.ln2, src["ln2"][n])
+        for group in ("mixer", "ffn"):
+            for name, dst in getattr(layer, group).items():
+                put(dst, src[group][name][n])
+    return lm

@@ -1,0 +1,124 @@
+"""Blocked causal flash attention forward: the Hopper kernel (K3,
+csrc/flash_fwd.cu) for CUDA tensors, the plain version (ref.py) for CPU
+tensors.
+
+``flash_attention`` is the model-facing call, with the signature of
+``repro/kernels/flash_attention/ops.py::flash_attention`` (grouped GQA,
+``kv_lens``, static ``q_offset``).  ``flash_fwd`` is the kernel's wrapper: a
+CUDA tensor goes to the kernel or the call raises, nothing falls back to the
+plain version, and ``flash_fwd.launches`` counts the kernel's launches and
+only those.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
+from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = KernelLibrary(
+    Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu", "flash_fwd",
+    {"flash_fwd_launch": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+                          ctypes.c_int),
+     "flash_fwd_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
+    error_fn="flash_fwd_error_string")
+
+MAX_BLOCK_K = 64
+
+
+def flash_fwd(
+    q: torch.Tensor,  # (B, Hq, Sq, D) bfloat16
+    k: torch.Tensor,  # (B, Hk, Skv, D) bfloat16
+    v: torch.Tensor,  # (B, Hk, Skv, D) bfloat16
+    kv_lens: torch.Tensor,  # (B,) valid key positions
+    *,
+    causal: bool = True,
+    sm_scale: float,
+    q_offset: int = 0,
+    block_q: int = 16,
+    block_k: int = 16,
+) -> torch.Tensor:
+    """Returns (B, Hq, Sq, D) in q's dtype.  ``block_q`` cuts the plain
+    version's query tiles; the kernel's rows are independent of it."""
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, kv_lens, causal=causal, sm_scale=sm_scale,
+                             q_offset=q_offset, block_q=block_q, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd runs on cpu or cuda tensors, not {q.device}")
+    b, hq, sq, d = q.shape
+    if k.dim() != 4 or k.shape[0] != b:
+        raise ValueError(f"k has shape {tuple(k.shape)}, q {tuple(q.shape)}")
+    _, hk, skv, dk = k.shape
+    if tuple(v.shape) != tuple(k.shape) or dk != d:
+        raise ValueError(f"v {tuple(v.shape)} and k {tuple(k.shape)} must match, "
+                         f"with q's head dim {d} (the kernel takes dv == dk)")
+    if hq % hk:
+        raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 16 up to 256")
+    if not 1 <= block_k <= MAX_BLOCK_K:
+        raise ValueError(f"block_k={block_k}: the kernel takes 1..{MAX_BLOCK_K}")
+    if tuple(kv_lens.shape) != (b,):
+        raise ValueError(f"kv_lens has shape {tuple(kv_lens.shape)}, expected ({b},)")
+    for name, t in (("q", q), ("k", k), ("v", v), ("kv_lens", kv_lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if name != "kv_lens" and t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    g = hq // hk
+    lib = LIBRARY.load()
+    smem = lib.flash_fwd_smem_bytes(g, d, block_k)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"G={g}, D={d}, block_k={block_k} need {smem} bytes of "
+                         f"shared memory, more than the {MAX_SMEM_PER_BLOCK} a block may use")
+    lens32 = kv_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if b * hq * sq == 0:
+        return out
+    with torch.cuda.device(q.device):
+        err = lib.flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), out.data_ptr(),
+            b, hk, g, sq, skv, d, int(q_offset), int(bool(causal)), int(block_k),
+            ctypes.c_float(sm_scale), torch.cuda.current_stream().cuda_stream)
+    LIBRARY.check(err, "flash_fwd kernel")
+    flash_fwd.launches += 1
+    return out
+
+
+flash_fwd.launches = 0
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hk, Skv, D)
+    v: torch.Tensor,  # (B, Hk, Skv, D)
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    kv_lens: Optional[torch.Tensor] = None,  # (B,)
+    q_offset: int = 0,
+    block_q: int = 16,
+    block_k: int = 16,
+) -> torch.Tensor:
+    """Memory-efficient attention, the counterpart of the reference's
+    ``ops.flash_attention`` (``ops.py:216``): KV is grouped without being
+    repeated (query head h reads KV head h // G), blocks clamp to
+    ``min(block, max(seq, 16))`` as there."""
+    b, hq, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    if hq % hk:
+        raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / (d ** 0.5)
+    block_q = min(block_q, max(sq, 16))
+    block_k = min(block_k, max(skv, 16))
+    if kv_lens is None:
+        kv_lens = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    return flash_fwd(q, k, v, kv_lens, causal=causal, sm_scale=scale,
+                     q_offset=int(q_offset), block_q=int(block_q), block_k=int(block_k))

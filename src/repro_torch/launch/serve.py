@@ -1,0 +1,164 @@
+"""Serving CLI of the port: continuous batching over the paged KV cache.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
+      --continuous --device cpu
+
+runs the reference's ``--continuous`` path (``repro/launch/serve.py``): a
+mixed-length 8-request trace with staggered arrivals and a shared prompt head
+through one engine, the served / join / join-to-first-token lines, the fitted
+f(b) step model and a capacity plan, and the prefix-reuse check, which serves
+one prefix-sharing prompt on the warm engine and the same prompt on a cold
+engine and exits 1 unless their logits match bit for bit.
+
+Differences from the reference's CLI: ``--smoke`` is off by default, so the
+default is the full config; without ``--device cpu`` it runs on the card or
+raises; the router, tracing, the tuner's cache, chunked prefill and
+speculation are not ported yet (ROADMAP.md); the cold engine shares the warm
+engine's weights instead of building a second copy, and runs the same
+``--paged-impl``.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.serve import CapacityPlanner, ServeEngine
+
+# One trace request: (prompt, gen_tokens, arrival_step, frontend_embeds).
+TraceSpec = Tuple[np.ndarray, int, int, Optional[np.ndarray]]
+
+
+def _mixed_trace_specs(cfg, page_size: int, n_requests: int,
+                       seed: int) -> List[TraceSpec]:
+    """Mixed prompt lengths, bursty arrivals, one shared prompt head —
+    generated independently of any engine so the same trace can be replayed
+    through a single engine and a routed fleet.  The RNG draw order is
+    load-bearing: it pins the traces existing goldens/smoke output use."""
+    rng = np.random.RandomState(seed)
+    ps = page_size
+    shared_head = rng.randint(0, cfg.vocab_size, 2 * ps).astype(np.int32)
+    specs: List[TraceSpec] = []
+    for i in range(n_requests):
+        if i % 3 == 0:  # every third request shares the prompt head
+            tail = rng.randint(0, cfg.vocab_size,
+                               3 + rng.randint(0, ps)).astype(np.int32)
+            prompt = np.concatenate([shared_head, tail])
+        else:
+            plen = int(rng.choice([7, 12, 21, 30]))
+            prompt = rng.randint(0, cfg.vocab_size, plen).astype(np.int32)
+        gen = int(rng.choice([4, 6, 8]))
+        arrival = (i // 2) * 2  # bursty: pairs arrive together
+        fe = None
+        if cfg.n_frontend_tokens:
+            fe = (rng.randn(cfg.n_frontend_tokens, cfg.d_model)
+                  * 0.02).astype(np.float32)
+        specs.append((prompt, gen, arrival, fe))
+    return specs
+
+
+def _verify_prefix_reuse(eng: ServeEngine, seed: int) -> Tuple[bool, ServeEngine]:
+    """Serve one prefix-sharing prompt on the warm engine and the same prompt
+    on a cold engine sharing its weights; logits must match bit for bit.
+    Returns (passed, the cold engine)."""
+    rng = np.random.RandomState(seed + 1)
+    ps = eng.page_size
+    head = rng.randint(0, eng.cfg.vocab_size, 2 * ps).astype(np.int32)
+    pA = np.concatenate([head, rng.randint(0, eng.cfg.vocab_size, 5).astype(np.int32)])
+    pB = np.concatenate([head, rng.randint(0, eng.cfg.vocab_size, 9).astype(np.int32)])
+    eng.collect_logits = True
+    eng.submit(pA, 4)
+    eng.run()
+    rB = eng.submit(pB, 4)
+    eng.run()
+    cold = ServeEngine("", max_batch=eng.max_batch, page_size=ps, max_seq=eng.max_seq,
+                       seed=eng.seed, collect_logits=True, paged_impl=eng.rt.paged_impl,
+                       lm=eng.lm)
+    rB_cold = cold.submit(pB, 4)
+    cold.run()
+    shared = rB.n_shared_pages
+    exact = len(rB.logits_trace) == len(rB_cold.logits_trace) and all(
+        np.array_equal(a, b) for a, b in zip(rB.logits_trace, rB_cold.logits_trace))
+    print(f"prefix reuse: shared_pages={shared} "
+          f"bit_identical={'yes' if exact else 'NO'}")
+    return shared > 0 and exact, cold
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (default: the full architecture)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="mixed-length trace with join-on-arrival + prefix-reuse "
+                         "verification + capacity plan (the path this CLI runs)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged-impl", default="kernel", choices=["kernel", "stream", "gather"],
+                    help="paged decode: the K2 kernel (its plain version on the CPU), or "
+                         "its plain versions stream / gather (bit-identical to each other)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs the kernels' "
+                         "plain versions)")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    """Run the ``--continuous`` path.  Returns the stats, the fitted planner,
+    the plan and both engines; exits 1 if the prefix-reuse check fails."""
+    args = parse_args(argv)
+    if not args.continuous:
+        raise SystemExit("only the --continuous path is ported (ROADMAP.md)")
+    eng = ServeEngine(args.arch, smoke=args.smoke, max_batch=args.max_batch,
+                      page_size=args.page_size, max_seq=64 + args.page_size * 2,
+                      seed=args.seed, paged_impl=args.paged_impl, device=args.device)
+    specs = _mixed_trace_specs(eng.cfg, eng.page_size, args.requests, args.seed)
+    reqs = [eng.submit(prompt, gen, arrival_step=arrival, frontend_embeds=fe)
+            for prompt, gen, arrival, fe in specs]
+    stats = eng.run()
+    done = [r for r in reqs if r.finished_step >= 0]
+    print(f"served {len(done)}/{len(reqs)} requests in {eng.step_count} steps "
+          f"(mean batch {stats['mean_batch']:.2f}, "
+          f"{stats['decode_tok_per_s']:.1f} tok/s, "
+          f"prefix hits {stats.get('prefix_hits', 0)})")
+    joins = sum(1 for r in reqs if r.admitted_step > 0)
+    print(f"join-on-arrival: {joins} requests joined a running batch")
+    if "join_to_first_token_p50" in stats:
+        print(f"join-to-first-token: p50 {stats['join_to_first_token_p50']:.1f}"
+              f" p99 {stats['join_to_first_token_p99']:.1f} steps")
+
+    planner = CapacityPlanner()
+    planner.ingest(eng.events("serve_step"))
+    plan = None
+    try:
+        planner.fit()
+    except ValueError as e:
+        print(f"capacity plan: insufficient telemetry ({e})")
+    else:
+        t1, t8 = planner.step_time(1), planner.step_time(8)
+        print(f"f(b) step model: t(1)={t1*1e3:.1f} ms  t(8)={t8*1e3:.1f} ms  "
+              f"coeffs={planner.step_model.coefficients()}")
+        plan = planner.plan(target_p50_s=max(10 * t8 * 8, 1e-3), qps=2.0,
+                            gen_tokens=8, batch_grid=[1, 2, 4, 8],
+                            m_grid=[1, 2, 4, 8, 16])
+        if plan:
+            print(f"capacity plan: {plan.algorithm} on m={plan.m} replicas "
+                  f"(predicted p50 {plan.predicted_time*1e3:.1f} ms)")
+        else:
+            print(f"capacity plan: no feasible operating point ({plan.reason})")
+
+    ok, cold = _verify_prefix_reuse(eng, args.seed)
+    if not ok:
+        print("FAIL: prefix-reuse verification")
+        sys.exit(1)
+    return {"stats": stats, "served": len(done), "requests": len(reqs), "planner": planner,
+            "plan": plan, "engines": (eng, cold)}
+
+
+if __name__ == "__main__":
+    main()

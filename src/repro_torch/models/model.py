@@ -1,0 +1,132 @@
+"""The LM for the dense attention archs (qwen3-14b first): the serving entry
+points of ``repro/models/model.py``.
+
+* ``prefill(tokens)`` — the counterpart of ``LM.prefill`` (``model.py:171``):
+  a full-sequence causal forward; returns one position's logits and each
+  layer's K/V.
+* ``decode_step_paged(tokens, lengths, cache, page_tables)`` — the
+  counterpart of ``LM.decode_step_paged`` (``model.py:289``): one token per
+  row against the paged pools, which it updates in place.
+
+The reference's ``lax.scan`` over the stacked periods becomes a loop over
+``n_layers`` ``DenseBlock`` entries of a ``ModuleList``.  Archs with MLA,
+MoE, Mamba layers, a frontend or ``first_k_dense`` head layers are not
+ported yet and raise (ROADMAP.md).
+
+The model holds weights only: kernel geometry and the paged decode's
+implementation come with each call, as a ``Runtime`` (the serve engine's).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import blocks as blocks_mod
+from repro_torch.models.layers import embed_tokens, lm_logits, rms_norm
+from repro_torch.models.runtime import Runtime
+
+LayerCache = Dict[str, torch.Tensor]  # {"k", "v"}
+DEFAULT_RUNTIME = Runtime()
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for what the port's LM does not run yet."""
+    missing = [what for what, present in (
+        ("MLA", cfg.mla is not None),
+        ("MoE", cfg.uses_moe),
+        ("Mamba layers", cfg.uses_mamba),
+        (f"a {cfg.frontend} frontend", cfg.frontend != "none"),
+        ("first_k_dense head layers", cfg.first_k_dense > 0),
+    ) if present]
+    if missing or not cfg.pure_attention or any(s.ffn != "dense" for s in cfg.period):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port runs dense attention archs only "
+            f"(this one has {', '.join(missing) or 'a non-dense layer'}); "
+            "see ROADMAP.md for the slices that bring the rest")
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        d, vocab = cfg.d_model, cfg.vocab_size
+
+        def matrix(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=self.dtype, device=device),
+                                requires_grad=False)
+
+        self.embed = matrix(vocab, d)
+        self.final_norm = nn.Parameter(torch.empty(d, dtype=torch.float32, device=device),
+                                       requires_grad=False)
+        self.lm_head = None if cfg.tie_embeddings else matrix(d, vocab)
+        self.layers = nn.ModuleList(
+            blocks_mod.DenseBlock(cfg, self.dtype, device) for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "LM":
+        """Random weights with the reference's initialisers (``layers.py``,
+        ``attention.py``), drawn in float32 from ``generator`` (on its own
+        device) one matrix at a time and stored in the config's dtype.  The
+        draws are not JAX's: the CPU tests load the reference's weights
+        through ``repro_torch.convert`` instead."""
+        d = self.cfg.d_model
+        blocks_mod.fill_param(self.embed, "normal", 1.0 / math.sqrt(d), generator)
+        self.final_norm.fill_(1.0)
+        if self.lm_head is not None:
+            blocks_mod.fill_param(self.lm_head, "normal", 1.0 / math.sqrt(d), generator)
+        for layer in self.layers:
+            layer.init_params(generator)
+        return self
+
+    def _head(self) -> torch.Tensor:
+        return self.embed.T if self.lm_head is None else self.lm_head
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, n_valid: Optional[int] = None,
+                rt: Runtime = DEFAULT_RUNTIME) -> Tuple[torch.Tensor, List[LayerCache]]:
+        """tokens (B, S) int.  Returns (logits (B, V) at position
+        ``n_valid - 1`` (default the last), per-layer cache {"k", "v"} of
+        shape (B, Hk, S, hd)).  Positions from ``n_valid`` on are padding:
+        causality keeps them out of every earlier position's result, and the
+        attention reads no key among them (so padded rows cost it little)."""
+        cfg = self.cfg
+        x = embed_tokens(self.embed, tokens.to(self.device))
+        kv_lens = None if n_valid is None else torch.full(
+            (tokens.shape[0],), int(n_valid), dtype=torch.int32, device=self.device)
+        caches = []
+        for layer in self.layers:
+            x, c = blocks_mod.apply_block(layer, x, cfg, rt, kv_lens=kv_lens)
+            caches.append(c)
+        last = tokens.shape[1] if n_valid is None else int(n_valid)
+        x = rms_norm(x[:, last - 1:last], self.final_norm, cfg.norm_eps)
+        return lm_logits(self._head(), x)[:, 0], caches
+
+    @torch.no_grad()
+    def decode_step_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                          cache: List[LayerCache], page_tables: torch.Tensor,
+                          rt: Runtime = DEFAULT_RUNTIME
+                          ) -> Tuple[torch.Tensor, List[LayerCache]]:
+        """tokens (B,) int; lengths (B,) int32, the current fill (also the new
+        token's position); cache the per-layer page pools
+        (``repro_torch.serve.cache.init_paged_cache``); page_tables
+        (B, pages_per_seq) int32, page 0 the scratch page idle slots write
+        into.  Returns (logits (B, V), cache), the pools updated in place."""
+        cfg = self.cfg
+        x = embed_tokens(self.embed, tokens.to(self.device)[:, None])
+        for layer, c in zip(self.layers, cache):
+            x = blocks_mod.apply_block_decode_paged(layer, x, cfg, rt, c, lengths, page_tables)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return lm_logits(self._head(), x[:, 0]), cache

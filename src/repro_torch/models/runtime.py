@@ -1,0 +1,45 @@
+"""Runtime options threaded through the model: kernel geometry and the paged
+decode implementation.  The counterpart of ``repro.models.runtime.Runtime``
+without a mesh, sharding rules or remat (the port runs on one card and does
+not train yet).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+PAGED_IMPLS = ("kernel", "stream", "gather")
+DEFAULT_PAGES_PER_PROGRAM = 4  # repro/kernels/flash_decode/ops.py:47; the tuner is not ported
+# Rows per matrix product in prefill.  Fewer rows waste less on padding
+# (the serve engine pads prompts to whole blocks), more rows make fewer
+# blocks, and each block costs the host one eager pass over every layer.  On
+# an H100 host with eager PyTorch that pass measured 50-90 ms, about the
+# device time of a 1000-row block's products: a 32-token prompt took the same
+# time unpadded and in one block of 256, 512 or 1024 rows, and a 1024-token
+# prompt 153 ms in one block of 1024 against 189-205 ms in two of 512
+# (chip_smoke.py's row-block phase; PERF.md).
+PREFILL_ROWS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    # Flash-attention blocking.  The reference defaults to 512, a TPU tile;
+    # the port's prefill kernel (K3) keeps one key tile in shared memory and
+    # takes block_k <= 64, so the port defaults to the serve engine's 16.
+    block_q: int = 16
+    block_k: int = 16
+    page_size: int = 16  # paged-KV page length (serving)
+    pages_per_program: int = DEFAULT_PAGES_PER_PROGRAM
+    # paged decode: "kernel" (K2 for CUDA tensors, its plain version for CPU
+    # tensors), "stream" or "gather" (the two plain versions, bit-identical
+    # to each other; taken on any device only when named)
+    paged_impl: str = "kernel"
+    # prefill runs its row-wise steps (norms, projections, rope, MLP) over
+    # blocks of this many rows, each one product of fixed shape; the serve
+    # engine pads prompts to whole blocks (repro_torch.serve.engine)
+    prefill_rows: int = PREFILL_ROWS
+
+    def __post_init__(self):
+        if self.paged_impl not in PAGED_IMPLS:
+            raise ValueError(f"paged_impl={self.paged_impl!r} not in {PAGED_IMPLS}")
+        if self.prefill_rows < 1:
+            raise ValueError(f"prefill_rows={self.prefill_rows} must be positive")

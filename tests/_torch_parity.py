@@ -1,13 +1,16 @@
 """Shared helpers of the parity tests between ``repro`` (JAX) and
-``repro_torch``: the reference's coordinate orders, recomputed from its keys.
+``repro_torch``: the reference's coordinate orders, recomputed from its keys,
+and a comparison to one bf16 ulp.  JAX is imported where it is used, so the
+card's tests, which run without JAX, can import this module.
 """
-import jax
 import numpy as np
 
 
 def reference_round_indices(sub, m: int, nl: int, h: int) -> np.ndarray:
     """The (m, H) coordinates that ``repro.optim.cocoa.cocoa_outer_step``
     draws from the round key ``sub`` (cocoa.py:85-89)."""
+    import jax
+
     keys = jax.random.split(sub, m)
     if h <= nl:
         idx = jax.vmap(lambda k: jax.random.permutation(k, nl)[:h])(keys)
@@ -19,9 +22,57 @@ def reference_round_indices(sub, m: int, nl: int, h: int) -> np.ndarray:
 def reference_index_source(seed: int, m: int, nl: int, h: int, rounds: int):
     """The per-round orders of ``repro.optim.cocoa.run_cocoa`` with
     ``seed``, as an index source for ``repro_torch.optim.cocoa.run_cocoa``."""
+    import jax
+
     key = jax.random.PRNGKey(seed)
     per_round = []
     for _ in range(rounds):
         key, sub = jax.random.split(key)
         per_round.append(reference_round_indices(sub, m, nl, h))
     return lambda it: per_round[it]
+
+
+def assert_within_bf16_ulp(got: np.ndarray, want: np.ndarray, atol: float = 0.0) -> None:
+    """Each element of ``got`` within ``atol`` plus one bf16 ulp of ``want``:
+    the spacing of bf16 values (7 stored significand bits) at the larger
+    magnitude of the two, 2 ** (floor(log2 |x|) - 7).  Both are bf16 values
+    carried in float32."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), np.finfo(np.float32).tiny)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7) + atol
+    err = np.abs(got - want)
+    worst = np.unravel_index(np.argmax(err - ulp), err.shape)
+    assert np.all(err <= ulp), (
+        f"{int(np.sum(err > ulp))} elements differ by more than one bf16 ulp (+ {atol}); worst at "
+        f"{worst}: {got[worst]} vs {want[worst]}")
+
+
+def check_prefix_reuse_across_row_blocks(lm) -> None:
+    """Serve engines on ``lm`` at a max_seq of one prefill row block
+    (``PREFILL_ROWS``) and 64 positions more: a short prompt is padded to
+    one block, not to max_seq, and a two-block prompt that reuses a
+    one-block prompt's pages gets a cold engine's logits bit for bit."""
+    from repro_torch.models.runtime import PREFILL_ROWS
+    from repro_torch.serve import ServeEngine
+
+    rows, vocab = PREFILL_ROWS, lm.cfg.vocab_size
+    kw = dict(max_batch=2, page_size=16, max_seq=rows + 64, collect_logits=True, lm=lm)
+    rng = np.random.RandomState(0)
+    head = rng.randint(0, vocab, 32)
+    prompt_a = np.concatenate([head, rng.randint(0, vocab, 5)])
+    prompt_b = np.concatenate([head, rng.randint(0, vocab, rows + 12)])
+    warm = ServeEngine("", **kw)
+    assert warm.rt.prefill_rows == rows
+    assert warm._prefill(prompt_a)[1][0]["k"].shape[2] == rows
+    assert warm._prefill(prompt_b)[1][0]["k"].shape[2] == 2 * rows
+    warm.submit(prompt_a, 4)
+    warm.run()
+    r_warm = warm.submit(prompt_b, 4)
+    warm.run()
+    cold = ServeEngine("", **kw)
+    r_cold = cold.submit(prompt_b, 4)
+    cold.run()
+    assert r_warm.n_shared_pages == 2 and r_cold.n_shared_pages == 0
+    assert len(r_warm.logits_trace) == len(r_cold.logits_trace) == 4
+    assert all(np.array_equal(a, b) for a, b in zip(r_warm.logits_trace, r_cold.logits_trace))

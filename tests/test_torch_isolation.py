@@ -33,7 +33,11 @@ def test_port_imports_no_jax_and_no_reference():
     assert report["bad"] == []
     for module in ("repro_torch.quickstart", "repro_torch.convert",
                    "repro_torch.optim.simcluster", "repro_torch.kernels.sdca.ops",
-                   "repro_torch.kernels.sdca.build", "repro_torch.core.hemingway"):
+                   "repro_torch.kernels.sdca.build", "repro_torch.core.hemingway",
+                   "repro_torch.kernels.flash_attention.ops",
+                   "repro_torch.kernels.flash_decode.ops", "repro_torch.models.model",
+                   "repro_torch.serve.engine", "repro_torch.serve.planner",
+                   "repro_torch.telemetry.tracker", "repro_torch.launch.serve"):
         assert module in report["imported"]
 
 
@@ -55,7 +59,11 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch import quickstart
     from repro_torch.configs import cocoa_mnist
     from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LM
     from repro_torch.optim import make_mnist_svm
+    from repro_torch.serve import ServeEngine
 
     X = np.zeros((4, 2), np.float32)
     y = np.ones(4, np.float32)
@@ -64,6 +72,9 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: problem_from_numpy(X, y, 1e-3),
         lambda: cocoa_state_from_numpy(X[None], y[None], y[None], X[0]),
         lambda: quickstart.main(["--n", "64", "--d", "4", "--ms", "1"]),
+        lambda: LM(get_smoke_config("qwen3-14b")),
+        lambda: ServeEngine("qwen3-14b"),
+        lambda: serve.main(["--smoke", "--continuous"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
