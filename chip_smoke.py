@@ -3,11 +3,13 @@
 
   python3 chip_smoke.py
 
-It drives the port's two paths, each with every kernel launch count set to 0
-just before it and read just after: the Hemingway loop on the local SDCA
-kernel (K1), and serving qwen3-14b at full width through the
+It drives the port's three paths, each with every kernel launch count set
+to 0 just before it and read just after: the Hemingway loop on the local
+SDCA kernel (K1); serving qwen3-14b at full width through the
 continuous-batching engine on the flash forward (K3) and paged decode (K2)
-kernels.  Phases, each of which exits non-zero on failure:
+kernels; and serving falcon-mamba-7b at full width through the same engine
+on the selective scan kernel (K4).  Phases, each of which exits non-zero on
+failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
    2. build: compiles every kernel from the sources here, one nvcc each, all
@@ -38,10 +40,24 @@ kernels.  Phases, each of which exits non-zero on failure:
       that reuses a one-block prompt's pages, bit for bit against a cold
       engine;
   12. K3's and K2's times per launch against their bounds, their plain
-      versions' times, and one PyTorch call's time for the same function.
+      versions' times, and one PyTorch call's time for the same function;
+      qwen3-14b is freed after this phase;
+  13. K4 against its plain version on the card at falcon-mamba-7b's shapes:
+      a prefill (B 1, S 1024, a padded tail, a nonzero initial state) and a
+      decode step (B 8, S 1, the state updated in place), within the stated
+      tolerances;
+  14. small-input check of the Mamba LM: the smoke falcon-mamba-7b on the
+      card against the plain versions on the CPU, with the same weights;
+  15. the serve path at full width: ``python -m repro_torch.launch.serve
+      --arch falcon-mamba-7b --continuous`` in process (all 64 layers,
+      d_model 4096), with K4 launches = 64 x (prefills + decode steps);
+  16. the longer serve run of phase 11 on falcon-mamba-7b;
+  17. K4's time per launch at both shapes against its bound and its plain
+      version's time (no single PyTorch call computes a selective scan).
 The last lines are one JSON object with every kernel's summary, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -91,8 +107,27 @@ V_ATOL_OF_MAX = 2.0 ** -14
 LM_MAX_OF_SCALE = 3e-2
 LM_MEAN_OF_SCALE = 5e-3
 
-# The serve paths
-ARCH = "qwen3-14b"
+# K4 against its plain version on the card: the same float32 operations in
+# the same order, except that the two exp functions may differ in the last
+# bit or two.  Such a difference enters the state once per step and decays
+# with it, so over a channel whose decay is close to 1 (dt |A| of 1e-3
+# remembers about 1000 steps) it adds up like a random walk, to about
+# sqrt(1000) float32 epsilons, 4e-6 of the state's magnitude.  So the state
+# within 2^-13 (1.2e-4) of its largest magnitude, thirty times that, and the
+# bf16 outputs within one bf16 ulp (one rounding of a float32 value that
+# moved) plus 2^-13 of the largest output; a fault of the kernel shows as
+# errors of the order of the values.
+SCAN_RTOL_OF_MAX = 2.0 ** -13
+# Exponentials: the special-function units return 16 a clock per SM (132 SMs
+# at the H100 SXM's 1.98 GHz boost clock), the rate one expf costs.
+EXP_PER_S = 132 * 16 * 1.98e9
+
+# The serve paths: the arch, and each kernel's launches per layer for one
+# prefill and for one decode step
+QWEN = "qwen3-14b"
+MAMBA = "falcon-mamba-7b"
+PATH_KERNELS = {QWEN: {"flash_fwd": (1, 0), "paged_decode": (0, 1)},
+                MAMBA: {"selective_scan": (1, 1)}}
 LONG_PROMPT, LONG_GEN, LONG_BATCH = 1024, 64, 8
 
 
@@ -103,6 +138,37 @@ def fail(message: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper, by kernel name; each counts its launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.sdca import ops as sdca_ops
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+
+    return {"local_sdca": sdca_ops.local_sdca, "flash_fwd": fa_ops.flash_fwd,
+            "paged_decode": fd_ops.paged_decode, "selective_scan": ss_ops.selective_scan}
+
+
+def reset_launches() -> None:
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+
+
+def check_path_launches(arch: str, counts: dict, n_layers: int, prefills: int,
+                        steps: int, what: str) -> None:
+    """Each of the path's kernels launched once a layer per prefill and/or
+    decode step, as ``PATH_KERNELS`` says, and no other kernel at all."""
+    expected = {name: 0 for name in counts}
+    for name, (per_prefill, per_step) in PATH_KERNELS[arch].items():
+        expected[name] = n_layers * (per_prefill * prefills + per_step * steps)
+    if counts != expected or not all(counts[k] for k in PATH_KERNELS[arch]):
+        fail(f"{what}: launches {counts}, expected {expected}")
 
 
 def nvidia_smi_line() -> str:
@@ -174,8 +240,6 @@ def hemingway_path(dev):
 
     from repro_torch import quickstart
     from repro_torch.convert import problem_from_numpy
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.sdca import ops
     from repro_torch.kernels.sdca.ref import local_sdca_ref
     from repro_torch.optim import CocoaConfig, make_mnist_svm, run_cocoa
@@ -264,11 +328,12 @@ def hemingway_path(dev):
                                 ("P* rounds", REF_ITERS, quickstart.REF_ITERS)):
         if ours != default:
             print(f"cut: {name} {default} -> {ours} (n, d and m are not cut)")
-    ops.local_sdca.launches = fa_ops.flash_fwd.launches = fd_ops.paged_decode.launches = 0
+    reset_launches()
     result = quickstart.run(ms=ms, iters=SIM_ITERS, ref_iters=REF_ITERS, device=dev)
-    launches = ops.local_sdca.launches
-    if fa_ops.flash_fwd.launches or fd_ops.paged_decode.launches:
-        fail("the Hemingway loop launched a serve kernel")
+    counts = read_launches()
+    launches = counts.pop("local_sdca")
+    if any(counts.values()):
+        fail(f"the Hemingway loop launched a serve kernel: {counts}")
     # P*, then per m a warm-up round, the timed rounds, and the dispatch
     # floor's warm-up and three timed rounds
     rounds = REF_ITERS + sum(1 + SIM_ITERS + 1 + 3 for _ in ms)
@@ -330,7 +395,7 @@ def serve_kernels_vs_plain(dev, cfg):
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import paged_decode_stream
 
-    phase(f"K3 and K2 vs plain (bf16, {ARCH}: Hk {cfg.n_kv_heads}, "
+    phase(f"K3 and K2 vs plain (bf16, {QWEN}: Hk {cfg.n_kv_heads}, "
           f"G {cfg.n_heads // cfg.n_kv_heads}, head_dim {cfg.head_dim})")
     hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -380,9 +445,10 @@ def serve_kernels_vs_plain(dev, cfg):
     return errs
 
 
-def small_lm_check(dev):
-    """Phase 9: the smoke LM on the card against the plain versions on the
-    CPU, same weights: prefill logits, then 8 teacher-forced decode steps."""
+def small_lm_check(dev, arch):
+    """Phases 9 and 14: the smoke LM on the card against the plain versions
+    on the CPU, same weights: prefill logits, then 8 teacher-forced decode
+    steps."""
     import copy
 
     import numpy as np
@@ -392,8 +458,8 @@ def small_lm_check(dev):
     from repro_torch.models.model import LM
     from repro_torch.serve.cache import init_paged_cache, write_prefill
 
-    phase("small-input check: smoke LM on the card vs the plain versions on the CPU")
-    cfg = get_smoke_config(ARCH)
+    phase(f"small-input check: smoke {arch} on the card vs the plain versions on the CPU")
+    cfg = get_smoke_config(arch)
     cpu = LM(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
     card = copy.deepcopy(cpu).to(dev)
     rng = np.random.RandomState(0)
@@ -418,7 +484,7 @@ def small_lm_check(dev):
         cache = init_paged_cache(model, num_pages=12, page_size=16, max_batch=2)
         for slot, n in enumerate((37, 21)):
             _, pre = model.prefill(prompt[:, :n])
-            write_prefill(cache, pre, page_ids=list(tables[slot, :-(-n // 16)]),
+            write_prefill(cache, pre, slot=slot, page_ids=list(tables[slot, :-(-n // 16)]),
                           page_size=16)
         caches.append(cache)
     compare(card.prefill(prompt)[0], cpu.prefill(prompt)[0], "prefill")
@@ -432,70 +498,62 @@ def small_lm_check(dev):
           f"largest logit (limits {LM_MAX_OF_SCALE}, {LM_MEAN_OF_SCALE})")
 
 
-def serve_cli_path(dev):
-    """Phase 10: the CLI's --continuous path at full width.  Returns the
-    model, the launches and the CLI's result."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_decode import ops as fd_ops
-    from repro_torch.kernels.sdca import ops as sdca_ops
+def serve_cli_path(arch, n_layers, d_model, path_no):
+    """Phases 10 and 15: the CLI's --continuous path at full width.  Returns
+    the model and the kernels' launches."""
     from repro_torch.launch import serve
 
-    phase(f"main path 2: python -m repro_torch.launch.serve --arch {ARCH} --continuous "
-          "(full width, all layers)")
-    sdca_ops.local_sdca.launches = fa_ops.flash_fwd.launches = fd_ops.paged_decode.launches = 0
+    phase(f"main path {path_no}: python -m repro_torch.launch.serve --arch {arch} "
+          "--continuous (full width, all layers)")
+    reset_launches()
     t0 = time.perf_counter()
     try:
-        result = serve.main(["--arch", ARCH, "--continuous"])
+        result = serve.main(["--arch", arch, "--continuous"])
     except SystemExit as e:
         fail(f"the serve CLI exited with {e.code}")
     seconds = time.perf_counter() - t0
-    launches = {"flash_fwd": fa_ops.flash_fwd.launches,
-                "paged_decode": fd_ops.paged_decode.launches}
+    counts = read_launches()
     warm, cold = result["engines"]
     cfg = warm.cfg
     prefills = sum(e.prefills_run for e in (warm, cold))
     steps = sum(e.stats()["decode_steps"] for e in (warm, cold))
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{sum(p.numel() for p in warm.lm.parameters()) / 1e9:.3f} B parameters; "
-          f"CLI ran in {seconds:.1f} s")
-    print(f"flash_fwd launches {launches['flash_fwd']} = {cfg.n_layers} x {prefills} prefills; "
-          f"paged_decode launches {launches['paged_decode']} = {cfg.n_layers} x {steps} "
-          "decode steps")
+          f"CLI ran in {seconds:.1f} s; {prefills} prefills, {steps} decode steps")
+    for name, (per_prefill, per_step) in PATH_KERNELS[arch].items():
+        terms = " + ".join(t for t, on in (("prefills", per_prefill), ("decode steps", per_step))
+                           if on)
+        print(f"{name} launches {counts[name]} = {cfg.n_layers} x ({terms})")
     if result["served"] != result["requests"] or result["served"] != 8:
         fail(f"served {result['served']}/{result['requests']}")
-    if cfg.d_model != 5120 or cfg.n_layers != 40:
-        fail("the serve path did not run qwen3-14b at full width")
-    if sdca_ops.local_sdca.launches:
-        fail("the serve path launched K1")
-    if launches["flash_fwd"] != cfg.n_layers * prefills or prefills == 0:
-        fail("flash_fwd launches do not match the prefills run")
-    if launches["paged_decode"] != cfg.n_layers * steps or steps == 0:
-        fail("paged_decode launches do not match the decode steps run")
+    if cfg.d_model != d_model or cfg.n_layers != n_layers:
+        fail(f"the serve path did not run {arch} at full width")
+    if prefills == 0 or steps == 0:
+        fail("the serve path ran no prefill or no decode step")
+    check_path_launches(arch, counts, cfg.n_layers, prefills, steps, f"{arch} CLI")
     if result["plan"] is None:
         fail("no capacity plan")
-    return warm.lm, launches, result
+    return warm.lm, counts
 
 
-def long_serve_run(lm):
-    """Phase 11: 8 requests of 1024-token prompts arriving together, 64
-    generated tokens each, max_batch 8, at full width."""
+def long_serve_run(arch, lm):
+    """Phases 11 and 16: 8 requests of 1024-token prompts arriving together,
+    64 generated tokens each, max_batch 8, at full width."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.serve import ServeEngine
 
-    phase(f"long serve run: {LONG_BATCH} x {LONG_PROMPT}-token prompts, {LONG_GEN} tokens "
-          f"each, max_batch {LONG_BATCH}")
+    phase(f"long serve run ({arch}): {LONG_BATCH} x {LONG_PROMPT}-token prompts, {LONG_GEN} "
+          f"tokens each, max_batch {LONG_BATCH}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(ARCH, lm=lm, max_batch=LONG_BATCH, max_seq=LONG_PROMPT + LONG_GEN)
+    eng = ServeEngine("", lm=lm, max_batch=LONG_BATCH, max_seq=LONG_PROMPT + LONG_GEN)
     rng = np.random.RandomState(1)
     reqs = [eng.submit(rng.randint(0, lm.cfg.vocab_size, LONG_PROMPT), LONG_GEN)
             for _ in range(LONG_BATCH)]
-    fa_ops.flash_fwd.launches = fd_ops.paged_decode.launches = 0
+    reset_launches()
     profiled_steps = range(48, 52)
     t0 = time.perf_counter()
     prof = None
@@ -513,6 +571,7 @@ def long_serve_run(lm):
             prof.__exit__(None, None, None)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    counts = read_launches()
     if any(len(r.generated) != LONG_GEN for r in reqs):
         fail("the long run did not generate every token")
     ttft = np.cumsum([r.prefill_s for r in sorted(reqs, key=lambda r: r.rid)])
@@ -521,11 +580,13 @@ def long_serve_run(lm):
     stats = eng.stats()
     events = prof.key_averages()
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    k2_ms = sum(e.self_device_time_total for e in events if "paged_decode" in e.key) / 1e3
+    kernel_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+                 for name in PATH_KERNELS[arch]}
     gemm_ms = sum(e.self_device_time_total for e in events
                   if "gemm" in e.key.lower() or "gemv" in e.key.lower()
                   or "cutlass" in e.key.lower() or "nvjet" in e.key.lower()) / 1e3
     out = {
+        "arch": arch,
         "ttft_ms_p50": float(np.median(ttft)) * 1e3,
         "ttft_ms_max": float(ttft.max()) * 1e3,
         "prefill_ms_mean": float(np.mean([r.prefill_s for r in reqs])) * 1e3,
@@ -535,8 +596,7 @@ def long_serve_run(lm):
         "tokens_per_s_end_to_end": LONG_BATCH * LONG_GEN / wall,
         "wall_s": wall,
         "peak_memory_gb": peak / 1e9,
-        "flash_fwd_launches": fa_ops.flash_fwd.launches,
-        "paged_decode_launches": fd_ops.paged_decode.launches,
+        **{f"{name}_launches": counts[name] for name in PATH_KERNELS[arch]},
         "profiled_decode_steps": len(profiled_steps),
         "profiled_wall_ms": prof_wall_ms,
         "profiled_device_busy_ms": busy_ms,
@@ -544,17 +604,15 @@ def long_serve_run(lm):
         # the profiled steps' device time over the unprofiled steps' time
         "device_busy_share_of_median_step": busy_ms / len(profiled_steps)
         / (float(np.median(timed)) * 1e3),
-        "profiled_paged_decode_ms": k2_ms,
+        **{f"profiled_{name}_ms": ms for name, ms in kernel_ms.items()},
         "profiled_gemm_ms": gemm_ms,
     }
     print(json.dumps({"long_run": out}))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"  device {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:5d}  {e.key[:90]}")
-    if fa_ops.flash_fwd.launches != lm.cfg.n_layers * LONG_BATCH:
-        fail("long run: flash_fwd launches do not match its prefills")
-    if fd_ops.paged_decode.launches != lm.cfg.n_layers * stats["decode_steps"]:
-        fail("long run: paged_decode launches do not match its decode steps")
+    check_path_launches(arch, counts, lm.cfg.n_layers, LONG_BATCH, stats["decode_steps"],
+                        f"{arch} long run")
     if busy_ms <= 0:
         fail("the profiler saw no device time")
     return out
@@ -571,7 +629,7 @@ def prefill_row_blocks(lm):
 
     max_seq = LONG_PROMPT + LONG_GEN
     phase(f"prefill over row blocks at full width (max_seq {max_seq})")
-    eng = ServeEngine(ARCH, lm=lm, max_batch=2, max_seq=max_seq, collect_logits=True)
+    eng = ServeEngine("", lm=lm, max_batch=2, max_seq=max_seq, collect_logits=True)
     rows = eng.rt.prefill_rows
     rng = np.random.RandomState(2)
     vocab = lm.cfg.vocab_size
@@ -608,7 +666,7 @@ def prefill_row_blocks(lm):
     eng.run()
     r_warm = eng.submit(prompt_b, 4)
     eng.run()
-    cold = ServeEngine(ARCH, lm=lm, max_batch=2, max_seq=max_seq, collect_logits=True)
+    cold = ServeEngine("", lm=lm, max_batch=2, max_seq=max_seq, collect_logits=True)
     r_cold = cold.submit(prompt_b, 4)
     cold.run()
     exact = len(r_warm.logits_trace) == len(r_cold.logits_trace) == 4 and all(
@@ -694,6 +752,127 @@ def serve_kernel_timings(dev, cfg):
     return timings
 
 
+def scan_inputs(torch, gen, cfg, bt, s, n_valid=None):
+    """K4's inputs at ``cfg``'s widths, as the model makes them: x and
+    x_proj's output in bf16 with B and C strided views of the latter, dt
+    log-uniform in [1e-3, 1e-1] (the range dt's bias is drawn from),
+    A = -exp(A_log) = -(1..N), D = 1, a nonzero float32 state; dt and x zero
+    from ``n_valid`` on, as the engine pads."""
+    import math
+
+    mc = cfg.mamba
+    dn, n, dtr = mc.expand * cfg.d_model, mc.d_state, mc.resolved_dt_rank(cfg.d_model)
+    dev = gen.device
+    x = torch.randn((bt, s, dn), generator=gen, device=dev).to(torch.bfloat16)
+    u = torch.rand((bt, s, dn), generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    if n_valid is not None:
+        x[:, n_valid:] = 0
+        dt[:, n_valid:] = 0
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(dn, n).contiguous()
+    xdb = torch.randn((bt, s, dtr + 2 * n), generator=gen, device=dev).to(torch.bfloat16)
+    _, b_ssm, c_ssm = xdb.split([dtr, n, n], dim=-1)
+    d = torch.ones(dn, device=dev)
+    h0 = 0.1 * torch.randn((bt, dn, n), generator=gen, device=dev)
+    return x, dt, a, b_ssm, c_ssm, d, h0
+
+
+def scan_bound(bt, s, dn, n, n_valid=None):
+    """(bound ms, by what, MB, exponentials) of one selective scan: x and y
+    (bf16), dt (float32) and B, C (bf16) read or written once, A, D and the
+    state's read and write; one exponential and about 7 float32 operations
+    per (t, d, n) of the steps this input needs (a padded step with dt = 0
+    needs none)."""
+    steps = bt * (s if n_valid is None else n_valid)
+    nbytes = (2 + 2 + 4) * bt * s * dn + 2 * 2 * bt * s * n + 4 * (dn * n + dn) \
+        + 2 * 4 * bt * dn * n
+    n_exp = steps * dn * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n_exp / EXP_PER_S, 7 * n_exp / F32_FLOPS_PER_S) * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, nbytes / 1e6, n_exp
+
+
+PREFILL_SCAN = dict(bt=1, s=LONG_PROMPT, n_valid=LONG_PROMPT - 24)
+DECODE_SCAN = dict(bt=LONG_BATCH, s=1, n_valid=None)
+
+
+def scan_kernel_vs_plain(dev, cfg):
+    """Phase 13.  Returns K4's largest absolute error (state or output)."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    mc = cfg.mamba
+    phase(f"K4 vs plain ({MAMBA}: Dn {mc.expand * cfg.d_model}, N {mc.d_state}, bf16 x)")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    for shape in (PREFILL_SCAN, DECODE_SCAN):
+        x, dt, a, b_ssm, c_ssm, d, h0 = scan_inputs(torch, gen, cfg, **shape)
+        h = h0.clone()
+        y, h_out = ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h)
+        torch.cuda.synchronize()
+        want_y, want_h = selective_scan_ref(x, dt, a, b_ssm, c_ssm, d, h0)
+        err_h = float((h - want_h).abs().max())
+        scale_h = float(want_h.abs().max())
+        atol = SCAN_RTOL_OF_MAX * float(want_y.float().abs().max())
+        ulps = bf16_ulps(y, want_y, atol)
+        err_y = float((y.float() - want_y.float()).abs().max())
+        print(f"selective_scan B={shape['bt']} S={shape['s']} n_valid={shape['n_valid']} "
+              f"B/C strides {tuple(b_ssm.stride())}: max|dh|={err_h:.3e} (max|h|={scale_h:.3e}), "
+              f"max|dy|={err_y:.3e}, {bf16_ulps(y, want_y):.0f} bf16 ulp, {ulps:.0f} bf16 ulp "
+              f"beyond {atol:.2e}; state updated in place: {h_out is h}")
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()):
+            fail("selective_scan output is not finite")
+        if h_out is not h or err_h > SCAN_RTOL_OF_MAX * scale_h or ulps > MAX_BF16_ULPS:
+            fail(f"selective_scan disagrees with its plain version at S={shape['s']}")
+        worst = max(worst, err_h, err_y)
+    print(f"tolerance: |dh| <= {SCAN_RTOL_OF_MAX:.2e} max|h|; y within {MAX_BF16_ULPS} bf16 ulp "
+          f"beyond {SCAN_RTOL_OF_MAX:.2e} max|y|")
+    return worst
+
+
+def scan_kernel_timings(dev, cfg):
+    """Phase 17.  Returns (ms, plain_ms, library_ms, bound_ms, bound_by,
+    shape) for K4 at the prefill shape; the decode shape is printed too.
+    Back-to-back calls at the decode shape are bound by the host (the
+    wrapper's checks and the ctypes call), so the kernel's own device time
+    is also read from a profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    phase("K4 timings (CUDA events, after warm-up)")
+    mc = cfg.mamba
+    dn, n = mc.expand * cfg.d_model, mc.d_state
+    gen = torch.Generator(device=dev).manual_seed(4)
+    timings = {}
+    for label, shape, reps in (("prefill", PREFILL_SCAN, 20), ("decode", DECODE_SCAN, 200)):
+        x, dt, a, b_ssm, c_ssm, d, h0 = scan_inputs(torch, gen, cfg, **shape)
+        h = h0.clone()
+        ms = cuda_ms(lambda: ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h), reps=reps)
+        plain = cuda_ms(lambda: selective_scan_ref(x, dt, a, b_ssm, c_ssm, d, h0),
+                        reps=2 if shape["s"] > 1 else 20, warmup=1)
+        bound, by, mb, n_exp = scan_bound(shape["bt"], shape["s"], dn, n, shape["n_valid"])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h)
+            torch.cuda.synchronize()
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if "selective_scan_kernel" in e.key) / 1e3 / 20
+        print(f"selective_scan {label} B={shape['bt']} S={shape['s']} Dn={dn} N={n}: kernel "
+              f"{ms:.4f} ms a call by CUDA events, {device_ms:.4f} ms of device time a launch "
+              f"(profiler), plain {plain:.3f} ms, bound {bound:.4f} ms ({by}: {mb:.2f} MB at "
+              f"3.35 TB/s; {n_exp / 1e6:.1f} M exponentials at {EXP_PER_S / 1e12:.2f} T/s), "
+              f"kernel at {100 * bound / ms:.2f}% of bound; no single PyTorch call computes "
+              "a selective scan")
+        timings[label] = (ms, plain, None, bound, by, f"B={shape['bt']} S={shape['s']}")
+    return timings["prefill"]
+
+
 def main() -> None:
     import torch
 
@@ -707,6 +886,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.sdca import build as sdca_build
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -714,27 +894,41 @@ def main() -> None:
     dev = torch.device("cuda")
 
     phase("build")
-    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY])
+    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY, ss_ops.LIBRARY])
 
     k1 = hemingway_path(dev)
     torch.cuda.empty_cache()
 
-    cfg = get_config(ARCH)
+    cfg = get_config(QWEN)
     errs = serve_kernels_vs_plain(dev, cfg)
-    small_lm_check(dev)
-    lm, launches, _ = serve_cli_path(dev)
-    long_serve_run(lm)
+    small_lm_check(dev, QWEN)
+    lm, launches = serve_cli_path(QWEN, n_layers=40, d_model=5120, path_no=2)
+    long_serve_run(QWEN, lm)
     prefill_row_blocks(lm)
     del lm
+    gc.collect()
     torch.cuda.empty_cache()
     timings = serve_kernel_timings(dev, cfg)
+
+    cfg = get_config(MAMBA)
+    errs["selective_scan"] = scan_kernel_vs_plain(dev, cfg)
+    small_lm_check(dev, MAMBA)
+    lm, mamba_launches = serve_cli_path(MAMBA, n_layers=64, d_model=4096, path_no=3)
+    launches["selective_scan"] = mamba_launches["selective_scan"]
+    long_serve_run(MAMBA, lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings["selective_scan"] = scan_kernel_timings(dev, cfg)
 
     kernels = [k1]
     for name, source, replaces in (
             ("flash_fwd", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
              "src/repro/kernels/flash_attention/kernel.py:92"),
             ("paged_decode", "src/repro_torch/kernels/flash_decode/csrc/paged_decode.cu",
-             "src/repro/kernels/flash_decode/kernel.py:214")):
+             "src/repro/kernels/flash_decode/kernel.py:214"),
+            ("selective_scan", "src/repro_torch/kernels/ssm_scan/csrc/selective_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:65")):
         ms, plain, lib, bound, by, _ = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,

@@ -48,11 +48,14 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
 
     ``params`` is the reference's param tree (``repro.models.model.LM.init``)
     with numpy leaves: ``embed``, ``final_norm``, ``lm_head`` and
-    ``periods``, whose ``pos<i>/{ln1, mixer/{wq, wk, wv, wo, q_norm, k_norm},
-    ln2, ffn/{w_gate, w_up, w_down}}`` leaves are stacked over the periods.
-    Layer l is period l // P, position l % P of a period of length P.  Each
-    leaf is cast to the dtype the port stores it in (the config's dtype for
-    matrices, float32 for norm scales)."""
+    ``periods``, whose leaves are stacked over the periods: for an attention
+    layer ``pos<i>/{ln1, mixer/{wq, wk, wv, wo, q_norm, k_norm}, ln2,
+    ffn/{w_gate, w_up, w_down}}``, for a Mamba layer ``pos<i>/{ln1,
+    mixer/{in_proj, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D,
+    out_proj}}``.  Layer l is period l // P, position l % P of a period of
+    length P.  Each leaf is cast to the dtype the port stores it in (the
+    config's dtype for matrices, float32 for norm scales and the Mamba
+    parameters the reference reads in float32)."""
     lm = LM(cfg, device)
 
     def put(dst: torch.Tensor, src) -> None:
@@ -70,8 +73,9 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
         src = params["periods"][f"pos{i % period}"]
         n = i // period
         put(layer.ln1, src["ln1"][n])
-        put(layer.ln2, src["ln2"][n])
-        for group in ("mixer", "ffn"):
+        if layer.ln2 is not None:
+            put(layer.ln2, src["ln2"][n])
+        for group in layer.specs:
             for name, dst in getattr(layer, group).items():
                 put(dst, src[group][name][n])
     return lm

@@ -1,0 +1,101 @@
+"""Selective scan (Mamba-1): the Hopper kernel (K4, csrc/selective_scan.cu)
+for CUDA tensors, the plain version (ref.py) for CPU tensors.
+
+``selective_scan`` is the model-facing call and the kernel's wrapper: the
+signature of ``repro/kernels/ssm_scan/ops.py::selective_scan`` with an
+initial state that is updated in place, so at S = 1 it is the decode step
+``selective_scan_step``.  A CUDA tensor goes to the kernel or the call
+raises, nothing falls back to the plain version, and
+``selective_scan.launches`` counts the kernel's launches and only those.
+
+``B`` and ``C`` come out of a split of ``x_proj``'s output, so they are
+strided views: the wrapper passes the kernel their batch and time strides
+(the last axis must have stride 1) instead of copying them.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = KernelLibrary(
+    Path(__file__).resolve().parent / "csrc" / "selective_scan.cu", "selective_scan",
+    {"selective_scan_launch": ([_p] * 8 + [_i] * 5 + [_ll] * 4 + [_p], ctypes.c_int)},
+    error_fn="selective_scan_error_string")
+
+KERNEL_STATE_SIZES = (4, 8, 16, 32)  # N: a channel's lanes lie in one warp
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def selective_scan(
+    x: torch.Tensor,  # (Bt, S, Dn) bf16 or float32
+    dt: torch.Tensor,  # (Bt, S, Dn) float32
+    A: torch.Tensor,  # (Dn, N) float32
+    B: torch.Tensor,  # (Bt, S, N) in x's dtype
+    C: torch.Tensor,  # (Bt, S, N) in x's dtype
+    D: torch.Tensor,  # (Dn,) float32
+    h: Optional[torch.Tensor] = None,  # (Bt, Dn, N) float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (Bt, S, Dn) in x's dtype, h_last (Bt, Dn, N) float32).
+    When ``h`` is given it is the initial state and is overwritten with
+    h_last, which is ``h`` itself; otherwise the scan starts from zeros."""
+    if x.device.type == "cpu":
+        y, h_last = selective_scan_ref(x, dt, A, B, C, D, h)
+        if h is None:
+            return y, h_last
+        h.copy_(h_last)
+        return y, h
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan runs on cpu or cuda tensors, not {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected (Bt, S, Dn)")
+    bt, s, dn = x.shape
+    if A.dim() != 2 or A.shape[0] != dn:
+        raise ValueError(f"A has shape {tuple(A.shape)}, expected ({dn}, N)")
+    n = A.shape[1]
+    if n not in KERNEL_STATE_SIZES:
+        raise ValueError(f"N={n}: the kernel takes state sizes {KERNEL_STATE_SIZES}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"x is {x.dtype}; the kernel takes bfloat16 or float32")
+    if h is None:
+        h = torch.zeros((bt, dn, n), dtype=torch.float32, device=x.device)
+    expected = {"x": ((bt, s, dn), x.dtype), "dt": ((bt, s, dn), torch.float32),
+                "A": ((dn, n), torch.float32), "B": ((bt, s, n), x.dtype),
+                "C": ((bt, s, n), x.dtype), "D": ((dn,), torch.float32),
+                "h": ((bt, dn, n), torch.float32)}
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C), ("D", D), ("h", h)):
+        shape, dtype = expected[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype} here")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if name in ("B", "C"):
+            if t.stride(2) != 1:
+                raise ValueError(f"{name}'s last axis has stride {t.stride(2)}, the kernel "
+                                 "takes 1")
+        elif not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    y = torch.empty_like(x)
+    if bt * s * dn == 0:
+        return y, h
+    lib = LIBRARY.load()
+    with torch.cuda.device(x.device):
+        err = lib.selective_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            D.data_ptr(), h.data_ptr(), y.data_ptr(), bt, s, dn, n,
+            int(x.dtype == torch.bfloat16), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+            torch.cuda.current_stream().cuda_stream)
+    LIBRARY.check(err, "selective_scan kernel")
+    selective_scan.launches += 1
+    return y, h
+
+
+selective_scan.launches = 0

@@ -1,6 +1,8 @@
-"""The dense attention block, pre-norm: ln1 -> attention -> residual ->
-ln2 -> SwiGLU -> residual.  Counterparts of ``repro/models/blocks.py``'s
-``apply_block`` (:56) for prefill and ``apply_block_decode_paged`` (:98).
+"""Decoder blocks, pre-norm: ln1 -> mixer (attention or Mamba) -> residual,
+then, unless the layer's ffn is "none", ln2 -> SwiGLU -> residual.
+Counterparts of ``repro/models/blocks.py``'s ``init_block`` (:22),
+``apply_block`` (:56) for prefill and ``apply_block_decode_paged`` (:98),
+dispatching on the layer's ``LayerSpec`` as there.
 """
 from __future__ import annotations
 
@@ -10,8 +12,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.layers import apply_mlp, by_rows, rms_norm
 from repro_torch.models.runtime import Runtime
 
@@ -19,42 +22,50 @@ from repro_torch.models.runtime import Runtime
 Spec = Tuple[Tuple[int, ...], str, float]  # (shape, init, scale)
 
 
-class DenseBlock(nn.Module):
+class Block(nn.Module):
     """One layer's parameters, named as the reference's param tree
-    (``pos0/{ln1, mixer/{...}, ln2, ffn/{...}}``) and initialised as there
-    (``blocks.py:init_block``, ``layers.py:95-103``).  Matrices are stored in
-    ``dtype``, norm scales in float32."""
+    (``pos<i>/{ln1, mixer/{...}[, ln2, ffn/{...}]}``) and initialised as
+    there (``blocks.py:init_block``, ``layers.py:95-103``, ``attention.py``,
+    ``mamba.py``).  Matrices are stored in ``dtype``; norm scales and the
+    Mamba parameters the reference reads in float32 in float32."""
 
-    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device: torch.device):
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype: torch.dtype,
+                 device: torch.device):
         super().__init__()
+        self.spec = spec
         d, f = cfg.d_model, cfg.d_ff
-        self.specs: Dict[str, Dict[str, Spec]] = {
-            "mixer": attn_mod.attention_shapes(cfg),
-            "ffn": {"w_gate": ((d, f), "normal", 1.0 / math.sqrt(d)),
-                    "w_up": ((d, f), "normal", 1.0 / math.sqrt(d)),
-                    "w_down": ((f, d), "normal", 1.0 / math.sqrt(f))},
-        }
+        if spec.mixer == "attn":
+            mixer, float32 = attn_mod.attention_shapes(cfg), frozenset()
+        else:
+            mixer, float32 = mamba_mod.mamba_shapes(cfg), mamba_mod.FLOAT32_PARAMS
+        self.specs: Dict[str, Dict[str, Spec]] = {"mixer": mixer}
+        if spec.ffn == "dense":
+            self.specs["ffn"] = {"w_gate": ((d, f), "normal", 1.0 / math.sqrt(d)),
+                                 "w_up": ((d, f), "normal", 1.0 / math.sqrt(d)),
+                                 "w_down": ((f, d), "normal", 1.0 / math.sqrt(f))}
 
-        def param(shape, init):
-            dt = torch.float32 if init == "ones" else dtype
+        def param(name, shape, init):
+            dt = torch.float32 if init == "ones" or name in float32 else dtype
             return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
                                 requires_grad=False)
 
-        self.ln1 = param((d,), "ones")
-        self.ln2 = param((d,), "ones")
-        self.mixer = nn.ParameterDict({k: param(shape, init) for k, (shape, init, _)
-                                       in self.specs["mixer"].items()})
-        self.ffn = nn.ParameterDict({k: param(shape, init) for k, (shape, init, _)
-                                     in self.specs["ffn"].items()})
+        self.ln1 = param("ln1", (d,), "ones")
+        self.ln2 = param("ln2", (d,), "ones") if spec.ffn != "none" else None
+        for group, shapes in self.specs.items():
+            setattr(self, group, nn.ParameterDict(
+                {k: param(k, shape, init) for k, (shape, init, _) in shapes.items()}))
+        if spec.ffn == "none":
+            self.ffn = None
 
     def init_params(self, generator: torch.Generator) -> None:
         """The reference's distributions and scales, one matrix at a time
         (float32 draws on the generator's device, then cast)."""
         self.ln1.fill_(1.0)
-        self.ln2.fill_(1.0)
-        for group in ("mixer", "ffn"):
+        if self.ln2 is not None:
+            self.ln2.fill_(1.0)
+        for group, shapes in self.specs.items():
             params = getattr(self, group)
-            for name, (shape, init, scale) in self.specs[group].items():
+            for name, (shape, init, scale) in shapes.items():
                 fill_param(params[name], init, scale, generator)
 
 
@@ -63,32 +74,54 @@ def fill_param(t: torch.Tensor, init: str, scale: float, generator: torch.Genera
         t.fill_(1.0)
     elif init == "zeros":
         t.zero_()
-    else:
+    elif init == "normal":
         draw = torch.randn(t.shape, generator=generator, dtype=torch.float32,
                            device=generator.device)
         t.copy_(draw.mul_(scale))
+    elif init == "uniform":  # in (-scale, scale)
+        draw = torch.rand(t.shape, generator=generator, dtype=torch.float32,
+                          device=generator.device)
+        t.copy_(draw.mul_(2 * scale).sub_(scale))
+    else:
+        mamba_mod.init_mamba_param(t, init, generator)
 
 
-def apply_block(p: DenseBlock, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
-                kv_lens: Optional[torch.Tensor] = None):
-    """Prefill: returns (x, cache {"k", "v"} (B, Hk, S, hd)).  The norms and
-    the MLP run over blocks of ``rt.prefill_rows`` positions, as the
-    attention's projections do."""
+def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
+                n_valid: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill: returns (x, cache), the cache {"k", "v"} (B, Hk, S, hd) of an
+    attention layer or the state {"h", "conv"} of a Mamba layer after
+    position ``n_valid - 1`` (default the last).  Positions from ``n_valid``
+    on are padding.  The norms and the MLP run over blocks of
+    ``rt.prefill_rows`` positions, as the mixers' projections do."""
     rows = rt.prefill_rows
     h = by_rows(lambda xr: rms_norm(xr, p.ln1, cfg.norm_eps), x, rows)
-    y, cache = attn_mod.apply_attention(p.mixer, h, cfg, rt, kv_lens=kv_lens)
+    if p.spec.mixer == "attn":
+        kv_lens = None if n_valid is None else torch.full(
+            (x.shape[0],), int(n_valid), dtype=torch.int32, device=x.device)
+        y, cache = attn_mod.apply_attention(p.mixer, h, cfg, rt, kv_lens=kv_lens)
+    else:
+        y, cache = mamba_mod.apply_mamba(p.mixer, h, cfg, rt, n_valid=n_valid)
     x = x + y
+    if p.ffn is None:
+        return x, cache
     return by_rows(lambda xr: xr + apply_mlp(p.ffn, rms_norm(xr, p.ln2, cfg.norm_eps)),
                    x, rows), cache
 
 
-def apply_block_decode_paged(p: DenseBlock, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
                              cache: Dict[str, torch.Tensor], lengths: torch.Tensor,
                              page_tables: torch.Tensor) -> torch.Tensor:
-    """One decode step of x (B, 1, d) against the layer's page pools, which
-    it updates in place."""
+    """One decode step of x (B, 1, d) against the layer's cache, which it
+    updates in place: an attention layer's page pools, or a Mamba layer's
+    slot-major state (which the lengths and page tables do not index)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    x = x + attn_mod.apply_attention_decode_paged(p.mixer, h, cfg, rt, cache, lengths,
-                                                  page_tables)
+    if p.spec.mixer == "attn":
+        x = x + attn_mod.apply_attention_decode_paged(p.mixer, h, cfg, rt, cache, lengths,
+                                                      page_tables)
+    else:
+        x = x + mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache)
+    if p.ffn is None:
+        return x
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     return x + apply_mlp(p.ffn, h2)

@@ -71,6 +71,8 @@ def by_rows(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
             rows: int) -> torch.Tensor:
     """``fn`` applied to x (B, S, ...) one block of ``rows`` positions at a
     time: with S a multiple of ``rows``, every call sees one fixed shape."""
+    if x.shape[1] <= rows:
+        return fn(x)
     return torch.cat([fn(x[:, r]) for r in row_blocks(x.shape[1], rows)], dim=1)
 
 

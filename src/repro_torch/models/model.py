@@ -1,17 +1,19 @@
-"""The LM for the dense attention archs (qwen3-14b first): the serving entry
-points of ``repro/models/model.py``.
+"""The LM for the dense attention archs (qwen3-14b) and the pure Mamba archs
+(falcon-mamba-7b): the serving entry points of ``repro/models/model.py``.
 
 * ``prefill(tokens)`` — the counterpart of ``LM.prefill`` (``model.py:171``):
   a full-sequence causal forward; returns one position's logits and each
-  layer's K/V.
+  layer's K/V (attention) or recurrent state (Mamba).
 * ``decode_step_paged(tokens, lengths, cache, page_tables)`` — the
   counterpart of ``LM.decode_step_paged`` (``model.py:289``): one token per
-  row against the paged pools, which it updates in place.
+  row against the paged pools and the slot-major Mamba state, which it
+  updates in place.
 
 The reference's ``lax.scan`` over the stacked periods becomes a loop over
-``n_layers`` ``DenseBlock`` entries of a ``ModuleList``.  Archs with MLA,
-MoE, Mamba layers, a frontend or ``first_k_dense`` head layers are not
-ported yet and raise (ROADMAP.md).
+``n_layers`` ``Block`` entries of a ``ModuleList``, layer l built from
+``cfg.period[l % len(cfg.period)]``.  Archs with MLA, MoE (and with it
+jamba), a frontend or ``first_k_dense`` head layers are not ported yet and
+raise (ROADMAP.md).
 
 The model holds weights only: kernel geometry and the paged decode's
 implementation come with each call, as a ``Runtime`` (the serve engine's).
@@ -30,7 +32,7 @@ from repro_torch.models import blocks as blocks_mod
 from repro_torch.models.layers import embed_tokens, lm_logits, rms_norm
 from repro_torch.models.runtime import Runtime
 
-LayerCache = Dict[str, torch.Tensor]  # {"k", "v"}
+LayerCache = Dict[str, torch.Tensor]  # {"k", "v"} or {"h", "conv"}
 DEFAULT_RUNTIME = Runtime()
 
 
@@ -39,14 +41,13 @@ def check_supported(cfg: ArchConfig) -> None:
     missing = [what for what, present in (
         ("MLA", cfg.mla is not None),
         ("MoE", cfg.uses_moe),
-        ("Mamba layers", cfg.uses_mamba),
         (f"a {cfg.frontend} frontend", cfg.frontend != "none"),
         ("first_k_dense head layers", cfg.first_k_dense > 0),
     ) if present]
-    if missing or not cfg.pure_attention or any(s.ffn != "dense" for s in cfg.period):
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port runs dense attention archs only "
-            f"(this one has {', '.join(missing) or 'a non-dense layer'}); "
+            f"{cfg.name}: the PyTorch port runs dense attention and Mamba archs only "
+            f"(this one has {', '.join(missing)}); "
             "see ROADMAP.md for the slices that bring the rest")
 
 
@@ -68,7 +69,8 @@ class LM(nn.Module):
                                        requires_grad=False)
         self.lm_head = None if cfg.tie_embeddings else matrix(d, vocab)
         self.layers = nn.ModuleList(
-            blocks_mod.DenseBlock(cfg, self.dtype, device) for _ in range(cfg.n_layers))
+            blocks_mod.Block(cfg, cfg.period[i % len(cfg.period)], self.dtype, device)
+            for i in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -98,17 +100,17 @@ class LM(nn.Module):
     def prefill(self, tokens: torch.Tensor, n_valid: Optional[int] = None,
                 rt: Runtime = DEFAULT_RUNTIME) -> Tuple[torch.Tensor, List[LayerCache]]:
         """tokens (B, S) int.  Returns (logits (B, V) at position
-        ``n_valid - 1`` (default the last), per-layer cache {"k", "v"} of
-        shape (B, Hk, S, hd)).  Positions from ``n_valid`` on are padding:
-        causality keeps them out of every earlier position's result, and the
-        attention reads no key among them (so padded rows cost it little)."""
+        ``n_valid - 1`` (default the last), per-layer cache: {"k", "v"} of
+        shape (B, Hk, S, hd) for attention, the state {"h", "conv"} after
+        position ``n_valid - 1`` for Mamba).  Positions from ``n_valid`` on
+        are padding: causality keeps them out of every earlier position's
+        result, the attention reads no key among them (so padded rows cost
+        it little), and the Mamba scan holds its state across them."""
         cfg = self.cfg
         x = embed_tokens(self.embed, tokens.to(self.device))
-        kv_lens = None if n_valid is None else torch.full(
-            (tokens.shape[0],), int(n_valid), dtype=torch.int32, device=self.device)
         caches = []
         for layer in self.layers:
-            x, c = blocks_mod.apply_block(layer, x, cfg, rt, kv_lens=kv_lens)
+            x, c = blocks_mod.apply_block(layer, x, cfg, rt, n_valid=n_valid)
             caches.append(c)
         last = tokens.shape[1] if n_valid is None else int(n_valid)
         x = rms_norm(x[:, last - 1:last], self.final_norm, cfg.norm_eps)
@@ -123,7 +125,10 @@ class LM(nn.Module):
         token's position); cache the per-layer page pools
         (``repro_torch.serve.cache.init_paged_cache``); page_tables
         (B, pages_per_seq) int32, page 0 the scratch page idle slots write
-        into.  Returns (logits (B, V), cache), the pools updated in place."""
+        into.  Mamba layers' caches are the slot-major state
+        (``init_paged_cache``), which lengths and tables do not index.
+        Returns (logits (B, V), cache), the pools and states updated in
+        place."""
         cfg = self.cfg
         x = embed_tokens(self.embed, tokens.to(self.device)[:, None])
         for layer, c in zip(self.layers, cache):

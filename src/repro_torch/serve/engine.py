@@ -10,10 +10,18 @@ traces deterministic.  Per-step ``serve_step`` events feed the
 ``CapacityPlanner`` (``repro_torch.serve.planner``).
 
 Ported: submit, admission with monolithic prefill, prefix reuse (shared pages
-and whole-prompt skip), join-on-arrival, the batched decode step, finish and
-release, ``run``, ``stats`` and ``events``.  Not yet: chunked prefill and
-speculative decode (``prefill_chunk`` / ``speculate`` raise), the sharded
-data plane and span tracing (ROADMAP.md).
+and whole-prompt skip, which restores a Mamba model's state), join-on-arrival,
+the batched decode step, finish and release, ``run``, ``stats`` and
+``events``.  Not yet: chunked prefill and speculative decode
+(``prefill_chunk`` / ``speculate`` raise; for archs with recurrent layers
+they raise as in the reference, whose Mamba state has no positional form),
+the sharded data plane and span tracing (ROADMAP.md).
+
+A Mamba model's layers keep slot-major state and no page pools; the
+scheduler allocates pages for its requests all the same, which keeps the
+prefix cache's keys, and its decode step launches no paged attention.  A
+prefill over a padded prompt keeps the state after the last real position
+(``repro_torch.models.mamba``), so the rules below hold for its state too.
 
 Prefix-reuse exactness.  A request that shares a prompt head reads pages
 written by another request's prefill, so each position's K/V must not depend
@@ -88,17 +96,19 @@ class ServeEngine:
         weights from a generator seeded with ``seed``.  ``paged_impl`` is the
         paged decode's (``Runtime.paged_impl``): ``"kernel"`` runs K2 on the
         card and its plain version on the CPU."""
+        self.cfg = lm.cfg if lm is not None else self.config_for(arch, smoke)
+        if (prefill_chunk is not None or speculate) and any(
+                spec.mixer != "attn" for spec in self.cfg.period):
+            raise ValueError(
+                "chunked prefill / speculative decode require attention-only "
+                f"architectures; {self.cfg.name} has recurrent-state layers "
+                "whose slot-major cache has no paged/positional form")
         if prefill_chunk is not None:
             raise NotImplementedError(f"chunked prefill is {NOT_PORTED}")
         if speculate:
             raise NotImplementedError(f"speculative decode is {NOT_PORTED}")
         self.seed = seed
-        if lm is not None:
-            self.cfg = lm.cfg
-            self.device = lm.device
-        else:
-            self.cfg = self.config_for(arch, smoke)
-            self.device = resolve_device(device)
+        self.device = lm.device if lm is not None else resolve_device(device)
         # block_q = block_k = 16 and fixed prefill row blocks pin the
         # blocking, so that prefix positions' K/V, and so shared prefix
         # pages, are bitwise independent of what follows them (module
@@ -177,8 +187,8 @@ class ServeEngine:
             t0 = time.perf_counter()
             logits, pre_cache = self._prefill(req.prompt)
             req.prefill_s = time.perf_counter() - t0
-            self.cache = write_prefill(self.cache, pre_cache, page_ids=req.page_ids,
-                                       page_size=self.page_size,
+            self.cache = write_prefill(self.cache, pre_cache, slot=slot,
+                                       page_ids=req.page_ids, page_size=self.page_size,
                                        skip_pages=req.n_shared_pages,
                                        n_tokens=len(req.prompt))
             n_prompt_pages = -(-len(req.prompt) // self.page_size)

@@ -52,7 +52,8 @@ def check_prefix_reuse_across_row_blocks(lm) -> None:
     """Serve engines on ``lm`` at a max_seq of one prefill row block
     (``PREFILL_ROWS``) and 64 positions more: a short prompt is padded to
     one block, not to max_seq, and a two-block prompt that reuses a
-    one-block prompt's pages gets a cold engine's logits bit for bit."""
+    one-block prompt's pages gets a cold engine's logits bit for bit (a
+    Mamba model recomputes the shared head's state in its own prefill)."""
     from repro_torch.models.runtime import PREFILL_ROWS
     from repro_torch.serve import ServeEngine
 
@@ -64,8 +65,9 @@ def check_prefix_reuse_across_row_blocks(lm) -> None:
     prompt_b = np.concatenate([head, rng.randint(0, vocab, rows + 12)])
     warm = ServeEngine("", **kw)
     assert warm.rt.prefill_rows == rows
-    assert warm._prefill(prompt_a)[1][0]["k"].shape[2] == rows
-    assert warm._prefill(prompt_b)[1][0]["k"].shape[2] == 2 * rows
+    if lm.layers[0].spec.mixer == "attn":
+        assert warm._prefill(prompt_a)[1][0]["k"].shape[2] == rows
+        assert warm._prefill(prompt_b)[1][0]["k"].shape[2] == 2 * rows
     warm.submit(prompt_a, 4)
     warm.run()
     r_warm = warm.submit(prompt_b, 4)

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.optim.simcluster", "repro_torch.kernels.sdca.ops",
                    "repro_torch.kernels.sdca.build", "repro_torch.core.hemingway",
                    "repro_torch.kernels.flash_attention.ops",
-                   "repro_torch.kernels.flash_decode.ops", "repro_torch.models.model",
+                   "repro_torch.kernels.flash_decode.ops", "repro_torch.kernels.ssm_scan.ops",
+                   "repro_torch.models.mamba", "repro_torch.models.model",
                    "repro_torch.serve.engine", "repro_torch.serve.planner",
                    "repro_torch.telemetry.tracker", "repro_torch.launch.serve"):
         assert module in report["imported"]
@@ -74,6 +75,8 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: quickstart.main(["--n", "64", "--d", "4", "--ms", "1"]),
         lambda: LM(get_smoke_config("qwen3-14b")),
         lambda: ServeEngine("qwen3-14b"),
+        lambda: ServeEngine("falcon-mamba-7b"),
+        lambda: serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--continuous"]),
         lambda: serve.main(["--smoke", "--continuous"]),
     ]
     for call in calls:

@@ -75,7 +75,7 @@ def test_lm_prefill_and_paged_decode_match_reference(dtype):
         _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype)
         ref_cache = ref_write_prefill(ref_cache, ref_pre, axes, slot=slot,
                                       page_ids=list(TABLES[slot, :pages]), page_size=PAGE)
-        write_prefill(cache, pre, page_ids=list(TABLES[slot, :pages]),
+        write_prefill(cache, pre, slot=slot, page_ids=list(TABLES[slot, :pages]),
                       page_size=PAGE)
 
     ref_decode = jax.jit(ref_lm.decode_step_paged)
@@ -129,6 +129,6 @@ def test_prefill_padding_is_inert():
 def test_unported_archs_raise():
     from repro_torch.models.model import LM
 
-    for arch in ("deepseek-v2-236b", "falcon-mamba-7b", "musicgen-medium"):
+    for arch in ("deepseek-v2-236b", "jamba-1.5-large-398b", "musicgen-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LM(get_smoke_config(arch), device="cpu")

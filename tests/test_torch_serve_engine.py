@@ -19,6 +19,14 @@ equal to a cold engine's (the CLI's check, and across prefill row blocks),
 ``stream`` and ``gather`` giving
 bitwise equal streams, a page pool that never hands out the scratch page,
 and a capacity planner that fits on the port's ``serve_step`` events.
+
+falcon-mamba (smoke: 1 Mamba layer, d_inner 128, d_state 4) is held the
+same way: float32 token streams and logits against the reference engine on
+the same trace (every prompt there has at least the 3 tokens the
+reference's conv tail needs, ``tests/test_torch_mamba.py``), and in bf16
+whole-prompt reuse, which restores the recurrent state, bitwise equal to
+the first serving of the prompt, as ``tests/test_serve.py`` holds the
+reference.
 """
 import dataclasses
 
@@ -61,14 +69,16 @@ def test_trace_copy_is_the_reference_trace():
             assert np.array_equal(p1, p2) and (g1, a1, f1) == (g2, a2, f2)
 
 
-def test_engine_token_streams_match_reference_in_float32():
-    ref = Float32RefEngine("qwen3-14b", smoke=True, seed=0, **ENGINE)
+@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+def test_engine_token_streams_match_reference_in_float32(arch):
+    ref = Float32RefEngine(arch, smoke=True, seed=0, **ENGINE)
     specs = ref_trace_specs(ref.cfg, 16, 8, 0)
+    assert min(len(p) for p, _, _, _ in specs) >= 3
     ref_reqs = _serve(ref, specs)
 
-    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     lm = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, ref.params), device="cpu")
-    eng = ServeEngine("qwen3-14b", lm=lm, paged_impl="stream", **ENGINE)
+    eng = ServeEngine(arch, lm=lm, paged_impl="stream", **ENGINE)
     reqs = _serve(eng, specs)
 
     margins = []
@@ -84,8 +94,9 @@ def test_engine_token_streams_match_reference_in_float32():
     assert eng.step_count == ref.step_count
 
 
-def test_cli_serves_the_trace_and_prefix_reuse_is_bit_identical(capsys):
-    result = port_cli.main(["--arch", "qwen3-14b", "--smoke", "--continuous",
+@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+def test_cli_serves_the_trace_and_prefix_reuse_is_bit_identical(capsys, arch):
+    result = port_cli.main(["--arch", arch, "--smoke", "--continuous",
                             "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served 8/8 requests" in out
@@ -142,12 +153,34 @@ def test_unported_engine_options_raise():
     for kw in (dict(prefill_chunk=8), dict(speculate=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServeEngine("qwen3-14b", device="cpu", **kw)
+        with pytest.raises(ValueError, match="recurrent-state layers"):
+            ServeEngine("falcon-mamba-7b", device="cpu", **kw)
     eng = ServeEngine("qwen3-14b", device="cpu", max_seq=32)
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(np.arange(30), 4)
 
 
-def test_bf16_prefix_reuse_bitwise_across_prefill_row_blocks():
-    lm = LM(get_smoke_config("qwen3-14b"), device="cpu").init_params(
+@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+def test_bf16_prefix_reuse_bitwise_across_prefill_row_blocks(arch):
+    lm = LM(get_smoke_config(arch), device="cpu").init_params(
         torch.Generator().manual_seed(0))
     check_prefix_reuse_across_row_blocks(lm)
+
+
+def test_full_prompt_reuse_with_mamba_state():
+    """The port of ``tests/test_serve.py::test_full_prompt_reuse_with_mamba_state``
+    (bf16, the same geometry): the second serving of a prompt skips its
+    prefill and restores the stored state, and its tokens and logits are
+    bitwise those of the first."""
+    rng = np.random.RandomState(5)
+    prompt = rng.randint(0, 256, 16).astype(np.int32)
+    eng = ServeEngine("falcon-mamba-7b", device="cpu", collect_logits=True, max_batch=2,
+                      page_size=8, max_seq=64, seed=0)
+    r1 = eng.submit(prompt, max_new_tokens=4)
+    eng.run()
+    r2 = eng.submit(prompt, max_new_tokens=4)
+    eng.run()
+    assert not r1.prefill_skipped and r2.prefill_skipped
+    assert r1.generated == r2.generated
+    for got, want in zip(r2.logits_trace, r1.logits_trace):
+        np.testing.assert_array_equal(got, want)
