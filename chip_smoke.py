@@ -3,13 +3,16 @@
 
   python3 chip_smoke.py
 
-It drives the port's three paths, each with every kernel launch count set
+It drives the port's four paths, each with every kernel launch count set
 to 0 just before it and read just after: the Hemingway loop on the local
-SDCA kernel (K1); serving qwen3-14b at full width through the
-continuous-batching engine on the flash forward (K3) and paged decode (K2)
-kernels; and serving falcon-mamba-7b at full width through the same engine
-on the selective scan kernel (K4).  Phases, each of which exits non-zero on
-failure:
+SDCA kernel (K1); the kernel autotuner (``python -m repro_torch.kernels.tune``
+and ``ensure`` at qwen3-14b's shapes), which times every kernel and is the
+only caller of the contiguous flash decode kernel (K5); serving qwen3-14b at
+full width through the continuous-batching engine on the flash forward (K3)
+and paged decode (K2) kernels, its capacity planner seeded and K2 blocked
+from the tuner's cache; and serving falcon-mamba-7b at full width through the
+same engine on the selective scan kernel (K4).  Phases, each of which exits
+non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
    2. build: compiles every kernel from the sources here, one nvcc each, all
@@ -26,22 +29,36 @@ failure:
       qwen3-14b's shapes, within the stated tolerances;
    9. small-input check of the LM: the smoke qwen3-14b on the card against
       the plain versions on the CPU, with the same weights;
+   9b. the autotuner, needing no model weights: (a) K3, K5 and K2 against
+      their plain versions at every shape and config the tuner path times
+      them at (the smoke preset's and qwen3-14b's), ``decode_attention_auto``
+      equal to the direct K5 call bit for bit, and K5 also at qwen3-14b's
+      grouped decode shape (G 5) and at lengths 0, 1, S and S not a multiple
+      of block_k; (b) ``python -m repro_torch.kernels.tune --preset smoke
+      --telemetry`` in process: all six families on the card, every kernel's
+      launches equal to the sweep's calls, sdca picking the kernel, and K4
+      bit-identical across every chunk it takes; (c) ``ensure`` at qwen3-14b's
+      shapes into two cache files, the serve CLI's (paged decode at b 1, 2, 4)
+      and the long run's, each winner with its wall-clock and device time;
   10. the serve path at full width: ``python -m repro_torch.launch.serve
-      --arch qwen3-14b --continuous`` in process (all 40 layers, d_model
-      5120), with K3 launches = 40 x prefills and K2 launches = 40 x decode
-      steps;
+      --arch qwen3-14b --continuous --tune-cache <the CLI's file>`` in process
+      (all 40 layers, d_model 5120): 3 kernel rows seed the planner, K2 runs
+      at the tuned pages_per_program, K3 launches = 40 x prefills and K2
+      launches = 40 x decode steps;
   11. a longer serve run at full width: 8 requests of 1024-token prompts
-      arriving together, 64 tokens each, max_batch 8 (time to first token,
-      decode step time, tokens/s, peak memory, a window of decode steps
-      profiled for device activity only);
+      arriving together, 64 tokens each, max_batch 8, paged decode at the
+      long run's tuned pages_per_program (time to first token, decode step
+      time, tokens/s, peak memory, a window of decode steps profiled for
+      device activity only);
   11b. prefill over row blocks at full width: a short prompt's prefill
       padded to one block of 256, 512, 1024 rows and max_seq, against no
       padding; a 1024-token prompt in blocks of each size; and a two-block prompt
       that reuses a one-block prompt's pages, bit for bit against a cold
       engine;
-  12. K3's and K2's times per launch against their bounds, their plain
-      versions' times, and one PyTorch call's time for the same function;
-      qwen3-14b is freed after this phase;
+  12. K3's, K2's and K5's times per launch against their bounds, their plain
+      versions' times, and one PyTorch call's time for the same function (K2
+      at pages_per_program 4 and at the tuned value, K5 at the tuner's shape
+      and at qwen3-14b's grouped one); qwen3-14b is freed before this phase;
   13. K4 against its plain version on the card at falcon-mamba-7b's shapes:
       a prefill (B 1, S 1024, a padded tail, a nonzero initial state) and a
       decode step (B 8, S 1, the state updated in place), within the stated
@@ -59,6 +76,7 @@ The last lines are one JSON object with every kernel's summary, the card's
 """
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -130,6 +148,21 @@ PATH_KERNELS = {QWEN: {"flash_fwd": (1, 0), "paged_decode": (0, 1)},
                 MAMBA: {"selective_scan": (1, 1)}}
 LONG_PROMPT, LONG_GEN, LONG_BATCH = 1024, 64, 8
 
+# The autotuner: timed calls per candidate (one warm-up is added), and the
+# qwen3-14b shapes it is asked for.  The serve CLI runs max_batch 4 and
+# max_seq 96 (6 pages of 16); the long run max_batch 8 and 1088 positions.
+TUNE_ITERS = 5
+CLI_DECODE_BATCHES = (1, 2, 4)
+CLI_PAGES, LONG_PAGES = 6, (LONG_PROMPT + LONG_GEN) // 16
+# The families whose kernels phase 9b (a) holds against their plain versions
+# at the tuner's shapes, each kernel's by name
+TUNED_KERNELS = {"flash_attention": "flash_fwd", "flash_decode": "flash_decode",
+                 "flash_decode_paged": "paged_decode"}
+# K2's row of the kernels line is timed at the reference's default blocking,
+# a fixed yardstick (the tuned value, which host noise can pick, is printed
+# beside it)
+K2_ROW_PAGES_PER_PROGRAM = 4
+
 
 def fail(message: str) -> None:
     print(f"chip_smoke: FAILED: {message}", file=sys.stderr)
@@ -148,7 +181,8 @@ def kernel_wrappers():
     from repro_torch.kernels.ssm_scan import ops as ss_ops
 
     return {"local_sdca": sdca_ops.local_sdca, "flash_fwd": fa_ops.flash_fwd,
-            "paged_decode": fd_ops.paged_decode, "selective_scan": ss_ops.selective_scan}
+            "paged_decode": fd_ops.paged_decode, "selective_scan": ss_ops.selective_scan,
+            "flash_decode": fd_ops.flash_decode}
 
 
 def reset_launches() -> None:
@@ -380,6 +414,18 @@ def hemingway_path(dev):
     }
 
 
+def check_against_plain(torch, name, got, want, v, what) -> float:
+    """Fails unless ``got`` is finite and within MAX_BF16_ULPS of ``want``
+    beyond V_ATOL_OF_MAX max|v|; returns the largest absolute error."""
+    atol = V_ATOL_OF_MAX * float(v.float().abs().max())
+    ulps, err = bf16_ulps(got, want, atol), float((got.float() - want.float()).abs().max())
+    print(f"{name} {what}: max|d|={err:.3e}, {bf16_ulps(got, want):.0f} bf16 ulp, "
+          f"{ulps:.0f} bf16 ulp beyond {atol:.2e}")
+    if not torch.isfinite(got.float()).all() or ulps > MAX_BF16_ULPS:
+        fail(f"{name} disagrees with its plain version at {what}")
+    return err
+
+
 def random_pages(torch, gen, dev, b, npp, n_pages):
     """Page tables drawing distinct pages 1.. in a shuffled order."""
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
@@ -413,14 +459,9 @@ def serve_kernels_vs_plain(dev, cfg):
         torch.cuda.synchronize()
         want = flash_fwd_ref(q, k, v, kv_lens, causal=True, sm_scale=d ** -0.5,
                              q_offset=q_offset, block_q=16, block_k=16)
-        atol = V_ATOL_OF_MAX * float(v.float().abs().max())
-        ulps, err = bf16_ulps(got, want, atol), float((got.float() - want.float()).abs().max())
-        print(f"flash_fwd B={b} Sq={sq} Skv={skv} kv_lens={lens} q_offset={q_offset}: "
-              f"max|d|={err:.3e}, {bf16_ulps(got, want):.0f} bf16 ulp, "
-              f"{ulps:.0f} bf16 ulp beyond {atol:.2e}")
-        if not torch.isfinite(got.float()).all() or ulps > MAX_BF16_ULPS:
-            fail(f"flash_fwd disagrees with its plain version at Sq={sq}")
-        errs["flash_fwd"] = max(errs["flash_fwd"], err)
+        errs["flash_fwd"] = max(errs["flash_fwd"], check_against_plain(
+            torch, "flash_fwd", got, want, v,
+            f"B={b} Sq={sq} Skv={skv} kv_lens={lens} q_offset={q_offset}"))
 
     lengths = [1, 1, 5, 16, 17, 333, 1088, 1120]  # two scratch rows, ragged, page-unaligned
     b, page, npp = len(lengths), 16, 70  # npp = 70 is not a multiple of ppp = 4
@@ -433,13 +474,8 @@ def serve_kernels_vs_plain(dev, cfg):
     got = fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5, pages_per_program=4)
     torch.cuda.synchronize()
     want = paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5, pages_per_program=4)
-    atol = V_ATOL_OF_MAX * float(vp.float().abs().max())
-    ulps, err = bf16_ulps(got, want, atol), float((got.float() - want.float()).abs().max())
-    print(f"paged_decode B={b} lengths={lengths} npp={npp} ppp=4: max|d|={err:.3e}, "
-          f"{bf16_ulps(got, want):.0f} bf16 ulp, {ulps:.0f} bf16 ulp beyond {atol:.2e}")
-    if not torch.isfinite(got.float()).all() or ulps > MAX_BF16_ULPS:
-        fail("paged_decode disagrees with its plain version")
-    errs["paged_decode"] = err
+    errs["paged_decode"] = check_against_plain(torch, "paged_decode", got, want, vp,
+                                               f"B={b} lengths={lengths} npp={npp} ppp=4")
     print(f"tolerance: at most {MAX_BF16_ULPS} bf16 ulp of the output beyond "
           f"{V_ATOL_OF_MAX:.2e} max|v|")
     return errs
@@ -498,17 +534,238 @@ def small_lm_check(dev, arch):
           f"largest logit (limits {LM_MAX_OF_SCALE}, {LM_MEAN_OF_SCALE})")
 
 
-def serve_cli_path(arch, n_layers, d_model, path_no):
-    """Phases 10 and 15: the CLI's --continuous path at full width.  Returns
-    the model and the kernels' launches."""
+def k5_inputs(torch, gen, b, hq, hk, s, d, lengths=None):
+    """bf16 q (B, Hq, D), K and V (B, Hk, S, D), int32 lengths
+    (``ragged_lengths(b, s)`` unless given)."""
+    from repro_torch.kernels.tune import ragged_lengths
+
+    dev = gen.device
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    lens = ragged_lengths(b, s) if lengths is None else lengths
+    return (bf16(b, hq, d), bf16(b, hk, s, d), bf16(b, hk, s, d),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def tune_asks(cfg) -> dict:
+    """The (family, shape) pairs ``ensure`` is asked for at qwen3-14b's
+    shapes, by cache file: the planner counts every ``flash_decode_paged``
+    entry of the file it is given, so the CLI's holds only its own."""
+    hk, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    paged = dict(hk=hk, g=g, d=dh, page=16)
+    return {"cli": [("flash_decode_paged", dict(b=b, **paged, npp=CLI_PAGES))
+                    for b in CLI_DECODE_BATCHES],
+            "long": [("flash_decode_paged", dict(b=LONG_BATCH, **paged, npp=LONG_PAGES)),
+                     ("flash_decode", dict(b=LONG_BATCH, h=cfg.n_heads, s=LONG_PROMPT + LONG_GEN,
+                                           d=dh)),
+                     ("flash_attention", dict(b=1, h=cfg.n_heads, s=LONG_PROMPT, d=dh))]}
+
+
+def plain_call(family, config, args):
+    """The plain PyTorch version of the call ``measured_call`` gives for
+    ``config``, on the same tensors."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    if family == "flash_attention":
+        q, k, v = args
+        lens = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32, device=q.device)
+        return flash_fwd_ref(q, k, v, lens, causal=True, sm_scale=1.0 / (q.shape[3] ** 0.5),
+                             q_offset=0, block_q=16, block_k=config["block_k"])
+    if family == "flash_decode":
+        q, k, v, lens = args
+        return flash_decode_ref(q, k, v, lens, sm_scale=1.0 / (q.shape[2] ** 0.5),
+                                block_k=config["block_k"])
+    return fd_ops.paged_decode_attention(*args, impl="stream",
+                                         pages_per_program=config["pages_per_program"])
+
+
+def tuned_kernels_vs_plain(dev, cfg) -> dict:
+    """Phase 9b (a): each kernel the tuner path times, at every shape and
+    config it times it at, against its plain version; K5 also at qwen3-14b's
+    grouped decode shape and edge lengths.  Returns each kernel's largest
+    absolute error."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.tune import SWEEP_SHAPES, candidates_for, measured_call
+    from repro_torch.kernels.tune.roofline import prune
+
+    phase("the tuner's kernels vs plain (bf16) at every shape and config the tuner path "
+          "times them at")
+    asks = [(family, SWEEP_SHAPES["smoke"][family]) for family in TUNED_KERNELS]
+    for pairs in tune_asks(cfg).values():
+        asks += pairs
+    errs = {name: 0.0 for name in TUNED_KERNELS.values()}
+    for family, shape in asks:
+        name = TUNED_KERNELS[family]
+        kept, _ = prune(family, shape, candidates_for(family, shape), "bfloat16")
+        for est in kept:
+            fn, args = measured_call(family, shape, "bfloat16", dev, est.config)
+            got = fn(*args)
+            torch.cuda.synchronize()
+            want = plain_call(family, est.config, args)
+            errs[name] = max(errs[name], check_against_plain(
+                torch, name, got, want, args[2], f"{family} {shape} {est.config}"))
+            if family == "flash_decode":  # measured_call's fn is decode_attention_auto
+                q, k, v, lens = args
+                direct = fd_ops.flash_decode(q, k, v, lens, sm_scale=1.0 / (q.shape[2] ** 0.5),
+                                             block_k=est.config["block_k"])
+                if not torch.equal(direct, got):
+                    fail("decode_attention_auto(use_kernel=True) differs from the direct K5 "
+                         f"call at {shape} {est.config}")
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gqa = dict(b=LONG_BATCH, hq=cfg.n_heads, hk=cfg.n_kv_heads, s=LONG_PROMPT + LONG_GEN,
+               d=cfg.head_dim)
+    # qwen3-14b's grouped decode shape, and lengths 0, 1, S, and S = 100 not a
+    # multiple of block_k 64
+    for shape, lengths, block_k in ((gqa, None, fd_ops.DEFAULT_DECODE_BLOCK_K),
+                                    (dict(gqa, b=4, s=100), [0, 1, 100, 77], 64)):
+        q, k, v, lens = k5_inputs(torch, gen, **shape, lengths=lengths)
+        scale = shape["d"] ** -0.5
+        got = fd_ops.flash_decode(q, k, v, lens, sm_scale=scale, block_k=block_k)
+        torch.cuda.synchronize()
+        want = flash_decode_ref(q, k, v, lens, sm_scale=scale, block_k=block_k)
+        errs["flash_decode"] = max(errs["flash_decode"], check_against_plain(
+            torch, "flash_decode", got, want, v, f"{shape} lengths={lens.tolist()} "
+            f"block_k={block_k}"))
+        if any(got[i].float().abs().any() for i, n in enumerate(lens.tolist()) if n == 0):
+            fail("flash_decode: a row of length 0 is not zeros")
+    print(f"tolerance: at most {MAX_BF16_ULPS} bf16 ulp of the output beyond "
+          f"{V_ATOL_OF_MAX:.2e} max|v|; an empty row exactly 0; decode_attention_auto "
+          "bit-identical to the direct K5 call")
+    return errs
+
+
+def tune_rows(cache) -> None:
+    from repro_torch.kernels.tune import bench_rows
+
+    for name, us, derived in bench_rows(cache):
+        print(f"  {name},{us:.1f},{derived}")
+
+
+def expected_sweep_launches(entries) -> dict:
+    """Each kernel's launches for sweeping ``entries`` afresh: one warm-up
+    and TUNE_ITERS timed calls per candidate the roofline keeps, each call
+    one launch (``prefill_chunk``: one K3 launch per chunk of the prompt;
+    ``sdca``: K1 only for its ``use_pallas: 1`` candidate)."""
+    from repro_torch.kernels.tune import candidates_for
+    from repro_torch.kernels.tune.roofline import prune
+
+    kernel_of = {"flash_attention": "flash_fwd", "prefill_chunk": "flash_fwd",
+                 "flash_decode": "flash_decode", "flash_decode_paged": "paged_decode",
+                 "ssm_scan": "selective_scan", "sdca": "local_sdca"}
+    out = {name: 0 for name in kernel_wrappers()}
+    for e in entries:
+        family, shape = e["family"], e["shape"]
+        kept, _ = prune(family, shape, candidates_for(family, shape), e["dtype"])
+        if len(kept) != e["candidates_swept"]:
+            fail(f"{family}: swept {e['candidates_swept']}, the roofline keeps {len(kept)}")
+        per_candidate = [-(-shape["p"] // est.config["chunk"]) if family == "prefill_chunk"
+                         else int(est.config.get("use_pallas", 1)) for est in kept]
+        out[kernel_of[family]] += (TUNE_ITERS + 1) * sum(per_candidate)
+    return out
+
+
+def tuner_path(dev, cfg, workdir: Path):
+    """Phase 9b (b, c): the autotuner on the card.  Returns the kernels'
+    launches over the whole path (the sweeps' calls, not the timings after
+    them) and the two cache files."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.kernels.tune import ConfigCache, ensure, measured_call
+    from repro_torch.kernels.tune import __main__ as tune_cli
+    from repro_torch.kernels.tune.roofline import MAX_SMEM_PER_BLOCK, k4_smem_bytes
+
+    phase("main path 2: python -m repro_torch.kernels.tune --preset smoke --telemetry")
+    smoke_file = workdir / "tune_smoke.json"
+    reset_launches()
+    entries = tune_cli.main(["--preset", "smoke", "--telemetry", "--iters", str(TUNE_ITERS),
+                             "--cache", str(smoke_file)])
+    counts = read_launches()
+    expected = expected_sweep_launches(entries)
+    print(f"launches {counts}, expected from the sweep's calls {expected}")
+    if len(entries) != 6 or any(e["backend"] != "cuda" for e in entries):
+        fail(f"the smoke sweep did not run all six families on the card: {entries}")
+    if counts != expected or not counts["flash_decode"] or not counts["local_sdca"]:
+        fail(f"smoke sweep launches {counts} != the sweep's calls {expected}")
+    sdca = next(e for e in entries if e["family"] == "sdca")
+    if sdca["config"] != {"use_pallas": 1}:
+        fail(f"the sdca sweep picked {sdca['config']}, not the kernel")
+    launches = dict(counts)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, dt, a, b_ssm, c_ssm, d, h0 = scan_inputs(torch, gen, get_config(MAMBA), **PREFILL_SCAN)
+    n = a.shape[1]
+    max_chunk = max(c for c in range(1, 4096) if k4_smem_bytes(n, c) <= MAX_SMEM_PER_BLOCK)
+    chunks = (1, 7, 16, 32, 64, 128, 256, max_chunk)
+    ref = None
+    for chunk in chunks:
+        h = h0.clone()
+        y, _ = ss_ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h, chunk=chunk)
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = (y, h)
+        if not (torch.equal(y, ref[0]) and torch.equal(h, ref[1])):
+            fail(f"selective_scan at chunk {chunk} differs from chunk {chunks[0]}")
+    print(f"selective_scan B=1 S={LONG_PROMPT} Dn={x.shape[2]} N={n}: y and state bit-identical "
+          f"at chunks {chunks} (the largest that fits shared memory: {max_chunk})")
+
+    phase("autotuner: ensure at qwen3-14b's shapes (two cache files)")
+    files = {"cli": workdir / "tune_qwen3_cli.json", "long": workdir / "tune_qwen3_long.json"}
+    asks = tune_asks(cfg)
+    caches = {which: ConfigCache(str(path)) for which, path in files.items()}
+    reset_launches()
+    t0 = time.perf_counter()
+    for which, cache in caches.items():
+        for family, shape in asks[which]:
+            ensure(family, shape, device=dev, cache=cache, iters=TUNE_ITERS)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    ensured = [cache.entries[k] for cache in caches.values() for k in sorted(cache.entries)]
+    expected = expected_sweep_launches(ensured)
+    print(f"{len(ensured)} sweeps in {seconds:.1f} s; launches {counts}, expected from the "
+          f"sweeps' calls {expected}")
+    if counts != expected or not counts["flash_decode"]:
+        fail(f"ensure launches {counts} != the sweeps' calls {expected}")
+    for name in launches:
+        launches[name] += counts[name]
+    for which, cache in caches.items():
+        print(f"{which} file {files[which].name}: {len(cache.entries)} entries")
+        for key in sorted(cache.entries):
+            e = cache.entries[key]
+            fn, args = measured_call(e["family"], e["shape"], e["dtype"], dev, e["config"])
+            dev_us = cuda_ms(lambda: fn(*args), reps=20) * 1e3
+            print(f"  {e['family']} {e['shape']}: {e['config']} {e['us_per_call']:.1f} us wall "
+                  f"clock, {dev_us:.1f} us by CUDA events over 20 calls back to back")
+        tune_rows(cache)
+    return {"launches": launches, "files": files}
+
+
+def serve_cli_path(arch, n_layers, d_model, path_no, tune_cache=None):
+    """Phases 10 and 15: the CLI's --continuous path at full width, with
+    ``--tune-cache`` when ``tune_cache`` is given.  Returns the model and the
+    kernels' launches."""
     from repro_torch.launch import serve
 
-    phase(f"main path {path_no}: python -m repro_torch.launch.serve --arch {arch} "
-          "--continuous (full width, all layers)")
+    argv = ["--arch", arch, "--continuous"]
+    if tune_cache is not None:
+        argv += ["--tune-cache", str(tune_cache)]
+    phase(f"main path {path_no}: python -m repro_torch.launch.serve {' '.join(argv)} "
+          "(full width, all layers)")
     reset_launches()
     t0 = time.perf_counter()
     try:
-        result = serve.main(["--arch", arch, "--continuous"])
+        result = serve.main(argv)
     except SystemExit as e:
         fail(f"the serve CLI exited with {e.code}")
     seconds = time.perf_counter() - t0
@@ -533,12 +790,27 @@ def serve_cli_path(arch, n_layers, d_model, path_no):
     check_path_launches(arch, counts, cfg.n_layers, prefills, steps, f"{arch} CLI")
     if result["plan"] is None:
         fail("no capacity plan")
+    if tune_cache is not None:
+        from repro_torch.kernels.tune import ConfigCache
+
+        entries = ConfigCache(str(tune_cache)).entries.values()
+        tuned = next(e["config"]["pages_per_program"] for e in entries
+                     if e["family"] == "flash_decode_paged" and e["shape"]["b"] == warm.max_batch)
+        print(f"planner seeded with {result['tune_rows']} tuned kernel rows; paged decode ran "
+              f"at pages_per_program={result['pages_per_program']} (the cache's b="
+              f"{warm.max_batch} entry: {tuned})")
+        if result["tune_rows"] != len(CLI_DECODE_BATCHES):
+            fail(f"seeded with {result['tune_rows']} kernel rows, not {len(CLI_DECODE_BATCHES)}")
+        if result["pages_per_program"] != tuned:
+            fail(f"paged decode ran at {result['pages_per_program']}, not the tuned {tuned}")
     return warm.lm, counts
 
 
-def long_serve_run(arch, lm):
+def long_serve_run(arch, lm, tune_cache=None):
     """Phases 11 and 16: 8 requests of 1024-token prompts arriving together,
-    64 generated tokens each, max_batch 8, at full width."""
+    64 generated tokens each, max_batch 8, at full width; with ``tune_cache``
+    the process's tuner cache points at it, so paged decode runs at its
+    tuned pages_per_program."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -550,6 +822,21 @@ def long_serve_run(arch, lm):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine("", lm=lm, max_batch=LONG_BATCH, max_seq=LONG_PROMPT + LONG_GEN)
+    ppp = None
+    if tune_cache is not None:
+        from repro_torch.kernels import tune
+        from repro_torch.kernels.flash_decode.ops import pages_per_program_for
+
+        tune.set_default_cache(str(tune_cache))
+        cfg = lm.cfg
+        ppp = pages_per_program_for(LONG_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                    eng.page_size, eng.pages_per_seq, lm.dtype, "cuda")
+        shape = {"b": LONG_BATCH, "hk": cfg.n_kv_heads, "g": cfg.n_heads // cfg.n_kv_heads,
+                 "d": cfg.head_dim, "page": eng.page_size, "npp": eng.pages_per_seq}
+        entry = tune.lookup("flash_decode_paged", shape, lm.dtype, "cuda")
+        print(f"paged decode: pages_per_program={ppp} from {tune_cache.name} at {shape}")
+        if entry is None or entry["pages_per_program"] != ppp:
+            fail(f"the long run's decode shape {shape} has no tuned entry in {tune_cache}")
     rng = np.random.RandomState(1)
     reqs = [eng.submit(rng.randint(0, lm.cfg.vocab_size, LONG_PROMPT), LONG_GEN)
             for _ in range(LONG_BATCH)]
@@ -597,6 +884,7 @@ def long_serve_run(arch, lm):
         "wall_s": wall,
         "peak_memory_gb": peak / 1e9,
         **{f"{name}_launches": counts[name] for name in PATH_KERNELS[arch]},
+        "pages_per_program": ppp,
         "profiled_decode_steps": len(profiled_steps),
         "profiled_wall_ms": prof_wall_ms,
         "profiled_device_busy_ms": busy_ms,
@@ -679,10 +967,12 @@ def prefill_row_blocks(lm):
     return out
 
 
-def serve_kernel_timings(dev, cfg):
+def serve_kernel_timings(dev, cfg, tuned_ppp):
     """Phase 12.  Returns {kernel: (ms, plain_ms, library_ms, bound_ms,
-    bound_by, shape)} for K2 at the long run's decode shape and K3 at
-    Sq = Skv = 2048 (1024 printed too)."""
+    bound_by, shape)} for K2 at the long run's decode shape and
+    K2_ROW_PAGES_PER_PROGRAM (the tuned value printed too), K3 at Sq = Skv =
+    2048 (1024 printed too) and K5 at the tuner's qwen3-14b decode shape
+    (the grouped one printed too)."""
     import torch
     import torch.nn.functional as F
 
@@ -691,7 +981,7 @@ def serve_kernel_timings(dev, cfg):
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import paged_decode_stream
 
-    phase("K3 and K2 timings (CUDA events, after warm-up)")
+    phase("K3, K2 and K5 timings (CUDA events, after warm-up)")
     hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     hq = hk * g
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -721,17 +1011,13 @@ def serve_kernel_timings(dev, cfg):
               f"kernel at {100 * bound / ms:.2f}% of bound")
         timings["flash_fwd"] = (ms, plain, lib, bound, by, f"Sq=Skv={s}")
 
-    b, ctx, page, ppp = LONG_BATCH, LONG_PROMPT + LONG_GEN, 16, 4
+    b, ctx, page = LONG_BATCH, LONG_PROMPT + LONG_GEN, 16
     npp = ctx // page
     n_pages = 1 + b * npp
     kp, vp = bf16(n_pages, hk, page, d), bf16(n_pages, hk, page, d)
     tables = random_pages(torch, gen, dev, b, npp, n_pages)
     lens = torch.full((b,), ctx, dtype=torch.int32, device=dev)
     q = bf16(b, hk, g, d)
-    ms = cuda_ms(lambda: fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5,
-                                             pages_per_program=ppp), reps=50)
-    plain = cuda_ms(lambda: paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5,
-                                                pages_per_program=ppp), reps=5, warmup=1)
     idx = tables.long()
     k_dense = kp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
     v_dense = vp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
@@ -743,13 +1029,63 @@ def serve_kernel_timings(dev, cfg):
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     bound = max(bytes_ms, ops_ms)
     by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"paged_decode B={b} context={ctx} Hk={hk} G={g} D={d} ppp={ppp}: kernel {ms:.4f} ms, "
-          f"plain {plain:.3f} ms, SDPA on the gathered dense KV {lib:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s), "
-          f"kernel at {100 * bound / ms:.2f}% of bound; grid {b * hk} blocks on "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
-    timings["paged_decode"] = (ms, plain, lib, bound, by, f"B={b} context={ctx}")
+    for ppp in dict.fromkeys((K2_ROW_PAGES_PER_PROGRAM, tuned_ppp)):
+        ms = cuda_ms(lambda: fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5,
+                                                 pages_per_program=ppp), reps=50)
+        plain = cuda_ms(lambda: paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5,
+                                                    pages_per_program=ppp), reps=5, warmup=1)
+        print(f"paged_decode B={b} context={ctx} Hk={hk} G={g} D={d} ppp={ppp}: kernel "
+              f"{ms:.4f} ms, plain {plain:.3f} ms, SDPA on the gathered dense KV {lib:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s), "
+              f"kernel at {100 * bound / ms:.2f}% of bound; grid {b * hk} blocks on "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs"
+              f"{'' if ppp == K2_ROW_PAGES_PER_PROGRAM else ' (the tuned value)'}")
+        if ppp == K2_ROW_PAGES_PER_PROGRAM:
+            timings["paged_decode"] = (ms, plain, lib, bound, by,
+                                       f"B={b} context={ctx} ppp={ppp}")
+    timings["flash_decode"] = decode_kernel_timings(dev, cfg)
     return timings
+
+
+def decode_kernel_timings(dev, cfg):
+    """K5 at the wrapper's default tile against its bound, with ragged
+    lengths: the valid K and V read once per KV head, q and lengths read and
+    the output written once; 4 D operations per valid position and query
+    head.  Timed at qwen3-14b's grouped decode shape (Hk 8) and at the
+    tuner's (one KV head per query head, as the path runs it), whose times
+    are returned."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    block_k = fd_ops.DEFAULT_DECODE_BLOCK_K
+    b, hq, s, d = LONG_BATCH, cfg.n_heads, LONG_PROMPT + LONG_GEN, cfg.head_dim
+    for hk in (cfg.n_kv_heads, hq):  # the row's is the tuner's, one KV head a query head
+        q, k, v, lens = k5_inputs(torch, gen, b, hq, hk, s, d)
+        scale = d ** -0.5
+        valid = int(lens.sum())
+        nbytes = 2 * valid * hk * d * 2 + 2 * b * hq * d * 2 + b * 4
+        flops = 4 * valid * hq * d
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        q_sdpa = q.reshape(b, hq, 1, d)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q_sdpa, k, v, attn_mask=mask,
+                                                             enable_gqa=True), reps=50)
+        plain = cuda_ms(lambda: flash_decode_ref(q, k, v, lens, sm_scale=scale, block_k=block_k),
+                        reps=5, warmup=1)
+        ms = cuda_ms(lambda: fd_ops.flash_decode(q, k, v, lens, sm_scale=scale, block_k=block_k),
+                     reps=100)
+        print(f"flash_decode B={b} Hq={hq} Hk={hk} S={s} D={d} lengths {lens.tolist()} "
+              f"(sum {valid}) block_k={block_k}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"SDPA with a length mask {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s; {flops / 1e6:.1f} MFLOP), kernel at "
+              f"{100 * bound / ms:.2f}% of bound; grid {b * hk} blocks")
+    return ms, plain, lib, bound, by, f"B={b} Hq={hq} Hk={hk} S={s} block_k={block_k}"
 
 
 def scan_inputs(torch, gen, cfg, bt, s, n_valid=None):
@@ -894,7 +1230,8 @@ def main() -> None:
     dev = torch.device("cuda")
 
     phase("build")
-    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY, ss_ops.LIBRARY])
+    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY, fd_ops.DECODE_LIBRARY,
+               ss_ops.LIBRARY])
 
     k1 = hemingway_path(dev)
     torch.cuda.empty_cache()
@@ -902,18 +1239,26 @@ def main() -> None:
     cfg = get_config(QWEN)
     errs = serve_kernels_vs_plain(dev, cfg)
     small_lm_check(dev, QWEN)
-    lm, launches = serve_cli_path(QWEN, n_layers=40, d_model=5120, path_no=2)
-    long_serve_run(QWEN, lm)
+    for name, err in tuned_kernels_vs_plain(dev, cfg).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    workdir = ROOT / "results" / "chip_smoke"  # the tuner's cache files, made anew
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    tuner = tuner_path(dev, cfg, workdir)
+    lm, launches = serve_cli_path(QWEN, n_layers=40, d_model=5120, path_no=3,
+                                  tune_cache=tuner["files"]["cli"])
+    launches["flash_decode"] = tuner["launches"]["flash_decode"]
+    tuned_ppp = long_serve_run(QWEN, lm, tune_cache=tuner["files"]["long"])["pages_per_program"]
     prefill_row_blocks(lm)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    timings = serve_kernel_timings(dev, cfg)
+    timings = serve_kernel_timings(dev, cfg, tuned_ppp)
 
     cfg = get_config(MAMBA)
     errs["selective_scan"] = scan_kernel_vs_plain(dev, cfg)
     small_lm_check(dev, MAMBA)
-    lm, mamba_launches = serve_cli_path(MAMBA, n_layers=64, d_model=4096, path_no=3)
+    lm, mamba_launches = serve_cli_path(MAMBA, n_layers=64, d_model=4096, path_no=4)
     launches["selective_scan"] = mamba_launches["selective_scan"]
     long_serve_run(MAMBA, lm)
     del lm
@@ -928,7 +1273,9 @@ def main() -> None:
             ("paged_decode", "src/repro_torch/kernels/flash_decode/csrc/paged_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:214"),
             ("selective_scan", "src/repro_torch/kernels/ssm_scan/csrc/selective_scan.cu",
-             "src/repro/kernels/ssm_scan/kernel.py:65")):
+             "src/repro/kernels/ssm_scan/kernel.py:65"),
+            ("flash_decode", "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+             "src/repro/kernels/flash_decode/kernel.py:89")):
         ms, plain, lib, bound, by, _ = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,

@@ -2,10 +2,11 @@
 
 One builder for every hand-written kernel of the port.  A library is built at
 first use, into a ``build/`` directory beside its source (listed in
-.gitignore), under a name that carries a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
-is built or loaded when a module is imported: the CPU tests import every
-module, and this machine may have no CUDA toolkit.
+.gitignore), under a name that carries a hash of the source, the headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  Nothing is built or loaded when a module
+is imported: the CPU tests import every module, and a machine without a card
+may have no CUDA toolkit.
 
 Every source exposes a plain C interface: launch functions that return a
 ``cudaError_t`` as an int, and an error-string function.  Builds of different
@@ -48,11 +49,13 @@ class KernelLibrary:
 
     ``signatures`` maps each C function the port calls to its ctypes
     signature; ``error_fn`` names the function that turns an error code into
-    text."""
+    text; ``includes`` lists the headers the source includes, which the
+    library's name hashes with it."""
 
     def __init__(self, source: Path, stem: str, signatures: Dict[str, Signature],
-                 error_fn: str):
+                 error_fn: str, includes: Sequence[Path] = ()):
         self.source = Path(source)
+        self.includes = tuple(Path(p) for p in includes)
         self.stem = stem
         self.signatures = dict(signatures)
         self.error_fn = error_fn
@@ -61,7 +64,8 @@ class KernelLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        text = b"".join(p.read_bytes() for p in (self.source, *self.includes))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
         return self.build_dir / f"lib{self.stem}_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> dict:

@@ -8,6 +8,9 @@ tensors.
 CUDA tensor goes to the kernel or the call raises, nothing falls back to the
 plain version, and ``flash_fwd.launches`` counts the kernel's launches and
 only those.
+
+``decode_attention`` is the reference's plain one-token decode over a
+contiguous cache (``ops.py:245``); it is not a kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ LIBRARY = KernelLibrary(
     error_fn="flash_fwd_error_string")
 
 MAX_BLOCK_K = 64
+NEG_INF = -1e30
 
 
 def flash_fwd(
@@ -122,3 +126,35 @@ def flash_attention(
         kv_lens = torch.full((b,), skv, dtype=torch.int32, device=q.device)
     return flash_fwd(q, k, v, kv_lens, causal=causal, sm_scale=scale,
                      q_offset=int(q_offset), block_q=int(block_q), block_k=int(block_k))
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, Hq, D) one new token per sequence
+    k_cache: torch.Tensor,  # (B, Hk, S, D)
+    v_cache: torch.Tensor,  # (B, Hk, S, D)
+    lengths: torch.Tensor,  # (B,) number of valid cache positions
+    *,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token decode attention with the reference's arithmetic: products
+    of the stored values accumulated in float32, masked scores set to
+    ``NEG_INF``, p rounded to v's dtype before the PV product, the sum
+    divided by ``max(l, 1e-30)``.  A row of length 0 has every score masked
+    and gets the mean of V, as in the reference.  Returns (B, Hq, D) in q's
+    dtype."""
+    b, hq, d = q.shape
+    _, hk, s, _ = k_cache.shape
+    g = hq // hk
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / (d ** 0.5)
+    qf = q.reshape(b, hk, g, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qf.float(), k_cache.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] < lengths.to(q.device)[:, None]  # (B, S)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p.to(v_cache.dtype)
+    out = torch.einsum("bkgs,bksd->bkgd", pv.float(), v_cache.float())
+    out = out / torch.clamp(l, min=1e-30)
+    return out.reshape(b, hq, v_cache.shape[-1]).to(q.dtype)

@@ -1,2 +1,3 @@
-"""Paged flash decode (K2): CUDA kernel (csrc/paged_decode.cu), the plain
-versions ``stream`` and ``gather`` (ref.py) and the wrappers (ops.py)."""
+"""Flash decode: paged (K2, csrc/paged_decode.cu) and contiguous (K5,
+csrc/flash_decode.cu) CUDA kernels, their plain versions (ref.py) and the
+wrappers (ops.py)."""

@@ -24,32 +24,33 @@
 // the keys across blocks (split-KV) and overlapping the page loads (cp.async
 // or TMA) are the first things a later PR fixes.
 //
-// Design: grid = (Hk, B), 128 threads.  The block reads its own page ids
-// from the page table (Hopper has no scalar prefetch), stages each group of
-// pages_per_program pages of K and V in shared memory (positions at or past
-// the length zero-filled and never multiplied into the sums), computes the
-// G x (ppp * page) scores by (head, key) pairs, runs the online softmax per
-// query head in key order, and accumulates p v by (head, d) pairs.  The
-// Pallas grid's sequential page-group axis becomes this loop in the block.
-// Idle engine slots (length 1, every page the scratch page 0) get a finite
-// output.  The kernel launches on the caller's stream, allocates nothing and
-// does not synchronise.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design: grid = (Hk, B), 128 threads; the block body is decode_tile.cuh's,
+// shared with K5, in tiles of pages_per_program pages, with each position's
+// K/V row found through the row's page table (the block reads its own page
+// ids: Hopper has no scalar prefetch).  Groups past the row's length are
+// skipped.  The Pallas grid's sequential page-group axis becomes the block's
+// loop over tiles.  Idle engine slots (length 1, every page the scratch page
+// 0) get a finite output.  The kernel launches on the caller's stream,
+// allocates nothing and does not synchronise.
+#include "decode_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kPad = 8;  // bf16 padding per K/V row in shared memory
-constexpr float kNegInf = -1e30f;
+using decode_tile::kThreads;
+using decode_tile::smem_bytes;
 
-__host__ __device__ inline size_t smem_bytes(int g, int d, int blk) {
-  return static_cast<size_t>(g) * d * 4                  // q (float32)
-         + 2 * static_cast<size_t>(blk) * (d + kPad) * 2 // K and V of one group (bf16)
-         + static_cast<size_t>(g) * blk * 4              // scores / p
-         + static_cast<size_t>(g) * d * 4                // accumulator
-         + 3 * static_cast<size_t>(g) * 4;               // m, l, alpha
-}
+// Position pos of one (row, KV head) lies in page table[pos / page] of the
+// pool (n_pages, Hk, page, D), at slot pos % page; ids outside the pool clamp.
+template <int D>
+struct PagedRows {
+  const int* table;
+  int n_pages, hk, h, page;
+  __device__ __forceinline__ size_t operator()(int pos) const {
+    int pid = table[pos / page];
+    pid = pid < 0 ? 0 : (pid >= n_pages ? n_pages - 1 : pid);
+    return ((static_cast<size_t>(pid) * hk + h) * page + pos % page) * D;
+  }
+};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -57,105 +58,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ lengths,
                     const int* __restrict__ page_tables, __nv_bfloat16* __restrict__ out,
                     int hk, int g, int n_pages, int page, int npp, int ppp, float scale) {
-  constexpr int kRow = D + kPad;
-  constexpr int kVec = D / 8;  // 16-byte vectors per row
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int blk = ppp * page;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(qs + g * D);
-  __nv_bfloat16* vs = ks + blk * kRow;
-  float* ps = reinterpret_cast<float*>(vs + blk * kRow);
-  float* acc = ps + g * blk;
-  float* ms = acc + g * D;
-  float* ls = ms + g;
-  float* as = ls + g;
-
-  const size_t q_base = (static_cast<size_t>(b) * hk + h) * g * D;
-  for (int idx = tid; idx < g * D; idx += kThreads) {
-    qs[idx] = __bfloat162float(q[q_base + idx]);
-    acc[idx] = 0.f;
-  }
-  for (int r = tid; r < g; r += kThreads) {
-    ms[r] = kNegInf;
-    ls[r] = 0.f;
-  }
-
   int len = lengths[b];
   len = len < 0 ? 0 : (len > npp * page ? npp * page : len);
-  const int n_groups = (len + blk - 1) / blk;
-  const int* table = page_tables + static_cast<size_t>(b) * npp;
-
-  for (int grp = 0; grp < n_groups; ++grp) {
-    const int start = grp * blk;
-    __syncthreads();  // the previous group's readers are done with ks / vs / ps
-    for (int idx = tid; idx < blk * kVec; idx += kThreads) {
-      const int j = idx / kVec, c = idx % kVec;
-      const int pos = start + j;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (pos < len) {
-        int pid = table[pos / page];  // pos < len <= npp * page
-        pid = pid < 0 ? 0 : (pid >= n_pages ? n_pages - 1 : pid);
-        const size_t off = ((static_cast<size_t>(pid) * hk + h) * page + pos % page) * D + c * 8;
-        kv = *reinterpret_cast<const uint4*>(kp + off);
-        vv = *reinterpret_cast<const uint4*>(vp + off);
-      }
-      *reinterpret_cast<uint4*>(ks + j * kRow + c * 8) = kv;
-      *reinterpret_cast<uint4*>(vs + j * kRow + c * 8) = vv;
-    }
-    __syncthreads();
-    const int n_valid = min(blk, len - start);
-    for (int pair = tid; pair < g * blk; pair += kThreads) {
-      const int r = pair / blk, j = pair % blk;
-      float s = kNegInf;
-      if (j < n_valid) {
-        const float* qr = qs + r * D;
-        const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(ks + j * kRow);
-        float dot = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < D / 2; ++c) {
-          const float2 kv = __bfloat1622float2(kr[c]);
-          dot = fmaf(qr[2 * c], kv.x, dot);
-          dot = fmaf(qr[2 * c + 1], kv.y, dot);
-        }
-        s = dot * scale;
-      }
-      ps[pair] = s;
-    }
-    __syncthreads();
-    for (int r = tid; r < g; r += kThreads) {
-      float* pr = ps + r * blk;
-      const float m_prev = ms[r];
-      float mx = m_prev;
-      for (int j = 0; j < n_valid; ++j) mx = fmaxf(mx, pr[j]);
-      const float alpha = expf(m_prev - mx);
-      float sum = 0.f;
-      for (int j = 0; j < blk; ++j) {
-        const float e = j < n_valid ? expf(pr[j] - mx) : 0.f;
-        pr[j] = e;
-        sum += e;
-      }
-      ls[r] = ls[r] * alpha + sum;
-      ms[r] = mx;
-      as[r] = alpha;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < g * D; idx += kThreads) {
-      const int r = idx / D, dd = idx % D;
-      const float* pr = ps + r * blk;
-      float pv = 0.f;
-      for (int j = 0; j < n_valid; ++j) pv = fmaf(pr[j], __bfloat162float(vs[j * kRow + dd]), pv);
-      acc[idx] = acc[idx] * as[r] + pv;
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < g * D; idx += kThreads) {
-    const int r = idx / D;
-    out[q_base + idx] = __float2bfloat16(acc[idx] / fmaxf(ls[r], 1e-30f));
-  }
+  const PagedRows<D> rows{page_tables + static_cast<size_t>(b) * npp, n_pages, hk, h, page};
+  decode_tile::decode_block<D>(q, kp, vp, rows, len, out,
+                               (static_cast<size_t>(b) * hk + h) * g * D, g, ppp * page, scale);
 }
 
 template <int D>

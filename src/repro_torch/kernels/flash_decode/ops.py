@@ -1,14 +1,30 @@
-"""Paged decode attention: the Hopper kernel (K2, csrc/paged_decode.cu) for
-CUDA tensors, the plain versions (ref.py) for CPU tensors or when named.
+"""Decode attention: the Hopper kernels for paged (K2, csrc/paged_decode.cu)
+and contiguous (K5, csrc/flash_decode.cu) caches for CUDA tensors, which share
+one block body (csrc/decode_tile.cuh), their plain versions (ref.py) for CPU
+tensors or when named.
 
 ``paged_decode_attention`` is the model-facing call, with the signature of
 ``repro/kernels/flash_decode/ops.py::paged_decode_attention``.  Its ``impl``
 is ``"kernel"`` (``paged_decode``: K2 for CUDA tensors, the ``stream`` plain
 version for CPU tensors), or ``"stream"`` / ``"gather"`` (the plain versions
-on any device, taken only when named).  ``paged_decode`` is the kernel's
-wrapper: a CUDA tensor goes to the kernel or the call raises, nothing falls
-back, and ``paged_decode.launches`` counts the kernel's launches and only
-those.
+on any device, taken only when named).  ``pages_per_program=None`` takes the
+autotuner's config cache entry for the call's (shape, dtype, device) key
+(``repro_torch.kernels.tune``), else ``DEFAULT_PAGES_PER_PROGRAM``.
+
+``decode_attention_auto`` is the reference's contiguous-cache dispatch
+(``ops.py:51``) with ``use_pallas`` named ``use_kernel``: ``True`` runs
+``flash_decode`` (K5 for CUDA tensors, its plain version ``flash_decode_ref``
+for CPU tensors), ``False`` the plain ``decode_attention`` on any device.
+
+``paged_decode`` and ``flash_decode`` are the kernels' wrappers: a CUDA
+tensor goes to the kernel or the call raises, nothing falls back, and
+``paged_decode.launches`` / ``flash_decode.launches`` count each kernel's
+launches and only those.
+
+``gather_pages`` and ``paged_prefill_attention`` (``ops.py:272, 292``) are
+gathers plus the flash forward (K3) with ``kv_lens`` and a static
+``q_offset``: chunked prefill over the page pool, which the autotuner's
+``prefill_chunk`` family times.
 """
 from __future__ import annotations
 
@@ -19,16 +35,54 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
-from repro_torch.kernels.flash_decode.ref import paged_decode_gather, paged_decode_stream
+from repro_torch.kernels.flash_attention.ops import decode_attention, flash_attention
+from repro_torch.kernels.flash_decode.ref import (
+    flash_decode_ref,
+    paged_decode_gather,
+    paged_decode_stream,
+)
 from repro_torch.models.runtime import DEFAULT_PAGES_PER_PROGRAM, PAGED_IMPLS
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = KernelLibrary(
-    Path(__file__).resolve().parent / "csrc" / "paged_decode.cu", "paged_decode",
+    _CSRC / "paged_decode.cu", "paged_decode",
     {"paged_decode_launch": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p],
                              ctypes.c_int),
      "paged_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
-    error_fn="paged_decode_error_string")
+    error_fn="paged_decode_error_string", includes=[_CSRC / "decode_tile.cuh"])
+DECODE_LIBRARY = KernelLibrary(
+    _CSRC / "flash_decode.cu", "flash_decode",
+    {"flash_decode_launch": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p], ctypes.c_int),
+     "flash_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
+    error_fn="flash_decode_error_string", includes=[_CSRC / "decode_tile.cuh"])
+
+# K5's tile.  The reference's default, 512 positions, is a TPU tile: K5 keeps
+# a tile of K and V in shared memory, and at head dim 128 a 512-position tile
+# needs 278 KB, more than the 227 KB a block may use.
+DEFAULT_DECODE_BLOCK_K = 128
+
+
+def _tuned_value(family: str, shape: dict, dtype, name: str, default: int,
+                 backend: str) -> int:
+    """Config-cache lookup (lazy import: the tuner imports this module's
+    functions for sweeping)."""
+    from repro_torch.kernels.tune import lookup
+
+    cfg = lookup(family, shape, dtype, backend)
+    if cfg and name in cfg:
+        return int(cfg[name])
+    return default
+
+
+def pages_per_program_for(b: int, hq: int, hk: int, d: int, page: int, npp: int, dtype,
+                          backend: str) -> int:
+    """K2's ``pages_per_program`` for a paged decode of this shape: the tuner's
+    cache entry for ``{b, hk, g, d, page, npp}`` on ``backend`` ("cuda" or
+    "cpu"), else ``DEFAULT_PAGES_PER_PROGRAM``."""
+    shape = {"b": b, "hk": hk, "g": hq // hk, "d": d, "page": page, "npp": npp}
+    return _tuned_value("flash_decode_paged", shape, dtype, "pages_per_program",
+                        DEFAULT_PAGES_PER_PROGRAM, backend)
 
 
 def paged_decode(
@@ -106,16 +160,21 @@ def paged_decode_attention(
     pages_per_program: Optional[int] = None,
 ) -> torch.Tensor:
     """GQA decode attention over the paged KV pool; returns (B, Hq, d).
-    ``pages_per_program=None`` takes the reference's default (4): the
-    autotuner's config cache is not ported."""
+    ``pages_per_program=None`` consults the autotuner's config cache for
+    this (shape, dtype, device) key, falling back to
+    ``DEFAULT_PAGES_PER_PROGRAM``."""
     b, hq, d = q.shape
-    hk = k_pages.shape[1]
+    hk, page = k_pages.shape[1], k_pages.shape[2]
     if hq % hk:
         raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
     if impl not in PAGED_IMPLS:
         raise ValueError(f"impl={impl!r} not in {PAGED_IMPLS}")
     scale = float(sm_scale) if sm_scale is not None else 1.0 / (d ** 0.5)
-    ppp = DEFAULT_PAGES_PER_PROGRAM if pages_per_program is None else int(pages_per_program)
+    if pages_per_program is None:
+        ppp = pages_per_program_for(b, hq, hk, d, page, page_tables.shape[1], q.dtype,
+                                    q.device.type)
+    else:
+        ppp = int(pages_per_program)
     q4 = q.reshape(b, hk, hq // hk, d)
     args = (q4, k_pages, v_pages, lengths, page_tables)
     if impl == "kernel":
@@ -125,3 +184,138 @@ def paged_decode_attention(
     else:
         out = paged_decode_gather(*args, scale=scale, pages_per_program=ppp)
     return out.reshape(b, hq, v_pages.shape[3])
+
+
+def flash_decode(
+    q: torch.Tensor,  # (B, Hq, d) bfloat16
+    k_cache: torch.Tensor,  # (B, Hk, S, d) bfloat16, Hq = G * Hk
+    v_cache: torch.Tensor,  # (B, Hk, S, d) bfloat16
+    lengths: torch.Tensor,  # (B,) int32 valid positions
+    *,
+    sm_scale: float,
+    block_k: int = DEFAULT_DECODE_BLOCK_K,
+) -> torch.Tensor:
+    """K5's wrapper: one-token decode over a contiguous cache in tiles of
+    ``min(block_k, S)`` positions.  Returns (B, Hq, d) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
+                                block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cpu or cuda tensors, not {q.device}")
+    if q.dim() != 3:
+        raise ValueError(f"q has shape {tuple(q.shape)}, expected (B, Hq, d)")
+    b, hq, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
+        raise ValueError(f"k_cache has shape {tuple(k_cache.shape)}, q {tuple(q.shape)}")
+    _, hk, s, _ = k_cache.shape
+    if tuple(v_cache.shape) != tuple(k_cache.shape):
+        raise ValueError(f"v_cache {tuple(v_cache.shape)} must match k_cache "
+                         f"{tuple(k_cache.shape)} (the kernel takes dv == dk)")
+    if hq % hk:
+        raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 16 up to 256")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths has shape {tuple(lengths.shape)}, expected ({b},)")
+    if block_k < 1:
+        raise ValueError(f"block_k={block_k} must be positive")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if name == "lengths":
+            if t.dtype != torch.int32:
+                raise TypeError(f"lengths is {t.dtype}; the kernel takes int32")
+        elif t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    g = hq // hk
+    out = torch.empty_like(q)
+    if b * hq == 0:
+        return out
+    if s == 0:
+        return out.zero_()
+    bk = min(int(block_k), s)
+    lib = DECODE_LIBRARY.load()
+    smem = lib.flash_decode_smem_bytes(g, d, bk)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"G={g}, d={d}, block_k={bk} need {smem} bytes of shared memory, "
+                         f"more than the {MAX_SMEM_PER_BLOCK} a block may use")
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, hk, g, s, d, bk, ctypes.c_float(sm_scale),
+            torch.cuda.current_stream().cuda_stream)
+    DECODE_LIBRARY.check(err, "flash_decode kernel")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+
+def decode_attention_auto(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_cache: torch.Tensor,  # (B, Hk, S, D)
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    use_kernel: bool = True,
+    block_k: int = DEFAULT_DECODE_BLOCK_K,
+    sm_scale: Optional[float] = None,
+    tuned: bool = False,
+) -> torch.Tensor:
+    """Decode attention over a contiguous cache: ``use_kernel=True`` runs
+    ``flash_decode`` (K5 on the card, its plain version on the CPU) with KV
+    grouped in place, never repeated; ``use_kernel=False`` the plain
+    ``decode_attention``.  ``tuned=True`` takes ``block_k`` from the
+    autotuner's config cache when an entry exists."""
+    if tuned:
+        shape = {"b": q.shape[0], "h": q.shape[1], "s": k_cache.shape[2], "d": q.shape[2]}
+        block_k = _tuned_value("flash_decode", shape, q.dtype, "block_k", block_k,
+                               q.device.type)
+    if not use_kernel:
+        return decode_attention(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / (q.shape[2] ** 0.5)
+    return flash_decode(q, k_cache, v_cache, lengths, sm_scale=scale, block_k=block_k)
+
+
+def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor) -> torch.Tensor:
+    """Dense per-sequence view of a page pool: (n_pages, Hk, page, d) K/V
+    pools give (B, Hk, npp * page, d), (n_pages, page, r) latent pools
+    (B, npp * page, r).  Positions past a sequence's fill hold stale pages
+    (the scratch page included) and must be masked by the caller through
+    ``kv_lens``.  Page ids outside the pool are clamped, as the reference's
+    gather clamps them."""
+    b, npp = page_tables.shape
+    idx = page_tables.long().clamp(0, pool.shape[0] - 1)
+    tile = pool[idx]  # (B, npp, ...)
+    if pool.dim() == 4:
+        return tile.movedim(2, 1).reshape(b, pool.shape[1], npp * pool.shape[2], pool.shape[3])
+    if pool.dim() == 3:
+        return tile.reshape(b, npp * pool.shape[1], pool.shape[2])
+    raise ValueError(f"unsupported pool rank {pool.dim()}")
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,  # (B, Hq, C, d) one prompt chunk of queries
+    k_pages: torch.Tensor,  # (n_pages, Hk, page, d) pool incl. this chunk's K
+    v_pages: torch.Tensor,  # (n_pages, Hk, page, d)
+    kv_lens: torch.Tensor,  # (B,) valid positions incl. this chunk
+    page_tables: torch.Tensor,  # (B, pages_per_seq) int32
+    *,
+    q_offset: int,  # absolute position of the chunk's first query
+    sm_scale: Optional[float] = None,
+    block_q: int = 16,
+    block_k: int = 16,
+) -> torch.Tensor:
+    """Causal chunked-prefill attention over the paged KV pool: the chunk's
+    K/V already scattered into its pages, the whole page-table row gathered
+    to a contiguous view, then the flash forward (K3 on the card) with the
+    chunk's absolute query offset.  Returns (B, Hq, C, d)."""
+    k_full = gather_pages(k_pages, page_tables)
+    v_full = gather_pages(v_pages, page_tables)
+    return flash_attention(q, k_full, v_full, causal=True, sm_scale=sm_scale,
+                           kv_lens=kv_lens, q_offset=q_offset, block_q=block_q,
+                           block_k=block_k)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of paged flash decode (K2).
+"""Plain PyTorch versions of paged flash decode (K2) and contiguous flash
+decode (K5).
 
 Ports ``repro/kernels/flash_decode/ops.py``'s ``_stream_core`` (:126) and
 ``_gather_core`` (:161) with their shared ``_block_update`` (:96) and
@@ -9,6 +10,10 @@ group's pages and stops at the longest live row; ``gather`` builds the dense
 ``_block_update`` contiguous float32 blocks of the same shapes, so they are
 bitwise equal to each other (DESIGN.md §10 requires it of the reference);
 the groups ``gather`` runs past a row's length are exact no-ops.
+
+``flash_decode_ref`` is K5's: the blocked math of
+``repro/kernels/flash_decode/kernel.py::_decode_kernel`` (:46) over the
+padded cache, through the same ``_block_update``.
 """
 from __future__ import annotations
 
@@ -103,3 +108,30 @@ def paged_decode_gather(q, k_pages, v_pages, lengths, page_tables, *, scale: flo
         v_blk = v_full[:, :, j * blk:(j + 1) * blk].float().contiguous()
         acc, m, l = _block_update(qf, k_blk, v_blk, j * blk, lens, scale, acc, m, l)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def flash_decode_ref(q, k_cache, v_cache, lengths, *, sm_scale: float,
+                     block_k: int) -> torch.Tensor:
+    """q (B, Hq, d); caches (B, Hk, S, d) with Hq = G * Hk, query head h
+    reading KV head h // G; lengths (B,).  Tiles of ``min(block_k, S)``
+    positions over the cache padded to a multiple of them, a running max,
+    sum and accumulator in float32, p kept in float32, positions at or past
+    ``lengths[b]`` masked (a row of length 0 gives zeros).  Lengths are
+    clamped to [0, S], as the kernel clamps them.  Returns (B, Hq, d) in q's
+    dtype."""
+    b, hq, d = q.shape
+    _, hk, s, _ = k_cache.shape
+    if hq % hk:
+        raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
+    g = hq // hk
+    bk = max(1, min(int(block_k), s))
+    qf = q.reshape(b, hk, g, d).float()
+    lens = lengths.to(torch.int64).clamp(0, s)
+    acc, m, l = _init(b, hk, g, v_cache.shape[3], q.device)
+    for start in range(0, s, bk):
+        pad = max(0, start + bk - s)  # the last tile, padded with zeros (masked)
+        k_blk = torch.nn.functional.pad(k_cache[:, :, start:start + bk].float(), (0, 0, 0, pad))
+        v_blk = torch.nn.functional.pad(v_cache[:, :, start:start + bk].float(), (0, 0, 0, pad))
+        acc, m, l = _block_update(qf, k_blk, v_blk, start, lens, sm_scale, acc, m, l)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, v_cache.shape[3]).to(q.dtype)

@@ -3,7 +3,11 @@ version for CPU tensors.
 
 A CUDA tensor goes to the kernel (csrc/sdca.cu) or the call raises; nothing
 falls back to the plain version.  ``local_sdca.launches`` counts the
-kernel's launches, and only those.
+kernel's launches, and only those.  ``use_kernel=False`` names the plain
+version on any device, as ``use_pallas=False`` does in the reference
+(``repro/kernels/sdca/ops.py:27``); ``tuned=True`` takes that choice from the
+autotuner's config cache (its ``sdca`` family).  The CoCoA path passes
+neither, so on the card it always runs the kernel.
 """
 from __future__ import annotations
 
@@ -33,12 +37,21 @@ def local_sdca(
     n: float,
     loss: str = "hinge",
     gamma: float = 1.0,
+    *,
+    use_kernel: bool = True,
+    tuned: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """H local SDCA steps on each of m workers.  Returns (new a (m, nl),
     dw (m, d)); the inputs are not modified."""
     if loss not in LOSS_CODES:
         raise ValueError(f"local SDCA supports {sorted(LOSS_CODES)}, not {loss!r}")
-    if X.device.type == "cpu":
+    if tuned:
+        from repro_torch.kernels.flash_decode.ops import _tuned_value
+
+        shape = {"m": X.shape[0], "nl": X.shape[1], "d": X.shape[2], "h": idx.shape[1]}
+        use_kernel = bool(_tuned_value("sdca", shape, X.dtype, "use_pallas", int(use_kernel),
+                                       X.device.type))
+    if X.device.type == "cpu" or not use_kernel:
         return local_sdca_ref(X, y, a, w, idx, sigma_prime, lam, n, loss, gamma)
     if X.device.type != "cuda":
         raise ValueError(f"local_sdca runs on cpu or cuda tensors, not {X.device}")

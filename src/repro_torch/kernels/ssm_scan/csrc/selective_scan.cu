@@ -35,11 +35,17 @@
 // Design: grid = (ceil(Dn / (256 / N)), Bt); a block of 256 threads owns
 // 256 / N channels of one sequence (16 at N = 16), and each channel's N
 // states sit in N neighbouring lanes' registers for the whole sequence.  The
-// block walks t in chunks of 32 steps: it stages the chunk's x and dt
+// block walks t in chunks of `chunk` steps (32 unless the caller passes
+// another; the autotuner's ssm_scan family sweeps it): it stages the chunk's
+// x and dt
 // (channels contiguous, so rows of whole 32-byte sectors at N = 16) and B
 // and C (strided rows: the model passes views of x_proj's output, with their
 // batch and time strides) in shared memory as float32, steps the
-// recurrence, and writes the chunk's y from shared memory.  N is a power of
+// recurrence, and writes the chunk's y from shared memory.  The staging
+// arrays are dynamic shared memory, chunk * (3 * 256 / N + 2 N) floats.  The
+// chunk changes only how many steps are staged at once: the loop over t runs
+// the same steps in the same order, so y and the state are bit-identical for
+// every chunk.  N is a power of
 // two up to 32, so a channel's lanes lie in one warp.  At B 1, S 1024 that is
 // 131k threads in 512 blocks on 132 SMs.  The TPU kernel's sequential grid
 // axis over chunks, with the state in scratch memory, becomes this loop
@@ -52,7 +58,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 32;  // time steps staged in shared memory at once
+
+__host__ __device__ inline size_t smem_bytes(int n, int chunk) {
+  return static_cast<size_t>(chunk) * (3 * (kThreads / n) + 2 * n) * 4;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -71,14 +80,15 @@ __global__ void __launch_bounds__(kThreads)
 selective_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ a_mat, const T* __restrict__ b_mat,
                       const T* __restrict__ c_mat, const float* __restrict__ d_vec,
-                      float* __restrict__ h, T* __restrict__ y, int s, int dn,
+                      float* __restrict__ h, T* __restrict__ y, int s, int dn, int chunk,
                       long long b_sb, long long b_st, long long c_sb, long long c_st) {
   constexpr int kCh = kThreads / N;  // channels per block
-  __shared__ float xs[kChunk][kCh];
-  __shared__ float dts[kChunk][kCh];
-  __shared__ float ys[kChunk][kCh];
-  __shared__ float bs[kChunk][N];
-  __shared__ float cs[kChunk][N];
+  extern __shared__ float smem[];
+  float* xs = smem;                // [chunk][kCh]
+  float* dts = xs + chunk * kCh;   // [chunk][kCh]
+  float* ys = dts + chunk * kCh;   // [chunk][kCh]
+  float* bs = ys + chunk * kCh;    // [chunk][N]
+  float* cs = bs + chunk * N;      // [chunk][N]
 
   const int tid = threadIdx.x;
   const int c = tid / N, n = tid % N;
@@ -92,38 +102,38 @@ selective_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float dd = live ? d_vec[d] : 0.f;
   const size_t row0 = static_cast<size_t>(b) * s;  // row of (b, t = 0) in x, dt, y
 
-  for (int t0 = 0; t0 < s; t0 += kChunk) {
-    const int nt = min(kChunk, s - t0);
-    for (int i = tid; i < kChunk * kCh; i += kThreads) {
+  for (int t0 = 0; t0 < s; t0 += chunk) {
+    const int nt = min(chunk, s - t0);
+    for (int i = tid; i < chunk * kCh; i += kThreads) {
       const int tt = i / kCh, cc = i % kCh;
       const bool ok = tt < nt && d0 + cc < dn;
       const size_t off = (row0 + t0 + tt) * dn + d0 + cc;
-      xs[tt][cc] = ok ? to_float(x[off]) : 0.f;
-      dts[tt][cc] = ok ? dt[off] : 0.f;
+      xs[i] = ok ? to_float(x[off]) : 0.f;
+      dts[i] = ok ? dt[off] : 0.f;
     }
-    for (int i = tid; i < kChunk * N; i += kThreads) {
+    for (int i = tid; i < chunk * N; i += kThreads) {
       const int tt = i / N, nn = i % N;
       const bool ok = tt < nt;
       const long long t = t0 + tt;
-      bs[tt][nn] = ok ? to_float(b_mat[b * b_sb + t * b_st + nn]) : 0.f;
-      cs[tt][nn] = ok ? to_float(c_mat[b * c_sb + t * c_st + nn]) : 0.f;
+      bs[i] = ok ? to_float(b_mat[b * b_sb + t * b_st + nn]) : 0.f;
+      cs[i] = ok ? to_float(c_mat[b * c_sb + t * c_st + nn]) : 0.f;
     }
     __syncthreads();
     for (int tt = 0; tt < nt; ++tt) {
-      const float dtv = dts[tt][c], xv = xs[tt][c];
+      const float dtv = dts[tt * kCh + c], xv = xs[tt * kCh + c];
       const float decay = expf(__fmul_rn(dtv, a));
-      hv = __fadd_rn(__fmul_rn(decay, hv), __fmul_rn(__fmul_rn(dtv, xv), bs[tt][n]));
-      float p = __fmul_rn(hv, cs[tt][n]);
+      hv = __fadd_rn(__fmul_rn(decay, hv), __fmul_rn(__fmul_rn(dtv, xv), bs[tt * N + n]));
+      float p = __fmul_rn(hv, cs[tt * N + n]);
 #pragma unroll
       for (int off = N / 2; off > 0; off >>= 1) {
         p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, off));
       }
-      if (n == 0) ys[tt][c] = __fadd_rn(p, __fmul_rn(dd, xv));
+      if (n == 0) ys[tt * kCh + c] = __fadd_rn(p, __fmul_rn(dd, xv));
     }
     __syncthreads();
     for (int i = tid; i < nt * kCh; i += kThreads) {
       const int tt = i / kCh, cc = i % kCh;
-      if (d0 + cc < dn) y[(row0 + t0 + tt) * dn + d0 + cc] = from_float<T>(ys[tt][cc]);
+      if (d0 + cc < dn) y[(row0 + t0 + tt) * dn + d0 + cc] = from_float<T>(ys[i]);
     }
     __syncthreads();
   }
@@ -133,26 +143,33 @@ selective_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 template <typename T, int N>
 int launch(const void* x, const void* dt, const void* a_mat, const void* b_mat,
            const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
-           long long b_sb, long long b_st, long long c_sb, long long c_st,
+           int chunk, long long b_sb, long long b_st, long long c_sb, long long c_st,
            cudaStream_t stream) {
   constexpr int kCh = kThreads / N;
+  const size_t smem = smem_bytes(N, chunk);
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    cudaError_t err = cudaFuncSetAttribute(selective_scan_kernel<T, N>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid((dn + kCh - 1) / kCh, bt);
-  selective_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
+  selective_scan_kernel<T, N><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a_mat), static_cast<const T*>(b_mat),
       static_cast<const T*>(c_mat), static_cast<const float*>(d_vec),
-      static_cast<float*>(h), static_cast<T*>(y), s, dn, b_sb, b_st, c_sb, c_st);
+      static_cast<float*>(h), static_cast<T*>(y), s, dn, chunk, b_sb, b_st, c_sb, c_st);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_n(const void* x, const void* dt, const void* a_mat, const void* b_mat,
              const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
-             int n, long long b_sb, long long b_st, long long c_sb, long long c_st,
+             int n, int chunk, long long b_sb, long long b_st, long long c_sb, long long c_st,
              cudaStream_t stream) {
   switch (n) {
 #define SSM_CASE(N) \
-    case N: return launch<T, N>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, b_sb, b_st, c_sb, c_st, stream);
+    case N: return launch<T, N>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, chunk, b_sb, b_st, c_sb, c_st, stream);
     SSM_CASE(4) SSM_CASE(8) SSM_CASE(16) SSM_CASE(32)
 #undef SSM_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -164,20 +181,27 @@ int launch_n(const void* x, const void* dt, const void* a_mat, const void* b_mat
 // x (Bt, S, Dn) bf16 (x_is_bf16 = 1) or float32, contiguous; dt (Bt, S, Dn)
 // float32, contiguous; A (Dn, N) and D (Dn,) float32; B and C (Bt, S, N) in
 // x's type, element (b, t, n) at b * sb + t * st + n; h (Bt, Dn, N) float32,
-// read and overwritten; y (Bt, S, Dn) in x's type.  N is 4, 8, 16 or 32.
-// Returns a cudaError_t (0 on success).
+// read and overwritten; y (Bt, S, Dn) in x's type.  N is 4, 8, 16 or 32;
+// chunk >= 1 time steps staged at once, within
+// selective_scan_smem_bytes(n, chunk) <= 232,448.  Returns a cudaError_t (0
+// on success).
 extern "C" int selective_scan_launch(const void* x, const void* dt, const void* a_mat,
                                      const void* b_mat, const void* c_mat, const void* d_vec,
                                      void* h, void* y, int bt, int s, int dn, int n,
-                                     int x_is_bf16, long long b_sb, long long b_st,
+                                     int x_is_bf16, int chunk, long long b_sb, long long b_st,
                                      long long c_sb, long long c_st, void* stream) {
   auto* st = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) {
     return launch_n<__nv_bfloat16>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n,
-                                   b_sb, b_st, c_sb, c_st, st);
+                                   chunk, b_sb, b_st, c_sb, c_st, st);
   }
-  return launch_n<float>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n, b_sb, b_st,
-                         c_sb, c_st, st);
+  return launch_n<float>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n, chunk, b_sb,
+                         b_st, c_sb, c_st, st);
+}
+
+// Shared memory one block needs for state size n and chunk staged steps.
+extern "C" int selective_scan_smem_bytes(int n, int chunk) {
+  return static_cast<int>(smem_bytes(n, chunk));
 }
 
 extern "C" const char* selective_scan_error_string(int code) {

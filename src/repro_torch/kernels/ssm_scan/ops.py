@@ -11,6 +11,14 @@ raises, nothing falls back to the plain version, and
 ``B`` and ``C`` come out of a split of ``x_proj``'s output, so they are
 strided views: the wrapper passes the kernel their batch and time strides
 (the last axis must have stride 1) instead of copying them.
+
+``chunk`` is the number of time steps the kernel stages in shared memory at
+once, the autotuner's knob (``tuned=True`` takes it from the tuner's config
+cache).  The kernel's loop over time runs the same steps in the same order
+whatever the chunk, so y and the state are bit-identical for every chunk it
+accepts.  This differs from the reference, where ``chunk`` changes how the
+associative scan groups its terms.  The plain version has no staging and
+ignores it.
 """
 from __future__ import annotations
 
@@ -20,17 +28,31 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "selective_scan.cu", "selective_scan",
-    {"selective_scan_launch": ([_p] * 8 + [_i] * 5 + [_ll] * 4 + [_p], ctypes.c_int)},
+    {"selective_scan_launch": ([_p] * 8 + [_i] * 6 + [_ll] * 4 + [_p], ctypes.c_int),
+     "selective_scan_smem_bytes": ([_i, _i], ctypes.c_int)},
     error_fn="selective_scan_error_string")
 
 KERNEL_STATE_SIZES = (4, 8, 16, 32)  # N: a channel's lanes lie in one warp
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+DEFAULT_CHUNK = 32  # time steps staged at once: the serve path's value
+
+
+def scan_chunk(x: torch.Tensor, A: torch.Tensor, chunk: int, tuned: bool) -> int:
+    """The chunk a call runs at: the tuner's cache entry for
+    ``{bt, s, dn, n}`` on x's device type when ``tuned``, else ``chunk``."""
+    if not tuned:
+        return int(chunk)
+    from repro_torch.kernels.flash_decode.ops import _tuned_value
+
+    bt, s, dn = x.shape
+    shape = {"bt": bt, "s": s, "dn": dn, "n": A.shape[1]}
+    return _tuned_value("ssm_scan", shape, x.dtype, "chunk", int(chunk), x.device.type)
 
 
 def selective_scan(
@@ -41,10 +63,16 @@ def selective_scan(
     C: torch.Tensor,  # (Bt, S, N) in x's dtype
     D: torch.Tensor,  # (Dn,) float32
     h: Optional[torch.Tensor] = None,  # (Bt, Dn, N) float32
+    *,
+    chunk: int = DEFAULT_CHUNK,
+    tuned: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (Bt, S, Dn) in x's dtype, h_last (Bt, Dn, N) float32).
     When ``h`` is given it is the initial state and is overwritten with
     h_last, which is ``h`` itself; otherwise the scan starts from zeros."""
+    chunk = scan_chunk(x, A, chunk, tuned)
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be positive")
     if x.device.type == "cpu":
         y, h_last = selective_scan_ref(x, dt, A, B, C, D, h)
         if h is None:
@@ -87,12 +115,16 @@ def selective_scan(
     if bt * s * dn == 0:
         return y, h
     lib = LIBRARY.load()
+    smem = lib.selective_scan_smem_bytes(n, chunk)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"N={n}, chunk={chunk} need {smem} bytes of shared memory, more "
+                         f"than the {MAX_SMEM_PER_BLOCK} a block may use")
     with torch.cuda.device(x.device):
         err = lib.selective_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             D.data_ptr(), h.data_ptr(), y.data_ptr(), bt, s, dn, n,
-            int(x.dtype == torch.bfloat16), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-            torch.cuda.current_stream().cuda_stream)
+            int(x.dtype == torch.bfloat16), chunk, B.stride(0), B.stride(1), C.stride(0),
+            C.stride(1), torch.cuda.current_stream().cuda_stream)
     LIBRARY.check(err, "selective_scan kernel")
     selective_scan.launches += 1
     return y, h

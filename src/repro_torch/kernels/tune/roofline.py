@@ -1,0 +1,217 @@
+"""Roofline models for autotune candidate pruning.
+
+Per (family, shape, candidate config, dtype) this module estimates FLOPs,
+device-memory bytes, the shared memory one block of the family's kernel
+needs, and the serial steps of a launch on the card, and turns them into a
+modeled time ``max(flops/peak, bytes/bw) + STEP_OVERHEAD_S * serial_steps``.
+The sweep harness measures only candidates the kernel takes (shared memory
+and the kernel's own limits) and whose modeled time is within a slack factor
+of the best modeled time.  ``light_speed_s``/``roofline_fraction_us`` give
+each cache entry's distance from the roofline (``bench_rows``).
+
+FLOP counts are the reference's (``repro/kernels/tune/roofline.py``): they
+depend only on the shape.  Bytes use the reference's formulas with the
+itemsize of the dtype measured; the reference's fixed 4 is a TPU staging
+fact.  The two decode families are the exception: the sweep feeds them
+``ragged_lengths``, and K2 and K5 stop at each row's length, so their bytes
+and tiles count the valid positions only (28% of the padded cache at
+qwen3-14b's long-run shape), where the TPU grid read every block.  Shared
+memory follows each kernel's own layout (the ``smem_bytes`` of its
+``csrc/*.cu``), mirrored here so the tuner prunes without building.
+Candidates that differ only in a key the port's kernel ignores
+(``IGNORED_KEYS``: K3's rows do not depend on ``block_q``) are timed once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
+from repro_torch.kernels.flash_attention.ops import MAX_BLOCK_K as K3_MAX_BLOCK_K
+from repro_torch.kernels.sdca.ops import MAX_D as K1_MAX_D
+from repro_torch.kernels.ssm_scan.ops import KERNEL_STATE_SIZES as K4_STATE_SIZES
+from repro_torch.kernels.tune.cache import dtype_name
+
+# NVIDIA H100 SXM data sheet, at its 700 W power limit: dense bf16 tensor-core
+# rate and HBM3 bandwidth.
+PEAK_FLOPS = 989e12  # bf16 FLOP/s per card
+HBM_BW = 3.35e12  # bytes/s per card
+SMS = 132  # streaming multiprocessors
+# Modeled cost of one serial step of a block (one staged tile: a dependent
+# round trip to device memory and the block's barriers); a model parameter,
+# not a measurement.
+STEP_OVERHEAD_S = 1e-6
+PRUNE_SLACK = 3.0
+
+_PAD = 8  # bf16 padding per staged K/V row (K2, K3, K5)
+_K3_TILE_Q = 16  # query positions per K3 block
+_K4_THREADS = 256
+
+# config keys a family's kernel takes but does not depend on: of candidates
+# that differ only there, prune keeps the first
+IGNORED_KEYS: Dict[str, Tuple[str, ...]] = {"flash_attention": ("block_q",)}
+
+
+def ragged_lengths(b: int, capacity: int) -> np.ndarray:
+    """Deterministic serving-like fill: longest sequence at half capacity,
+    the rest tapering off — the operating point the engine actually runs
+    at mid-trace.  The sweep's decode cases use these lengths."""
+    return np.asarray([max(1, (capacity * (b - i)) // (2 * b)) for i in range(b)], np.int32)
+
+
+def light_speed_s(
+    flops: float, bytes_moved: float, peak_flops: float = PEAK_FLOPS, hbm_bw: float = HBM_BW
+) -> float:
+    """Roofline lower bound for one kernel invocation."""
+    return max(flops / peak_flops, bytes_moved / hbm_bw)
+
+
+def roofline_fraction_us(measured_us: float, flops: float, bytes_moved: float) -> float:
+    """measured / light-speed (>= 1; how far from the roofline we run)."""
+    floor = light_speed_s(flops, bytes_moved) * 1e6
+    return measured_us / floor if floor > 0 else 0.0
+
+
+def k3_smem_bytes(g: int, d: int, bk: int) -> int:
+    """csrc/flash_fwd.cu's smem_bytes: q (bf16), K and V tiles, scores,
+    accumulator, m / l / alpha for G * 16 rows."""
+    rows = g * _K3_TILE_Q
+    return rows * d * 2 + 2 * bk * (d + _PAD) * 2 + rows * bk * 4 + rows * d * 4 + 3 * rows * 4
+
+
+def decode_smem_bytes(g: int, d: int, bk: int) -> int:
+    """flash_decode/csrc/decode_tile.cuh's smem_bytes, the block body of K2
+    (bk = pages_per_program * page) and K5 (bk = block_k)."""
+    return g * d * 4 + 2 * bk * (d + _PAD) * 2 + g * bk * 4 + g * d * 4 + 3 * g * 4
+
+
+def k4_smem_bytes(n: int, chunk: int) -> int:
+    """csrc/selective_scan.cu's smem_bytes: x, dt, y per channel and B, C."""
+    return chunk * (3 * (_K4_THREADS // n) + 2 * n) * 4
+
+
+@dataclasses.dataclass
+class CandidateEstimate:
+    config: Dict[str, int]
+    flops: float
+    bytes_moved: float
+    smem_bytes: int
+    serial_steps: int  # waves of blocks x tiles each block walks, over the launches
+    fits: bool  # the kernel takes this candidate (shared memory, its own limits)
+
+    @property
+    def t_model_s(self) -> float:
+        return light_speed_s(self.flops, self.bytes_moved) + STEP_OVERHEAD_S * self.serial_steps
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _waves(blocks: int) -> int:
+    """Blocks run side by side on the card's SMs, not in order as on a TPU's
+    grid: a launch's serial depth is modeled as its waves of blocks,
+    counting one resident block an SM, times the tiles each block walks in
+    order."""
+    return _ceil_div(blocks, SMS)
+
+
+def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
+             dtype="float32") -> CandidateEstimate:
+    """FLOPs / bytes / shared memory / serial-step model for one candidate."""
+    it = getattr(torch, dtype_name(dtype)).itemsize
+    if family == "flash_attention":  # K3 at the tuner's MHA shape (G = 1)
+        b, h, s, d = shape["b"], shape["h"], shape["s"], shape["d"]
+        bk = min(config["block_k"], max(s, 16))  # the wrapper's clamp
+        flops = 4.0 * b * h * s * s * d
+        bytes_moved = 4.0 * b * h * s * d * it
+        smem = k3_smem_bytes(1, d, bk)
+        steps = _waves(b * h * _ceil_div(s, _K3_TILE_Q)) * _ceil_div(s, bk)
+        fits = bk <= K3_MAX_BLOCK_K and smem <= MAX_SMEM_PER_BLOCK
+    elif family == "flash_decode":  # K5 at the tuner's MHA shape (G = 1)
+        b, h, s, d = shape["b"], shape["h"], shape["s"], shape["d"]
+        bk = min(config["block_k"], s)  # the wrapper's clamp
+        lens = ragged_lengths(b, s)
+        flops = 4.0 * b * h * s * d
+        bytes_moved = 2.0 * h * int(lens.sum()) * d * it  # valid K and V, read once
+        smem = decode_smem_bytes(1, d, bk)
+        steps = _waves(b * h) * _ceil_div(int(lens.max()), bk)
+        fits = smem <= MAX_SMEM_PER_BLOCK
+    elif family == "flash_decode_paged":  # K2
+        b, hk, g = shape["b"], shape["hk"], shape["g"]
+        d, page, npp = shape["d"], shape["page"], shape["npp"]
+        ppp = min(config["pages_per_program"], npp)  # the wrapper's clamp
+        s = npp * page
+        lens = ragged_lengths(b, s)
+        flops = 4.0 * b * hk * g * s * d
+        bytes_moved = 2.0 * hk * int(lens.sum()) * d * it  # valid K and V, read once
+        smem = decode_smem_bytes(g, d, ppp * page)
+        steps = _waves(b * hk) * _ceil_div(int(lens.max()), ppp * page)
+        fits = smem <= MAX_SMEM_PER_BLOCK
+    elif family == "prefill_chunk":  # K3 once per chunk, at block_k 16
+        p, hk, g = shape["p"], shape["hk"], shape["g"]
+        d, page, npp = shape["d"], shape["page"], shape["npp"]
+        c = config["chunk"]
+        s = npp * page
+        n_chunks = _ceil_div(p, c)
+        # every chunk re-gathers the full page row (the chunked-prefill
+        # bytes tax) and attends c queries against s keys
+        flops = 4.0 * hk * g * p * s * d
+        bytes_moved = (2.0 * n_chunks * hk * s * d + 2.0 * hk * g * p * d) * it
+        smem = k3_smem_bytes(g, d, 16)
+        steps = n_chunks * _waves(hk * _ceil_div(c, _K3_TILE_Q)) * _ceil_div(s, 16)
+        fits = smem <= MAX_SMEM_PER_BLOCK
+    elif family == "ssm_scan":  # K4
+        bt, s, dn, n = shape["bt"], shape["s"], shape["dn"], shape["n"]
+        chunk = config["chunk"]
+        flops = 8.0 * bt * s * dn * n
+        bytes_moved = 3.0 * bt * s * (dn + 2 * n) * it
+        smem = k4_smem_bytes(n, chunk) if n in K4_STATE_SIZES else 0
+        steps = _waves(bt * _ceil_div(dn, _K4_THREADS // max(n, 1))) * _ceil_div(s, chunk)
+        fits = n in K4_STATE_SIZES and smem <= MAX_SMEM_PER_BLOCK
+    elif family == "sdca":  # K1 (use_pallas 1) or its plain version (0)
+        m, nl, d = shape["m"], shape["nl"], shape["d"]
+        h = shape.get("h", nl)
+        flops = 4.0 * m * h * d
+        bytes_moved = m * (nl * d + 2 * nl + 2 * d) * it
+        smem = d * 4 if config.get("use_pallas") else 0  # v in shared memory
+        steps = _waves(m) * h  # H dependent steps in each worker's block
+        fits = d <= K1_MAX_D or not config.get("use_pallas")
+    else:
+        raise ValueError(f"unknown kernel family {family!r}")
+    return CandidateEstimate(
+        config=config,
+        flops=flops,
+        bytes_moved=bytes_moved,
+        smem_bytes=int(smem),
+        serial_steps=int(steps),
+        fits=bool(fits),
+    )
+
+
+def prune(
+    family: str,
+    shape: Dict[str, int],
+    candidates: Sequence[Dict[str, int]],
+    dtype="float32",
+    slack: float = PRUNE_SLACK,
+) -> Tuple[List[CandidateEstimate], int]:
+    """Drop candidates the kernel would refuse, those that repeat an earlier
+    one but for ``IGNORED_KEYS``, and those whose modeled time exceeds
+    ``slack`` x the best modeled time.  Returns (survivors, n_pruned); raises
+    if the kernel takes no candidate."""
+    ests = [estimate(family, shape, c, dtype) for c in candidates]
+    fits = [e for e in ests if e.fits]
+    if not fits:
+        raise ValueError(f"{family} at {shape}: the kernel takes none of {list(candidates)}")
+    ignored = IGNORED_KEYS.get(family, ())
+    distinct = {}
+    for e in fits:
+        distinct.setdefault(tuple(sorted((k, v) for k, v in e.config.items()
+                                         if k not in ignored)), e)
+    t_best = min(e.t_model_s for e in distinct.values())
+    kept = [e for e in distinct.values() if e.t_model_s <= slack * t_best]
+    return kept, len(ests) - len(kept)

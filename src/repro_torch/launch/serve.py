@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
       --continuous --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --continuous \\
+      --tune-cache results/tune_cache_torch.json
 
 runs the reference's ``--continuous`` path (``repro/launch/serve.py``): a
 mixed-length 8-request trace with staggered arrivals and a shared prompt head
@@ -11,11 +13,21 @@ f(b) step model and a capacity plan, and the prefix-reuse check, which serves
 one prefix-sharing prompt on the warm engine and the same prompt on a cold
 engine and exits 1 unless their logits match bit for bit.
 
+``--tune-cache PATH`` (``repro/launch/serve.py:506-514``) seeds the capacity
+planner's f(b) step model with the autotuner's measured paged-decode kernel
+times from PATH, scaled to ``n_layers x kernel``, before the engine's own
+step events, and points the process's tuner cache at PATH, so the engine's
+paged decode (K2) runs at the ``pages_per_program`` tuned for its decode
+shape; the value used is printed.  The planner counts every
+``flash_decode_paged`` entry of the file, so give it one holding this
+model's shapes only.
+
 Differences from the reference's CLI: ``--smoke`` is off by default, so the
 default is the full config; without ``--device cpu`` it runs on the card or
-raises; the router, tracing, the tuner's cache, chunked prefill and
-speculation are not ported yet (ROADMAP.md); the cold engine shares the warm
-engine's weights instead of building a second copy, and runs the same
+raises; the router, tracing, chunked prefill (with ``--prefill-chunk -1``,
+the tuned chunk) and speculation are not ported yet (ROADMAP.md); the cold
+engine shares the warm engine's weights instead of building a second copy,
+and runs the same
 ``--paged-impl``.
 """
 from __future__ import annotations
@@ -105,15 +117,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="seed the capacity planner with measured paged-decode kernel "
+                         "timings from this autotuner config cache, and run paged decode "
+                         "at its tuned pages_per_program")
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Run the ``--continuous`` path.  Returns the stats, the fitted planner,
-    the plan and both engines; exits 1 if the prefix-reuse check fails."""
+    the plan, both engines, the tuned kernel rows seeded and the paged
+    decode's ``pages_per_program``; exits 1 if the prefix-reuse check
+    fails."""
     args = parse_args(argv)
     if not args.continuous:
         raise SystemExit("only the --continuous path is ported (ROADMAP.md)")
+    tune_cache = None
+    if args.tune_cache:
+        from repro_torch.kernels import tune
+
+        tune_cache = tune.set_default_cache(args.tune_cache)
     eng = ServeEngine(args.arch, smoke=args.smoke, max_batch=args.max_batch,
                       page_size=args.page_size, max_seq=64 + args.page_size * 2,
                       seed=args.seed, paged_impl=args.paged_impl, device=args.device)
@@ -133,6 +156,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
               f" p99 {stats['join_to_first_token_p99']:.1f} steps")
 
     planner = CapacityPlanner()
+    tune_rows, ppp = 0, None
+    if tune_cache is not None:
+        from repro_torch.kernels import tune
+
+        n_layers = eng.cfg.n_layers
+        tune_rows = planner.ingest(tune.tune_events(tune_cache), n_layers=n_layers)
+        print(f"capacity plan: seeded with {tune_rows} measured kernel row(s) "
+              f"from {args.tune_cache} (x{n_layers} layers)")
+        if any(spec.mixer == "attn" for spec in eng.cfg.period):
+            ppp = _decode_pages_per_program(eng)
     planner.ingest(eng.events("serve_step"))
     plan = None
     try:
@@ -157,7 +190,28 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print("FAIL: prefix-reuse verification")
         sys.exit(1)
     return {"stats": stats, "served": len(done), "requests": len(reqs), "planner": planner,
-            "plan": plan, "engines": (eng, cold)}
+            "plan": plan, "engines": (eng, cold), "tune_rows": tune_rows,
+            "pages_per_program": ppp}
+
+
+def _decode_pages_per_program(eng: ServeEngine) -> int:
+    """Print and return the ``pages_per_program`` the engine's paged decode
+    ran at: its decode shape (all ``max_batch`` slots, the whole page-table
+    row) looked up in the tuner's cache as every decode call looks it up."""
+    from repro_torch.kernels.flash_decode.ops import pages_per_program_for
+    from repro_torch.kernels.tune import lookup
+
+    cfg = eng.cfg
+    hk, d, dtype, backend = cfg.n_kv_heads, cfg.head_dim, eng.lm.dtype, eng.device.type
+    shape = {"b": eng.max_batch, "hk": hk, "g": cfg.n_heads // hk, "d": d,
+             "page": eng.page_size, "npp": eng.pages_per_seq}
+    ppp = pages_per_program_for(eng.max_batch, cfg.n_heads, hk, d, eng.page_size,
+                                eng.pages_per_seq, dtype, backend)
+    tuned = lookup("flash_decode_paged", shape, dtype, backend) is not None
+    sig = " ".join(f"{k}={v}" for k, v in shape.items())
+    print(f"paged decode: pages_per_program={ppp} at {sig} "
+          f"({'tuned' if tuned else 'default: no cache entry'})")
+    return ppp
 
 
 if __name__ == "__main__":

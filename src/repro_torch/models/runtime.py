@@ -6,9 +6,10 @@ not train yet).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 PAGED_IMPLS = ("kernel", "stream", "gather")
-DEFAULT_PAGES_PER_PROGRAM = 4  # repro/kernels/flash_decode/ops.py:47; the tuner is not ported
+DEFAULT_PAGES_PER_PROGRAM = 4  # repro/kernels/flash_decode/ops.py:47
 # Rows per matrix product in prefill.  Fewer rows waste less on padding
 # (the serve engine pads prompts to whole blocks), more rows make fewer
 # blocks, and each block costs the host one eager pass over every layer.  On
@@ -28,7 +29,9 @@ class Runtime:
     block_q: int = 16
     block_k: int = 16
     page_size: int = 16  # paged-KV page length (serving)
-    pages_per_program: int = DEFAULT_PAGES_PER_PROGRAM
+    # None: the autotuner's config cache entry for the decode call's shape
+    # (repro_torch.kernels.tune), else DEFAULT_PAGES_PER_PROGRAM
+    pages_per_program: Optional[int] = None
     # paged decode: "kernel" (K2 for CUDA tensors, its plain version for CPU
     # tensors), "stream" or "gather" (the two plain versions, bit-identical
     # to each other; taken on any device only when named)

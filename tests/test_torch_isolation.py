@@ -38,7 +38,11 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.kernels.flash_decode.ops", "repro_torch.kernels.ssm_scan.ops",
                    "repro_torch.models.mamba", "repro_torch.models.model",
                    "repro_torch.serve.engine", "repro_torch.serve.planner",
-                   "repro_torch.telemetry.tracker", "repro_torch.launch.serve"):
+                   "repro_torch.telemetry.tracker", "repro_torch.launch.serve",
+                   "repro_torch.kernels.flash_decode.ref", "repro_torch.models.runtime",
+                   "repro_torch.kernels.tune", "repro_torch.kernels.tune.cache",
+                   "repro_torch.kernels.tune.roofline", "repro_torch.kernels.tune.sweep",
+                   "repro_torch.kernels.tune.telemetry", "repro_torch.kernels.tune.__main__"):
         assert module in report["imported"]
 
 
@@ -56,13 +60,15 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_a_card(no_card):
+def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from repro_torch import quickstart
     from repro_torch.configs import cocoa_mnist
     from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models.model import LM
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.tune import __main__ as tune_cli
     from repro_torch.optim import make_mnist_svm
     from repro_torch.serve import ServeEngine
 
@@ -78,6 +84,10 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: ServeEngine("falcon-mamba-7b"),
         lambda: serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--continuous"]),
         lambda: serve.main(["--smoke", "--continuous"]),
+        lambda: tune_cli.main(["--preset", "smoke", "--families", "sdca", "--cache",
+                                str(tmp_path / "t.json")]),
+        lambda: tune.ensure("sdca", tune.SWEEP_SHAPES["smoke"]["sdca"],
+                            cache=tune.ConfigCache(None)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
