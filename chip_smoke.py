@@ -3,16 +3,22 @@
 
   python3 chip_smoke.py
 
-It drives the port's four paths, each with every kernel launch count set
+It drives the port's five paths, each with every kernel launch count set
 to 0 just before it and read just after: the Hemingway loop on the local
 SDCA kernel (K1); the kernel autotuner (``python -m repro_torch.kernels.tune``
 and ``ensure`` at qwen3-14b's shapes), which times every kernel and is the
 only caller of the contiguous flash decode kernel (K5); serving qwen3-14b at
 full width through the continuous-batching engine on the flash forward (K3)
 and paged decode (K2) kernels, its capacity planner seeded and K2 blocked
-from the tuner's cache; and serving falcon-mamba-7b at full width through the
-same engine on the selective scan kernel (K4).  Phases, each of which exits
-non-zero on failure:
+from the tuner's cache; serving falcon-mamba-7b at full width through the
+same engine on the selective scan kernel (K4); and serving deepseek-v2-236b
+(MLA attention, MoE FFNs) at full width and a cut depth through the same
+engine on K3 with a value dim of 128 against a key dim of 192 (prefill) and
+K2's MLA latent form (decode).  The deepseek-v2 path runs 6 of its 60 layers
+(one dense head layer and five MoE layers, 21.25 B parameters, 42.5 GB of
+bf16): at full depth its 471 GB of weights fit no single card, and at this
+depth the card holds it alone once falcon-mamba-7b is freed.  Phases, each
+of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
    2. build: compiles every kernel from the sources here, one nvcc each, all
@@ -70,10 +76,32 @@ non-zero on failure:
       d_model 4096), with K4 launches = 64 x (prefills + decode steps);
   16. the longer serve run of phase 11 on falcon-mamba-7b;
   17. K4's time per launch at both shapes against its bound and its plain
-      version's time (no single PyTorch call computes a selective scan).
+      version's time (no single PyTorch call computes a selective scan);
+  18. K2's latent form and K3 at (dk 192, dv 128) against their plain
+      versions on the card, in bf16: K2 at deepseek-v2's decode shape (B 8,
+      128 heads, r 512, dr 64, page 16, 68 pages) with ragged lengths and at
+      lengths 0, 1, a full row and lengths that are no multiple of the
+      blocking, at every pages_per_program the tuner keeps, the others
+      refused by the wrapper as by the roofline; K3 at B 1, 128 heads,
+      S 1024, causal, with kv_lens;
+  19. small-input check of the MLA + MoE LM: the smoke deepseek-v2 on the
+      card (K3 at (24, 16), K2's latent form at (16, 8)) against the plain
+      versions on the CPU, with the same weights;
+  20. the serve path at full width and cut depth: the serve CLI's
+      ``--continuous`` path in process with ``deepseek-v2-236b`` at 6 layers
+      (d_model 5120, 128 heads, 160 experts top-6), with K3 launches = 6 x
+      prefills and K2-latent launches = 6 x decode steps, the weights' bytes
+      and the peak memory;
+  21. the longer serve run of phase 11 on the cut deepseek-v2, its profiled
+      decode steps split into K2's latent form, the MoE's expert products,
+      the other GEMMs and the device's busy share;
+  22. K2-latent's and K3 (192, 128)'s times per launch against their bounds,
+      their plain versions' times and one PyTorch call's time
+      (``scaled_dot_product_attention``).
 The last lines are one JSON object with every kernel's summary, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import gc
 import json
 import shutil
@@ -144,8 +172,11 @@ EXP_PER_S = 132 * 16 * 1.98e9
 # prefill and for one decode step
 QWEN = "qwen3-14b"
 MAMBA = "falcon-mamba-7b"
+DEEPSEEK = "deepseek-v2-236b"
+DEEPSEEK_LAYERS = 6  # one dense head layer and five MoE layers of the 60
 PATH_KERNELS = {QWEN: {"flash_fwd": (1, 0), "paged_decode": (0, 1)},
-                MAMBA: {"selective_scan": (1, 1)}}
+                MAMBA: {"selective_scan": (1, 1)},
+                DEEPSEEK: {"flash_fwd": (1, 0), "paged_latent_decode": (0, 1)}}
 LONG_PROMPT, LONG_GEN, LONG_BATCH = 1024, 64, 8
 
 # The autotuner: timed calls per candidate (one warm-up is added), and the
@@ -182,7 +213,8 @@ def kernel_wrappers():
 
     return {"local_sdca": sdca_ops.local_sdca, "flash_fwd": fa_ops.flash_fwd,
             "paged_decode": fd_ops.paged_decode, "selective_scan": ss_ops.selective_scan,
-            "flash_decode": fd_ops.flash_decode}
+            "flash_decode": fd_ops.flash_decode,
+            "paged_latent_decode": fd_ops.paged_latent_decode}
 
 
 def reset_launches() -> None:
@@ -751,21 +783,27 @@ def tuner_path(dev, cfg, workdir: Path):
     return {"launches": launches, "files": files}
 
 
-def serve_cli_path(arch, n_layers, d_model, path_no, tune_cache=None):
-    """Phases 10 and 15: the CLI's --continuous path at full width, with
-    ``--tune-cache`` when ``tune_cache`` is given.  Returns the model and the
-    kernels' launches."""
+def serve_cli_path(arch, n_layers, d_model, path_no, tune_cache=None, cfg=None):
+    """Phases 10, 15 and 20: the CLI's --continuous path at full width, with
+    ``--tune-cache`` when ``tune_cache`` is given, on ``cfg`` (the function
+    behind the CLI takes a cut config from its caller) when given.  Returns
+    the model and the kernels' launches."""
+    import torch
+
     from repro_torch.launch import serve
 
     argv = ["--arch", arch, "--continuous"]
     if tune_cache is not None:
         argv += ["--tune-cache", str(tune_cache)]
+    depth = "all layers" if cfg is None else f"cut to {cfg.n_layers} layers"
     phase(f"main path {path_no}: python -m repro_torch.launch.serve {' '.join(argv)} "
-          "(full width, all layers)")
+          f"(full width, {depth})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     try:
-        result = serve.main(argv)
+        result = serve.main(argv, cfg=cfg)
     except SystemExit as e:
         fail(f"the serve CLI exited with {e.code}")
     seconds = time.perf_counter() - t0
@@ -774,9 +812,12 @@ def serve_cli_path(arch, n_layers, d_model, path_no, tune_cache=None):
     cfg = warm.cfg
     prefills = sum(e.prefills_run for e in (warm, cold))
     steps = sum(e.stats()["decode_steps"] for e in (warm, cold))
+    params = list(warm.lm.parameters())
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{sum(p.numel() for p in warm.lm.parameters()) / 1e9:.3f} B parameters; "
-          f"CLI ran in {seconds:.1f} s; {prefills} prefills, {steps} decode steps")
+          f"{sum(p.numel() for p in params) / 1e9:.3f} B parameters, weights "
+          f"{sum(p.numel() * p.element_size() for p in params) / 1e9:.3f} GB, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; CLI ran in {seconds:.1f} s; "
+          f"{prefills} prefills, {steps} decode steps")
     for name, (per_prefill, per_step) in PATH_KERNELS[arch].items():
         terms = " + ".join(t for t, on in (("prefills", per_prefill), ("decode steps", per_step))
                            if on)
@@ -842,8 +883,12 @@ def long_serve_run(arch, lm, tune_cache=None):
             for _ in range(LONG_BATCH)]
     reset_launches()
     profiled_steps = range(48, 52)
+    # a MoE's expert products are batched products like the attention's
+    # absorbed einsums; a second window traces the host's operators with
+    # their shapes to tell them apart, at the cost of a slower host there
+    split_steps = range(54, 56) if lm.cfg.uses_moe else range(0)
     t0 = time.perf_counter()
-    prof = None
+    prof = split = None
     while not eng.scheduler.drained:
         if eng.step_count == profiled_steps.start:
             # device activity only: tracing the host's operators as well
@@ -851,11 +896,18 @@ def long_serve_run(arch, lm, tune_cache=None):
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
             t_prof = time.perf_counter()
+        if split_steps and eng.step_count == split_steps.start:
+            split = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                            record_shapes=True)
+            split.__enter__()
         eng.step()
         if eng.step_count == profiled_steps.stop:
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t_prof) * 1e3
             prof.__exit__(None, None, None)
+        if split_steps and eng.step_count == split_steps.stop:
+            torch.cuda.synchronize()
+            split.__exit__(None, None, None)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = read_launches()
@@ -863,15 +915,14 @@ def long_serve_run(arch, lm, tune_cache=None):
         fail("the long run did not generate every token")
     ttft = np.cumsum([r.prefill_s for r in sorted(reqs, key=lambda r: r.rid)])
     steps = [e for e in eng.events("serve_step") if e.batch > 0]
-    timed = [e.step_s for e in steps if e.batch == LONG_BATCH and e.step not in profiled_steps]
+    timed = [e.step_s for e in steps if e.batch == LONG_BATCH and e.step not in profiled_steps
+             and e.step not in split_steps]
     stats = eng.stats()
     events = prof.key_averages()
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     kernel_ms = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
                  for name in PATH_KERNELS[arch]}
-    gemm_ms = sum(e.self_device_time_total for e in events
-                  if "gemm" in e.key.lower() or "gemv" in e.key.lower()
-                  or "cutlass" in e.key.lower() or "nvjet" in e.key.lower()) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in events if is_gemm(e.key)) / 1e3
     out = {
         "arch": arch,
         "ttft_ms_p50": float(np.median(ttft)) * 1e3,
@@ -895,6 +946,8 @@ def long_serve_run(arch, lm, tune_cache=None):
         **{f"profiled_{name}_ms": ms for name, ms in kernel_ms.items()},
         "profiled_gemm_ms": gemm_ms,
     }
+    if split is not None:
+        out["moe_split"] = moe_split(split, lm.cfg, len(split_steps))
     print(json.dumps({"long_run": out}))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
@@ -904,6 +957,32 @@ def long_serve_run(arch, lm, tune_cache=None):
     if busy_ms <= 0:
         fail("the profiler saw no device time")
     return out
+
+
+def is_gemm(kernel: str) -> bool:
+    name = kernel.lower()
+    return any(part in name for part in ("gemm", "gemv", "cutlass", "nvjet"))
+
+
+def moe_split(prof, cfg, n_steps: int) -> dict:
+    """Device ms a decode step in ``prof`` (host operators traced with their
+    shapes): the MoE's expert products (``aten::bmm`` over the E experts),
+    the other matrix products, K2's latent form, and all kernels."""
+    from torch.autograd import DeviceType
+
+    shaped = prof.key_averages(group_by_input_shape=True)
+    moe_ms = sum(e.device_time_total for e in shaped if e.key == "aten::bmm"
+                 and e.input_shapes and list(e.input_shapes[0][:1]) ==
+                 [cfg.moe.n_routed_experts]) / 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    gemm_ms = sum(e.self_device_time_total for e in kernels if is_gemm(e.key)) / 1e3
+    latent_ms = sum(e.self_device_time_total for e in kernels
+                    if "paged_latent_decode" in e.key) / 1e3
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"steps": n_steps, "moe_products_ms_per_step": moe_ms / n_steps,
+            "other_gemm_ms_per_step": (gemm_ms - moe_ms) / n_steps,
+            "paged_latent_decode_ms_per_step": latent_ms / n_steps,
+            "device_ms_per_step": device_ms / n_steps}
 
 
 def prefill_row_blocks(lm):
@@ -1209,6 +1288,172 @@ def scan_kernel_timings(dev, cfg):
     return timings["prefill"]
 
 
+def latent_inputs(torch, gen, cfg, b, npp, lengths=None, page=16):
+    """K2-latent's bf16 inputs at ``cfg``'s widths: q_lat (B, H, r), q_pe
+    (B, H, dr), pools (n_pages, page, r) and (n_pages, page, dr) with page 0
+    the scratch page, shuffled page tables and int32 lengths
+    (``ragged_lengths(b, npp * page)`` unless given)."""
+    from repro_torch.kernels.tune import ragged_lengths
+
+    m, h = cfg.mla, cfg.n_heads
+    dev = gen.device
+    n_pages = 1 + b * npp
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    lens = ragged_lengths(b, npp * page) if lengths is None else lengths
+    return (bf16(b, h, m.kv_lora_rank), bf16(b, h, m.qk_rope_head_dim),
+            bf16(n_pages, page, m.kv_lora_rank), bf16(n_pages, page, m.qk_rope_head_dim),
+            torch.tensor(lens, dtype=torch.int32, device=dev),
+            random_pages(torch, gen, dev, b, npp, n_pages))
+
+
+def mla_kernels_vs_plain(dev, cfg) -> dict:
+    """Phase 18.  Returns the largest absolute error of each kernel."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.tune import candidates_for
+    from repro_torch.kernels.tune.roofline import estimate
+    from repro_torch.models.mla import sm_scale
+
+    m = cfg.mla
+    phase(f"K2's latent form and K3 (dk {m.qk_nope_head_dim + m.qk_rope_head_dim}, dv "
+          f"{m.v_head_dim}) vs plain (bf16, {DEEPSEEK}: {cfg.n_heads} heads, r "
+          f"{m.kv_lora_rank}, dr {m.qk_rope_head_dim})")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    scale = sm_scale(cfg)
+    errs = {"paged_latent_decode": 0.0, "flash_fwd": 0.0}
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    b, npp, page = LONG_BATCH, LONG_PAGES, 16
+    shape = fd_ops.latent_shape(b, cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim, page, npp)
+    # ragged lengths; then 0, 1, a full row, and lengths that are no multiple
+    # of any blocking
+    for lengths in (None, [0, 1, npp * page, 1000, 65, 17, 555, 129]):
+        args = latent_inputs(torch, gen, cfg, b, npp, lengths)
+        for config in candidates_for("flash_decode_paged", shape):
+            ppp = config["pages_per_program"]
+            if not estimate("flash_decode_paged", shape, config, "bfloat16").fits:
+                try:
+                    fd_ops.paged_latent_decode(*args, scale=scale, pages_per_program=ppp)
+                except ValueError:
+                    continue
+                fail(f"paged_latent_decode took pages_per_program={ppp}, which the "
+                     "roofline refuses")
+            got = fd_ops.paged_latent_decode(*args, scale=scale, pages_per_program=ppp)
+            torch.cuda.synchronize()
+            want = fd_ops.paged_latent_decode_attention(*args, sm_scale=scale, impl="stream",
+                                                        pages_per_program=ppp)
+            errs["paged_latent_decode"] = max(errs["paged_latent_decode"], check_against_plain(
+                torch, "paged_latent_decode", got, want, args[2],
+                f"B={b} lengths={args[4].tolist()} npp={npp} ppp={ppp}"))
+            if any(got[i].float().abs().any() for i, n in enumerate(args[4].tolist()) if n == 0):
+                fail("paged_latent_decode: a row of length 0 is not zeros")
+    dk, dv, h = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim, cfg.n_heads
+    for s_len, kv_len in ((LONG_PROMPT, LONG_PROMPT - 24), (96, 37)):
+        q, k, v = bf16(1, h, s_len, dk), bf16(1, h, s_len, dk), bf16(1, h, s_len, dv)
+        kv_lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+        got = fa_ops.flash_fwd(q, k, v, kv_lens, sm_scale=scale)
+        torch.cuda.synchronize()
+        want = flash_fwd_ref(q, k, v, kv_lens, causal=True, sm_scale=scale, q_offset=0,
+                             block_q=16, block_k=16)
+        errs["flash_fwd"] = max(errs["flash_fwd"], check_against_plain(
+            torch, "flash_fwd", got, want, v,
+            f"B=1 H={h} S={s_len} dk={dk} dv={dv} kv_lens=[{kv_len}]"))
+    print(f"tolerance: at most {MAX_BF16_ULPS} bf16 ulp of the output beyond "
+          f"{V_ATOL_OF_MAX:.2e} max|v| (v the latent pool for K2's latent form); an empty "
+          "row exactly 0; pages_per_program the roofline refuses refused by the wrapper")
+    return errs
+
+
+def mla_kernel_timings(dev, cfg):
+    """Phase 22.  Returns {kernel: (ms, plain_ms, library_ms, bound_ms,
+    bound_by, shape)} for K2's latent form at phase 18's shape with ragged
+    lengths; K3 at (S 1024, 128 heads, dk 192, dv 128), causal, is printed
+    (its row in the kernels line stays at qwen3-14b's shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models.mla import sm_scale
+
+    phase("K2-latent and K3 (192, 128) timings (CUDA events, after warm-up)")
+    m, h = cfg.mla, cfg.n_heads
+    r, dr = m.kv_lora_rank, m.qk_rope_head_dim
+    gen = torch.Generator(device=dev).manual_seed(9)
+    scale = sm_scale(cfg)
+    timings = {}
+    b, npp, page, ppp = LONG_BATCH, LONG_PAGES, 16, K2_ROW_PAGES_PER_PROGRAM
+    q_lat, q_pe, ckv, kpe, lens, tables = latent_inputs(torch, gen, cfg, b, npp)
+    s = npp * page
+    valid = int(lens.sum())
+    ms = cuda_ms(lambda: fd_ops.paged_latent_decode(q_lat, q_pe, ckv, kpe, lens, tables,
+                                                    scale=scale, pages_per_program=ppp),
+                 reps=50)
+    plain = cuda_ms(lambda: fd_ops.paged_latent_decode_attention(
+        q_lat, q_pe, ckv, kpe, lens, tables, sm_scale=scale, impl="stream",
+        pages_per_program=ppp), reps=3, warmup=1)
+    values = fd_ops.gather_pages(ckv, tables)[:, None]  # (B, 1, S, r)
+    keys = torch.cat([values, fd_ops.gather_pages(kpe, tables)[:, None]], dim=-1)
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    q_sdpa = torch.cat([q_lat, q_pe], dim=-1)[:, :, None]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q_sdpa, keys, values, attn_mask=mask,
+                                                         scale=scale, enable_gqa=True),
+                  reps=50)
+    # the valid positions' latent and rope rows, the queries and lengths and
+    # page tables read once, the output written once; 2 H (2 r + dr) FLOPs a
+    # valid position
+    nbytes = valid * (r + dr) * 2 + b * h * (2 * r + dr) * 2 + b * 4 + b * npp * 4
+    flops = 2 * valid * h * (2 * r + dr)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"paged_latent_decode B={b} H={h} r={r} dr={dr} context {s} lengths "
+          f"{lens.tolist()} (sum {valid}) ppp={ppp}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+          f"SDPA over the gathered [ckv | kpe] keys and ckv values with a length mask "
+          f"{lib:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s = "
+          f"{bytes_ms:.4f} ms; {flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms), "
+          f"kernel at {100 * bound / ms:.2f}% of bound; grid {-(-h // 8) * b} blocks")
+    timings["paged_latent_decode"] = (ms, plain, lib, bound, by, f"B={b} context={s} ppp={ppp}")
+    for ppp_other in (2, 8):
+        other = cuda_ms(lambda: fd_ops.paged_latent_decode(
+            q_lat, q_pe, ckv, kpe, lens, tables, scale=scale, pages_per_program=ppp_other),
+            reps=50)
+        print(f"paged_latent_decode at ppp={ppp_other}: kernel {other:.4f} ms")
+
+    dk, dv, sq = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim, LONG_PROMPT
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = bf16(1, h, sq, dk), bf16(1, h, sq, dk), bf16(1, h, sq, dv)
+    kv_lens = torch.tensor([sq], dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, kv_lens, sm_scale=scale), reps=10)
+    plain = cuda_ms(lambda: flash_fwd_ref(q, k, v, kv_lens, causal=True, sm_scale=scale,
+                                          q_offset=0, block_q=16, block_k=16),
+                    reps=2, warmup=1)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale),
+                  reps=20)
+    nbytes = h * sq * (2 * dk + 2 * dv) * 2  # q, k, v read once, out written once
+    flops = 2 * h * (dk + dv) * sq * (sq + 1) // 2  # the causal pairs this input needs
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"flash_fwd (MLA prefill) Sq=Skv={sq} H={h} dk={dk} dv={dv}: kernel {ms:.3f} ms, "
+          f"plain {plain:.3f} ms, SDPA {lib:.3f} ms, bound {bound:.4f} ms ({by}: "
+          f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; {nbytes / 1e6:.1f} MB "
+          f"at 3.35 TB/s = {bytes_ms:.4f} ms), kernel at {100 * bound / ms:.2f}% of bound")
+    return timings
+
+
 def main() -> None:
     import torch
 
@@ -1231,7 +1476,7 @@ def main() -> None:
 
     phase("build")
     build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY, fd_ops.DECODE_LIBRARY,
-               ss_ops.LIBRARY])
+               fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY])
 
     k1 = hemingway_path(dev)
     torch.cuda.empty_cache()
@@ -1266,6 +1511,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     timings["selective_scan"] = scan_kernel_timings(dev, cfg)
 
+    cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
+    for name, err in mla_kernels_vs_plain(dev, cfg).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    small_lm_check(dev, DEEPSEEK)
+    lm, mla_launches = serve_cli_path(DEEPSEEK, n_layers=DEEPSEEK_LAYERS, d_model=5120,
+                                      path_no=5, cfg=cfg)
+    launches["paged_latent_decode"] = mla_launches["paged_latent_decode"]
+    long_serve_run(DEEPSEEK, lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings.update(mla_kernel_timings(dev, cfg))
+
     kernels = [k1]
     for name, source, replaces in (
             ("flash_fwd", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
@@ -1275,7 +1533,10 @@ def main() -> None:
             ("selective_scan", "src/repro_torch/kernels/ssm_scan/csrc/selective_scan.cu",
              "src/repro/kernels/ssm_scan/kernel.py:65"),
             ("flash_decode", "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
-             "src/repro/kernels/flash_decode/kernel.py:89")):
+             "src/repro/kernels/flash_decode/kernel.py:89"),
+            ("paged_latent_decode",
+             "src/repro_torch/kernels/flash_decode/csrc/paged_latent_decode.cu",
+             "src/repro/kernels/flash_decode/kernel.py:189")):
         ms, plain, lib, bound, by, _ = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,

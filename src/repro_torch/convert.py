@@ -47,15 +47,20 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
     holding the reference's parameters.
 
     ``params`` is the reference's param tree (``repro.models.model.LM.init``)
-    with numpy leaves: ``embed``, ``final_norm``, ``lm_head`` and
-    ``periods``, whose leaves are stacked over the periods: for an attention
-    layer ``pos<i>/{ln1, mixer/{wq, wk, wv, wo, q_norm, k_norm}, ln2,
-    ffn/{w_gate, w_up, w_down}}``, for a Mamba layer ``pos<i>/{ln1,
-    mixer/{in_proj, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D,
-    out_proj}}``.  Layer l is period l // P, position l % P of a period of
-    length P.  Each leaf is cast to the dtype the port stores it in (the
-    config's dtype for matrices, float32 for norm scales and the Mamba
-    parameters the reference reads in float32)."""
+    with numpy leaves: ``embed``, ``final_norm``, ``lm_head``, with
+    ``first_k_dense`` head layers ``head_layers`` (a tuple of unstacked
+    layer dicts), and ``periods``, whose leaves are stacked over the periods:
+    for an attention layer ``pos<i>/{ln1, mixer/{wq, wk, wv, wo, q_norm,
+    k_norm}, ln2, ffn/{w_gate, w_up, w_down}}``, for an MLA layer
+    ``mixer/{wq_a, q_a_norm, wq_b, wkv_a, kv_a_norm, wkv_b, wo}``, for a MoE
+    FFN ``ffn/{router, w_gate, w_up, w_down, sh_gate, sh_up, sh_down}``, for
+    a Mamba layer ``pos<i>/{ln1, mixer/{in_proj, conv_w, conv_b, x_proj,
+    dt_w, dt_b, A_log, D, out_proj}}``.  Layer l < k = ``first_k_dense`` is
+    head layer l; layer l >= k is period (l - k) // P, position
+    (l - k) % P of a period of length P.  Each leaf is cast to the dtype the
+    port stores it in (the config's dtype for matrices, float32 for norm
+    scales, the MoE router and the Mamba parameters the reference reads in
+    float32)."""
     lm = LM(cfg, device)
 
     def put(dst: torch.Tensor, src) -> None:
@@ -68,14 +73,23 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
     put(lm.final_norm, params["final_norm"])
     if lm.lm_head is not None:
         put(lm.lm_head, params["lm_head"])
-    period = len(cfg.period)
+    k, period = cfg.first_k_dense, len(cfg.period)
+    head_layers = params.get("head_layers", ())
+    if len(head_layers) != k:
+        raise ValueError(f"{len(head_layers)} head layers for first_k_dense={k}")
     for i, layer in enumerate(lm.layers):
-        src = params["periods"][f"pos{i % period}"]
-        n = i // period
-        put(layer.ln1, src["ln1"][n])
+        if i < k:  # a head layer's leaves are unstacked
+            src, n = head_layers[i], None
+        else:
+            src, n = params["periods"][f"pos{(i - k) % period}"], (i - k) // period
+
+        def put_leaf(dst: torch.Tensor, leaf) -> None:
+            put(dst, leaf if n is None else leaf[n])
+
+        put_leaf(layer.ln1, src["ln1"])
         if layer.ln2 is not None:
-            put(layer.ln2, src["ln2"][n])
+            put_leaf(layer.ln2, src["ln2"])
         for group in layer.specs:
             for name, dst in getattr(layer, group).items():
-                put(dst, src[group][name][n])
+                put_leaf(dst, src[group][name])
     return lm

@@ -4,7 +4,8 @@ tensors.
 
 ``flash_attention`` is the model-facing call, with the signature of
 ``repro/kernels/flash_attention/ops.py::flash_attention`` (grouped GQA,
-``kv_lens``, static ``q_offset``).  ``flash_fwd`` is the kernel's wrapper: a
+``kv_lens``, static ``q_offset``, a value dim that may differ from the key
+dim, as MLA's prefill needs).  ``flash_fwd`` is the kernel's wrapper: a
 CUDA tensor goes to the kernel or the call raises, nothing falls back to the
 plain version, and ``flash_fwd.launches`` counts the kernel's launches and
 only those.
@@ -26,19 +27,21 @@ from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu", "flash_fwd",
-    {"flash_fwd_launch": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p],
-                          ctypes.c_int),
-     "flash_fwd_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
+    {"flash_fwd_launch": ([_p] * 5 + [_i] * 10 + [_f, _p], ctypes.c_int),
+     "flash_fwd_smem_bytes": ([_i, _i, _i, _i], ctypes.c_int)},
     error_fn="flash_fwd_error_string")
 
 MAX_BLOCK_K = 64
 NEG_INF = -1e30
+# (key dim, value dim) pairs the kernel is built for: equal dims, multiples
+# of 16 up to 256, and MLA's prefill, DeepSeek-V2's and its smoke variant's
+HEAD_DIMS = tuple((d, d) for d in range(16, 257, 16)) + ((192, 128), (24, 16))
 
 
 def flash_fwd(
-    q: torch.Tensor,  # (B, Hq, Sq, D) bfloat16
-    k: torch.Tensor,  # (B, Hk, Skv, D) bfloat16
-    v: torch.Tensor,  # (B, Hk, Skv, D) bfloat16
+    q: torch.Tensor,  # (B, Hq, Sq, Dk) bfloat16
+    k: torch.Tensor,  # (B, Hk, Skv, Dk) bfloat16
+    v: torch.Tensor,  # (B, Hk, Skv, Dv) bfloat16
     kv_lens: torch.Tensor,  # (B,) valid key positions
     *,
     causal: bool = True,
@@ -47,7 +50,7 @@ def flash_fwd(
     block_q: int = 16,
     block_k: int = 16,
 ) -> torch.Tensor:
-    """Returns (B, Hq, Sq, D) in q's dtype.  ``block_q`` cuts the plain
+    """Returns (B, Hq, Sq, Dv) in q's dtype.  ``block_q`` cuts the plain
     version's query tiles; the kernel's rows are independent of it."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, kv_lens, causal=causal, sm_scale=sm_scale,
@@ -58,13 +61,15 @@ def flash_fwd(
     if k.dim() != 4 or k.shape[0] != b:
         raise ValueError(f"k has shape {tuple(k.shape)}, q {tuple(q.shape)}")
     _, hk, skv, dk = k.shape
-    if tuple(v.shape) != tuple(k.shape) or dk != d:
-        raise ValueError(f"v {tuple(v.shape)} and k {tuple(k.shape)} must match, "
-                         f"with q's head dim {d} (the kernel takes dv == dk)")
+    if v.dim() != 4 or tuple(v.shape[:3]) != tuple(k.shape[:3]) or dk != d:
+        raise ValueError(f"v {tuple(v.shape)} and k {tuple(k.shape)} must match but for "
+                         f"v's last dim, with q's head dim {d}")
+    dv = v.shape[3]
     if hq % hk:
         raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
-    if d % 16 or not 16 <= d <= 256:
-        raise ValueError(f"head dim {d}: the kernel takes multiples of 16 up to 256")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"(dk, dv) = ({d}, {dv}): the kernel is built for equal dims, "
+                         "multiples of 16 up to 256, and (192, 128) and (24, 16)")
     if not 1 <= block_k <= MAX_BLOCK_K:
         raise ValueError(f"block_k={block_k}: the kernel takes 1..{MAX_BLOCK_K}")
     if tuple(kv_lens.shape) != (b,):
@@ -78,18 +83,18 @@ def flash_fwd(
             raise ValueError(f"{name} is not contiguous")
     g = hq // hk
     lib = LIBRARY.load()
-    smem = lib.flash_fwd_smem_bytes(g, d, block_k)
+    smem = lib.flash_fwd_smem_bytes(g, d, dv, block_k)
     if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"G={g}, D={d}, block_k={block_k} need {smem} bytes of "
+        raise ValueError(f"G={g}, dk={d}, dv={dv}, block_k={block_k} need {smem} bytes of "
                          f"shared memory, more than the {MAX_SMEM_PER_BLOCK} a block may use")
     lens32 = kv_lens.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     if b * hq * sq == 0:
         return out
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), out.data_ptr(),
-            b, hk, g, sq, skv, d, int(q_offset), int(bool(causal)), int(block_k),
+            b, hk, g, sq, skv, d, dv, int(q_offset), int(bool(causal)), int(block_k),
             ctypes.c_float(sm_scale), torch.cuda.current_stream().cuda_stream)
     LIBRARY.check(err, "flash_fwd kernel")
     flash_fwd.launches += 1
@@ -100,9 +105,9 @@ flash_fwd.launches = 0
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, Hq, Sq, D)
-    k: torch.Tensor,  # (B, Hk, Skv, D)
-    v: torch.Tensor,  # (B, Hk, Skv, D)
+    q: torch.Tensor,  # (B, Hq, Sq, Dk)
+    k: torch.Tensor,  # (B, Hk, Skv, Dk)
+    v: torch.Tensor,  # (B, Hk, Skv, Dv)
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,

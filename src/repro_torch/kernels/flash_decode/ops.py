@@ -1,7 +1,8 @@
 """Decode attention: the Hopper kernels for paged (K2, csrc/paged_decode.cu)
 and contiguous (K5, csrc/flash_decode.cu) caches for CUDA tensors, which share
-one block body (csrc/decode_tile.cuh), their plain versions (ref.py) for CPU
-tensors or when named.
+one block body (csrc/decode_tile.cuh), and K2's MLA latent form
+(csrc/paged_latent_decode.cu); their plain versions (ref.py) for CPU tensors
+or when named.
 
 ``paged_decode_attention`` is the model-facing call, with the signature of
 ``repro/kernels/flash_decode/ops.py::paged_decode_attention``.  Its ``impl``
@@ -11,14 +12,20 @@ on any device, taken only when named).  ``pages_per_program=None`` takes the
 autotuner's config cache entry for the call's (shape, dtype, device) key
 (``repro_torch.kernels.tune``), else ``DEFAULT_PAGES_PER_PROGRAM``.
 
+``paged_latent_decode_attention`` is the counterpart of the reference's MLA
+absorbed-latent call (``ops.py:376``): one latent pool serves as keys and
+values, every query head reads it, and a rope term ``q_pe . kpe`` joins the
+scores.  ``"kernel"`` runs ``paged_latent_decode`` (K2's latent form on the
+card, the ``stream`` plain version with the q_pe term on the CPU).
+
 ``decode_attention_auto`` is the reference's contiguous-cache dispatch
 (``ops.py:51``) with ``use_pallas`` named ``use_kernel``: ``True`` runs
 ``flash_decode`` (K5 for CUDA tensors, its plain version ``flash_decode_ref``
 for CPU tensors), ``False`` the plain ``decode_attention`` on any device.
 
-``paged_decode`` and ``flash_decode`` are the kernels' wrappers: a CUDA
-tensor goes to the kernel or the call raises, nothing falls back, and
-``paged_decode.launches`` / ``flash_decode.launches`` count each kernel's
+``paged_decode``, ``paged_latent_decode`` and ``flash_decode`` are the
+kernels' wrappers: a CUDA tensor goes to the kernel or the call raises,
+nothing falls back, and each wrapper's ``launches`` counts its kernel's
 launches and only those.
 
 ``gather_pages`` and ``paged_prefill_attention`` (``ops.py:272, 292``) are
@@ -56,6 +63,15 @@ DECODE_LIBRARY = KernelLibrary(
     {"flash_decode_launch": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p], ctypes.c_int),
      "flash_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
     error_fn="flash_decode_error_string", includes=[_CSRC / "decode_tile.cuh"])
+LATENT_LIBRARY = KernelLibrary(
+    _CSRC / "paged_latent_decode.cu", "paged_latent_decode",
+    {"paged_latent_decode_launch": ([_p] * 7 + [_i] * 8 + [_f, _p],
+                                    ctypes.c_int),
+     "paged_latent_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
+    error_fn="paged_latent_decode_error_string")
+# (latent width r, rope width dr) the latent kernel is built for: DeepSeek-V2's
+# and its smoke variant's
+LATENT_WIDTHS = ((512, 64), (16, 8))
 
 # K5's tile.  The reference's default, 512 positions, is a TPU tile: K5 keeps
 # a tile of K and V in shared memory, and at head dim 128 a 512-position tile
@@ -83,6 +99,14 @@ def pages_per_program_for(b: int, hq: int, hk: int, d: int, page: int, npp: int,
     shape = {"b": b, "hk": hk, "g": hq // hk, "d": d, "page": page, "npp": npp}
     return _tuned_value("flash_decode_paged", shape, dtype, "pages_per_program",
                         DEFAULT_PAGES_PER_PROGRAM, backend)
+
+
+def latent_shape(b: int, h: int, r: int, dr: int, page: int, npp: int) -> dict:
+    """The tuner's ``flash_decode_paged`` key for the latent form: the
+    reference's (``ops.py:397-401``: one KV head, all H heads grouped on it,
+    d = r) with the rope width ``dr``, which the latent kernel's shared memory
+    depends on and which keeps it apart from a GQA shape of one KV head."""
+    return {"b": b, "hk": 1, "g": h, "d": r, "dr": dr, "page": page, "npp": npp}
 
 
 def paged_decode(
@@ -184,6 +208,125 @@ def paged_decode_attention(
     else:
         out = paged_decode_gather(*args, scale=scale, pages_per_program=ppp)
     return out.reshape(b, hq, v_pages.shape[3])
+
+
+def paged_latent_decode(
+    q_lat: torch.Tensor,  # (B, H, r) bfloat16
+    q_pe: torch.Tensor,  # (B, H, dr) bfloat16
+    ckv_pages: torch.Tensor,  # (n_pages, page, r) bfloat16
+    kpe_pages: torch.Tensor,  # (n_pages, page, dr) bfloat16
+    lengths: torch.Tensor,  # (B,) valid positions incl. the new token
+    page_tables: torch.Tensor,  # (B, npp) physical page ids
+    *,
+    scale: float,
+    pages_per_program: int = DEFAULT_PAGES_PER_PROGRAM,
+) -> torch.Tensor:
+    """K2's latent form: returns the latent context (B, H, r) in q_lat's
+    dtype."""
+    if q_lat.device.type == "cpu":
+        return _latent_plain(paged_decode_stream, q_lat, q_pe, ckv_pages, kpe_pages, lengths,
+                             page_tables, scale, pages_per_program)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_latent_decode runs on cpu or cuda tensors, not {q_lat.device}")
+    if q_lat.dim() != 3 or q_pe.dim() != 3 or q_pe.shape[:2] != q_lat.shape[:2]:
+        raise ValueError(f"q_lat {tuple(q_lat.shape)} and q_pe {tuple(q_pe.shape)} must be "
+                         "(B, H, r) and (B, H, dr)")
+    b, h, r = q_lat.shape
+    dr = q_pe.shape[2]
+    if (r, dr) not in LATENT_WIDTHS:
+        raise ValueError(f"(r, dr) = ({r}, {dr}): the kernel is built for {LATENT_WIDTHS}")
+    if ckv_pages.dim() != 3 or ckv_pages.shape[2] != r:
+        raise ValueError(f"ckv_pages has shape {tuple(ckv_pages.shape)}, "
+                         f"q_lat {tuple(q_lat.shape)}")
+    n_pages, page, _ = ckv_pages.shape
+    if tuple(kpe_pages.shape) != (n_pages, page, dr):
+        raise ValueError(f"kpe_pages has shape {tuple(kpe_pages.shape)}, expected "
+                         f"{(n_pages, page, dr)}")
+    if page_tables.dim() != 2 or page_tables.shape[0] != b:
+        raise ValueError(f"page_tables has shape {tuple(page_tables.shape)}, batch {b}")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths has shape {tuple(lengths.shape)}, expected ({b},)")
+    for name, t in (("q_lat", q_lat), ("q_pe", q_pe), ("ckv_pages", ckv_pages),
+                    ("kpe_pages", kpe_pages), ("lengths", lengths),
+                    ("page_tables", page_tables)):
+        if t.device != q_lat.device:
+            raise ValueError(f"{name} is on {t.device}, q_lat on {q_lat.device}")
+        if name in ("lengths", "page_tables"):
+            if t.dtype != torch.int32:
+                raise TypeError(f"{name} is {t.dtype}; the kernel takes int32")
+        elif t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    npp = page_tables.shape[1]
+    ppp = max(1, min(int(pages_per_program), npp))
+    lib = LATENT_LIBRARY.load()
+    smem = lib.paged_latent_decode_smem_bytes(r, dr, ppp * page)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"r={r}, dr={dr}, {ppp} x {page}-position pages need {smem} bytes of "
+                         f"shared memory, more than the {MAX_SMEM_PER_BLOCK} a block may use")
+    out = torch.empty_like(q_lat)
+    if b * h == 0:
+        return out
+    with torch.cuda.device(q_lat.device):
+        err = lib.paged_latent_decode_launch(
+            q_lat.data_ptr(), q_pe.data_ptr(), ckv_pages.data_ptr(), kpe_pages.data_ptr(),
+            lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(), b, h, r, dr, n_pages,
+            page, npp, ppp, ctypes.c_float(scale), torch.cuda.current_stream().cuda_stream)
+    LATENT_LIBRARY.check(err, "paged_latent_decode kernel")
+    paged_latent_decode.launches += 1
+    return out
+
+
+paged_latent_decode.launches = 0
+
+
+def _latent_plain(plain, q_lat, q_pe, ckv_pages, kpe_pages, lengths, page_tables, scale: float,
+                  pages_per_program: int) -> torch.Tensor:
+    """A plain version (``paged_decode_stream`` or ``_gather``) on the latent
+    form, called as the reference calls it (``ops.py:402-415``): one KV head
+    (a size-1 axis), the latent pool passed as both K and V."""
+    pool = ckv_pages[:, None]
+    return plain(q_lat[:, None], pool, pool, lengths, page_tables, scale=scale,
+                 pages_per_program=pages_per_program, q_pe=q_pe[:, None],
+                 kpe_pages=kpe_pages[:, None])[:, 0]
+
+
+def paged_latent_decode_attention(
+    q_lat: torch.Tensor,  # (B, H, r) absorbed queries (latent space)
+    q_pe: torch.Tensor,  # (B, H, dr)
+    ckv_pages: torch.Tensor,  # (n_pages, page, r) latent page pool
+    kpe_pages: torch.Tensor,  # (n_pages, page, dr)
+    lengths: torch.Tensor,  # (B,) valid positions incl. the new token
+    page_tables: torch.Tensor,  # (B, pages_per_seq) int32
+    *,
+    sm_scale: float,
+    impl: str = "kernel",
+    pages_per_program: Optional[int] = None,
+) -> torch.Tensor:
+    """MLA latent decode over the paged (c_kv, k_pe) pools; returns the
+    latent context (B, H, r).  Scores ``q_lat . ckv + q_pe . kpe``, the
+    context accumulated against ``ckv`` itself (the absorbed form: the pool
+    is both keys and values).  ``"stream"`` and ``"gather"`` are the plain
+    versions with the pool passed as K and V and a size-1 head axis, as the
+    reference calls them.  ``pages_per_program=None`` consults the tuner's
+    cache at ``latent_shape``, falling back to ``DEFAULT_PAGES_PER_PROGRAM``."""
+    if impl not in PAGED_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {PAGED_IMPLS}")
+    b, h, r = q_lat.shape
+    page, npp = ckv_pages.shape[1], page_tables.shape[1]
+    if pages_per_program is None:
+        shape = latent_shape(b, h, r, q_pe.shape[2], page, npp)
+        ppp = _tuned_value("flash_decode_paged", shape, q_lat.dtype, "pages_per_program",
+                           DEFAULT_PAGES_PER_PROGRAM, q_lat.device.type)
+    else:
+        ppp = int(pages_per_program)
+    if impl == "kernel":
+        return paged_latent_decode(q_lat, q_pe, ckv_pages, kpe_pages, lengths, page_tables,
+                                   scale=float(sm_scale), pages_per_program=ppp)
+    plain = paged_decode_stream if impl == "stream" else paged_decode_gather
+    return _latent_plain(plain, q_lat, q_pe, ckv_pages, kpe_pages, lengths, page_tables,
+                         float(sm_scale), ppp)
 
 
 def flash_decode(

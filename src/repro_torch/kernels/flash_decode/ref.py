@@ -11,6 +11,10 @@ group's pages and stops at the longest live row; ``gather`` builds the dense
 bitwise equal to each other (DESIGN.md §10 requires it of the reference);
 the groups ``gather`` runs past a row's length are exact no-ops.
 
+The optional ``q_pe`` / ``kpe_pages`` term is the MLA absorbed-latent path's
+(``paged_latent_decode_attention``): scores ``q . k + q_pe . kpe``, then the
+scale, as the reference's ``_block_update`` adds them.
+
 ``flash_decode_ref`` is K5's: the blocked math of
 ``repro/kernels/flash_decode/kernel.py::_decode_kernel`` (:46) over the
 padded cache, through the same ``_block_update``.
@@ -24,11 +28,17 @@ import torch
 NEG_INF = -1e30
 
 
-def _block_update(q, k_blk, v_blk, start: int, length, scale: float, acc, m, l):
+def _block_update(q, k_blk, v_blk, start: int, length, scale: float, acc, m, l,
+                  qpe=None, kpe_blk=None):
     """One online-softmax block update: q (B, Hk, G, d), blocks
-    (B, Hk, blk, d), running acc (B, Hk, G, dv), m and l (B, Hk, G)."""
+    (B, Hk, blk, d), running acc (B, Hk, G, dv), m and l (B, Hk, G); with
+    ``qpe`` (B, Hk, G, dr) the score term against ``kpe_blk`` (B, Hk, blk,
+    dr) is added before the scale."""
     blk = k_blk.shape[-2]
-    s = torch.einsum("bkgd,bkpd->bkgp", q, k_blk) * scale
+    s = torch.einsum("bkgd,bkpd->bkgp", q, k_blk)
+    if qpe is not None:
+        s = s + torch.einsum("bkgd,bkpd->bkgp", qpe, kpe_blk)
+    s = s * scale
     pos = start + torch.arange(blk, device=q.device)
     valid = (pos[None, :] < length[:, None])[:, None, None, :]  # (B, 1, 1, blk)
     s = torch.where(valid, s, NEG_INF)
@@ -63,9 +73,10 @@ def _blocked(tile: torch.Tensor, b: int, hk: int, blk: int) -> torch.Tensor:
 
 
 def paged_decode_stream(q, k_pages, v_pages, lengths, page_tables, *, scale: float,
-                        pages_per_program: int) -> torch.Tensor:
+                        pages_per_program: int, q_pe=None, kpe_pages=None) -> torch.Tensor:
     """q (B, Hk, G, d); pools (n_pages, Hk, page, d); lengths (B,);
-    page_tables (B, npp).  Returns (B, Hk, G, dv) in q's dtype."""
+    page_tables (B, npp); optional q_pe (B, Hk, G, dr) and kpe_pages
+    (n_pages, Hk, page, dr).  Returns (B, Hk, G, dv) in q's dtype."""
     b, hk, g, _ = q.shape
     page = k_pages.shape[2]
     n_pages = k_pages.shape[0]
@@ -73,6 +84,7 @@ def paged_decode_stream(q, k_pages, v_pages, lengths, page_tables, *, scale: flo
     table = table.clamp(0, n_pages - 1)  # the reference's gather clamps
     blk = ppp * page
     qf = q.float()
+    qpef = None if q_pe is None else q_pe.float()
     lens = lengths.to(torch.int64)
     hi = min(-(-int(lens.max()) // blk), n_groups) if b else 0
     acc, m, l = _init(b, hk, g, v_pages.shape[3], q.device)
@@ -80,12 +92,14 @@ def paged_decode_stream(q, k_pages, v_pages, lengths, page_tables, *, scale: flo
         pids = table[:, j * ppp:(j + 1) * ppp]  # (B, ppp)
         k_blk = _blocked(k_pages[pids], b, hk, blk)
         v_blk = _blocked(v_pages[pids], b, hk, blk)
-        acc, m, l = _block_update(qf, k_blk, v_blk, j * blk, lens, scale, acc, m, l)
+        kpe_blk = None if q_pe is None else _blocked(kpe_pages[pids], b, hk, blk)
+        acc, m, l = _block_update(qf, k_blk, v_blk, j * blk, lens, scale, acc, m, l,
+                                  qpef, kpe_blk)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
 def paged_decode_gather(q, k_pages, v_pages, lengths, page_tables, *, scale: float,
-                        pages_per_program: int) -> torch.Tensor:
+                        pages_per_program: int, q_pe=None, kpe_pages=None) -> torch.Tensor:
     """The gather oracle: the dense (B, Hk, npp * page, d) views first, then
     the same blocked online softmax over every group."""
     b, hk, g, _ = q.shape
@@ -99,14 +113,20 @@ def paged_decode_gather(q, k_pages, v_pages, lengths, page_tables, *, scale: flo
     def full(pool):
         return pool[table].movedim(2, 1).reshape(b, hk, s_cap, pool.shape[-1])
 
+    def blocked(dense, j):
+        return dense[:, :, j * blk:(j + 1) * blk].float().contiguous()
+
     k_full, v_full = full(k_pages), full(v_pages)
+    kpe_full = None if q_pe is None else full(kpe_pages)
     qf = q.float()
+    qpef = None if q_pe is None else q_pe.float()
     lens = lengths.to(torch.int64)
     acc, m, l = _init(b, hk, g, v_pages.shape[3], q.device)
     for j in range(n_groups):
-        k_blk = k_full[:, :, j * blk:(j + 1) * blk].float().contiguous()
-        v_blk = v_full[:, :, j * blk:(j + 1) * blk].float().contiguous()
-        acc, m, l = _block_update(qf, k_blk, v_blk, j * blk, lens, scale, acc, m, l)
+        k_blk, v_blk = blocked(k_full, j), blocked(v_full, j)
+        kpe_blk = None if kpe_full is None else blocked(kpe_full, j)
+        acc, m, l = _block_update(qf, k_blk, v_blk, j * blk, lens, scale, acc, m, l,
+                                  qpef, kpe_blk)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 

@@ -17,20 +17,24 @@ fact.  The two decode families are the exception: the sweep feeds them
 and tiles count the valid positions only (28% of the padded cache at
 qwen3-14b's long-run shape), where the TPU grid read every block.  Shared
 memory follows each kernel's own layout (the ``smem_bytes`` of its
-``csrc/*.cu``), mirrored here so the tuner prunes without building.
+``csrc/*.cu``), mirrored here so the tuner prunes without building.  A
+``flash_decode_paged`` shape with a rope width ``dr`` is K2's MLA latent form
+(``flash_decode.ops.latent_shape``): its own shared-memory layout, and the
+q_pe term counted in its FLOPs and bytes.
 Candidates that differ only in a key the port's kernel ignores
 (``IGNORED_KEYS``: K3's rows do not depend on ``block_q``) are timed once.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.flash_attention.ops import MAX_BLOCK_K as K3_MAX_BLOCK_K
+from repro_torch.kernels.flash_decode.ops import LATENT_WIDTHS
 from repro_torch.kernels.sdca.ops import MAX_D as K1_MAX_D
 from repro_torch.kernels.ssm_scan.ops import KERNEL_STATE_SIZES as K4_STATE_SIZES
 from repro_torch.kernels.tune.cache import dtype_name
@@ -48,6 +52,7 @@ PRUNE_SLACK = 3.0
 
 _PAD = 8  # bf16 padding per staged K/V row (K2, K3, K5)
 _K3_TILE_Q = 16  # query positions per K3 block
+_LATENT_HEADS = 8  # query heads per block of K2's latent form
 _K4_THREADS = 256
 
 # config keys a family's kernel takes but does not depend on: of candidates
@@ -75,17 +80,29 @@ def roofline_fraction_us(measured_us: float, flops: float, bytes_moved: float) -
     return measured_us / floor if floor > 0 else 0.0
 
 
-def k3_smem_bytes(g: int, d: int, bk: int) -> int:
+def k3_smem_bytes(g: int, d: int, bk: int, dv: Optional[int] = None) -> int:
     """csrc/flash_fwd.cu's smem_bytes: q (bf16), K and V tiles, scores,
-    accumulator, m / l / alpha for G * 16 rows."""
+    accumulator, m / l / alpha for G * 16 rows; key dim d, value dim dv
+    (default d)."""
+    dv = d if dv is None else dv
     rows = g * _K3_TILE_Q
-    return rows * d * 2 + 2 * bk * (d + _PAD) * 2 + rows * bk * 4 + rows * d * 4 + 3 * rows * 4
+    return (rows * d * 2 + bk * (d + _PAD) * 2 + bk * (dv + _PAD) * 2 + rows * bk * 4
+            + rows * dv * 4 + 3 * rows * 4)
 
 
 def decode_smem_bytes(g: int, d: int, bk: int) -> int:
     """flash_decode/csrc/decode_tile.cuh's smem_bytes, the block body of K2
     (bk = pages_per_program * page) and K5 (bk = block_k)."""
     return g * d * 4 + 2 * bk * (d + _PAD) * 2 + g * bk * 4 + g * d * 4 + 3 * g * 4
+
+
+def latent_smem_bytes(r: int, dr: int, bk: int) -> int:
+    """flash_decode/csrc/paged_latent_decode.cu's smem_bytes, K2's latent
+    form: q_lat and q_pe (float32) for its 8 heads a block, one tile of
+    bk = pages_per_program * page latent rows and one of rope rows (bf16),
+    scores, m / l / alpha."""
+    h = _LATENT_HEADS
+    return h * (r + dr) * 4 + bk * (r + _PAD) * 2 + bk * (dr + _PAD) * 2 + h * bk * 4 + 3 * h * 4
 
 
 def k4_smem_bytes(n: int, chunk: int) -> int:
@@ -140,6 +157,20 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         smem = decode_smem_bytes(1, d, bk)
         steps = _waves(b * h) * _ceil_div(int(lens.max()), bk)
         fits = smem <= MAX_SMEM_PER_BLOCK
+    elif family == "flash_decode_paged" and "dr" in shape:  # K2's latent form
+        b, h, r, dr = shape["b"], shape["g"], shape["d"], shape["dr"]
+        page, npp = shape["page"], shape["npp"]
+        ppp = min(config["pages_per_program"], npp)  # the wrapper's clamp
+        s = npp * page
+        lens = ragged_lengths(b, s)
+        # the reference's count with the q_pe term: q . k and p . v over r,
+        # q_pe . kpe over dr; one pool is the keys and the values, so each
+        # valid position's latent and rope rows are read once
+        flops = 2.0 * b * h * s * (2 * r + dr)
+        bytes_moved = 1.0 * int(lens.sum()) * (r + dr) * it
+        smem = latent_smem_bytes(r, dr, ppp * page)
+        steps = _waves(b * _ceil_div(h, _LATENT_HEADS)) * _ceil_div(int(lens.max()), ppp * page)
+        fits = (r, dr) in LATENT_WIDTHS and smem <= MAX_SMEM_PER_BLOCK
     elif family == "flash_decode_paged":  # K2
         b, hk, g = shape["b"], shape["hk"], shape["g"]
         d, page, npp = shape["d"], shape["page"], shape["npp"]

@@ -8,7 +8,8 @@ without re-sweeping (``ConfigCache.sweeps`` counts the sweeps).
 
 Each case calls the port's model-facing wrapper, so on the card every family
 times its hand-written kernel (K3 for ``flash_attention`` and
-``prefill_chunk``, K5 for ``flash_decode``, K2 for ``flash_decode_paged``,
+``prefill_chunk``, K5 for ``flash_decode``, K2 for ``flash_decode_paged``
+(its latent form for a shape with a rope width ``dr``),
 K4 for ``ssm_scan``, K1 or its plain version for ``sdca``'s two candidates),
 and a kernel that fails to build or launch fails the sweep: nothing is timed
 through a plain version in its place.  On the CPU the same calls run the
@@ -136,6 +137,9 @@ def candidates_for(family: str, shape: Dict[str, int]) -> List[Dict[str, int]]:
 # ---------------------------------------------------------------------------
 # Per-family measurable cases: each returns build(config) -> (fn, args)
 # ---------------------------------------------------------------------------
+LATENT_SWEEP_SCALE = 192 ** -0.5
+
+
 def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
@@ -181,6 +185,8 @@ def _random_tables(gen, b: int, npp: int, n_pages: int) -> torch.Tensor:
 def _case_flash_decode_paged(shape, dtype, device):
     from repro_torch.kernels.flash_decode.ops import paged_decode_attention
 
+    if "dr" in shape:  # K2's MLA latent form (flash_decode.ops.latent_shape)
+        return _case_latent_decode(shape, dtype, device)
     b, hk, g, d = shape["b"], shape["hk"], shape["g"], shape["d"]
     page, npp = shape["page"], shape["npp"]
     n_pages = b * npp + 1
@@ -195,6 +201,30 @@ def _case_flash_decode_paged(shape, dtype, device):
         fn = functools.partial(paged_decode_attention, impl="kernel",
                                pages_per_program=config["pages_per_program"])
         return fn, (q, kp, vp, lens, pt)
+
+    return build
+
+
+def _case_latent_decode(shape, dtype, device):
+    """K2's latent form at ``{b, hk: 1, g: H, d: r, dr, page, npp}``: absorbed
+    queries and rope queries over one latent and one rope pool, scaled as
+    DeepSeek-V2's MLA (1 / sqrt(192), a fixed yardstick)."""
+    from repro_torch.kernels.flash_decode.ops import paged_latent_decode_attention
+
+    b, h, r, dr = shape["b"], shape["g"], shape["d"], shape["dr"]
+    page, npp = shape["page"], shape["npp"]
+    n_pages = b * npp + 1
+    gen = torch.Generator(device=device).manual_seed(2)
+    q_lat, q_pe = _randn(gen, (b, h, r), dtype), _randn(gen, (b, h, dr), dtype)
+    ckv = _randn(gen, (n_pages, page, r), dtype)
+    kpe = _randn(gen, (n_pages, page, dr), dtype)
+    pt = _random_tables(gen, b, npp, n_pages)
+    lens = torch.from_numpy(ragged_lengths(b, npp * page)).to(device)
+
+    def build(config):
+        fn = functools.partial(paged_latent_decode_attention, sm_scale=LATENT_SWEEP_SCALE,
+                               impl="kernel", pages_per_program=config["pages_per_program"])
+        return fn, (q_lat, q_pe, ckv, kpe, lens, pt)
 
     return build
 

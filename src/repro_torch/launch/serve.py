@@ -38,7 +38,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.configs import ArchConfig
 from repro_torch.serve import CapacityPlanner, ServeEngine
+from repro_torch.serve.engine import random_lm
 
 # One trace request: (prompt, gen_tokens, arrival_step, frontend_embeds).
 TraceSpec = Tuple[np.ndarray, int, int, Optional[np.ndarray]]
@@ -124,11 +126,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict:
-    """Run the ``--continuous`` path.  Returns the stats, the fitted planner,
-    the plan, both engines, the tuned kernel rows seeded and the paged
-    decode's ``pages_per_program``; exits 1 if the prefix-reuse check
-    fails."""
+def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None) -> Dict:
+    """Run the ``--continuous`` path.  ``cfg``, when given, is the config to
+    serve in place of ``--arch`` / ``--smoke`` (a caller's cut one, such as
+    a full-width model at fewer layers), with random weights from
+    ``--seed``.  Returns the stats, the fitted planner, the plan, both
+    engines, the tuned kernel rows seeded and the paged decode's
+    ``pages_per_program``; exits 1 if the prefix-reuse check fails."""
     args = parse_args(argv)
     if not args.continuous:
         raise SystemExit("only the --continuous path is ported (ROADMAP.md)")
@@ -137,9 +141,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         from repro_torch.kernels import tune
 
         tune_cache = tune.set_default_cache(args.tune_cache)
+    lm = None if cfg is None else random_lm(cfg, args.device, args.seed)
     eng = ServeEngine(args.arch, smoke=args.smoke, max_batch=args.max_batch,
                       page_size=args.page_size, max_seq=64 + args.page_size * 2,
-                      seed=args.seed, paged_impl=args.paged_impl, device=args.device)
+                      seed=args.seed, paged_impl=args.paged_impl, lm=lm, device=args.device)
     specs = _mixed_trace_specs(eng.cfg, eng.page_size, args.requests, args.seed)
     reqs = [eng.submit(prompt, gen, arrival_step=arrival, frontend_embeds=fe)
             for prompt, gen, arrival, fe in specs]
@@ -198,16 +203,22 @@ def _decode_pages_per_program(eng: ServeEngine) -> int:
     """Print and return the ``pages_per_program`` the engine's paged decode
     ran at: its decode shape (all ``max_batch`` slots, the whole page-table
     row) looked up in the tuner's cache as every decode call looks it up."""
-    from repro_torch.kernels.flash_decode.ops import pages_per_program_for
+    from repro_torch.kernels.flash_decode.ops import latent_shape
     from repro_torch.kernels.tune import lookup
+    from repro_torch.models.runtime import DEFAULT_PAGES_PER_PROGRAM
 
     cfg = eng.cfg
-    hk, d, dtype, backend = cfg.n_kv_heads, cfg.head_dim, eng.lm.dtype, eng.device.type
-    shape = {"b": eng.max_batch, "hk": hk, "g": cfg.n_heads // hk, "d": d,
-             "page": eng.page_size, "npp": eng.pages_per_seq}
-    ppp = pages_per_program_for(eng.max_batch, cfg.n_heads, hk, d, eng.page_size,
-                                eng.pages_per_seq, dtype, backend)
-    tuned = lookup("flash_decode_paged", shape, dtype, backend) is not None
+    if cfg.mla is not None:
+        m = cfg.mla
+        shape = latent_shape(eng.max_batch, cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim,
+                             eng.page_size, eng.pages_per_seq)
+    else:
+        hk = cfg.n_kv_heads
+        shape = {"b": eng.max_batch, "hk": hk, "g": cfg.n_heads // hk, "d": cfg.head_dim,
+                 "page": eng.page_size, "npp": eng.pages_per_seq}
+    entry = lookup("flash_decode_paged", shape, eng.lm.dtype, eng.device.type)
+    tuned = entry is not None
+    ppp = int(entry["pages_per_program"]) if tuned else DEFAULT_PAGES_PER_PROGRAM
     sig = " ".join(f"{k}={v}" for k, v in shape.items())
     print(f"paged decode: pages_per_program={ppp} at {sig} "
           f"({'tuned' if tuned else 'default: no cache entry'})")

@@ -1,8 +1,9 @@
-"""Decoder blocks, pre-norm: ln1 -> mixer (attention or Mamba) -> residual,
-then, unless the layer's ffn is "none", ln2 -> SwiGLU -> residual.
-Counterparts of ``repro/models/blocks.py``'s ``init_block`` (:22),
+"""Decoder blocks, pre-norm: ln1 -> mixer (attention, MLA or Mamba) ->
+residual, then, unless the layer's ffn is "none", ln2 -> SwiGLU or MoE ->
+residual.  Counterparts of ``repro/models/blocks.py``'s ``init_block`` (:22),
 ``apply_block`` (:56) for prefill and ``apply_block_decode_paged`` (:98),
-dispatching on the layer's ``LayerSpec`` as there.
+dispatching on the layer's ``LayerSpec`` (and on ``cfg.mla`` for the
+attention mixer) as there.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, by_rows, rms_norm
 from repro_torch.models.runtime import Runtime
 
@@ -26,8 +29,9 @@ class Block(nn.Module):
     """One layer's parameters, named as the reference's param tree
     (``pos<i>/{ln1, mixer/{...}[, ln2, ffn/{...}]}``) and initialised as
     there (``blocks.py:init_block``, ``layers.py:95-103``, ``attention.py``,
-    ``mamba.py``).  Matrices are stored in ``dtype``; norm scales and the
-    Mamba parameters the reference reads in float32 in float32."""
+    ``mla.py``, ``mamba.py``, ``moe.py``).  Matrices are stored in ``dtype``;
+    norm scales, the Mamba parameters the reference reads in float32 and the
+    MoE router in float32."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype: torch.dtype,
                  device: torch.device):
@@ -35,7 +39,8 @@ class Block(nn.Module):
         self.spec = spec
         d, f = cfg.d_model, cfg.d_ff
         if spec.mixer == "attn":
-            mixer, float32 = attn_mod.attention_shapes(cfg), frozenset()
+            mixer = mla_mod.mla_shapes(cfg) if cfg.mla else attn_mod.attention_shapes(cfg)
+            float32 = frozenset()
         else:
             mixer, float32 = mamba_mod.mamba_shapes(cfg), mamba_mod.FLOAT32_PARAMS
         self.specs: Dict[str, Dict[str, Spec]] = {"mixer": mixer}
@@ -43,6 +48,9 @@ class Block(nn.Module):
             self.specs["ffn"] = {"w_gate": ((d, f), "normal", 1.0 / math.sqrt(d)),
                                  "w_up": ((d, f), "normal", 1.0 / math.sqrt(d)),
                                  "w_down": ((f, d), "normal", 1.0 / math.sqrt(f))}
+        elif spec.ffn == "moe":
+            self.specs["ffn"] = moe_mod.moe_shapes(cfg)
+            float32 = float32 | moe_mod.FLOAT32_PARAMS
 
         def param(name, shape, init):
             dt = torch.float32 if init == "ones" or name in float32 else dtype
@@ -70,6 +78,12 @@ class Block(nn.Module):
 
 
 def fill_param(t: torch.Tensor, init: str, scale: float, generator: torch.Generator) -> None:
+    """Fill ``t`` from ``generator``; a stacked (E, ...) expert tensor one
+    expert at a time, so the float32 draw is one expert's, not all E's."""
+    if t.dim() == 3 and init in ("normal", "uniform"):
+        for part in t:
+            fill_param(part, init, scale, generator)
+        return
     if init == "ones":
         t.fill_(1.0)
     elif init == "zeros":
@@ -99,29 +113,39 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     if p.spec.mixer == "attn":
         kv_lens = None if n_valid is None else torch.full(
             (x.shape[0],), int(n_valid), dtype=torch.int32, device=x.device)
-        y, cache = attn_mod.apply_attention(p.mixer, h, cfg, rt, kv_lens=kv_lens)
+        mixer = mla_mod.apply_mla if cfg.mla else attn_mod.apply_attention
+        y, cache = mixer(p.mixer, h, cfg, rt, kv_lens=kv_lens)
     else:
         y, cache = mamba_mod.apply_mamba(p.mixer, h, cfg, rt, n_valid=n_valid)
     x = x + y
     if p.ffn is None:
         return x, cache
-    return by_rows(lambda xr: xr + apply_mlp(p.ffn, rms_norm(xr, p.ln2, cfg.norm_eps)),
+    return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg),
                    x, rows), cache
+
+
+def _ffn(p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The layer's FFN: SwiGLU, or the MoE's dropless eval (one dispatch over
+    the rows given: in prefill one row block, in decode the batch)."""
+    if p.spec.ffn == "moe":
+        return moe_mod.apply_moe(p.ffn, h, cfg)
+    return apply_mlp(p.ffn, h)
 
 
 def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
                              cache: Dict[str, torch.Tensor], lengths: torch.Tensor,
                              page_tables: torch.Tensor) -> torch.Tensor:
     """One decode step of x (B, 1, d) against the layer's cache, which it
-    updates in place: an attention layer's page pools, or a Mamba layer's
-    slot-major state (which the lengths and page tables do not index)."""
+    updates in place: an attention layer's page pools (K/V, or MLA's latent
+    pools), or a Mamba layer's slot-major state (which the lengths and page
+    tables do not index)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if p.spec.mixer == "attn":
-        x = x + attn_mod.apply_attention_decode_paged(p.mixer, h, cfg, rt, cache, lengths,
-                                                      page_tables)
+        mixer = (mla_mod.apply_mla_decode_paged if cfg.mla
+                 else attn_mod.apply_attention_decode_paged)
+        x = x + mixer(p.mixer, h, cfg, rt, cache, lengths, page_tables)
     else:
         x = x + mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache)
     if p.ffn is None:
         return x
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + apply_mlp(p.ffn, h2)
+    return x + _ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), cfg)

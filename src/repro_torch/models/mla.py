@@ -1,0 +1,143 @@
+"""Multi-head Latent Attention (DeepSeek-V2): the counterpart of
+``repro/models/mla.py``'s serving paths.
+
+Queries come through a low-rank bottleneck (``wq_a``, ``q_a_norm``,
+``wq_b``); keys and values through one compressed latent ``c_kv`` of width
+``kv_lora_rank`` (``wkv_a``, ``kv_a_norm``) and one rotary key slice ``k_pe``
+shared by every head.  The cache holds only (c_kv, k_pe): the MLA memory win.
+
+* ``apply_mla`` (prefill, ``mla.py:107``): K and V re-expanded from the
+  latent by ``wkv_b``, then MHA causal attention with qk dim nope + rope and
+  v dim ``v_head_dim`` on the flash forward (K3 with dk 192, dv 128 at full
+  width).  The projections, norms and rope run over blocks of
+  ``rt.prefill_rows`` positions, as ``attention.apply_attention`` does.
+* ``apply_mla_decode_paged`` (``mla.py:180``, the absorbed path): scatter the
+  new token's (c_kv, k_pe) into its page, fold ``W_uk`` into the query
+  (``q_lat``), attend in latent space over the latent pool in place (K2's
+  latent form: scores against c_kv and k_pe, context against c_kv), then
+  ``W_uv`` and ``wo``.  ``q_lat`` is computed in the config's dtype and the
+  latent context rounded to it before ``W_uv``, as the reference does.
+
+Not ported: chunked prefill (``apply_mla_prefill_paged``), the contiguous
+decode (``apply_mla_decode``) and ``paged_impl="legacy"`` (ROADMAP.md).
+
+Parameters are one layer's dict with the reference's names, shapes and
+initialisers (``mla.py:44-69``); the up-projections are stored flattened,
+(lora, H * dim), as there.  The two latent norms are float32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_decode.ops import paged_latent_decode_attention
+from repro_torch.models.layers import apply_rope, by_rows, rms_norm, row_blocks
+from repro_torch.models.runtime import Runtime
+
+
+def mla_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], str, float]]:
+    """name -> (shape, init, scale): normal * scale for the projections, ones
+    for the norms."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ((d, m.q_lora_rank), "normal", 1.0 / math.sqrt(d)),
+        "q_a_norm": ((m.q_lora_rank,), "ones", 0.0),
+        "wq_b": ((m.q_lora_rank, h * qk), "normal", 1.0 / math.sqrt(m.q_lora_rank)),
+        "wkv_a": ((d, m.kv_lora_rank + m.qk_rope_head_dim), "normal", 1.0 / math.sqrt(d)),
+        "kv_a_norm": ((m.kv_lora_rank,), "ones", 0.0),
+        "wkv_b": ((m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)), "normal",
+                  1.0 / math.sqrt(m.kv_lora_rank)),
+        "wo": ((h * m.v_head_dim, d), "normal", 1.0 / math.sqrt(h * m.v_head_dim)),
+    }
+
+
+def sm_scale(cfg: ArchConfig) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _mla_q(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """(q_nope (B, S, H, nope), q_pe (B, S, H, rope)), ``mla.py:85``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_pe = apply_rope(q[..., m.qk_nope_head_dim:], positions, theta=cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_pe
+
+
+def _mla_kv_latent(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """(c_kv (B, S, r), k_pe (B, S, rope)), ``mla.py:97``."""
+    m = cfg.mla
+    kv_a = x @ p["wkv_a"]
+    ckv = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
+    kpe = apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :], positions,
+                     theta=cfg.rope_theta)[:, :, 0, :]
+    return ckv, kpe
+
+
+def _project(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """One row block's q (B, S, H, nope + rope), k (the same) and v
+    (B, S, H, v), and its latents (c_kv, k_pe)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv, kpe = _mla_kv_latent(p, x, cfg, positions)
+    kv = (ckv @ p["wkv_b"]).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    k = torch.cat([k_nope, kpe[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_head_dim)],
+                  dim=-1)
+    return torch.cat([q_nope, q_pe], dim=-1), k, v, ckv, kpe
+
+
+def apply_mla(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
+              kv_lens: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal prefill over x (B, S, d).  Returns (y (B, S, d), cache
+    {"ckv" (B, S, r), "kpe" (B, S, rope)})."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    parts = [_project(p, x[:, r], cfg, positions[:, r]) for r in row_blocks(s, rt.prefill_rows)]
+    q, k, v, ckv, kpe = (torch.cat(t, dim=1) for t in zip(*parts))
+    out = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(), causal=True, sm_scale=sm_scale(cfg),
+                          kv_lens=kv_lens, block_q=rt.block_q, block_k=rt.block_k)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * m.v_head_dim)
+    return by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), {"ckv": ckv, "kpe": kpe}
+
+
+def apply_mla_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                           cache: Dict[str, torch.Tensor], lengths: torch.Tensor,
+                           page_tables: torch.Tensor) -> torch.Tensor:
+    """Absorbed paged decode of one new token per row, x (B, 1, d), against
+    the latent pools ``cache`` {"ckv" (n_pages, page, r), "kpe" (n_pages,
+    page, rope)}, which it updates in place (the reference's scatter at
+    ``mla.py:209-214`` is functional).  Idle slots write page 0, the scratch
+    page, which no live row reads.  Returns y (B, 1, d)."""
+    m = cfg.mla
+    b, h = x.shape[0], cfg.n_heads
+    lengths = lengths.to(torch.int32)
+    positions = lengths[:, None]
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv_new, kpe_new = _mla_kv_latent(p, x, cfg, positions)
+    page = rt.page_size
+    pid = page_tables.gather(1, (lengths // page).long()[:, None])[:, 0].long()
+    offset = (lengths % page).long()
+    cache["ckv"][pid, offset] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["kpe"][pid, offset] = kpe_new[:, 0].to(cache["kpe"].dtype)
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    wk, wv = wkv_b[..., :m.qk_nope_head_dim], wkv_b[..., m.qk_nope_head_dim:]
+    q_lat = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], wk)  # (B, H, r)
+    ctx_lat = paged_latent_decode_attention(
+        q_lat.contiguous(), q_pe[:, 0].contiguous(), cache["ckv"], cache["kpe"], lengths + 1,
+        page_tables, sm_scale=sm_scale(cfg), impl=rt.paged_impl,
+        pages_per_program=rt.pages_per_program)
+    out = torch.einsum("bhr,rhe->bhe", ctx_lat.to(x.dtype), wv)  # (B, H, v)
+    return (out.reshape(b, h * m.v_head_dim) @ p["wo"])[:, None, :]

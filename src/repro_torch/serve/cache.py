@@ -4,9 +4,12 @@
 The cache is one dict per layer.  Attention leaves (``"k"``, ``"v"``) are
 *page-major* pools of shape (n_pages, Hk, page_size, hd), one row per
 physical page, shared by every request through its page table; page 0 is
-the scratch page.  Mamba leaves are *slot-major*, indexed by decode slot:
-``"h"`` (max_batch, Dn, N) float32, the scan's state, and ``"conv"``
-(max_batch, Dn, d_conv - 1) in the config's dtype, the conv's last inputs.
+the scratch page.  MLA's latent leaves are page-major too: ``"ckv"``
+(n_pages, page_size, kv_lora_rank) and ``"kpe"`` (n_pages, page_size,
+qk_rope_head_dim), the reference's ``cache_seq`` leaves.  Mamba leaves are
+*slot-major*, indexed by decode slot: ``"h"`` (max_batch, Dn, N) float32,
+the scan's state, and ``"conv"`` (max_batch, Dn, d_conv - 1) in the config's
+dtype, the conv's last inputs.
 A pure Mamba model has no page pools at all; the engine's page accounting
 runs all the same.  ``snapshot_state`` / ``restore_state`` carry the
 slot-major leaves, for whole-prompt reuse.
@@ -21,7 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-PAGED_LEAVES = ("k", "v")
+PAGED_LEAVES = ("k", "v", "ckv", "kpe")
 Cache = List[Dict[str, torch.Tensor]]
 
 
@@ -31,10 +34,16 @@ def init_paged_cache(lm, *, num_pages: int, page_size: int, max_batch: int) -> C
     cfg = lm.cfg
     cache: Cache = []
     for layer in lm.layers:
-        if layer.spec.mixer == "attn":
+        if layer.spec.mixer == "attn" and cfg.mla is not None:
+            m = cfg.mla
+            cache.append({name: torch.zeros((num_pages, page_size, width), dtype=lm.dtype,
+                                            device=lm.device)
+                          for name, width in (("ckv", m.kv_lora_rank),
+                                              ("kpe", m.qk_rope_head_dim))})
+        elif layer.spec.mixer == "attn":
             shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
             cache.append({name: torch.zeros(shape, dtype=lm.dtype, device=lm.device)
-                          for name in PAGED_LEAVES})
+                          for name in ("k", "v")})
         else:
             mc = cfg.mamba
             di = mc.expand * cfg.d_model
@@ -49,7 +58,8 @@ def init_paged_cache(lm, *, num_pages: int, page_size: int, max_batch: int) -> C
 def write_prefill(paged: Cache, prefill_cache: Cache, *, slot: int, page_ids: Sequence[int],
                   page_size: int, skip_pages: int = 0, n_tokens: Optional[int] = None) -> Cache:
     """Write a batch-1 prefill cache into ``page_ids`` (attention leaves, per
-    layer (1, Hk, S, hd)) and decode slot ``slot`` (Mamba state leaves).
+    layer (1, Hk, S, hd), or MLA's (1, S, width)) and decode slot ``slot``
+    (Mamba state leaves).
     Only the first ``n_tokens`` positions (default all S) are written to
     pages; the last page may be partial, its tail zero-padded and
     overwritten by later decode steps.
@@ -67,6 +77,8 @@ def write_prefill(paged: Cache, prefill_cache: Cache, *, slot: int, page_ids: Se
                 continue
             if n_new <= 0:
                 continue
+            if pre.dim() == 2:  # (S, width): MLA's latents, no head axis
+                pre = pre[None]
             n_tok = pre.shape[1] if n_tokens is None else int(n_tokens)
             pre = pre[:, :n_tok]  # (Hk, n_tok, hd)
             pre = torch.nn.functional.pad(pre, (0, 0, 0, len(page_ids) * page_size - n_tok))
@@ -74,7 +86,7 @@ def write_prefill(paged: Cache, prefill_cache: Cache, *, slot: int, page_ids: Se
             pages = pre.reshape(hk, len(page_ids), page_size, hd)[:, skip_pages:]
             pids = torch.as_tensor(np.asarray(page_ids[skip_pages:], np.int64),
                                    device=leaf.device)
-            leaf[pids] = pages.transpose(0, 1).to(leaf.dtype)
+            leaf[pids] = pages.transpose(0, 1).reshape(-1, *leaf.shape[1:]).to(leaf.dtype)
     return paged
 
 

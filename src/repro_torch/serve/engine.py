@@ -17,6 +17,11 @@ the batched decode step, finish and release, ``run``, ``stats`` and
 they raise as in the reference, whose Mamba state has no positional form),
 the sharded data plane and span tracing (ROADMAP.md).
 
+DeepSeek-V2's MLA layers keep page-major latent pools ("ckv", "kpe") in
+place of K/V, and its MoE layers run the reference's dropless eval
+(``repro_torch.models.moe``), which keeps a token's output independent of
+the other tokens of its dispatch, so the rules below hold for it too.
+
 A Mamba model's layers keep slot-major state and no page pools; the
 scheduler allocates pages for its requests all the same, which keeps the
 prefix cache's keys, and its decode step launches no paged attention.  A
@@ -73,6 +78,14 @@ from repro_torch.telemetry import Event, MemorySink, ServeStepEvent, Tracker
 NOT_PORTED = "not ported yet: see ROADMAP.md (the serve slice's later modules)"
 
 
+def random_lm(cfg: ArchConfig, device: DeviceLike, seed: int) -> LM:
+    """``cfg``'s LM on ``device`` (the card when None) with random weights
+    from a generator on that device seeded with ``seed``."""
+    device = resolve_device(device)
+    lm = LM(cfg, device)
+    return lm.init_params(torch.Generator(device=device).manual_seed(seed))
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -115,11 +128,7 @@ class ServeEngine:
         # docstring)
         self.rt = Runtime(block_q=16, block_k=16, page_size=page_size, paged_impl=paged_impl,
                           prefill_rows=min(PREFILL_ROWS, max_seq))
-        if lm is None:
-            lm = LM(self.cfg, self.device)
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            lm.init_params(gen)
-        self.lm = lm
+        self.lm = lm if lm is not None else random_lm(self.cfg, self.device, seed)
         self.max_batch = max_batch
         self.page_size = page_size
         self.max_seq = max_seq

@@ -65,9 +65,10 @@ def check_prefix_reuse_across_row_blocks(lm) -> None:
     prompt_b = np.concatenate([head, rng.randint(0, vocab, rows + 12)])
     warm = ServeEngine("", **kw)
     assert warm.rt.prefill_rows == rows
-    if lm.layers[0].spec.mixer == "attn":
-        assert warm._prefill(prompt_a)[1][0]["k"].shape[2] == rows
-        assert warm._prefill(prompt_b)[1][0]["k"].shape[2] == 2 * rows
+    if lm.layers[0].spec.mixer == "attn":  # K/V (B, Hk, S, hd) or MLA's latents (B, S, r)
+        name, axis = ("ckv", 1) if lm.cfg.mla is not None else ("k", 2)
+        assert warm._prefill(prompt_a)[1][0][name].shape[axis] == rows
+        assert warm._prefill(prompt_b)[1][0][name].shape[axis] == 2 * rows
     warm.submit(prompt_a, 4)
     warm.run()
     r_warm = warm.submit(prompt_b, 4)

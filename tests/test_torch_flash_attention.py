@@ -99,3 +99,19 @@ def test_rows_of_a_prefix_do_not_depend_on_sq(dtype):
         part = ops.flash_attention(t[0][:, :, :sq], t[1][:, :, :sq], t[2][:, :, :sq],
                                    block_q=16, block_k=16)
         assert torch.equal(part, full[:, :, :sq]), sq
+
+
+@pytest.mark.parametrize("dk, dv, hq", [(24, 16, 4), (192, 128, 2)])
+@pytest.mark.parametrize("kv_lens", [None, [40, 23]])
+def test_value_dim_other_than_key_dim_matches_reference(dk, dv, hq, kv_lens):
+    """MLA's prefill shapes, float32: key dim nope + rope, value dim v, as
+    the smoke deepseek-v2 (24, 16) and the full one (192, 128) run them."""
+    rng = np.random.RandomState(dk)
+    q = rng.randn(2, hq, 40, dk).astype(np.float32)
+    k = rng.randn(2, hq, 40, dk).astype(np.float32)
+    v = rng.randn(2, hq, 40, dv).astype(np.float32)
+    kw = dict(causal=True, sm_scale=dk ** -0.5, kv_lens=kv_lens, block_q=16, block_k=16)
+    got = _port(q, k, v, torch.float32, **kw)
+    assert got.shape == (2, hq, 40, dv)
+    np.testing.assert_allclose(got, _jax(q, k, v, jnp.float32, **kw), rtol=0, atol=ATOL_F32)
+    assert ops.flash_fwd.launches == 0

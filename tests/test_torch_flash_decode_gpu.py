@@ -106,7 +106,7 @@ def test_roofline_smem_mirrors_the_kernels(card):
                 want = roofline.decode_smem_bytes(g, d, bk)
                 assert want == lib2.paged_decode_smem_bytes(g, d, bk)
                 assert want == lib5.flash_decode_smem_bytes(g, d, bk)
-                assert roofline.k3_smem_bytes(g, d, bk) == lib3.flash_fwd_smem_bytes(g, d, bk)
+                assert roofline.k3_smem_bytes(g, d, bk) == lib3.flash_fwd_smem_bytes(g, d, d, bk)
     for n in ss_ops.KERNEL_STATE_SIZES:
         for chunk in (1, 16, 32, 256, 300):
             assert roofline.k4_smem_bytes(n, chunk) == lib4.selective_scan_smem_bytes(n, chunk)

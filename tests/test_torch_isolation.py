@@ -37,6 +37,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.kernels.flash_attention.ops",
                    "repro_torch.kernels.flash_decode.ops", "repro_torch.kernels.ssm_scan.ops",
                    "repro_torch.models.mamba", "repro_torch.models.model",
+                   "repro_torch.models.mla", "repro_torch.models.moe",
+                   "repro_torch.models.blocks", "repro_torch.serve.cache",
                    "repro_torch.serve.engine", "repro_torch.serve.planner",
                    "repro_torch.telemetry.tracker", "repro_torch.launch.serve",
                    "repro_torch.kernels.flash_decode.ref", "repro_torch.models.runtime",
@@ -82,6 +84,9 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: LM(get_smoke_config("qwen3-14b")),
         lambda: ServeEngine("qwen3-14b"),
         lambda: ServeEngine("falcon-mamba-7b"),
+        lambda: LM(get_smoke_config("deepseek-v2-236b")),
+        lambda: ServeEngine("deepseek-v2-236b"),
+        lambda: serve.main(["--arch", "deepseek-v2-236b", "--smoke", "--continuous"]),
         lambda: serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--continuous"]),
         lambda: serve.main(["--smoke", "--continuous"]),
         lambda: tune_cli.main(["--preset", "smoke", "--families", "sdca", "--cache",

@@ -129,6 +129,7 @@ def test_prefill_padding_is_inert():
 def test_unported_archs_raise():
     from repro_torch.models.model import LM
 
-    for arch in ("deepseek-v2-236b", "jamba-1.5-large-398b", "musicgen-medium"):
+    for arch in ("jamba-1.5-large-398b", "deepseek-moe-16b", "musicgen-medium",
+                 "internvl2-76b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LM(get_smoke_config(arch), device="cpu")

@@ -1,0 +1,177 @@
+"""The deepseek-v2 slice's kernels on the card: K2's MLA latent form
+(paged_latent_decode) and K3 with a value dim other than its key dim
+(flash_fwd at (192, 128) and (24, 16)) against their plain versions; the
+roofline's shared-memory mirrors equal to the kernels' own, and the latent
+wrapper refusing exactly the blockings the roofline refuses; the MoE's row
+stability on the card; and the smoke deepseek-v2 engine through the kernels.
+
+Marked ``gpu``: without a CUDA device each test skips from inside itself, so
+every worker collects the same tests.  Run on the card with
+``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_mla_gpu.py``
+(that machine has no JAX).
+
+Tolerance, kernels against their plain versions: both run float32
+arithmetic on bf16 inputs, summed in another order, and round the output to
+bf16 once, so one bf16 ulp of the output plus 2^-14 of max|v| (v is the
+latent pool for K2's latent form; chip_smoke.py states the reason).  The
+MoE's row stability is bitwise.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_within_bf16_ulp, check_prefix_reuse_across_row_blocks
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.tune import candidates_for, ragged_lengths
+from repro_torch.kernels.tune import roofline
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import moe
+from repro_torch.models.model import LM
+
+pytestmark = pytest.mark.gpu
+V_ATOL = 2.0 ** -14  # of max|v|
+ARCH = "deepseek-v2-236b"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _bf16(gen, *shape):
+    return torch.randn(shape, generator=gen, device=gen.device).to(torch.bfloat16)
+
+
+LATENT_CASES = [  # b, h, r, dr, page, npp, lengths (None: ragged_lengths), ppp
+    (8, 128, 512, 64, 16, 68, None, 4),          # deepseek-v2's decode shape
+    (8, 128, 512, 64, 16, 68, None, 8),
+    (4, 128, 512, 64, 16, 68, [0, 1, 1088, 1000], 4),   # empty, one, full, not x 64
+    (3, 20, 512, 64, 16, 9, [144, 77, 1], 2),    # heads not a multiple of 8
+    (2, 4, 16, 8, 16, 6, [96, 21], 4),           # the smoke widths
+]
+
+
+@pytest.mark.parametrize("b, h, r, dr, page, npp, lengths, ppp", LATENT_CASES)
+def test_latent_decode_kernel_matches_plain(card, b, h, r, dr, page, npp, lengths, ppp):
+    gen = torch.Generator(device=card).manual_seed(b * h + ppp)
+    n_pages = 1 + b * npp
+    q_lat, q_pe = _bf16(gen, b, h, r), _bf16(gen, b, h, dr)
+    ckv, kpe = _bf16(gen, n_pages, page, r), _bf16(gen, n_pages, page, dr)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(0)) + 1
+    tables = perm[: b * npp].reshape(b, npp).to(torch.int32).to(card)
+    lens = torch.tensor(ragged_lengths(b, npp * page) if lengths is None else lengths,
+                        dtype=torch.int32, device=card)
+    scale = 192 ** -0.5
+    fd_ops.paged_latent_decode.launches = 0
+    got = fd_ops.paged_latent_decode(q_lat, q_pe, ckv, kpe, lens, tables, scale=scale,
+                                     pages_per_program=ppp)
+    torch.cuda.synchronize()
+    assert fd_ops.paged_latent_decode.launches == 1
+    want = fd_ops.paged_latent_decode_attention(q_lat, q_pe, ckv, kpe, lens, tables,
+                                                sm_scale=scale, impl="stream",
+                                                pages_per_program=ppp)
+    assert got.shape == (b, h, r) and torch.isfinite(got.float()).all()
+    assert_within_bf16_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                           atol=V_ATOL * float(ckv.float().abs().max()))
+    for i, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert not got[i].float().abs().any()
+
+
+@pytest.mark.parametrize("dk, dv, h, s, lens", [
+    (192, 128, 128, 1024, [1000]),   # deepseek-v2's prefill heads at one block
+    (192, 128, 4, 77, [77, 40]),
+    (24, 16, 4, 40, [40, 13]),        # the smoke widths
+])
+def test_flash_fwd_value_dim_matches_plain(card, dk, dv, h, s, lens):
+    gen = torch.Generator(device=card).manual_seed(dk + s)
+    b = len(lens)
+    q, k, v = _bf16(gen, b, h, s, dk), _bf16(gen, b, h, s, dk), _bf16(gen, b, h, s, dv)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    got = fa_ops.flash_fwd(q, k, v, kv_lens, sm_scale=dk ** -0.5)
+    torch.cuda.synchronize()
+    want = flash_fwd_ref(q, k, v, kv_lens, causal=True, sm_scale=dk ** -0.5, q_offset=0,
+                         block_q=16, block_k=16)
+    assert got.shape == (b, h, s, dv)
+    assert_within_bf16_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                           atol=V_ATOL * float(v.float().abs().max()))
+
+
+def test_shared_memory_mirrors_and_refusals(card):
+    """The roofline's formulas equal the kernels' exports; the latent wrapper
+    raises for exactly the pages_per_program the roofline refuses at
+    deepseek-v2's decode shape."""
+    lat = fd_ops.LATENT_LIBRARY.load()
+    k3 = fa_ops.LIBRARY.load()
+    for bk in (16, 64, 128, 256, 512, 1024):
+        for r, dr in fd_ops.LATENT_WIDTHS:
+            assert lat.paged_latent_decode_smem_bytes(r, dr, bk) == \
+                roofline.latent_smem_bytes(r, dr, bk)
+    for dk, dv in ((192, 128), (24, 16), (128, 128)):
+        for bk in (16, 64):
+            assert k3.flash_fwd_smem_bytes(1, dk, dv, bk) == roofline.k3_smem_bytes(1, dk, bk, dv)
+    shape = fd_ops.latent_shape(2, 128, 512, 64, 16, 68)
+    gen = torch.Generator(device=card).manual_seed(3)
+    n_pages = 1 + 2 * 68
+    args = (_bf16(gen, 2, 128, 512), _bf16(gen, 2, 128, 64), _bf16(gen, n_pages, 16, 512),
+            _bf16(gen, n_pages, 16, 64), torch.tensor([300, 1088], dtype=torch.int32,
+                                                      device=card),
+            (torch.arange(2 * 68, dtype=torch.int32, device=card) + 1).reshape(2, 68))
+    for config in candidates_for("flash_decode_paged", shape):
+        fits = roofline.estimate("flash_decode_paged", shape, config, "bfloat16").fits
+        assert fits == (roofline.latent_smem_bytes(512, 64, 16 * config["pages_per_program"])
+                        <= MAX_SMEM_PER_BLOCK)
+        if fits:
+            fd_ops.paged_latent_decode(*args, scale=0.1, **config)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                fd_ops.paged_latent_decode(*args, scale=0.1, **config)
+    torch.cuda.synchronize()
+
+
+def test_moe_rows_do_not_depend_on_the_other_tokens_on_the_card(card):
+    """bf16, full-width experts cut to 8: tokens 10..14 of a 64-token
+    dispatch give the same bits whatever the other tokens are."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), d_model=512,
+                              moe=dataclasses.replace(get_smoke_config(ARCH).moe,
+                                                      n_routed_experts=8, top_k=6,
+                                                      expert_d_ff=256))
+    gen = torch.Generator(device=card).manual_seed(4)
+    p = {name: (torch.randn(shape, generator=gen, device=card) * scale).to(
+        torch.float32 if name in moe.FLOAT32_PARAMS else torch.bfloat16)
+        for name, (shape, _, scale) in moe.moe_shapes(cfg).items()}
+    x, other = _bf16(gen, 1, 64, 512), _bf16(gen, 1, 64, 512)
+    keep = slice(10, 15)
+    want = moe.apply_moe(p, x, cfg)[:, keep]
+    mixed = other.clone()
+    mixed[:, keep] = x[:, keep]
+    assert torch.equal(moe.apply_moe(p, mixed, cfg)[:, keep], want)
+
+
+def test_smoke_engine_on_the_card(card, capsys):
+    fa_ops.flash_fwd.launches = fd_ops.paged_latent_decode.launches = 0
+    fd_ops.paged_decode.launches = 0
+    result = serve_cli.main(["--arch", ARCH, "--smoke", "--continuous"])
+    assert "bit_identical=yes" in capsys.readouterr().out
+    assert result["served"] == 8
+    n_layers = get_smoke_config(ARCH).n_layers
+    stats = [e.stats() for e in result["engines"]]
+    assert fa_ops.flash_fwd.launches == n_layers * sum(s["prefills_run"] for s in stats)
+    assert fd_ops.paged_latent_decode.launches == \
+        n_layers * sum(s["decode_steps"] for s in stats)
+    assert fd_ops.paged_decode.launches == 0
+    assert np.isfinite(result["planner"].step_time(4))
+
+
+def test_smoke_engine_prefix_reuse_across_row_blocks_on_the_card(card):
+    lm = LM(get_smoke_config(ARCH), device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    check_prefix_reuse_across_row_blocks(lm)

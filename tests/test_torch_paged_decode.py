@@ -3,6 +3,10 @@ against the JAX package's ``kernels/flash_decode/ops.paged_decode_attention``
 with ``impl="stream"``.  The reference's Pallas K2 does not run on this jax
 (ROADMAP.md caveats), so its jnp oracle is the reference.
 
+K2's MLA latent form (``paged_latent_decode_attention``: one latent pool as
+keys and values, every head on it, the ``q_pe . kpe`` score term) is held
+the same way against the reference's ``paged_latent_decode_attention``.
+
 Tolerances: float32 atol 1e-5 against the reference (the same blocked
 online softmax, summed in another order by XLA and PyTorch); inside the port
 ``stream`` and ``gather`` are bitwise equal, as DESIGN.md §10 requires of the
@@ -14,6 +18,9 @@ import pytest
 import torch
 
 from repro.kernels.flash_decode.ops import paged_decode_attention as jax_paged_decode
+from repro.kernels.flash_decode.ops import (
+    paged_latent_decode_attention as jax_latent_decode,
+)
 from repro_torch.kernels.flash_decode import ops
 
 ATOL_F32 = 1e-5
@@ -95,3 +102,67 @@ def test_unknown_impl_raises():
     q, kp, vp, lens, tables = _case(0, 1, 1, 1, 16, 4, 16, 2, [3])
     with pytest.raises(ValueError):
         _port(q, kp, vp, lens, tables, "pallas", 4)
+
+
+def _latent_case(seed, b, h, r, dr, n_pages, page, npp, lengths, shuffle=True):
+    """Latent and rope pools with random contents; rows of length 0 or 1
+    point every entry at the scratch page, as idle slots."""
+    rng = np.random.RandomState(seed)
+    q_lat = rng.randn(b, h, r).astype(np.float32)
+    q_pe = rng.randn(b, h, dr).astype(np.float32)
+    ckv = rng.randn(n_pages, page, r).astype(np.float32)
+    kpe = rng.randn(n_pages, page, dr).astype(np.float32)
+    tables = np.zeros((b, npp), np.int32)
+    free = rng.permutation(np.arange(1, n_pages)) if shuffle else np.arange(1, n_pages)
+    for i, n in enumerate(lengths):
+        need = -(-n // page) if n > 1 else 0
+        tables[i, :need] = free[:need]
+        free = free[need:]
+    return q_lat, q_pe, ckv, kpe, np.asarray(lengths, np.int32), tables
+
+
+LATENT_CASES = [  # seed, b, h, r, dr, n_pages, page, npp, lengths, ppp
+    (0, 4, 4, 16, 8, 24, 16, 5, [0, 1, 80, 37], 4),     # smoke widths; empty, scratch, full
+    (1, 3, 8, 32, 8, 20, 8, 6, [48, 9, 17], 4),         # page 8, full row first, npp % ppp
+    (2, 2, 16, 64, 16, 16, 16, 6, [96, 1], 3),          # ppp 3 over 6 pages
+]
+
+
+def _port_latent(args, impl, ppp, scale):
+    t = [torch.from_numpy(x) for x in args]
+    return ops.paged_latent_decode_attention(*t, sm_scale=scale, impl=impl,
+                                             pages_per_program=ppp).numpy()
+
+
+@pytest.mark.parametrize("seed, b, h, r, dr, n_pages, page, npp, lengths, ppp", LATENT_CASES)
+def test_latent_decode_matches_reference(seed, b, h, r, dr, n_pages, page, npp, lengths, ppp):
+    args = _latent_case(seed, b, h, r, dr, n_pages, page, npp, lengths)
+    scale = (r // 2 + dr) ** -0.5
+    want = np.asarray(jax_latent_decode(*(jnp.asarray(x) for x in args), sm_scale=scale,
+                                        impl="stream", pages_per_program=ppp))
+    stream = _port_latent(args, "stream", ppp, scale)
+    assert stream.shape == (b, h, r)
+    np.testing.assert_allclose(stream, want, rtol=0, atol=ATOL_F32)
+    assert np.array_equal(stream, _port_latent(args, "gather", ppp, scale))
+    assert np.array_equal(stream, _port_latent(args, "kernel", ppp, scale))
+    assert ops.paged_latent_decode.launches == 0
+    for i, n in enumerate(lengths):
+        if n == 0:  # an empty row gives zeros, as the reference's stream
+            assert not stream[i].any()
+
+
+def test_latent_stream_and_gather_bitwise_in_bf16_and_page_order_does_not_matter():
+    args = _latent_case(5, 4, 4, 16, 8, 24, 16, 5, [1, 23, 80, 50], shuffle=False)
+    t = [torch.from_numpy(x) for x in args]
+    t[:4] = [x.to(torch.bfloat16) for x in t[:4]]
+    stream = ops.paged_latent_decode_attention(*t, sm_scale=0.2, impl="stream")
+    assert stream.dtype == torch.bfloat16
+    assert torch.equal(stream, ops.paged_latent_decode_attention(*t, sm_scale=0.2,
+                                                                 impl="gather"))
+    perm = torch.from_numpy(np.random.RandomState(0).permutation(np.arange(1, 24)))
+    ckv2, kpe2 = t[2].clone(), t[3].clone()
+    ckv2[perm], kpe2[perm] = t[2][1:], t[3][1:]
+    tables2 = torch.where(t[5] > 0, perm[(t[5] - 1).clamp(min=0).long()], 0).to(torch.int32)
+    shuffled = ops.paged_latent_decode_attention(t[0], t[1], ckv2, kpe2, t[4], tables2,
+                                                 sm_scale=0.2, impl="stream")
+    assert torch.equal(stream, shuffled)

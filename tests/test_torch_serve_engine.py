@@ -20,6 +20,11 @@ equal to a cold engine's (the CLI's check, and across prefill row blocks),
 bitwise equal streams, a page pool that never hands out the scratch page,
 and a capacity planner that fits on the port's ``serve_step`` events.
 
+deepseek-v2 (smoke: a dense head layer and a MoE layer, both MLA) is held as
+qwen3-14b is: float32 token streams and logits against the reference engine
+(both MoE evals dropless), and in bf16 prefix reuse across prefill row
+blocks bitwise.
+
 falcon-mamba (smoke: 1 Mamba layer, d_inner 128, d_state 4) is held the
 same way: float32 token streams and logits against the reference engine on
 the same trace (every prompt there has at least the 3 tokens the
@@ -45,6 +50,7 @@ from repro_torch.models.model import LM
 from repro_torch.serve import SCRATCH_PAGE, CapacityPlanner, ServeEngine
 
 ENGINE = dict(max_batch=4, page_size=16, max_seq=96, collect_logits=True)
+ARCHS = ["qwen3-14b", "falcon-mamba-7b", "deepseek-v2-236b"]
 LOGITS_ATOL = 1e-4
 
 
@@ -69,7 +75,7 @@ def test_trace_copy_is_the_reference_trace():
             assert np.array_equal(p1, p2) and (g1, a1, f1) == (g2, a2, f2)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_engine_token_streams_match_reference_in_float32(arch):
     ref = Float32RefEngine(arch, smoke=True, seed=0, **ENGINE)
     specs = ref_trace_specs(ref.cfg, 16, 8, 0)
@@ -94,7 +100,7 @@ def test_engine_token_streams_match_reference_in_float32(arch):
     assert eng.step_count == ref.step_count
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_cli_serves_the_trace_and_prefix_reuse_is_bit_identical(capsys, arch):
     result = port_cli.main(["--arch", arch, "--smoke", "--continuous",
                             "--device", "cpu"])
@@ -151,8 +157,9 @@ def test_bf16_stream_and_gather_streams_bitwise_and_scratch_never_handed_out():
 
 def test_unported_engine_options_raise():
     for kw in (dict(prefill_chunk=8), dict(speculate=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServeEngine("qwen3-14b", device="cpu", **kw)
+        for arch in ("qwen3-14b", "deepseek-v2-236b"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                ServeEngine(arch, device="cpu", **kw)
         with pytest.raises(ValueError, match="recurrent-state layers"):
             ServeEngine("falcon-mamba-7b", device="cpu", **kw)
     eng = ServeEngine("qwen3-14b", device="cpu", max_seq=32)
@@ -160,7 +167,7 @@ def test_unported_engine_options_raise():
         eng.submit(np.arange(30), 4)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_prefix_reuse_bitwise_across_prefill_row_blocks(arch):
     lm = LM(get_smoke_config(arch), device="cpu").init_params(
         torch.Generator().manual_seed(0))

@@ -41,6 +41,7 @@ from repro_torch.kernels.tune import (
     sweep,
     tune_events,
 )
+from repro_torch.kernels.tune import roofline as roofline_mod
 from repro_torch.kernels.tune.roofline import estimate, light_speed_s, prune
 from repro_torch.kernels.tune.sweep import sweep_dtype
 from repro_torch.serve import CapacityPlanner
@@ -279,6 +280,70 @@ def test_roofline_estimates_monotone_in_work():
     one = estimate("flash_decode", {"b": 1, "h": 132, "s": 64, "d": 16}, {"block_k": 64})
     two = estimate("flash_decode", {"b": 1, "h": 133, "s": 64, "d": 16}, {"block_k": 64})
     assert (one.serial_steps, two.serial_steps) == (1, 2)
+
+
+# K2's MLA latent form at deepseek-v2-236b's decode shape: the reference's
+# key (one KV head, all 128 heads on it, d = kv_lora_rank) with the rope width
+LATENT = fd_ops.latent_shape(8, 128, 512, 64, 16, 68)
+
+
+def test_latent_roofline_counts_the_q_pe_term():
+    """FLOPs: the reference's count at its key (q . k and p . v over r) plus
+    the q_pe . kpe term over dr; bytes: each valid position's latent and
+    rope rows read once (one pool is the keys and the values)."""
+    config = {"pages_per_program": 4}
+    ref_key = {k: v for k, v in LATENT.items() if k != "dr"}
+    b, h, s, dr = LATENT["b"], LATENT["g"], LATENT["npp"] * LATENT["page"], LATENT["dr"]
+    est = estimate("flash_decode_paged", LATENT, config, torch.bfloat16)
+    assert est.flops == ref_estimate("flash_decode_paged", ref_key, config).flops \
+        + 2.0 * b * h * s * dr
+    assert est.bytes_moved == float(ragged_lengths(b, s).sum()) * (512 + 64) * 2
+    assert est.smem_bytes == roofline_mod.latent_smem_bytes(512, 64, 4 * 16)
+
+
+def test_latent_roofline_refuses_the_blockings_the_wrapper_refuses():
+    """The roofline keeps a pages_per_program at the latent shape exactly
+    when the latent kernel's shared memory (its own formula, mirrored; held
+    equal to the kernel's export and to the wrapper's refusals on the card,
+    tests/test_torch_mla_gpu.py) fits a block: up to 8 pages of 16, where the
+    GQA form's formula would take 16 and refuse d = 512 outright."""
+    cands = candidates_for("flash_decode_paged", LATENT)
+    for c in cands:
+        est = estimate("flash_decode_paged", LATENT, c, "bfloat16")
+        fits = roofline_mod.latent_smem_bytes(512, 64, c["pages_per_program"] * 16) \
+            <= MAX_SMEM_PER_BLOCK
+        assert est.fits == fits
+    kept, _ = prune("flash_decode_paged", LATENT, cands, "bfloat16")
+    assert kept and max(e.config["pages_per_program"] for e in kept) == 8
+    with pytest.raises(ValueError, match="takes none"):  # widths the kernel is not built for
+        shape = dict(LATENT, d=256)
+        prune("flash_decode_paged", shape, candidates_for("flash_decode_paged", shape))
+
+
+def test_latent_decode_reads_the_tuned_pages_per_program(default_cache_at):
+    """``pages_per_program=None`` reads the cache at ``latent_shape`` (a miss
+    gives the default); the sweep times the latent form on the CPU's plain
+    version."""
+    rng = np.random.RandomState(3)
+    args = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            for shape in ((2, 4, 16), (2, 4, 8), (9, 4, 16), (9, 4, 8))]
+    args += [torch.tensor([13, 30], dtype=torch.int32),
+             torch.from_numpy(rng.permutation(np.arange(1, 9)).reshape(2, 4).astype(np.int32))]
+    shape = fd_ops.latent_shape(2, 4, 16, 8, 4, 4)
+
+    def call(ppp=None):
+        return fd_ops.paged_latent_decode_attention(*args, sm_scale=0.2, impl="stream",
+                                                    pages_per_program=ppp)
+
+    assert torch.equal(call(), call(fd_ops.DEFAULT_PAGES_PER_PROGRAM))
+    cache = ConfigCache(str(default_cache_at))
+    _put(cache, "flash_decode_paged", shape, {"pages_per_program": 1})
+    cache.save()
+    tune.reset_default_cache()
+    assert torch.equal(call(), call(1))
+    config = ensure("flash_decode_paged", dict(shape, b=1), device=CPU,
+                    cache=ConfigCache(path=None), iters=1)
+    assert config["pages_per_program"] in (1, 2, 4)
 
 
 # --------------------------------------------------------------- telemetry
