@@ -22,7 +22,9 @@ of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
    2. build: compiles every kernel from the sources here, one nvcc each, all
-      started together, and prints what -Xptxas -v reports;
+      started together, and prints each library's nvcc seconds and what
+      -Xptxas -v reports (registers, spills); fails if ptxas serialised any
+      wgmma;
    3. K1 against its plain PyTorch version on the card, at the Hemingway
       loop's shapes, within the stated tolerances;
    4. small-input check of the loop: CoCoA rounds on the card against the
@@ -32,7 +34,10 @@ of which exits non-zero on failure:
       60000 x 784, m = 1..128, K1's launches checked against its rounds;
    7. device busy share of CoCoA rounds at m = 1, 16 and 128;
    8. K3 and K2 against their plain versions on the card, in bf16, at
-      qwen3-14b's shapes, within the stated tolerances;
+      qwen3-14b's shapes, within the stated tolerances: K3 at block_k 16
+      (the engine's) and 64, with K and V NaN past kv_len in one case; K2
+      also with NaN at every pool position past the rows' lengths, which must
+      leave its output unchanged;
    9. small-input check of the LM: the smoke qwen3-14b on the card against
       the plain versions on the CPU, with the same weights;
    9b. the autotuner, needing no model weights: (a) K3, K5 and K2 against
@@ -62,9 +67,14 @@ of which exits non-zero on failure:
       that reuses a one-block prompt's pages, bit for bit against a cold
       engine;
   12. K3's, K2's and K5's times per launch against their bounds, their plain
-      versions' times, and one PyTorch call's time for the same function (K2
-      at pages_per_program 4 and at the tuned value, K5 at the tuner's shape
-      and at qwen3-14b's grouped one); qwen3-14b is freed before this phase;
+      versions' times, and one PyTorch call's time for the same function (K3
+      at block_k 16 and 64; K2 at pages_per_program 4, 8 and the tuned value,
+      K5 at the tuner's shape and at qwen3-14b's grouped one, both and their
+      PyTorch calls replayed from a CUDA graph with the L2 flushed before
+      each call, since their eager calls are bound by the host's launch time
+      and their K/V fits the L2; eager and warm-L2 times printed beside),
+      with each launch's grid and shared memory; qwen3-14b is freed before
+      this phase;
   13. K4 against its plain version on the card at falcon-mamba-7b's shapes:
       a prefill (B 1, S 1024, a padded tail, a nonzero initial state) and a
       decode step (B 8, S 1, the state updated in place), within the stated
@@ -98,7 +108,8 @@ of which exits non-zero on failure:
   22. K2-latent's and K3 (192, 128)'s times per launch against their bounds,
       their plain versions' times and one PyTorch call's time
       (``scaled_dot_product_attention``).
-The last lines are one JSON object with every kernel's summary, the card's
+The last lines are one JSON object with every kernel's summary (its
+``timed_by`` says how ``ms`` and ``library_ms`` were timed), the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -132,16 +143,21 @@ A_ATOL = 1e-5           # max |a_kernel - a_plain|
 PRIMAL_RTOL = 1e-5      # P(w + combined dw), kernel vs plain
 CURVE_RTOL = 1e-4       # objective curves of the small-input check
 
-# K2 and K3 against their plain versions on the card: both run float32
-# arithmetic on bf16 inputs, summed in another order, and round the output to
-# bf16 once.  The float32 difference can move that rounding by one step (one
-# bf16 ulp of the output), and it is itself an absolute error of the order of
-# float32's epsilon times the summands, which are p_j v_j with the p_j summing
-# to 1: for n keys about sqrt(n) * 1.2e-7 * max|v| (3.8e-6 max|v| at n = 1024).
-# Where a row's output is near 0 by cancellation, that is several ulps of the
-# output itself (5 measured at Sq = 1024 on an H100).  So the limit is one
-# bf16 ulp of the output plus 2^-14 (6.1e-5) of max|v|, sixteen times the
-# estimate; a fault of the kernel shows as errors of order max|v|.
+# K2 and K3 against their plain versions on the card, which run float32
+# arithmetic on bf16 inputs.  K2 does the same in another order and merges a
+# long row's splits in float32; K3 multiplies on the tensor cores, where a
+# product of two bf16 values is exact and the sums are float32, and carries p
+# as two bf16 values (p_hi + p_lo, within 2^-17 of p) into float32 sums.
+# Both round the output to bf16 once.  The float32 difference can move that
+# rounding by one step (one bf16 ulp of the output), and it is itself an
+# absolute error of the order of float32's epsilon times the summands, which
+# are p_j v_j with the p_j summing to 1: for n keys about sqrt(n) * 1.2e-7 *
+# max|v| (3.8e-6 max|v| at n = 1024), and the p split adds at most 2^-17
+# max|v| (7.6e-6).  Where a row's output is near 0 by cancellation, that is
+# several ulps of the output itself (5 measured at Sq = 1024 on an H100).  So
+# the limit is one bf16 ulp of the output plus 2^-14 (6.1e-5) of max|v|, over
+# five times the estimate; a fault of the kernel shows as errors of order
+# max|v|.
 MAX_BF16_ULPS = 1
 V_ATOL_OF_MAX = 2.0 ** -14
 # The smoke LM on the card against the plain versions on the CPU, same
@@ -193,6 +209,8 @@ TUNED_KERNELS = {"flash_attention": "flash_fwd", "flash_decode": "flash_decode",
 # a fixed yardstick (the tuned value, which host noise can pick, is printed
 # beside it)
 K2_ROW_PAGES_PER_PROGRAM = 4
+# Also timed in phase 12: groups of 128 positions, one a split, one staged
+K2_ONE_TILE_PAGES_PER_PROGRAM = 8
 
 
 def fail(message: str) -> None:
@@ -283,6 +301,55 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# How a kernels-line row was timed ("timed_by"): K2's and K5's rows and
+# their PyTorch calls by GRAPH_COLD_L2, every other row by EAGER.
+EAGER = "CUDA events over calls back to back"
+GRAPH_COLD_L2 = ("CUDA graph of the calls, the L2 flushed before each by a read of "
+                 "256 MB, the reads' own graph time taken off")
+FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def graph_ms(fn, reps: int, warmup: int = 3, flush=None) -> float:
+    """Mean ms per call of ``fn`` replayed from one CUDA graph of ``reps``
+    calls, timed by CUDA events: the device's time for the calls' kernels and
+    the gaps between them, without the host's time to launch them.  A decode
+    kernel's wrapper takes longer on the host than its kernels on the device,
+    so back-to-back eager calls time the host.  Calls back to back find their
+    inputs in the L2 when these fit there (K2's 36 MB pool does), so with
+    ``flush``, a float32 tensor of FLUSH_BYTES, each call follows a read of
+    all of it, as in the engine, where each layer reads its own pool; a graph
+    of the reads alone is replayed in turn with it, and the medians' gap over
+    three replays each is the calls' time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def capture(body):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                body()
+        graph.replay()  # warm-up
+        return graph
+
+    def replay_ms(graph):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    if flush is None:
+        return replay_ms(capture(fn)) / reps
+    both = capture(lambda: (flush.sum(), fn()))
+    reads = capture(flush.sum)
+    pairs = [(replay_ms(both), replay_ms(reads)) for _ in range(3)]
+    return (sorted(b for b, _ in pairs)[1] - sorted(r for _, r in pairs)[1]) / reps
+
+
 def build_all(libraries) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -295,8 +362,11 @@ def build_all(libraries) -> None:
         for line in built["log"].splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  ptxas: {entry[:60]}: {line.strip()}")
+        if "Performance Loss: wgmma" in built["log"]:
+            fail(f"{lib.source.name}: ptxas serialised wgmma instructions (C7520): a branch "
+                 "the compiler cannot prove warpgroup-uniform encloses a wgmma")
         lib.load()
 
 
@@ -443,6 +513,7 @@ def hemingway_path(dev):
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "timed_by": EAGER,
     }
 
 
@@ -482,18 +553,29 @@ def serve_kernels_vs_plain(dev, cfg):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     errs = {"flash_fwd": 0.0, "paged_decode": 0.0}
-    for sq, skv, lens, q_offset in ((1, 1, None, 0), (17, 17, None, 0), (1024, 1024, None, 0),
-                                    (48, 160, [150, 97], 112)):
+    # the last case's K and V hold NaN at and past each row's kv_len: the
+    # kernel must never multiply them in
+    for sq, skv, lens, q_offset, block_k in ((1, 1, None, 0, 16), (17, 17, None, 0, 16),
+                                             (1024, 1024, None, 0, 16),
+                                             (1024, 1024, None, 0, 64),
+                                             (48, 160, [150, 97], 112, 16),
+                                             (200, 300, [290, 170], 100, 64)):
         b = 1 if lens is None else len(lens)
         q, k, v = bf16(b, hk * g, sq, d), bf16(b, hk, skv, d), bf16(b, hk, skv, d)
         kv_lens = torch.tensor(lens or [skv] * b, dtype=torch.int32, device=dev)
-        got = fa_ops.flash_fwd(q, k, v, kv_lens, sm_scale=d ** -0.5, q_offset=q_offset)
+        if block_k == 64 and lens is not None:
+            for i, n in enumerate(lens):
+                k[i, :, n:] = float("nan")
+                v[i, :, n:] = float("nan")
+        got = fa_ops.flash_fwd(q, k, v, kv_lens, sm_scale=d ** -0.5, q_offset=q_offset,
+                               block_k=block_k)
         torch.cuda.synchronize()
-        want = flash_fwd_ref(q, k, v, kv_lens, causal=True, sm_scale=d ** -0.5,
-                             q_offset=q_offset, block_q=16, block_k=16)
+        want = flash_fwd_ref(q, k.nan_to_num(0.0), v.nan_to_num(0.0), kv_lens, causal=True,
+                             sm_scale=d ** -0.5, q_offset=q_offset, block_q=16,
+                             block_k=block_k)
         errs["flash_fwd"] = max(errs["flash_fwd"], check_against_plain(
-            torch, "flash_fwd", got, want, v,
-            f"B={b} Sq={sq} Skv={skv} kv_lens={lens} q_offset={q_offset}"))
+            torch, "flash_fwd", got, want, v.nan_to_num(0.0),
+            f"B={b} Sq={sq} Skv={skv} kv_lens={lens} q_offset={q_offset} block_k={block_k}"))
 
     lengths = [1, 1, 5, 16, 17, 333, 1088, 1120]  # two scratch rows, ragged, page-unaligned
     b, page, npp = len(lengths), 16, 70  # npp = 70 is not a multiple of ppp = 4
@@ -508,6 +590,21 @@ def serve_kernels_vs_plain(dev, cfg):
     want = paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5, pages_per_program=4)
     errs["paged_decode"] = check_against_plain(torch, "paged_decode", got, want, vp,
                                                f"B={b} lengths={lengths} npp={npp} ppp=4")
+    # NaN in every pool position past each row's length (the scratch page
+    # included): the kernel never reads them
+    kp_nan, vp_nan = kp.clone(), vp.clone()
+    live = torch.zeros(n_pages, page, dtype=torch.bool, device=dev)
+    for i, n in enumerate(lengths):
+        pos = torch.arange(n, device=dev)
+        live[tables[i].long()[pos // page], pos % page] = True
+    kp_nan.masked_fill_(~live[:, None, :, None], float("nan"))
+    vp_nan.masked_fill_(~live[:, None, :, None], float("nan"))
+    got_nan = fd_ops.paged_decode(q, kp_nan, vp_nan, lens, tables, scale=d ** -0.5,
+                                  pages_per_program=4)
+    torch.cuda.synchronize()
+    if not torch.equal(got_nan, got):
+        fail("paged_decode: NaN past the rows' lengths changed the output")
+    print("paged_decode with NaN at every position past the rows' lengths: output unchanged")
     print(f"tolerance: at most {MAX_BF16_ULPS} bf16 ulp of the output beyond "
           f"{V_ATOL_OF_MAX:.2e} max|v|")
     return errs
@@ -1068,10 +1165,13 @@ def serve_kernel_timings(dev, cfg, tuned_ppp):
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
+    lib3 = fa_ops.LIBRARY.load()
     timings = {}
     for s in (1024, 2048):
         q, k, v = bf16(1, hq, s, d), bf16(1, hk, s, d), bf16(1, hk, s, d)
         lens = torch.tensor([s], dtype=torch.int32, device=dev)
+        ms64 = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, lens, sm_scale=d ** -0.5, block_k=64),
+                       reps=10)
         ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, lens, sm_scale=d ** -0.5), reps=10)
         plain = cuda_ms(lambda: flash_fwd_ref(q, k, v, lens, causal=True, sm_scale=d ** -0.5,
                                               q_offset=0, block_q=16, block_k=16),
@@ -1083,11 +1183,13 @@ def serve_kernel_timings(dev, cfg, tuned_ppp):
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        print(f"flash_fwd Sq=Skv={s} Hq={hq} Hk={hk} D={d}: kernel {ms:.3f} ms, plain "
-              f"{plain:.3f} ms, SDPA {lib:.3f} ms, bound {bound:.4f} ms ({by}: "
-              f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; "
-              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms), "
-              f"kernel at {100 * bound / ms:.2f}% of bound")
+        print(f"flash_fwd Sq=Skv={s} Hq={hq} Hk={hk} D={d}: kernel {ms:.3f} ms at block_k 16 "
+              f"({ms64:.3f} ms at block_k 64), plain {plain:.3f} ms, SDPA {lib:.3f} ms, bound "
+              f"{bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms), kernel at "
+              f"{100 * bound / ms:.2f}% of bound; grid {-(-s // 128)} x {hq} x 1 blocks of 256 "
+              f"threads, {lib3.flash_fwd_smem_bytes(g, d, d, 16)} bytes of shared memory a "
+              f"block; the p split doubles P V: {2 * flops / 1e9:.2f} GFLOP on the tensor cores")
         timings["flash_fwd"] = (ms, plain, lib, bound, by, f"Sq=Skv={s}")
 
     b, ctx, page = LONG_BATCH, LONG_PROMPT + LONG_GEN, 16
@@ -1101,38 +1203,73 @@ def serve_kernel_timings(dev, cfg, tuned_ppp):
     k_dense = kp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
     v_dense = vp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
     q_sdpa = q.reshape(b, hq, 1, d)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q_sdpa, k_dense, v_dense,
-                                                         enable_gqa=True), reps=50)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q_sdpa, k_dense, v_dense, enable_gqa=True)
+
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+    lib = graph_ms(sdpa, reps=50, flush=flush)
+    lib_warm = graph_ms(sdpa, reps=50)
+    lib_eager = cuda_ms(sdpa, reps=50)
     nbytes = 2 * b * hk * ctx * d * 2 + 2 * b * hq * d * 2 + b * npp * 4 + b * 4
     flops = 4 * b * hq * ctx * d
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     bound = max(bytes_ms, ops_ms)
     by = "bytes" if bytes_ms >= ops_ms else "operations"
-    for ppp in dict.fromkeys((K2_ROW_PAGES_PER_PROGRAM, tuned_ppp)):
-        ms = cuda_ms(lambda: fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5,
-                                                 pages_per_program=ppp), reps=50)
+    lib2 = fd_ops.LIBRARY.load()
+    for ppp in dict.fromkeys((K2_ROW_PAGES_PER_PROGRAM, K2_ONE_TILE_PAGES_PER_PROGRAM,
+                              tuned_ppp)):
+        def call():
+            return fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5,
+                                       pages_per_program=ppp)
+
+        ms = graph_ms(call, reps=50, flush=flush)
+        warm = graph_ms(call, reps=50)
+        eager = cuda_ms(call, reps=50)
         plain = cuda_ms(lambda: paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5,
                                                     pages_per_program=ppp), reps=5, warmup=1)
+        splits = lib2.paged_decode_splits(ctx, ppp * page)
         print(f"paged_decode B={b} context={ctx} Hk={hk} G={g} D={d} ppp={ppp}: kernel "
-              f"{ms:.4f} ms, plain {plain:.3f} ms, SDPA on the gathered dense KV {lib:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s), "
-              f"kernel at {100 * bound / ms:.2f}% of bound; grid {b * hk} blocks on "
-              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs"
-              f"{'' if ppp == K2_ROW_PAGES_PER_PROGRAM else ' (the tuned value)'}")
+              f"{ms:.4f} ms (CUDA graph, L2 flushed; {warm:.4f} ms with the pool in the L2; "
+              f"eager calls back to back {eager:.4f} ms, the host's launch time), plain "
+              f"{plain:.3f} ms, SDPA on the gathered dense KV {lib:.4f} ms (CUDA graph, L2 "
+              f"flushed; {lib_warm:.4f} ms warm; eager {lib_eager:.4f} ms), bound {bound:.4f} "
+              f"ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s), kernel at {100 * bound / ms:.2f}% of bound; "
+              f"grid {splits} splits x {hk} x {b} = {splits * hk * b} blocks of 256 threads on "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
+              f"{lib2.paged_decode_smem_bytes(g, d, ppp * page)} bytes of shared memory a "
+              f"block, then the combine's {hk * b} blocks"
+              f"{' (the tuned value)' if ppp == tuned_ppp else ''}")
         if ppp == K2_ROW_PAGES_PER_PROGRAM:
             timings["paged_decode"] = (ms, plain, lib, bound, by,
-                                       f"B={b} context={ctx} ppp={ppp}")
-    timings["flash_decode"] = decode_kernel_timings(dev, cfg)
+                                       f"B={b} context={ctx} ppp={ppp}",
+                                       {"timed_by": GRAPH_COLD_L2, "eager_ms": eager,
+                                        "warm_l2_ms": warm, "library_warm_l2_ms": lib_warm})
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5,
+                                pages_per_program=K2_ROW_PAGES_PER_PROGRAM)
+        torch.cuda.synchronize()
+    split_us = {"combine" if "combine" in e.key else "split": e.self_device_time_total / e.count
+                for e in prof.key_averages() if "paged_decode" in e.key}
+    print(f"paged_decode ppp={K2_ROW_PAGES_PER_PROGRAM}, device time a call (profiler, 20 calls): "
+          f"split kernel {split_us.get('split', 0.0):.2f} us, combine kernel "
+          f"{split_us.get('combine', 0.0):.2f} us")
+    timings["flash_decode"] = decode_kernel_timings(dev, cfg, flush)
     return timings
 
 
-def decode_kernel_timings(dev, cfg):
+def decode_kernel_timings(dev, cfg, flush):
     """K5 at the wrapper's default tile against its bound, with ragged
     lengths: the valid K and V read once per KV head, q and lengths read and
     the output written once; 4 D operations per valid position and query
     head.  Timed at qwen3-14b's grouped decode shape (Hk 8) and at the
     tuner's (one KV head per query head, as the path runs it), whose times
-    are returned."""
+    are returned; kernel and SDPA timed from a CUDA graph with the L2
+    flushed by reads of ``flush`` (``graph_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1153,18 +1290,30 @@ def decode_kernel_timings(dev, cfg):
         by = "bytes" if bytes_ms >= ops_ms else "operations"
         mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
         q_sdpa = q.reshape(b, hq, 1, d)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q_sdpa, k, v, attn_mask=mask,
-                                                             enable_gqa=True), reps=50)
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q_sdpa, k, v, attn_mask=mask,
+                                                              enable_gqa=True), reps=50,
+                       flush=flush)
         plain = cuda_ms(lambda: flash_decode_ref(q, k, v, lens, sm_scale=scale, block_k=block_k),
                         reps=5, warmup=1)
-        ms = cuda_ms(lambda: fd_ops.flash_decode(q, k, v, lens, sm_scale=scale, block_k=block_k),
-                     reps=100)
+
+        def call():
+            return fd_ops.flash_decode(q, k, v, lens, sm_scale=scale, block_k=block_k)
+
+        ms = graph_ms(call, reps=100, flush=flush)
+        warm = graph_ms(call, reps=100)
+        eager = cuda_ms(call, reps=100)
+        lib5 = fd_ops.DECODE_LIBRARY.load()
+        splits = lib5.flash_decode_splits(s, block_k)
         print(f"flash_decode B={b} Hq={hq} Hk={hk} S={s} D={d} lengths {lens.tolist()} "
-              f"(sum {valid}) block_k={block_k}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"SDPA with a length mask {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
-              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s; {flops / 1e6:.1f} MFLOP), kernel at "
-              f"{100 * bound / ms:.2f}% of bound; grid {b * hk} blocks")
-    return ms, plain, lib, bound, by, f"B={b} Hq={hq} Hk={hk} S={s} block_k={block_k}"
+              f"(sum {valid}) block_k={block_k}: kernel {ms:.4f} ms (CUDA graph, L2 flushed; "
+              f"{warm:.4f} ms warm; eager calls back to back {eager:.4f} ms), plain "
+              f"{plain:.3f} ms, SDPA with a length mask {lib:.4f} ms (CUDA graph, L2 flushed), "
+              f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s; "
+              f"{flops / 1e6:.1f} MFLOP), kernel at {100 * bound / ms:.2f}% of bound; grid "
+              f"{splits} x {hk} x {b} blocks, {lib5.flash_decode_smem_bytes(hq // hk, d, block_k)} "
+              f"bytes of shared memory a block")
+    return (ms, plain, lib, bound, by, f"B={b} Hq={hq} Hk={hk} S={s} block_k={block_k}",
+            {"timed_by": GRAPH_COLD_L2, "eager_ms": eager, "warm_l2_ms": warm})
 
 
 def scan_inputs(torch, gen, cfg, bt, s, n_valid=None):
@@ -1537,11 +1686,11 @@ def main() -> None:
             ("paged_latent_decode",
              "src/repro_torch/kernels/flash_decode/csrc/paged_latent_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:189")):
-        ms, plain, lib, bound, by, _ = timings[name]
+        ms, plain, lib, bound, by, _, *how = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib})
+                        "library_ms": lib, **(how[0] if how else {"timed_by": EAGER})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

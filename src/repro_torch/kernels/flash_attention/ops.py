@@ -28,14 +28,27 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu", "flash_fwd",
     {"flash_fwd_launch": ([_p] * 5 + [_i] * 10 + [_f, _p], ctypes.c_int),
-     "flash_fwd_smem_bytes": ([_i, _i, _i, _i], ctypes.c_int)},
+     "flash_fwd_smem_bytes": ([_i, _i, _i, _i], ctypes.c_int),
+     "flash_fwd_tile_probe": ([_p] * 6 + [_i, _i, _p], ctypes.c_int)},
     error_fn="flash_fwd_error_string")
 
-MAX_BLOCK_K = 64
+# The kernel's online-softmax steps: whole 16-key chunks of its 64-key tiles.
+KERNEL_BLOCK_KS = (16, 32, 64)
+MAX_BLOCK_K = max(KERNEL_BLOCK_KS)
 NEG_INF = -1e30
 # (key dim, value dim) pairs the kernel is built for: equal dims, multiples
 # of 16 up to 256, and MLA's prefill, DeepSeek-V2's and its smoke variant's
 HEAD_DIMS = tuple((d, d) for d in range(16, 257, 16)) + ((192, 128), (24, 16))
+
+
+def kernel_block_k(block_k: int, skv: int) -> Optional[int]:
+    """The online-softmax step the kernel runs for ``block_k`` over ``skv``
+    keys, or None where it refuses ``block_k``: a block_k of Skv or more (up
+    to ``MAX_BLOCK_K``) is one step over every key and runs as 64."""
+    if not 1 <= block_k <= MAX_BLOCK_K:
+        return None
+    bk = MAX_BLOCK_K if block_k >= skv else int(block_k)
+    return bk if bk in KERNEL_BLOCK_KS else None
 
 
 def flash_fwd(
@@ -51,7 +64,9 @@ def flash_fwd(
     block_k: int = 16,
 ) -> torch.Tensor:
     """Returns (B, Hq, Sq, Dv) in q's dtype.  ``block_q`` cuts the plain
-    version's query tiles; the kernel's rows are independent of it."""
+    version's query tiles; the kernel's rows are independent of it.  The
+    kernel takes ``block_k`` in ``KERNEL_BLOCK_KS``, or any ``block_k`` from
+    Skv up to ``MAX_BLOCK_K`` (``kernel_block_k``)."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, kv_lens, causal=causal, sm_scale=sm_scale,
                              q_offset=q_offset, block_q=block_q, block_k=block_k)
@@ -70,8 +85,10 @@ def flash_fwd(
     if (d, dv) not in HEAD_DIMS:
         raise ValueError(f"(dk, dv) = ({d}, {dv}): the kernel is built for equal dims, "
                          "multiples of 16 up to 256, and (192, 128) and (24, 16)")
-    if not 1 <= block_k <= MAX_BLOCK_K:
-        raise ValueError(f"block_k={block_k}: the kernel takes 1..{MAX_BLOCK_K}")
+    bk = kernel_block_k(block_k, skv)
+    if bk is None:
+        raise ValueError(f"block_k={block_k} at Skv={skv}: the kernel takes {KERNEL_BLOCK_KS}, "
+                         f"or any block_k from Skv up to {MAX_BLOCK_K}")
     if tuple(kv_lens.shape) != (b,):
         raise ValueError(f"kv_lens has shape {tuple(kv_lens.shape)}, expected ({b},)")
     for name, t in (("q", q), ("k", k), ("v", v), ("kv_lens", kv_lens)):
@@ -81,12 +98,14 @@ def flash_fwd(
             raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+        if name != "kv_lens" and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     g = hq // hk
     lib = LIBRARY.load()
-    smem = lib.flash_fwd_smem_bytes(g, d, dv, block_k)
+    smem = lib.flash_fwd_smem_bytes(g, d, dv, bk)
     if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"G={g}, dk={d}, dv={dv}, block_k={block_k} need {smem} bytes of "
-                         f"shared memory, more than the {MAX_SMEM_PER_BLOCK} a block may use")
+        raise ValueError(f"dk={d}, dv={dv} need {smem} bytes of shared memory, more than the "
+                         f"{MAX_SMEM_PER_BLOCK} a block may use")
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     if b * hq * sq == 0:
@@ -94,7 +113,7 @@ def flash_fwd(
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), out.data_ptr(),
-            b, hk, g, sq, skv, d, dv, int(q_offset), int(bool(causal)), int(block_k),
+            b, hk, g, sq, skv, d, dv, int(q_offset), int(bool(causal)), bk,
             ctypes.c_float(sm_scale), torch.cuda.current_stream().cuda_stream)
     LIBRARY.check(err, "flash_fwd kernel")
     flash_fwd.launches += 1

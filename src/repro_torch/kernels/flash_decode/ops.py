@@ -26,7 +26,9 @@ for CPU tensors), ``False`` the plain ``decode_attention`` on any device.
 ``paged_decode``, ``paged_latent_decode`` and ``flash_decode`` are the
 kernels' wrappers: a CUDA tensor goes to the kernel or the call raises,
 nothing falls back, and each wrapper's ``launches`` counts its kernel's
-launches and only those.
+launches and only those.  K2 and K5 are split-KV: one call launches the
+split kernel and, when the cache holds more than one split, the kernel that
+merges the splits; the two count as one launch.
 
 ``gather_pages`` and ``paged_prefill_attention`` (``ops.py:272, 292``) are
 gathers plus the flash forward (K3) with ``kv_lens`` and a static
@@ -54,14 +56,15 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = KernelLibrary(
     _CSRC / "paged_decode.cu", "paged_decode",
-    {"paged_decode_launch": ([_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p],
-                             ctypes.c_int),
-     "paged_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
+    {"paged_decode_launch": ([_p] * 7 + [_i] * 8 + [_f, _p], ctypes.c_int),
+     "paged_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int),
+     "paged_decode_splits": ([_i, _i], ctypes.c_int)},
     error_fn="paged_decode_error_string", includes=[_CSRC / "decode_tile.cuh"])
 DECODE_LIBRARY = KernelLibrary(
     _CSRC / "flash_decode.cu", "flash_decode",
-    {"flash_decode_launch": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p], ctypes.c_int),
-     "flash_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
+    {"flash_decode_launch": ([_p] * 6 + [_i] * 6 + [_f, _p], ctypes.c_int),
+     "flash_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int),
+     "flash_decode_splits": ([_i, _i], ctypes.c_int)},
     error_fn="flash_decode_error_string", includes=[_CSRC / "decode_tile.cuh"])
 LATENT_LIBRARY = KernelLibrary(
     _CSRC / "paged_latent_decode.cu", "paged_latent_decode",
@@ -77,6 +80,20 @@ LATENT_WIDTHS = ((512, 64), (16, 8))
 # a tile of K and V in shared memory, and at head dim 128 a 512-position tile
 # needs 278 KB, more than the 227 KB a block may use.
 DEFAULT_DECODE_BLOCK_K = 128
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """The kernels stage rows with 16-byte copies."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _split_scratch(b: int, hk: int, g: int, d: int, splits: int, device) -> torch.Tensor:
+    """Float32 scratch for the split-KV partials, (m, l) and acc per (row,
+    KV head, split, query head), as decode_tile.cuh lays them out."""
+    return torch.empty(max(1, b * hk * splits * g * (d + 2)), dtype=torch.float32,
+                       device=device)
 
 
 def _tuned_value(family: str, shape: dict, dtype, name: str, default: int,
@@ -149,6 +166,7 @@ def paged_decode(
             raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    _check_aligned(q=q, k_pages=k_pages, v_pages=v_pages)
     npp = page_tables.shape[1]
     ppp = max(1, min(int(pages_per_program), npp))
     lib = LIBRARY.load()
@@ -159,11 +177,13 @@ def paged_decode(
     out = torch.empty_like(q)
     if b * hk * g == 0:
         return out
+    scratch = _split_scratch(b, hk, g, d, lib.paged_decode_splits(npp * page, ppp * page),
+                             q.device)
     with torch.cuda.device(q.device):
         err = lib.paged_decode_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-            page_tables.data_ptr(), out.data_ptr(), b, hk, g, d, n_pages, page, npp, ppp,
-            ctypes.c_float(scale), torch.cuda.current_stream().cuda_stream)
+            page_tables.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, hk, g, d, n_pages,
+            page, npp, ppp, ctypes.c_float(scale), torch.cuda.current_stream().cuda_stream)
     LIBRARY.check(err, "paged_decode kernel")
     paged_decode.launches += 1
     return out
@@ -373,6 +393,7 @@ def flash_decode(
             raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    _check_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
     g = hq // hk
     out = torch.empty_like(q)
     if b * hq == 0:
@@ -385,10 +406,11 @@ def flash_decode(
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"G={g}, d={d}, block_k={bk} need {smem} bytes of shared memory, "
                          f"more than the {MAX_SMEM_PER_BLOCK} a block may use")
+    scratch = _split_scratch(b, hk, g, d, lib.flash_decode_splits(s, bk), q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_decode_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, hk, g, s, d, bk, ctypes.c_float(sm_scale),
+            scratch.data_ptr(), out.data_ptr(), b, hk, g, s, d, bk, ctypes.c_float(sm_scale),
             torch.cuda.current_stream().cuda_stream)
     DECODE_LIBRARY.check(err, "flash_decode kernel")
     flash_decode.launches += 1

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
-from repro_torch.kernels.flash_attention.ops import MAX_BLOCK_K as K3_MAX_BLOCK_K
+from repro_torch.kernels.flash_attention.ops import kernel_block_k as k3_block_k
 from repro_torch.kernels.flash_decode.ops import LATENT_WIDTHS
 from repro_torch.kernels.sdca.ops import MAX_D as K1_MAX_D
 from repro_torch.kernels.ssm_scan.ops import KERNEL_STATE_SIZES as K4_STATE_SIZES
@@ -50,8 +50,11 @@ SMS = 132  # streaming multiprocessors
 STEP_OVERHEAD_S = 1e-6
 PRUNE_SLACK = 3.0
 
-_PAD = 8  # bf16 padding per staged K/V row (K2, K3, K5)
-_K3_TILE_Q = 16  # query positions per K3 block
+_PAD = 8  # bf16 padding per staged row (K2's latent form)
+_K3_TILE_Q = 128  # query positions per K3 block (two warpgroups of 64 rows)
+_K3_TILE_KV = 64  # key positions per staged K3 tile
+_STAGES = 2  # staged tiles in flight (K2, K3, K5)
+_SPLIT_POSITIONS = 192  # K2's and K5's split-KV: tiles a split fill at most this
 _LATENT_HEADS = 8  # query heads per block of K2's latent form
 _K4_THREADS = 256
 
@@ -81,19 +84,45 @@ def roofline_fraction_us(measured_us: float, flops: float, bytes_moved: float) -
 
 
 def k3_smem_bytes(g: int, d: int, bk: int, dv: Optional[int] = None) -> int:
-    """csrc/flash_fwd.cu's smem_bytes: q (bf16), K and V tiles, scores,
-    accumulator, m / l / alpha for G * 16 rows; key dim d, value dim dv
-    (default d)."""
+    """csrc/flash_fwd.cu's smem_bytes: q's 128 rows and two stages of 64 key
+    and value rows, bf16, the key dim d padded to a multiple of 16; value dim
+    dv (default d).  The scores, softmax and accumulator live in registers,
+    so G and block_k do not enter."""
     dv = d if dv is None else dv
-    rows = g * _K3_TILE_Q
-    return (rows * d * 2 + bk * (d + _PAD) * 2 + bk * (dv + _PAD) * 2 + rows * bk * 4
-            + rows * dv * 4 + 3 * rows * 4)
+    dkp = -(-d // 16) * 16
+    return 2 * (_K3_TILE_Q * dkp + _STAGES * _K3_TILE_KV * (dkp + dv))
+
+
+def k3_blocks(b: int, hq: int, sq: int) -> int:
+    """K3's grid: one block per 128 query positions of one query head."""
+    return b * hq * _ceil_div(sq, _K3_TILE_Q)
 
 
 def decode_smem_bytes(g: int, d: int, bk: int) -> int:
     """flash_decode/csrc/decode_tile.cuh's smem_bytes, the block body of K2
-    (bk = pages_per_program * page) and K5 (bk = block_k)."""
-    return g * d * 4 + 2 * bk * (d + _PAD) * 2 + g * bk * 4 + g * d * 4 + 3 * g * 4
+    (bk = pages_per_program * page) and K5 (bk = block_k): q, a ring of
+    staged K and V tiles (``decode_ring_stages``), scores, accumulator,
+    m / l / alpha."""
+    return (g * d * 4 + decode_ring_stages(bk) * 2 * bk * d * 2 + g * bk * 4 + g * d * 4
+            + 3 * g * 4)
+
+
+def decode_ring_stages(bk: int) -> int:
+    """decode_tile.cuh's ring_stages: two staged tiles, or one where a split
+    is one tile (there is no next tile to stage)."""
+    return min(_STAGES, decode_tiles_per_split(bk))
+
+
+def decode_tiles_per_split(bk: int) -> int:
+    """decode_tile.cuh's tiles_per_split: a split is as many tiles of bk
+    positions as fit in 192 positions, at least one."""
+    return 1 if bk >= _SPLIT_POSITIONS else _SPLIT_POSITIONS // bk
+
+
+def decode_splits(capacity: int, bk: int) -> int:
+    """decode_tile.cuh's n_splits: splits of a row of ``capacity`` positions,
+    the first dimension of K2's and K5's grids, (splits, Hk, B)."""
+    return _ceil_div(_ceil_div(capacity, bk), decode_tiles_per_split(bk))
 
 
 def latent_smem_bytes(r: int, dr: int, bk: int) -> int:
@@ -142,12 +171,13 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
     it = getattr(torch, dtype_name(dtype)).itemsize
     if family == "flash_attention":  # K3 at the tuner's MHA shape (G = 1)
         b, h, s, d = shape["b"], shape["h"], shape["s"], shape["d"]
-        bk = min(config["block_k"], max(s, 16))  # the wrapper's clamp
+        bk = k3_block_k(config["block_k"], s)  # None where the wrapper refuses it
         flops = 4.0 * b * h * s * s * d
         bytes_moved = 4.0 * b * h * s * d * it
-        smem = k3_smem_bytes(1, d, bk)
-        steps = _waves(b * h * _ceil_div(s, _K3_TILE_Q)) * _ceil_div(s, bk)
-        fits = bk <= K3_MAX_BLOCK_K and smem <= MAX_SMEM_PER_BLOCK
+        smem = k3_smem_bytes(1, d, 16)  # block_k does not enter
+        # a block walks its last row's key tiles in order, block_k steps each
+        steps = _waves(k3_blocks(b, h, s)) * _ceil_div(s, bk or config["block_k"])
+        fits = bk is not None and smem <= MAX_SMEM_PER_BLOCK
     elif family == "flash_decode":  # K5 at the tuner's MHA shape (G = 1)
         b, h, s, d = shape["b"], shape["h"], shape["s"], shape["d"]
         bk = min(config["block_k"], s)  # the wrapper's clamp
@@ -155,7 +185,9 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         flops = 4.0 * b * h * s * d
         bytes_moved = 2.0 * h * int(lens.sum()) * d * it  # valid K and V, read once
         smem = decode_smem_bytes(1, d, bk)
-        steps = _waves(b * h) * _ceil_div(int(lens.max()), bk)
+        # split-KV: each block walks at most one split's tiles
+        steps = _waves(b * h * decode_splits(s, bk)) * min(decode_tiles_per_split(bk),
+                                                           _ceil_div(int(lens.max()), bk))
         fits = smem <= MAX_SMEM_PER_BLOCK
     elif family == "flash_decode_paged" and "dr" in shape:  # K2's latent form
         b, h, r, dr = shape["b"], shape["g"], shape["d"], shape["dr"]
@@ -179,8 +211,10 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         lens = ragged_lengths(b, s)
         flops = 4.0 * b * hk * g * s * d
         bytes_moved = 2.0 * hk * int(lens.sum()) * d * it  # valid K and V, read once
-        smem = decode_smem_bytes(g, d, ppp * page)
-        steps = _waves(b * hk) * _ceil_div(int(lens.max()), ppp * page)
+        blk = ppp * page
+        smem = decode_smem_bytes(g, d, blk)
+        steps = _waves(b * hk * decode_splits(s, blk)) * min(decode_tiles_per_split(blk),
+                                                             _ceil_div(int(lens.max()), blk))
         fits = smem <= MAX_SMEM_PER_BLOCK
     elif family == "prefill_chunk":  # K3 once per chunk, at block_k 16
         p, hk, g = shape["p"], shape["hk"], shape["g"]
@@ -193,7 +227,7 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         flops = 4.0 * hk * g * p * s * d
         bytes_moved = (2.0 * n_chunks * hk * s * d + 2.0 * hk * g * p * d) * it
         smem = k3_smem_bytes(g, d, 16)
-        steps = n_chunks * _waves(hk * _ceil_div(c, _K3_TILE_Q)) * _ceil_div(s, 16)
+        steps = n_chunks * _waves(k3_blocks(1, hk * g, c)) * _ceil_div(s, 16)
         fits = smem <= MAX_SMEM_PER_BLOCK
     elif family == "ssm_scan":  # K4
         bt, s, dn, n = shape["bt"], shape["s"], shape["dn"], shape["n"]

@@ -24,8 +24,8 @@ PREFILL_ROWS = 1024
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     # Flash-attention blocking.  The reference defaults to 512, a TPU tile;
-    # the port's prefill kernel (K3) keeps one key tile in shared memory and
-    # takes block_k <= 64, so the port defaults to the serve engine's 16.
+    # the port's prefill kernel (K3) stages 64-key tiles and takes block_k
+    # 16, 32 or 64, so the port defaults to the serve engine's 16.
     block_q: int = 16
     block_k: int = 16
     page_size: int = 16  # paged-KV page length (serving)

@@ -2,18 +2,19 @@
 version, with grouped KV, ragged and edge lengths; K4 bit-identical across
 every chunk it takes; every K2, K3 and K5 candidate the roofline keeps, at
 the tuner's shapes and called as the sweep calls it, against its plain
-version; the roofline's shared-memory mirrors equal to the kernels' own; and
-a smoke sweep of every family on the card.
+version; the roofline's shared-memory and split-count mirrors equal to the
+kernels' own; and a smoke sweep of every family on the card.
 
 Marked ``gpu``: without a CUDA device each test skips from inside itself, so
 every worker collects the same tests.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_flash_decode_gpu.py``
 (that machine has no JAX).
 
-Tolerance, K2, K3 and K5 against their plain versions: both run float32
-arithmetic on bf16 inputs, summed in another order, and round the output to
-bf16 once, so the limit is one bf16 ulp of the output plus 2^-14 of max|v|
-(chip_smoke.py states the reason).  K4 across chunks: bit for bit, since the
+Tolerance, K2, K3 and K5 against their plain versions: float32 sums of
+bf16 inputs in another order (K3's on the tensor cores, with p as a bf16
+pair within 2^-17 of it), the output rounded to bf16 once, so the limit is
+one bf16 ulp of the output plus 2^-14 of max|v| (chip_smoke.py states the
+reason).  K4 across chunks: bit for bit, since the
 chunk changes only how many steps are staged at once.
 """
 import pytest
@@ -54,7 +55,7 @@ def _bf16(gen, *shape):
 
 CASES = [  # b, hq, hk, s, d, lengths (None: ragged_lengths), block_k
     (8, 40, 8, 1088, 128, None, 128),   # qwen3-14b's decode shape, G = 5
-    (8, 40, 8, 1088, 128, None, 256),
+    (8, 40, 8, 1088, 128, None, 256),   # a tile past the split's 192 positions
     (4, 8, 8, 100, 64, [0, 1, 100, 37], 16),   # G = 1; S not a multiple of 16
     (4, 8, 2, 100, 64, [0, 1, 100, 99], 64),   # G = 4
     (2, 4, 1, 33, 16, [33, 5], 512),           # block_k clamped to S
@@ -107,6 +108,10 @@ def test_roofline_smem_mirrors_the_kernels(card):
                 assert want == lib2.paged_decode_smem_bytes(g, d, bk)
                 assert want == lib5.flash_decode_smem_bytes(g, d, bk)
                 assert roofline.k3_smem_bytes(g, d, bk) == lib3.flash_fwd_smem_bytes(g, d, d, bk)
+    for cap in (1, 96, 1088, 4096):
+        for bk in (16, 48, 64, 128, 256, 1024):
+            want = roofline.decode_splits(cap, bk)
+            assert want == lib2.paged_decode_splits(cap, bk) == lib5.flash_decode_splits(cap, bk)
     for n in ss_ops.KERNEL_STATE_SIZES:
         for chunk in (1, 16, 32, 256, 300):
             assert roofline.k4_smem_bytes(n, chunk) == lib4.selective_scan_smem_bytes(n, chunk)

@@ -1,6 +1,7 @@
 """The deepseek-v2 slice's kernels on the card: K2's MLA latent form
 (paged_latent_decode) and K3 with a value dim other than its key dim
-(flash_fwd at (192, 128) and (24, 16)) against their plain versions; the
+(flash_fwd at (192, 128) and (24, 16), at block_k 16 and 64, with NaN past
+kv_len) against their plain versions; the
 roofline's shared-memory mirrors equal to the kernels' own, and the latent
 wrapper refusing exactly the blockings the roofline refuses; the MoE's row
 stability on the card; and the smoke deepseek-v2 engine through the kernels.
@@ -103,6 +104,29 @@ def test_flash_fwd_value_dim_matches_plain(card, dk, dv, h, s, lens):
     assert got.shape == (b, h, s, dv)
     assert_within_bf16_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
                            atol=V_ATOL * float(v.float().abs().max()))
+
+
+@pytest.mark.parametrize("block_k", [16, 64])
+@pytest.mark.parametrize("dk, dv, h, g", [(192, 128, 4, 1), (24, 16, 2, 2)])
+def test_flash_fwd_value_dim_past_kv_len(card, dk, dv, h, g, block_k):
+    """K3 at deepseek-v2's pair and its smoke pair (DK 24 padded to 32 in
+    the kernel), at both online-softmax steps, with q_offset > 0, kv_lens <
+    Skv and NaN in K and V at and past each kv_len."""
+    gen = torch.Generator(device=card).manual_seed(dk + block_k)
+    b, sq, skv, q_offset, lens = 2, 140, 260, 110, [250, 133]
+    q, k = _bf16(gen, b, h * g, sq, dk), _bf16(gen, b, h, skv, dk)
+    v = _bf16(gen, b, h, skv, dv)
+    want = flash_fwd_ref(q, k, v, torch.tensor(lens), causal=True, sm_scale=dk ** -0.5,
+                         q_offset=q_offset, block_q=16, block_k=block_k)
+    for i, n in enumerate(lens):
+        k[i, :, n:] = float("nan")
+        v[i, :, n:] = float("nan")
+    got = fa_ops.flash_fwd(q, k, v, torch.tensor(lens, dtype=torch.int32, device=card),
+                           sm_scale=dk ** -0.5, q_offset=q_offset, block_k=block_k)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h * g, sq, dv) and torch.isfinite(got.float()).all()
+    assert_within_bf16_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                           atol=V_ATOL * float(v.float().nan_to_num(0.0).abs().max()))
 
 
 def test_shared_memory_mirrors_and_refusals(card):
