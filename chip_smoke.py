@@ -26,10 +26,16 @@ of which exits non-zero on failure:
       -Xptxas -v reports (registers, spills); fails if ptxas serialised any
       wgmma;
    3. K1 against its plain PyTorch version on the card, at the Hemingway
-      loop's shapes, within the stated tolerances;
+      loop's shapes (m = 16 and 7, both losses, H = 2 nl with repeats, and a
+      whole m = 1 round of 60000 steps), within the stated tolerances; 3b.
+      the plain version on the CPU against itself on the card where a
+      step's sums are long (d 12224) or lam n small (0.06), printed;
    4. small-input check of the loop: CoCoA rounds on the card against the
       plain version on the CPU, with the same coordinate orders;
-   5. K1's time per launch against its bound and its plain version's time;
+   5. K1's time per launch at m = 1, 16 and 128 against its bytes bound and
+      its chain floor (H times one step's least dependent latency, timed on
+      the library's chain probe: the step without its memory traffic), and
+      its plain version's time;
    6. the Hemingway loop (repro_torch.quickstart) on the paper's workload,
       60000 x 784, m = 1..128, K1's launches checked against its rounds;
    7. device busy share of CoCoA rounds at m = 1, 16 and 128;
@@ -48,7 +54,7 @@ of which exits non-zero on failure:
       of block_k; (b) ``python -m repro_torch.kernels.tune --preset smoke
       --telemetry`` in process: all six families on the card, every kernel's
       launches equal to the sweep's calls, sdca picking the kernel, and K4
-      bit-identical across every chunk it takes; (c) ``ensure`` at qwen3-14b's
+      bit-identical across every d_block (the tuner's knob) and chunk; (c) ``ensure`` at qwen3-14b's
       shapes into two cache files, the serve CLI's (paged decode at b 1, 2, 4)
       and the long run's, each winner with its wall-clock and device time;
   10. the serve path at full width: ``python -m repro_torch.launch.serve
@@ -76,17 +82,20 @@ of which exits non-zero on failure:
       with each launch's grid and shared memory; qwen3-14b is freed before
       this phase;
   13. K4 against its plain version on the card at falcon-mamba-7b's shapes:
-      a prefill (B 1, S 1024, a padded tail, a nonzero initial state) and a
-      decode step (B 8, S 1, the state updated in place), within the stated
-      tolerances;
+      prefills (B 1, S 1024 with a padded tail and a nonzero initial state;
+      S 1088, two tiles, padded; S 300, not a multiple of the tile; every
+      state size 4, 8, 16, 32) and decode steps (B 8 and 1, S 1, the state
+      updated in place), within the stated tolerances;
   14. small-input check of the Mamba LM: the smoke falcon-mamba-7b on the
       card against the plain versions on the CPU, with the same weights;
   15. the serve path at full width: ``python -m repro_torch.launch.serve
       --arch falcon-mamba-7b --continuous`` in process (all 64 layers,
       d_model 4096), with K4 launches = 64 x (prefills + decode steps);
   16. the longer serve run of phase 11 on falcon-mamba-7b;
-  17. K4's time per launch at both shapes against its bound and its plain
-      version's time (no single PyTorch call computes a selective scan);
+  17. K4's time per launch at the prefill and the decode shape against its
+      bound and its plain version's time (no single PyTorch call computes a
+      selective scan), each body's device time from the profiler; both rows
+      in the kernels line;
   18. K2's latent form and K3 at (dk 192, dv 128) against their plain
       versions on the card, in bf16: K2 at deepseek-v2's decode shape (B 8,
       128 heads, r 512, dr 64, page 16, 68 pages) with ragged lengths and at
@@ -109,7 +118,9 @@ of which exits non-zero on failure:
       their plain versions' times and one PyTorch call's time
       (``scaled_dot_product_attention``).
 The last lines are one JSON object with every kernel's summary (its
-``timed_by`` says how ``ms`` and ``library_ms`` were timed), the card's
+``timed_by`` says how ``ms`` and ``library_ms`` were timed; K4's decode body
+has a row of its own, ``selective_scan_step``, and K3 at (192, 128) one,
+``flash_fwd_mla``), the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -238,6 +249,7 @@ def kernel_wrappers():
 def reset_launches() -> None:
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+    kernel_wrappers()["selective_scan"].step_launches = 0  # K4's decode body
 
 
 def read_launches() -> dict:
@@ -273,6 +285,31 @@ def sdca_bytes_and_flops(m, nl, d, idx):
     nbytes = 4 * (rows * d + 3 * m * nl + d + m * h + m * d)
     flops = m * h * 7 * d
     return nbytes, flops
+
+
+def sdca_step_floor_us(d: int, lam_n: float, h: int = 60000) -> float:
+    """K1's chain floor a step, in us: the library's ``sdca_chain_launch``
+    (the register path's step at width d without its memory traffic, the
+    update of v always taken) over h steps, timed by CUDA events."""
+    import torch
+
+    from repro_torch.kernels.sdca import build
+
+    lib = build.load()
+    out = torch.empty(1, device="cuda")
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdca_chain_launch(d, h, lam_n, out.data_ptr(), stream)
+        if err != 0:
+            fail(f"sdca_chain_launch failed: {build.error_string(err)}")
+
+    ms = cuda_ms(run, reps=3, warmup=1)
+    if not bool(torch.isfinite(out).all()):
+        fail("the chain probe's result is not finite")
+    print(f"chain floor: K1's dependent chain at d {d} without memory traffic "
+          f"{1e3 * ms / h:.4f} us a step (one warp, {h} steps, CUDA events)")
+    return 1e3 * ms / h
 
 
 def bf16_ulps(got, want, atol: float = 0.0) -> float:
@@ -370,6 +407,34 @@ def build_all(libraries) -> None:
         lib.load()
 
 
+def plain_across_devices(dev, lam, gen) -> None:
+    """Phase 3b: how far the plain version on the CPU is from itself on the
+    card after one round where a step's sums are long or lam n is small, the
+    cases the card tests run at a larger lam n (tests/test_torch_sdca_gpu.py);
+    beside it the kernel's distance from the plain version on the card."""
+    import torch
+
+    from repro_torch.kernels.sdca import ops
+    from repro_torch.kernels.sdca.ref import local_sdca_ref
+    from repro_torch.optim.cocoa import draw_indices, partition
+    from repro_torch.optim.problems import synthetic_mnist
+
+    phase("K1: the plain version on the CPU against itself on the card, long sums")
+    for m, n, d in ((2, 600, 2048), (1, 8000, ops.MAX_D)):
+        X, y = synthetic_mnist(n, d, 16, 0.09, 0.35, m)
+        Xs, ys = partition(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev), m)
+        a = torch.rand((m, Xs.shape[1]), generator=gen, device=dev)
+        w = 0.01 * torch.randn(d, generator=gen, device=dev)
+        idx = draw_indices(m, Xs.shape[1], Xs.shape[1], gen)
+        _, dwk = ops.local_sdca(Xs, ys, a, w, idx, 1.0, lam, float(n))
+        _, dwp = local_sdca_ref(Xs, ys, a, w, idx, 1.0, lam, float(n))
+        _, dwc = local_sdca_ref(*(t.cpu() for t in (Xs, ys, a, w, idx)), 1.0, lam, float(n))
+        scale = float(dwp.abs().max())
+        print(f"m={m} n={n} d={d} lam n={lam * n:g}: max|dw| {scale:.3e}; max|ddw| / max|dw|: "
+              f"plain (cpu) vs plain (card) {float((dwc - dwp.cpu()).abs().max()) / scale:.2e}, "
+              f"kernel vs plain (card) {float((dwk - dwp).abs().max()) / scale:.2e}")
+
+
 def hemingway_path(dev):
     """Phases 3-7: K1 and the Hemingway loop.  Returns K1's summary."""
     import torch
@@ -391,6 +456,7 @@ def hemingway_path(dev):
         ("smooth_hinge m=16 cocoa+", 16, "smooth_hinge", True, 1),
         ("hinge m=7 padded tail", 7, "hinge", False, 1),
         ("hinge m=16 H=2nl repeats", 16, "hinge", False, 2),
+        ("hinge m=1 whole round", 1, "hinge", False, 1),
     ]
     max_err = 0.0
     inputs_16 = None
@@ -426,6 +492,7 @@ def hemingway_path(dev):
             inputs_16 = (Xs, ys, a, w, idx, sp, loss)
     print(f"tolerances: |da| <= {A_ATOL}, |ddw| <= {DW_RTOL_OF_MAX} max|dw|, "
           f"primal rtol {PRIMAL_RTOL}")
+    plain_across_devices(dev, lam, gen)
 
     phase("small-input check: CoCoA on the card vs the plain version on the CPU")
     X, y = synthetic_mnist(2048, 64, 16, 0.09, 0.35, 0)
@@ -441,22 +508,36 @@ def hemingway_path(dev):
         print(f"plus={plus}: primal {recs[0].primal[-1]:.7f} (card) vs "
               f"{recs[1].primal[-1]:.7f} (cpu), gap {recs[0].gap[-1]:.3e}")
 
-    phase("K1 timings (m=16, CUDA events, after warm-up)")
+    phase("K1 timings (m = 1, 16 and 128, CUDA events, after warm-up)")
     Xs, ys, a, w, idx, sp, loss = inputs_16
     m, nl, d = Xs.shape
-    kernel_ms = cuda_ms(lambda: ops.local_sdca(Xs, ys, a, w, idx, sp, lam, n, loss), reps=10)
     t0 = time.perf_counter()
     local_sdca_ref(Xs, ys, a, w, idx, sp, lam, n, loss)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    nbytes, flops = sdca_bytes_and_flops(m, nl, d, idx)
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"local_sdca m={m} nl={nl} d={d} H={idx.shape[1]}: kernel {kernel_ms:.3f} ms/launch, "
-          f"plain {plain_ms:.1f} ms/call, bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
-          f"{ops_ms:.4f} ms), kernel at {100 * bound_ms / kernel_ms:.2f}% of bound; "
-          "no single PyTorch call computes this")
+    step_floor_us = sdca_step_floor_us(problem.d, lam * n)
+    by_m = {}
+    for mm in (1, 16, 128):
+        Xm, ym = partition(problem.X, problem.y, mm)
+        nlm = Xm.shape[1]
+        am, wm = torch.zeros((mm, nlm), device=dev), torch.zeros(problem.d, device=dev)
+        idm = draw_indices(mm, nlm, nlm, gen)
+        ms = cuda_ms(lambda: ops.local_sdca(Xm, ym, am, wm, idm, 1.0, lam, n, "hinge"),
+                     reps=max(5, mm // 4), warmup=2)
+        nbytes, flops = sdca_bytes_and_flops(mm, nlm, problem.d, idm)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        chain_ms = nlm * step_floor_us / 1e3
+        by_m[mm] = {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "chain_floor_ms": chain_ms, "h": nlm}
+        print(f"local_sdca m={mm} nl={nlm} d={problem.d} H={nlm}: kernel {ms:.3f} ms/launch "
+              f"({1e3 * ms / nlm:.4f} us a step), bound {by_m[mm]['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
+              f"{ops_ms:.4f} ms), kernel at {100 * by_m[mm]['bound_ms'] / ms:.2f}% of bound; "
+              f"chain floor {chain_ms:.3f} ms (H x {step_floor_us:.4f} us), kernel at "
+              f"{100 * chain_ms / ms:.1f}% of it")
+    kernel_ms, bound_ms = by_m[16]["ms"], by_m[16]["bound_ms"]
+    print(f"plain version at m=16: {plain_ms:.1f} ms/call; no single PyTorch call computes this")
 
     phase("main path 1: Hemingway loop, 60000 x 784, m = 1..128")
     ms = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -511,9 +592,12 @@ def hemingway_path(dev):
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": by_m[16]["bound_by"],
         "library_ms": None,
         "timed_by": EAGER,
+        "shape": "m=16 nl=3750 d=784 H=nl",
+        "by_m": by_m,
+        "chain_floor_us_a_step": step_floor_us,
     }
 
 
@@ -813,7 +897,6 @@ def tuner_path(dev, cfg, workdir: Path):
     from repro_torch.kernels.ssm_scan import ops as ss_ops
     from repro_torch.kernels.tune import ConfigCache, ensure, measured_call
     from repro_torch.kernels.tune import __main__ as tune_cli
-    from repro_torch.kernels.tune.roofline import MAX_SMEM_PER_BLOCK, k4_smem_bytes
 
     phase("main path 2: python -m repro_torch.kernels.tune --preset smoke --telemetry")
     smoke_file = workdir / "tune_smoke.json"
@@ -835,19 +918,22 @@ def tuner_path(dev, cfg, workdir: Path):
     gen = torch.Generator(device=dev).manual_seed(6)
     x, dt, a, b_ssm, c_ssm, d, h0 = scan_inputs(torch, gen, get_config(MAMBA), **PREFILL_SCAN)
     n = a.shape[1]
-    max_chunk = max(c for c in range(1, 4096) if k4_smem_bytes(n, c) <= MAX_SMEM_PER_BLOCK)
-    chunks = (1, 7, 16, 32, 64, 128, 256, max_chunk)
+    chunks = (1, 32, 128, 4096)
     ref = None
-    for chunk in chunks:
-        h = h0.clone()
-        y, _ = ss_ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h, chunk=chunk)
-        torch.cuda.synchronize()
-        if ref is None:
-            ref = (y, h)
-        if not (torch.equal(y, ref[0]) and torch.equal(h, ref[1])):
-            fail(f"selective_scan at chunk {chunk} differs from chunk {chunks[0]}")
+    for d_block in ss_ops.KERNEL_D_BLOCKS:
+        for chunk in chunks:
+            h = h0.clone()
+            y, _ = ss_ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h, chunk=chunk,
+                                         d_block=d_block)
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = (y, h)
+            if not (torch.equal(y, ref[0]) and torch.equal(h, ref[1])):
+                fail(f"selective_scan at d_block {d_block}, chunk {chunk} differs from "
+                     f"d_block {ss_ops.KERNEL_D_BLOCKS[0]}, chunk {chunks[0]}")
     print(f"selective_scan B=1 S={LONG_PROMPT} Dn={x.shape[2]} N={n}: y and state bit-identical "
-          f"at chunks {chunks} (the largest that fits shared memory: {max_chunk})")
+          f"at every d_block {ss_ops.KERNEL_D_BLOCKS} (the tuner's candidates) and chunk "
+          f"{chunks}")
 
     phase("autotuner: ensure at qwen3-14b's shapes (two cache files)")
     files = {"cli": workdir / "tune_qwen3_cli.json", "long": workdir / "tune_qwen3_long.json"}
@@ -926,6 +1012,14 @@ def serve_cli_path(arch, n_layers, d_model, path_no, tune_cache=None, cfg=None):
     if prefills == 0 or steps == 0:
         fail("the serve path ran no prefill or no decode step")
     check_path_launches(arch, counts, cfg.n_layers, prefills, steps, f"{arch} CLI")
+    if arch == MAMBA:  # K4's decode body runs the decode steps, its tile body the prefills
+        step_launches = kernel_wrappers()["selective_scan"].step_launches
+        print(f"selective_scan launches at S = 1 (the decode body) {step_launches} = "
+              f"{cfg.n_layers} x decode steps; at S > 1 (the tile body) "
+              f"{counts['selective_scan'] - step_launches} = {cfg.n_layers} x prefills")
+        if step_launches != cfg.n_layers * steps:
+            fail(f"{step_launches} decode-body launches, not {cfg.n_layers} x {steps}")
+        counts = {**counts, "selective_scan_step": step_launches}
     if result["plan"] is None:
         fail("no capacity plan")
     if tune_cache is not None:
@@ -1359,10 +1453,20 @@ def scan_bound(bt, s, dn, n, n_valid=None):
 
 PREFILL_SCAN = dict(bt=1, s=LONG_PROMPT, n_valid=LONG_PROMPT - 24)
 DECODE_SCAN = dict(bt=LONG_BATCH, s=1, n_valid=None)
+# Phase 13's further cases: the long run's max_seq, 1088 positions (four
+# tiles of 256 and 64 positions of a fifth), padded from 1000; S not a
+# multiple of the tile; one sequence's decode step; and every other state
+# size the kernel takes, at the model's widths, across a tile boundary
+SCAN_CASES = (PREFILL_SCAN, DECODE_SCAN,
+              dict(bt=1, s=LONG_PROMPT + LONG_GEN, n_valid=1000),
+              dict(bt=2, s=300, n_valid=None),
+              dict(bt=1, s=1, n_valid=None))
+SCAN_STATE_SIZES = (4, 8, 16, 32)
 
 
 def scan_kernel_vs_plain(dev, cfg):
-    """Phase 13.  Returns K4's largest absolute error (state or output)."""
+    """Phase 13.  Returns K4's largest absolute errors (state or output) of
+    its tile body (S > 1) and its decode body (S = 1)."""
     import torch
 
     from repro_torch.kernels.ssm_scan import ops
@@ -1371,9 +1475,12 @@ def scan_kernel_vs_plain(dev, cfg):
     mc = cfg.mamba
     phase(f"K4 vs plain ({MAMBA}: Dn {mc.expand * cfg.d_model}, N {mc.d_state}, bf16 x)")
     gen = torch.Generator(device=dev).manual_seed(3)
-    worst = 0.0
-    for shape in (PREFILL_SCAN, DECODE_SCAN):
-        x, dt, a, b_ssm, c_ssm, d, h0 = scan_inputs(torch, gen, cfg, **shape)
+    worst = {"tile": 0.0, "step": 0.0}
+    cases = [(cfg, shape) for shape in SCAN_CASES]
+    cases += [(dataclasses.replace(cfg, mamba=dataclasses.replace(mc, d_state=n)),
+               dict(bt=2, s=300, n_valid=290)) for n in SCAN_STATE_SIZES if n != mc.d_state]
+    for case_cfg, shape in cases:
+        x, dt, a, b_ssm, c_ssm, d, h0 = scan_inputs(torch, gen, case_cfg, **shape)
         h = h0.clone()
         y, h_out = ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h)
         torch.cuda.synchronize()
@@ -1383,26 +1490,30 @@ def scan_kernel_vs_plain(dev, cfg):
         atol = SCAN_RTOL_OF_MAX * float(want_y.float().abs().max())
         ulps = bf16_ulps(y, want_y, atol)
         err_y = float((y.float() - want_y.float()).abs().max())
-        print(f"selective_scan B={shape['bt']} S={shape['s']} n_valid={shape['n_valid']} "
-              f"B/C strides {tuple(b_ssm.stride())}: max|dh|={err_h:.3e} (max|h|={scale_h:.3e}), "
+        print(f"selective_scan B={shape['bt']} S={shape['s']} N={a.shape[1]} "
+              f"n_valid={shape['n_valid']} B/C strides {tuple(b_ssm.stride())}: "
+              f"max|dh|={err_h:.3e} (max|h|={scale_h:.3e}, {err_h / scale_h:.2e} of it), "
               f"max|dy|={err_y:.3e}, {bf16_ulps(y, want_y):.0f} bf16 ulp, {ulps:.0f} bf16 ulp "
               f"beyond {atol:.2e}; state updated in place: {h_out is h}")
         if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()):
             fail("selective_scan output is not finite")
         if h_out is not h or err_h > SCAN_RTOL_OF_MAX * scale_h or ulps > MAX_BF16_ULPS:
-            fail(f"selective_scan disagrees with its plain version at S={shape['s']}")
-        worst = max(worst, err_h, err_y)
+            fail(f"selective_scan disagrees with its plain version at {shape}, "
+                 f"N {a.shape[1]}")
+        body = "step" if shape["s"] == 1 else "tile"
+        worst[body] = max(worst[body], err_h, err_y)
     print(f"tolerance: |dh| <= {SCAN_RTOL_OF_MAX:.2e} max|h|; y within {MAX_BF16_ULPS} bf16 ulp "
           f"beyond {SCAN_RTOL_OF_MAX:.2e} max|y|")
-    return worst
+    return worst["tile"], worst["step"]
 
 
 def scan_kernel_timings(dev, cfg):
-    """Phase 17.  Returns (ms, plain_ms, library_ms, bound_ms, bound_by,
-    shape) for K4 at the prefill shape; the decode shape is printed too.
+    """Phase 17.  Returns {"prefill": row, "decode": row}, each (ms,
+    plain_ms, library_ms, bound_ms, bound_by, shape, extra) for K4 at the
+    prefill shape (its tile body) and the decode shape (its decode body).
     Back-to-back calls at the decode shape are bound by the host (the
-    wrapper's checks and the ctypes call), so the kernel's own device time
-    is also read from a profiler window."""
+    wrapper's checks and the ctypes call), so each body's own device time is
+    also read from a profiler window, by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1414,27 +1525,36 @@ def scan_kernel_timings(dev, cfg):
     dn, n = mc.expand * cfg.d_model, mc.d_state
     gen = torch.Generator(device=dev).manual_seed(4)
     timings = {}
-    for label, shape, reps in (("prefill", PREFILL_SCAN, 20), ("decode", DECODE_SCAN, 200)):
+    for label, shape, reps, body in (("prefill", PREFILL_SCAN, 20, "selective_scan_tile_kernel"),
+                                     ("decode", DECODE_SCAN, 200, "selective_scan_step_kernel")):
         x, dt, a, b_ssm, c_ssm, d, h0 = scan_inputs(torch, gen, cfg, **shape)
         h = h0.clone()
         ms = cuda_ms(lambda: ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h), reps=reps)
         plain = cuda_ms(lambda: selective_scan_ref(x, dt, a, b_ssm, c_ssm, d, h0),
                         reps=2 if shape["s"] > 1 else 20, warmup=1)
         bound, by, mb, n_exp = scan_bound(shape["bt"], shape["s"], dn, n, shape["n_valid"])
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h)
-            torch.cuda.synchronize()
-        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                        if "selective_scan_kernel" in e.key) / 1e3 / 20
+        device_ms = 0.0
+        for _ in range(3):  # a profiler window now and then records no kernel: take another
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h)
+                torch.cuda.synchronize()
+            device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                            if body in e.key) / 1e3 / 20
+            if device_ms > 0:
+                break
+        if device_ms <= 0:
+            fail(f"three profiler windows saw no {body}")
         print(f"selective_scan {label} B={shape['bt']} S={shape['s']} Dn={dn} N={n}: kernel "
               f"{ms:.4f} ms a call by CUDA events, {device_ms:.4f} ms of device time a launch "
-              f"(profiler), plain {plain:.3f} ms, bound {bound:.4f} ms ({by}: {mb:.2f} MB at "
-              f"3.35 TB/s; {n_exp / 1e6:.1f} M exponentials at {EXP_PER_S / 1e12:.2f} T/s), "
-              f"kernel at {100 * bound / ms:.2f}% of bound; no single PyTorch call computes "
-              "a selective scan")
-        timings[label] = (ms, plain, None, bound, by, f"B={shape['bt']} S={shape['s']}")
-    return timings["prefill"]
+              f"({body}, profiler), plain {plain:.3f} ms, bound {bound:.4f} ms ({by}: "
+              f"{mb:.2f} MB at 3.35 TB/s; {n_exp / 1e6:.1f} M exponentials at "
+              f"{EXP_PER_S / 1e12:.2f} T/s), kernel at {100 * bound / ms:.2f}% of bound "
+              f"({100 * bound / device_ms:.2f}% by device time); no single PyTorch call "
+              "computes a selective scan")
+        timings[label] = (ms, plain, None, bound, by, f"B={shape['bt']} S={shape['s']}",
+                          {"timed_by": EAGER, "device_ms": device_ms, "body": body})
+    return timings
 
 
 def latent_inputs(torch, gen, cfg, b, npp, lengths=None, page=16):
@@ -1524,8 +1644,9 @@ def mla_kernels_vs_plain(dev, cfg) -> dict:
 def mla_kernel_timings(dev, cfg):
     """Phase 22.  Returns {kernel: (ms, plain_ms, library_ms, bound_ms,
     bound_by, shape)} for K2's latent form at phase 18's shape with ragged
-    lengths; K3 at (S 1024, 128 heads, dk 192, dv 128), causal, is printed
-    (its row in the kernels line stays at qwen3-14b's shape)."""
+    lengths, and for K3 at (S 1024, 128 heads, dk 192, dv 128), causal
+    (``flash_fwd_mla``, a row of the kernels line beside K3's at qwen3-14b's
+    shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1600,6 +1721,7 @@ def mla_kernel_timings(dev, cfg):
           f"plain {plain:.3f} ms, SDPA {lib:.3f} ms, bound {bound:.4f} ms ({by}: "
           f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; {nbytes / 1e6:.1f} MB "
           f"at 3.35 TB/s = {bytes_ms:.4f} ms), kernel at {100 * bound / ms:.2f}% of bound")
+    timings["flash_fwd_mla"] = (ms, plain, lib, bound, by, f"Sq=Skv={sq} H={h} dk={dk} dv={dv}")
     return timings
 
 
@@ -1650,23 +1772,27 @@ def main() -> None:
     timings = serve_kernel_timings(dev, cfg, tuned_ppp)
 
     cfg = get_config(MAMBA)
-    errs["selective_scan"] = scan_kernel_vs_plain(dev, cfg)
+    errs["selective_scan"], errs["selective_scan_step"] = scan_kernel_vs_plain(dev, cfg)
     small_lm_check(dev, MAMBA)
     lm, mamba_launches = serve_cli_path(MAMBA, n_layers=64, d_model=4096, path_no=4)
-    launches["selective_scan"] = mamba_launches["selective_scan"]
+    launches["selective_scan_step"] = mamba_launches["selective_scan_step"]
+    launches["selective_scan"] = mamba_launches["selective_scan"] - launches["selective_scan_step"]
     long_serve_run(MAMBA, lm)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    timings["selective_scan"] = scan_kernel_timings(dev, cfg)
+    scan = scan_kernel_timings(dev, cfg)
+    timings["selective_scan"], timings["selective_scan_step"] = scan["prefill"], scan["decode"]
 
     cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
-    for name, err in mla_kernels_vs_plain(dev, cfg).items():
-        errs[name] = max(errs.get(name, 0.0), err)
+    mla_errs = mla_kernels_vs_plain(dev, cfg)
+    errs["paged_latent_decode"] = mla_errs["paged_latent_decode"]
+    errs["flash_fwd_mla"] = mla_errs["flash_fwd"]
     small_lm_check(dev, DEEPSEEK)
     lm, mla_launches = serve_cli_path(DEEPSEEK, n_layers=DEEPSEEK_LAYERS, d_model=5120,
                                       path_no=5, cfg=cfg)
     launches["paged_latent_decode"] = mla_launches["paged_latent_decode"]
+    launches["flash_fwd_mla"] = mla_launches["flash_fwd"]
     long_serve_run(DEEPSEEK, lm)
     del lm
     gc.collect()
@@ -1677,20 +1803,25 @@ def main() -> None:
     for name, source, replaces in (
             ("flash_fwd", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
              "src/repro/kernels/flash_attention/kernel.py:92"),
+            ("flash_fwd_mla", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+             "src/repro/kernels/flash_attention/kernel.py:92"),
             ("paged_decode", "src/repro_torch/kernels/flash_decode/csrc/paged_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:214"),
             ("selective_scan", "src/repro_torch/kernels/ssm_scan/csrc/selective_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:65"),
+            ("selective_scan_step", "src/repro_torch/kernels/ssm_scan/csrc/selective_scan.cu",
              "src/repro/kernels/ssm_scan/kernel.py:65"),
             ("flash_decode", "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:89"),
             ("paged_latent_decode",
              "src/repro_torch/kernels/flash_decode/csrc/paged_latent_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:189")):
-        ms, plain, lib, bound, by, _, *how = timings[name]
+        ms, plain, lib, bound, by, shape, *how = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib, **(how[0] if how else {"timed_by": EAGER})})
+                        "library_ms": lib, "shape": shape,
+                        **(how[0] if how else {"timed_by": EAGER})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,7 +17,12 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary(
     SOURCE, "sdca",
     {"sdca_launch": ([_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _f, _i, _f, _p],
-                     ctypes.c_int)},
+                     ctypes.c_int),
+     "sdca_smem_bytes": ([_i], ctypes.c_int),
+     "sdca_ring_rows": ([_i], ctypes.c_int),
+     "sdca_register_entries": ([_i], ctypes.c_int),
+     "sdca_chain_launch": ([_i, _i, _f, _p, _p], ctypes.c_int),
+     "sdca_divide_launch": ([_p, _p, _i, _f, _p], ctypes.c_int)},
     error_fn="sdca_error_string")
 
 

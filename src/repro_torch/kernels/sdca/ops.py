@@ -16,14 +16,48 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.sdca import build
 from repro_torch.kernels.sdca.ref import local_sdca_ref
 
 LOSS_CODES = {"hinge": 0, "smooth_hinge": 1}
-# v lives in the block's dynamic shared memory, within the 48 KB a block may
-# use without opting in, less 256 bytes kept for the kernel's static shared
-# memory (80 bytes on sm_90a)
-MAX_D = (48 * 1024 - 256) // 4
+# csrc/sdca.cu's layout: one warp a worker, lane l owning v's entries l,
+# l + 32, ...; a row's ring slot holds 32 ceil(d / 32) floats, after
+# BARRIER_BYTES of the slots' barriers.  Up to REGISTER_MAX_D v lives in
+# registers and the ring holds RING_BYTES of rows (2 to 16 rows); above it v
+# takes a row's room in shared memory and the ring 4 rows, or 2 where 5 do
+# not fit.
+LANES = 32
+REGISTER_ENTRIES = (1, 2, 4, 6, 8, 12, 16, 20, 25, 32, 40, 48, 56, 64)
+REGISTER_MAX_D = LANES * REGISTER_ENTRIES[-1]
+RING_BYTES = 64 * 1024
+MAX_RING = 16
+BARRIER_BYTES = 128
+
+
+def kernel_plan(d: int) -> Tuple[int, int, int]:
+    """(entries a lane in registers, 0 for v in shared memory; rows in the
+    ring; shared memory in bytes) of the kernel at width d: csrc/sdca.cu's
+    plan_for, mirrored so the tuner and the wrapper check it without
+    building."""
+    k = -(-d // LANES)
+    for e in REGISTER_ENTRIES:
+        if k <= e:
+            ring = min(MAX_RING, max(2, RING_BYTES // (4 * LANES * e)))
+            return e, ring, BARRIER_BYTES + ring * 4 * LANES * e
+    row = 4 * LANES * k
+    ring = 4 if BARRIER_BYTES + 5 * row <= MAX_SMEM_PER_BLOCK else 2
+    return 0, ring, BARRIER_BYTES + (ring + 1) * row
+
+
+# The widest row the wrapper takes.  v and a ring of two rows would fit up
+# to 32 * floor((MAX_SMEM_PER_BLOCK - BARRIER_BYTES) / 384) = 19360 floats,
+# but a step's two sums run over d terms, and at d 19360 the kernel's and
+# the plain version's float32 sums (and the plain version's on the CPU and
+# on the card) differ by up to 1e-5 max |dw| after a round, the card's limit
+# (tests/test_torch_sdca_gpu.py); 12224 keeps every width the wrapper ever
+# took, on the shared-memory path with its two-row ring.
+MAX_D = 12224
 
 
 def local_sdca(
@@ -70,8 +104,8 @@ def local_sdca(
             raise ValueError(f"{name} is not contiguous")
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"idx is {idx.dtype}; expected an integer tensor")
-    if d > MAX_D:
-        raise ValueError(f"d={d} exceeds the kernel's shared-memory limit of {MAX_D}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"d={d}: the kernel takes 1 <= d <= {MAX_D} (shared memory)")
     idx32 = idx.to(torch.int32).contiguous()
 
     a_out = torch.empty_like(a)

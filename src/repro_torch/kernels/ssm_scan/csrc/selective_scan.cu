@@ -10,14 +10,10 @@
 // state after the last step, in place.  So one launch at S = 1 is a layer's
 // whole decode-step scan for every slot of the batch.
 //
-// Arithmetic: float32 throughout, each step in the reference's order with
-// one rounding per operation (decay = expf(dt A); h = decay h + (dt x) B;
-// y = sum_n h C + D x), spelled with __fmul_rn / __fadd_rn so the compiler
-// does not contract them into fused multiply-adds, and the true expf (no
-// fast math).  The sum over n is a butterfly of warp shuffles, which for
-// lane 0 is the order in which the plain version (ref.py) halves the state
-// axis.  dt = 0 gives decay = 1 and (dt x) B = 0, so a padded position
-// holds the state bit for bit.
+// The recurrence is an associative scan over the pairs (a_t, b_t) =
+// (exp(dt_t A), (dt_t x_t) B_t) with (a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2),
+// the formulation of the reference's model-facing ssm_scan/ops.py::
+// selective_scan (a chunked associative scan, _combine).
 //
 // What bounds it on this card, at the prefill shape (B 1, S 1024, Dn 8192,
 // N 16, x and y bf16): the bytes are x and y at 16.8 MB each, dt (float32)
@@ -27,40 +23,93 @@
 // per SM (132 SMs at 1.98 GHz), and about 7 float32 operations per (t, d, n),
 // 0.94 GFLOP or 0.014 ms at 67 TFLOP/s.  So the exponentials bound it, at
 // about 0.03 ms.  At the decode shape (B 8, S 1) the state's read and write,
-// 8.4 MB, bound it at about 2.5 us.  This first kernel is far from either:
-// each step of a channel is a dependent chain (expf, two products, a
-// shuffle tree of log2 N steps), and the loop over t is serial.  A chunked
-// parallel scan on the tensor cores is later work.
+// 8.4 MB, bound it at about 2.5 us.
 //
-// Design: grid = (ceil(Dn / (256 / N)), Bt); a block of 256 threads owns
-// 256 / N channels of one sequence (16 at N = 16), and each channel's N
-// states sit in N neighbouring lanes' registers for the whole sequence.  The
-// block walks t in chunks of `chunk` steps (32 unless the caller passes
-// another; the autotuner's ssm_scan family sweeps it): it stages the chunk's
-// x and dt
-// (channels contiguous, so rows of whole 32-byte sectors at N = 16) and B
-// and C (strided rows: the model passes views of x_proj's output, with their
-// batch and time strides) in shared memory as float32, steps the
-// recurrence, and writes the chunk's y from shared memory.  The staging
-// arrays are dynamic shared memory, chunk * (3 * 256 / N + 2 N) floats.  The
-// chunk changes only how many steps are staged at once: the loop over t runs
-// the same steps in the same order, so y and the state are bit-identical for
-// every chunk.  N is a power of
-// two up to 32, so a channel's lanes lie in one warp.  At B 1, S 1024 that is
-// 131k threads in 512 blocks on 132 SMs.  The TPU kernel's sequential grid
-// axis over chunks, with the state in scratch memory, becomes this loop
-// inside the block with the state in registers.
+// Prefill body (S > 1): threads along time.  A block of 8 warps owns d_block
+// channels (8, 16 or 32: the tuner's knob) of one sequence and walks the
+// sequence in tiles of 256 positions anchored at position 0.  For each tile
+// the block stages B and C (all N states) and the channels' x and dt in
+// shared memory as float32, once for all its channels: thread t loads
+// position t's rows (16-byte loads where aligned), and a lane reads its 8
+// positions of a row in two 16-byte reads (tile_slot).  Staging is not
+// overlapped with the scan inside a block: the SM's blocks (three at
+// d_block 16) overlap each other instead, as loading a tile ahead into
+// registers would cost a block an SM.  Positions past S
+// are staged as x = dt = B = C = 0, which gives the pair (1, 0), the scan's
+// identity, at its place in the tree.  A warp takes one channel's tile at a
+// time (channels c, c + 8, ... of the block), lane l the 8 consecutive
+// positions 8 l .. 8 l + 7; for each state n it
+//   - forms the 8 pairs (a_i, b_i) and their product in order, serially;
+//   - scans the 32 lanes' products with __shfl_up_sync in five stages
+//     (Hillis-Steele, an inclusive scan);
+//   - applies it to the state carried in from the previous tile (the
+//     initial state for the first): the state after lane l - 1 is
+//     a_scan * carry + b_scan, and lane l runs its 8 steps h = a_i h + b_i
+//     from it, adding C_i[n] h_i into y_i, which stays in registers across n.
+// The state after the tile's last position (lane 31's last step) is carried
+// to the next tile through shared memory.  So per (t, d, n) there is one
+// exponential, a few float32 operations and about 1.3 shuffles, and y needs
+// no per-step shuffle tree.  The tile, the 8 positions a lane and every
+// level of the tree are fixed in the kernel: they depend on neither S nor
+// d_block, so every d_block gives the same bits.  Identity pairs, and the
+// pairs (1, +-0) of a padded position (dt = 0), leave every value they meet
+// bit for bit, so the state after position n - 1 has the same bits whatever
+// the padded length S >= n, and a tile boundary changes nothing but the
+// carry.
+//
+// Decode body (S = 1): one thread a (sequence, channel), its N states read
+// and written once (16-byte accesses where aligned), y summed in registers,
+// no staging and no barrier; the same operations in the same order as the
+// prefill body at S = 1, so the two agree bit for bit.
+//
+// Arithmetic: float32.  The exponential is ex2.approx on dt (A log2 e)
+// (relative error about 2^-22; ex2(0) = 1 exactly, so dt = 0 holds the
+// state); each pair's b and each combine's b are one fused multiply-add
+// (a b' + b''), y_t's sum over n is fused multiply-adds in order of n, and
+// every other operation is rounded on its own (__fmul_rn, __fadd_rn), so the
+// compiler contracts nothing and the decode body repeats the prefill body's
+// bits.  The association differs from the plain version's serial loop
+// by a few float32 roundings a step, which decay with the state.
 // The kernel launches on the caller's stream, allocates nothing and does not
 // synchronise.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kItems = 8;             // consecutive positions a lane
+constexpr int kTile = 32 * kItems;    // positions a warp scans together
+// A staged row of a tile: position t at tile_slot(t) = t + 4 (t / 32), so
+// lane l's 8 positions are 8 l + 4 (l / 4) .. + 7, two 16-byte reads, and a
+// quarter warp's reads cover all 32 banks once; 292 floats keep every row
+// 16-byte aligned.
+constexpr int kLd = kTile + 4 * (kTile / 32) + 4;
+constexpr int kStepThreads = 256;     // the decode body's block
+constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ inline size_t smem_bytes(int n, int chunk) {
-  return static_cast<size_t>(chunk) * (3 * (kThreads / n) + 2 * n) * 4;
+__host__ __device__ inline size_t smem_bytes(int n, int d_block) {
+  // B and C [n][kLd]; x then y, and dt [d_block][kLd]; carries [2][d_block][n]
+  return (static_cast<size_t>(2 * n + 2 * d_block) * kLd +
+          2 * static_cast<size_t>(d_block) * n) * 4;
+}
+
+__device__ __forceinline__ int tile_slot(int t) { return t + 4 * (t >> 5); }
+
+// Lane l's 8 consecutive values of a staged row, and their store.
+__device__ __forceinline__ void read8(const float* row, int lane, float (&v)[kItems]) {
+  const float4* p = reinterpret_cast<const float4*>(row + tile_slot(kItems * lane));
+  const float4 lo = p[0], hi = p[1];
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+__device__ __forceinline__ void write8(float* row, int lane, const float (&v)[kItems]) {
+  float4* p = reinterpret_cast<float4*>(row + tile_slot(kItems * lane));
+  p[0] = make_float4(v[0], v[1], v[2], v[3]);
+  p[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -75,101 +124,341 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T, int N>
+__device__ __forceinline__ float ex2(float x) {  // 2^x
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A row of K contiguous elements of a T array as raw 16-byte words, or one
+// element a word where the row is not 16-byte aligned (vec false) or K
+// elements do not fill whole words.
+template <typename T, int K>
+struct RawRow {
+  static constexpr int kPer = 16 / sizeof(T);   // elements a 16-byte word
+  static constexpr bool kWords = K % kPer == 0;
+  static constexpr int kN = kWords ? K / kPer : K;
+  uint4 w[kWords ? K / kPer : 1];
+  float f[kWords ? 1 : K];
+
+  __device__ __forceinline__ void load(const T* src, bool in, bool vec) {
+    if constexpr (kWords) {
+      if (vec) {
+#pragma unroll
+        for (int q = 0; q < kN; ++q) {
+          w[q] = in ? reinterpret_cast<const uint4*>(src)[q] : make_uint4(0, 0, 0, 0);
+        }
+        return;
+      }
+      const T* p = src;
+#pragma unroll
+      for (int q = 0; q < kN; ++q) {
+        alignas(16) T e[kPer];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) e[k] = in ? p[q * kPer + k] : T(0.f);
+        w[q] = *reinterpret_cast<const uint4*>(e);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) f[k] = in ? to_float(src[k]) : 0.f;
+    }
+  }
+  // element k as float32 (exact for bf16)
+  __device__ __forceinline__ float at(int k) const {
+    if constexpr (!kWords) {
+      return f[k];
+    } else if constexpr (sizeof(T) == 4) {
+      const uint4& u = w[k / 4];
+      const unsigned b = (k % 4 == 0) ? u.x : (k % 4 == 1) ? u.y : (k % 4 == 2) ? u.z : u.w;
+      return __uint_as_float(b);
+    } else {
+      const uint4& u = w[k / 8];
+      const int j = (k % 8) / 2;
+      const unsigned b = j == 0 ? u.x : j == 1 ? u.y : j == 2 ? u.z : u.w;
+      return __uint_as_float(k % 2 == 0 ? b << 16 : b & 0xffff0000u);
+    }
+  }
+};
+
+template <typename T, int N, int DB>
 __global__ void __launch_bounds__(kThreads)
-selective_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ a_mat, const T* __restrict__ b_mat,
-                      const T* __restrict__ c_mat, const float* __restrict__ d_vec,
-                      float* __restrict__ h, T* __restrict__ y, int s, int dn, int chunk,
-                      long long b_sb, long long b_st, long long c_sb, long long c_st) {
-  constexpr int kCh = kThreads / N;  // channels per block
-  extern __shared__ float smem[];
-  float* xs = smem;                // [chunk][kCh]
-  float* dts = xs + chunk * kCh;   // [chunk][kCh]
-  float* ys = dts + chunk * kCh;   // [chunk][kCh]
-  float* bs = ys + chunk * kCh;    // [chunk][N]
-  float* cs = bs + chunk * N;      // [chunk][N]
+selective_scan_tile_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                           const float* __restrict__ a_mat, const T* __restrict__ b_mat,
+                           const T* __restrict__ c_mat, const float* __restrict__ d_vec,
+                           float* __restrict__ h, T* __restrict__ y, int s, int dn,
+                           long long b_sb, long long b_st, long long c_sb, long long c_st,
+                           int vec) {
+  static_assert(kThreads == kTile, "a thread stages one position of a tile");
+  extern __shared__ __align__(16) float smem[];
+  float* bs = smem;               // [N][kLd]
+  float* cs = bs + N * kLd;       // [N][kLd]
+  float* xs = cs + N * kLd;       // [DB][kLd], x, then y
+  float* dts = xs + DB * kLd;     // [DB][kLd]
+  float* hs = dts + DB * kLd;     // [2][DB][N], the carried states
 
   const int tid = threadIdx.x;
-  const int c = tid / N, n = tid % N;
-  const int d0 = blockIdx.x * kCh;
-  const int d = d0 + c;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int b = blockIdx.y;
-  const bool live = d < dn;
-  const size_t h_off = (static_cast<size_t>(b) * dn + d) * N + n;
-  float hv = live ? h[h_off] : 0.f;
-  const float a = live ? a_mat[static_cast<size_t>(d) * N + n] : 0.f;
-  const float dd = live ? d_vec[d] : 0.f;
+  const int d0 = blockIdx.x * DB;
   const size_t row0 = static_cast<size_t>(b) * s;  // row of (b, t = 0) in x, dt, y
 
-  for (int t0 = 0; t0 < s; t0 += chunk) {
-    const int nt = min(chunk, s - t0);
-    for (int i = tid; i < chunk * kCh; i += kThreads) {
-      const int tt = i / kCh, cc = i % kCh;
-      const bool ok = tt < nt && d0 + cc < dn;
-      const size_t off = (row0 + t0 + tt) * dn + d0 + cc;
-      xs[i] = ok ? to_float(x[off]) : 0.f;
-      dts[i] = ok ? dt[off] : 0.f;
-    }
-    for (int i = tid; i < chunk * N; i += kThreads) {
-      const int tt = i / N, nn = i % N;
-      const bool ok = tt < nt;
-      const long long t = t0 + tt;
-      bs[i] = ok ? to_float(b_mat[b * b_sb + t * b_st + nn]) : 0.f;
-      cs[i] = ok ? to_float(c_mat[b * c_sb + t * c_st + nn]) : 0.f;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float dtv = dts[tt * kCh + c], xv = xs[tt * kCh + c];
-      const float decay = expf(__fmul_rn(dtv, a));
-      hv = __fadd_rn(__fmul_rn(decay, hv), __fmul_rn(__fmul_rn(dtv, xv), bs[tt * N + n]));
-      float p = __fmul_rn(hv, cs[tt * N + n]);
+  for (int i = tid; i < DB * N; i += kThreads) {
+    const int d = d0 + i / N;
+    hs[i] = d < dn ? h[(static_cast<size_t>(b) * dn + d) * N + i % N] : 0.f;
+  }
+
+  const int n_tiles = (s + kTile - 1) / kTile;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int t0 = tile * kTile;
+    // staging: thread t loads position t0 + t's row of B and C (the N
+    // states) and of x and dt (the block's channels), 16 bytes a load where
+    // aligned, and stores it where the lanes that scan it read it
+    {
+      const int t = tid;
+      const long long tt = t0 + t;
+      const bool in = tt < s;
+      const long long row = in ? tt : 0;
+      RawRow<T, N> br, cr;
+      br.load(b_mat + b * b_sb + row * b_st, in, vec & 1);
+      cr.load(c_mat + b * c_sb + row * c_st, in, vec & 1);
+      const bool full = in && d0 + DB <= dn;  // a ragged channel block goes one by one
+      const size_t off = (row0 + row) * dn + d0;
+      RawRow<T, DB> xr;
+      RawRow<float, DB> dr;
+      if (full) {
+        xr.load(x + off, true, vec & 2);
+        dr.load(dt + off, true, vec & 2);
+      } else {
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1) {
-        p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, off));
+        for (int c = 0; c < DB; ++c) {
+          const bool ok = in && d0 + c < dn;
+          xs[c * kLd + tile_slot(t)] = ok ? to_float(x[off + c]) : 0.f;
+          dts[c * kLd + tile_slot(t)] = ok ? dt[off + c] : 0.f;
+        }
       }
-      if (n == 0) ys[tt * kCh + c] = __fadd_rn(p, __fmul_rn(dd, xv));
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        bs[n * kLd + tile_slot(t)] = br.at(n);
+        cs[n * kLd + tile_slot(t)] = cr.at(n);
+      }
+      if (full) {
+#pragma unroll
+        for (int c = 0; c < DB; ++c) {
+          xs[c * kLd + tile_slot(t)] = xr.at(c);
+          dts[c * kLd + tile_slot(t)] = dr.at(c);
+        }
+      }
     }
     __syncthreads();
-    for (int i = tid; i < nt * kCh; i += kThreads) {
-      const int tt = i / kCh, cc = i % kCh;
-      if (d0 + cc < dn) y[(row0 + t0 + tt) * dn + d0 + cc] = from_float<T>(ys[i]);
+    const float* carry_in = hs + (tile & 1) * DB * N;
+    float* carry_out = hs + ((tile + 1) & 1) * DB * N;
+    for (int c = warp; c < DB; c += kWarps) {
+      const int d = d0 + c;
+      if (d >= dn) break;  // warp-uniform: channels past Dn
+      float dtv[kItems], xv[kItems], dtx[kItems], dx[kItems], acc[kItems];
+      const float dd = d_vec[d];
+      read8(dts + c * kLd, lane, dtv);
+      read8(xs + c * kLd, lane, xv);
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        dtx[i] = __fmul_rn(dtv[i], xv[i]);
+        dx[i] = __fmul_rn(dd, xv[i]);
+        acc[i] = 0.f;
+      }
+      const float* arow = a_mat + static_cast<size_t>(d) * N;
+      float a_n = arow[0];
+#pragma unroll 2
+      for (int n = 0; n < N; ++n) {
+        const float a2 = __fmul_rn(a_n, kLog2e);
+        if (n + 1 < N) a_n = arow[n + 1];  // the next state's, ahead of its use
+        float av[kItems], bv[kItems], bn[kItems], cn[kItems];
+        read8(bs + n * kLd, lane, bn);
+        read8(cs + n * kLd, lane, cn);
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          av[i] = ex2(__fmul_rn(dtv[i], a2));
+          bv[i] = __fmul_rn(dtx[i], bn[i]);
+        }
+        // the lane's 8 pairs combined in order
+        float pa = av[0], pb = bv[0];
+#pragma unroll
+        for (int i = 1; i < kItems; ++i) {
+          pb = __fmaf_rn(av[i], pb, bv[i]);
+          pa = __fmul_rn(pa, av[i]);
+        }
+        // inclusive scan of the lanes' pairs: (qa, qb) o (pa, pb), the lanes
+        // below off combining with the identity (1, 0), which leaves them
+        // as they are
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          float qa = __shfl_up_sync(0xffffffffu, pa, off);
+          float qb = __shfl_up_sync(0xffffffffu, pb, off);
+          qa = lane >= off ? qa : 1.f;
+          qb = lane >= off ? qb : 0.f;
+          pb = __fmaf_rn(pa, qb, pb);
+          pa = __fmul_rn(qa, pa);
+        }
+        const float carry = carry_in[c * N + n];
+        float hv = __fmaf_rn(pa, carry, pb);          // the state after this lane
+        hv = __shfl_up_sync(0xffffffffu, hv, 1);       // ... after the lane before
+        if (lane == 0) hv = carry;
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          hv = __fmaf_rn(av[i], hv, bv[i]);
+          acc[i] = __fmaf_rn(cn[i], hv, acc[i]);
+        }
+        if (lane == 31) carry_out[c * N + n] = hv;
+      }
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) acc[i] = __fadd_rn(acc[i], dx[i]);
+      write8(xs + c * kLd, lane, acc);
+    }
+    __syncthreads();
+    {
+      const int t = tid;
+      if (t0 + t < s) {
+        T* dst = y + (row0 + t0 + t) * dn + d0;
+        alignas(16) T out[DB];
+#pragma unroll
+        for (int c = 0; c < DB; ++c) out[c] = from_float<T>(xs[c * kLd + tile_slot(t)]);
+        if (RawRow<T, DB>::kWords && (vec & 2) && d0 + DB <= dn) {
+#pragma unroll
+          for (int q = 0; q < RawRow<T, DB>::kN; ++q) {
+            reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(out)[q];
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < DB; ++c) {
+            if (d0 + c < dn) dst[c] = out[c];
+          }
+        }
+      }
     }
     __syncthreads();
   }
-  if (live) h[h_off] = hv;
+  const float* last = hs + (n_tiles & 1) * DB * N;
+  for (int i = tid; i < DB * N; i += kThreads) {
+    const int d = d0 + i / N;
+    if (d < dn) h[(static_cast<size_t>(b) * dn + d) * N + i % N] = last[i];
+  }
 }
 
 template <typename T, int N>
-int launch(const void* x, const void* dt, const void* a_mat, const void* b_mat,
-           const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
-           int chunk, long long b_sb, long long b_st, long long c_sb, long long c_st,
-           cudaStream_t stream) {
-  constexpr int kCh = kThreads / N;
-  const size_t smem = smem_bytes(N, chunk);
+__global__ void __launch_bounds__(kStepThreads)
+selective_scan_step_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                           const float* __restrict__ a_mat, const T* __restrict__ b_mat,
+                           const T* __restrict__ c_mat, const float* __restrict__ d_vec,
+                           float* __restrict__ h, T* __restrict__ y, int bt, int dn,
+                           long long b_sb, long long c_sb, int vec) {
+  const long long i = static_cast<long long>(blockIdx.x) * kStepThreads + threadIdx.x;
+  if (i >= static_cast<long long>(bt) * dn) return;
+  const int b = static_cast<int>(i / dn);
+  const int d = static_cast<int>(i % dn);
+  const float dtv = dt[i];
+  const float xv = to_float(x[i]);
+  const float dtx = __fmul_rn(dtv, xv);
+  float hv[N], a2[N];
+  float* hrow = h + i * N;
+  const float* arow = a_mat + static_cast<size_t>(d) * N;
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 hq = reinterpret_cast<const float4*>(hrow)[q];
+      const float4 aq = reinterpret_cast<const float4*>(arow)[q];
+      hv[4 * q] = hq.x, hv[4 * q + 1] = hq.y, hv[4 * q + 2] = hq.z, hv[4 * q + 3] = hq.w;
+      a2[4 * q] = aq.x, a2[4 * q + 1] = aq.y, a2[4 * q + 2] = aq.z, a2[4 * q + 3] = aq.w;
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < N; ++n) hv[n] = hrow[n], a2[n] = arow[n];
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float av = ex2(__fmul_rn(dtv, __fmul_rn(a2[n], kLog2e)));
+    const float bv = __fmul_rn(dtx, to_float(b_mat[b * b_sb + n]));
+    hv[n] = __fmaf_rn(av, hv[n], bv);
+    acc = __fmaf_rn(to_float(c_mat[b * c_sb + n]), hv[n], acc);
+  }
+  y[i] = from_float<T>(__fadd_rn(acc, __fmul_rn(d_vec[d], xv)));
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      reinterpret_cast<float4*>(hrow)[q] =
+          make_float4(hv[4 * q], hv[4 * q + 1], hv[4 * q + 2], hv[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < N; ++n) hrow[n] = hv[n];
+  }
+}
+
+template <typename T, int N, int DB>
+int launch_tile(const void* x, const void* dt, const void* a_mat, const void* b_mat,
+                const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
+                long long b_sb, long long b_st, long long c_sb, long long c_st,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes(N, DB);
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
-    cudaError_t err = cudaFuncSetAttribute(selective_scan_kernel<T, N>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(selective_scan_tile_kernel<T, N, DB>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((dn + kCh - 1) / kCh, bt);
-  selective_scan_kernel<T, N><<<grid, kThreads, smem, stream>>>(
+  // 16-byte staging: bit 0 for the rows of B and C, bit 1 for x, dt and y
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const long long sz = sizeof(T);
+  const int vec = (a16(b_mat) && a16(c_mat) && (b_sb * sz) % 16 == 0 && (b_st * sz) % 16 == 0 &&
+                   (c_sb * sz) % 16 == 0 && (c_st * sz) % 16 == 0) |
+                  (a16(x) && a16(dt) && a16(y) && (dn * sz) % 16 == 0 && dn % 4 == 0) << 1;
+  const dim3 grid((dn + DB - 1) / DB, bt);
+  selective_scan_tile_kernel<T, N, DB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a_mat), static_cast<const T*>(b_mat),
       static_cast<const T*>(c_mat), static_cast<const float*>(d_vec),
-      static_cast<float*>(h), static_cast<T*>(y), s, dn, chunk, b_sb, b_st, c_sb, c_st);
+      static_cast<float*>(h), static_cast<T*>(y), s, dn, b_sb, b_st, c_sb, c_st, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int N>
 int launch_n(const void* x, const void* dt, const void* a_mat, const void* b_mat,
              const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
-             int n, int chunk, long long b_sb, long long b_st, long long c_sb, long long c_st,
+             int d_block, long long b_sb, long long b_st, long long c_sb, long long c_st,
+             cudaStream_t stream) {
+  if (s == 1) {
+    const bool vec = ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(a_mat)) &
+                      15) == 0;
+    const long long threads = static_cast<long long>(bt) * dn;
+    const unsigned blocks = static_cast<unsigned>((threads + kStepThreads - 1) / kStepThreads);
+    selective_scan_step_kernel<T, N><<<blocks, kStepThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(a_mat), static_cast<const T*>(b_mat),
+        static_cast<const T*>(c_mat), static_cast<const float*>(d_vec),
+        static_cast<float*>(h), static_cast<T*>(y), bt, dn, b_sb, c_sb, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (d_block) {
+#define SSM_DB(DB) \
+    case DB:                                                                      \
+      return launch_tile<T, N, DB>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, b_sb, \
+                                   b_st, c_sb, c_st, stream);
+    SSM_DB(8) SSM_DB(16) SSM_DB(32)
+#undef SSM_DB
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_t(const void* x, const void* dt, const void* a_mat, const void* b_mat,
+             const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
+             int n, int d_block, long long b_sb, long long b_st, long long c_sb, long long c_st,
              cudaStream_t stream) {
   switch (n) {
 #define SSM_CASE(N) \
-    case N: return launch<T, N>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, chunk, b_sb, b_st, c_sb, c_st, stream);
+    case N:                                                                          \
+      return launch_n<T, N>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, d_block, b_sb, \
+                            b_st, c_sb, c_st, stream);
     SSM_CASE(4) SSM_CASE(8) SSM_CASE(16) SSM_CASE(32)
 #undef SSM_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -182,26 +471,27 @@ int launch_n(const void* x, const void* dt, const void* a_mat, const void* b_mat
 // float32, contiguous; A (Dn, N) and D (Dn,) float32; B and C (Bt, S, N) in
 // x's type, element (b, t, n) at b * sb + t * st + n; h (Bt, Dn, N) float32,
 // read and overwritten; y (Bt, S, Dn) in x's type.  N is 4, 8, 16 or 32;
-// chunk >= 1 time steps staged at once, within
-// selective_scan_smem_bytes(n, chunk) <= 232,448.  Returns a cudaError_t (0
-// on success).
+// d_block (channels a block of the prefill body) 8, 16 or 32; S = 1 runs the
+// decode body, which has no d_block.  Returns a cudaError_t (0 on success).
 extern "C" int selective_scan_launch(const void* x, const void* dt, const void* a_mat,
                                      const void* b_mat, const void* c_mat, const void* d_vec,
                                      void* h, void* y, int bt, int s, int dn, int n,
-                                     int x_is_bf16, int chunk, long long b_sb, long long b_st,
-                                     long long c_sb, long long c_st, void* stream) {
+                                     int x_is_bf16, int d_block, long long b_sb,
+                                     long long b_st, long long c_sb, long long c_st,
+                                     void* stream) {
   auto* st = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) {
-    return launch_n<__nv_bfloat16>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n,
-                                   chunk, b_sb, b_st, c_sb, c_st, st);
+    return launch_t<__nv_bfloat16>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n,
+                                   d_block, b_sb, b_st, c_sb, c_st, st);
   }
-  return launch_n<float>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n, chunk, b_sb,
+  return launch_t<float>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n, d_block, b_sb,
                          b_st, c_sb, c_st, st);
 }
 
-// Shared memory one block needs for state size n and chunk staged steps.
-extern "C" int selective_scan_smem_bytes(int n, int chunk) {
-  return static_cast<int>(smem_bytes(n, chunk));
+// Shared memory one block of the prefill body needs at state size n and
+// d_block channels a block.
+extern "C" int selective_scan_smem_bytes(int n, int d_block) {
+  return static_cast<int>(smem_bytes(n, d_block));
 }
 
 extern "C" const char* selective_scan_error_string(int code) {

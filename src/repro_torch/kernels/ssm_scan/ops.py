@@ -6,19 +6,23 @@ signature of ``repro/kernels/ssm_scan/ops.py::selective_scan`` with an
 initial state that is updated in place, so at S = 1 it is the decode step
 ``selective_scan_step``.  A CUDA tensor goes to the kernel or the call
 raises, nothing falls back to the plain version, and
-``selective_scan.launches`` counts the kernel's launches and only those.
+``selective_scan.launches`` counts the kernel's launches and only those;
+``selective_scan.step_launches`` counts those of them at S = 1, which run
+the kernel's decode body.
 
 ``B`` and ``C`` come out of a split of ``x_proj``'s output, so they are
 strided views: the wrapper passes the kernel their batch and time strides
 (the last axis must have stride 1) instead of copying them.
 
-``chunk`` is the number of time steps the kernel stages in shared memory at
-once, the autotuner's knob (``tuned=True`` takes it from the tuner's config
-cache).  The kernel's loop over time runs the same steps in the same order
-whatever the chunk, so y and the state are bit-identical for every chunk it
-accepts.  This differs from the reference, where ``chunk`` changes how the
-associative scan groups its terms.  The plain version has no staging and
-ignores it.
+``d_block`` is the number of channels a block of the kernel's prefill body
+owns, the autotuner's knob (``tuned=True`` takes it from the tuner's config
+cache).  The kernel scans time in fixed tiles of 256 positions anchored at
+position 0, with the same tree whatever the channels a block, so y and the
+state are bit-identical for every d_block it takes; the decode body (S = 1)
+has no blocking.  ``chunk`` is the reference's argument, kept in the
+signature: in the reference it groups the associative scan's terms, here
+the kernel's grouping is fixed, so it changes nothing (it must be
+positive).  The plain version is a serial loop and ignores both.
 """
 from __future__ import annotations
 
@@ -38,21 +42,23 @@ LIBRARY = KernelLibrary(
      "selective_scan_smem_bytes": ([_i, _i], ctypes.c_int)},
     error_fn="selective_scan_error_string")
 
-KERNEL_STATE_SIZES = (4, 8, 16, 32)  # N: a channel's lanes lie in one warp
+KERNEL_STATE_SIZES = (4, 8, 16, 32)  # N: the kernel's instantiations
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-DEFAULT_CHUNK = 32  # time steps staged at once: the serve path's value
+KERNEL_D_BLOCKS = (8, 16, 32)  # channels a block of the prefill body (8 warps)
+DEFAULT_D_BLOCK = 16  # the serve path's value
+DEFAULT_CHUNK = 128  # the reference's default, which the kernel does not use
 
 
-def scan_chunk(x: torch.Tensor, A: torch.Tensor, chunk: int, tuned: bool) -> int:
-    """The chunk a call runs at: the tuner's cache entry for
-    ``{bt, s, dn, n}`` on x's device type when ``tuned``, else ``chunk``."""
+def scan_d_block(x: torch.Tensor, A: torch.Tensor, d_block: int, tuned: bool) -> int:
+    """The channels a block a call runs at: the tuner's cache entry for
+    ``{bt, s, dn, n}`` on x's device type when ``tuned``, else ``d_block``."""
     if not tuned:
-        return int(chunk)
+        return int(d_block)
     from repro_torch.kernels.flash_decode.ops import _tuned_value
 
     bt, s, dn = x.shape
     shape = {"bt": bt, "s": s, "dn": dn, "n": A.shape[1]}
-    return _tuned_value("ssm_scan", shape, x.dtype, "chunk", int(chunk), x.device.type)
+    return _tuned_value("ssm_scan", shape, x.dtype, "d_block", int(d_block), x.device.type)
 
 
 def selective_scan(
@@ -65,14 +71,18 @@ def selective_scan(
     h: Optional[torch.Tensor] = None,  # (Bt, Dn, N) float32
     *,
     chunk: int = DEFAULT_CHUNK,
+    d_block: int = DEFAULT_D_BLOCK,
     tuned: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (Bt, S, Dn) in x's dtype, h_last (Bt, Dn, N) float32).
     When ``h`` is given it is the initial state and is overwritten with
     h_last, which is ``h`` itself; otherwise the scan starts from zeros."""
-    chunk = scan_chunk(x, A, chunk, tuned)
+    d_block = scan_d_block(x, A, d_block, tuned)
     if chunk < 1:
         raise ValueError(f"chunk={chunk} must be positive")
+    if d_block not in KERNEL_D_BLOCKS:
+        raise ValueError(f"d_block={d_block}: the kernel takes {KERNEL_D_BLOCKS} channels a "
+                         "block")
     if x.device.type == "cpu":
         y, h_last = selective_scan_ref(x, dt, A, B, C, D, h)
         if h is None:
@@ -115,19 +125,21 @@ def selective_scan(
     if bt * s * dn == 0:
         return y, h
     lib = LIBRARY.load()
-    smem = lib.selective_scan_smem_bytes(n, chunk)
+    smem = lib.selective_scan_smem_bytes(n, d_block)
     if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"N={n}, chunk={chunk} need {smem} bytes of shared memory, more "
+        raise ValueError(f"N={n}, d_block={d_block} need {smem} bytes of shared memory, more "
                          f"than the {MAX_SMEM_PER_BLOCK} a block may use")
     with torch.cuda.device(x.device):
         err = lib.selective_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             D.data_ptr(), h.data_ptr(), y.data_ptr(), bt, s, dn, n,
-            int(x.dtype == torch.bfloat16), chunk, B.stride(0), B.stride(1), C.stride(0),
+            int(x.dtype == torch.bfloat16), d_block, B.stride(0), B.stride(1), C.stride(0),
             C.stride(1), torch.cuda.current_stream().cuda_stream)
     LIBRARY.check(err, "selective_scan kernel")
     selective_scan.launches += 1
+    selective_scan.step_launches += int(s == 1)
     return y, h
 
 
 selective_scan.launches = 0
+selective_scan.step_launches = 0

@@ -11,8 +11,11 @@ of ``ops.py::selective_scan`` (``h0``).  At S = 1 it is
 Each step runs the reference's operations in its order, one rounding each:
 ``decay = exp(dt A)``, ``h = decay h + (dt x) B``, ``y = sum_n h C + D x``.
 The sum over n halves the state axis repeatedly (n with n + N/2, then
-N/4, ...), the order in which the kernel's warp shuffles add it, so the
-kernel and this version differ only where their ``exp`` does.
+N/4, ...).  This serial loop is the reference-order oracle the card holds
+the kernel against: the kernel scans time as an associative scan in fixed
+tiles and sums over n in order, so the two differ by a few float32
+roundings a step (``tests/test_torch_block_scan.py`` models the kernel's
+grouping).
 """
 from __future__ import annotations
 

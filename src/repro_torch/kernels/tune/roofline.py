@@ -36,6 +36,8 @@ from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.flash_attention.ops import kernel_block_k as k3_block_k
 from repro_torch.kernels.flash_decode.ops import LATENT_WIDTHS
 from repro_torch.kernels.sdca.ops import MAX_D as K1_MAX_D
+from repro_torch.kernels.sdca.ops import kernel_plan as k1_plan
+from repro_torch.kernels.ssm_scan.ops import KERNEL_D_BLOCKS as K4_D_BLOCKS
 from repro_torch.kernels.ssm_scan.ops import KERNEL_STATE_SIZES as K4_STATE_SIZES
 from repro_torch.kernels.tune.cache import dtype_name
 
@@ -56,7 +58,11 @@ _K3_TILE_KV = 64  # key positions per staged K3 tile
 _STAGES = 2  # staged tiles in flight (K2, K3, K5)
 _SPLIT_POSITIONS = 192  # K2's and K5's split-KV: tiles a split fill at most this
 _LATENT_HEADS = 8  # query heads per block of K2's latent form
-_K4_THREADS = 256
+_K4_THREADS = 256  # K4's prefill block: 8 warps
+_K4_TILE = 256  # positions a warp scans together (32 lanes x 8)
+_K4_ROW = _K4_TILE + 4 * (_K4_TILE // 32) + 4  # floats a staged row of a tile
+_K4_WARPS = 8
+_MAX_BLOCKS_PER_SM = 32
 
 # config keys a family's kernel takes but does not depend on: of candidates
 # that differ only there, prune keeps the first
@@ -134,9 +140,26 @@ def latent_smem_bytes(r: int, dr: int, bk: int) -> int:
     return h * (r + dr) * 4 + bk * (r + _PAD) * 2 + bk * (dr + _PAD) * 2 + h * bk * 4 + 3 * h * 4
 
 
-def k4_smem_bytes(n: int, chunk: int) -> int:
-    """csrc/selective_scan.cu's smem_bytes: x, dt, y per channel and B, C."""
-    return chunk * (3 * (_K4_THREADS // n) + 2 * n) * 4
+def k4_smem_bytes(n: int, d_block: int) -> int:
+    """csrc/selective_scan.cu's smem_bytes, its prefill body: B and C of a
+    tile of 256 positions, x (then y) and dt of the block's d_block channels
+    over the tile, float32 in rows of 292 (a lane's 8 positions skewed 4
+    floats every 4 lanes, against bank conflicts), and the channels' carried
+    states, two of each."""
+    return ((2 * n + 2 * d_block) * _K4_ROW + 2 * d_block * n) * 4
+
+
+def k1_smem_bytes(d: int) -> int:
+    """csrc/sdca.cu's shared memory at width d: the ring of staged rows, and
+    v where it does not fit the registers."""
+    return k1_plan(d)[2]
+
+
+def _resident_waves(blocks: int, smem: int) -> int:
+    """Waves of ``blocks`` when as many blocks share an SM as its shared
+    memory holds (at most 32)."""
+    per_sm = max(1, min(_MAX_BLOCKS_PER_SM, MAX_SMEM_PER_BLOCK // max(smem, 1)))
+    return _ceil_div(blocks, SMS * per_sm)
 
 
 @dataclasses.dataclass
@@ -231,20 +254,28 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         fits = smem <= MAX_SMEM_PER_BLOCK
     elif family == "ssm_scan":  # K4
         bt, s, dn, n = shape["bt"], shape["s"], shape["dn"], shape["n"]
-        chunk = config["chunk"]
+        d_block = config["d_block"]
         flops = 8.0 * bt * s * dn * n
         bytes_moved = 3.0 * bt * s * (dn + 2 * n) * it
-        smem = k4_smem_bytes(n, chunk) if n in K4_STATE_SIZES else 0
-        steps = _waves(bt * _ceil_div(dn, _K4_THREADS // max(n, 1))) * _ceil_div(s, chunk)
-        fits = n in K4_STATE_SIZES and smem <= MAX_SMEM_PER_BLOCK
+        if s == 1:  # the decode body: a thread a (sequence, channel), no staging
+            smem = 0
+            steps = _waves(_ceil_div(bt * dn, _K4_THREADS))
+        else:  # a warp walks its channels' tiles in order
+            smem = k4_smem_bytes(n, d_block)
+            steps = (_resident_waves(bt * _ceil_div(dn, d_block), smem) * _ceil_div(s, _K4_TILE)
+                     * _ceil_div(d_block, _K4_WARPS))
+        fits = (n in K4_STATE_SIZES and d_block in K4_D_BLOCKS
+                and smem <= MAX_SMEM_PER_BLOCK)
     elif family == "sdca":  # K1 (use_pallas 1) or its plain version (0)
         m, nl, d = shape["m"], shape["nl"], shape["d"]
         h = shape.get("h", nl)
         flops = 4.0 * m * h * d
         bytes_moved = m * (nl * d + 2 * nl + 2 * d) * it
-        smem = d * 4 if config.get("use_pallas") else 0  # v in shared memory
-        steps = _waves(m) * h  # H dependent steps in each worker's block
         fits = d <= K1_MAX_D or not config.get("use_pallas")
+        smem = k1_smem_bytes(d) if config.get("use_pallas") and fits else 0
+        # H dependent steps in each worker's warp, as many workers an SM as
+        # their rings fit
+        steps = _resident_waves(m, smem) * h
     else:
         raise ValueError(f"unknown kernel family {family!r}")
     return CandidateEstimate(

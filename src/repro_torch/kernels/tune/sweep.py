@@ -16,6 +16,12 @@ through a plain version in its place.  On the CPU the same calls run the
 plain versions.  Entries are keyed by the device type, so the two never mix.
 Inputs come from seeded ``torch.Generator``s (the reference's PRNG bits are
 not reproduced).
+
+Every family sweeps the reference's candidates but ``ssm_scan``: the
+reference sweeps ``chunk``, which groups its associative scan's terms, while
+K4's grouping in time is fixed (tiles of 256 positions from position 0), so
+the port sweeps K4's channels a block (``d_block`` 8, 16, 32), which leaves
+every sum's grouping, and so every bit, as it is.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ssm_scan.ops import KERNEL_D_BLOCKS as K4_D_BLOCKS
 from repro_torch.kernels.tune import roofline
 from repro_torch.kernels.tune.cache import ConfigCache, cache_key, dtype_name
 from repro_torch.kernels.tune.roofline import ragged_lengths
@@ -127,8 +134,7 @@ def candidates_for(family: str, shape: Dict[str, int]) -> List[Dict[str, int]]:
         p = shape["p"]
         return [{"chunk": c} for c in _pow2_range(16, 512) if c <= max(p, 16)]
     if family == "ssm_scan":
-        s = shape["s"]
-        return [{"chunk": c} for c in _pow2_range(16, 256) if c <= max(s, 16)]
+        return [{"d_block": c} for c in K4_D_BLOCKS]
     if family == "sdca":
         return [{"use_pallas": 0}, {"use_pallas": 1}]
     raise ValueError(f"unknown kernel family {family!r}")
@@ -280,7 +286,7 @@ def _case_ssm_scan(shape, dtype, device):
 
     def build(config):
         def run(*args):
-            return selective_scan(*args, chunk=config["chunk"])[0]
+            return selective_scan(*args, d_block=config["d_block"])[0]
 
         return run, (x, dt, A, B, C, D)
 

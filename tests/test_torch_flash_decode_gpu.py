@@ -14,18 +14,20 @@ Tolerance, K2, K3 and K5 against their plain versions: float32 sums of
 bf16 inputs in another order (K3's on the tensor cores, with p as a bf16
 pair within 2^-17 of it), the output rounded to bf16 once, so the limit is
 one bf16 ulp of the output plus 2^-14 of max|v| (chip_smoke.py states the
-reason).  K4 across chunks: bit for bit, since the
-chunk changes only how many steps are staged at once.
+reason).  K4 across d_block and chunk: bit for bit, since its grouping in
+time is fixed (tiles of 256 positions from position 0) and the chunk is the
+reference's argument, which it does not use.
 """
 import pytest
 import torch
 
 from _torch_parity import assert_within_bf16_ulp
-from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.sdca import build as sdca_build
+from repro_torch.kernels.sdca import ops as sdca_ops
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.tune import (
     FAMILIES,
@@ -113,8 +115,13 @@ def test_roofline_smem_mirrors_the_kernels(card):
             want = roofline.decode_splits(cap, bk)
             assert want == lib2.paged_decode_splits(cap, bk) == lib5.flash_decode_splits(cap, bk)
     for n in ss_ops.KERNEL_STATE_SIZES:
-        for chunk in (1, 16, 32, 256, 300):
-            assert roofline.k4_smem_bytes(n, chunk) == lib4.selective_scan_smem_bytes(n, chunk)
+        for d_block in ss_ops.KERNEL_D_BLOCKS:
+            assert roofline.k4_smem_bytes(n, d_block) == lib4.selective_scan_smem_bytes(n, d_block)
+    lib1 = sdca_build.load()
+    for d in (1, 4, 33, 100, 784, 800, 2047, 2048, 2049, 4096, 12224, sdca_ops.MAX_D):
+        e, ring, smem = sdca_ops.kernel_plan(d)
+        assert roofline.k1_smem_bytes(d) == smem == lib1.sdca_smem_bytes(d), d
+        assert (e, ring) == (lib1.sdca_register_entries(d), lib1.sdca_ring_rows(d)), d
 
 
 def _kept(family, shape):
@@ -188,17 +195,18 @@ def test_selective_scan_bit_identical_across_chunks(card, dtype, n):
     C = torch.randn((bt, s, n), generator=gen, device=card).to(dtype)
     D = torch.ones(dn, device=card)
     h0 = 0.1 * torch.randn((bt, dn, n), generator=gen, device=card)
-    max_chunk = max(c for c in range(1, 2048) if roofline.k4_smem_bytes(n, c) <= MAX_SMEM_PER_BLOCK)
     ref_y, ref_h = None, None
-    for chunk in (1, 7, 16, 32, 64, 128, 256, max_chunk):
-        h = h0.clone()
-        y, _ = ss_ops.selective_scan(x, dt, A, B, C, D, h, chunk=chunk)
-        torch.cuda.synchronize()
-        if ref_y is None:
-            ref_y, ref_h = y, h
-        assert torch.equal(y, ref_y) and torch.equal(h, ref_h), chunk
-    with pytest.raises(ValueError, match="shared memory"):
-        ss_ops.selective_scan(x, dt, A, B, C, D, h0.clone(), chunk=max_chunk + 1)
+    for d_block in ss_ops.KERNEL_D_BLOCKS:
+        for chunk in (1, 7, 16, 32, 64, 128, 256, 4096):
+            h = h0.clone()
+            y, _ = ss_ops.selective_scan(x, dt, A, B, C, D, h, chunk=chunk, d_block=d_block)
+            torch.cuda.synchronize()
+            if ref_y is None:
+                ref_y, ref_h = y, h
+            assert torch.equal(y, ref_y) and torch.equal(h, ref_h), (d_block, chunk)
+    for d_block in (4, 12, 64):
+        with pytest.raises(ValueError, match="d_block"):
+            ss_ops.selective_scan(x, dt, A, B, C, D, h0.clone(), d_block=d_block)
 
 
 def test_smoke_sweep_every_family_on_the_card(card, tmp_path):

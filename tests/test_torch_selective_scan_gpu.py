@@ -8,17 +8,22 @@ every worker collects the same tests.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_selective_scan_gpu.py``
 (that machine has no JAX).
 
-Tolerance: kernel and plain version run the same float32 operations in the
-same order, except that their ``exp`` may differ in the last bit or two.
-Such a difference enters the state once per step and decays with it, so
-over a channel whose decay is close to 1 (dt |A| of 1e-3 remembers about
-1000 steps) it adds up like a random walk, to about sqrt(1000) float32
-epsilons, 4e-6 of the state's magnitude.  So the state within 2^-13
-(1.2e-4) of its largest magnitude, thirty times that; bf16 outputs within
-one bf16 ulp (one rounding of a float32 value that moved) plus 2^-13 of the
-largest output, float32 outputs within 2^-13 of the largest (chip_smoke.py
-states the same limits).  A fault of the kernel shows as errors of the
-order of the values.
+Tolerance: the kernel scans time as an associative scan in fixed tiles of
+256 positions (``tests/test_torch_block_scan.py`` models its grouping),
+with ex2.approx for the exponential, where the plain version is the serial
+loop with the true exp.  The association differs by a few float32 rounding
+errors a step, and each enters the state once and decays with it, so over a
+channel whose decay is close to 1 (dt |A| of 1e-3 remembers about 1000
+steps) they add up like a random walk, to about sqrt(1000) float32
+epsilons, 4e-6 of the state's magnitude (the CPU model measures up to 5e-7).
+So the state within 2^-13 (1.2e-4) of its largest magnitude, thirty times
+that; bf16 outputs within one bf16 ulp (one rounding of a float32 value that
+moved) plus 2^-13 of the largest output, float32 outputs within 2^-13 of
+the largest (chip_smoke.py states the same limits).  A fault of the kernel
+shows as errors of the order of the values.  Bitwise: a padded position
+(dt = 0) and a position past S hold every value they meet, so the state
+after position n - 1 has the same bits at every padded length; every
+d_block (the tuner's knob) gives the same bits.
 """
 import numpy as np
 import pytest
@@ -62,10 +67,10 @@ def scan_inputs(gen, bt, s, dn, n, dtype, dtr=8, n_valid=None):
     return x, dt, A, B, C, D, h0
 
 
-def check_against_plain(x, dt, A, B, C, D, h0):
+def check_against_plain(x, dt, A, B, C, D, h0, d_block=ops.DEFAULT_D_BLOCK):
     h = h0.clone()
     before = ops.selective_scan.launches
-    y, h_out = ops.selective_scan(x, dt, A, B, C, D, h)
+    y, h_out = ops.selective_scan(x, dt, A, B, C, D, h, d_block=d_block)
     torch.cuda.synchronize()
     assert ops.selective_scan.launches == before + 1
     assert h_out is h
@@ -86,6 +91,15 @@ def check_against_plain(x, dt, A, B, C, D, h0):
     (2, 77, 128, 4, torch.bfloat16, 70),        # the smoke config's state size
     (3, 45, 100, 8, torch.float32, None),       # ragged channel block, float32
     (1, 33, 64, 32, torch.float32, None),
+    (1, 1088, 8192, 16, torch.bfloat16, 1000),  # the long run's max_seq: two tiles
+    (1, 2048, 1024, 16, torch.bfloat16, 1000),  # eight tiles, the last four padding
+    (2, 300, 512, 16, torch.bfloat16, None),    # S not a multiple of the tile
+    (1, 96, 8192, 16, torch.bfloat16, 80),      # the serve CLI's max_seq
+    (2, 257, 96, 4, torch.bfloat16, None),      # one position past a tile boundary
+    (2, 256, 96, 8, torch.bfloat16, None),      # a tile exactly
+    (1, 512, 64, 32, torch.bfloat16, 500),      # two tiles at N 32
+    (1, 1, 8192, 16, torch.bfloat16, None),     # the decode body, one sequence
+    (8, 1, 100, 32, torch.float32, None),       # the decode body, ragged Dn, N 32
 ])
 def test_selective_scan_kernel_matches_plain(card, bt, s, dn, n, dtype, n_valid):
     gen = torch.Generator(device=card).manual_seed(s + dn + n)
@@ -93,12 +107,40 @@ def test_selective_scan_kernel_matches_plain(card, bt, s, dn, n, dtype, n_valid)
 
 
 def test_padding_holds_the_state_bitwise_on_the_card(card):
+    """The state after position n - 1 has the same bits whether the prompt
+    ends there or is padded (dt = x = 0) to S, within a tile and across tile
+    boundaries (1024, 1088 and 2048 positions for n = 1000)."""
     gen = torch.Generator(device=card).manual_seed(0)
-    x, dt, A, B, C, D, h0 = scan_inputs(gen, 1, 96, 256, 16, torch.bfloat16, n_valid=60)
-    _, h_pad = ops.selective_scan(x, dt, A, B, C, D, h0.clone())
-    _, h_cut = ops.selective_scan(x[:, :60].contiguous(), dt[:, :60].contiguous(), A,
-                                  B[:, :60], C[:, :60], D, h0.clone())
-    assert torch.equal(h_pad, h_cut)
+    for n_valid, lengths in ((60, (96,)), (1000, (1024, 1088, 2048))):
+        x, dt, A, B, C, D, h0 = scan_inputs(gen, 1, max(lengths), 256, 16, torch.bfloat16,
+                                            n_valid=n_valid)
+        y_cut, h_cut = ops.selective_scan(x[:, :n_valid].contiguous(),
+                                          dt[:, :n_valid].contiguous(), A, B[:, :n_valid],
+                                          C[:, :n_valid], D, h0.clone())
+        for s in lengths:
+            y_pad, h_pad = ops.selective_scan(x[:, :s].contiguous(), dt[:, :s].contiguous(), A,
+                                              B[:, :s], C[:, :s], D, h0.clone())
+            assert torch.equal(h_pad, h_cut), (n_valid, s)
+            assert torch.equal(y_pad[:, :n_valid], y_cut), (n_valid, s)
+
+
+@pytest.mark.parametrize("n", ops.KERNEL_STATE_SIZES)
+def test_every_d_block_and_chunk_gives_the_same_bits(card, n):
+    """The tuner's candidates (channels a block) and the reference's chunk
+    argument leave every bit as it is, at a ragged channel count and across a
+    tile boundary, and each agrees with the plain version."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    x, dt, A, B, C, D, h0 = scan_inputs(gen, 2, 300, 100, n, torch.bfloat16, n_valid=290)
+    want = None
+    for d_block in ops.KERNEL_D_BLOCKS:
+        for chunk in (1, 32, 128):
+            h = h0.clone()
+            y, _ = ops.selective_scan(x, dt, A, B, C, D, h, chunk=chunk, d_block=d_block)
+            torch.cuda.synchronize()
+            if want is None:
+                want = (y, h)
+                check_against_plain(x, dt, A, B, C, D, h0, d_block=d_block)
+            assert torch.equal(y, want[0]) and torch.equal(h, want[1]), (d_block, chunk)
 
 
 def test_selective_scan_kernel_rejects_what_it_does_not_take(card):
@@ -114,6 +156,7 @@ def test_selective_scan_kernel_rejects_what_it_does_not_take(card):
         (ValueError, dict(B=B.transpose(1, 2).contiguous().transpose(1, 2))),  # last stride
         (ValueError, dict(D=D.cpu())),                             # another device
         (ValueError, dict(h=h0[:1])),                              # state of another batch
+        (ValueError, dict(d_block=12)),                            # not a compiled blocking
     ]
     base = dict(x=x, dt=dt, A=A, B=B, C=C, D=D, h=h0)
     for error, change in bad:

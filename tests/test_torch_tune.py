@@ -197,11 +197,21 @@ def test_tune_cli_on_the_cpu_second_run_hits_the_cache(tmp_path, capsys):
 @pytest.mark.parametrize("preset", list(SWEEP_SHAPES))
 @pytest.mark.parametrize("family", FAMILIES)
 def test_candidates_and_flops_match_reference(preset, family):
+    """The reference's candidates and FLOPs, but for ``ssm_scan``, whose
+    knob is K4's channels a block where the reference sweeps ``chunk``
+    (sweep.py's docstring); its FLOPs depend on the shape alone in both."""
     shape = SWEEP_SHAPES[preset][family]
     cands = candidates_for(family, shape)
-    assert cands == ref_tune.candidates_for(family, shape)
-    for config in cands:
-        assert estimate(family, shape, config).flops == ref_estimate(family, shape, config).flops
+    ref_cands = ref_tune.candidates_for(family, shape)
+    if family == "ssm_scan":
+        assert cands == [{"d_block": c} for c in ss_ops.KERNEL_D_BLOCKS]
+        assert ref_cands and all(set(c) == {"chunk"} for c in ref_cands)
+    else:
+        assert cands == ref_cands
+    for config, ref_config in zip(cands, ref_cands * len(cands) if family == "ssm_scan"
+                                  else ref_cands):
+        assert estimate(family, shape, config).flops == ref_estimate(family, shape,
+                                                                     ref_config).flops
 
 
 def test_bytes_use_the_measured_itemsize():
@@ -280,6 +290,41 @@ def test_roofline_estimates_monotone_in_work():
     one = estimate("flash_decode", {"b": 1, "h": 132, "s": 64, "d": 16}, {"block_k": 64})
     two = estimate("flash_decode", {"b": 1, "h": 133, "s": 64, "d": 16}, {"block_k": 64})
     assert (one.serial_steps, two.serial_steps) == (1, 2)
+
+
+def test_roofline_follows_the_redesigned_k1_and_k4():
+    """K1: one warp a worker, its ring of rows (and v past d 2048) in shared
+    memory, as many workers an SM as their rings fit.  K4: the prefill body's
+    staging per d_block, a warp walking its channels' 256-position tiles in
+    order; the decode body (S = 1) stages nothing."""
+    from repro_torch.kernels.sdca import ops as sdca_ops
+
+    k1 = estimate("sdca", {"m": 16, "nl": 3750, "d": 784, "h": 3750}, {"use_pallas": 1})
+    assert k1.fits and k1.smem_bytes == sdca_ops.kernel_plan(784)[2] == 51328
+    assert k1.serial_steps == 3750  # 16 workers: one wave of H steps
+    per_sm = MAX_SMEM_PER_BLOCK // 51328  # 4 rings an SM
+    many = estimate("sdca", {"m": 132 * per_sm + 1, "nl": 64, "d": 784, "h": 64},
+                    {"use_pallas": 1})
+    assert many.serial_steps == 2 * 64
+    assert roofline_mod.k1_smem_bytes(2049) == sdca_ops.kernel_plan(2049)[2] == 128 + 5 * 128 * 65
+    wide = {"m": 1, "nl": 8, "d": sdca_ops.MAX_D + 1, "h": 8}
+    assert not estimate("sdca", wide, {"use_pallas": 1}).fits
+    assert estimate("sdca", wide, {"use_pallas": 0}).fits
+    assert estimate("sdca", {**wide, "d": sdca_ops.MAX_D}, {"use_pallas": 1}).fits
+
+    prefill = {"bt": 1, "s": 1024, "dn": 8192, "n": 16}
+    for d_block in ss_ops.KERNEL_D_BLOCKS:
+        e = estimate("ssm_scan", prefill, {"d_block": d_block}, "bfloat16")
+        assert e.fits and e.smem_bytes == roofline_mod.k4_smem_bytes(16, d_block)
+    e16 = estimate("ssm_scan", prefill, {"d_block": 16}, "bfloat16")
+    assert e16.smem_bytes == ((2 * 16 + 2 * 16) * 292 + 2 * 16 * 16) * 4
+    # 512 blocks, 3 an SM: 2 waves x 4 tiles x 2 channels a warp
+    assert e16.serial_steps == 2 * 4 * 2
+    decode = estimate("ssm_scan", {"bt": 8, "s": 1, "dn": 8192, "n": 16}, {"d_block": 16})
+    assert decode.smem_bytes == 0 and decode.serial_steps == 2  # 256 blocks of 256 threads
+    assert not estimate("ssm_scan", prefill, {"d_block": 12}).fits
+    assert not estimate("ssm_scan", {**prefill, "n": 3}, {"d_block": 16}).fits
+    assert roofline_mod.k4_smem_bytes(32, 32) <= MAX_SMEM_PER_BLOCK
 
 
 # K2's MLA latent form at deepseek-v2-236b's decode shape: the reference's
@@ -472,6 +517,9 @@ def test_tuned_block_k_reaches_decode_attention_auto(default_cache_at):
 
 
 def test_tuned_chunk_reaches_selective_scan(default_cache_at):
+    """The tuner's ssm_scan knob is K4's channels a block (``d_block``): a
+    cache entry reaches the wrapper, a miss keeps the value given; ``chunk``
+    stays in the signature and changes nothing; both are checked."""
     rng = np.random.RandomState(2)
     bt, s, dn, n = 1, 24, 8, 4
     x = torch.from_numpy(rng.randn(bt, s, dn).astype(np.float32))
@@ -480,18 +528,20 @@ def test_tuned_chunk_reaches_selective_scan(default_cache_at):
     B = torch.from_numpy(rng.randn(bt, s, n).astype(np.float32))
     C = torch.from_numpy(rng.randn(bt, s, n).astype(np.float32))
     D = torch.ones(dn)
-    assert ss_ops.scan_chunk(x, A, 32, tuned=True) == 32  # a miss keeps the chunk given
+    assert ss_ops.scan_d_block(x, A, 16, tuned=True) == 16  # a miss keeps the value given
     cache = ConfigCache(str(default_cache_at))
-    _put(cache, "ssm_scan", {"bt": bt, "s": s, "dn": dn, "n": n}, {"chunk": 64})
+    _put(cache, "ssm_scan", {"bt": bt, "s": s, "dn": dn, "n": n}, {"d_block": 32})
     cache.save()
     tune.reset_default_cache()
-    assert ss_ops.scan_chunk(x, A, 32, tuned=True) == 64
-    assert ss_ops.scan_chunk(x, A, 32, tuned=False) == 32
+    assert ss_ops.scan_d_block(x, A, 16, tuned=True) == 32
+    assert ss_ops.scan_d_block(x, A, 16, tuned=False) == 16
     tuned = ss_ops.selective_scan(x, dt, A, B, C, D, tuned=True)
-    plain = ss_ops.selective_scan(x, dt, A, B, C, D, chunk=16)
+    plain = ss_ops.selective_scan(x, dt, A, B, C, D, chunk=16, d_block=8)
     assert all(torch.equal(a, b) for a, b in zip(tuned, plain))
     with pytest.raises(ValueError, match="chunk"):
         ss_ops.selective_scan(x, dt, A, B, C, D, chunk=0)
+    with pytest.raises(ValueError, match="d_block"):
+        ss_ops.selective_scan(x, dt, A, B, C, D, d_block=12)
 
 
 def test_local_sdca_use_kernel_and_tuned(default_cache_at):
