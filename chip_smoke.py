@@ -98,10 +98,13 @@ of which exits non-zero on failure:
       in the kernels line;
   18. K2's latent form and K3 at (dk 192, dv 128) against their plain
       versions on the card, in bf16: K2 at deepseek-v2's decode shape (B 8,
-      128 heads, r 512, dr 64, page 16, 68 pages) with ragged lengths and at
+      128 heads, r 512, dr 64, page 16, 68 pages) with ragged lengths, at
       lengths 0, 1, a full row and lengths that are no multiple of the
-      blocking, at every pages_per_program the tuner keeps, the others
-      refused by the wrapper as by the roofline; K3 at B 1, 128 heads,
+      blocking, and at its 192-position split boundaries and one past them,
+      at every pages_per_program the tuner keeps (the kernel's bits the same
+      at each: its tile is 64 positions whatever the value), the others
+      refused by the wrapper as by the roofline; then at pages of 32 and of 8
+      positions at the default pages_per_program; K3 at B 1, 128 heads,
       S 1024, causal, with kv_lens;
   19. small-input check of the MLA + MoE LM: the smoke deepseek-v2 on the
       card (K3 at (24, 16), K2's latent form at (16, 8)) against the plain
@@ -116,11 +119,16 @@ of which exits non-zero on failure:
       the other GEMMs and the device's busy share;
   22. K2-latent's and K3 (192, 128)'s times per launch against their bounds,
       their plain versions' times and one PyTorch call's time
-      (``scaled_dot_product_attention``).
+      (``scaled_dot_product_attention``): K2-latent at phase 18's ragged
+      lengths and at full rows (8 x 1088, what the long run's steps see),
+      both and their PyTorch calls replayed from a CUDA graph with the L2
+      flushed before each call (eager and warm-L2 times printed beside), its
+      split and merge kernels' device times from the profiler.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K4's decode body
-has a row of its own, ``selective_scan_step``, and K3 at (192, 128) one,
-``flash_fwd_mla``), the card's
+has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
+``flash_fwd_mla``, and K2-latent at full rows one,
+``paged_latent_decode_full``), the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -338,8 +346,8 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# How a kernels-line row was timed ("timed_by"): K2's and K5's rows and
-# their PyTorch calls by GRAPH_COLD_L2, every other row by EAGER.
+# How a kernels-line row was timed ("timed_by"): K2's, K2-latent's and K5's
+# rows and their PyTorch calls by GRAPH_COLD_L2, every other row by EAGER.
 EAGER = "CUDA events over calls back to back"
 GRAPH_COLD_L2 = ("CUDA graph of the calls, the L2 flushed before each by a read of "
                  "256 MB, the reads' own graph time taken off")
@@ -1600,13 +1608,25 @@ def mla_kernels_vs_plain(dev, cfg) -> dict:
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    b, npp, page = LONG_BATCH, LONG_PAGES, 16
-    shape = fd_ops.latent_shape(b, cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim, page, npp)
-    # ragged lengths; then 0, 1, a full row, and lengths that are no multiple
-    # of any blocking
-    for lengths in (None, [0, 1, npp * page, 1000, 65, 17, 555, 129]):
-        args = latent_inputs(torch, gen, cfg, b, npp, lengths)
-        for config in candidates_for("flash_decode_paged", shape):
+    b, s = LONG_BATCH, LONG_PAGES * 16
+    # pages of 16: ragged lengths; then 0, 1, a full row, and lengths that
+    # are no multiple of any blocking; then the latent kernel's split
+    # boundaries (192 positions from position 0) and one past them; each at
+    # every pages_per_program the roofline keeps.  Then pages of 32 and of 8
+    # at the default pages_per_program (the kernel's 64-position tile cuts a
+    # page of 32 in none and spans eight of 8)
+    cases = [(16, lengths, None) for lengths in (
+        None, [0, 1, s, 1000, 65, 17, 555, 129], [192, 193, 384, 385, 576, 577, 960, 961])]
+    cases += [(page, None, fd_ops.DEFAULT_PAGES_PER_PROGRAM) for page in (32, 8)]
+    for page, lengths, ppp_only in cases:
+        npp = s // page
+        shape = fd_ops.latent_shape(b, cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim, page,
+                                    npp)
+        args = latent_inputs(torch, gen, cfg, b, npp, lengths, page=page)
+        configs = (candidates_for("flash_decode_paged", shape) if ppp_only is None
+                   else [{"pages_per_program": ppp_only}])
+        first = None
+        for config in configs:
             ppp = config["pages_per_program"]
             if not estimate("flash_decode_paged", shape, config, "bfloat16").fits:
                 try:
@@ -1621,9 +1641,13 @@ def mla_kernels_vs_plain(dev, cfg) -> dict:
                                                         pages_per_program=ppp)
             errs["paged_latent_decode"] = max(errs["paged_latent_decode"], check_against_plain(
                 torch, "paged_latent_decode", got, want, args[2],
-                f"B={b} lengths={args[4].tolist()} npp={npp} ppp={ppp}"))
+                f"B={b} lengths={args[4].tolist()} page={page} npp={npp} ppp={ppp}"))
             if any(got[i].float().abs().any() for i, n in enumerate(args[4].tolist()) if n == 0):
                 fail("paged_latent_decode: a row of length 0 is not zeros")
+            # the kernel's tile is 64 positions whatever pages_per_program is
+            first = got if first is None else first
+            if not torch.equal(got, first):
+                fail(f"paged_latent_decode: pages_per_program={ppp} changed the kernel's bits")
     dk, dv, h = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim, cfg.n_heads
     for s_len, kv_len in ((LONG_PROMPT, LONG_PROMPT - 24), (96, 37)):
         q, k, v = bf16(1, h, s_len, dk), bf16(1, h, s_len, dk), bf16(1, h, s_len, dv)
@@ -1637,68 +1661,114 @@ def mla_kernels_vs_plain(dev, cfg) -> dict:
             f"B=1 H={h} S={s_len} dk={dk} dv={dv} kv_lens=[{kv_len}]"))
     print(f"tolerance: at most {MAX_BF16_ULPS} bf16 ulp of the output beyond "
           f"{V_ATOL_OF_MAX:.2e} max|v| (v the latent pool for K2's latent form); an empty "
-          "row exactly 0; pages_per_program the roofline refuses refused by the wrapper")
+          "row exactly 0; pages_per_program the roofline refuses refused by the wrapper, "
+          "the others the same bits")
     return errs
 
 
-def mla_kernel_timings(dev, cfg):
+def mla_kernel_timings(dev, cfg, errs):
     """Phase 22.  Returns {kernel: (ms, plain_ms, library_ms, bound_ms,
-    bound_by, shape)} for K2's latent form at phase 18's shape with ragged
-    lengths, and for K3 at (S 1024, 128 heads, dk 192, dv 128), causal
-    (``flash_fwd_mla``, a row of the kernels line beside K3's at qwen3-14b's
-    shape)."""
+    bound_by, shape, how)} for K2's latent form at phase 18's shape with
+    ragged lengths (``paged_latent_decode``) and at full rows
+    (``paged_latent_decode_full``, the rows the long run's decode steps
+    see), both and their SDPA yardsticks replayed from a CUDA graph with the
+    L2 flushed (``graph_ms``), each row's kernel output held against the
+    plain version's (its error into ``errs``); and (ms, plain_ms,
+    library_ms, bound_ms, bound_by, shape) for K3 at (S 1024, 128 heads, dk
+    192, dv 128), causal (``flash_fwd_mla``, a row of the kernels line
+    beside K3's at qwen3-14b's shape)."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.tune.roofline import latent_splits
     from repro_torch.models.mla import sm_scale
 
-    phase("K2-latent and K3 (192, 128) timings (CUDA events, after warm-up)")
+    phase("K2-latent and K3 (192, 128) timings (K2-latent from a CUDA graph, L2 flushed; "
+          "K3 by CUDA events, after warm-up)")
     m, h = cfg.mla, cfg.n_heads
     r, dr = m.kv_lora_rank, m.qk_rope_head_dim
     gen = torch.Generator(device=dev).manual_seed(9)
     scale = sm_scale(cfg)
     timings = {}
     b, npp, page, ppp = LONG_BATCH, LONG_PAGES, 16, K2_ROW_PAGES_PER_PROGRAM
-    q_lat, q_pe, ckv, kpe, lens, tables = latent_inputs(torch, gen, cfg, b, npp)
     s = npp * page
-    valid = int(lens.sum())
-    ms = cuda_ms(lambda: fd_ops.paged_latent_decode(q_lat, q_pe, ckv, kpe, lens, tables,
-                                                    scale=scale, pages_per_program=ppp),
-                 reps=50)
-    plain = cuda_ms(lambda: fd_ops.paged_latent_decode_attention(
-        q_lat, q_pe, ckv, kpe, lens, tables, sm_scale=scale, impl="stream",
-        pages_per_program=ppp), reps=3, warmup=1)
-    values = fd_ops.gather_pages(ckv, tables)[:, None]  # (B, 1, S, r)
-    keys = torch.cat([values, fd_ops.gather_pages(kpe, tables)[:, None]], dim=-1)
-    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    q_sdpa = torch.cat([q_lat, q_pe], dim=-1)[:, :, None]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q_sdpa, keys, values, attn_mask=mask,
-                                                         scale=scale, enable_gqa=True),
-                  reps=50)
-    # the valid positions' latent and rope rows, the queries and lengths and
-    # page tables read once, the output written once; 2 H (2 r + dr) FLOPs a
-    # valid position
-    nbytes = valid * (r + dr) * 2 + b * h * (2 * r + dr) * 2 + b * 4 + b * npp * 4
-    flops = 2 * valid * h * (2 * r + dr)
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-    bound = max(bytes_ms, ops_ms)
-    by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"paged_latent_decode B={b} H={h} r={r} dr={dr} context {s} lengths "
-          f"{lens.tolist()} (sum {valid}) ppp={ppp}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-          f"SDPA over the gathered [ckv | kpe] keys and ckv values with a length mask "
-          f"{lib:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s = "
-          f"{bytes_ms:.4f} ms; {flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms), "
-          f"kernel at {100 * bound / ms:.2f}% of bound; grid {-(-h // 8) * b} blocks")
-    timings["paged_latent_decode"] = (ms, plain, lib, bound, by, f"B={b} context={s} ppp={ppp}")
-    for ppp_other in (2, 8):
-        other = cuda_ms(lambda: fd_ops.paged_latent_decode(
-            q_lat, q_pe, ckv, kpe, lens, tables, scale=scale, pages_per_program=ppp_other),
-            reps=50)
-        print(f"paged_latent_decode at ppp={ppp_other}: kernel {other:.4f} ms")
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+    groups = -(-h // fd_ops.LATENT_HEADS)
+    smem = fd_ops.LATENT_LIBRARY.load().paged_latent_decode_smem_bytes(r, dr)
+    for name, lengths in (("paged_latent_decode", None),
+                          ("paged_latent_decode_full", [s] * b)):
+        q_lat, q_pe, ckv, kpe, lens, tables = latent_inputs(torch, gen, cfg, b, npp, lengths)
+        valid = int(lens.sum())
 
+        def call():
+            return fd_ops.paged_latent_decode(q_lat, q_pe, ckv, kpe, lens, tables, scale=scale,
+                                              pages_per_program=ppp)
+
+        ms = graph_ms(call, reps=50, flush=flush)
+        warm = graph_ms(call, reps=50)
+        eager = cuda_ms(call, reps=50)
+
+        def plain_call():
+            return fd_ops.paged_latent_decode_attention(
+                q_lat, q_pe, ckv, kpe, lens, tables, sm_scale=scale, impl="stream",
+                pages_per_program=ppp)
+
+        errs[name] = max(errs.get(name, 0.0), check_against_plain(
+            torch, name, call(), plain_call(), ckv, f"B={b} lengths={lens.tolist()} ppp={ppp}"))
+        plain = cuda_ms(plain_call, reps=3, warmup=1)
+        values = fd_ops.gather_pages(ckv, tables)[:, None]  # (B, 1, S, r)
+        keys = torch.cat([values, fd_ops.gather_pages(kpe, tables)[:, None]], dim=-1)
+        mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        q_sdpa = torch.cat([q_lat, q_pe], dim=-1)[:, :, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q_sdpa, keys, values, attn_mask=mask,
+                                                  scale=scale, enable_gqa=True)
+
+        lib = graph_ms(sdpa, reps=20, flush=flush)
+        lib_warm = graph_ms(sdpa, reps=20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        device_us = {"merge" if "merge" in e.key else "split":
+                     e.self_device_time_total / e.count
+                     for e in prof.key_averages() if "paged_latent_decode" in e.key}
+        # the valid positions' latent and rope rows, the queries and lengths
+        # and page tables read once, the output written once; 2 H (2 r + dr)
+        # FLOPs a valid position
+        nbytes = valid * (r + dr) * 2 + b * h * (2 * r + dr) * 2 + b * 4 + b * npp * 4
+        flops = 2 * valid * h * (2 * r + dr)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        splits = latent_splits(s)
+        live = sum(latent_splits(n) for n in lens.tolist()) * groups
+        print(f"{name} B={b} H={h} r={r} dr={dr} context {s} lengths {lens.tolist()} (sum "
+              f"{valid}) ppp={ppp}: kernel {ms:.4f} ms (CUDA graph, L2 flushed; {warm:.4f} ms "
+              f"with the pool in the L2; eager calls back to back {eager:.4f} ms), split "
+              f"kernel {device_us.get('split', 0.0):.2f} us and merge kernel "
+              f"{device_us.get('merge', 0.0):.2f} us of device time a call (profiler, 20 "
+              f"calls), plain {plain:.3f} ms, SDPA over the gathered [ckv | kpe] keys and ckv "
+              f"values with a length mask {lib:.4f} ms (CUDA graph, L2 flushed; {lib_warm:.4f} "
+              f"ms warm), bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s = "
+              f"{bytes_ms:.4f} ms; {flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms), "
+              f"kernel at {100 * bound / ms:.2f}% of bound; grid {splits} splits x {groups} "
+              f"head groups x {b} = {splits * groups * b} blocks of 256 threads ({live} hold "
+              f"positions), {smem} bytes of shared memory a block, then the merge's {h} x {b} "
+              "blocks")
+        timings[name] = (ms, plain, lib, bound, by,
+                         f"B={b} context={s} lengths={'ragged' if lengths is None else 'full'} "
+                         f"ppp={ppp}",
+                         {"timed_by": GRAPH_COLD_L2, "eager_ms": eager, "warm_l2_ms": warm,
+                          "library_warm_l2_ms": lib_warm,
+                          "split_device_us": device_us.get("split", 0.0),
+                          "merge_device_us": device_us.get("merge", 0.0)})
+        del keys, values
     dk, dv, sq = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim, LONG_PROMPT
 
     def bf16(*shape):
@@ -1793,11 +1863,14 @@ def main() -> None:
                                       path_no=5, cfg=cfg)
     launches["paged_latent_decode"] = mla_launches["paged_latent_decode"]
     launches["flash_fwd_mla"] = mla_launches["flash_fwd"]
-    long_serve_run(DEEPSEEK, lm)
+    # the full-rows row's launches: the long run's, whose decode steps see
+    # rows of 1025 to 1088 positions
+    launches["paged_latent_decode_full"] = \
+        long_serve_run(DEEPSEEK, lm)["paged_latent_decode_launches"]
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    timings.update(mla_kernel_timings(dev, cfg))
+    timings.update(mla_kernel_timings(dev, cfg, errs))
 
     kernels = [k1]
     for name, source, replaces in (
@@ -1814,6 +1887,9 @@ def main() -> None:
             ("flash_decode", "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:89"),
             ("paged_latent_decode",
+             "src/repro_torch/kernels/flash_decode/csrc/paged_latent_decode.cu",
+             "src/repro/kernels/flash_decode/kernel.py:189"),
+            ("paged_latent_decode_full",
              "src/repro_torch/kernels/flash_decode/csrc/paged_latent_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:189")):
         ms, plain, lib, bound, by, shape, *how = timings[name]

@@ -26,9 +26,9 @@ for CPU tensors), ``False`` the plain ``decode_attention`` on any device.
 ``paged_decode``, ``paged_latent_decode`` and ``flash_decode`` are the
 kernels' wrappers: a CUDA tensor goes to the kernel or the call raises,
 nothing falls back, and each wrapper's ``launches`` counts its kernel's
-launches and only those.  K2 and K5 are split-KV: one call launches the
-split kernel and, when the cache holds more than one split, the kernel that
-merges the splits; the two count as one launch.
+launches and only those.  K2, its latent form and K5 are split-KV: one call
+launches the split kernel and, when the cache holds more than one split, the
+kernel that merges the splits; the two count as one launch.
 
 ``gather_pages`` and ``paged_prefill_attention`` (``ops.py:272, 292``) are
 gathers plus the flash forward (K3) with ``kv_lens`` and a static
@@ -68,13 +68,21 @@ DECODE_LIBRARY = KernelLibrary(
     error_fn="flash_decode_error_string", includes=[_CSRC / "decode_tile.cuh"])
 LATENT_LIBRARY = KernelLibrary(
     _CSRC / "paged_latent_decode.cu", "paged_latent_decode",
-    {"paged_latent_decode_launch": ([_p] * 7 + [_i] * 8 + [_f, _p],
+    {"paged_latent_decode_launch": ([_p] * 8 + [_i] * 7 + [_f, _p],
                                     ctypes.c_int),
-     "paged_latent_decode_smem_bytes": ([_i, _i, _i], ctypes.c_int)},
+     "paged_latent_decode_smem_bytes": ([_i, _i], ctypes.c_int),
+     "paged_latent_decode_splits": ([_i], ctypes.c_int)},
     error_fn="paged_latent_decode_error_string")
 # (latent width r, rope width dr) the latent kernel is built for: DeepSeek-V2's
 # and its smoke variant's
 LATENT_WIDTHS = ((512, 64), (16, 8))
+# The latent kernel's blocking (paged_latent_decode.cu's kHeads, kTile and
+# kSplitPositions): query heads a block, the M rows of its products; positions
+# a tile, from position 0, whatever the page size and pages_per_program; and
+# positions a split, from position 0
+LATENT_HEADS = 64
+LATENT_TILE = 64
+LATENT_SPLIT_POSITIONS = 192
 
 # K5's tile.  The reference's default, 512 positions, is a TPU tile: K5 keeps
 # a tile of K and V in shared memory, and at head dim 128 a 512-position tile
@@ -242,7 +250,8 @@ def paged_latent_decode(
     pages_per_program: int = DEFAULT_PAGES_PER_PROGRAM,
 ) -> torch.Tensor:
     """K2's latent form: returns the latent context (B, H, r) in q_lat's
-    dtype."""
+    dtype.  ``pages_per_program`` groups the pages of the plain version on
+    the CPU; the kernel's tile is ``LATENT_TILE`` positions whatever it is."""
     if q_lat.device.type == "cpu":
         return _latent_plain(paged_decode_stream, q_lat, q_pe, ckv_pages, kpe_pages, lengths,
                              page_tables, scale, pages_per_program)
@@ -278,21 +287,27 @@ def paged_latent_decode(
             raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    _check_aligned(q_lat=q_lat, q_pe=q_pe, ckv_pages=ckv_pages, kpe_pages=kpe_pages)
     npp = page_tables.shape[1]
-    ppp = max(1, min(int(pages_per_program), npp))
     lib = LATENT_LIBRARY.load()
-    smem = lib.paged_latent_decode_smem_bytes(r, dr, ppp * page)
+    smem = lib.paged_latent_decode_smem_bytes(r, dr)
     if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"r={r}, dr={dr}, {ppp} x {page}-position pages need {smem} bytes of "
-                         f"shared memory, more than the {MAX_SMEM_PER_BLOCK} a block may use")
+        raise ValueError(f"r={r}, dr={dr} need {smem} bytes of shared memory, more than the "
+                         f"{MAX_SMEM_PER_BLOCK} a block may use")
     out = torch.empty_like(q_lat)
     if b * h == 0:
         return out
+    splits = lib.paged_latent_decode_splits(npp * page)
+    groups = -(-h // LATENT_HEADS)
+    # the split-KV partials, (m, l) and acc per (row, head group, split, head)
+    scratch = torch.empty(b * groups * splits * LATENT_HEADS * (r + 2) if splits > 1 else 1,
+                          dtype=torch.float32, device=q_lat.device)
     with torch.cuda.device(q_lat.device):
         err = lib.paged_latent_decode_launch(
             q_lat.data_ptr(), q_pe.data_ptr(), ckv_pages.data_ptr(), kpe_pages.data_ptr(),
-            lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(), b, h, r, dr, n_pages,
-            page, npp, ppp, ctypes.c_float(scale), torch.cuda.current_stream().cuda_stream)
+            lengths.data_ptr(), page_tables.data_ptr(), scratch.data_ptr(), out.data_ptr(), b,
+            h, r, dr, n_pages, page, npp, ctypes.c_float(scale),
+            torch.cuda.current_stream().cuda_stream)
     LATENT_LIBRARY.check(err, "paged_latent_decode kernel")
     paged_latent_decode.launches += 1
     return out

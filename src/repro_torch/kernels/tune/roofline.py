@@ -19,10 +19,11 @@ qwen3-14b's long-run shape), where the TPU grid read every block.  Shared
 memory follows each kernel's own layout (the ``smem_bytes`` of its
 ``csrc/*.cu``), mirrored here so the tuner prunes without building.  A
 ``flash_decode_paged`` shape with a rope width ``dr`` is K2's MLA latent form
-(``flash_decode.ops.latent_shape``): its own shared-memory layout, and the
-q_pe term counted in its FLOPs and bytes.
-Candidates that differ only in a key the port's kernel ignores
-(``IGNORED_KEYS``: K3's rows do not depend on ``block_q``) are timed once.
+(``flash_decode.ops.latent_shape``): its own shared-memory layout and grid,
+and the q_pe term counted in its FLOPs and bytes.  Candidates that differ
+only in a key the port's kernel ignores (``IGNORED_KEYS``: K3's rows do not
+depend on ``block_q``, the latent kernel's tile not on ``pages_per_program``)
+are timed once.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ import torch
 
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.flash_attention.ops import kernel_block_k as k3_block_k
-from repro_torch.kernels.flash_decode.ops import LATENT_WIDTHS
+from repro_torch.kernels.flash_decode.ops import (LATENT_HEADS, LATENT_SPLIT_POSITIONS,
+                                                  LATENT_TILE, LATENT_WIDTHS)
 from repro_torch.kernels.sdca.ops import MAX_D as K1_MAX_D
 from repro_torch.kernels.sdca.ops import kernel_plan as k1_plan
 from repro_torch.kernels.ssm_scan.ops import KERNEL_D_BLOCKS as K4_D_BLOCKS
@@ -52,21 +54,21 @@ SMS = 132  # streaming multiprocessors
 STEP_OVERHEAD_S = 1e-6
 PRUNE_SLACK = 3.0
 
-_PAD = 8  # bf16 padding per staged row (K2's latent form)
 _K3_TILE_Q = 128  # query positions per K3 block (two warpgroups of 64 rows)
 _K3_TILE_KV = 64  # key positions per staged K3 tile
 _STAGES = 2  # staged tiles in flight (K2, K3, K5)
 _SPLIT_POSITIONS = 192  # K2's and K5's split-KV: tiles a split fill at most this
-_LATENT_HEADS = 8  # query heads per block of K2's latent form
 _K4_THREADS = 256  # K4's prefill block: 8 warps
 _K4_TILE = 256  # positions a warp scans together (32 lanes x 8)
 _K4_ROW = _K4_TILE + 4 * (_K4_TILE // 32) + 4  # floats a staged row of a tile
 _K4_WARPS = 8
 _MAX_BLOCKS_PER_SM = 32
 
-# config keys a family's kernel takes but does not depend on: of candidates
-# that differ only there, prune keeps the first
-IGNORED_KEYS: Dict[str, Tuple[str, ...]] = {"flash_attention": ("block_q",)}
+# config keys a kernel takes but does not depend on, by family (the latent
+# form of flash_decode_paged by its own name): of candidates that differ only
+# there, prune keeps the first
+IGNORED_KEYS: Dict[str, Tuple[str, ...]] = {"flash_attention": ("block_q",),
+                                            "flash_decode_latent": ("pages_per_program",)}
 
 
 def ragged_lengths(b: int, capacity: int) -> np.ndarray:
@@ -131,13 +133,21 @@ def decode_splits(capacity: int, bk: int) -> int:
     return _ceil_div(_ceil_div(capacity, bk), decode_tiles_per_split(bk))
 
 
-def latent_smem_bytes(r: int, dr: int, bk: int) -> int:
+def latent_smem_bytes(r: int, dr: int) -> int:
     """flash_decode/csrc/paged_latent_decode.cu's smem_bytes, K2's latent
-    form: q_lat and q_pe (float32) for its 8 heads a block, one tile of
-    bk = pages_per_program * page latent rows and one of rope rows (bf16),
-    scores, m / l / alpha."""
-    h = _LATENT_HEADS
-    return h * (r + dr) * 4 + bk * (r + _PAD) * 2 + bk * (dr + _PAD) * 2 + h * bk * 4 + 3 * h * 4
+    form: [q_lat | q_pe] for its 64 heads a block and a ring of two tiles of
+    64 [ckv | kpe] rows, bf16, the depth r + dr padded to a multiple of 16;
+    then the pool rows of the split's 192 positions (int32).  The scores,
+    softmax and accumulator live in registers."""
+    dkp = _ceil_div(r + dr, 16) * 16
+    return 2 * (LATENT_HEADS + _STAGES * LATENT_TILE) * dkp + 4 * LATENT_SPLIT_POSITIONS
+
+
+def latent_splits(capacity: int) -> int:
+    """paged_latent_decode.cu's n_splits: splits of 192 positions from
+    position 0 of a row of ``capacity`` positions, the first dimension of
+    the latent kernel's grid, (splits, ceil(H / 64), B)."""
+    return _ceil_div(capacity, LATENT_SPLIT_POSITIONS)
 
 
 def k4_smem_bytes(n: int, d_block: int) -> int:
@@ -214,17 +224,18 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         fits = smem <= MAX_SMEM_PER_BLOCK
     elif family == "flash_decode_paged" and "dr" in shape:  # K2's latent form
         b, h, r, dr = shape["b"], shape["g"], shape["d"], shape["dr"]
-        page, npp = shape["page"], shape["npp"]
-        ppp = min(config["pages_per_program"], npp)  # the wrapper's clamp
-        s = npp * page
+        s = shape["npp"] * shape["page"]
         lens = ragged_lengths(b, s)
         # the reference's count with the q_pe term: q . k and p . v over r,
         # q_pe . kpe over dr; one pool is the keys and the values, so each
         # valid position's latent and rope rows are read once
         flops = 2.0 * b * h * s * (2 * r + dr)
         bytes_moved = 1.0 * int(lens.sum()) * (r + dr) * it
-        smem = latent_smem_bytes(r, dr, ppp * page)
-        steps = _waves(b * _ceil_div(h, _LATENT_HEADS)) * _ceil_div(int(lens.max()), ppp * page)
+        smem = latent_smem_bytes(r, dr)
+        # split-KV: each block (one an SM) walks at most one split's tiles
+        steps = (_waves(b * _ceil_div(h, LATENT_HEADS) * latent_splits(s))
+                 * min(LATENT_SPLIT_POSITIONS // LATENT_TILE,
+                       _ceil_div(int(lens.max()), LATENT_TILE)))
         fits = (r, dr) in LATENT_WIDTHS and smem <= MAX_SMEM_PER_BLOCK
     elif family == "flash_decode_paged":  # K2
         b, hk, g = shape["b"], shape["hk"], shape["g"]
@@ -303,7 +314,8 @@ def prune(
     fits = [e for e in ests if e.fits]
     if not fits:
         raise ValueError(f"{family} at {shape}: the kernel takes none of {list(candidates)}")
-    ignored = IGNORED_KEYS.get(family, ())
+    latent = family == "flash_decode_paged" and "dr" in shape
+    ignored = IGNORED_KEYS.get("flash_decode_latent" if latent else family, ())
     distinct = {}
     for e in fits:
         distinct.setdefault(tuple(sorted((k, v) for k, v in e.config.items()

@@ -343,23 +343,26 @@ def test_latent_roofline_counts_the_q_pe_term():
     assert est.flops == ref_estimate("flash_decode_paged", ref_key, config).flops \
         + 2.0 * b * h * s * dr
     assert est.bytes_moved == float(ragged_lengths(b, s).sum()) * (512 + 64) * 2
-    assert est.smem_bytes == roofline_mod.latent_smem_bytes(512, 64, 4 * 16)
+    assert est.smem_bytes == roofline_mod.latent_smem_bytes(512, 64)
 
 
 def test_latent_roofline_refuses_the_blockings_the_wrapper_refuses():
     """The roofline keeps a pages_per_program at the latent shape exactly
-    when the latent kernel's shared memory (its own formula, mirrored; held
-    equal to the kernel's export and to the wrapper's refusals on the card,
-    tests/test_torch_mla_gpu.py) fits a block: up to 8 pages of 16, where the
-    GQA form's formula would take 16 and refuse d = 512 outright."""
+    when the wrapper takes it.  The latent kernel's tile is 64 positions
+    whatever pages_per_program is, so its shared memory (its own formula,
+    mirrored; held equal to the kernel's export on the card,
+    tests/test_torch_mla_gpu.py) is the same 221,952 bytes for every
+    candidate and fits a block: the roofline keeps them all, and prune times
+    one, since the kernel does not depend on the key.  Widths the kernel is
+    not built for are refused."""
     cands = candidates_for("flash_decode_paged", LATENT)
     for c in cands:
         est = estimate("flash_decode_paged", LATENT, c, "bfloat16")
-        fits = roofline_mod.latent_smem_bytes(512, 64, c["pages_per_program"] * 16) \
-            <= MAX_SMEM_PER_BLOCK
-        assert est.fits == fits
-    kept, _ = prune("flash_decode_paged", LATENT, cands, "bfloat16")
-    assert kept and max(e.config["pages_per_program"] for e in kept) == 8
+        assert est.fits and est.smem_bytes == roofline_mod.latent_smem_bytes(512, 64)
+    assert roofline_mod.latent_smem_bytes(512, 64) == 221952 <= MAX_SMEM_PER_BLOCK
+    kept, pruned = prune("flash_decode_paged", LATENT, cands, "bfloat16")
+    assert len(kept) == 1 and pruned == len(cands) - 1
+    assert kept[0].config == cands[0]
     with pytest.raises(ValueError, match="takes none"):  # widths the kernel is not built for
         shape = dict(LATENT, d=256)
         prune("flash_decode_paged", shape, candidates_for("flash_decode_paged", shape))
