@@ -3,9 +3,12 @@
 
   python3 chip_smoke.py
 
-It drives the port's five paths, each with every kernel launch count set
-to 0 just before it and read just after: the Hemingway loop on the local
-SDCA kernel (K1); the kernel autotuner (``python -m repro_torch.kernels.tune``
+It drives the port's paths, each with every kernel launch count set to 0
+just before it and read just after: the Hemingway loop on the local SDCA
+kernel (K1); the algorithm menu at the paper's workload (CoCoA and CoCoA+
+on K1, local SGD on the local-SGD kernel K6, mini-batch SGD, GD and
+L-BFGS); the §6 chaos loop (``python -m repro_torch.chaos_train``), its
+SSP executor on K6; the kernel autotuner (``python -m repro_torch.kernels.tune``
 and ``ensure`` at qwen3-14b's shapes), which times every kernel and is the
 only caller of the contiguous flash decode kernel (K5); serving qwen3-14b at
 full width through the continuous-batching engine on the flash forward (K3)
@@ -39,6 +42,25 @@ of which exits non-zero on failure:
    6. the Hemingway loop (repro_torch.quickstart) on the paper's workload,
       60000 x 784, m = 1..128, K1's launches checked against its rounds;
    7. device busy share of CoCoA rounds at m = 1, 16 and 128;
+   7a. K6 against its plain version on the card: the paper's shapes (60000
+      x 784, hinge, one local epoch at m 16 and 128 and a whole m = 1 round
+      of 60000 steps) and the chaos run's (n 512, d 32, m 1 to 4, H 1 and 2,
+      stale start vectors, t > 0, all three losses); the hinge bit for bit,
+      or each differing worker explained by a gate tie, the others within
+      the stated tolerance;
+   7b. K6's time per launch at m = 1, 16 and 128 against its bytes bound
+      and its chain floor (the library's ``local_sgd_chain_launch``), and its
+      plain version's time at m = 16;
+   7c. the algorithm menu: ``BSPCluster.simulate`` at m = 16, 40 rounds, for
+      CoCoA, CoCoA+, local SGD and mini-batch SGD on the hinge problem (Fig
+      1c's set) and GD and L-BFGS on the smooth hinge at the same size, each
+      algorithm's measured round, t_iter and final gap printed; K6's
+      launches equal to local SGD's rounds and K1's to CoCoA's (warm-up and
+      dispatch-floor rounds included);
+   7d. a small-input check of the chaos loop (60 steps on the card against
+      the CPU with the same draws), then ``python -m repro_torch.chaos_train
+      --seed 0`` in process on the card: run and replay identical, K6's
+      launches equal to the executor's outer steps;
    8. K3 and K2 against their plain versions on the card, in bf16, at
       qwen3-14b's shapes, within the stated tolerances: K3 at block_k 16
       (the engine's) and 64, with K and V NaN past kv_len in one case; K2
@@ -125,7 +147,9 @@ of which exits non-zero on failure:
       flushed before each call (eager and warm-L2 times printed beside), its
       split and merge kernels' device times from the profiler.
 The last lines are one JSON object with every kernel's summary (its
-``timed_by`` says how ``ms`` and ``library_ms`` were timed; K4's decode body
+``timed_by`` says how ``ms`` and ``library_ms`` were timed; K6's row,
+``local_sgd``, replaces the reference's compiled ``lax.scan``, no Pallas
+kernel, and counts its launches on the menu and chaos paths; K4's decode body
 has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
 ``flash_fwd_mla``, and K2-latent at full rows one,
 ``paged_latent_decode_full``), the card's
@@ -245,13 +269,15 @@ def kernel_wrappers():
     """Every kernel's wrapper, by kernel name; each counts its launches."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.local_sgd import ops as local_sgd_ops
     from repro_torch.kernels.sdca import ops as sdca_ops
     from repro_torch.kernels.ssm_scan import ops as ss_ops
 
     return {"local_sdca": sdca_ops.local_sdca, "flash_fwd": fa_ops.flash_fwd,
             "paged_decode": fd_ops.paged_decode, "selective_scan": ss_ops.selective_scan,
             "flash_decode": fd_ops.flash_decode,
-            "paged_latent_decode": fd_ops.paged_latent_decode}
+            "paged_latent_decode": fd_ops.paged_latent_decode,
+            "local_sgd": local_sgd_ops.local_sgd}
 
 
 def reset_launches() -> None:
@@ -295,27 +321,24 @@ def sdca_bytes_and_flops(m, nl, d, idx):
     return nbytes, flops
 
 
-def sdca_step_floor_us(d: int, lam_n: float, h: int = 60000) -> float:
-    """K1's chain floor a step, in us: the library's ``sdca_chain_launch``
-    (the register path's step at width d without its memory traffic, the
-    update of v always taken) over h steps, timed by CUDA events."""
+def step_floor_us(kernel: str, d: int, launch, h: int = 60000) -> float:
+    """A chain kernel's floor a step, in us: its library's chain probe (the
+    register path's step at width d without its memory traffic) over h
+    steps, timed by CUDA events.  ``launch(h, out_ptr, stream)`` launches
+    the probe and returns its error code."""
     import torch
 
-    from repro_torch.kernels.sdca import build
-
-    lib = build.load()
     out = torch.empty(1, device="cuda")
 
     def run():
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdca_chain_launch(d, h, lam_n, out.data_ptr(), stream)
+        err = launch(h, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            fail(f"sdca_chain_launch failed: {build.error_string(err)}")
+            fail(f"{kernel}'s chain probe failed with error {err}")
 
     ms = cuda_ms(run, reps=3, warmup=1)
     if not bool(torch.isfinite(out).all()):
-        fail("the chain probe's result is not finite")
-    print(f"chain floor: K1's dependent chain at d {d} without memory traffic "
+        fail(f"{kernel}'s chain probe's result is not finite")
+    print(f"chain floor: {kernel}'s dependent chain at d {d} without memory traffic "
           f"{1e3 * ms / h:.4f} us a step (one warp, {h} steps, CUDA events)")
     return 1e3 * ms / h
 
@@ -444,12 +467,13 @@ def plain_across_devices(dev, lam, gen) -> None:
 
 
 def hemingway_path(dev):
-    """Phases 3-7: K1 and the Hemingway loop.  Returns K1's summary."""
+    """Phases 3-7: K1 and the Hemingway loop.  Returns K1's summary, the
+    paper's problem on the card and its P*."""
     import torch
 
     from repro_torch import quickstart
     from repro_torch.convert import problem_from_numpy
-    from repro_torch.kernels.sdca import ops
+    from repro_torch.kernels.sdca import build, ops
     from repro_torch.kernels.sdca.ref import local_sdca_ref
     from repro_torch.optim import CocoaConfig, make_mnist_svm, run_cocoa
     from repro_torch.optim.cocoa import draw_indices, partition
@@ -523,7 +547,8 @@ def hemingway_path(dev):
     local_sdca_ref(Xs, ys, a, w, idx, sp, lam, n, loss)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    step_floor_us = sdca_step_floor_us(problem.d, lam * n)
+    floor_us = step_floor_us("K1", problem.d, lambda h, out, stream: build.load(
+        ).sdca_chain_launch(problem.d, h, lam * n, out, stream))
     by_m = {}
     for mm in (1, 16, 128):
         Xm, ym = partition(problem.X, problem.y, mm)
@@ -534,7 +559,7 @@ def hemingway_path(dev):
                      reps=max(5, mm // 4), warmup=2)
         nbytes, flops = sdca_bytes_and_flops(mm, nlm, problem.d, idm)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-        chain_ms = nlm * step_floor_us / 1e3
+        chain_ms = nlm * floor_us / 1e3
         by_m[mm] = {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                     "chain_floor_ms": chain_ms, "h": nlm}
@@ -542,7 +567,7 @@ def hemingway_path(dev):
               f"({1e3 * ms / nlm:.4f} us a step), bound {by_m[mm]['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
               f"{ops_ms:.4f} ms), kernel at {100 * by_m[mm]['bound_ms'] / ms:.2f}% of bound; "
-              f"chain floor {chain_ms:.3f} ms (H x {step_floor_us:.4f} us), kernel at "
+              f"chain floor {chain_ms:.3f} ms (H x {floor_us:.4f} us), kernel at "
               f"{100 * chain_ms / ms:.1f}% of it")
     kernel_ms, bound_ms = by_m[16]["ms"], by_m[16]["bound_ms"]
     print(f"plain version at m=16: {plain_ms:.1f} ms/call; no single PyTorch call computes this")
@@ -605,8 +630,255 @@ def hemingway_path(dev):
         "timed_by": EAGER,
         "shape": "m=16 nl=3750 d=784 H=nl",
         "by_m": by_m,
-        "chain_floor_us_a_step": step_floor_us,
-    }
+        "chain_floor_us_a_step": floor_us,
+    }, problem, result["p_star"]
+
+
+# K6 against its plain version at the chaos run's shapes: the smooth hinge
+# and the logistic loss carry the dot's last-bit difference (its order of
+# summation, the only operation the two do differently) through a
+# continuous slope, and at those step sizes (lr0 0.01, lambda 1e-2) each step
+# is a contraction, so W stays within 1e-5 of max |W| (tests/
+# test_torch_local_sgd_gpu.py).  The hinge's slope is -1 or 0, so there the
+# two give the same bits, or differ from a step whose margin lies within the
+# dot's rounding bound of the gate at 1 (``first_gate_ties``), the kernel's
+# chain bit for bit the plain version's up to it.
+LOCAL_SGD_RTOL_OF_MAX = 1e-5
+LOCAL_SGD_PAPER = dict(lr0=1.0, t0=100.0)   # LocalSGDConfig's defaults
+LOCAL_SGD_CHAOS = dict(lr0=0.01, t0=100.0, lam=1e-2)  # run_chaos_sim's executor
+MENU_M = 16
+MENU_ITERS = 40
+MENU_HINGE = ("cocoa", "cocoa+", "local_sgd", "minibatch_sgd")  # Fig 1c's set
+MENU_SMOOTH = ("gd", "lbfgs")  # need a smooth loss (L-BFGS refuses the hinge)
+
+
+def check_hinge_chain(W0, Xs, ys, idx, t, lr0, t0, lam, what) -> list:
+    """K6 against its plain version for the hinge: bit for bit, or each
+    differing worker explained by a gate tie.  Returns the workers that
+    differ (each explained)."""
+    import torch
+
+    from repro_torch.kernels.local_sgd import ops
+    from repro_torch.kernels.local_sgd.ref import first_gate_ties, local_sgd_ref
+
+    h = idx.shape[1]
+    got = ops.local_sgd(W0, Xs, ys, idx, t, h, lr0, t0, lam, "hinge")
+    torch.cuda.synchronize()
+    want = local_sgd_ref(W0, Xs, ys, idx, t, h, lr0, t0, lam, "hinge")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"local_sgd {what}: kernel output is not finite")
+    differ = (got != want).any(1).nonzero().flatten().tolist()
+    if differ:
+        ties = first_gate_ties(W0, Xs, ys, idx, t, h, lr0, t0, lam)
+        for k in differ:
+            tie = int(ties[k])
+            head = idx[:, :tie].contiguous()
+            if tie >= h or not torch.equal(
+                    ops.local_sgd(W0, Xs, ys, head, t, h, lr0, t0, lam, "hinge")[k],
+                    local_sgd_ref(W0, Xs, ys, head, t, h, lr0, t0, lam, "hinge")[k]):
+                fail(f"local_sgd {what}: worker {k} differs from the plain version, and not "
+                     f"from a gate tie (first tie at step {tie} of {h})")
+        print(f"  {what}: workers {differ} differ from a gate tie each (first ties at steps "
+              f"{[int(ties[k]) for k in differ]}), bit for bit before it")
+    return differ
+
+
+def local_sgd_vs_plain(dev, problem) -> float:
+    """Phase 7a.  K6 against its plain version: the paper's shapes (hinge,
+    one local epoch at m 16 and 128, a whole m = 1 round of 60000 steps) and
+    the chaos run's (n 512, d 32, m 1 to 4, H 1 and 2, stale start vectors,
+    t > 0, all three losses).  Returns the largest absolute error of the
+    continuous losses (the hinge's cases are bit for bit, or explained)."""
+    import torch
+
+    from repro_torch.kernels.local_sgd import ops
+    from repro_torch.kernels.local_sgd.ref import local_sgd_ref
+    from repro_torch.optim.cocoa import draw_indices, partition
+    from repro_torch.optim.problems import synthetic_mnist
+
+    phase("K6 (local SGD) kernel vs plain (60000 x 784 hinge; the chaos run's shapes)")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for m in (16, 128, 1):
+        Xs, ys = partition(problem.X, problem.y, m)
+        nl = Xs.shape[1]
+        idx = draw_indices(m, nl, nl, gen)
+        W0 = torch.zeros((m, problem.d), device=dev)
+        differ = check_hinge_chain(W0, Xs, ys, idx, 0, LOCAL_SGD_PAPER["lr0"],
+                                   LOCAL_SGD_PAPER["t0"], problem.lam, f"hinge m={m} H={nl}")
+        print(f"hinge m={m} nl={nl} H={nl} lam={problem.lam}: {m - len(differ)} of {m} workers "
+              "bit for bit")
+    X, y = synthetic_mnist(512, 32, 16, 0.09, 0.35, 0)
+    max_err = 0.0
+    for m, h in ((1, 1), (2, 2), (4, 1), (4, 2)):
+        Xs, ys = partition(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev), m)
+        nl = Xs.shape[1]
+        W0 = 0.1 * torch.randn((m, 32), generator=gen, device=dev)  # stale copies
+        for t in (0, 37, 159):
+            idx = torch.randint(0, nl, (m, h), generator=gen, device=dev)
+            check_hinge_chain(W0, Xs, ys, idx, t, **LOCAL_SGD_CHAOS, what=f"chaos m={m} h={h}")
+            for loss in ("smooth_hinge", "logistic"):
+                args = (W0, Xs, ys, idx, t, h, *LOCAL_SGD_CHAOS.values(), loss)
+                got = ops.local_sgd(*args)
+                torch.cuda.synchronize()
+                want = local_sgd_ref(*args)
+                err = float((got - want).abs().max())
+                if not err <= LOCAL_SGD_RTOL_OF_MAX * float(want.abs().max()):
+                    fail(f"local_sgd {loss} m={m} h={h} t={t}: max|dW| {err:.3e}")
+                max_err = max(max_err, err)
+    print(f"chaos shapes (n 512, d 32, m 1-4, h 1-2, t 0/37/159): hinge bit for bit or "
+          f"explained; smooth hinge and logistic max|dW| {max_err:.3e} (limit "
+          f"{LOCAL_SGD_RTOL_OF_MAX} max|W|)")
+    return max_err
+
+
+def local_sgd_timings(dev, problem) -> dict:
+    """Phase 7b.  K6's ms a launch at m = 1, 16 and 128 (one local epoch
+    each, hinge) against its bytes bound and chain floor, and its plain
+    version's ms at m = 16."""
+    import torch
+
+    from repro_torch.kernels.local_sgd import build, ops
+    from repro_torch.kernels.local_sgd.ref import local_sgd_ref
+    from repro_torch.optim.cocoa import draw_indices, partition
+
+    phase("K6 timings (m = 1, 16 and 128, CUDA events, after warm-up)")
+    lam, d = problem.lam, problem.d
+    lr0, t0 = LOCAL_SGD_PAPER["lr0"], LOCAL_SGD_PAPER["t0"]
+    floor_us = step_floor_us("K6", d, lambda h, out, stream: build.load(
+        ).local_sgd_chain_launch(d, h, lr0, t0, lam, out, stream))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    by_m = {}
+    for m in (1, 16, 128):
+        Xs, ys = partition(problem.X, problem.y, m)
+        nl = Xs.shape[1]
+        W0 = torch.zeros((m, d), device=dev)
+        idx = draw_indices(m, nl, nl, gen)
+        ms = cuda_ms(lambda: ops.local_sgd(W0, Xs, ys, idx, 0, nl, lr0, t0, lam),
+                     reps=3 if m == 1 else 10, warmup=1)
+        # the rows the orders touch and their labels, the orders, W0 read
+        # once, W written once; a step a dot product and an axpy of 5 d
+        rows = sum(int(row.unique().numel()) for row in idx)
+        nbytes = 4 * (rows * (d + 1) + m * nl + 2 * m * d)
+        flops = 7 * d * m * nl
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        chain_ms = nl * floor_us / 1e3
+        by_m[m] = {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                   "chain_floor_ms": chain_ms, "h": nl}
+        print(f"local_sgd m={m} nl={nl} d={d} H={nl}: kernel {ms:.3f} ms/launch "
+              f"({1e3 * ms / nl:.4f} us a step), bound {by_m[m]['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
+              f"{ops_ms:.4f} ms), kernel at {100 * by_m[m]['bound_ms'] / ms:.2f}% of bound; "
+              f"chain floor {chain_ms:.3f} ms (H x {floor_us:.4f} us), kernel at "
+              f"{100 * chain_ms / ms:.1f}% of it")
+        if m == 16:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            local_sgd_ref(W0, Xs, ys, idx, 0, nl, lr0, t0, lam)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t_start) * 1e3
+            print(f"plain version at m=16: {plain_ms:.1f} ms/call (H eager steps of about ten "
+                  "launches); no single PyTorch call computes the chain")
+    return {"ms": by_m[16]["ms"], "plain_ms": plain_ms, "bound_ms": by_m[16]["bound_ms"],
+            "bound_by": by_m[16]["bound_by"], "by_m": by_m,
+            "chain_floor_us_a_step": floor_us}
+
+
+def menu_path(dev, problem, p_star) -> int:
+    """Phase 7c.  Main path: the algorithm menu at the paper's workload,
+    ``BSPCluster.simulate`` at m = 16 for Fig 1c's set on the hinge problem
+    and for GD and L-BFGS on the smooth hinge at the same size.  Returns
+    K6's launches on it."""
+    from repro_torch.optim import ALGORITHMS, BSPCluster
+    from repro_torch.optim.simcluster import solve_reference
+
+    phase(f"main path 1b: the algorithm menu, 60000 x 784, m = {MENU_M}, {MENU_ITERS} rounds "
+          "each (BSPCluster.simulate)")
+    if set(MENU_HINGE + MENU_SMOOTH) != set(ALGORITHMS):
+        fail(f"the menu path runs {MENU_HINGE + MENU_SMOOTH}, the port has {ALGORITHMS}")
+    smooth = dataclasses.replace(problem, loss="smooth_hinge")
+    p_smooth, _ = solve_reference(smooth, iters=REF_ITERS)  # set-up, before the counts
+    print(f"P* hinge {p_star:.6f} (main path 1), smooth hinge {p_smooth:.6f} ({REF_ITERS} "
+          "SDCA rounds at m = 1)")
+    cluster = BSPCluster()
+    reset_launches()
+    t_path = time.perf_counter()
+    rows = {}
+    for name, prob, ref in ([(a, problem, p_star) for a in MENU_HINGE]
+                            + [(a, smooth, p_smooth) for a in MENU_SMOOTH]):
+        t0 = time.perf_counter()
+        sim = cluster.simulate(prob, name, MENU_M, MENU_ITERS)
+        seconds = time.perf_counter() - t0
+        rec = sim.record
+        rows[name] = {"loss": prob.loss, "round_ms": 1e3 * rec.compute_seconds / MENU_ITERS,
+                      "t_iter_ms": 1e3 * sim.t_iter, "final_gap": float(rec.primal.min() - ref),
+                      "seconds": seconds}
+        r = rows[name]
+        print(f"{name:14s} ({prob.loss:12s}): measured round {r['round_ms']:8.3f} ms, t_iter "
+              f"{r['t_iter_ms']:8.2f} ms, final gap {r['final_gap']:.3e}, {seconds:.2f} s")
+        if not (r["round_ms"] > 0 and r["t_iter_ms"] > 0 and abs(r["final_gap"]) < 1e30):
+            fail(f"{name}: {r}")
+    counts = read_launches()
+    # per algorithm: a warm-up round, the timed rounds, and the dispatch
+    # floor's warm-up and three timed rounds
+    rounds = 1 + MENU_ITERS + 1 + 3
+    expected = {name: 0 for name in counts}
+    expected.update(local_sgd=rounds, local_sdca=2 * rounds)
+    print(f"launches {counts}; local SGD rounds run {rounds}, CoCoA and CoCoA+ rounds "
+          f"{2 * rounds}; {time.perf_counter() - t_path:.1f} s")
+    if counts != expected:
+        fail(f"menu path launches {counts} != the rounds run {expected}")
+    print(json.dumps({"menu_path": rows}))
+    return counts["local_sgd"]
+
+
+def chaos_path(dev) -> int:
+    """Phase 7d.  A small-input check of the chaos loop (the card against
+    the CPU on the same draws), then the main path: ``python -m
+    repro_torch.chaos_train --seed 0`` in process on the card, run and
+    replay.  Returns K6's launches on it."""
+    import torch
+
+    from repro_torch import chaos_train
+    from repro_torch.optim.simcluster import step_seed
+    from repro_torch.runtime.chaos import run_chaos_sim
+
+    phase("small-input check: the chaos loop on the card vs the CPU, 60 steps, the same draws")
+
+    def cpu_draws(t, m, h, nl):
+        return torch.randint(0, nl, (m, h), generator=torch.Generator().manual_seed(
+            step_seed(0, t)))
+
+    card, cpu = (run_chaos_sim(0, steps=60, device=d, indices=cpu_draws) for d in (dev, "cpu"))
+    for got, want in zip(card.rows, cpu.rows):
+        if any(got.get(k) != want.get(k) for k in ("m", "events", "mitigation", "decision",
+                                                      "restore")) or \
+                abs(got["objective"] - want["objective"]) > 1e-5 * abs(want["objective"]):
+            fail(f"chaos step {got['step']}: card {got} vs cpu {want}")
+    print(f"60 steps: the same control sequence, objectives within rtol 1e-5 (final "
+          f"{card.rows[-1]['objective']:.7f} card, {cpu.rows[-1]['objective']:.7f} cpu)")
+
+    phase("main path 1c: python -m repro_torch.chaos_train --seed 0 (run and replay)")
+    reset_launches()
+    t0 = time.perf_counter()
+    log = chaos_train.main(["--seed", "0"])  # raises if the replay diverges
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    outer_steps = sum(1 for r in log.rows if not r.get("restore"))
+    expected = {name: 0 for name in counts}
+    expected["local_sgd"] = 2 * outer_steps  # the run and its replay
+    objs = [r["objective"] for r in log.rows]
+    summary = {"steps": len(log.rows), "outer_steps": outer_steps,
+               "mitigations": log.n_mitigations(), "resizes": log.n_resizes(),
+               "final_m": log.meta["final_m"], "final_objective": log.meta["final_objective"],
+               "seconds_run_and_replay": seconds}
+    print(f"launches {counts}, expected 2 x {outer_steps} outer steps; {json.dumps(summary)}")
+    if counts != expected:
+        fail(f"chaos path launches {counts} != {expected}")
+    if not (all(abs(o) < 1e30 for o in objs) and objs[-1] < 0.8 * objs[0]
+            and log.n_mitigations() >= 1):
+        fail(f"the chaos run did not adapt and converge: {summary}")
+    return counts["local_sgd"]
 
 
 def check_against_plain(torch, name, got, want, v, what) -> float:
@@ -1807,6 +2079,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.local_sgd import build as local_sgd_build
     from repro_torch.kernels.sdca import build as sdca_build
     from repro_torch.kernels.ssm_scan import ops as ss_ops
 
@@ -1817,9 +2090,18 @@ def main() -> None:
 
     phase("build")
     build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY, fd_ops.DECODE_LIBRARY,
-               fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY])
+               fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY, local_sgd_build.LIBRARY])
 
-    k1 = hemingway_path(dev)
+    k1, problem, p_star = hemingway_path(dev)
+    k6_err = local_sgd_vs_plain(dev, problem)
+    k6 = local_sgd_timings(dev, problem)
+    k6_launches = {"menu": menu_path(dev, problem, p_star), "chaos": chaos_path(dev)}
+    k6 = {"name": "local_sgd", "route": "cuda",
+          "source": "src/repro_torch/kernels/local_sgd/csrc/local_sgd.cu",
+          "replaces": "src/repro/optim/sgd.py:129", "launches": sum(k6_launches.values()),
+          "max_abs_err": k6_err, "library_ms": None, "timed_by": EAGER,
+          "shape": "m=16 nl=3750 d=784 H=nl", "launches_by_path": k6_launches, **k6}
+    del problem
     torch.cuda.empty_cache()
 
     cfg = get_config(QWEN)
@@ -1872,7 +2154,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     timings.update(mla_kernel_timings(dev, cfg, errs))
 
-    kernels = [k1]
+    kernels = [k1, k6]
     for name, source, replaces in (
             ("flash_fwd", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
              "src/repro/kernels/flash_attention/kernel.py:92"),

@@ -82,6 +82,14 @@ class RunRecord:
     w: np.ndarray
     compute_seconds: float  # measured seconds of the timed rounds (m workers a launch)
 
+    @classmethod
+    def primal_only(cls, primal: list, w: torch.Tensor, compute_seconds: float
+                    ) -> "RunRecord":
+        """A run that tracks the primal alone: dual and gap are NaN."""
+        p = np.asarray(primal)
+        nan = np.full_like(p, np.nan)
+        return cls(p, nan, nan, w.cpu().numpy(), compute_seconds)
+
 
 def run_cocoa(problem: ERMProblem, cfg: CocoaConfig, record_every: int = 1,
               indices: Optional[IndexSource] = None) -> RunRecord:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.local_sgd.ref import loss_slope
 
 LossName = Literal["hinge", "smooth_hinge", "logistic"]
 
@@ -67,13 +68,7 @@ class ERMProblem:
 
     def loss_grad_z(self, z: torch.Tensor) -> torch.Tensor:
         """d loss / d z (z = y * x.w)."""
-        if self.loss == "hinge":
-            return torch.where(z < 1.0, -1.0, 0.0)
-        if self.loss == "smooth_hinge":
-            g = self.smooth_gamma
-            return torch.where(z >= 1.0, 0.0,
-                               torch.where(z <= 1.0 - g, -1.0, (z - 1.0) / g))
-        return -torch.sigmoid(-z)
+        return loss_slope(z, self.loss, self.smooth_gamma)
 
     def primal(self, w: torch.Tensor) -> torch.Tensor:
         z = self.margins(w)

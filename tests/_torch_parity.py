@@ -32,6 +32,32 @@ def reference_index_source(seed: int, m: int, nl: int, h: int, rounds: int):
     return lambda it: per_round[it]
 
 
+def reference_minibatch_source(seed: int, m: int, nl: int, b: int, rounds: int):
+    """The per-round (m, B) minibatches of ``repro.optim.sgd.run_minibatch_sgd``
+    with ``seed`` (a round key split from the run's key, split over the
+    workers, ``randint`` each: sgd.py:35-41, :66-69), as an index source for
+    ``repro_torch.optim.sgd.run_minibatch_sgd``."""
+    import jax
+
+    key = jax.random.PRNGKey(seed)
+    per_round = []
+    for _ in range(rounds):
+        key, sub = jax.random.split(key)
+        keys = jax.random.split(sub, m)
+        per_round.append(np.array(jax.vmap(lambda k: jax.random.randint(k, (b,), 0, nl))(keys)))
+    return lambda it: per_round[it]
+
+
+def reference_ssp_indices(seed: int, t: int, m: int, h: int, nl: int) -> np.ndarray:
+    """The (m, h) rows ``repro.optim.simcluster.SSPLocalSGD`` draws in outer
+    step t (``fold_in(PRNGKey(seed), t)`` split over the workers, ``randint``
+    each: simcluster.py:55-60, :155)."""
+    import jax
+
+    keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), t), m)
+    return np.array(jax.vmap(lambda k: jax.random.randint(k, (h,), 0, nl))(keys))
+
+
 def assert_within_bf16_ulp(got: np.ndarray, want: np.ndarray, atol: float = 0.0) -> None:
     """Each element of ``got`` within ``atol`` plus one bf16 ulp of ``want``:
     the spacing of bf16 values (7 stored significand bits) at the larger

@@ -104,5 +104,7 @@ def test_ernest_samples_and_fit(setup):
 
 
 def test_unported_algorithms_raise(setup):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        BSPCluster().simulate(setup[0], "lbfgs", 2, 1)
+    """The port runs the reference's six algorithms; a name outside that
+    menu raises with the reference's message, naming the menu."""
+    with pytest.raises(ValueError, match=r"unknown algorithm 'admm'; known \('cocoa'"):
+        BSPCluster().simulate(setup[0], "admm", 2, 1)

@@ -44,7 +44,12 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.kernels.flash_decode.ref", "repro_torch.models.runtime",
                    "repro_torch.kernels.tune", "repro_torch.kernels.tune.cache",
                    "repro_torch.kernels.tune.roofline", "repro_torch.kernels.tune.sweep",
-                   "repro_torch.kernels.tune.telemetry", "repro_torch.kernels.tune.__main__"):
+                   "repro_torch.kernels.tune.telemetry", "repro_torch.kernels.tune.__main__",
+                   "repro_torch.optim.sgd", "repro_torch.optim.lbfgs",
+                   "repro_torch.kernels.local_sgd.ops", "repro_torch.kernels.local_sgd.build",
+                   "repro_torch.kernels.local_sgd.ref", "repro_torch.telemetry.refit",
+                   "repro_torch.runtime.chaos", "repro_torch.runtime.failures",
+                   "repro_torch.runtime.straggler", "repro_torch.chaos_train"):
         assert module in report["imported"]
 
 
@@ -63,7 +68,7 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_raise_without_a_card(no_card, tmp_path):
-    from repro_torch import quickstart
+    from repro_torch import chaos_train, quickstart
     from repro_torch.configs import cocoa_mnist
     from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
     from repro_torch.configs import get_smoke_config
@@ -72,6 +77,7 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from repro_torch.kernels import tune
     from repro_torch.kernels.tune import __main__ as tune_cli
     from repro_torch.optim import make_mnist_svm
+    from repro_torch.runtime.chaos import run_chaos_sim
     from repro_torch.serve import ServeEngine
 
     X = np.zeros((4, 2), np.float32)
@@ -93,14 +99,17 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
                                 str(tmp_path / "t.json")]),
         lambda: tune.ensure("sdca", tune.SWEEP_SHAPES["smoke"]["sdca"],
                             cache=tune.ConfigCache(None)),
+        lambda: chaos_train.main(["--seed", "0", "--steps", "20"]),
+        lambda: run_chaos_sim(0, steps=20),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
 
-def test_explicit_cpu_runs_without_a_card(no_card):
-    from repro_torch import quickstart
+def test_explicit_cpu_runs_without_a_card(no_card, tmp_path, capsys):
+    from repro_torch import chaos_train, quickstart
+    from repro_torch.runtime.chaos import ChaosRunLog, run_chaos_sim
 
     result = quickstart.main(["--device", "cpu", "--n", "256", "--d", "8",
                               "--ms", "1", "2", "4", "--iters", "12",
@@ -108,3 +117,10 @@ def test_explicit_cpu_runs_without_a_card(no_card):
     assert result["fastest_to_epsilon"][1] in (1, 2, 4)
     assert result["best_within_budget"][1] in (1, 2, 4)
     assert set(result["t_iter"]) == {1, 2, 4}
+
+    log = chaos_train.main(["--device", "cpu", "--seed", "1", "--steps", "40",
+                            "--out", str(tmp_path / "run.json")])
+    out = capsys.readouterr().out
+    assert "steps=40 " in out and "replay: identical" in out
+    assert ChaosRunLog.load(tmp_path / "run.json").signature() == log.signature()
+    assert run_chaos_sim(1, steps=40, device="cpu").signature() == log.signature()
