@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --k6-times DIR   # only K6's times, K6 built from DIR
 
 It drives the port's paths, each with every kernel launch count set to 0
 just before it and read just after: the Hemingway loop on the local SDCA
@@ -48,9 +49,14 @@ of which exits non-zero on failure:
       stale start vectors, t > 0, all three losses); the hinge bit for bit,
       or each differing worker explained by a gate tie, the others within
       the stated tolerance;
-   7b. K6's time per launch at m = 1, 16 and 128 against its bytes bound
-      and its chain floor (the library's ``local_sgd_chain_launch``), and its
-      plain version's time at m = 16;
+   7b. K6's plan at the paper's d (ring depth, shared memory; the library's
+      ``local_sgd_plan`` equal to ``ops.kernel_plan``) and its copy route,
+      its time per launch at m = 1, 16 and 128 against its bytes bound and
+      its chain floor (the library's ``local_sgd_chain_launch``), its plain
+      version's time at m = 16, its time per launch at the chaos run's
+      shapes (eager and from a CUDA graph), and its step at m = 16 in parts
+      (the library's ``local_sgd_probe_launch``: the ring refilled but never
+      awaited, and pre-filled and never refilled);
    7c. the algorithm menu: ``BSPCluster.simulate`` at m = 16, 40 rounds, for
       CoCoA, CoCoA+, local SGD and mini-batch SGD on the hinge problem (Fig
       1c's set) and GD and L-BFGS on the smooth hinge at the same size, each
@@ -731,23 +737,30 @@ def local_sgd_vs_plain(dev, problem) -> float:
     return max_err
 
 
-def local_sgd_timings(dev, problem) -> dict:
-    """Phase 7b.  K6's ms a launch at m = 1, 16 and 128 (one local epoch
-    each, hinge) against its bytes bound and chain floor, and its plain
-    version's ms at m = 16."""
+# The chaos run's K6 launches (run_chaos_sim's SSP executor): m workers of
+# the 512 x 32 problem, h local steps each
+CHAOS_SHAPES = ((1, 1), (2, 2), (4, 1), (4, 2))
+
+
+def k6_times(dev, problem) -> tuple:
+    """K6's times, through its wrapper and its chain probe only, which every
+    version of K6 has (so ``--k6-times`` runs it on another checkout): the
+    chain floor at the paper's d; ms a launch at m = 1, 16 and 128 (one local
+    epoch each, hinge); us a launch at the chaos run's shapes, eager (the
+    wrapper's host time in it) and from a CUDA graph of the calls (the
+    device's).  Returns the times and the paper-shape inputs by m."""
     import torch
 
     from repro_torch.kernels.local_sgd import build, ops
-    from repro_torch.kernels.local_sgd.ref import local_sgd_ref
     from repro_torch.optim.cocoa import draw_indices, partition
+    from repro_torch.optim.problems import synthetic_mnist
 
-    phase("K6 timings (m = 1, 16 and 128, CUDA events, after warm-up)")
     lam, d = problem.lam, problem.d
     lr0, t0 = LOCAL_SGD_PAPER["lr0"], LOCAL_SGD_PAPER["t0"]
     floor_us = step_floor_us("K6", d, lambda h, out, stream: build.load(
         ).local_sgd_chain_launch(d, h, lr0, t0, lam, out, stream))
     gen = torch.Generator(device=dev).manual_seed(12)
-    by_m = {}
+    by_m, inputs = {}, {}
     for m in (1, 16, 128):
         Xs, ys = partition(problem.X, problem.y, m)
         nl = Xs.shape[1]
@@ -755,6 +768,53 @@ def local_sgd_timings(dev, problem) -> dict:
         idx = draw_indices(m, nl, nl, gen)
         ms = cuda_ms(lambda: ops.local_sgd(W0, Xs, ys, idx, 0, nl, lr0, t0, lam),
                      reps=3 if m == 1 else 10, warmup=1)
+        by_m[m] = {"ms": ms, "us_a_step": 1e3 * ms / nl, "h": nl}
+        inputs[m] = (W0, Xs, ys, idx)
+    X, y = synthetic_mnist(512, 32, 16, 0.09, 0.35, 0)
+    chaos = {}
+    for m, h in CHAOS_SHAPES:
+        Xs, ys = partition(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev), m)
+        W0 = 0.1 * torch.randn((m, 32), generator=gen, device=dev)
+        idx = torch.randint(0, Xs.shape[1], (m, h), generator=gen, device=dev)
+
+        def call():
+            return ops.local_sgd(W0, Xs, ys, idx, 37, h, *LOCAL_SGD_CHAOS.values(),
+                                 "smooth_hinge")
+
+        chaos[f"m={m} h={h}"] = {"eager_us": 1e3 * cuda_ms(call, reps=200),
+                                 "graph_us": 1e3 * graph_ms(call, reps=200)}
+    return {"chain_floor_us_a_step": floor_us, "by_m": by_m, "chaos": chaos}, inputs
+
+
+def local_sgd_timings(dev, problem) -> dict:
+    """Phase 7b.  K6's plan and copy route at the paper's d, its ms a launch
+    at m = 1, 16 and 128 (one local epoch each, hinge) against its bytes
+    bound and chain floor, its plain version's ms at m = 16, its us a launch
+    at the chaos run's shapes, and its step at m = 16 in parts."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.local_sgd import build, ops
+    from repro_torch.kernels.local_sgd.ref import local_sgd_ref
+
+    phase("K6 timings (m = 1, 16 and 128, the chaos shapes; CUDA events, after warm-up)")
+    lam, d = problem.lam, problem.d
+    lr0, t0 = LOCAL_SGD_PAPER["lr0"], LOCAL_SGD_PAPER["t0"]
+    plan = (ctypes.c_int * 4)()
+    build.LIBRARY.check(build.load().local_sgd_plan(d, plan), "local_sgd_plan")
+    if tuple(plan[i] for i in (0, 1, 3)) != ops.kernel_plan(d):
+        fail(f"K6's plan at d {d}: the library's {list(plan)}, ops.kernel_plan's "
+             f"{ops.kernel_plan(d)}")
+    times, inputs = k6_times(dev, problem)
+    floor_us = times["chain_floor_us_a_step"]
+    route = ops.copy_route(inputs[16][1])
+    print(f"K6 plan at d {d}: {plan[0]} entries a lane in registers, a ring of {plan[1]} rows "
+          f"({plan[2]} staged together), {plan[3]} B of shared memory; copies: {route}")
+    by_m = {}
+    for m, t in times["by_m"].items():
+        W0, Xs, ys, idx = inputs[m]
+        nl, ms = t["h"], t["ms"]
         # the rows the orders touch and their labels, the orders, W0 read
         # once, W written once; a step a dot product and an axpy of 5 d
         rows = sum(int(row.unique().numel()) for row in idx)
@@ -762,26 +822,83 @@ def local_sgd_timings(dev, problem) -> dict:
         flops = 7 * d * m * nl
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         chain_ms = nl * floor_us / 1e3
-        by_m[m] = {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+        by_m[m] = {"ms": ms, "us_a_step": t["us_a_step"], "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                    "chain_floor_ms": chain_ms, "h": nl}
         print(f"local_sgd m={m} nl={nl} d={d} H={nl}: kernel {ms:.3f} ms/launch "
-              f"({1e3 * ms / nl:.4f} us a step), bound {by_m[m]['bound_ms']:.4f} ms "
+              f"({t['us_a_step']:.4f} us a step), bound {by_m[m]['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
               f"{ops_ms:.4f} ms), kernel at {100 * by_m[m]['bound_ms'] / ms:.2f}% of bound; "
               f"chain floor {chain_ms:.3f} ms (H x {floor_us:.4f} us), kernel at "
               f"{100 * chain_ms / ms:.1f}% of it")
-        if m == 16:
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-            local_sgd_ref(W0, Xs, ys, idx, 0, nl, lr0, t0, lam)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t_start) * 1e3
-            print(f"plain version at m=16: {plain_ms:.1f} ms/call (H eager steps of about ten "
-                  "launches); no single PyTorch call computes the chain")
+    for shape, t in times["chaos"].items():
+        print(f"local_sgd chaos shape {shape} (n 512, d 32): {t['eager_us']:.2f} us a launch "
+              f"eager, {t['graph_us']:.2f} us from a CUDA graph")
+    parts = k6_ring_parts(inputs[16], lam)
+    print(f"K6's step at m=16 in parts (the library's local_sgd_probe_launch, us a step): the "
+          f"kernel {by_m[16]['us_a_step']:.4f}; its ring refilled but never awaited "
+          f"{parts['no_wait']:.4f}; pre-filled, never refilled or awaited "
+          f"{parts['prefilled']:.4f}; chain floor {floor_us:.4f}.  So the waits "
+          f"{by_m[16]['us_a_step'] - parts['no_wait']:.4f}, the copies' issue "
+          f"{parts['no_wait'] - parts['prefilled']:.4f}, the ring's reads and the order "
+          f"{parts['prefilled'] - floor_us:.4f}")
+    W0, Xs, ys, idx = inputs[16]
+    nl = Xs.shape[1]
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    local_sgd_ref(W0, Xs, ys, idx, 0, nl, lr0, t0, lam)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_start) * 1e3
+    print(f"plain version at m=16: {plain_ms:.1f} ms/call (H eager steps of about ten "
+          "launches); no single PyTorch call computes the chain")
     return {"ms": by_m[16]["ms"], "plain_ms": plain_ms, "bound_ms": by_m[16]["bound_ms"],
-            "bound_by": by_m[16]["bound_by"], "by_m": by_m,
-            "chain_floor_us_a_step": floor_us}
+            "bound_by": by_m[16]["bound_by"], "by_m": by_m, "chain_floor_us_a_step": floor_us,
+            "ring_rows": plan[1], "copy_route": route, "chaos_us_a_launch": times["chaos"],
+            "ring_parts_us_a_step": parts}
+
+
+def k6_ring_parts(inputs, lam) -> dict:
+    """Phase 7b: K6's register path at m = 16 in the probe's two modes (the
+    library's ``local_sgd_probe_launch``, timing only): its ring refilled
+    but never awaited, and pre-filled, never refilled or awaited; us a
+    step, CUDA events."""
+    import torch
+
+    from repro_torch.kernels.local_sgd import build
+
+    W0, Xs, ys, idx = inputs
+    m, nl, d = Xs.shape
+    idx32 = idx.to(torch.int32).contiguous()
+    W = torch.empty_like(W0)
+    lib = build.load()
+    parts = {}
+    for mode, name in ((1, "prefilled"), (2, "no_wait")):
+        def probe():
+            build.LIBRARY.check(lib.local_sgd_probe_launch(
+                W0.data_ptr(), Xs.data_ptr(), ys.data_ptr(), idx32.data_ptr(), W.data_ptr(),
+                m, nl, d, nl, 0.0, nl, LOCAL_SGD_PAPER["lr0"], LOCAL_SGD_PAPER["t0"], lam, mode,
+                torch.cuda.current_stream().cuda_stream), "local_sgd_probe")
+
+        parts[name] = 1e3 * cuda_ms(probe, reps=10, warmup=1) / nl
+        if not bool(torch.isfinite(W).all()):
+            fail(f"K6's probe ({name}) wrote values that are not finite")
+    return parts
+
+
+def k6_times_main(checkout: Path) -> None:
+    """``python3 chip_smoke.py --k6-times DIR``: ``k6_times`` on the checkout
+    at DIR (its kernel built from its own sources), printed as one JSON
+    line, so that two versions of K6 compare within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(checkout / "src"))
+    from repro_torch.optim import make_mnist_svm
+
+    print(f"card: {nvidia_smi_line()}; K6 from {checkout}")
+    times, _ = k6_times(torch.device("cuda"), make_mnist_svm(device="cuda"))
+    print(json.dumps({"k6_times": str(checkout), **times}))
 
 
 def menu_path(dev, problem, p_star) -> int:
@@ -2070,6 +2187,8 @@ def mla_kernel_timings(dev, cfg, errs):
 def main() -> None:
     import torch
 
+    if sys.argv[1:2] == ["--k6-times"] and len(sys.argv) == 3:
+        return k6_times_main(Path(sys.argv[2]).resolve())
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2098,7 +2217,8 @@ def main() -> None:
     k6_launches = {"menu": menu_path(dev, problem, p_star), "chaos": chaos_path(dev)}
     k6 = {"name": "local_sgd", "route": "cuda",
           "source": "src/repro_torch/kernels/local_sgd/csrc/local_sgd.cu",
-          "replaces": "src/repro/optim/sgd.py:129", "launches": sum(k6_launches.values()),
+          "replaces": "src/repro/optim/sgd.py:129", "status": "redesigned: a ring of rows "
+          "staged by bulk copies", "launches": sum(k6_launches.values()),
           "max_abs_err": k6_err, "library_ms": None, "timed_by": EAGER,
           "shape": "m=16 nl=3750 d=784 H=nl", "launches_by_path": k6_launches, **k6}
     del problem

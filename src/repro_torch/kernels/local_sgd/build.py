@@ -20,6 +20,9 @@ LIBRARY = KernelLibrary(
     {"local_sgd_launch": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _f, _f, _f, _i, _f, _f,
                            _p], ctypes.c_int),
      "local_sgd_chain_launch": ([_i, _i, _f, _f, _f, _p, _p], ctypes.c_int),
+     "local_sgd_probe_launch": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _f, _f, _f, _i,
+                                 _p], ctypes.c_int),
+     "local_sgd_plan": ([_i, _p], ctypes.c_int),
      "local_sgd_register_entries": ([_i], ctypes.c_int),
      "local_sgd_max_d": ([], ctypes.c_int)},
     error_fn="local_sgd_error_string")

@@ -9,13 +9,59 @@ executor pass neither, so on the card they always run the kernel.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.local_sgd import build
 from repro_torch.kernels.local_sgd.ref import LOSSES, local_sgd_ref
 
-# csrc/local_sgd.cu's kMaxD: w in shared memory past d 1280, under 48 KB
+# csrc/local_sgd.cu's layout: one warp a worker, lane l owning w's entries l,
+# l + 32, ...; a row's ring slot holds 32 ceil(d / 32) floats, after
+# BARRIER_BYTES of the slots' barriers.  Up to REGISTER_MAX_D w lives in
+# registers and the ring holds RING_BYTES of rows (2 to 16 rows); above it w
+# takes a row's room in shared memory and the ring 4 rows, or 2 where 5 do
+# not fit.  MAX_D is the widest row the kernel takes (kMaxD).
+LANES = 32
+REGISTER_ENTRIES = (1, 2, 4, 6, 8, 12, 16, 20, 25, 32, 40)
+REGISTER_MAX_D = LANES * REGISTER_ENTRIES[-1]
+RING_BYTES = 64 * 1024
+MAX_RING = 16
+BARRIER_BYTES = 128
 MAX_D = 12224
+
+
+def refill_rows(ring: int) -> int:
+    """Rows the kernel stages together: four every four steps where the
+    ring holds at least eight, else one a step (csrc/local_sgd.cu's
+    refill_rows)."""
+    return 4 if ring >= 8 else 1
+
+
+def kernel_plan(d: int) -> Tuple[int, int, int]:
+    """(w's entries a lane in registers, 0 for w in shared memory; rows in
+    the ring; shared memory in bytes) of the kernel at width d: csrc/
+    local_sgd.cu's plan_for, mirrored so that tests check it without
+    building (the library's ``local_sgd_plan``)."""
+    k = -(-d // LANES)
+    for e in REGISTER_ENTRIES:
+        if k <= e:
+            ring = min(MAX_RING, max(2, RING_BYTES // (4 * LANES * e)))
+            return e, ring, BARRIER_BYTES + ring * 4 * LANES * e
+    row = 4 * LANES * k
+    ring = 4 if BARRIER_BYTES + 5 * row <= MAX_SMEM_PER_BLOCK else 2
+    return 0, ring, BARRIER_BYTES + (ring + 1) * row
+
+
+def copy_route(X: torch.Tensor) -> str:
+    """How the kernel stages X's rows in a round of more than two steps
+    (csrc/local_sgd.cu; shorter rounds load them straight into registers):
+    one bulk copy a row where d % 4 == 0 and X starts on 16 bytes (then so
+    does every worker's shard), else 4-byte ``cp.async`` copies by every
+    lane (an odd width, or a tensor with a storage offset)."""
+    d = X.shape[-1]
+    return "bulk" if d % 4 == 0 and X.data_ptr() % 16 == 0 else "cp.async 4-byte"
 
 
 def local_sgd(

@@ -19,8 +19,15 @@ partials, each strided over d, then an xor butterfly).  So:
 The cases: the chaos run's shapes (n 512, d 32, m 1 to 4, H 1 and 2, stale
 start vectors, t > 0), the paper's (60000 x 784, hinge, m 16 and 128, and a
 whole m = 1 round of 60000 steps), the shared-memory path (d 1281 and
-MAX_D) and widths off the lane count.
+MAX_D) and widths off the lane count; and the ring of staged rows: rounds
+of 0 to 2 steps (run without the ring) and longer ones shorter than the
+ring and not a multiple of the refill batch, rows drawn
+forty times a round, a shard that is not 16-byte aligned (the 4-byte copy
+route, the same bits as the bulk route), SSP's stale start vectors at the
+paper's d, and the library's plan against ``ops.kernel_plan``.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -181,3 +188,119 @@ def test_chain_probe_runs():
     assert lib.local_sgd_register_entries(784) == 25
     assert lib.local_sgd_register_entries(1281) == 0
     assert lib.local_sgd_max_d() == ops.MAX_D
+
+
+@pytest.mark.parametrize("d", [32, 784])
+def test_ring_probe_runs(d):
+    """The library's ring probe (chip_smoke.py's K6 step in parts) in both
+    its modes at the paper's and the chaos run's widths; other modes and the
+    shared-memory path refused."""
+    from repro_torch.kernels.local_sgd import build
+
+    dev = _card()
+    m = 4
+    Xs, ys = _shards(dev, m, 4 * 300, d)
+    nl = Xs.shape[1]
+    idx = torch.randint(0, nl, (m, nl), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev).to(torch.int32)
+    W0, W = torch.zeros((m, d), device=dev), torch.empty((m, d), device=dev)
+    lib = build.load()
+
+    def probe(mode, width=d):
+        return lib.local_sgd_probe_launch(W0.data_ptr(), Xs.data_ptr(), ys.data_ptr(),
+                                          idx.data_ptr(), W.data_ptr(), m, nl, width, nl, 0.0,
+                                          nl, 1.0, 100.0, 1e-4, mode,
+                                          torch.cuda.current_stream().cuda_stream)
+
+    for mode in (1, 2):
+        build.LIBRARY.check(probe(mode), "local_sgd_probe")
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(W).all())
+    assert probe(0) != 0 and probe(3) != 0 and probe(1, width=1281) != 0
+
+
+@pytest.mark.parametrize("d", [32, 33, 784, 1281])
+def test_rounds_shorter_than_the_ring_and_ragged_batches(d):
+    """Rounds of 0 to 33 steps: up to 2 without the ring (the register
+    path's direct rounds), then fewer than the ring's rows and not a
+    multiple of the four rows staged together; both copy routes (d 33 the
+    4-byte one) and the shared-memory path (d 1281)."""
+    dev = _card()
+    m = 3
+    Xs, ys = _shards(dev, m, 3 * 40, d, seed=d)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    W0 = 0.05 * torch.randn((m, d), generator=gen, device=dev)
+    for steps in (0, 1, 2, 3, 5, 15, 16, 17, 18, 31, 33):
+        idx = torch.randint(0, Xs.shape[1], (m, steps), generator=gen, device=dev)
+        check_hinge(W0, Xs, ys, idx, 3, 0.01, 100.0, 1e-2)
+        args = (W0, Xs, ys, idx, 3, max(steps, 1), 0.01, 100.0, 1e-2, "logistic")
+        got, want = ops.local_sgd(*args), local_sgd_ref(*args)
+        assert float((got - want).abs().max()) <= W_RTOL_OF_MAX * float(want.abs().max())
+
+
+def test_rows_drawn_many_times_in_a_round():
+    """h = 40 nl at the paper's d: each row is staged again and again, up to
+    several times within one ring's span."""
+    dev = _card()
+    m = 4
+    Xs, ys = _shards(dev, m, 4 * 5, 784, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    idx = torch.randint(0, Xs.shape[1], (m, 200), generator=gen, device=dev)
+    W0 = 0.05 * torch.randn((m, 784), generator=gen, device=dev)
+    check_hinge(W0, Xs, ys, idx, 1, 0.01, 100.0, 1e-2)
+    args = (W0, Xs, ys, idx, 1, 200, 0.01, 100.0, 1e-2, "smooth_hinge")
+    got, want = ops.local_sgd(*args), local_sgd_ref(*args)
+    assert float((got - want).abs().max()) <= W_RTOL_OF_MAX * float(want.abs().max())
+
+
+def test_a_storage_offset_takes_the_4_byte_route_with_the_same_bits():
+    """X one float past a 16-byte boundary (contiguous, a storage offset of
+    1) at the paper's d: the kernel stages by 4-byte copies and gives the
+    bulk route's bits."""
+    dev = _card()
+    m = 16
+    Xs, ys = _shards(dev, m, 60000, 784)
+    nl = Xs.shape[1]
+    X_off = torch.empty(Xs.numel() + 1, device=dev)[1:].view(Xs.shape)
+    X_off.copy_(Xs)
+    assert X_off.is_contiguous() and X_off.storage_offset() == 1
+    assert ops.copy_route(Xs) == "bulk" and ops.copy_route(X_off) == "cp.async 4-byte"
+    idx = draw_indices(m, nl, nl, torch.Generator(device=dev).manual_seed(3))
+    W0 = torch.zeros((m, 784), device=dev)
+    for args in ((0, nl, 1.0, 100.0, 1e-4, "hinge"), (2, nl, 0.01, 100.0, 1e-2, "logistic")):
+        assert torch.equal(ops.local_sgd(W0, X_off, ys, idx, *args),
+                           ops.local_sgd(W0, Xs, ys, idx, *args))
+    check_hinge(W0, X_off, ys, idx[:, :500].contiguous(), 0, 1.0, 100.0, 1e-4)
+
+
+def test_ssp_stale_start_vectors_at_the_papers_width():
+    """SSP's outer step at the paper's d: every worker from its own stale
+    copy, t > 0, one local epoch of draws with replacement."""
+    dev = _card()
+    m = 16
+    Xs, ys = _shards(dev, m, 60000, 784)
+    nl = Xs.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    W0 = 0.01 * torch.randn((m, 784), generator=gen, device=dev)
+    idx = torch.randint(0, nl, (m, nl), generator=gen, device=dev)
+    check_hinge(W0, Xs, ys, idx, 7, 1.0, 100.0, 1e-4)
+    args = (W0, Xs, ys, idx, 7, nl, 0.01, 100.0, 1e-2, "smooth_hinge")
+    got, want = ops.local_sgd(*args), local_sgd_ref(*args)
+    assert float((got - want).abs().max()) <= W_RTOL_OF_MAX * float(want.abs().max())
+
+
+def test_library_plan_equals_kernel_plan():
+    """The library's ``local_sgd_plan`` at every width against its Python
+    mirror (entries a lane, ring rows, rows staged together, shared bytes),
+    and widths outside 1 .. MAX_D refused."""
+    from repro_torch.kernels.local_sgd import build
+
+    _card()
+    lib = build.load()
+    out = (ctypes.c_int * 4)()
+    for d in range(1, ops.MAX_D + 1):
+        assert lib.local_sgd_plan(d, out) == 0, d
+        e, ring, smem = ops.kernel_plan(d)
+        assert list(out) == [e, ring, ops.refill_rows(ring), smem], d
+        assert lib.local_sgd_register_entries(d) == e, d
+    assert lib.local_sgd_plan(0, out) != 0 and lib.local_sgd_plan(ops.MAX_D + 1, out) != 0
