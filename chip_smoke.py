@@ -14,8 +14,10 @@ and ``ensure`` at qwen3-14b's shapes), which times every kernel and is the
 only caller of the contiguous flash decode kernel (K5); serving qwen3-14b at
 full width through the continuous-batching engine on the flash forward (K3)
 and paged decode (K2) kernels, its capacity planner seeded and K2 blocked
-from the tuner's cache; serving falcon-mamba-7b at full width through the
-same engine on the selective scan kernel (K4); and serving deepseek-v2-236b
+from the tuner's cache, then with chunked prefill (K3 over the page row from
+a chunk's offset) and speculative decode (K2 over a folded verify batch),
+each bit-identical to the one-token engine; serving falcon-mamba-7b at full
+width through the same engine on the selective scan kernel (K4); and serving deepseek-v2-236b
 (MLA attention, MoE FFNs) at full width and a cut depth through the same
 engine on K3 with a value dim of 128 against a key dim of 192 (prefill) and
 K2's MLA latent form (decode).  The deepseek-v2 path runs 6 of its 60 layers
@@ -72,6 +74,15 @@ of which exits non-zero on failure:
       (the engine's) and 64, with K and V NaN past kv_len in one case; K2
       also with NaN at every pool position past the rows' lengths, which must
       leave its output unchanged;
+   8b. K3 at chunked prefill's shapes (query offsets 300, 517, 1000, none a
+      multiple of 16, 256, 8 and 88 rows, over a gathered row of 1088
+      positions stale past kv_len) against its plain version and bit for bit
+      against the same rows of the monolithic call over 2048 rows; K2 over a
+      verify fold of 32 rows (8 slots, k = 3, draft index major, padded rows
+      of length 0 on the scratch page) against its plain version, each block
+      of 8 rows bit for bit a decode-shaped call, at ppp 4, 8 and 16; K3's
+      time at the chunked long run's last chunk, and K2's over the fold and
+      over its first 8 rows alone (CUDA graph, L2 flushed);
    9. small-input check of the LM: the smoke qwen3-14b on the card against
       the plain versions on the CPU, with the same weights;
    9b. the autotuner, needing no model weights: (a) K3, K5 and K2 against
@@ -90,11 +101,22 @@ of which exits non-zero on failure:
       (all 40 layers, d_model 5120): 3 kernel rows seed the planner, K2 runs
       at the tuned pages_per_program, K3 launches = 40 x prefills and K2
       launches = 40 x decode steps;
+  10b. the same CLI with ``--prefill-chunk 8 --speculate 3`` in process on
+      phase 10's model: ``bit_identical=yes`` against its one-token replay,
+      chunk steps and verify steps with accepted drafts (the document
+      extension), K3 launches = 40 x (prefills + chunk steps), K2 launches
+      = 40 x (decode steps + verify steps), verify steps at the tuned
+      pages_per_program; chunk, decode and verify step times;
   11. a longer serve run at full width: 8 requests of 1024-token prompts
       arriving together, 64 tokens each, max_batch 8, paged decode at the
       long run's tuned pages_per_program (time to first token, decode step
       time, tokens/s, peak memory, a window of decode steps profiled for
       device activity only);
+  11c. the chunked long run: the long run's prompts, 16 tokens each,
+      through a plain engine and one at ``--prefill-chunk 256``: equal token
+      streams, each engine's launches, TTFT p50, join to first token p50 and
+      p99 in steps, the decode step while chunks stream, a chunk step
+      against a monolithic block's prefill;
   11b. prefill over row blocks at full width: a short prompt's prefill
       padded to one block of 256, 512, 1024 rows and max_seq, against no
       padding; a 1024-token prompt in blocks of each size; and a two-block prompt
@@ -134,6 +156,8 @@ of which exits non-zero on failure:
       refused by the wrapper as by the roofline; then at pages of 32 and of 8
       positions at the default pages_per_program; K3 at B 1, 128 heads,
       S 1024, causal, with kv_lens;
+  18b. phase 8b's cases for K3 at (192, 128) and 128 heads and for
+      K2-latent over a 32-row verify fold at deepseek-v2's widths;
   19. small-input check of the MLA + MoE LM: the smoke deepseek-v2 on the
       card (K3 at (24, 16), K2's latent form at (16, 8)) against the plain
       versions on the CPU, with the same weights;
@@ -142,6 +166,9 @@ of which exits non-zero on failure:
       (d_model 5120, 128 heads, 160 experts top-6), with K3 launches = 6 x
       prefills and K2-latent launches = 6 x decode steps, the weights' bytes
       and the peak memory;
+  20b. phase 10b on the cut deepseek-v2: ``bit_identical=yes``, K3 = 6 x
+      (prefills + chunk steps), K2-latent = 6 x (decode steps + verify
+      steps);
   21. the longer serve run of phase 11 on the cut deepseek-v2, its profiled
       decode steps split into K2's latent form, the MoE's expert products,
       the other GEMMs and the device's busy share;
@@ -153,7 +180,8 @@ of which exits non-zero on failure:
       flushed before each call (eager and warm-L2 times printed beside), its
       split and merge kernels' device times from the profiler.
 The last lines are one JSON object with every kernel's summary (its
-``timed_by`` says how ``ms`` and ``library_ms`` were timed; K6's row,
+``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's and
+K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
 ``local_sgd``, replaces the reference's compiled ``lax.scan``, no Pallas
 kernel, and counts its launches on the menu and chaos paths; K4's decode body
 has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
@@ -1091,6 +1119,173 @@ def serve_kernels_vs_plain(dev, cfg):
     return errs
 
 
+# The chunked-prefill cases of K3 (phases 8b, 18b): a monolithic prefill's
+# call over 2048 rows with a prompt of 1088, and chunks of it at their
+# (q_offset, rows): 300 (not a multiple of 16) and 256 rows; 517 and 8 rows,
+# the CLI's chunk; 1000 and 88 rows across the 1024-row block edge.  The
+# gathered page row is 1088 positions, stale past each chunk's kv_len.
+CHUNK_MONO_S, CHUNK_PROMPT = 2048, LONG_PROMPT + LONG_GEN
+CHUNK_CASES = ((300, 256), (517, 8), (1000, 88))
+# The verify cases of K2 and K2-latent: max_batch 8 slots, k = 3 drafts,
+# the fold's 32 rows draft index major (row t * 8 + s); slot 0 idle, slot 3
+# with one draft (its rows t >= 2 padded), every other slot with three.
+VERIFY_DRAFTS = 3
+VERIFY_SLOT_LENGTHS = [0, 1, 5, 16, 17, 333, 1000, 1084]
+VERIFY_SLOT_DRAFTS = [-1, 3, 3, 1, 3, 3, 3, 3]
+
+
+def chunk_kernel_vs_monolithic(torch, gen, hq, hk, dk, dv, scale) -> float:
+    """K3 at each chunk's shape (``CHUNK_CASES``) against its plain version,
+    and bit for bit against the same rows of the monolithic call.  Returns
+    the largest absolute error against the plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+
+    dev = gen.device
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = bf16(1, hq, CHUNK_MONO_S, dk), bf16(1, hk, CHUNK_MONO_S, dk), bf16(1, hk,
+                                                                                  CHUNK_MONO_S, dv)
+    lens = torch.tensor([CHUNK_PROMPT], dtype=torch.int32, device=dev)
+    mono = fa_ops.flash_fwd(q, k, v, lens, sm_scale=scale, block_k=16)
+    err = 0.0
+    for s0, c in CHUNK_CASES:
+        kv_len = s0 + c
+        k_row, v_row = k[:, :, :CHUNK_PROMPT].clone(), v[:, :, :CHUNK_PROMPT].clone()
+        k_row[:, :, kv_len:] = bf16(1, hk, CHUNK_PROMPT - kv_len, dk)  # stale pages
+        v_row[:, :, kv_len:] = bf16(1, hk, CHUNK_PROMPT - kv_len, dv)
+        qc = q[:, :, s0:s0 + c].contiguous()
+        kv_lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+        got = fa_ops.flash_fwd(qc, k_row, v_row, kv_lens, sm_scale=scale, q_offset=s0,
+                               block_k=16)
+        torch.cuda.synchronize()
+        what = (f"a chunk: Hq={hq} Hk={hk} dk={dk} dv={dv} q_offset={s0} Sq={c} "
+                f"Skv={CHUNK_PROMPT} kv_len={kv_len}")
+        if not torch.equal(got, mono[:, :, s0:s0 + c]):
+            fail(f"flash_fwd at {what} differs from the monolithic call's rows")
+        want = flash_fwd_ref(qc, k_row, v_row, kv_lens, causal=True, sm_scale=scale,
+                             q_offset=s0, block_q=16, block_k=16)
+        err = max(err, check_against_plain(torch, "flash_fwd", got, want, v_row, what))
+    s0, c = 3 * 256, 256  # the chunked long run's last chunk of a prompt
+    qc = q[:, :, s0:s0 + c].contiguous()
+    k_row, v_row = k[:, :, :CHUNK_PROMPT].contiguous(), v[:, :, :CHUNK_PROMPT].contiguous()
+    kv_lens = torch.tensor([s0 + c], dtype=torch.int32, device=dev)
+    chunk_ms = cuda_ms(lambda: fa_ops.flash_fwd(qc, k_row, v_row, kv_lens, sm_scale=scale,
+                                                q_offset=s0, block_k=16), reps=10)
+    print(f"flash_fwd at every chunk: bit for bit the rows of the monolithic call over "
+          f"{CHUNK_MONO_S} rows, kv_len {CHUNK_PROMPT}; a chunk of {c} rows at q_offset {s0} "
+          f"over {CHUNK_PROMPT} keys {chunk_ms:.4f} ms (CUDA events)")
+    return err
+
+
+def verify_fold(torch, dev, page, npp, n_pages, gen):
+    """The fold's lengths (attended positions), page tables and the slots'
+    own tables, draft index major (``VERIFY_*``); padded rows length 0 and
+    all-scratch tables."""
+    b, t_rows = len(VERIFY_SLOT_LENGTHS), VERIFY_DRAFTS + 1
+    slot_tables = random_pages(torch, gen, dev, b, npp, n_pages)
+    lens = torch.zeros(b * t_rows, dtype=torch.int32, device=dev)
+    tables = torch.zeros((b * t_rows, npp), dtype=torch.int32, device=dev)
+    for s, (length, drafts) in enumerate(zip(VERIFY_SLOT_LENGTHS, VERIFY_SLOT_DRAFTS)):
+        for t in range(drafts + 1):
+            lens[t * b + s] = length + t + 1
+            tables[t * b + s] = slot_tables[s]
+    return lens, tables
+
+
+def verify_kernel_vs_decode(torch, name, call, plain, args, lens, tables, v, ppps) -> float:
+    """``call(*args, lens, tables, ppp)`` over the fold against ``plain`` at
+    the same arguments, and each block of the fold bit for bit a
+    decode-shaped call (``len(VERIFY_SLOT_LENGTHS)`` rows) over it, at each
+    pages_per_program of ``ppps``.  Returns the largest error."""
+    b = len(VERIFY_SLOT_LENGTHS)
+    err = 0.0
+    for ppp in ppps:
+        got = call(*args, lens, tables, ppp)
+        torch.cuda.synchronize()
+        for t in range(VERIFY_DRAFTS + 1):
+            rows = slice(t * b, (t + 1) * b)
+            alone = call(*(a[rows] for a in args), lens[rows].contiguous(),
+                         tables[rows].contiguous(), ppp)
+            if not torch.equal(alone, got[rows]):
+                fail(f"{name}: the fold's rows {t * b}..{(t + 1) * b - 1} differ from a "
+                     f"decode-shaped call at ppp={ppp}")
+        err = max(err, check_against_plain(
+            torch, name, got, plain(*args, lens, tables, ppp), v,
+            f"a verify fold of {len(lens)} rows (k={VERIFY_DRAFTS}, slot lengths "
+            f"{VERIFY_SLOT_LENGTHS}) ppp={ppp}"))
+    flush = torch.zeros(FLUSH_BYTES // 4, device=lens.device)
+    fold_ms = graph_ms(lambda: call(*args, lens, tables, ppps[0]), reps=20, flush=flush)
+    block_ms = graph_ms(lambda: call(*(a[:b] for a in args), lens[:b].contiguous(),
+                                     tables[:b].contiguous(), ppps[0]), reps=20, flush=flush)
+    print(f"{name} over the fold: each block of {b} rows bit for bit a decode-shaped call; "
+          f"the fold of {len(lens)} rows {fold_ms:.4f} ms, its first block's {b} rows alone "
+          f"{block_ms:.4f} ms at ppp={ppps[0]} (CUDA graph, L2 flushed)")
+    return err
+
+
+def chunk_verify_kernels_vs_plain(dev, cfg) -> dict:
+    """Phase 8b: K3 at chunked prefill's shapes and K2 over a verify fold at
+    qwen3-14b's widths.  Returns the largest absolute error of each."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_stream
+
+    hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    phase(f"K3 at chunked prefill's shapes and K2 over a verify fold (bf16, {QWEN})")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    errs = {"flash_fwd": chunk_kernel_vs_monolithic(torch, gen, hk * g, hk, d, d, d ** -0.5)}
+    page, npp = 16, LONG_PAGES
+    n_pages = 1 + len(VERIFY_SLOT_LENGTHS) * npp
+    lens, tables = verify_fold(torch, dev, page, npp, n_pages, gen)
+    kp = torch.randn((n_pages, hk, page, d), generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_pages, hk, page, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((len(lens), hk, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    errs["paged_decode"] = verify_kernel_vs_decode(
+        torch, "paged_decode",
+        lambda q_, lens_, tables_, ppp: fd_ops.paged_decode(
+            q_, kp, vp, lens_, tables_, scale=d ** -0.5, pages_per_program=ppp),
+        lambda q_, lens_, tables_, ppp: paged_decode_stream(
+            q_, kp, vp, lens_, tables_, scale=d ** -0.5, pages_per_program=ppp),
+        (q,), lens, tables, vp, (K2_ROW_PAGES_PER_PROGRAM, K2_ONE_TILE_PAGES_PER_PROGRAM, 16))
+    return errs
+
+
+def mla_chunk_verify_kernels_vs_plain(dev, cfg) -> dict:
+    """Phase 18b: K3 at (192, 128) at chunked prefill's shapes and K2's
+    latent form over a verify fold at deepseek-v2's widths.  Returns the
+    largest absolute error of each."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models.mla import sm_scale
+
+    m, h = cfg.mla, cfg.n_heads
+    scale = sm_scale(cfg)
+    phase(f"K3 (192, 128) at chunked prefill's shapes and K2-latent over a verify fold "
+          f"(bf16, {DEEPSEEK})")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs = {"flash_fwd": chunk_kernel_vs_monolithic(
+        torch, gen, h, h, m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim, scale)}
+    page, npp = 16, LONG_PAGES
+    n_pages = 1 + len(VERIFY_SLOT_LENGTHS) * npp
+    lens, tables = verify_fold(torch, dev, page, npp, n_pages, gen)
+    q_lat, q_pe, ckv, kpe, _, _ = latent_inputs(torch, gen, cfg, len(lens), npp)
+    ckv, kpe = ckv[:n_pages].contiguous(), kpe[:n_pages].contiguous()
+    errs["paged_latent_decode"] = verify_kernel_vs_decode(
+        torch, "paged_latent_decode",
+        lambda ql, qp, lens_, tables_, ppp: fd_ops.paged_latent_decode(
+            ql, qp, ckv, kpe, lens_, tables_, scale=scale, pages_per_program=ppp),
+        lambda ql, qp, lens_, tables_, ppp: fd_ops.paged_latent_decode_attention(
+            ql, qp, ckv, kpe, lens_, tables_, sm_scale=scale, impl="stream",
+            pages_per_program=ppp),
+        (q_lat, q_pe), lens, tables, ckv, (fd_ops.DEFAULT_PAGES_PER_PROGRAM,))
+    return errs
+
+
 def small_lm_check(dev, arch):
     """Phases 9 and 14: the smoke LM on the card against the plain versions
     on the CPU, same weights: prefill logits, then 8 teacher-forced decode
@@ -1433,6 +1628,163 @@ def serve_cli_path(arch, n_layers, d_model, path_no, tune_cache=None, cfg=None):
         if result["pages_per_program"] != tuned:
             fail(f"paged decode ran at {result['pages_per_program']}, not the tuned {tuned}")
     return warm.lm, counts
+
+
+# The serve CLI's chunked + speculative run (phases 10b, 20b)
+CLI_KNOBS = ["--prefill-chunk", "8", "--speculate", "3"]
+
+
+def serve_cli_knobs_path(arch, lm, path_no, tune_cache=None) -> dict:
+    """Phases 10b and 20b: the CLI's --continuous path with ``CLI_KNOBS``
+    (and ``--tune-cache``) on ``lm``, the model the plain CLI run built: it
+    must print bit_identical=yes against its one-token replay, run chunk
+    steps and verify steps with accepted drafts, launch K3 once a layer per
+    prefill and chunk step and K2 (or K2-latent) once a layer per decode and
+    verify step, and, with a tuner cache, run the verify steps at the tuned
+    pages_per_program.  Returns the kernels' launches and the run's
+    numbers."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--continuous"] + CLI_KNOBS
+    if tune_cache is not None:
+        argv += ["--tune-cache", str(tune_cache)]
+    phase(f"main path {path_no}: python -m repro_torch.launch.serve {' '.join(argv)} "
+          f"(full width, {lm.cfg.n_layers} layers, the model of the plain run)")
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = serve.main(argv, lm=lm)
+    except SystemExit as e:
+        fail(f"the serve CLI with {' '.join(CLI_KNOBS)} exited with {e.code}")
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    warm, cold = result["engines"]
+    engines = (warm, cold, result["baseline"])
+    prefills = sum(e.prefills_run for e in engines)
+    chunks = sum(e.stats().get("prefill_chunks", 0) for e in engines)
+    steps = sum(e.stats()["decode_steps"] for e in engines)
+    stats = warm.stats()
+    evs = warm.events("serve_step")
+
+    def median_ms(op):
+        times = [e.step_s for e in evs if e.op == op]
+        return float(np.median(times)) * 1e3 if times else None
+
+    out = {"arch": arch, "bit_identical": result["bit_identical"], "cli_s": seconds,
+           "prefills": prefills, "chunk_steps": chunks, "decode_and_verify_steps": steps,
+           "verify_steps": stats["verify_steps"], "draft_proposed": stats["draft_proposed"],
+           "draft_accepted": stats["draft_accepted"],
+           "spec_accept_rate": stats["spec_accept_rate"],
+           "chunk_step_ms_median": median_ms("prefill"),
+           "decode_step_ms_median": median_ms("decode"),
+           "verify_step_ms_median": median_ms("verify"),
+           "verify_pages_per_program": warm.verify_pages_per_program,
+           **{f"{name}_launches": counts[name] for name in PATH_KERNELS[arch]}}
+    print(json.dumps({"cli_chunked_speculative": out}))
+    for name, (per_prefill, per_step) in PATH_KERNELS[arch].items():
+        terms = ("prefills + chunk steps" if per_prefill else "decode steps + verify steps")
+        print(f"{name} launches {counts[name]} = {lm.cfg.n_layers} x ({terms})")
+    if result["bit_identical"] is not True:
+        fail("the chunked + speculative CLI run is not bit-identical to its replay")
+    if chunks == 0 or stats["verify_steps"] == 0 or stats["draft_accepted"] == 0:
+        fail(f"{chunks} chunk steps, {stats['verify_steps']} verify steps, "
+             f"{stats['draft_accepted']} drafts accepted: each must be at least 1")
+    check_path_launches(arch, counts, lm.cfg.n_layers, prefills + chunks, steps,
+                        f"{arch} CLI {' '.join(CLI_KNOBS)}")
+    if tune_cache is not None:
+        from repro_torch.kernels.tune import ConfigCache
+
+        tuned = next(e["config"]["pages_per_program"]
+                     for e in ConfigCache(str(tune_cache)).entries.values()
+                     if e["family"] == "flash_decode_paged" and e["shape"]["b"] == warm.max_batch)
+        print(f"verify steps ran paged decode at pages_per_program="
+              f"{warm.verify_pages_per_program} (the cache's b={warm.max_batch} entry: {tuned})")
+        if warm.verify_pages_per_program != tuned:
+            fail(f"verify steps ran at {warm.verify_pages_per_program}, not the tuned {tuned}")
+    return {"launches": counts, **out}
+
+
+def chunked_long_run(lm) -> dict:
+    """Phase 11c: ``LONG_BATCH`` prompts of ``LONG_PROMPT`` tokens arriving
+    together, 16 tokens each, through a plain engine and through one at
+    --prefill-chunk 256, the same prompts: equal token streams, each
+    engine's launches, the first tokens' times (end of the step that
+    emitted them), join-to-first-token in steps, decode steps while chunks
+    stream, and a chunk step against a monolithic block's prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    chunk, gen_tokens = 256, 16
+    phase(f"chunked long run ({QWEN}): {LONG_BATCH} x {LONG_PROMPT}-token prompts together, "
+          f"{gen_tokens} tokens each, --prefill-chunk {chunk} against the plain engine")
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, lm.cfg.vocab_size, LONG_PROMPT) for _ in range(LONG_BATCH)]
+
+    def serve(prefill_chunk):
+        eng = ServeEngine("", lm=lm, max_batch=LONG_BATCH, max_seq=LONG_PROMPT + LONG_GEN,
+                          prefill_chunk=prefill_chunk)
+        reqs = [eng.submit(p, gen_tokens) for p in prompts]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0, ends = time.perf_counter(), []
+        while not eng.scheduler.drained:
+            eng.step()  # every step that runs work reads its logits back
+            ends.append(time.perf_counter())
+        counts = read_launches()
+        stats = eng.stats()
+        prefills = eng.prefills_run + stats.get("prefill_chunks", 0)
+        check_path_launches(QWEN, counts, lm.cfg.n_layers, prefills, stats["decode_steps"],
+                            f"chunked long run, prefill_chunk={prefill_chunk}")
+        ttft = [(ends[r.first_token_step] - t0) * 1e3 for r in reqs]
+        return eng, reqs, stats, counts, ttft, ends[-1] - t0
+
+    plain, plain_reqs, plain_stats, plain_counts, plain_ttft, plain_wall = serve(None)
+    eng, reqs, stats, counts, ttft, wall = serve(chunk)
+    if [r.generated for r in reqs] != [r.generated for r in plain_reqs]:
+        fail("the chunked long run's token streams differ from the plain engine's")
+    evs = eng.events("serve_step")
+    chunk_steps = {e.step for e in evs if e.op == "prefill"}
+    streaming = [e.step_s for e in evs if e.op == "decode" and e.step in chunk_steps]
+    decode_alone = [e.step_s for e in evs if e.op == "decode" and e.step not in chunk_steps]
+    chunk_ms = [e.step_s * 1e3 for e in evs if e.op == "prefill"]
+    block_ms = [r.prefill_s * 1e3 for r in plain_reqs]
+    out = {
+        "prompts": LONG_BATCH, "prompt_tokens": LONG_PROMPT, "gen_tokens": gen_tokens,
+        "prefill_chunk": chunk, "bit_identical": True,
+        "ttft_ms_p50": float(np.median(ttft)), "ttft_ms_max": float(max(ttft)),
+        "plain_ttft_ms_p50": float(np.median(plain_ttft)),
+        "join_to_first_token_p50": stats["join_to_first_token_p50"],
+        "join_to_first_token_p99": stats["join_to_first_token_p99"],
+        "plain_join_to_first_token_p99": plain_stats["join_to_first_token_p99"],
+        "chunk_steps": stats["prefill_chunks"],
+        "chunk_step_ms_median": float(np.median(chunk_ms)),
+        "monolithic_block_prefill_ms_median": float(np.median(block_ms)),
+        "decode_steps_while_chunks_stream": len(streaming),
+        "decode_step_ms_median_while_chunks_stream":
+            float(np.median(streaming)) * 1e3 if streaming else None,
+        "decode_step_ms_median_alone": float(np.median(decode_alone)) * 1e3,
+        # what the decode batch waits between tokens: the step's chunk and
+        # its decode step together
+        "step_ms_median_while_chunks_stream": float(np.median(
+            [sum(e.step_s for e in evs if e.step == step) for step in chunk_steps
+             if any(e.op == "decode" and e.step == step for e in evs)])) * 1e3
+        if streaming else None,
+        "plain_decode_step_ms_median": float(np.median(
+            [e.step_s for e in plain.events("serve_step") if e.op == "decode"])) * 1e3,
+        "wall_s": wall, "plain_wall_s": plain_wall,
+        "flash_fwd_launches": counts["flash_fwd"],
+        "paged_decode_launches": counts["paged_decode"],
+        "plain_flash_fwd_launches": plain_counts["flash_fwd"],
+    }
+    print(json.dumps({"chunked_long_run": out}))
+    print(f"a chunk of {chunk} tokens runs one {eng.rt.prefill_rows}-row block: "
+          f"{out['chunk_step_ms_median']:.2f} ms a chunk step against "
+          f"{out['monolithic_block_prefill_ms_median']:.2f} ms for a whole prompt's block")
+    return out
 
 
 def long_serve_run(arch, lm, tune_cache=None):
@@ -2226,6 +2578,8 @@ def main() -> None:
 
     cfg = get_config(QWEN)
     errs = serve_kernels_vs_plain(dev, cfg)
+    for name, err in chunk_verify_kernels_vs_plain(dev, cfg).items():
+        errs[name] = max(errs[name], err)
     small_lm_check(dev, QWEN)
     for name, err in tuned_kernels_vs_plain(dev, cfg).items():
         errs[name] = max(errs.get(name, 0.0), err)
@@ -2236,7 +2590,12 @@ def main() -> None:
     lm, launches = serve_cli_path(QWEN, n_layers=40, d_model=5120, path_no=3,
                                   tune_cache=tuner["files"]["cli"])
     launches["flash_decode"] = tuner["launches"]["flash_decode"]
+    knobs = serve_cli_knobs_path(QWEN, lm, "3b", tune_cache=tuner["files"]["cli"])
     tuned_ppp = long_serve_run(QWEN, lm, tune_cache=tuner["files"]["long"])["pages_per_program"]
+    chunked = chunked_long_run(lm)
+    by_path = {name: {"cli": launches[name], "cli_chunked_speculative": knobs["launches"][name],
+                      "chunked_long_run": chunked[f"{name}_launches"]}
+               for name in ("flash_fwd", "paged_decode")}
     prefill_row_blocks(lm)
     del lm
     gc.collect()
@@ -2258,13 +2617,21 @@ def main() -> None:
 
     cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
     mla_errs = mla_kernels_vs_plain(dev, cfg)
+    for name, err in mla_chunk_verify_kernels_vs_plain(dev, cfg).items():
+        mla_errs[name] = max(mla_errs[name], err)
     errs["paged_latent_decode"] = mla_errs["paged_latent_decode"]
     errs["flash_fwd_mla"] = mla_errs["flash_fwd"]
     small_lm_check(dev, DEEPSEEK)
     lm, mla_launches = serve_cli_path(DEEPSEEK, n_layers=DEEPSEEK_LAYERS, d_model=5120,
                                       path_no=5, cfg=cfg)
-    launches["paged_latent_decode"] = mla_launches["paged_latent_decode"]
-    launches["flash_fwd_mla"] = mla_launches["flash_fwd"]
+    mla_knobs = serve_cli_knobs_path(DEEPSEEK, lm, "5b")
+    by_path["paged_latent_decode"] = {
+        "cli": mla_launches["paged_latent_decode"],
+        "cli_chunked_speculative": mla_knobs["launches"]["paged_latent_decode"]}
+    by_path["flash_fwd_mla"] = {"cli": mla_launches["flash_fwd"],
+                                "cli_chunked_speculative": mla_knobs["launches"]["flash_fwd"]}
+    for name, paths in by_path.items():
+        launches[name] = sum(paths.values())
     # the full-rows row's launches: the long run's, whose decode steps see
     # rows of 1025 to 1088 positions
     launches["paged_latent_decode_full"] = \
@@ -2299,6 +2666,7 @@ def main() -> None:
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                         "library_ms": lib, "shape": shape,
+                        **({"launches_by_path": by_path[name]} if name in by_path else {}),
                         **(how[0] if how else {"timed_by": EAGER})})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -33,7 +33,12 @@ kernel that merges the splits; the two count as one launch.
 ``gather_pages`` and ``paged_prefill_attention`` (``ops.py:272, 292``) are
 gathers plus the flash forward (K3) with ``kv_lens`` and a static
 ``q_offset``: chunked prefill over the page pool, which the autotuner's
-``prefill_chunk`` family times.
+``prefill_chunk`` family times.  ``fold_verify_batch`` and
+``paged_verify_attention`` (``ops.py:323, 348``) fold a speculative verify
+window of T positions a sequence into the batch axis, sequence-major (row
+``s * T + t``), as the reference does; the serve engine folds its verify
+step draft-major instead, so that each draft index is one block of
+``max_batch`` rows shaped like a decode step (``repro_torch.serve.engine``).
 """
 from __future__ import annotations
 
@@ -83,6 +88,10 @@ LATENT_WIDTHS = ((512, 64), (16, 8))
 LATENT_HEADS = 64
 LATENT_TILE = 64
 LATENT_SPLIT_POSITIONS = 192
+
+# Prompt tokens a chunked-prefill step takes when the tuner has no entry
+# (the reference's, ops.py:48)
+DEFAULT_PREFILL_CHUNK = 32
 
 # K5's tile.  The reference's default, 512 positions, is a TPU tile: K5 keeps
 # a tile of K and V in shared memory, and at head dim 128 a 512-position tile
@@ -499,3 +508,45 @@ def paged_prefill_attention(
     return flash_attention(q, k_full, v_full, causal=True, sm_scale=sm_scale,
                            kv_lens=kv_lens, q_offset=q_offset, block_q=block_q,
                            block_k=block_k)
+
+
+def fold_verify_batch(tokens: torch.Tensor, lengths: torch.Tensor,
+                      page_tables: torch.Tensor):
+    """Fold a (B, T) verify window (column 0 the pending token, columns 1..
+    the drafts) into a decode batch of B * T rows, sequence-major: row
+    ``s * T + t`` carries token ``tokens[s, t]`` at position ``lengths[s] +
+    t`` with sequence s's page-table row.  A decode step over the fold
+    scatters every row's K/V before any row attends, so row t sees the rows
+    before it through its length alone.  Returns (tokens (B*T,), lengths
+    (B*T,), page_tables (B*T, npp))."""
+    b, t = tokens.shape
+    toks = tokens.reshape(b * t)
+    lens = (lengths[:, None] + torch.arange(t, dtype=lengths.dtype,
+                                            device=lengths.device)[None, :]).reshape(b * t)
+    return toks, lens, page_tables.repeat_interleave(t, dim=0)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,  # (B, T, Hq, d) the window's queries
+    k_pages: torch.Tensor,  # (n_pages, Hk, page, d), the window's K/V already in
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) fill before the window: row t attends l + t + 1
+    page_tables: torch.Tensor,  # (B, pages_per_seq) int32
+    *,
+    sm_scale: Optional[float] = None,
+    impl: str = "kernel",
+    pages_per_program: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention for a window of T positions a sequence in one call
+    (K2 on the card), folded as ``fold_verify_batch`` folds it; each row's
+    output is the one a decode call at that row's length gives.  Returns
+    (B, T, Hq, d)."""
+    b, t, hq, d = q.shape
+    lens = (lengths.to(torch.int32)[:, None] + 1
+            + torch.arange(t, dtype=torch.int32, device=lengths.device)[None, :])
+    out = paged_decode_attention(q.reshape(b * t, hq, d), k_pages, v_pages,
+                                 lens.reshape(b * t),
+                                 page_tables.repeat_interleave(t, dim=0).contiguous(),
+                                 sm_scale=sm_scale, impl=impl,
+                                 pages_per_program=pages_per_program)
+    return out.reshape(b, t, hq, v_pages.shape[3])

@@ -5,6 +5,8 @@
       --continuous --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --continuous \\
       --tune-cache results/tune_cache_torch.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
+      --continuous --device cpu --prefill-chunk 8 --speculate 3
 
 runs the reference's ``--continuous`` path (``repro/launch/serve.py``): a
 mixed-length 8-request trace with staggered arrivals and a shared prompt head
@@ -13,21 +15,33 @@ f(b) step model and a capacity plan, and the prefix-reuse check, which serves
 one prefix-sharing prompt on the warm engine and the same prompt on a cold
 engine and exits 1 unless their logits match bit for bit.
 
+``--prefill-chunk TOKENS`` streams prompts into their pages at most TOKENS a
+step (``-1``: the tuner's ``prefill_chunk`` entry for the preset's sweep
+shape, else ``DEFAULT_PREFILL_CHUNK``) and ``--speculate K`` drafts up to K
+tokens a slot for one verify step (``repro/launch/serve.py:187-204,
+456-502``).  With either, the trace is replayed through a plain engine
+sharing the served model's weights, and the CLI prints ``chunked+speculative
+vs one-token baseline: bit_identical=yes|NO`` and exits 1 on NO.  With
+``--speculate`` the port adds the reference's document-extension workload
+(``tests/test_serve_speculative.py:60-84``) to both engines: a stored
+page-aligned document whose prefix a follow-up request extends, which drafts
+from the prefix cache, as random weights give the mixed trace nothing to
+draft from.
+
 ``--tune-cache PATH`` (``repro/launch/serve.py:506-514``) seeds the capacity
 planner's f(b) step model with the autotuner's measured paged-decode kernel
 times from PATH, scaled to ``n_layers x kernel``, before the engine's own
 step events, and points the process's tuner cache at PATH, so the engine's
 paged decode (K2) runs at the ``pages_per_program`` tuned for its decode
-shape; the value used is printed.  The planner counts every
-``flash_decode_paged`` entry of the file, so give it one holding this
-model's shapes only.
+shape, verify steps included; the value used is printed.  The planner
+counts every ``flash_decode_paged`` entry of the file, so give it one
+holding this model's shapes only.
 
 Differences from the reference's CLI: ``--smoke`` is off by default, so the
 default is the full config; without ``--device cpu`` it runs on the card or
-raises; the router, tracing, chunked prefill (with ``--prefill-chunk -1``,
-the tuned chunk) and speculation are not ported yet (ROADMAP.md); the cold
-engine shares the warm engine's weights instead of building a second copy,
-and runs the same
+raises; the router, tracing and the non-continuous ``Server.generate`` mode
+are not ported yet (ROADMAP.md); the cold and the baseline engines share the
+warm engine's weights instead of building second copies, and run the same
 ``--paged-impl``.
 """
 from __future__ import annotations
@@ -39,6 +53,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.configs import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import LM
 from repro_torch.serve import CapacityPlanner, ServeEngine
 from repro_torch.serve.engine import random_lm
 
@@ -101,6 +117,49 @@ def _verify_prefix_reuse(eng: ServeEngine, seed: int) -> Tuple[bool, ServeEngine
     return shared > 0 and exact, cold
 
 
+def _document_extension(eng: ServeEngine, seed: int) -> List:
+    """The reference's speculation workload
+    (``tests/test_serve_speculative.py:60-84``) at the engine's page size: a
+    two-page prompt generates two pages more, the page-aligned document is
+    served as a prompt (which stores it whole in the prefix cache, a draft
+    source), then a follow-up request continues the document's head.  The
+    reference's follow-up prompt runs one token into the generated part,
+    whose logits a prefill chunk then computes where the document's came
+    from a decode step: other products, other bits, and at full width in
+    bf16 that flipped a draft (PERF.md).  Here the follow-up prompt is the
+    head itself, so its first token comes from the stored prefill's logits
+    and every later one from decode-shaped steps, as the document's did.
+    Returns the three requests."""
+    ps = eng.page_size
+    head = np.random.RandomState(seed + 3).randint(0, eng.cfg.vocab_size,
+                                                   2 * ps).astype(np.int32)
+    doc_req = eng.submit(head, 2 * ps)
+    eng.run()
+    stored = eng.submit(np.concatenate([head, np.asarray(doc_req.generated, np.int32)]), 1)
+    eng.run()
+    follow = eng.submit(head.copy(), 3 * ps // 2)
+    eng.run()
+    return [doc_req, stored, follow]
+
+
+def _resolve_prefill_chunk(value: Optional[int], smoke: bool, backend: str) -> Optional[int]:
+    """``--prefill-chunk -1``: the tuner's chunk for the preset's sweep
+    shape on ``backend``, else ``DEFAULT_PREFILL_CHUNK``."""
+    if value is None or value >= 0:
+        return value
+    import torch
+
+    from repro_torch.kernels.flash_decode.ops import DEFAULT_PREFILL_CHUNK
+    from repro_torch.kernels.tune import SWEEP_SHAPES, lookup
+
+    preset = "smoke" if smoke else "full"
+    entry = lookup("prefill_chunk", SWEEP_SHAPES[preset]["prefill_chunk"], torch.bfloat16,
+                   backend)
+    chunk = int(entry["chunk"]) if entry else DEFAULT_PREFILL_CHUNK
+    print(f"prefill chunk: auto -> {chunk} ({'tuned' if entry else 'untuned default'})")
+    return chunk
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-14b")
@@ -119,6 +178,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="TOKENS",
+                    help="chunked prefill: stream prompts in at most TOKENS a step (-1: the "
+                         "tuner's prefill_chunk entry, else the default)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decode: draft up to K tokens a slot, verified in one "
+                         "step")
     ap.add_argument("--tune-cache", default=None, metavar="PATH",
                     help="seed the capacity planner with measured paged-decode kernel "
                          "timings from this autotuner config cache, and run paged decode "
@@ -126,13 +191,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None) -> Dict:
+def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
+         lm: Optional[LM] = None) -> Dict:
     """Run the ``--continuous`` path.  ``cfg``, when given, is the config to
     serve in place of ``--arch`` / ``--smoke`` (a caller's cut one, such as
     a full-width model at fewer layers), with random weights from
-    ``--seed``.  Returns the stats, the fitted planner, the plan, both
-    engines, the tuned kernel rows seeded and the paged decode's
-    ``pages_per_program``; exits 1 if the prefix-reuse check fails."""
+    ``--seed``; ``lm``, when given, is an already-built model to serve in
+    their place (a caller's, whose weights are then not built again).
+    Returns the stats, the fitted planner, the plan, the warm
+    and cold engines (``engines``), the plain engine the chunked or
+    speculative run was replayed through (``baseline``) and whether the
+    replay gave the same tokens (``bit_identical``; both None without the
+    knobs), the tuned
+    kernel rows seeded and the paged decode's ``pages_per_program``; exits 1
+    if the prefix-reuse check or the replay check fails."""
     args = parse_args(argv)
     if not args.continuous:
         raise SystemExit("only the --continuous path is ported (ROADMAP.md)")
@@ -141,10 +213,14 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None)
         from repro_torch.kernels import tune
 
         tune_cache = tune.set_default_cache(args.tune_cache)
-    lm = None if cfg is None else random_lm(cfg, args.device, args.seed)
-    eng = ServeEngine(args.arch, smoke=args.smoke, max_batch=args.max_batch,
-                      page_size=args.page_size, max_seq=64 + args.page_size * 2,
-                      seed=args.seed, paged_impl=args.paged_impl, lm=lm, device=args.device)
+    if lm is None and cfg is not None:
+        lm = random_lm(cfg, args.device, args.seed)
+    device = lm.device if lm is not None else resolve_device(args.device)
+    prefill_chunk = _resolve_prefill_chunk(args.prefill_chunk, args.smoke, device.type)
+    geometry = dict(max_batch=args.max_batch, page_size=args.page_size,
+                    max_seq=64 + args.page_size * 2, seed=args.seed, paged_impl=args.paged_impl)
+    eng = ServeEngine(args.arch, smoke=args.smoke, prefill_chunk=prefill_chunk,
+                      speculate=args.speculate, lm=lm, device=args.device, **geometry)
     specs = _mixed_trace_specs(eng.cfg, eng.page_size, args.requests, args.seed)
     reqs = [eng.submit(prompt, gen, arrival_step=arrival, frontend_embeds=fe)
             for prompt, gen, arrival, fe in specs]
@@ -159,6 +235,28 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None)
     if "join_to_first_token_p50" in stats:
         print(f"join-to-first-token: p50 {stats['join_to_first_token_p50']:.1f}"
               f" p99 {stats['join_to_first_token_p99']:.1f} steps")
+
+    base = identical = None
+    if prefill_chunk is not None or args.speculate:
+        if args.speculate:
+            reqs += _document_extension(eng, args.seed)
+            stats = eng.stats()
+        if prefill_chunk is not None:
+            print(f"chunked prefill: {stats['prefill_chunks']} chunk steps / "
+                  f"{stats['prefill_chunk_tokens']} prompt tokens at budget {prefill_chunk}")
+        if args.speculate:
+            print(f"speculation: accept rate {stats['spec_accept_rate']:.2f} "
+                  f"({stats['draft_accepted']}/{stats['draft_proposed']} drafted tokens, "
+                  f"{stats['verify_steps']} verify steps)")
+        base = ServeEngine("", lm=eng.lm, **geometry)
+        base_reqs = _serve_replay(base, specs, args.seed, args.speculate)
+        identical = len(base_reqs) == len(reqs) and all(
+            r.generated == b.generated for r, b in zip(reqs, base_reqs))
+        print(f"chunked+speculative vs one-token baseline: "
+              f"bit_identical={'yes' if identical else 'NO'}")
+        if not identical:
+            print("FAIL: chunked/speculative outputs diverge from baseline")
+            sys.exit(1)
 
     planner = CapacityPlanner()
     tune_rows, ppp = 0, None
@@ -194,31 +292,24 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None)
     if not ok:
         print("FAIL: prefix-reuse verification")
         sys.exit(1)
-    return {"stats": stats, "served": len(done), "requests": len(reqs), "planner": planner,
-            "plan": plan, "engines": (eng, cold), "tune_rows": tune_rows,
-            "pages_per_program": ppp}
+    return {"stats": stats, "served": len(done), "requests": len(specs), "planner": planner,
+            "plan": plan, "engines": (eng, cold), "baseline": base,
+            "bit_identical": identical, "tune_rows": tune_rows, "pages_per_program": ppp}
+
+
+def _serve_replay(eng: ServeEngine, specs: List[TraceSpec], seed: int, speculate: int) -> List:
+    """The served workload again on ``eng``: the trace, then with
+    ``speculate`` the document extension."""
+    reqs = [eng.submit(prompt, gen, arrival_step=arrival, frontend_embeds=fe)
+            for prompt, gen, arrival, fe in specs]
+    eng.run()
+    return reqs + (_document_extension(eng, seed) if speculate else [])
 
 
 def _decode_pages_per_program(eng: ServeEngine) -> int:
     """Print and return the ``pages_per_program`` the engine's paged decode
-    ran at: its decode shape (all ``max_batch`` slots, the whole page-table
-    row) looked up in the tuner's cache as every decode call looks it up."""
-    from repro_torch.kernels.flash_decode.ops import latent_shape
-    from repro_torch.kernels.tune import lookup
-    from repro_torch.models.runtime import DEFAULT_PAGES_PER_PROGRAM
-
-    cfg = eng.cfg
-    if cfg.mla is not None:
-        m = cfg.mla
-        shape = latent_shape(eng.max_batch, cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim,
-                             eng.page_size, eng.pages_per_seq)
-    else:
-        hk = cfg.n_kv_heads
-        shape = {"b": eng.max_batch, "hk": hk, "g": cfg.n_heads // hk, "d": cfg.head_dim,
-                 "page": eng.page_size, "npp": eng.pages_per_seq}
-    entry = lookup("flash_decode_paged", shape, eng.lm.dtype, eng.device.type)
-    tuned = entry is not None
-    ppp = int(entry["pages_per_program"]) if tuned else DEFAULT_PAGES_PER_PROGRAM
+    ran at, decode and verify steps alike (``decode_pages_per_program``)."""
+    ppp, tuned, shape = eng.decode_pages_per_program()
     sig = " ".join(f"{k}={v}" for k, v in shape.items())
     print(f"paged decode: pages_per_program={ppp} at {sig} "
           f"({'tuned' if tuned else 'default: no cache entry'})")

@@ -1,8 +1,13 @@
 """GQA attention for the dense archs: grouped KV heads, qk-norm (Qwen3),
-QKV bias, partial rotary; prefill through the flash forward (K3) and paged
-decode through paged flash decode (K2).  Counterparts of
-``repro/models/attention.py:70`` (``_project_qkv``), ``:98``
-(``apply_attention``) and ``:128`` (``apply_attention_decode_paged``).
+QKV bias, partial rotary; prefill and chunked prefill through the flash
+forward (K3) and paged decode through paged flash decode (K2).  Counterparts
+of ``repro/models/attention.py:70`` (``_project_qkv``), ``:98``
+(``apply_attention``), ``:128`` (``apply_attention_decode_paged``) and
+``:167`` (``apply_attention_prefill_paged``).
+
+The projections, qk-norm, rope and output projection run over row blocks of
+fixed shape: ``rt.prefill_rows`` positions in prefill and chunked prefill,
+``rt.decode_rows`` batch rows in decode (``repro_torch.models.runtime``).
 
 Parameters are one layer's dict of tensors: ``wq`` (d, H*hd), ``wk`` and
 ``wv`` (d, Hk*hd), ``wo`` (H*hd, d), stored flattened as in the reference,
@@ -18,8 +23,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_decode.ops import paged_decode_attention
-from repro_torch.models.layers import apply_rope, by_rows, rms_norm, row_blocks
+from repro_torch.kernels.flash_decode.ops import (
+    paged_decode_attention,
+    paged_prefill_attention,
+)
+from repro_torch.models.layers import apply_rope, by_batch, by_rows, rms_norm, row_blocks
 from repro_torch.models.runtime import Runtime
 
 
@@ -85,27 +93,73 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     return by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), {"k": kt, "v": vt}
 
 
+def scatter_positions(page_tables: torch.Tensor, positions: torch.Tensor, page: int):
+    """(page ids, offsets) of ``positions`` (B,) in the rows of ``page_tables``
+    (B, npp); int64, for indexing the pools."""
+    pid = page_tables.gather(1, (positions // page).long()[:, None])[:, 0].long()
+    return pid, (positions % page).long()
+
+
+def apply_attention_prefill_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                                  cache: Dict[str, torch.Tensor], page_tables: torch.Tensor,
+                                  *, s0: int, n_valid: int, base: int) -> torch.Tensor:
+    """One chunk of a chunked prefill: positions ``s0 .. s0 + n_valid - 1``
+    of the request whose page-table row is ``page_tables`` (1, npp).
+
+    x (1, S, d) is the prefill row blocks the chunk touches, row j at
+    position ``base + j`` (``base`` a multiple of ``rt.prefill_rows``), so
+    each position sits at the row of the block where a monolithic prefill
+    puts it; the rows outside the chunk are padding.  The projections run
+    over those blocks, the chunk's K/V are scattered into its pages, and the
+    flash forward (K3) runs the chunk's queries over the gathered page row
+    with ``q_offset = s0`` and ``kv_lens = s0 + n_valid``: key tiles from
+    position 0, as in the monolithic prefill.  The reference's padded tail
+    rows (``attention.py:190-193``) are not computed at all, so none is
+    scattered.  Returns y (1, S, d), zero at the padding rows."""
+    s = x.shape[1]
+    positions = torch.arange(base, base + s, dtype=torch.int32, device=x.device)[None]
+    parts = [_project_qkv(p, x[:, r], cfg, positions[:, r])
+             for r in row_blocks(s, rt.prefill_rows)]
+    q, k, v = (torch.cat(t, dim=1) for t in zip(*parts))
+    rows = slice(s0 - base, s0 - base + n_valid)
+    pid, offset = scatter_positions(page_tables.expand(n_valid, -1),
+                                    positions[0, rows], rt.page_size)
+    cache["k"][pid, :, offset] = k[0, rows].to(cache["k"].dtype)
+    cache["v"][pid, :, offset] = v[0, rows].to(cache["v"].dtype)
+    kv_lens = torch.full((1,), s0 + n_valid, dtype=torch.int32, device=x.device)
+    out = paged_prefill_attention(q[:, rows].transpose(1, 2).contiguous(), cache["k"],
+                                  cache["v"], kv_lens, page_tables, q_offset=s0,
+                                  block_q=rt.block_q, block_k=rt.block_k)
+    y = x.new_zeros((1, s, cfg.n_heads * cfg.head_dim))
+    y[:, rows] = out.transpose(1, 2).reshape(1, n_valid, cfg.n_heads * cfg.head_dim)
+    return by_rows(lambda o: o @ p["wo"], y, rt.prefill_rows)
+
+
 def apply_attention_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
                                  cache: Dict[str, torch.Tensor], lengths: torch.Tensor,
                                  page_tables: torch.Tensor) -> torch.Tensor:
-    """Paged-KV decode of one new token per row, x (B, 1, d): scatter the new
-    token's K/V into its page, then attend over the pool with ``lengths + 1``.
+    """Paged-KV decode of one new token per row, x (B, 1, d): scatter every
+    row's new K/V into its page, then attend over the pool with
+    ``lengths + 1``, one call over all B rows.  The projections run over
+    blocks of ``rt.decode_rows`` rows.  A speculative verify step's fold
+    puts rows of one sequence at consecutive positions: all are scattered
+    before any attends, so each sees the ones before it.
 
     The reference's scatter (``attention.py:154-157``) is functional and
     returns new pools; the port writes ``cache``'s pools in place.  Idle
     slots all write page 0 (the scratch page), offset 0, in the same step;
     that is harmless because no live row ever reads page 0."""
     b = x.shape[0]
+    rows = rt.decode_rows or b
     lengths = lengths.to(torch.int32)
-    q, k, v = _project_qkv(p, x, cfg, lengths[:, None])
-    page = rt.page_size
-    page_idx = (lengths // page).long()
-    offset = (lengths % page).long()
-    pid = page_tables.gather(1, page_idx[:, None])[:, 0].long()
+    parts = [_project_qkv(p, x[r], cfg, lengths[r, None]) for r in row_blocks(b, rows)]
+    q, k, v = (torch.cat(t, dim=0) for t in zip(*parts))
+    pid, offset = scatter_positions(page_tables, lengths, rt.page_size)
     cache["k"][pid, :, offset] = k[:, 0].to(cache["k"].dtype)
     cache["v"][pid, :, offset] = v[:, 0].to(cache["v"].dtype)
     out = paged_decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"], lengths + 1,
                                  page_tables, impl=rt.paged_impl,
                                  pages_per_program=rt.pages_per_program)
-    y = out.reshape(b, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    y = by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * cfg.head_dim) @ p["wo"], out,
+                 rows)
     return y[:, None, :]

@@ -1,9 +1,18 @@
 """Decoder blocks, pre-norm: ln1 -> mixer (attention, MLA or Mamba) ->
 residual, then, unless the layer's ffn is "none", ln2 -> SwiGLU or MoE ->
 residual.  Counterparts of ``repro/models/blocks.py``'s ``init_block`` (:22),
-``apply_block`` (:56) for prefill and ``apply_block_decode_paged`` (:98),
-dispatching on the layer's ``LayerSpec`` (and on ``cfg.mla`` for the
-attention mixer) as there.
+``apply_block`` (:56) for prefill, ``apply_block_decode_paged`` (:98) and
+``apply_block_prefill_paged`` (:141) for chunked prefill, dispatching on
+the layer's ``LayerSpec`` (and on ``cfg.mla`` for the attention mixer) as
+there.
+
+Every row-wise step (the norms, the MLP, the MoE's dispatch) runs over row
+blocks of one fixed shape: ``rt.prefill_rows`` positions in prefill and in
+chunked prefill, whose row blocks are the monolithic prefill's, and
+``rt.decode_rows`` batch rows in decode, so that a verify step's folded
+batch runs them at the decode step's shape.  A matrix product's row, and the
+MoE's output for a token, depend on the other rows only through the shape
+(``repro_torch.serve.engine``), so a position gets the same bits in each.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import apply_mlp, by_rows, rms_norm
+from repro_torch.models.layers import apply_mlp, by_batch, by_rows, rms_norm
 from repro_torch.models.runtime import Runtime
 
 
@@ -124,9 +133,28 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
                    x, rows), cache
 
 
+def apply_block_prefill_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                              cache: Dict[str, torch.Tensor], page_tables: torch.Tensor, *,
+                              s0: int, n_valid: int, base: int) -> torch.Tensor:
+    """One chunk of a chunked prefill (attention mixers only) against the
+    layer's page pools, which it updates in place: x (1, S, d) is the prefill
+    row blocks the chunk touches, row j at position ``base + j``, the chunk
+    positions ``s0 .. s0 + n_valid - 1``
+    (``attention.apply_attention_prefill_paged``).  Returns x."""
+    if p.spec.mixer != "attn":
+        raise NotImplementedError("chunked paged prefill supports attn mixers only")
+    rows = rt.prefill_rows
+    h = by_rows(lambda xr: rms_norm(xr, p.ln1, cfg.norm_eps), x, rows)
+    mixer = mla_mod.apply_mla_prefill_paged if cfg.mla else attn_mod.apply_attention_prefill_paged
+    x = x + mixer(p.mixer, h, cfg, rt, cache, page_tables, s0=s0, n_valid=n_valid, base=base)
+    if p.ffn is None:
+        return x
+    return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg), x, rows)
+
+
 def _ffn(p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The layer's FFN: SwiGLU, or the MoE's dropless eval (one dispatch over
-    the rows given: in prefill one row block, in decode the batch)."""
+    the rows given: one row block)."""
     if p.spec.ffn == "moe":
         return moe_mod.apply_moe(p.ffn, h, cfg)
     return apply_mlp(p.ffn, h)
@@ -138,8 +166,10 @@ def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Run
     """One decode step of x (B, 1, d) against the layer's cache, which it
     updates in place: an attention layer's page pools (K/V, or MLA's latent
     pools), or a Mamba layer's slot-major state (which the lengths and page
-    tables do not index)."""
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    tables do not index).  The norms and the FFN run over blocks of
+    ``rt.decode_rows`` rows."""
+    rows = rt.decode_rows or x.shape[0]
+    h = by_batch(lambda xb: rms_norm(xb, p.ln1, cfg.norm_eps), x, rows)
     if p.spec.mixer == "attn":
         mixer = (mla_mod.apply_mla_decode_paged if cfg.mla
                  else attn_mod.apply_attention_decode_paged)
@@ -148,4 +178,4 @@ def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Run
         x = x + mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache)
     if p.ffn is None:
         return x
-    return x + _ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), cfg)
+    return by_batch(lambda xb: xb + _ffn(p, rms_norm(xb, p.ln2, cfg.norm_eps), cfg), x, rows)

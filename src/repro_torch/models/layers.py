@@ -63,7 +63,7 @@ def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def row_blocks(n: int, rows: int) -> List[slice]:
-    """Slices cutting ``n`` sequence positions into blocks of ``rows``."""
+    """Slices cutting ``n`` positions (or batch rows) into blocks of ``rows``."""
     return [slice(i, min(i + rows, n)) for i in range(0, n, rows)]
 
 
@@ -74,6 +74,15 @@ def by_rows(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     if x.shape[1] <= rows:
         return fn(x)
     return torch.cat([fn(x[:, r]) for r in row_blocks(x.shape[1], rows)], dim=1)
+
+
+def by_batch(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+             rows: int) -> torch.Tensor:
+    """``fn`` applied to x (B, ...) one block of ``rows`` batch rows at a
+    time: with B a multiple of ``rows``, every call sees one fixed shape."""
+    if x.shape[0] <= rows:
+        return fn(x)
+    return torch.cat([fn(x[r]) for r in row_blocks(x.shape[0], rows)], dim=0)
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,17 @@ shared by every head.  The cache holds only (c_kv, k_pe): the MLA memory win.
   ``W_uv`` and ``wo``.  ``q_lat`` is computed in the config's dtype and the
   latent context rounded to it before ``W_uv``, as the reference does.
 
-Not ported: chunked prefill (``apply_mla_prefill_paged``), the contiguous
-decode (``apply_mla_decode``) and ``paged_impl="legacy"`` (ROADMAP.md).
+* ``apply_mla_prefill_paged`` (chunked prefill, ``mla.py:239``): the
+  chunk's latents scattered into the latent pages, K/V re-expanded from the
+  gathered latent row block by block from position 0, as ``apply_mla``
+  re-expands them, then K3 with ``q_offset``.
+
+The row-wise steps run over row blocks of fixed shape: ``rt.prefill_rows``
+positions in prefill and chunked prefill, ``rt.decode_rows`` batch rows in
+decode (``repro_torch.models.runtime``).
+
+Not ported: the contiguous decode (``apply_mla_decode``) and
+``paged_impl="legacy"`` (ROADMAP.md).
 
 Parameters are one layer's dict with the reference's names, shapes and
 initialisers (``mla.py:44-69``); the up-projections are stored flattened,
@@ -34,8 +43,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_decode.ops import paged_latent_decode_attention
-from repro_torch.models.layers import apply_rope, by_rows, rms_norm, row_blocks
+from repro_torch.kernels.flash_decode.ops import gather_pages, paged_latent_decode_attention
+from repro_torch.models.attention import scatter_positions
+from repro_torch.models.layers import apply_rope, by_batch, by_rows, rms_norm, row_blocks
 from repro_torch.models.runtime import Runtime
 
 
@@ -82,17 +92,24 @@ def _mla_kv_latent(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor)
     return ckv, kpe
 
 
-def _project(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """One row block's q (B, S, H, nope + rope), k (the same) and v
-    (B, S, H, v), and its latents (c_kv, k_pe)."""
+def _expand_kv(p, ckv: torch.Tensor, kpe: torch.Tensor, cfg: ArchConfig):
+    """One row block's k (B, S, H, nope + rope) and v (B, S, H, v),
+    re-expanded from its latents (c_kv, k_pe)."""
     m = cfg.mla
-    b, s, _ = x.shape
-    q_nope, q_pe = _mla_q(p, x, cfg, positions)
-    ckv, kpe = _mla_kv_latent(p, x, cfg, positions)
+    b, s, _ = ckv.shape
     kv = (ckv @ p["wkv_b"]).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
     k = torch.cat([k_nope, kpe[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_head_dim)],
                   dim=-1)
+    return k, v
+
+
+def _project(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """One row block's q (B, S, H, nope + rope), k (the same) and v
+    (B, S, H, v), and its latents (c_kv, k_pe)."""
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv, kpe = _mla_kv_latent(p, x, cfg, positions)
+    k, v = _expand_kv(p, ckv, kpe, cfg)
     return torch.cat([q_nope, q_pe], dim=-1), k, v, ckv, kpe
 
 
@@ -113,31 +130,89 @@ def apply_mla(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     return by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), {"ckv": ckv, "kpe": kpe}
 
 
+def apply_mla_prefill_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                            cache: Dict[str, torch.Tensor], page_tables: torch.Tensor,
+                            *, s0: int, n_valid: int, base: int) -> torch.Tensor:
+    """One chunk of a chunked prefill over the latent pools: positions ``s0
+    .. s0 + n_valid - 1`` of the request whose page-table row is
+    ``page_tables`` (1, npp); x (1, S, d) the prefill row blocks the chunk
+    touches, row j at position ``base + j``, as
+    ``attention.apply_attention_prefill_paged`` takes them.
+
+    The chunk's (c_kv, k_pe) go into the latent pages; K and V are
+    re-expanded from the gathered latent row over blocks of
+    ``rt.prefill_rows`` positions from position 0, the row padded to whole
+    blocks, as ``apply_mla`` re-expands them (the reference's one product
+    over the whole row, ``mla.py:276-278``, would give the earlier positions
+    other bits here); K3 runs the chunk's queries with ``q_offset = s0``.
+    Returns y (1, S, d), zero at the rows outside the chunk."""
+    m = cfg.mla
+    s, rows_r = x.shape[1], rt.prefill_rows
+    positions = torch.arange(base, base + s, dtype=torch.int32, device=x.device)[None]
+    parts = [(*_mla_q(p, x[:, r], cfg, positions[:, r]),
+              *_mla_kv_latent(p, x[:, r], cfg, positions[:, r]))
+             for r in row_blocks(s, rows_r)]
+    q_nope, q_pe, ckv, kpe = (torch.cat(t, dim=1) for t in zip(*parts))
+    rows = slice(s0 - base, s0 - base + n_valid)
+    pid, offset = scatter_positions(page_tables.expand(n_valid, -1), positions[0, rows],
+                                    rt.page_size)
+    cache["ckv"][pid, offset] = ckv[0, rows].to(cache["ckv"].dtype)
+    cache["kpe"][pid, offset] = kpe[0, rows].to(cache["kpe"].dtype)
+    kv_len = s0 + n_valid
+    skv = -(-kv_len // rows_r) * rows_r  # the blocks holding every key position read
+
+    def latent_row(pool):
+        full = gather_pages(pool, page_tables)  # (1, npp * page, width)
+        return torch.nn.functional.pad(full, (0, 0, 0, max(0, skv - full.shape[1])))[:, :skv]
+
+    ckv_row, kpe_row = latent_row(cache["ckv"]), latent_row(cache["kpe"])
+    kv = [_expand_kv(p, ckv_row[:, r], kpe_row[:, r], cfg) for r in row_blocks(skv, rows_r)]
+    k, v = (torch.cat(t, dim=1) for t in zip(*kv))
+    q = torch.cat([q_nope[:, rows], q_pe[:, rows]], dim=-1)
+    out = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(), causal=True, sm_scale=sm_scale(cfg),
+                          kv_lens=torch.full((1,), kv_len, dtype=torch.int32, device=x.device),
+                          q_offset=s0, block_q=rt.block_q, block_k=rt.block_k)
+    y = x.new_zeros((1, s, cfg.n_heads * m.v_head_dim))
+    y[:, rows] = out.transpose(1, 2).reshape(1, n_valid, cfg.n_heads * m.v_head_dim)
+    return by_rows(lambda o: o @ p["wo"], y, rows_r)
+
+
 def apply_mla_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
                            cache: Dict[str, torch.Tensor], lengths: torch.Tensor,
                            page_tables: torch.Tensor) -> torch.Tensor:
     """Absorbed paged decode of one new token per row, x (B, 1, d), against
     the latent pools ``cache`` {"ckv" (n_pages, page, r), "kpe" (n_pages,
     page, rope)}, which it updates in place (the reference's scatter at
-    ``mla.py:209-214`` is functional).  Idle slots write page 0, the scratch
+    ``mla.py:209-214`` is functional).  Every row's latents are scattered
+    before any row attends; the projections and ``W_uk`` / ``W_uv`` run over
+    blocks of ``rt.decode_rows`` rows.  Idle slots write page 0, the scratch
     page, which no live row reads.  Returns y (B, 1, d)."""
     m = cfg.mla
     b, h = x.shape[0], cfg.n_heads
+    rows = rt.decode_rows or b
     lengths = lengths.to(torch.int32)
-    positions = lengths[:, None]
-    q_nope, q_pe = _mla_q(p, x, cfg, positions)
-    ckv_new, kpe_new = _mla_kv_latent(p, x, cfg, positions)
-    page = rt.page_size
-    pid = page_tables.gather(1, (lengths // page).long()[:, None])[:, 0].long()
-    offset = (lengths % page).long()
-    cache["ckv"][pid, offset] = ckv_new[:, 0].to(cache["ckv"].dtype)
-    cache["kpe"][pid, offset] = kpe_new[:, 0].to(cache["kpe"].dtype)
     wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
     wk, wv = wkv_b[..., :m.qk_nope_head_dim], wkv_b[..., m.qk_nope_head_dim:]
-    q_lat = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], wk)  # (B, H, r)
+
+    def project(xb, positions):
+        q_nope, q_pe = _mla_q(p, xb, cfg, positions)
+        ckv_new, kpe_new = _mla_kv_latent(p, xb, cfg, positions)
+        q_lat = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], wk)  # (B, H, r)
+        return q_lat, q_pe[:, 0], ckv_new[:, 0], kpe_new[:, 0]
+
+    parts = [project(x[r], lengths[r, None]) for r in row_blocks(b, rows)]
+    q_lat, q_pe, ckv_new, kpe_new = (torch.cat(t, dim=0) for t in zip(*parts))
+    pid, offset = scatter_positions(page_tables, lengths, rt.page_size)
+    cache["ckv"][pid, offset] = ckv_new.to(cache["ckv"].dtype)
+    cache["kpe"][pid, offset] = kpe_new.to(cache["kpe"].dtype)
     ctx_lat = paged_latent_decode_attention(
-        q_lat.contiguous(), q_pe[:, 0].contiguous(), cache["ckv"], cache["kpe"], lengths + 1,
+        q_lat.contiguous(), q_pe.contiguous(), cache["ckv"], cache["kpe"], lengths + 1,
         page_tables, sm_scale=sm_scale(cfg), impl=rt.paged_impl,
         pages_per_program=rt.pages_per_program)
-    out = torch.einsum("bhr,rhe->bhe", ctx_lat.to(x.dtype), wv)  # (B, H, v)
-    return (out.reshape(b, h * m.v_head_dim) @ p["wo"])[:, None, :]
+
+    def out_proj(ctx):
+        out = torch.einsum("bhr,rhe->bhe", ctx.to(x.dtype), wv)  # (B, H, v)
+        return out.reshape(ctx.shape[0], h * m.v_head_dim) @ p["wo"]
+
+    return by_batch(out_proj, ctx_lat, rows)[:, None, :]

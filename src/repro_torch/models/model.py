@@ -5,10 +5,14 @@ layer): the serving entry points of ``repro/models/model.py``.
 * ``prefill(tokens)`` — the counterpart of ``LM.prefill`` (``model.py:171``):
   a full-sequence causal forward; returns one position's logits and each
   layer's K/V (attention), latents (MLA) or recurrent state (Mamba).
+* ``prefill_chunk(tokens, n_valid, cache, page_tables, s0=...)`` — the
+  counterpart of ``LM.prefill_chunk`` (``model.py:250``): one chunk of a
+  chunked prefill into the paged pools (attention archs), run over the
+  monolithic prefill's row blocks.
 * ``decode_step_paged(tokens, lengths, cache, page_tables)`` — the
   counterpart of ``LM.decode_step_paged`` (``model.py:289``): one token per
   row against the paged pools and the slot-major Mamba state, which it
-  updates in place.
+  updates in place; a speculative verify step's folded batch too.
 
 The reference's ``first_k_dense`` unrolled head layers (``model.py:60-66``,
 each ``period[0]`` with a dense FFN) and its ``lax.scan`` over the stacked
@@ -32,7 +36,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as blocks_mod
-from repro_torch.models.layers import embed_tokens, lm_logits, rms_norm
+from repro_torch.models.layers import by_batch, embed_tokens, lm_logits, rms_norm
 from repro_torch.models.runtime import Runtime
 
 LayerCache = Dict[str, torch.Tensor]  # {"k", "v"}, {"ckv", "kpe"} or {"h", "conv"}
@@ -122,6 +126,41 @@ class LM(nn.Module):
         return lm_logits(self._head(), x)[:, 0], caches
 
     @torch.no_grad()
+    def prefill_chunk(self, tokens: torch.Tensor, n_valid: int, cache: List[LayerCache],
+                      page_tables: torch.Tensor, *, s0: int,
+                      rt: Runtime = DEFAULT_RUNTIME) -> Tuple[torch.Tensor, List[LayerCache]]:
+        """One chunk of a chunked paged prefill (attention archs): tokens
+        (1, C), of which the first ``n_valid`` are the prompt's positions
+        ``s0 .. s0 + n_valid - 1``; page_tables (1, npp) the request's row.
+        Each layer scatters the chunk's K/V (MLA: latents) into the request's
+        pages, then attends with ``q_offset = s0`` over the gathered row.
+
+        Every row-wise step runs over the monolithic prefill's row blocks
+        (``rt.prefill_rows`` rows, block i holding positions from i x rows):
+        the chunk's positions sit at their rows of the blocks they fall in,
+        the other rows are padding, and the tokens past
+        ``n_valid`` are not computed.  So after the last chunk the pages and
+        the last position's logits are bitwise those of ``prefill`` over the
+        prompt padded to whole blocks.  Returns (logits (1, V) at position
+        ``s0 + n_valid - 1``, computed as ``prefill`` computes its one
+        position, cache); the reference returns every row's (1, C, V)."""
+        cfg = self.cfg
+        rows, n = rt.prefill_rows, int(n_valid)
+        if not 1 <= n <= tokens.shape[1]:
+            raise ValueError(f"n_valid={n} outside 1..{tokens.shape[1]}")
+        base = s0 // rows * rows
+        span = slice(s0 - base, s0 - base + n)
+        ids = torch.zeros((1, -(-(s0 + n - base) // rows) * rows), dtype=torch.int64,
+                          device=self.device)
+        ids[:, span] = tokens[:, :n].to(self.device)
+        x = embed_tokens(self.embed, ids)
+        for layer, c in zip(self.layers, cache):
+            x = blocks_mod.apply_block_prefill_paged(layer, x, cfg, rt, c, page_tables, s0=s0,
+                                                     n_valid=n, base=base)
+        x = rms_norm(x[:, span.stop - 1:span.stop], self.final_norm, cfg.norm_eps)
+        return lm_logits(self._head(), x)[:, 0], cache
+
+    @torch.no_grad()
     def decode_step_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
                           cache: List[LayerCache], page_tables: torch.Tensor,
                           rt: Runtime = DEFAULT_RUNTIME
@@ -133,11 +172,16 @@ class LM(nn.Module):
         into; MLA layers' pools are the latent pages.  Mamba layers' caches
         are the slot-major state (``init_paged_cache``), which lengths and
         tables do not index.
+        Rows may be a speculative verify step's fold, several rows of one
+        sequence at consecutive positions (each layer scatters every row's
+        K/V before any attends); the row-wise steps, the head included, run
+        over blocks of ``rt.decode_rows`` rows.
         Returns (logits (B, V), cache), the pools and states updated in
         place."""
         cfg = self.cfg
         x = embed_tokens(self.embed, tokens.to(self.device)[:, None])
         for layer, c in zip(self.layers, cache):
             x = blocks_mod.apply_block_decode_paged(layer, x, cfg, rt, c, lengths, page_tables)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return lm_logits(self._head(), x[:, 0]), cache
+        return by_batch(lambda xb: lm_logits(self._head(),
+                                             rms_norm(xb, self.final_norm, cfg.norm_eps)[:, 0]),
+                        x, rt.decode_rows or x.shape[0]), cache

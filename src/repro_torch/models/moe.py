@@ -12,6 +12,11 @@ each expert's product is computed alone (a product's row depends only on
 that row at a fixed shape).  So a token's output does not depend on the
 tokens after it, which the serve engine's prefix reuse needs (prompts are
 padded to whole row blocks, so T is fixed), nor on the other rows' contents.
+The blocks (``repro_torch.models.blocks``) call it on one row block at a
+time: ``prefill_rows`` rows in prefill and in a prefill chunk (whose other
+rows are padding), ``decode_rows`` (the engine's ``max_batch``) in a decode
+step and in each draft index's block of a verify step, so T is always one
+of the two shapes the plain engine uses.
 The buffer holds every expert's T rows whatever the routing: at full width a
 1024-row prefill block computes all 160 experts on 1024 rows, and a decode
 step reads every expert's weights (PERF.md).  Gathering only the routed

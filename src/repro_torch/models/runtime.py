@@ -1,7 +1,7 @@
-"""Runtime options threaded through the model: kernel geometry and the paged
-decode implementation.  The counterpart of ``repro.models.runtime.Runtime``
-without a mesh, sharding rules or remat (the port runs on one card and does
-not train yet).
+"""Runtime options threaded through the model: kernel geometry, the paged
+decode implementation and the row blocks of the row-wise steps.  The
+counterpart of ``repro.models.runtime.Runtime`` without a mesh, sharding
+rules or remat (the port runs on one card and does not train yet).
 """
 from __future__ import annotations
 
@@ -40,9 +40,16 @@ class Runtime:
     # blocks of this many rows, each one product of fixed shape; the serve
     # engine pads prompts to whole blocks (repro_torch.serve.engine)
     prefill_rows: int = PREFILL_ROWS
+    # a decode-shaped call (one token a row) runs its row-wise steps over
+    # blocks of this many rows (None: one block of all rows); the serve
+    # engine sets max_batch, so that a speculative verify step, max_batch x
+    # (k + 1) rows, runs each of them at the decode step's shape
+    decode_rows: Optional[int] = None
 
     def __post_init__(self):
         if self.paged_impl not in PAGED_IMPLS:
             raise ValueError(f"paged_impl={self.paged_impl!r} not in {PAGED_IMPLS}")
         if self.prefill_rows < 1:
             raise ValueError(f"prefill_rows={self.prefill_rows} must be positive")
+        if self.decode_rows is not None and self.decode_rows < 1:
+            raise ValueError(f"decode_rows={self.decode_rows} must be positive")

@@ -156,13 +156,15 @@ def test_bf16_stream_and_gather_streams_bitwise_and_scratch_never_handed_out():
 
 
 def test_unported_engine_options_raise():
+    """What the engine still refuses: chunked prefill and speculation on an
+    arch with recurrent layers (as the reference does), frontend embeddings
+    (not ported), and a request past ``max_seq``."""
     for kw in (dict(prefill_chunk=8), dict(speculate=2)):
-        for arch in ("qwen3-14b", "deepseek-v2-236b"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                ServeEngine(arch, device="cpu", **kw)
-        with pytest.raises(ValueError, match="recurrent-state layers"):
+        with pytest.raises(ValueError, match="attention-only"):
             ServeEngine("falcon-mamba-7b", device="cpu", **kw)
     eng = ServeEngine("qwen3-14b", device="cpu", max_seq=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eng.submit(np.arange(8), 4, frontend_embeds=np.zeros((2, eng.cfg.d_model), np.float32))
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(np.arange(30), 4)
 
