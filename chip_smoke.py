@@ -178,7 +178,28 @@ of which exits non-zero on failure:
       lengths and at full rows (8 x 1088, what the long run's steps see),
       both and their PyTorch calls replayed from a CUDA graph with the L2
       flushed before each call (eager and warm-L2 times printed beside), its
-      split and merge kernels' device times from the profiler.
+      split and merge kernels' device times from the profiler;
+  10c. (slice 12) the serve CLI's static mode, ``Server.generate``, at full
+      width on phase 10's qwen3-14b, batch 4, prompts of 16, 16 generated:
+      prefill ms and decode tokens/s, K3 = 40 x prefills, K2 = 40 x decode
+      steps;
+  23a. K3 with the rows' log-sum-exp against its plain version at
+      stablelm-1.6b's training shape (B 8, 32 heads, S 128, D 64) and
+      qwen3-14b's (40 over 8 heads, S 2048, D 128), full and ragged kv_lens:
+      the output the same bits as without the lse;
+  23b. K3-bwd (the flash backward's dq and dk/dv passes) against its plain
+      version at the same shapes (G 1 and 5, ragged kv_lens), within the
+      stated tolerance, two runs the same bits; each pass's time beside its
+      bound, the plain backward's and SDPA's flash backward's;
+  23c. the training path: ``Trainer`` on stablelm-1.6b at full width (24
+      layers), seq 128, global batch 8, AdamW at lr 1e-3, remat "full", 8
+      steps: loss per step, median step ms, tokens/s, peak memory; K3
+      launches = 2 x 24 x 8, each K3-bwd pass 24 x 8;
+  23d. the smoke trainer 8 steps through the kernels on the card against the
+      plain versions on the CPU, the same weights: losses within the stated
+      tolerance;
+  23e. a checkpoint round trip of the smoke trainer on the card: saved at step
+      4, restored into a fresh ``Trainer``, steps 5-8 bit for bit.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's and
 K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
@@ -186,12 +207,15 @@ K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
 kernel, and counts its launches on the menu and chaos paths; K4's decode body
 has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
 ``flash_fwd_mla``, and K2-latent at full rows one,
-``paged_latent_decode_full``), the card's
+``paged_latent_decode_full``; K3-bwd's two passes, ``flash_bwd_dq`` and
+``flash_bwd_dkdv``, replace the reference's custom-VJP backward, no Pallas
+kernel, and count their launches on the training path), the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -311,7 +335,8 @@ def kernel_wrappers():
             "paged_decode": fd_ops.paged_decode, "selective_scan": ss_ops.selective_scan,
             "flash_decode": fd_ops.flash_decode,
             "paged_latent_decode": fd_ops.paged_latent_decode,
-            "local_sgd": local_sgd_ops.local_sgd}
+            "local_sgd": local_sgd_ops.local_sgd, "flash_bwd_dq": fa_ops.flash_bwd_dq,
+            "flash_bwd_dkdv": fa_ops.flash_bwd_dkdv}
 
 
 def reset_launches() -> None:
@@ -2536,6 +2561,357 @@ def mla_kernel_timings(dev, cfg, errs):
     return timings
 
 
+# ---------------------------------------------------------------- training (PR 22)
+
+# K3-bwd against its plain version on the card.  The plain version runs
+# float32 arithmetic on the bf16 inputs and rounds dq, dk and dv to bf16 once;
+# the kernel multiplies on the tensor cores (exact bf16 products, float32
+# sums in another order) with p and ds carried as hi + lo bf16 pairs (within
+# 2^-17 of each) and rounds once.  The float32 difference can move the
+# rounding by one bf16 step, and is itself about sqrt(n) float32 epsilons of
+# the n summands' magnitude (n up to G x Sq rows for dk and dv), several ulps
+# of an element near 0 by cancellation; so one bf16 ulp of the element plus
+# 2^-12 of the tensor's max |value| (tests/test_torch_flash_bwd_gpu.py states
+# the same).  A fault (a wrong mask, tile or fragment) shows as errors of the
+# order of the values.  K3's lse: its own sums of p = 2^(x - m) by
+# ex2.approx, within 1e-5 (1 + |lse|) of the plain version's.
+BWD_ATOL_OF_MAX = 2.0 ** -12
+LSE_TOL = 1e-5
+# The shapes K3 with lse and K3-bwd are held at: (name, B, Hq, Hk, S, D, kv_lens)
+BWD_SHAPES = (("stablelm-1.6b", 8, 32, 32, 128, 64, None),
+              ("stablelm-1.6b ragged", 8, 32, 32, 128, 64, (128, 100, 77, 64, 63, 17, 1, 128)),
+              ("qwen3-14b S 2048", 1, 40, 8, 2048, 128, None),
+              ("qwen3-14b ragged", 2, 40, 8, 1024, 128, (1024, 611)))
+BWD_TIMED = ("stablelm-1.6b", "qwen3-14b S 2048")  # the kernels line's row: the first
+# The training path: the reference CLI's defaults (launch/train.py:309-311)
+# at full width, all layers, AdamW at lr 1e-3, remat "full"; then a window
+# of steps profiled for device activity only
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = "stablelm-1.6b", 8, 128, 8
+TRAIN_PROFILED_STEPS = 2
+# Phase (d): the smoke trainer through the kernels on the card against the
+# plain versions on the CPU, from the same weights.  Both run bf16
+# activations, rounded where cuBLAS and the CPU's library differ, so a
+# step's loss differs by bf16 steps of the logits (the smoke LM on the card
+# against the CPU: within 1% of the largest logit, phase 9); Adam's steps at
+# warm-up lr (1e-3 x step / 20) keep the weights within a few lr of each
+# other.  So each step's loss within 1% of the CPU's, about a hundred times
+# the difference measured on an H100 (1.1e-4); a wrong gradient shows as a
+# loss curve that parts.
+TRAIN_LOSS_RTOL = 1e-2
+# Phase (f): the static serve mode at full width (repro/launch/serve.py:439-456)
+STATIC_ARGV = ["--arch", QWEN, "--batch", "4", "--prompt-len", "16", "--gen", "16"]
+
+
+def bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens):
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    kv_lens = torch.tensor(lens if lens else [s] * b, dtype=torch.int32, device=dev)
+    return bf16(b, hq, s, d), bf16(b, hk, s, d), bf16(b, hk, s, d), bf16(b, hq, s, d), kv_lens
+
+
+def bwd_flops_bytes(b, hq, hk, s, d, lens, pass_no):
+    """The operations and bytes of one pass over these inputs: the causal
+    pairs each row sees (key < kv_len), 2 D FLOPs a pair for each product
+    (the dq pass: S, dP, dS K; the dk/dv pass: S, dP, P^T dO, dS^T Q); each
+    input read once, each output written once."""
+    lens = lens or (s,) * b
+    pairs = sum(sum(min(length, r + 1) for r in range(s)) for length in lens)
+    flops = (3 if pass_no == 0 else 4) * 2 * d * pairs * hq
+    q_bytes, kv_bytes = b * hq * s * d * 2, b * hk * s * d * 2
+    row_f32 = b * hq * s * 4
+    if pass_no == 0:  # q, k, v, out, dout, lse in; dq, delta out
+        nbytes = 4 * q_bytes + 2 * kv_bytes + 2 * row_f32
+    else:  # q, k, v, dout, lse, delta in; dk, dv out
+        nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_f32
+    return flops, nbytes
+
+
+def flash_bwd_vs_plain(dev) -> dict:
+    """Phases 23a and 23b: K3 with the rows' lse, and K3-bwd, against their
+    plain versions on the card at stablelm-1.6b's and qwen3-14b's training
+    shapes, MHA and G 5, full and ragged kv_lens; two runs of the backward
+    the same bits; each pass's time (CUDA events, after warm-up) beside its
+    bound, the plain backward's and SDPA's flash backward's.  Returns the
+    kernels line's rows' numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
+
+    phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b and qwen3-14b training shapes)")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
+    rows = {}
+    for name, b, hq, hk, s, d, lens in BWD_SHAPES:
+        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens)
+        kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
+        plain_kw = dict(kw, block_q=64, block_k=64)
+        out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+        bare = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, **kw)
+        if not torch.equal(out, bare):
+            fail(f"K3's output at {name} moved with the lse buffer")
+        want_out, want_lse = flash_fwd_ref(q, k, v, kv_lens, return_lse=True, **plain_kw)
+        out_ulps = bf16_ulps(out.float(), want_out.float(),
+                             V_ATOL_OF_MAX * float(v.float().abs().max()))
+        lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
+        worst["flash_fwd_lse"] = max(worst["flash_fwd_lse"], lse_err)
+        if out_ulps > MAX_BF16_ULPS or lse_err > LSE_TOL or not bool(torch.isfinite(lse).all()):
+            fail(f"K3 with lse at {name}: output {out_ulps:.2f} ulps, lse {lse_err:.3g} relative")
+        got = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+        again = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"K3-bwd at {name}: two runs gave different bits")
+        want = flash_bwd_ref(q, k, v, kv_lens, out, lse, do, **plain_kw)
+        errs = []
+        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = float(w.float().abs().max())
+            ulps = bf16_ulps(g.float(), w.float(), BWD_ATOL_OF_MAX * scale)
+            err = float((g.float() - w.float()).abs().max())
+            errs.append(f"{grad} {err:.3g} (max |{grad}| {scale:.3g}, {ulps:.2f} ulps past the "
+                        "atol)")
+            key = "flash_bwd_dq" if grad == "dq" else "flash_bwd_dkdv"
+            worst[key] = max(worst[key], err)
+            if ulps > MAX_BF16_ULPS or not bool(torch.isfinite(g).all()):
+                fail(f"K3-bwd at {name}: {grad} off by {ulps:.2f} bf16 ulps past "
+                     f"{BWD_ATOL_OF_MAX} x max|{grad}|")
+        print(f"{name} (B {b}, Hq {hq}, Hk {hk}, S {s}, D {d}, kv_lens "
+              f"{'full' if lens is None else list(lens)}): K3 output with lse = without, bit for "
+              f"bit; lse within {lse_err:.3g} of plain; K3-bwd two runs bitwise; max |kernel - "
+              f"plain|: {', '.join(errs)}")
+        if name not in BWD_TIMED:
+            continue
+        lens32 = kv_lens
+        delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        times = [cuda_ms(lambda: getattr(fa_ops, f)(q, k, v, lens32, out, lse, do, delta, grads,
+                                                    **kw), reps=20)
+                 for f in ("flash_bwd_dq", "flash_bwd_dkdv")]
+        fwd_ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, **kw), reps=20)
+        lse_ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True,
+                                                  **kw), reps=20)
+        plain = cuda_ms(lambda: flash_bwd_ref(q, k, v, kv_lens, out, lse, do, **plain_kw),
+                        reps=2, warmup=1)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=hq != hk)
+        lib = cuda_ms(lambda: torch.autograd.grad(ref_out, (qs, ks, vs), do, retain_graph=True),
+                      reps=20)
+        print(f"  K3 at block_k 64 {fwd_ms:.4f} ms, with lse {lse_ms:.4f} ms; plain backward "
+              f"{plain:.3f} ms; SDPA's backward (causal{', GQA' if hq != hk else ''}) "
+              f"{lib:.4f} ms for dq, dk and dv together")
+        for pass_no, (kernel, ms) in enumerate(zip(("flash_bwd_dq", "flash_bwd_dkdv"), times)):
+            flops, nbytes = bwd_flops_bytes(b, hq, hk, s, d, lens, pass_no)
+            ops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(ops_ms, bytes_ms)
+            by = "operations" if ops_ms >= bytes_ms else "bytes"
+            print(f"  {kernel}: {ms:.4f} ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP "
+                  f"at 989 TFLOP/s = {ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB at 3.35 TB/s = "
+                  f"{bytes_ms:.4f} ms), {100 * bound / ms:.2f}% of bound; the hi/lo split of p "
+                  f"and ds doubles {1 if pass_no == 0 else 2} of its products on the tensor cores")
+            if name == BWD_TIMED[0]:
+                rows[kernel] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                                "bound_by": by, "shape": f"B {b}, Hq {hq}, Hk {hk}, S {s}, D {d}",
+                                "plain_and_library_cover": "dq, dk and dv together"}
+            else:
+                rows[kernel][f"ms_at {name}"] = ms
+        if name == BWD_TIMED[0]:
+            rows["flash_fwd_lse"] = {"ms": lse_ms, "ms_without_lse": fwd_ms}
+        del qs, ks, vs, ref_out
+    for key, err in worst.items():
+        rows.setdefault(key, {})["max_abs_err"] = err
+    return rows
+
+
+def training_path(dev) -> dict:
+    """Phase 23c, the training path: ``Trainer`` on stablelm-1.6b at full
+    width (24 layers, d_model 2048, vocab 100352), the reference CLI's
+    defaults: seq 128, global batch 8, AdamW at lr 1e-3, remat "full", 8
+    steps.  Gates: loss and grad norm finite; K3 launches = 2 x 24 x steps
+    (full remat runs each layer's forward again in the backward), each
+    K3-bwd pass 24 x steps, no other kernel.  Returns the launches."""
+    import statistics
+
+    import torch
+
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    phase(f"main path 6: LM training, Trainer on {TRAIN_ARCH} at full width, seq {TRAIN_SEQ}, "
+          f"global batch {TRAIN_BATCH}, AdamW lr 1e-3, remat full, {TRAIN_STEPS} steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(TrainerOptions(arch=TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+                                     seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, log_every=0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    n_params = sum(p.numel() for p in trainer.lm.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B parameters; remat {trainer.rt.remat}; state built in "
+          f"{build_s:.1f} s (bf16 weights, float32 master, AdamW mu and nu)")
+    if cfg.n_layers != 24 or cfg.d_model != 2048 or trainer.rt.remat != "full":
+        fail("the training path did not run stablelm-1.6b at full width with full remat")
+    reset_launches()
+    trainer.run()
+    counts = read_launches()
+    records = trainer.records
+    times = [r["step_time"] for r in records[1:]]
+    med = statistics.median(times)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print("losses: " + ", ".join(f"{r['loss']:.4f}" for r in records))
+    print("grad norms: " + ", ".join(f"{r['grad_norm']:.4f}" for r in records))
+    print(f"step ms: first {1e3 * records[0]['step_time']:.1f}, then median {1e3 * med:.1f} "
+          f"(min {1e3 * min(times):.1f}, max {1e3 * max(times):.1f}); {tokens / med:.0f} tokens/s; "
+          f"peak device memory {peak:.3f} GB (host clock around each step, synchronised)")
+    if len(records) != TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        fail(f"training: {len(records)} steps, losses or grad norms not finite")
+    layers, steps = cfg.n_layers, TRAIN_STEPS
+    expected = {name: 0 for name in counts}
+    expected.update(flash_fwd=2 * layers * steps, flash_bwd_dq=layers * steps,
+                    flash_bwd_dkdv=layers * steps)
+    print(f"launches: flash_fwd {counts['flash_fwd']} = 2 x {layers} x {steps}, flash_bwd_dq "
+          f"{counts['flash_bwd_dq']} and flash_bwd_dkdv {counts['flash_bwd_dkdv']} = {layers} x "
+          f"{steps}")
+    if counts != expected:
+        fail(f"training launches {counts}, expected {expected}")
+    training_step_split(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def training_step_split(trainer) -> None:
+    """Where a training step's device time goes: a window of
+    TRAIN_PROFILED_STEPS more steps, device activity only (tracing the
+    host's operators too would slow the host, which sets part of the step),
+    split into the matrix products (cuBLAS), the flash kernels (K3, K3-bwd)
+    and the rest (elementwise passes of the optimizer, the master copy and
+    the gradients' gather, reductions, the loss), beside the steps' wall
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = TRAIN_PROFILED_STEPS
+    events = None
+    for _ in range(3):  # a profiler window now and then records no kernel: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_some(n)
+        torch.cuda.synchronize()
+        events = prof.key_averages()
+        if sum(e.self_device_time_total for e in events) > 0:
+            break
+    wall_ms = 1e3 * sum(r["step_time"] for r in trainer.records[-n:]) / n
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    gemm_ms = sum(e.self_device_time_total for e in events if is_gemm(e.key)) / 1e3 / n
+    flash_ms = sum(e.self_device_time_total for e in events if "flash_" in e.key) / 1e3 / n
+    print(f"a profiled step ({n} steps): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"(share {busy_ms / wall_ms:.3f}): matrix products {gemm_ms:.1f} ms, flash kernels "
+          f"{flash_ms:.2f} ms, the rest (elementwise, reductions, copies) "
+          f"{busy_ms - gemm_ms - flash_ms:.1f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  device {e.self_device_time_total / 1e3 / n:8.3f} ms a step  "
+              f"x{e.count // n:5d}  {e.key[:90]}")
+    if busy_ms <= 0:
+        fail("the profiler saw no device time in the training steps")
+
+
+def smoke_trainer(device, **kw):
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    return Trainer(TrainerOptions(arch=TRAIN_ARCH, smoke=True, steps=8, seq_len=32,
+                                  global_batch=4, log_every=0, device=device, **kw))
+
+
+def training_kernels_vs_plain(dev) -> None:
+    """Phase 23d: the smoke trainer (stablelm-1.6b smoke, bf16, remat none)
+    for 8 steps through the kernels on the card and through the plain
+    versions on the CPU, from the card's initial weights and state."""
+    phase(f"small-input check: the smoke {TRAIN_ARCH} trainer, 8 steps on the card (K3, K3-bwd) "
+          "vs the plain versions on the CPU, the same weights")
+    card = smoke_trainer(dev)
+    cpu = smoke_trainer("cpu")
+    cpu.set_state(card.params, card.opt_state)
+    reset_launches()
+    card.train_some(8)
+    counts = read_launches()
+    cpu.train_some(8)
+    layers = card.cfg.n_layers
+    want = {"flash_fwd": 8 * layers, "flash_bwd_dq": 8 * layers, "flash_bwd_dkdv": 8 * layers}
+    if {k: counts[k] for k in want} != want:
+        fail(f"smoke training launches {counts}, expected {want}")
+    worst = 0.0
+    for (step, got), (_, ref) in zip(card.history, cpu.history):
+        worst = max(worst, abs(got - ref) / abs(ref))
+    print("card losses: " + ", ".join(f"{loss:.5f}" for _, loss in card.history))
+    print("CPU losses:  " + ", ".join(f"{loss:.5f}" for _, loss in cpu.history))
+    print(f"largest relative difference {worst:.3g} (limit {TRAIN_LOSS_RTOL}); launches {want}")
+    if worst > TRAIN_LOSS_RTOL or len(card.history) != 8:
+        fail(f"the smoke trainer's losses on the card part from the CPU's: {worst:.3g}")
+
+
+def checkpoint_round_trip(dev, workdir: Path) -> None:
+    """Phase 23e: the smoke trainer on the card saves at step 4 (and 8); a
+    fresh trainer restores step 4 and runs steps 5-8: losses, parameters and
+    optimizer state bit for bit those of the run that never stopped."""
+    import torch
+
+    from repro_torch.training.tree import tree_leaves
+
+    phase("checkpoint round trip on the card: save at step 4, restore into a fresh Trainer, "
+          "steps 5-8 bit for bit")
+    ckpt = workdir / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    a = smoke_trainer(dev, ckpt_dir=str(ckpt), ckpt_every=4)
+    a.train_some(8)
+    a.ckpt.wait()
+    b = smoke_trainer(dev, ckpt_dir=str(ckpt), ckpt_every=100)
+    if not b.restore(4) or b.step != 4:
+        fail("the fresh trainer did not restore step 4")
+    b.train_some(4)
+    same = b.history == a.history[4:] and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(b.params) + tree_leaves(b.opt_state),
+                                          tree_leaves(a.params) + tree_leaves(a.opt_state)))
+    timing = b.ckpt.last_timing("restore")
+    print(f"steps 5-8: restored {[round(x, 6) for _, x in b.history]}, unstopped "
+          f"{[round(x, 6) for _, x in a.history[4:]]}; bit_identical={'yes' if same else 'NO'} "
+          f"(losses, parameters, optimizer state); save {a.ckpt.last_timing('save')['wall_s']:.3f} "
+          f"s, restore {timing['wall_s']:.3f} s, {timing['bytes'] / 1e6:.2f} MB")
+    if not same:
+        fail("the restored trainer's steps 5-8 differ from the unstopped run's")
+
+
+def static_serve_path(lm) -> dict:
+    """Phase 10c: the serve CLI's static mode, ``Server.generate``, at full
+    width on phase 10's qwen3-14b: batch 4, prompts of 16 tokens, 16
+    generated each.  K3 launches = 40 x prefills, K2 = 40 x decode steps."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    phase(f"main path 3c: python -m repro_torch.launch.serve {' '.join(STATIC_ARGV)} "
+          "(Server.generate, full width, phase 10's weights)")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(STATIC_ARGV, lm=lm)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    eng = res["server"]._engine
+    prefills, steps = eng.prefills_run, eng.stats()["decode_steps"]
+    print(f"Server.generate: tokens {res['tokens'].shape}, prefill {1e3 * res['prefill_s']:.1f} "
+          f"ms (4 prompts), decode {res['decode_tok_per_s']:.1f} tok/s over "
+          f"{1e3 * res['decode_s']:.1f} ms; {prefills} prefills, {steps} decode steps; "
+          f"{seconds:.1f} s in all")
+    if res["tokens"].shape != (4, 16) or not np.all((res["tokens"] >= 0) &
+                                                   (res["tokens"] < lm.cfg.vocab_size)):
+        fail(f"Server.generate returned tokens {res['tokens'].shape}")
+    check_path_launches(QWEN, counts, lm.cfg.n_layers, prefills, steps, "static serve")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -2560,8 +2936,9 @@ def main() -> None:
     dev = torch.device("cuda")
 
     phase("build")
-    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fd_ops.LIBRARY, fd_ops.DECODE_LIBRARY,
-               fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY, local_sgd_build.LIBRARY])
+    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fa_ops.BWD_LIBRARY, fd_ops.LIBRARY,
+               fd_ops.DECODE_LIBRARY, fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY,
+               local_sgd_build.LIBRARY])
 
     k1, problem, p_star = hemingway_path(dev)
     k6_err = local_sgd_vs_plain(dev, problem)
@@ -2597,6 +2974,9 @@ def main() -> None:
                       "chunked_long_run": chunked[f"{name}_launches"]}
                for name in ("flash_fwd", "paged_decode")}
     prefill_row_blocks(lm)
+    static_counts = static_serve_path(lm)
+    for name in ("flash_fwd", "paged_decode"):
+        by_path[name]["static_serve"] = static_counts[name]
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2641,6 +3021,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     timings.update(mla_kernel_timings(dev, cfg, errs))
 
+    bwd = flash_bwd_vs_plain(dev)
+    train_counts = training_path(dev)
+    training_kernels_vs_plain(dev)
+    checkpoint_round_trip(dev, workdir)
+    by_path["flash_fwd"]["training"] = train_counts["flash_fwd"]
+    launches["flash_fwd"] = sum(by_path["flash_fwd"].values())
+
     kernels = [k1, k6]
     for name, source, replaces in (
             ("flash_fwd", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
@@ -2668,6 +3055,19 @@ def main() -> None:
                         "library_ms": lib, "shape": shape,
                         **({"launches_by_path": by_path[name]} if name in by_path else {}),
                         **(how[0] if how else {"timed_by": EAGER})})
+        if name == "flash_fwd":
+            kernels[-1].update(lse_ms=bwd["flash_fwd_lse"]["ms"],
+                               lse_shape=bwd["flash_bwd_dq"]["shape"] + ", block_k 64",
+                               ms_without_lse_there=bwd["flash_fwd_lse"]["ms_without_lse"],
+                               lse_max_rel_err=bwd["flash_fwd_lse"]["max_abs_err"])
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+                        "replaces": "src/repro/kernels/flash_attention/ops.py:118",
+                        "status": "new: the port's own kernel (a custom-VJP backward, no Pallas "
+                        "kernel)", "launches": train_counts[name],
+                        "launches_by_path": {"training": train_counts[name]},
+                        "timed_by": EAGER, **bwd[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

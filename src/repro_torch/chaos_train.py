@@ -47,7 +47,7 @@ def main(argv: Optional[Sequence[str]] = None) -> ChaosRunLog:
                     help="write the run log here (.json for the legacy "
                          "blob, .jsonl for the telemetry event log)")
     ap.add_argument("--lm", action="store_true",
-                    help="drive the LM trainer (not yet in the port)")
+                    help="drive the LM trainer (its chaos executor is not yet in the port)")
     ap.add_argument("--no-replay", action="store_true",
                     help="skip the replay determinism check")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -55,8 +55,8 @@ def main(argv: Optional[Sequence[str]] = None) -> ChaosRunLog:
 
     if args.lm:
         raise NotImplementedError(
-            "--lm drives the LM trainer, which the port does not have yet "
-            "(ROADMAP.md, queue 1, training on a dense arch)")
+            "--lm drives the LM trainer through its chaos executor (TrainerExecutor), "
+            "which the port does not have yet (ROADMAP.md, queue 1 item 8)")
     log = run_chaos_sim(args.seed, steps=args.steps, device=args.device)
     summarize(log)
     if not args.no_replay:

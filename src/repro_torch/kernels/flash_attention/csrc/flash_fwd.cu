@@ -8,7 +8,10 @@
 // KV (query head h reads KV head h / G), a value dim DV that may differ
 // from the key dim DK (MLA's prefill: DK 192, DV 128), per-batch kv_lens, a
 // static q_offset, causal masking, online softmax over key tiles of block_k
-// positions, fully masked tiles skipped, out = acc / max(l, 1e-30).
+// positions, fully masked tiles skipped, out = acc / max(l, 1e-30); and, when
+// the caller passes a buffer, each row's float32 log-sum-exp
+// m + log(max(l, 1e-30)) (ops.py:103), which the backward (flash_bwd.cu)
+// reads.  The lse is written after the output and changes none of its bits.
 //
 // Arithmetic.  S = Q K^T: bf16 operands on the tensor cores, float32
 // accumulation (each product of two bf16 values is exact in float32).  The
@@ -475,8 +478,8 @@ template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm<DK, DV>)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
-                 __nv_bfloat16* __restrict__ out, int hk, int g, int sq, int skv,
-                 int q_offset, int causal, int bk, float scale) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int hk, int g,
+                 int sq, int skv, int q_offset, int causal, int bk, float scale) {
   static_assert(DK % 8 == 0 && DV % 16 == 0, "16-byte rows; wgmma columns in steps of 16");
   constexpr int DKP = padded_dk(DK);
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
@@ -595,6 +598,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + col) =
           __floats2bfloat162_rn(o[4 * j + 2 * i] / denom, o[4 * j + 2 * i + 1] / denom);
     }
+    // the row's log-sum-exp in natural units: m is in log2 units; a row that
+    // sees no key (l = 0) gets the reference's -1e30 + log(1e-30) = -1e30
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<size_t>(b) * hq + head) * sq + p] =
+          l[i] > 0.f ? m[i] * 0.69314718055994530942f + logf(l[i]) : kNegInf;
   }
 }
 
@@ -649,8 +657,8 @@ tile_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 template <int DK, int DV>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           const int* kv_lens, __nv_bfloat16* out, int b, int hk, int g, int sq, int skv,
-           int q_offset, int causal, int bk, float scale, cudaStream_t stream) {
+           const int* kv_lens, __nv_bfloat16* out, float* lse, int b, int hk, int g, int sq,
+           int skv, int q_offset, int causal, int bk, float scale, cudaStream_t stream) {
   if (bk != 16 && bk != 32 && bk != 64) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(DK, DV);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DK, DV>,
@@ -659,7 +667,7 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kTileQ - 1) / kTileQ, hk * g, b);
   flash_fwd_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
-      q, k, v, kv_lens, out, hk, g, sq, skv, q_offset, causal, bk, scale);
+      q, k, v, kv_lens, out, lse, hk, g, sq, skv, q_offset, causal, bk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -688,12 +696,13 @@ extern "C" int flash_fwd_smem_bytes(int g, int dk, int dv, int bk) {
 }
 
 // q (B, Hk*G, Sq, dk), k (B, Hk, Skv, dk), v (B, Hk, Skv, dv), out
-// (B, Hk*G, Sq, dv): bf16, contiguous, 16-byte aligned; kv_lens (B,) int32.
+// (B, Hk*G, Sq, dv): bf16, contiguous, 16-byte aligned; kv_lens (B,) int32;
+// lse (B, Hk*G, Sq) float32, or null for no log-sum-exp.
 // (dk, dv) is (d, d) for d a multiple of 16 up to 256, MLA's (192, 128), or
 // its smoke variant's (24, 16); bk is 16, 32 or 64.  Returns a cudaError_t
 // (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                const void* kv_lens, void* out, int b, int hk, int g,
+                                const void* kv_lens, void* out, void* lse, int b, int hk, int g,
                                 int sq, int skv, int dk, int dv, int q_offset, int causal,
                                 int bk, float scale, void* stream) {
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
@@ -701,10 +710,11 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   const auto* lens = static_cast<const int*>(kv_lens);
   auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* lf = static_cast<float*>(lse);
   auto* st = static_cast<cudaStream_t>(stream);
-#define FLASH_FWD_CASE(DK, DV)                                                           \
-  if (dk == DK && dv == DV)                                                              \
-    return launch<DK, DV>(qb, kb, vb, lens, ob, b, hk, g, sq, skv, q_offset, causal, bk, \
+#define FLASH_FWD_CASE(DK, DV)                                                               \
+  if (dk == DK && dv == DV)                                                                  \
+    return launch<DK, DV>(qb, kb, vb, lens, ob, lf, b, hk, g, sq, skv, q_offset, causal, bk, \
                           scale, st);
   FLASH_FWD_CASE(16, 16) FLASH_FWD_CASE(32, 32) FLASH_FWD_CASE(48, 48) FLASH_FWD_CASE(64, 64)
   FLASH_FWD_CASE(80, 80) FLASH_FWD_CASE(96, 96) FLASH_FWD_CASE(112, 112)

@@ -1,14 +1,21 @@
-"""Blocked causal flash attention forward: the Hopper kernel (K3,
-csrc/flash_fwd.cu) for CUDA tensors, the plain version (ref.py) for CPU
-tensors.
+"""Blocked causal flash attention, forward and backward: the Hopper kernels
+(K3, csrc/flash_fwd.cu; K3-bwd, csrc/flash_bwd.cu) for CUDA tensors, the
+plain versions (ref.py) for CPU tensors.
 
 ``flash_attention`` is the model-facing call, with the signature of
 ``repro/kernels/flash_attention/ops.py::flash_attention`` (grouped GQA,
 ``kv_lens``, static ``q_offset``, a value dim that may differ from the key
-dim, as MLA's prefill needs).  ``flash_fwd`` is the kernel's wrapper: a
-CUDA tensor goes to the kernel or the call raises, nothing falls back to the
-plain version, and ``flash_fwd.launches`` counts the kernel's launches and
-only those.
+dim, as MLA's prefill needs).  When q, k or v requires grad it runs through
+``FlashAttention``, a ``torch.autograd.Function`` whose forward is K3 with
+the rows' log-sum-exp and whose backward is K3-bwd, the counterpart of the
+reference's ``jax.custom_vjp`` (``ops.py:46``, ``defvjp`` at ``:213``);
+otherwise it runs the forward alone, as the serve paths do.
+
+``flash_fwd`` and the backward's two passes ``flash_bwd_dq`` and
+``flash_bwd_dkdv`` are the kernels' wrappers: a CUDA tensor goes to the
+kernel or the call raises, nothing falls back to the plain version, and each
+wrapper's ``launches`` counts its kernel's launches and only those.
+``flash_bwd`` runs both passes (or, on CPU tensors, ``flash_bwd_ref``).
 
 ``decode_attention`` is the reference's plain one-token decode over a
 contiguous cache (``ops.py:245``); it is not a kernel.
@@ -22,15 +29,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
-from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu", "flash_fwd",
-    {"flash_fwd_launch": ([_p] * 5 + [_i] * 10 + [_f, _p], ctypes.c_int),
+    {"flash_fwd_launch": ([_p] * 6 + [_i] * 10 + [_f, _p], ctypes.c_int),
      "flash_fwd_smem_bytes": ([_i, _i, _i, _i], ctypes.c_int),
      "flash_fwd_tile_probe": ([_p] * 6 + [_i, _i, _p], ctypes.c_int)},
     error_fn="flash_fwd_error_string")
+BWD_LIBRARY = KernelLibrary(
+    Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu", "flash_bwd",
+    {"flash_bwd_launch": ([_p] * 11 + [_i] * 9 + [_f, _p], ctypes.c_int),
+     "flash_bwd_smem_bytes": ([_i, _i], ctypes.c_int)},
+    error_fn="flash_bwd_error_string")
 
 # The kernel's online-softmax steps: whole 16-key chunks of its 64-key tiles.
 KERNEL_BLOCK_KS = (16, 32, 64)
@@ -39,6 +51,9 @@ NEG_INF = -1e30
 # (key dim, value dim) pairs the kernel is built for: equal dims, multiples
 # of 16 up to 256, and MLA's prefill, DeepSeek-V2's and its smoke variant's
 HEAD_DIMS = tuple((d, d) for d in range(16, 257, 16)) + ((192, 128), (24, 16))
+# head dims the backward is built for (equal key and value dims); MLA's
+# (192, 128) waits for MoE/MLA training (ROADMAP.md)
+BWD_HEAD_DIMS = tuple(range(16, 129, 16))
 
 
 def kernel_block_k(block_k: int, skv: int) -> Optional[int]:
@@ -62,14 +77,18 @@ def flash_fwd(
     q_offset: int = 0,
     block_q: int = 16,
     block_k: int = 16,
-) -> torch.Tensor:
-    """Returns (B, Hq, Sq, Dv) in q's dtype.  ``block_q`` cuts the plain
+    return_lse: bool = False,
+):
+    """Returns (B, Hq, Sq, Dv) in q's dtype, and with ``return_lse`` also
+    each row's float32 log-sum-exp (B, Hq, Sq), which the kernel writes
+    after the output without changing its bits.  ``block_q`` cuts the plain
     version's query tiles; the kernel's rows are independent of it.  The
     kernel takes ``block_k`` in ``KERNEL_BLOCK_KS``, or any ``block_k`` from
     Skv up to ``MAX_BLOCK_K`` (``kernel_block_k``)."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, kv_lens, causal=causal, sm_scale=sm_scale,
-                             q_offset=q_offset, block_q=block_q, block_k=block_k)
+                             q_offset=q_offset, block_q=block_q, block_k=block_k,
+                             return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cpu or cuda tensors, not {q.device}")
     b, hq, sq, d = q.shape
@@ -108,19 +127,139 @@ def flash_fwd(
                          f"{MAX_SMEM_PER_BLOCK} a block may use")
     lens32 = kv_lens.to(torch.int32).contiguous()
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if b * hq * sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), out.data_ptr(),
-            b, hk, g, sq, skv, d, dv, int(q_offset), int(bool(causal)), bk,
-            ctypes.c_float(sm_scale), torch.cuda.current_stream().cuda_stream)
+            None if lse is None else lse.data_ptr(), b, hk, g, sq, skv, d, dv, int(q_offset),
+            int(bool(causal)), bk, ctypes.c_float(sm_scale),
+            torch.cuda.current_stream().cuda_stream)
     LIBRARY.check(err, "flash_fwd kernel")
     flash_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_fwd.launches = 0
+
+
+def _bwd_pass(pass_no: int, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale: float,
+              q_offset: int, causal: bool) -> None:
+    """Launch one pass of K3-bwd (0: delta and dq, 1: dk and dv) into the
+    tensors of ``grads`` (dq, dk, dv; a pass writes only its own)."""
+    b, hq, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    dq, dk, dv = grads
+    lib = BWD_LIBRARY.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), pass_no, b, hk, hq // hk, sq, skv, d, int(q_offset),
+            int(bool(causal)), ctypes.c_float(sm_scale), torch.cuda.current_stream().cuda_stream)
+    BWD_LIBRARY.check(err, f"flash_bwd pass {pass_no} kernel")
+
+
+def flash_bwd_dq(q, k, v, lens32, out, lse, dout, delta, grads, *, sm_scale: float,
+                 q_offset: int, causal: bool) -> None:
+    """K3-bwd's dq pass: writes delta = rowsum(dout * out) and dq.  Inputs
+    as ``flash_bwd`` checks them."""
+    _bwd_pass(0, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset, causal)
+    flash_bwd_dq.launches += 1
+
+
+def flash_bwd_dkdv(q, k, v, lens32, out, lse, dout, delta, grads, *, sm_scale: float,
+                   q_offset: int, causal: bool) -> None:
+    """K3-bwd's dk/dv pass: reads the dq pass's delta, writes dk and dv."""
+    _bwd_pass(1, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset, causal)
+    flash_bwd_dkdv.launches += 1
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkdv.launches = 0
+
+
+def flash_bwd(
+    q: torch.Tensor,  # (B, Hq, Sq, D) bfloat16
+    k: torch.Tensor,  # (B, Hk, Skv, D)
+    v: torch.Tensor,  # (B, Hk, Skv, D)
+    kv_lens: torch.Tensor,  # (B,)
+    out: torch.Tensor,  # (B, Hq, Sq, D), the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq) float32, the forward's log-sum-exp
+    dout: torch.Tensor,  # (B, Hq, Sq, D)
+    *,
+    causal: bool = True,
+    sm_scale: float,
+    q_offset: int = 0,
+    block_q: int = 16,
+    block_k: int = 16,
+):
+    """(dq, dk, dv) of the flash forward, in q's, k's and v's dtypes.  CPU
+    tensors run ``flash_bwd_ref`` (at ``block_q`` x ``block_k`` tiles); CUDA
+    tensors run K3-bwd's two passes, whose blocking is their own, or
+    raise."""
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, kv_lens, out, lse, dout, causal=causal, sm_scale=sm_scale,
+                             q_offset=q_offset, block_q=block_q, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cpu or cuda tensors, not {q.device}")
+    b, hq, sq, d = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: the "
+                         "backward takes equal key and value dims")
+    hk, skv = k.shape[1], k.shape[2]
+    if hq % hk:
+        raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the backward is built for equal dims, multiples of 16 "
+                         "up to 128 (MLA's (192, 128) waits for MoE/MLA training, ROADMAP.md)")
+    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
+                           ("lse", lse, q.shape[:3]), ("kv_lens", kv_lens, (b,))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("lse", lse),
+                    ("kv_lens", kv_lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        want = torch.float32 if name == "lse" else None if name == "kv_lens" else torch.bfloat16
+        if want is not None and t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if name not in ("lse", "kv_lens") and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    lens32 = kv_lens.to(torch.int32).contiguous()
+    grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    if b * hq * sq == 0 or skv == 0:
+        return tuple(t.zero_() for t in grads)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    kw = dict(sm_scale=sm_scale, q_offset=q_offset, causal=causal)
+    flash_bwd_dq(q, k, v, lens32, out, lse, dout, delta, grads, **kw)
+    flash_bwd_dkdv(q, k, v, lens32, out, lse, dout, delta, grads, **kw)
+    return grads
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward with its gradient: forward K3 with the rows'
+    log-sum-exp (saved with q, k, v and the output), backward K3-bwd; their
+    plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, sm_scale, q_offset, block_q, block_k):
+        out, lse = flash_fwd(q, k, v, kv_lens, causal=causal, sm_scale=sm_scale,
+                             q_offset=q_offset, block_q=block_q, block_k=block_k,
+                             return_lse=True)
+        ctx.save_for_backward(q, k, v, kv_lens, out, lse)
+        ctx.options = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+                           block_q=block_q, block_k=block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_lens, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, kv_lens, out, lse, dout.contiguous(), **ctx.options)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -138,7 +277,8 @@ def flash_attention(
     """Memory-efficient attention, the counterpart of the reference's
     ``ops.flash_attention`` (``ops.py:216``): KV is grouped without being
     repeated (query head h reads KV head h // G), blocks clamp to
-    ``min(block, max(seq, 16))`` as there."""
+    ``min(block, max(seq, 16))`` as there.  Differentiable in q, k and v
+    (``FlashAttention``) when grad is enabled and one of them requires it."""
     b, hq, sq, d = q.shape
     _, hk, skv, _ = k.shape
     if hq % hk:
@@ -148,6 +288,9 @@ def flash_attention(
     block_k = min(block_k, max(skv, 16))
     if kv_lens is None:
         kv_lens = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kv_lens, bool(causal), scale, int(q_offset),
+                                    int(block_q), int(block_k))
     return flash_fwd(q, k, v, kv_lens, causal=causal, sm_scale=scale,
                      q_offset=int(q_offset), block_q=int(block_q), block_k=int(block_k))
 

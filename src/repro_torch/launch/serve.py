@@ -1,4 +1,5 @@
-"""Serving CLI of the port: continuous batching over the paged KV cache.
+"""Serving CLI of the port: continuous batching over the paged KV cache,
+and the static batch through the ``Server`` facade.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
@@ -7,6 +8,8 @@
       --tune-cache results/tune_cache_torch.json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
       --continuous --device cpu --prefill-chunk 8 --speculate 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
+      --batch 4 --prompt-len 16 --gen 16 --device cpu
 
 runs the reference's ``--continuous`` path (``repro/launch/serve.py``): a
 mixed-length 8-request trace with staggered arrivals and a shared prompt head
@@ -37,12 +40,19 @@ shape, verify steps included; the value used is printed.  The planner
 counts every ``flash_decode_paged`` entry of the file, so give it one
 holding this model's shapes only.
 
+Without ``--continuous`` the CLI runs the reference's static batch
+(``repro/launch/serve.py:439-456``): ``--batch`` random prompts of
+``--prompt-len`` tokens from ``--seed``, ``--gen`` tokens each, through
+``Server.generate`` (every request admitted at step 0 and decoded by the
+continuous engine), and prints the tokens' shape, the prefill ms and the
+decode tokens/s.
+
 Differences from the reference's CLI: ``--smoke`` is off by default, so the
 default is the full config; without ``--device cpu`` it runs on the card or
-raises; the router, tracing and the non-continuous ``Server.generate`` mode
-are not ported yet (ROADMAP.md); the cold and the baseline engines share the
-warm engine's weights instead of building second copies, and run the same
-``--paged-impl``.
+raises; the router and tracing are not ported yet (ROADMAP.md), nor a mesh
+or frontend embeddings for ``Server``; the cold and the baseline engines
+share the warm engine's weights instead of building second copies, and run
+the same ``--paged-impl``.
 """
 from __future__ import annotations
 
@@ -60,6 +70,63 @@ from repro_torch.serve.engine import random_lm
 
 # One trace request: (prompt, gen_tokens, arrival_step, frontend_embeds).
 TraceSpec = Tuple[np.ndarray, int, int, Optional[np.ndarray]]
+
+
+class Server:
+    """Batch-synchronous facade (``repro/launch/serve.py:54-107``): every
+    request is admitted at step 0 and decoded by the continuous engine.
+    ``lm``, the port's addition, is an already-built model to serve (its
+    weights shared); else the engine builds ``arch``'s with random weights
+    from ``seed`` on ``device`` (the card when None).  A mesh and sharding
+    rules wait for the sharded data plane (ROADMAP.md, queue 1 item 7)."""
+
+    def __init__(self, arch: str, smoke: bool = True, max_seq: int = 128, mesh=None,
+                 rules=None, seed: int = 0, page_size: int = 16, lm: Optional[LM] = None,
+                 device=None):
+        if mesh is not None or rules is not None:
+            raise NotImplementedError("Server with a mesh: the sharded data plane is not "
+                                      "ported yet (ROADMAP.md, queue 1 item 7)")
+        self.arch = arch
+        self.smoke = smoke
+        self.max_seq = max_seq
+        self.seed = seed
+        self.page_size = page_size
+        self.device = device
+        self._lm = lm
+        self._engine: Optional[ServeEngine] = None
+        self.cfg = lm.cfg if lm is not None else ServeEngine.config_for(arch, smoke)
+
+    def _make_engine(self, batch: int) -> ServeEngine:
+        if self._engine is None or self._engine.max_batch != batch:
+            lm = self._lm if self._engine is None else self._engine.lm
+            self._engine = ServeEngine(self.arch, smoke=self.smoke, max_batch=batch,
+                                       page_size=self.page_size, max_seq=self.max_seq,
+                                       seed=self.seed, lm=lm, device=self.device)
+        return self._engine
+
+    def generate(self, prompts: np.ndarray, gen_tokens: int,
+                 frontend_embeds: Optional[np.ndarray] = None, greedy: bool = True) -> Dict:
+        """prompts: (B, P) int32.  Returns the generated tokens (B,
+        gen_tokens), ``prefill_s`` (the requests' prefill seconds, summed),
+        ``decode_s`` (this call's decode steps' seconds) and
+        ``decode_tok_per_s``."""
+        if not greedy:
+            raise ValueError("only greedy decoding is supported")
+        if frontend_embeds is not None:
+            raise NotImplementedError("frontend embeddings are not ported yet (ROADMAP.md, "
+                                      "queue 1 item 5)")
+        b, _ = prompts.shape
+        eng = self._make_engine(b)
+        n_before = len(eng.events("serve_step"))  # the engine may be reused across calls
+        reqs = [eng.submit(np.asarray(prompts[i], np.int32), gen_tokens) for i in range(b)]
+        eng.run()
+        tokens = np.stack([np.asarray(r.generated, np.int32) for r in reqs])
+        this_call = [e for e in eng.events("serve_step")[n_before:] if e.batch > 0]
+        t_decode = sum(e.step_s for e in this_call)
+        n_tok = sum(e.batch for e in this_call)
+        return {"tokens": tokens, "prefill_s": sum(r.prefill_s for r in reqs),
+                "decode_s": t_decode,
+                "decode_tok_per_s": n_tok / t_decode if t_decode else 0.0}
 
 
 def _mixed_trace_specs(cfg, page_size: int, n_requests: int,
@@ -167,7 +234,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="reduced config (default: the full architecture)")
     ap.add_argument("--continuous", action="store_true",
                     help="mixed-length trace with join-on-arrival + prefix-reuse "
-                         "verification + capacity plan (the path this CLI runs)")
+                         "verification + capacity plan (without it: the static batch)")
+    ap.add_argument("--batch", type=int, default=4, help="static batch: prompts")
+    ap.add_argument("--prompt-len", type=int, default=16, help="static batch: prompt tokens")
+    ap.add_argument("--gen", type=int, default=16, help="static batch: tokens to generate")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)
@@ -193,7 +263,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
          lm: Optional[LM] = None) -> Dict:
-    """Run the ``--continuous`` path.  ``cfg``, when given, is the config to
+    """Run the ``--continuous`` path, or without it the static batch
+    (``static_batch``).  ``cfg``, when given, is the config to
     serve in place of ``--arch`` / ``--smoke`` (a caller's cut one, such as
     a full-width model at fewer layers), with random weights from
     ``--seed``; ``lm``, when given, is an already-built model to serve in
@@ -207,7 +278,7 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
     if the prefix-reuse check or the replay check fails."""
     args = parse_args(argv)
     if not args.continuous:
-        raise SystemExit("only the --continuous path is ported (ROADMAP.md)")
+        return static_batch(args, cfg, lm)
     tune_cache = None
     if args.tune_cache:
         from repro_torch.kernels import tune
@@ -295,6 +366,25 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
     return {"stats": stats, "served": len(done), "requests": len(specs), "planner": planner,
             "plan": plan, "engines": (eng, cold), "baseline": base,
             "bit_identical": identical, "tune_rows": tune_rows, "pages_per_program": ppp}
+
+
+def static_batch(args: argparse.Namespace, cfg: Optional[ArchConfig] = None,
+                 lm: Optional[LM] = None) -> Dict:
+    """The CLI without ``--continuous`` (``repro/launch/serve.py:439-456``):
+    ``args.batch`` prompts of ``args.prompt_len`` random tokens from
+    ``args.seed`` through ``Server.generate``.  Returns its result and the
+    server."""
+    if lm is None and cfg is not None:
+        lm = random_lm(cfg, args.device, args.seed)
+    server = Server(args.arch, smoke=args.smoke, max_seq=args.prompt_len + args.gen + 8,
+                    page_size=args.page_size, lm=lm, device=args.device)
+    rng = np.random.RandomState(args.seed)
+    prompts = rng.randint(0, server.cfg.vocab_size,
+                          (args.batch, args.prompt_len)).astype(np.int32)
+    res = server.generate(prompts, args.gen)
+    print(f"generated {res['tokens'].shape} tokens; prefill {res['prefill_s'] * 1e3:.0f} ms, "
+          f"decode {res['decode_tok_per_s']:.1f} tok/s")
+    return dict(res, server=server, prompts=prompts)
 
 
 def _serve_replay(eng: ServeEngine, specs: List[TraceSpec], seed: int, speculate: int) -> List:

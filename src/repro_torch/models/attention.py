@@ -1,6 +1,7 @@
 """GQA attention for the dense archs: grouped KV heads, qk-norm (Qwen3),
 QKV bias, partial rotary; prefill and chunked prefill through the flash
-forward (K3) and paged decode through paged flash decode (K2).  Counterparts
+forward (K3), training through K3 and its backward (K3-bwd: ``apply_attention``
+with grad enabled) and paged decode through paged flash decode (K2).  Counterparts
 of ``repro/models/attention.py:70`` (``_project_qkv``), ``:98``
 (``apply_attention``), ``:128`` (``apply_attention_decode_paged``) and
 ``:167`` (``apply_attention_prefill_paged``).

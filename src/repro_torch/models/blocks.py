@@ -1,7 +1,8 @@
 """Decoder blocks, pre-norm: ln1 -> mixer (attention, MLA or Mamba) ->
 residual, then, unless the layer's ffn is "none", ln2 -> SwiGLU or MoE ->
 residual.  Counterparts of ``repro/models/blocks.py``'s ``init_block`` (:22),
-``apply_block`` (:56) for prefill, ``apply_block_decode_paged`` (:98) and
+``apply_block`` (:56) for prefill and, without its cache, training
+(``apply_block_train``), ``apply_block_decode_paged`` (:98) and
 ``apply_block_prefill_paged`` (:141) for chunked prefill, dispatching on
 the layer's ``LayerSpec`` (and on ``cfg.mla`` for the attention mixer) as
 there.
@@ -131,6 +132,14 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
         return x, cache
     return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg),
                    x, rows), cache
+
+
+def apply_block_train(p: Block, x: torch.Tensor, *, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
+    """The training forward of one layer (mode "train" in the reference):
+    the prefill's arithmetic over the whole sequence, differentiable, its
+    K/V not kept.  Attention takes its gradient through the flash
+    backward (K3-bwd)."""
+    return apply_block(p, x, cfg, rt)[0]
 
 
 def apply_block_prefill_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,

@@ -1,5 +1,6 @@
 """Shared model layers: RMSNorm, NeoX rotary embeddings, SwiGLU MLP,
-embeddings and the LM head (counterparts of ``repro/models/layers.py``).
+embeddings, the LM head and the training loss (counterparts of
+``repro/models/layers.py``).
 
 The reference keeps float32 master weights and casts them to ``cfg.dtype`` at
 each use.  The port stores each matrix in ``cfg.dtype`` once (norm scales stay
@@ -8,7 +9,7 @@ deterministic, so this gives the same bits as casting at each use.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,3 +92,18 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x @ head
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy with a float32 log-sum-exp
+    (``layers.py:110-121``): logits (..., V), labels (...,) int; with
+    ``mask`` (...,) the masked mean ``sum(nll * mask) / max(sum(mask), 1)``."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,6 +1,16 @@
 """The LM for the dense attention archs (qwen3-14b), the pure Mamba archs
 (falcon-mamba-7b) and DeepSeek-V2 (MLA attention, MoE FFNs, a dense head
-layer): the serving entry points of ``repro/models/model.py``.
+layer): the serving entry points of ``repro/models/model.py``, and its
+training entry point for the dense archs.
+
+* ``loss_fn(batch)`` — the counterpart of ``LM.loss_fn`` (``model.py:150``):
+  next-token cross-entropy of a training batch, differentiable in the
+  parameters once ``trainable()`` has set their ``requires_grad``; each
+  layer runs under the Runtime's ``remat`` policy, attention through the
+  flash forward and its backward (K3, K3-bwd).  Dense archs only
+  (stablelm-1.6b, the qwen archs): MoE, MLA and Mamba training, whose
+  gradients (the MoE's aux loss and capacity, K4's backward, K3-bwd at
+  (192, 128)) are not ported, raise (ROADMAP.md).
 
 * ``prefill(tokens)`` — the counterpart of ``LM.prefill`` (``model.py:171``):
   a full-sequence causal forward; returns one position's logits and each
@@ -27,6 +37,7 @@ implementation come with each call, as a ``Runtime`` (the serve engine's).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -36,7 +47,13 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as blocks_mod
-from repro_torch.models.layers import by_batch, embed_tokens, lm_logits, rms_norm
+from repro_torch.models.layers import (
+    by_batch,
+    embed_tokens,
+    lm_logits,
+    rms_norm,
+    softmax_cross_entropy,
+)
 from repro_torch.models.runtime import Runtime
 
 LayerCache = Dict[str, torch.Tensor]  # {"k", "v"}, {"ckv", "kpe"} or {"h", "conv"}
@@ -57,6 +74,18 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: not held against the reference by a parity test yet; "
             "see ROADMAP.md for the slice that brings it")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise for what the port does not train yet: every arch but the dense
+    attention ones."""
+    check_supported(cfg)
+    dense = cfg.mla is None and all(s.mixer == "attn" and s.ffn in ("dense", "none")
+                                    for s in cfg.period)
+    if not dense or cfg.first_k_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains the dense archs only; MoE, MLA and Mamba "
+            "training wait for their gradients (ROADMAP.md)")
 
 
 class LM(nn.Module):
@@ -102,6 +131,39 @@ class LM(nn.Module):
 
     def _head(self) -> torch.Tensor:
         return self.embed.T if self.lm_head is None else self.lm_head
+
+    # ------------------------------------------------------------------
+    def trainable(self, flag: bool = True) -> "LM":
+        """Set every parameter's ``requires_grad`` (dense archs only, which
+        ``check_trainable`` checks when ``flag``)."""
+        if flag:
+            check_trainable(self.cfg)
+        for param in self.parameters():
+            param.requires_grad_(flag)
+        return self
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], rt: Runtime = DEFAULT_RUNTIME
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens (B, S), labels (B, S) already shifted, optional
+        loss_mask (B, S).  Returns (loss, {"ce", "aux", "tokens"}) as the
+        reference's ``loss_fn``: the embedding, each layer's block (under
+        ``rt.remat``), the final norm and the head in the config's dtype,
+        the cross-entropy in float32; aux is 0 for the dense archs."""
+        cfg = self.cfg
+        check_trainable(cfg)
+        tokens = batch["tokens"].to(self.device)
+        labels = batch["labels"].to(self.device)
+        mask = batch.get("loss_mask")
+        x = embed_tokens(self.embed, tokens)
+        for layer in self.layers:
+            x = rt.remat_call(functools.partial(blocks_mod.apply_block_train, layer, cfg=cfg,
+                                                rt=rt), x)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        logits = lm_logits(self._head(), x)
+        ce = softmax_cross_entropy(logits, labels, None if mask is None else mask.to(self.device))
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return ce + aux, {"ce": ce, "aux": aux,
+                          "tokens": torch.tensor(float(labels.numel()), device=self.device)}
 
     # ------------------------------------------------------------------
     @torch.no_grad()

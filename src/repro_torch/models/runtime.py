@@ -1,14 +1,29 @@
 """Runtime options threaded through the model: kernel geometry, the paged
-decode implementation and the row blocks of the row-wise steps.  The
-counterpart of ``repro.models.runtime.Runtime`` without a mesh, sharding
-rules or remat (the port runs on one card and does not train yet).
+decode implementation, the row blocks of the row-wise steps and, for
+training, rematerialisation.  The counterpart of
+``repro.models.runtime.Runtime`` without a mesh or sharding rules (the port
+runs on one card; ROADMAP.md).
+
+``remat`` (``runtime.py:25``, ``remat_wrap`` at ``:43-50``) applies to the
+training forward, one layer at a time (the reference wraps one period, which
+for the dense archs is one layer): ``"none"`` keeps every activation,
+``"full"`` keeps only each layer's input and recomputes the layer in the
+backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
+matrix products without batch dimensions (``aten.mm``/``addmm``, as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does) and
+recomputes the rest (a selective-checkpoint policy).  The serve paths run
+under ``no_grad`` and never rematerialise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Callable, Optional
+
+import torch
 
 PAGED_IMPLS = ("kernel", "stream", "gather")
+REMAT_MODES = ("none", "full", "dots")
 DEFAULT_PAGES_PER_PROGRAM = 4  # repro/kernels/flash_decode/ops.py:47
 # Rows per matrix product in prefill.  Fewer rows waste less on padding
 # (the serve engine pads prompts to whole blocks), more rows make fewer
@@ -45,11 +60,39 @@ class Runtime:
     # engine sets max_batch, so that a speculative verify step, max_batch x
     # (k + 1) rows, runs each of them at the decode step's shape
     decode_rows: Optional[int] = None
+    # training only: "none" | "full" | "dots" (the module docstring).  The
+    # reference's Runtime defaults to "full" and its LM to "none"; the port's
+    # default Runtime plays the LM's part.
+    remat: str = "none"
 
     def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat={self.remat!r} not in {REMAT_MODES}")
         if self.paged_impl not in PAGED_IMPLS:
             raise ValueError(f"paged_impl={self.paged_impl!r} not in {PAGED_IMPLS}")
         if self.prefill_rows < 1:
             raise ValueError(f"prefill_rows={self.prefill_rows} must be positive")
         if self.decode_rows is not None and self.decode_rows < 1:
             raise ValueError(f"decode_rows={self.decode_rows} must be positive")
+
+    def remat_call(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                   x: torch.Tensor) -> torch.Tensor:
+        """``fn(x)`` under the ``remat`` policy (a no-op without grad)."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn(x)
+        from torch.utils import checkpoint as ckpt
+
+        if self.remat == "full":
+            return ckpt.checkpoint(fn, x, use_reentrant=False)
+        return ckpt.checkpoint(fn, x, use_reentrant=False, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of ``remat="dots"``: keep the matrix
+    products without batch dimensions, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE

@@ -1,0 +1,124 @@
+"""K3's log-sum-exp and K3-bwd (the flash backward's two passes) on the
+card, against their plain versions (``flash_fwd_ref(..., return_lse=True)``,
+``flash_bwd_ref``) on the same bf16 inputs.
+
+Marked ``gpu``: without a CUDA device each test skips from inside itself.
+Run on the card with
+``PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_flash_bwd_gpu.py``.
+
+Tolerances.  lse: the kernel sums p = 2^(x - m) by ex2.approx in its own
+order; within 1e-5 (1 + |lse|).  Gradients: the plain version runs float32
+arithmetic on the bf16 inputs and rounds dq, dk, dv to bf16 once; the
+kernel multiplies on the tensor cores (exact bf16 products, float32 sums in
+another order) with p and ds carried as hi + lo bf16 pairs (within 2^-17 of
+each) and rounds once.  The float32 difference can move the rounding by one
+bf16 step, and is itself about sqrt(n) float32 epsilons of the n summands'
+magnitude, which for an element near 0 by cancellation is several of its
+ulps; so one bf16 ulp of the element plus 2^-12 of the tensor's max |value|
+(chip_smoke.py states the same limit).  A fault (a wrong mask, tile or
+fragment) shows as errors of the order of the values.
+"""
+import pytest
+import torch
+
+from _torch_parity import assert_within_bf16_ulp
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
+
+pytestmark = pytest.mark.gpu
+GRAD_ATOL = 2.0 ** -12  # of max |value|
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(dev, seed, b, hq, hk, sq, skv, d):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    return draw(b, hq, sq, d), draw(b, hk, skv, d), draw(b, hk, skv, d), draw(b, hq, sq, d)
+
+
+CASES = [  # b, hq, hk, sq, skv, d, kv_lens, q_offset
+    (2, 4, 4, 33, 33, 16, None, 0),           # MHA, S not a multiple of the tile
+    (2, 4, 2, 70, 70, 64, [70, 9], 0),        # G = 2, ragged kv_lens
+    (1, 8, 2, 130, 130, 32, None, 0),         # G = 4
+    (1, 10, 2, 200, 200, 128, [200], 0),      # G = 5, D 128
+    (2, 10, 2, 21, 153, 64, [150, 87], 129),  # q_offset > 0, kv_lens < Skv
+    (1, 4, 4, 128, 128, 48, [0], 0),          # a row of no keys
+    (8, 32, 32, 128, 128, 64, None, 0),       # stablelm-1.6b's attention
+]
+
+
+@pytest.mark.parametrize("b, hq, hk, sq, skv, d, lens, q_offset", CASES)
+def test_bwd_kernel_matches_plain(card, b, hq, hk, sq, skv, d, lens, q_offset):
+    q, k, v, do = _inputs(card, 0, b, hq, hk, sq, skv, d)
+    kv_lens = torch.tensor(lens if lens else [skv] * b, dtype=torch.int32, device=card)
+    kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=q_offset)
+    out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+    assert torch.equal(out, fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, **kw))
+    want_out, want_lse = flash_fwd_ref(q, k, v, kv_lens, block_q=64, block_k=64,
+                                       return_lse=True, **kw)
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5), float((lse - want_lse).abs().max())
+    launches = (fa_ops.flash_bwd_dq.launches, fa_ops.flash_bwd_dkdv.launches)
+    got = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+    assert (fa_ops.flash_bwd_dq.launches, fa_ops.flash_bwd_dkdv.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    want = flash_bwd_ref(q, k, v, kv_lens, out, lse, do, block_q=64, block_k=64, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        w = w.float().cpu().numpy()
+        assert_within_bf16_ulp(g.float().cpu().numpy(), w,
+                               atol=GRAD_ATOL * float(abs(w).max() + 1e-30))
+    again = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)  # the sum order is fixed: the same bits
+
+
+def test_bwd_ignores_nan_past_kv_len(card):
+    q, k, v, do = _inputs(card, 1, 2, 4, 2, 96, 96, 64)
+    kv_lens = torch.tensor([96, 40], dtype=torch.int32, device=card)
+    kw = dict(causal=True, sm_scale=0.125, q_offset=0)
+    out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+    clean = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+    k2, v2 = k.clone(), v.clone()
+    k2[1, :, 40:] = float("nan")
+    v2[1, :, 40:] = float("nan")
+    dirty = fa_ops.flash_bwd(q, k2, v2, kv_lens, out, lse, do, **kw)
+    assert torch.equal(clean[0], dirty[0])
+    assert torch.equal(clean[1][:, :, :40], dirty[1][:, :, :40])
+    assert torch.equal(clean[2][:, :, :40], dirty[2][:, :, :40])
+    assert not bool(clean[1][1, :, 40:].any()) and not bool(dirty[2][1, :, 40:].any())
+
+
+def test_autograd_runs_both_kernels(card):
+    q, k, v, do = _inputs(card, 2, 2, 8, 2, 64, 64, 64)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (fa_ops.flash_fwd.launches, fa_ops.flash_bwd_dq.launches,
+              fa_ops.flash_bwd_dkdv.launches)
+    out = fa_ops.flash_attention(q, k, v, block_q=64, block_k=64)
+    out.backward(do)
+    after = (fa_ops.flash_fwd.launches, fa_ops.flash_bwd_dq.launches,
+             fa_ops.flash_bwd_dkdv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    with torch.no_grad():
+        lens = torch.full((2,), 64, dtype=torch.int32, device=card)
+        o, lse = fa_ops.flash_fwd(q, k, v, lens, sm_scale=0.125, block_k=64, return_lse=True)
+        want = fa_ops.flash_bwd(q, k, v, lens, o, lse, do, sm_scale=0.125)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(g, w)
+
+
+def test_bwd_refuses_mla_dims(card):
+    q = torch.zeros(1, 2, 16, 192, dtype=torch.bfloat16, device=card)
+    k = torch.zeros(1, 2, 16, 192, dtype=torch.bfloat16, device=card)
+    v = torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16, device=card)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=card)
+    lse = torch.zeros(1, 2, 16, device=card)
+    with pytest.raises(ValueError, match="equal key and value dims"):
+        fa_ops.flash_bwd(q, k, v, lens, torch.zeros_like(q[..., :128]), lse,
+                         torch.zeros_like(q[..., :128]), sm_scale=0.1)

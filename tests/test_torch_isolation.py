@@ -49,7 +49,11 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.kernels.local_sgd.ops", "repro_torch.kernels.local_sgd.build",
                    "repro_torch.kernels.local_sgd.ref", "repro_torch.telemetry.refit",
                    "repro_torch.runtime.chaos", "repro_torch.runtime.failures",
-                   "repro_torch.runtime.straggler", "repro_torch.chaos_train"):
+                   "repro_torch.runtime.straggler", "repro_torch.chaos_train",
+                   "repro_torch.training.optimizers", "repro_torch.training.trainer",
+                   "repro_torch.training.tree", "repro_torch.data.pipeline",
+                   "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+                   "repro_torch.launch.train", "repro_torch.kernels.flash_attention.ref"):
         assert module in report["imported"]
 
 
@@ -72,7 +76,7 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from repro_torch.configs import cocoa_mnist
     from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.model import LM
     from repro_torch.kernels import tune
     from repro_torch.kernels.tune import __main__ as tune_cli
@@ -95,6 +99,10 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: serve.main(["--arch", "deepseek-v2-236b", "--smoke", "--continuous"]),
         lambda: serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--continuous"]),
         lambda: serve.main(["--smoke", "--continuous"]),
+        lambda: serve.main(["--smoke", "--batch", "2", "--prompt-len", "4", "--gen", "2"]),
+        lambda: serve.Server("qwen3-14b").generate(np.zeros((1, 4), np.int32), 2),
+        lambda: train.main(["--smoke", "--steps", "1"]),
+        lambda: train.Trainer(train.TrainerOptions(smoke=True, steps=1)),
         lambda: tune_cli.main(["--preset", "smoke", "--families", "sdca", "--cache",
                                 str(tmp_path / "t.json")]),
         lambda: tune.ensure("sdca", tune.SWEEP_SHAPES["smoke"]["sdca"],

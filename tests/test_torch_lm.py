@@ -1,6 +1,7 @@
 """Port parity: the LM (qwen3-14b smoke: 2 layers, d_model 64, 4 query heads
-over 2 KV heads, head_dim 16) with the reference's weights, converted through
-numpy, against ``repro.models.model.LM``: prefill logits, then 8
+over 2 KV heads, head_dim 16; stablelm-1.6b smoke: 1 layer, the same widths,
+25% partial rotary, no qk-norm) with the reference's weights, converted
+through numpy, against ``repro.models.model.LM``: prefill logits, then 8
 teacher-forced ``decode_step_paged`` steps over ragged rows in the paged
 pools (both sides fed the same tokens).
 
@@ -38,9 +39,9 @@ RT = Runtime(page_size=PAGE, paged_impl="stream")
 TOL = {"float32": (1e-4, None), "bfloat16": (3e-2, 5e-3)}  # (max, mean) of |d| / max|logit|
 
 
-def _setup(dtype):
-    ref_cfg = dataclasses.replace(ref_smoke_config("qwen3-14b"), dtype=dtype)
-    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), dtype=dtype)
+def _setup(dtype, arch="qwen3-14b"):
+    ref_cfg = dataclasses.replace(ref_smoke_config(arch), dtype=dtype)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
     ref_lm = RefLM(ref_cfg, RefRuntime(remat="none", block_q=16, block_k=16, page_size=PAGE,
                                        paged_impl="stream"))
     params, _ = ref_lm.init(jax.random.PRNGKey(0))
@@ -59,7 +60,17 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_prefill_and_paged_decode_match_reference(dtype):
-    ref_lm, params, port = _setup(dtype)
+    _check_prefill_and_paged_decode(dtype, "qwen3-14b")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stablelm_prefill_and_paged_decode_match_reference(dtype):
+    """stablelm-1.6b, the arch the trainer trains, under the same bounds."""
+    _check_prefill_and_paged_decode(dtype, "stablelm-1.6b")
+
+
+def _check_prefill_and_paged_decode(dtype, arch):
+    ref_lm, params, port = _setup(dtype, arch)
     rng = np.random.RandomState(0)
     vocab = port.cfg.vocab_size
     prompts = [rng.randint(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]

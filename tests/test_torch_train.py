@@ -1,0 +1,209 @@
+"""Port parity: LM training (``LM.loss_fn``, the optimizers, ``make_train_step``,
+the data pipeline and the trainer CLI) against the JAX package, at the smoke
+configs cut to 2 layers, in float32, the reference's weights converted
+through numpy.
+
+Tolerances, float32 throughout:
+* the loss within 1e-5 relative, and every gradient leaf within 1e-4 of the
+  leaf's max |g| (the same arithmetic summed in another order: measured
+  about 1e-6 of it);
+* the remat modes the same function: loss and gradients within 1e-6 of
+  max |g| of ``remat="none"``'s;
+* train steps: loss within 1e-5 relative, grad_norm within 1e-4 relative,
+  lr within 1e-7 relative.  Parameters are bounded in units of the step's
+  lr: Adam's first steps move a weight by about lr * sign(g), so where an
+  entry of g is near 0 (within the two frameworks' rounding of it) the two
+  may step opposite ways, 2 lr apart, and later steps carry that on.  So
+  every parameter within 2 lr per step taken, and all but 1% of them within
+  1e-3 lr (the rounding of the rest).  Adafactor divides by a factored
+  second moment, whose sign flips cost the same: the same bounds;
+* the optimizers alone, on the same gradient trees: within 1e-6 relative;
+* the data pipeline: the same batches exactly.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.data.pipeline import SyntheticTokens as RefTokens
+from repro.models.model import LM as RefLM
+from repro.models.runtime import Runtime as RefRuntime
+from repro.training import optimizers as ref_opt
+from repro.training import trainer as ref_trainer
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import lm_params_from_numpy, tree_from_lm, tree_from_numpy, tree_to_numpy
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch import train as train_cli
+from repro_torch.models.model import LM
+from repro_torch.models.runtime import Runtime
+from repro_torch.training import optimizers as port_opt
+from repro_torch.training import trainer as port_trainer
+from repro_torch.training.tree import tree_leaves
+
+ARCHS = ["stablelm-1.6b", "qwen3-14b"]
+RT = Runtime(block_q=16, block_k=16)
+SEQ, BATCH = 32, 4
+
+
+def _models(arch):
+    ref_cfg = dataclasses.replace(ref_smoke_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=2, dtype="float32")
+    ref = RefLM(ref_cfg, RefRuntime(remat="none", block_q=16, block_k=16))
+    params, _ = ref.init(jax.random.PRNGKey(0))
+    params = jax.tree.map(np.asarray, params)
+    port = lm_params_from_numpy(cfg, params, device="cpu").trainable()
+    return ref, params, port
+
+
+def _batches(n, batch=BATCH):
+    data = RefTokens(256, SEQ, batch, seed=0)
+    return [data.next_batch() for _ in range(n)]
+
+
+def _leaf_pairs(got_tree, want_tree):
+    got = tree_leaves(tree_to_numpy(got_tree))
+    want = [np.asarray(x) for x in jax.tree.leaves(want_tree)]
+    assert len(got) == len(want)
+    return zip(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_match_reference(arch):
+    ref, params, port = _models(arch)
+    batch = _batches(1)[0]
+    (want_loss, want_aux), want_g = jax.jit(jax.value_and_grad(ref.loss_fn, has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        loss, aux = port.loss_fn(tb, dataclasses.replace(RT, remat=remat))
+        loss.backward()
+        loss = loss.detach()
+        grads[remat] = tree_from_lm(port, grads=True)
+        port.zero_grad(set_to_none=True)
+        assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+        ce = float(aux["ce"].detach())
+        assert abs(ce - float(want_aux["ce"])) <= 1e-5 * abs(float(want_loss))
+        assert float(aux["aux"]) == 0.0 and float(aux["tokens"]) == float(want_aux["tokens"])
+    for got, want in _leaf_pairs(grads["none"], want_g):
+        scale = np.abs(want).max()
+        assert np.abs(got - want).max() <= 1e-4 * scale + 1e-12, (got.shape, scale)
+    for remat in ("full", "dots"):
+        for got, want in zip(tree_leaves(grads[remat]), tree_leaves(grads["none"])):
+            assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max()) + 1e-12
+
+
+def _bounded_in_lr(got, want, lr_sum):
+    for g, w in _leaf_pairs(got, want):
+        err = np.abs(g - w)
+        assert err.max() <= 2 * lr_sum + 1e-7, (g.shape, err.max(), lr_sum)
+        assert np.mean(err > 1e-3 * lr_sum) <= 0.01, (g.shape, np.mean(err > 1e-3 * lr_sum))
+
+
+@pytest.mark.parametrize("name, steps", [("adamw", 3), ("adafactor", 1)])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_steps_match_reference(name, steps, microbatches):
+    ref, params, port = _models("qwen3-14b")
+    kw = dict(learning_rate=1e-2, warmup_steps=0, total_steps=10, microbatches=microbatches)
+    ref_step = jax.jit(ref_trainer.make_train_step(ref, ref_opt.get_optimizer(name),
+                                                   ref_trainer.TrainConfig(**kw)))
+    step = port_trainer.make_train_step(port, port_opt.get_optimizer(name),
+                                        port_trainer.TrainConfig(**kw), rt=RT)
+    opt = port_opt.get_optimizer(name)
+    p_ref, s_ref = params, ref_opt.get_optimizer(name).init(params)
+    p, s = tree_from_numpy(params, "cpu"), opt.init(tree_from_numpy(params, "cpu"))
+    lr_sum = 0.0
+    for i, batch in enumerate(_batches(steps)):
+        p_ref, s_ref, want = ref_step(p_ref, s_ref, {k: jnp.asarray(v) for k, v in batch.items()},
+                                      jnp.int32(i))
+        p, s, got = step(p, s, batch, i)
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+        assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= \
+            1e-4 * float(want["grad_norm"])
+        assert abs(float(got["lr"]) - float(want["lr"])) <= 1e-7 * float(want["lr"])
+        assert set(got) == set(want)
+        lr_sum += float(want["lr"])
+    _bounded_in_lr(p, p_ref, lr_sum)
+    assert int(s["count"]) == int(s_ref["count"]) == steps
+
+
+def _random_tree(seed):
+    rng = np.random.RandomState(seed)
+    return {"embed": rng.randn(16, 8).astype(np.float32),
+            "final_norm": rng.randn(8).astype(np.float32),
+            "periods": {"pos0": {"ln1": rng.randn(2, 8).astype(np.float32),
+                                 "mixer": {"wq": rng.randn(2, 8, 12).astype(np.float32)}}}}
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_update_matches_reference(name):
+    params, grads = _random_tree(0), _random_tree(1)
+    ref = ref_opt.get_optimizer(name)
+    want_p, want_s = ref.update(grads, ref.init(params), params, jnp.float32(3e-3))
+    want_p, want_s = ref.update(grads, want_s, want_p, jnp.float32(2e-3))  # a second step
+    opt = port_opt.get_optimizer(name)
+    tp, tg = tree_from_numpy(params, "cpu"), tree_from_numpy(grads, "cpu")
+    got_p, got_s = opt.update(tg, opt.init(tp), tp, torch.tensor(3e-3))
+    got_p, got_s = opt.update(tg, got_s, got_p, torch.tensor(2e-3))
+    for got, want in list(_leaf_pairs(got_p, want_p)) + list(_leaf_pairs(got_s, want_s)):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+
+
+def test_clip_by_global_norm_matches_reference():
+    tree = _random_tree(2)
+    for max_norm in (0.5, 1e3):
+        want, want_norm = ref_opt.clip_by_global_norm(tree, max_norm)
+        got, got_norm = port_opt.clip_by_global_norm(tree_from_numpy(tree, "cpu"), max_norm)
+        np.testing.assert_allclose(float(got_norm), float(want_norm), rtol=1e-6)
+        for g, w in _leaf_pairs(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-9)
+    assert port_opt.default_optimizer_for(int(50e9)) == "adafactor"
+    assert port_opt.default_optimizer_for(int(1.6e9)) == "adamw"
+    with pytest.raises(ValueError):
+        port_opt.get_optimizer("sgd")
+
+
+def test_lr_schedule_and_rescale_match_reference():
+    cfg = port_trainer.TrainConfig(learning_rate=1e-3, warmup_steps=5, total_steps=20)
+    ref_cfg = ref_trainer.TrainConfig(learning_rate=1e-3, warmup_steps=5, total_steps=20)
+    for s in (0, 3, 5, 12, 20, 25):
+        assert float(port_trainer.lr_schedule(cfg, s)) == pytest.approx(
+            float(ref_trainer.lr_schedule(ref_cfg, jnp.int32(s))), rel=1e-6, abs=1e-12)
+    got = port_trainer.rescaled_config(cfg, 2.0, local_steps=4)
+    want = ref_trainer.rescaled_config(ref_cfg, 2.0, local_steps=4)
+    assert (got.learning_rate, got.local_steps) == (want.learning_rate, want.local_steps)
+
+
+def test_data_pipeline_matches_reference():
+    ref, port = RefTokens(256, 24, 3, seed=7), SyntheticTokens(256, 24, 3, seed=7)
+    for _ in range(3):
+        want, got = ref.next_batch(), port.next_batch()
+        assert set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    state = port.state_dict()
+    assert state == ref.state_dict()
+    ref2, port2 = RefTokens(256, 24, 3, seed=7), SyntheticTokens(256, 24, 3, seed=7)
+    ref2.load_state_dict(state)
+    port2.load_state_dict(state)
+    want, got = ref2.next_batch(), port2.next_batch()
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    assert np.array_equal(got["tokens"], ref.next_batch()["tokens"])
+
+
+def test_trainer_cli_on_the_cpu():
+    last = train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--steps", "3", "--seq-len",
+                           "16", "--global-batch", "2", "--device", "cpu"])
+    assert np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
+    for flag in (["--compression", "int8"], ["--chaos", "trace.json"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "falcon-mamba-7b"])
+def test_unported_archs_refuse_training(arch):
+    lm = LM(get_smoke_config(arch), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lm.trainable()
