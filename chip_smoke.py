@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --k6-times DIR   # only K6's times, K6 built from DIR
+  python3 chip_smoke.py --k3bwd-times DIR   # only K3-bwd's times, built from DIR
 
 It drives the port's paths, each with every kernel launch count set to 0
 just before it and read just after: the Hemingway loop on the local SDCA
@@ -189,8 +190,11 @@ of which exits non-zero on failure:
       the output the same bits as without the lse;
   23b. K3-bwd (the flash backward's dq and dk/dv passes) against its plain
       version at the same shapes (G 1 and 5, ragged kv_lens), within the
-      stated tolerance, two runs the same bits; each pass's time beside its
-      bound, the plain backward's and SDPA's flash backward's;
+      stated tolerance, two runs the same bits; the library's schedule
+      (grids, the dk/dv pass's cut) against ops.bwd_grid, the CPU mirror;
+      ptxas's registers and spills for both passes; each pass's time beside
+      its bound, the plain backward's and SDPA's flash backward's, timed in
+      turns with the kernel;
   23c. the training path: ``Trainer`` on stablelm-1.6b at full width (24
       layers), seq 128, global batch 8, AdamW at lr 1e-3, remat "full", 8
       steps: loss per step, median step ms, tokens/s, peak memory; K3
@@ -477,8 +481,9 @@ def graph_ms(fn, reps: int, warmup: int = 3, flush=None) -> float:
     return (sorted(b for b, _ in pairs)[1] - sorted(r for _, r in pairs)[1]) / reps
 
 
-def build_all(libraries) -> None:
-    """One nvcc per source, all started together."""
+def build_all(libraries) -> dict:
+    """One nvcc per source, all started together.  Returns each library's
+    build (``KernelLibrary.build``) by its stem."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         results = list(pool.map(lambda lib: lib.build(), libraries))
@@ -495,6 +500,7 @@ def build_all(libraries) -> None:
             fail(f"{lib.source.name}: ptxas serialised wgmma instructions (C7520): a branch "
                  "the compiler cannot prove warpgroup-uniform encloses a wgmma")
         lib.load()
+    return {lib.stem: built for lib, built in zip(libraries, results)}
 
 
 def plain_across_devices(dev, lam, gen) -> None:
@@ -2627,27 +2633,121 @@ def bwd_flops_bytes(b, hq, hk, s, d, lens, pass_no):
     return flops, nbytes
 
 
-def flash_bwd_vs_plain(dev) -> dict:
+def k3bwd_times(dev, fa_ops) -> dict:
+    """K3-bwd's times at ``BWD_TIMED``'s shapes through the wrappers alone
+    (``flash_fwd`` with the lse, ``flash_bwd_dq``, ``flash_bwd_dkdv``), which
+    every version of K3-bwd has, so that ``--k3bwd-times`` runs it on another
+    checkout: each pass's ms and SDPA's backward (dq, dk and dv together),
+    in turns: kernel, SDPA, kernel, SDPA (CUDA events, 20 calls each, after
+    warm-up); then each pass replayed from a CUDA graph of 20 calls, the
+    device's time without the wrapper's host time (warm L2).  Returns
+    {shape name: {"flash_bwd_dq": [ms, ms], "flash_bwd_dkdv": [..],
+    "sdpa": [..], "flash_bwd_dq graph": ms, "flash_bwd_dkdv graph": ms}}."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    times = {}
+    for name, b, hq, hk, s, d, lens in BWD_SHAPES:
+        if name not in BWD_TIMED:
+            continue
+        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens)
+        kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
+        out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+        delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=hq != hk)
+        row = {"flash_bwd_dq": [], "flash_bwd_dkdv": [], "sdpa": []}
+        for _ in range(2):
+            for f in ("flash_bwd_dq", "flash_bwd_dkdv"):
+                row[f].append(cuda_ms(lambda: getattr(fa_ops, f)(
+                    q, k, v, kv_lens, out, lse, do, delta, grads, **kw), reps=20))
+            row["sdpa"].append(cuda_ms(lambda: torch.autograd.grad(
+                ref_out, (qs, ks, vs), do, retain_graph=True), reps=20))
+        for f in ("flash_bwd_dq", "flash_bwd_dkdv"):  # the device's time, without the host's
+            row[f + " graph"] = graph_ms(lambda: getattr(fa_ops, f)(
+                q, k, v, kv_lens, out, lse, do, delta, grads, **kw), reps=20)
+        times[name] = row
+        del qs, ks, vs, ref_out
+    return times
+
+
+def k3bwd_times_main(checkout: Path) -> None:
+    """``python3 chip_smoke.py --k3bwd-times DIR``: ``k3bwd_times`` with
+    K3 and K3-bwd built from the checkout at DIR, printed as one JSON line,
+    so that two versions of K3-bwd compare within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(checkout / "src"))
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    print(f"card: {nvidia_smi_line()}; K3-bwd from {checkout}")
+    fa_ops.BWD_LIBRARY.load()
+    times = k3bwd_times(torch.device("cuda"), fa_ops)
+    print(json.dumps({"k3bwd_times": str(checkout), **times}))
+
+
+def bwd_ptxas(log: str) -> None:
+    """Phase 23b: ptxas's registers and spills of both passes at each head
+    dim, from the library's build log."""
+    entry = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"):
+            if kernel in entry and ("registers" in line or "spill" in line):
+                d = entry.split(kernel + "ILi")[1].split("E")[0]
+                text = line.split("ptxas info", 1)[-1].lstrip(" :").strip()
+                print(f"  ptxas: {kernel.replace('_kernel', '')} D {d}: {text}")
+
+
+def flash_bwd_vs_plain(dev, build_log: str) -> dict:
     """Phases 23a and 23b: K3 with the rows' lse, and K3-bwd, against their
     plain versions on the card at stablelm-1.6b's and qwen3-14b's training
     shapes, MHA and G 5, full and ragged kv_lens; two runs of the backward
-    the same bits; each pass's time (CUDA events, after warm-up) beside its
-    bound, the plain backward's and SDPA's flash backward's.  Returns the
-    kernels line's rows' numbers."""
+    the same bits; the library's schedule against the CPU mirror; each
+    pass's time (CUDA events, after warm-up) beside its bound, the plain
+    backward's and SDPA's flash backward's, SDPA in turns with the kernel.
+    Returns the kernels line's rows' numbers."""
+    import ctypes
+
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
     phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b and qwen3-14b training shapes)")
+    bwd_ptxas(build_log)
     gen = torch.Generator(device=dev).manual_seed(22)
     worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
-    rows = {}
+    lib = fa_ops.BWD_LIBRARY.load()
+    occupancy = {}
+    for d in sorted({shape[5] for shape in BWD_SHAPES}):
+        for pass_no, kernel in enumerate(("dq", "dk/dv")):
+            blocks = ctypes.c_int()
+            fa_ops.BWD_LIBRARY.check(lib.flash_bwd_occupancy(pass_no, d, ctypes.byref(blocks)),
+                                     "flash_bwd_occupancy")
+            occupancy[f"{kernel} D {d}"] = blocks.value
+    print(f"  blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor): {occupancy}")
     for name, b, hq, hk, s, d, lens in BWD_SHAPES:
         q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens)
         kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
         plain_kw = dict(kw, block_q=64, block_k=64)
+        plan = []
+        for pass_no in (0, 1):
+            got = (ctypes.c_int * 4)()
+            fa_ops.BWD_LIBRARY.check(lib.flash_bwd_plan(pass_no, b, hk, hq // hk, s, s, 0, 1, got),
+                                     "flash_bwd_plan")
+            want = fa_ops.bwd_grid(pass_no, b, hk, hq // hk, s, s, 0, True)
+            if tuple(got) != want:
+                fail(f"K3-bwd's plan at {name}, pass {pass_no}: the library's {tuple(got)}, "
+                     f"ops.bwd_grid's {want}")
+            plan.append(want)
+        units = fa_ops.bwd_plan(b, hk, hq // hk, s, s, kv_lens.tolist(), 0, True)
+        steps = [len(u.visits) for u in units]
         out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
         bare = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, **kw)
         if not torch.equal(out, bare):
@@ -2680,44 +2780,55 @@ def flash_bwd_vs_plain(dev) -> dict:
               f"{'full' if lens is None else list(lens)}): K3 output with lse = without, bit for "
               f"bit; lse within {lse_err:.3g} of plain; K3-bwd two runs bitwise; max |kernel - "
               f"plain|: {', '.join(errs)}")
+        print(f"  schedule = ops.bwd_grid: dq grid {plan[0][:3]}, dk/dv grid {plan[1][:3]} in "
+              f"clusters of {plan[1][3]}; dk/dv blocks {len(steps)}, steps {sum(steps)} (longest "
+              f"block {max(steps)}, mean over {fa_ops.BWD_SLOTS} slots "
+              f"{sum(steps) / fa_ops.BWD_SLOTS:.2f}); dq blocks {plan[0][0] * plan[0][1] * b} "
+              f"against {fa_ops.BWD_SLOTS} slots")
+    rows = {}
+    timed = k3bwd_times(dev, fa_ops)
+    for name, b, hq, hk, s, d, lens in BWD_SHAPES:
         if name not in BWD_TIMED:
             continue
-        lens32 = kv_lens
-        delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-        grads = tuple(torch.empty_like(t) for t in (q, k, v))
-        times = [cuda_ms(lambda: getattr(fa_ops, f)(q, k, v, lens32, out, lse, do, delta, grads,
-                                                    **kw), reps=20)
-                 for f in ("flash_bwd_dq", "flash_bwd_dkdv")]
+        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens)
+        kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
+        plain_kw = dict(kw, block_q=64, block_k=64)
+        out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
         fwd_ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, **kw), reps=20)
         lse_ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True,
                                                   **kw), reps=20)
         plain = cuda_ms(lambda: flash_bwd_ref(q, k, v, kv_lens, out, lse, do, **plain_kw),
                         reps=2, warmup=1)
-        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=hq != hk)
-        lib = cuda_ms(lambda: torch.autograd.grad(ref_out, (qs, ks, vs), do, retain_graph=True),
-                      reps=20)
-        print(f"  K3 at block_k 64 {fwd_ms:.4f} ms, with lse {lse_ms:.4f} ms; plain backward "
-              f"{plain:.3f} ms; SDPA's backward (causal{', GQA' if hq != hk else ''}) "
-              f"{lib:.4f} ms for dq, dk and dv together")
-        for pass_no, (kernel, ms) in enumerate(zip(("flash_bwd_dq", "flash_bwd_dkdv"), times)):
+        t = timed[name]
+        lib_ms = sum(t["sdpa"]) / 2
+        print(f"  {name}: K3 at block_k 64 {fwd_ms:.4f} ms, with lse {lse_ms:.4f} ms; plain "
+              f"backward {plain:.3f} ms; SDPA's backward (causal{', GQA' if hq != hk else ''}) "
+              f"{t['sdpa'][0]:.4f} and {t['sdpa'][1]:.4f} ms for dq, dk and dv together, in "
+              f"turns with the kernel's {sum(t['flash_bwd_dq']) / 2 + sum(t['flash_bwd_dkdv']) / 2:.4f}")
+        for pass_no, kernel in enumerate(("flash_bwd_dq", "flash_bwd_dkdv")):
+            ms = sum(t[kernel]) / 2
             flops, nbytes = bwd_flops_bytes(b, hq, hk, s, d, lens, pass_no)
             ops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             bound = max(ops_ms, bytes_ms)
             by = "operations" if ops_ms >= bytes_ms else "bytes"
-            print(f"  {kernel}: {ms:.4f} ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP "
-                  f"at 989 TFLOP/s = {ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB at 3.35 TB/s = "
-                  f"{bytes_ms:.4f} ms), {100 * bound / ms:.2f}% of bound; the hi/lo split of p "
-                  f"and ds doubles {1 if pass_no == 0 else 2} of its products on the tensor cores")
+            print(f"  {kernel}: {t[kernel][0]:.4f} and {t[kernel][1]:.4f} ms ({t[kernel + ' graph']:.4f} "
+                  f"from a CUDA graph), bound {bound:.4f} "
+                  f"ms ({by}: {flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; "
+                  f"{nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms:.4f} ms), "
+                  f"{100 * bound / ms:.2f}% of bound; the hi/lo split of p and ds doubles "
+                  f"{1 if pass_no == 0 else 2} of its products on the tensor cores")
             if name == BWD_TIMED[0]:
-                rows[kernel] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                                "bound_by": by, "shape": f"B {b}, Hq {hq}, Hk {hk}, S {s}, D {d}",
+                rows[kernel] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                                "bound_ms": bound, "bound_by": by,
+                                "graph_ms": t[kernel + " graph"],
+                                "shape": f"B {b}, Hq {hq}, Hk {hk}, S {s}, D {d}",
                                 "plain_and_library_cover": "dq, dk and dv together"}
             else:
-                rows[kernel][f"ms_at {name}"] = ms
+                rows[kernel].update({f"ms_at {name}": ms, f"bound_ms_at {name}": bound,
+                                     f"library_ms_at {name}": lib_ms,
+                                     f"graph_ms_at {name}": t[kernel + " graph"]})
         if name == BWD_TIMED[0]:
             rows["flash_fwd_lse"] = {"ms": lse_ms, "ms_without_lse": fwd_ms}
-        del qs, ks, vs, ref_out
     for key, err in worst.items():
         rows.setdefault(key, {})["max_abs_err"] = err
     return rows
@@ -2917,6 +3028,8 @@ def main() -> None:
 
     if sys.argv[1:2] == ["--k6-times"] and len(sys.argv) == 3:
         return k6_times_main(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--k3bwd-times"] and len(sys.argv) == 3:
+        return k3bwd_times_main(Path(sys.argv[2]).resolve())
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2936,7 +3049,7 @@ def main() -> None:
     dev = torch.device("cuda")
 
     phase("build")
-    build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fa_ops.BWD_LIBRARY, fd_ops.LIBRARY,
+    builds = build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fa_ops.BWD_LIBRARY, fd_ops.LIBRARY,
                fd_ops.DECODE_LIBRARY, fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY,
                local_sgd_build.LIBRARY])
 
@@ -3021,7 +3134,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     timings.update(mla_kernel_timings(dev, cfg, errs))
 
-    bwd = flash_bwd_vs_plain(dev)
+    bwd = flash_bwd_vs_plain(dev, builds["flash_bwd"]["log"])
     train_counts = training_path(dev)
     training_kernels_vs_plain(dev)
     checkpoint_round_trip(dev, workdir)
@@ -3064,8 +3177,10 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "replaces": "src/repro/kernels/flash_attention/ops.py:118",
-                        "status": "new: the port's own kernel (a custom-VJP backward, no Pallas "
-                        "kernel)", "launches": train_counts[name],
+                        "status": "redesigned, PR 23: wgmma on TMA-staged 128-byte-swizzled "
+                        "tiles, the dk/dv pass cut in chunks summed in a cluster (the port's "
+                        "own kernel, a custom-VJP backward, no Pallas kernel)",
+                        "launches": train_counts[name],
                         "launches_by_path": {"training": train_counts[name]},
                         "timed_by": EAGER, **bwd[name]})
     print(json.dumps({"kernels": kernels}))

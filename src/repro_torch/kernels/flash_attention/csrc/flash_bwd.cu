@@ -10,211 +10,168 @@
 // dv = sum p^T dO and dk = sum ds^T Q scale, each KV head's sums taken over
 // its G query heads (GQA).  Equal head dims D, multiples of 16 up to 128.
 //
-// Two kernels, launched in order on the caller's stream:
-//   * the dq pass: grid (ceil(Sq / 64), Hq, B), a block per 64 query rows of
-//     one query head, four warps of 16 rows.  It first writes delta for its
-//     rows (one thread a row, a sum over D in order), then walks the key
-//     tiles of 64 positions its rows see, recomputing S = Q K^T and
-//     dP = dO V^T, and accumulates dq = ds K;
-//   * the dk/dv pass: grid (ceil(Skv / 64), Hk, B), a block per 64 keys of
-//     one KV head, four warps of 16 keys.  It walks the G query heads of the
-//     group and, for each, the 64-row query tiles that see its keys,
-//     recomputing S^T = K Q^T and dP^T = V dO^T, and accumulates dv = P^T dO
-//     and dk = ds^T Q.  Each block owns its keys' sums over every query head
-//     of the group, so GQA needs no atomics.
-// The sum order is fixed by the blocking (key tiles in order for dq; query
-// heads, then query tiles, in order for dk and dv; each product's k-steps in
-// order), so two runs give the same bits.
+// What bounds it on this card: the operations.  A causal backward does 3
+// (dq pass) and 4 (dk/dv pass) products of 2 D FLOPs for each pair a row
+// sees, far above the bf16 ridge; the bytes are small beside them.  The
+// hi/lo split of p and ds (below) doubles 1 of the dq pass's 3 products and
+// 2 of the dk/dv pass's 4, so against the plain count the passes cannot
+// pass 3/4 and 2/3 of the tensor-core peak.
 //
-// Arithmetic.  The products run on the tensor cores (mma.sync m16n8k16,
-// bf16 operands, float32 accumulation; a product of two bf16 values is exact
-// in float32).  Q, K, V and dO are bf16 inputs.  p and ds are float32 values
-// the reference multiplies at float32 precision; a single bf16 copy would
-// err by 2^-9 of each, so, as in the forward, each is split into two bf16
-// values, hi = bf16(x) and lo = bf16(x - hi), and both products go into the
-// float32 accumulator (hi + lo within about 2^-17 of x).  p = 2^(s scale
-// log2(e) - lse log2(e)) by ex2.approx; the masks select p and ds to 0, so
-// a masked position contributes exactly nothing whatever its inputs.  Key
-// positions at or past kv_len and query rows at or past Sq are zero-filled
-// when staged.  dq and dk are scaled once at the end; all three are written
-// in bf16.
+// Two kernels, launched in order on the caller's stream, each a block of one
+// warpgroup (128 threads) that owns 64 rows, two blocks an SM:
+//   * the dq pass: grid (Hq, ceil(Sq / 64), B), the longest causal rows
+//     first.  A block computes delta for its 64 query rows (eight lanes a
+//     row, 16-byte loads, the lanes' sums in order then a fixed butterfly)
+//     while TMA stages its Q and dO, then walks the key tiles of 64
+//     positions its rows see: S = Q K^T and dP = dO V^T (wgmma, both
+//     operands in shared memory), ds, and dq += ds K (wgmma, ds from
+//     registers, K read MN-major);
+//   * the dk/dv pass: grid (split, Hk * B, ceil(Skv / 64)), the earliest
+//     keys (the most rows) first.  The walk of key tile j over the G query
+//     heads of its KV head and the query tiles that see it, G x n_j steps
+//     in (head, tile) order, is cut into `split` chunks of ceil(G n_j /
+//     split) steps, one a block; the split blocks of a key tile form a
+//     thread-block cluster.  Per step: S^T = K Q^T and dP^T = V dO^T
+//     (shared-shared wgmma); p^T once S^T has landed, while dP^T runs;
+//     dv += P^T dO issued before ds^T is computed, so that ds^T's arithmetic
+//     runs beside dv's products; then dk += dS^T Q (P^T and dS^T from
+//     registers, dO and Q read MN-major).  An uncut walk writes dk and dv
+//     from the registers; a cut one's float32 partials meet in shared memory
+//     and block r of the cluster sums rows [64 r / split, 64 (r + 1) / split)
+//     over ranks 0, 1, .. in order (distributed shared memory).  `split` is
+//     the smallest of 1, 2, 4, 8 whose longest chunk is no longer than the
+//     mean load of a slot (the work over 264 slots, 132 SMs x 2 blocks),
+//     stopping before chunks fall under 4 steps: a function of the shapes
+//     alone (flash_bwd_plan; ops.py's bwd_plan mirrors it).  At qwen3-14b's
+//     training shape (40 over 8 heads, S 2048) it is 2: the longest block
+//     walks 80 steps, not 160.
+// Every sum runs in an order fixed by the shapes: key tiles in order for
+// dq; each chunk's steps in order, then the chunks in rank order, for dk
+// and dv; each product's k-steps in order.  No atomics: two runs give the
+// same bits.
 //
-// Staging: 16-byte cp.async copies into row-major shared-memory tiles whose
-// rows are padded by 8 elements (16 bytes), so that the fragment loads of
-// eight rows fall on distinct banks.  The streamed operand (K and V in the
-// dq pass, Q, dO, lse and delta in the dk/dv pass) goes through a ring of
-// two stages, the next tile's copies in flight while the current one is
-// computed.  Fully masked tiles are not visited.  The kernels allocate
+// No producer warp: a warpgroup and its twin block already take the
+// register file (the dk/dv pass's dk and dv accumulators, 128 registers a
+// thread at D 128, with S^T, dP^T and the hi/lo fragments: 244), so there
+// are no registers for setmaxnreg to move; one thread of the warpgroup
+// issues the next stage's copies (a handful of instructions) at the top of
+// each step, and the SM's other block fills the tensor cores while this one
+// waits or computes p and ds.
+//
+// Arithmetic.  The products run on the tensor cores (wgmma, bf16 operands,
+// float32 accumulation; a product of two bf16 values is exact in float32).
+// p and ds are float32 values the reference multiplies at float32
+// precision; a single bf16 copy would err by 2^-9 of each, so each is split
+// into two bf16 values, hi = bf16(x) and lo = bf16(x - hi), and both
+// products go into the float32 accumulator (hi + lo within about 2^-17 of
+// x).  p = 2^(s scale log2(e) - lse log2(e)) by ex2.approx; the masks
+// select p and ds to 0, so a masked position contributes exactly nothing
+// whatever its inputs.  dq and dk are scaled once at the end; all three are
+// written in bf16.
+//
+// Staging.  TMA copies 64-row tiles through 3-D tensor maps (D, S, B x H)
+// into 128-byte-swizzled panels of 64 columns (csrc/hopper.cuh); rows past
+// Sq or Skv and columns past D arrive as zeros.  The fill knows nothing of
+// kv_len: in the dq pass, K's rows at or past kv_len in the tile that
+// straddles it would meet ds = 0 in ds K, and 0 x NaN is NaN on the tensor
+// cores, so those rows are zeroed after the tile lands.  The streamed
+// operands (K and V in the dq pass; Q and dO in the dk/dv pass) go through a
+// ring of two stages on mbarriers, one thread issuing the next tile's copies
+// while the block computes the current one; the dk/dv pass's rows' lse and
+// delta follow in a ring of their own, a plain load a thread, issued a step
+// ahead (not TMA: a 1-D map's box that starts off a 16-byte boundary, as a
+// head's rows do when Sq is not a multiple of 4, never completed on the
+// card).  Fully masked tiles are not visited.  The kernels allocate
 // nothing and do not synchronise.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;  // four warps
+namespace cg = cooperative_groups;
+using hopper::desc_sw128;
+using hopper::fence_regs;
+using hopper::mbar_expect_tx;
+using hopper::mbar_wait;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
+
+constexpr int kThreads = 128;  // one warpgroup
 constexpr int kTile = 64;      // query rows or key positions a tile
+constexpr int kStages = 2;
+constexpr int kPanelBytes = kTile * 128;  // 64 rows of 64 bf16 columns
 constexpr float kLog2e = 1.44269504088896340736f;
+// The dk/dv pass's cut (ops.py: BWD_SLOTS, BWD_MAX_SPLIT, BWD_MIN_CHUNK)
+constexpr int kSlots = 264;  // 132 SMs x 2 blocks
+constexpr int kMaxSplit = 8;
+constexpr int kMinChunk = 4;
+// Error codes past the runtime's: a failed tensor-map encode (+ its CUresult)
+constexpr int kErrEncode = 10000;
 
 template <int D>
-constexpr int kLd = D + 8;  // padded row length of a shared-memory tile, in elements
-
+constexpr int kPanels = (D + 63) / 64;
 template <int D>
-constexpr size_t tile_elems = static_cast<size_t>(kTile) * kLd<D>;
-
-// dq pass: Q, dO, and two stages of K and V tiles
+constexpr int kDP = 64 * kPanels<D>;  // columns the products run over
 template <int D>
-constexpr size_t dq_smem_bytes = 2 * (2 + 2 * 2) * tile_elems<D>;
-// dk/dv pass: K, V, two stages of Q and dO tiles, and of lse and delta
+constexpr int kTileBytes = kPanels<D> * kPanelBytes;
 template <int D>
-constexpr size_t dkdv_smem_bytes = 2 * (2 + 2 * 2) * tile_elems<D> + 2 * 2 * kTile * 4;
+constexpr int kPartLd = kDP<D> + 8;  // row stride of the float32 partials
 
-// ---------------------------------------------------------------- copies
+// dq pass: [0, 1024) the barriers and delta; then Q, dO, two stages of K, of V
+constexpr int kDqTiles = 1024;
+template <int D>
+constexpr size_t dq_smem_bytes = 1024 + kDqTiles + 6 * static_cast<size_t>(kTileBytes<D>);
+// dk/dv pass: [0, 2048) the barriers, the rows' lse and delta stages; then K, V, two
+// stages of Q, of dO; the partials over the stages and past them
+constexpr int kDkdvTiles = 2048;
+template <int D>
+constexpr size_t kPartBytes = 2 * kTile * static_cast<size_t>(kPartLd<D>) * 4;
+template <int D>
+constexpr size_t dkdv_smem_bytes =
+    1024 + kDkdvTiles + 2 * static_cast<size_t>(kTileBytes<D>) +
+    (kPartBytes<D> > 4 * static_cast<size_t>(kTileBytes<D>) ? kPartBytes<D>
+                                                             : 4 * kTileBytes<D>);
 
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
+// ---------------------------------------------------------------- the plan
+
+// Query tiles of 64 rows that see key tile j (causal: from the first row
+// that sees its first key); 0 when no row does.
+__host__ __device__ inline int tiles_seeing(int j, int nq, int sq, int q_offset, int causal) {
+  if (!causal) return nq;
+  const int first = j * kTile - q_offset;  // the first row that sees key j * 64
+  if (first >= sq) return 0;
+  return nq - (first > 0 ? first : 0) / kTile;
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
-// Stages rows [0, kTile) of a row-major (rows, D) bf16 matrix starting at
-// src into dst (row stride kLd<D>); rows at or past n_rows are zero-filled
-// and not read (their copies read 0 bytes from base, a valid address).
-template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                      const __nv_bfloat16* base, int n_rows, int tid) {
-  constexpr int kChunks = D / 8;
-  for (int idx = tid; idx < kTile * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool valid = r < n_rows;
-    cp_async_16(dst + r * kLd<D> + c * 8, valid ? src + static_cast<size_t>(r) * D + c * 8 : base,
-                valid);
+// The dk/dv pass's split (see the head of this file).
+inline int dkdv_split(int b, int hk, int g, int sq, int skv, int q_offset, int causal) {
+  const int nq = (sq + kTile - 1) / kTile, nk = (skv + kTile - 1) / kTile;
+  long long total = 0;
+  int longest = 0;
+  for (int j = 0; j < nk; ++j) {
+    const int w = g * tiles_seeing(j, nq, sq, q_offset, causal);
+    total += w;
+    longest = w > longest ? w : longest;
   }
+  total *= static_cast<long long>(hk) * b;
+  int split = 1;
+  while (split < kMaxSplit &&
+         static_cast<long long>((longest + split - 1) / split) * kSlots > total &&
+         (longest + 2 * split - 1) / (2 * split) >= kMinChunk)
+    split *= 2;
+  return split;
 }
 
-// ---------------------------------------------------------------- mma
+// ---------------------------------------------------------------- helpers
 
-// c (16 x 8, float32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragments, for lane = 4 g + t.  A (16 x 16): a0 (row g, cols 2t, 2t + 1),
-// a1 (row g + 8, the same cols), a2 and a3 the same rows at cols + 8.  B (16
-// x 8): b0 (k 2t, 2t + 1; n g), b1 (k + 8).  C (16 x 8): c0, c1 (row g, cols
-// 2t, 2t + 1), c2, c3 (row g + 8).  The lower half of a bf16 pair holds the
-// element of lower index.
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A = m[row0 .., col0 ..] of a row-major tile
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* m, int row0,
-                                       int col0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-  const __nv_bfloat16* p = m + (row0 + g) * kLd<D> + col0 + 2 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * kLd<D>);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * kLd<D> + 8);
-}
-
-// B[k][n] = m[n0 + n][k0 + k]: the tile's rows are B's columns (a product
-// with the tile transposed, such as Q K^T with m = K)
-template <int D>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[2], const __nv_bfloat16* m, int n0,
-                                            int k0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-  const __nv_bfloat16* p = m + (n0 + g) * kLd<D> + k0 + 2 * t;
-  b[0] = lds32(p);
-  b[1] = lds32(p + 8);
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// B[k][n] = m[k0 + k][n0 + n]: the tile's rows are B's k (a product such as
-// ds K with m = K)
-template <int D>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[2], const __nv_bfloat16* m, int k0,
-                                            int n0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-  const __nv_bfloat16* p = m + (k0 + 2 * t) * kLd<D> + n0 + g;
-  b[0] = pack2(p[0], p[kLd<D>]);
-  b[1] = pack2(p[8 * kLd<D>], p[9 * kLd<D>]);
-}
-
-// The A fragments (hi and lo bf16 parts) of columns 16 kc .. 16 kc + 15 of a
-// 16 x 64 float32 tile held as eight C fragments x[j] (columns 8j .. 8j + 7).
-__device__ __forceinline__ void split_a(const float (&x)[8][4], int kc, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    const float* c = x[2 * kc + f / 2] + 2 * (f % 2);
-    const __nv_bfloat162 h = __floats2bfloat162_rn(c[0], c[1]);
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(c[0] - hf.x, c[1] - hf.y);
-    hi[f] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[f] = *reinterpret_cast<const uint32_t*>(&l);
-  }
-}
-
-// acc[8][4] (16 rows x 64 cols) = rows row0 .. of a times the 64 rows of b
-// transposed, over D in k-steps of 16: S = Q K^T, dP = dO V^T and their
-// transposes.
-template <int D>
-__device__ __forceinline__ void product_nt(float (&acc)[8][4], const __nv_bfloat16* a,
-                                           int row0, const __nv_bfloat16* b, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    load_a<D>(af, a, row0, 16 * kk, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t bf[2];
-      load_b_rows<D>(bf, b, 8 * j, 16 * kk, lane);
-      mma(acc[j], af, bf);
-    }
-  }
-}
-
-// out (16 x D, D / 8 C fragments) += x (16 x 64 float32, as hi + lo) m (64 x
-// D tile, its rows the product's k), the 64 in k-steps of 16 in order.
-template <int D>
-__device__ __forceinline__ void product_split(float (&out)[D / 8][4], const float (&x)[8][4],
-                                              const __nv_bfloat16* m, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    uint32_t hi[4], lo[4];
-    split_a(x, kc, hi, lo);
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      uint32_t bf[2];
-      load_b_cols<D>(bf, m, 16 * kc, 8 * jd, lane);
-      mma(out[jd], hi, bf);
-      mma(out[jd], lo, bf);
-    }
-  }
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x; results below 2^-126 flush to 0
@@ -223,232 +180,454 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; results below 2^-126 fl
   return y;
 }
 
-// Writes a 16 x D float32 fragment tile, times `scale`, as bf16 rows row0 +
-// g and row0 + g + 8 of dst (row stride D); rows at or past n_rows are not
-// written.
+// A 64-row tile (rows row .. row + 63 of plane `plane`) into its panels at dst.
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&x)[D / 8][4],
-                                           int row0, int n_rows, float scale, int lane) {
-  const int g = lane / 4, t = lane % 4;
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row, int plane) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + g + 8 * i;
-    if (r >= n_rows) continue;
+  for (int p = 0; p < kPanels<D>; ++p)
+    hopper::tma_load_3d(dst + p * kPanelBytes, map, bar, 64 * p, row, plane);
+}
+
+// Descriptor of k-step kk (columns 16 kk ..) of a tile read K-major.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int kk) {
+  return desc_sw128(tile + (kk / 4) * kPanelBytes + (kk % 4) * 32, 16, 1024);
+}
+// Descriptor of k-step c (rows 16 c ..) of a tile read MN-major.
+__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int c) {
+  return desc_sw128(tile + c * 2048, kPanelBytes, 1024);
+}
+
+// acc (64 x 64) = A B^T over D in k-steps of 16, in order; a and b 64-row
+// tiles read K-major.  The caller fences, commits and waits.
+template <int D>
+__device__ __forceinline__ void product_nt(float (&acc)[32], const unsigned char* a,
+                                           const unsigned char* b) {
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(r) * D + 8 * jd + 2 * t) =
-          __floats2bfloat162_rn(x[jd][2 * i] * scale, x[jd][2 * i + 1] * scale);
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss_n64(acc, kmajor_desc<D>(a, kk), kmajor_desc<D>(b, kk), kk > 0);
+}
+
+// The A fragments of columns 16c .. 16c + 15 of a 64 x 64 float32 tile x
+// held in wgmma's accumulator layout (thread t of warp w: rows 16w + t/4 and
+// + 8, columns 8j + 2(t%4) and + 1 in registers 4j .. 4j + 3), as bf16
+// pairs hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_fragments(const float (&x)[32], int c, uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const int r = 4 * (2 * c + f / 2) + 2 * (f % 2);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[r], x[r + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x[r] - hf.x, x[r + 1] - hf.y);
+    hi[f] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[f] = *reinterpret_cast<const uint32_t*>(&l);
   }
+}
+
+// acc (64 x DP) += X B, X (64 x 64) as its hi and lo fragments, B the 64
+// rows of a tile read MN-major: for each k-step of 16 in order, hi then lo.
+template <int D>
+__device__ __forceinline__ void product_split(float (&acc)[kDP<D> / 2],
+                                              const uint32_t (&hi)[4][4],
+                                              const uint32_t (&lo)[4][4],
+                                              const unsigned char* b) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint64_t db = mnmajor_desc(b, c);
+    hopper::wgmma_rs_t<kDP<D>>(acc, hi[c], db);
+    hopper::wgmma_rs_t<kDP<D>>(acc, lo[c], db);
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // ---------------------------------------------------------------- dq pass
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ kv_lens,
                     const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int hk, int g, int sq, int skv,
                     int q_offset, int causal, float scale) {
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
-  const int head = blockIdx.y, b = blockIdx.z;
+  constexpr int T = kTileBytes<D>, DP = kDP<D>;
+  const int head = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest causal rows first
+  const int b = blockIdx.z;
   const int hq = hk * g;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + tile_elems<D>;
-  __nv_bfloat16* ks = dos + tile_elems<D>;      // stage s at ks + s * tile_elems
-  __nv_bfloat16* vs = ks + 2 * tile_elems<D>;   // stage s at vs + s * tile_elems
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // 0: Q and dO; 1 + s: stage s
+  float* dl_s = reinterpret_cast<float*>(smem + 256);
+  unsigned char* qs = smem + kDqTiles;
+  unsigned char* dos = qs + T;
+  unsigned char* ks = dos + T;           // stage s at ks + s * T
+  unsigned char* vs = ks + kStages * T;  // stage s at vs + s * T
 
   int len = kv_lens[b];
   len = len < 0 ? 0 : (len > skv ? skv : len);
   const int q0 = qt * kTile;
   const int limit = causal ? min(len, q_offset + min(sq, q0 + kTile)) : len;
   const int n_tiles = limit > 0 ? (limit + kTile - 1) / kTile : 0;
+  const int bh = b * hq + head, kv_bh = b * hk + head / g;
 
-  const size_t row0 = (static_cast<size_t>(b) * hq + head) * sq + q0;
-  const size_t kv_row0 = (static_cast<size_t>(b) * hk + head / g) * skv;
-  stage<D>(qs, q + row0 * D, q, sq - q0, tid);
-  stage<D>(dos, dout + row0 * D, dout, sq - q0, tid);
-  if (n_tiles > 0) {
-    stage<D>(ks, k + kv_row0 * D, k, len, tid);
-    stage<D>(vs, v + kv_row0 * D, v, len, tid);
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_init_fence();
   }
-  cp_async_commit();
-
-  // delta = rowsum(dO * O) for the block's rows: one thread a row, over D in
-  // order; written for every row, since the dk/dv pass reads it
-  __shared__ float dl_s[kTile], lse_s[kTile];
-  if (tid < kTile) {
-    float acc = 0.f, l = 0.f;
-    if (q0 + tid < sq) {
-      const __nv_bfloat16* o_row = out + (row0 + tid) * D;
-      const __nv_bfloat16* do_row = dout + (row0 + tid) * D;
-      for (int c = 0; c < D; ++c)
-        acc = fmaf(__bfloat162float(do_row[c]), __bfloat162float(o_row[c]), acc);
-      delta[row0 + tid] = acc;
-      l = lse[row0 + tid] * kLog2e;
-    }
-    dl_s[tid] = acc;
-    lse_s[tid] = l;
-  }
-  cp_async_wait<0>();
   __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], 2 * T);
+    load_tile<D>(qs, &tm_q, &bars[0], q0, bh);
+    load_tile<D>(dos, &tm_do, &bars[0], q0, bh);
+    if (n_tiles > 0) {
+      mbar_expect_tx(&bars[1], 2 * T);
+      load_tile<D>(ks, &tm_k, &bars[1], 0, kv_bh);
+      load_tile<D>(vs, &tm_v, &bars[1], 0, kv_bh);
+    }
+  }
 
-  const int gq = lane / 4, t4 = lane % 4;
-  const int r_local[2] = {16 * warp + gq, 16 * warp + gq + 8};
-  float dl[2], ls[2];
+  // delta = rowsum(dO * O) for the block's rows while the copies fly: a warp
+  // takes 16 rows, four at a time, eight lanes a row over its 16-byte
+  // chunks in order, then a butterfly over the eight lanes (the same sum in
+  // each); written for every row, since the dk/dv pass reads it
+  {
+    const int sub = lane / 8, part = lane % 8;
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      const int r = 16 * warp + 4 * step + sub, row = q0 + r;
+      float acc = 0.f;
+      if (row < sq) {
+        const size_t at = (static_cast<size_t>(bh) * sq + row) * D;
+        const uint4* o_row = reinterpret_cast<const uint4*>(out + at);
+        const uint4* do_row = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+        for (int c = part; c < D / 8; c += 8) {
+          const uint4 o8 = o_row[c], d8 = do_row[c];
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o8);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d8);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(o2[e]), y = __bfloat1622float2(d2[e]);
+            acc = fmaf(y.x, x.x, acc);
+            acc = fmaf(y.y, x.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (part == 0) {
+        dl_s[r] = acc;
+        if (row < sq) delta[static_cast<size_t>(bh) * sq + row] = acc;
+      }
+    }
+  }
+
+  const int r_loc[2] = {16 * warp + lane / 4, 16 * warp + lane / 4 + 8};
+  float ls[2], dl[2];
   int hi[2];  // the row sees keys [0, hi)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int p = q0 + r_local[i];
-    dl[i] = dl_s[r_local[i]];
-    ls[i] = lse_s[r_local[i]];
-    hi[i] = p < sq ? (causal ? min(len, q_offset + p + 1) : len) : 0;
+    const int row = q0 + r_loc[i];
+    ls[i] = row < sq ? lse[static_cast<size_t>(bh) * sq + row] * kLog2e : 0.f;
+    hi[i] = row < sq ? (causal ? min(len, q_offset + row + 1) : len) : 0;
   }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) dl[i] = dl_s[r_loc[i]];
   const float scale_log2 = scale * kLog2e;
+  const int col = 2 * (lane % 4);
 
-  float acc_dq[D / 8][4];
+  float acc[DP / 2];
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dq[jd][e] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  mbar_wait(&bars[0], 0);
 
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {  // the next tile's copies, in flight during this one
-      const int kv1 = (t + 1) * kTile, st1 = (t + 1) % 2;
-      stage<D>(ks + st1 * tile_elems<D>, k + (kv_row0 + kv1) * D, k, len - kv1, tid);
-      stage<D>(vs + st1 * tile_elems<D>, v + (kv_row0 + kv1) * D, v, len - kv1, tid);
+    const int st = t % kStages;
+    if (tid == 0 && t + 1 < n_tiles) {  // the next tile's copies, in flight during this one
+      const int st1 = (t + 1) % kStages;
+      mbar_expect_tx(&bars[1 + st1], 2 * T);
+      load_tile<D>(ks + st1 * T, &tm_k, &bars[1 + st1], (t + 1) * kTile, kv_bh);
+      load_tile<D>(vs + st1 * T, &tm_v, &bars[1 + st1], (t + 1) * kTile, kv_bh);
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int kv0 = t * kTile, st = t % 2;
-    const __nv_bfloat16* kt = ks + st * tile_elems<D>;
-    const __nv_bfloat16* vt = vs + st * tile_elems<D>;
-    float s[8][4], dp[8][4];
-    product_nt<D>(s, qs, 16 * warp, kt, lane);
-    product_nt<D>(dp, dos, 16 * warp, vt, lane);
+    mbar_wait(&bars[1 + st], (t / kStages) & 1);
+    const int kv0 = t * kTile;
+    unsigned char* kt = ks + st * T;
+    const unsigned char* vt = vs + st * T;
+    if (kv0 + kTile > len) {  // K's rows at or past kv_len, which the fill does not zero
+      const int from = len - kv0, n_chunks = (kTile - from) * 8;
+      for (int idx = tid; idx < kPanels<D> * n_chunks; idx += kThreads) {
+        const int p = idx / n_chunks, rest = idx % n_chunks;
+        reinterpret_cast<uint4*>(kt + p * kPanelBytes + (from + rest / 8) * 128)[rest % 8] =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      hopper::fence_proxy_async();
+      __syncthreads();
+    }
+    float s[32] = {}, dp[32] = {};
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    product_nt<D>(s, qs, kt);
+    product_nt<D>(dp, dos, vt);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = e / 2, key = kv0 + 8 * j + 2 * t4 + e % 2;
+        const int i = e / 2, key = kv0 + 8 * j + col + e % 2;
         const bool valid = key < hi[i];
-        const float p = valid ? ex2(s[j][e] * scale_log2 - ls[i]) : 0.f;
-        s[j][e] = valid ? p * (dp[j][e] - dl[i]) : 0.f;  // s becomes ds
+        const float p = valid ? ex2(s[4 * j + e] * scale_log2 - ls[i]) : 0.f;
+        s[4 * j + e] = valid ? p * (dp[4 * j + e] - dl[i]) : 0.f;  // s becomes ds
       }
-    product_split<D>(acc_dq, s, kt, lane);
-    __syncthreads();  // every warp is done with stage t % 2
+    uint32_t ds_hi[4][4], ds_lo[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) split_fragments(s, c, ds_hi[c], ds_lo[c]);
+    fence_regs(acc);
+    wgmma_fence();
+    product_split<D>(acc, ds_hi, ds_lo, kt);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    __syncthreads();  // every thread is done with stage st before it is loaded again
   }
-  cp_async_wait<0>();
-  store_rows<D>(dq + row0 * D, acc_dq, 16 * warp, sq - q0, scale, lane);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_loc[i];
+    if (row >= sq) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(dq + (static_cast<size_t>(bh) * sq + row) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      dst[(8 * j + col) / 2] = bf16x2(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+  }
 }
 
 // ---------------------------------------------------------------- dk/dv pass
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
-                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const int* __restrict__ kv_lens, const float* __restrict__ lse,
                       const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int hk, int g, int sq, int skv,
                       int q_offset, int causal, float scale) {
-  const int kt = blockIdx.x;  // the earliest keys, which the most rows see, first
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  constexpr int T = kTileBytes<D>, DP = kDP<D>, LD = kPartLd<D>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = gridDim.x, rank = static_cast<int>(cluster.block_rank());
+  const int kvh = blockIdx.y % hk, b = blockIdx.y / hk;
+  const int kt = blockIdx.z;  // the earliest keys, which the most rows see, first
   const int hq = hk * g;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + tile_elems<D>;
-  __nv_bfloat16* qs = vs + tile_elems<D>;       // stage s at qs + s * tile_elems
-  __nv_bfloat16* dos = qs + 2 * tile_elems<D>;  // stage s at dos + s * tile_elems
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * tile_elems<D>);  // stage s at + s * kTile
-  float* dl_s = lse_s + 2 * kTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // 0: K and V; 1 + s: stage s
+  // stage s: the rows' lse (log2 units) at rows_s + 2 s kTile, delta after it
+  float* rows_s = reinterpret_cast<float*>(smem + 256);
+  unsigned char* ks = smem + kDkdvTiles;
+  unsigned char* vs = ks + T;
+  unsigned char* qs = vs + T;              // stage s at qs + s * T
+  unsigned char* dos = qs + kStages * T;   // stage s at dos + s * T
+  float* part_dk = reinterpret_cast<float*>(qs);  // after the walk: 64 x LD each
+  float* part_dv = part_dk + kTile * LD;
 
   int len = kv_lens[b];
   len = len < 0 ? 0 : (len > skv ? skv : len);
   const int k0 = kt * kTile;
   const int nq = (sq + kTile - 1) / kTile;
-  // the first query tile that sees key k0; none when every key of the tile
-  // is at or past kv_len
-  const int qt0 = causal ? max(0, k0 - q_offset) / kTile : 0;
-  const int per_head = k0 < len && qt0 < nq ? nq - qt0 : 0;
-  const int n_iters = g * per_head;
+  const int per_head = tiles_seeing(kt, nq, sq, q_offset, causal);
+  const int qt0 = nq - per_head;
+  // this block's chunk of the walk: steps [it0, it0 + n_iters) of the
+  // G x per_head steps, step i at query head kvh * g + i / per_head and
+  // query tile qt0 + i % per_head; none when every key is at or past kv_len
+  const int work = g * per_head, span = (work + split - 1) / split;
+  const int it0 = min(work, rank * span);
+  const int n_iters = k0 < len ? min(work, it0 + span) - it0 : 0;
+  const size_t kv_plane = static_cast<size_t>(b) * hk + kvh;
 
-  const size_t kv_row0 = (static_cast<size_t>(b) * hk + kvh) * skv + k0;
-  stage<D>(ks, k + kv_row0 * D, k, len - k0, tid);
-  stage<D>(vs, v + kv_row0 * D, v, len - k0, tid);
-
-  // iteration it: query head kvh * g + it / per_head, query tile qt0 + it % per_head
-  auto row_of = [&](int it) {
-    const int head = kvh * g + it / per_head;
-    return (static_cast<size_t>(b) * hq + head) * sq;
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  const CUtensorMap *map_q = &tm_q, *map_do = &tm_do;
+  auto issue = [&](int local, int st) {  // one thread: step it0 + local into stage st
+    const int i = it0 + local;
+    const int bh = b * hq + kvh * g + i / per_head, q0 = (qt0 + i % per_head) * kTile;
+    mbar_expect_tx(&bars[1 + st], 2 * T);
+    load_tile<D>(qs + st * T, map_q, &bars[1 + st], q0, bh);
+    load_tile<D>(dos + st * T, map_do, &bars[1 + st], q0, bh);
   };
-  auto stage_iter = [&](int it, int st) {
-    const size_t r0 = row_of(it);
-    const int q0 = (qt0 + it % per_head) * kTile;
-    stage<D>(qs + st * tile_elems<D>, q + (r0 + q0) * D, q, sq - q0, tid);
-    stage<D>(dos + st * tile_elems<D>, dout + (r0 + q0) * D, dout, sq - q0, tid);
-    if (tid < kTile) {
-      const bool in = q0 + tid < sq;
-      lse_s[st * kTile + tid] = in ? lse[r0 + q0 + tid] * kLog2e : 0.f;
-      dl_s[st * kTile + tid] = in ? delta[r0 + q0 + tid] : 0.f;
-    }
+  // step it0 + local's lse (log2 units, threads 0-63) or delta (64-127) of
+  // row tid % 64, a plain load each thread, in flight during the step before
+  auto fetch = [&](int local) -> float {
+    const int i = it0 + local;
+    const int bh = b * hq + kvh * g + i / per_head, row = (qt0 + i % per_head) * kTile + tid % 64;
+    if (row >= sq) return 0.f;
+    const size_t at = static_cast<size_t>(bh) * sq + row;
+    return tid < 64 ? lse[at] * kLog2e : delta[at];
   };
-  if (n_iters > 0) stage_iter(0, 0);
-  cp_async_commit();
+  if (tid == 0 && n_iters > 0) {
+    mbar_expect_tx(&bars[0], 2 * T);
+    load_tile<D>(ks, &tm_k, &bars[0], k0, static_cast<int>(kv_plane));
+    load_tile<D>(vs, &tm_v, &bars[0], k0, static_cast<int>(kv_plane));
+    issue(0, 0);
+  }
+  if (n_iters > 0) {
+    rows_s[tid] = fetch(0);
+    __syncthreads();
+  }
 
-  const int gq = lane / 4, t4 = lane % 4;
   int key[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) key[i] = k0 + 16 * warp + gq + 8 * i;
+  for (int i = 0; i < 2; ++i) key[i] = k0 + 16 * warp + lane / 4 + 8 * i;
   const float scale_log2 = scale * kLog2e;
+  const int col = 2 * (lane % 4);
 
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+  float acc_dk[DP / 2], acc_dv[DP / 2];
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[jd][e] = acc_dv[jd][e] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
-  for (int it = 0; it < n_iters; ++it) {
-    if (it + 1 < n_iters) stage_iter(it + 1, (it + 1) % 2);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = it % 2;
-    const int q0 = (qt0 + it % per_head) * kTile;
-    const __nv_bfloat16* qt = qs + st * tile_elems<D>;
-    const __nv_bfloat16* dot = dos + st * tile_elems<D>;
-    const float* ls = lse_s + st * kTile;
-    const float* dl = dl_s + st * kTile;
-    float s[8][4], dp[8][4];
-    product_nt<D>(s, ks, 16 * warp, qt, lane);   // S^T: this warp's keys x the tile's rows
-    product_nt<D>(dp, vs, 16 * warp, dot, lane); // dP^T
+  for (int local = 0; local < n_iters; ++local) {
+    const int st = local % kStages;
+    if (tid == 0 && local + 1 < n_iters) issue(local + 1, (local + 1) % kStages);
+    const float next_row = local + 1 < n_iters ? fetch(local + 1) : 0.f;
+    if (local == 0) mbar_wait(&bars[0], 0);
+    mbar_wait(&bars[1 + st], (local / kStages) & 1);
+    const int q0 = (qt0 + (it0 + local) % per_head) * kTile;
+    const unsigned char* qt = qs + st * T;
+    const unsigned char* dot = dos + st * T;
+    const float* ls = rows_s + 2 * kTile * st;
+    const float* dl = ls + kTile;
+    float s[32] = {}, dp[32] = {};
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    product_nt<D>(s, ks, qt);    // S^T: the block's keys x the tile's rows
+    wgmma_commit();
+    product_nt<D>(dp, vs, dot);  // dP^T
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T has landed: p^T while dP^T runs
+    fence_regs(s);
+    uint32_t live = 0;  // bit 4j + e: the pair of register 4j + e is seen
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = e / 2, col = 8 * j + 2 * t4 + e % 2, row = q0 + col;
-        const bool valid =
-            key[i] < len && row < sq && (!causal || key[i] <= q_offset + row);
-        const float p = valid ? ex2(s[j][e] * scale_log2 - ls[col]) : 0.f;
-        dp[j][e] = valid ? p * (dp[j][e] - dl[col]) : 0.f;  // dp becomes ds^T
-        s[j][e] = p;                                        // s becomes p^T
+        const int i = e / 2, c = 8 * j + col + e % 2, row = q0 + c;
+        const bool valid = key[i] < len && row < sq && (!causal || key[i] <= q_offset + row);
+        live |= static_cast<uint32_t>(valid) << (4 * j + e);
+        s[4 * j + e] = valid ? ex2(s[4 * j + e] * scale_log2 - ls[c]) : 0.f;  // s becomes p^T
       }
-    product_split<D>(acc_dv, s, dot, lane);
-    product_split<D>(acc_dk, dp, qt, lane);
-    __syncthreads();  // every warp is done with stage it % 2
+    uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) split_fragments(s, c, p_hi[c], p_lo[c]);
+    fence_regs(acc_dv);
+    wgmma_fence();
+    product_split<D>(acc_dv, p_hi, p_lo, dot);
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T has landed: ds^T while dv's products run
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // dp becomes ds^T
+        const float dl_c = dl[8 * j + col + e % 2];
+        dp[4 * j + e] = live >> (4 * j + e) & 1u ? s[4 * j + e] * (dp[4 * j + e] - dl_c) : 0.f;
+      }
+    uint32_t ds_hi[4][4], ds_lo[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) split_fragments(dp, c, ds_hi[c], ds_lo[c]);
+    fence_regs(acc_dk);
+    wgmma_fence();
+    product_split<D>(acc_dk, ds_hi, ds_lo, qt);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    rows_s[2 * kTile * ((local + 1) % kStages) + tid] = next_row;  // read in the step before
+    __syncthreads();  // every thread is done with stage st before it is loaded again
   }
-  cp_async_wait<0>();
-  const size_t out0 = (static_cast<size_t>(b) * hk + kvh) * skv + k0;
-  store_rows<D>(dk + out0 * D, acc_dk, 16 * warp, skv - k0, scale, lane);
-  store_rows<D>(dv + out0 * D, acc_dv, 16 * warp, skv - k0, 1.f, lane);
+
+  if (split == 1) {  // the whole walk: straight from the registers
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= skv) continue;
+      uint32_t* dk_row = reinterpret_cast<uint32_t*>(dk + (kv_plane * skv + key[i]) * D);
+      uint32_t* dv_row = reinterpret_cast<uint32_t*>(dv + (kv_plane * skv + key[i]) * D);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        dk_row[(8 * j + col) / 2] =
+            bf16x2(acc_dk[4 * j + 2 * i] * scale, acc_dk[4 * j + 2 * i + 1] * scale);
+        dv_row[(8 * j + col) / 2] = bf16x2(acc_dv[4 * j + 2 * i], acc_dv[4 * j + 2 * i + 1]);
+      }
+    }
+    return;
+  }
+  // the chunk's partials into shared memory (over the Q and dO stages, all
+  // landed and read), then the cluster's sum, rank by rank in order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * warp + lane / 4 + 8 * i;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      *reinterpret_cast<float2*>(part_dk + r * LD + 8 * j + col) =
+          make_float2(acc_dk[4 * j + 2 * i], acc_dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<float2*>(part_dv + r * LD + 8 * j + col) =
+          make_float2(acc_dv[4 * j + 2 * i], acc_dv[4 * j + 2 * i + 1]);
+    }
+  }
+  cluster.sync();
+  const int rows = kTile / split, r0 = rank * rows;
+  for (int idx = tid; idx < rows * (DP / 8); idx += kThreads) {
+    const int r = r0 + idx / (DP / 8), c8 = idx % (DP / 8);
+    if (k0 + r >= skv || 8 * c8 >= D) continue;
+    float sk[8], sv[8];
+    for (int c = 0; c < split; ++c) {
+      const float* pk = cluster.map_shared_rank(part_dk, c) + r * LD + 8 * c8;
+      const float* pv = cluster.map_shared_rank(part_dv, c) + r * LD + 8 * c8;
+      const float4 k_lo = reinterpret_cast<const float4*>(pk)[0];
+      const float4 k_hi = reinterpret_cast<const float4*>(pk)[1];
+      const float4 v_lo = reinterpret_cast<const float4*>(pv)[0];
+      const float4 v_hi = reinterpret_cast<const float4*>(pv)[1];
+      const float kx[8] = {k_lo.x, k_lo.y, k_lo.z, k_lo.w, k_hi.x, k_hi.y, k_hi.z, k_hi.w};
+      const float vx[8] = {v_lo.x, v_lo.y, v_lo.z, v_lo.w, v_hi.x, v_hi.y, v_hi.z, v_hi.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sk[e] = c == 0 ? kx[e] : sk[e] + kx[e];
+        sv[e] = c == 0 ? vx[e] : sv[e] + vx[e];
+      }
+    }
+    const size_t at = (kv_plane * skv + k0 + r) * D + 8 * c8;
+    *reinterpret_cast<uint4*>(dk + at) =
+        make_uint4(bf16x2(sk[0] * scale, sk[1] * scale), bf16x2(sk[2] * scale, sk[3] * scale),
+                   bf16x2(sk[4] * scale, sk[5] * scale), bf16x2(sk[6] * scale, sk[7] * scale));
+    *reinterpret_cast<uint4*>(dv + at) = make_uint4(bf16x2(sv[0], sv[1]), bf16x2(sv[2], sv[3]),
+                                                    bf16x2(sv[4], sv[5]), bf16x2(sv[6], sv[7]));
+  }
+  cluster.sync();  // no block leaves while another reads its partials
 }
+
+// ---------------------------------------------------------------- launches
 
 template <int D>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
@@ -456,48 +635,112 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
            const float* lse, float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk,
            __nv_bfloat16* dv, int pass, int b, int hk, int g, int sq, int skv, int q_offset,
            int causal, float scale, cudaStream_t stream) {
+  const int hq = hk * g;
+  // A runtime call before the encodes: it makes the device's context current
+  // on this thread (autograd runs a backward on a thread of its own), which
+  // cuTensorMapEncodeTiled needs.
+  const size_t smem = pass == 0 ? dq_smem_bytes<D> : dkdv_smem_bytes<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      pass == 0 ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>)
+                : reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<D>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  int enc = hopper::encode_bf16_3d(&tm_q, q, D, sq, static_cast<uint64_t>(b) * hq);
+  if (enc == 0) enc = hopper::encode_bf16_3d(&tm_do, dout, D, sq, static_cast<uint64_t>(b) * hq);
+  if (enc == 0) enc = hopper::encode_bf16_3d(&tm_k, k, D, skv, static_cast<uint64_t>(b) * hk);
+  if (enc == 0) enc = hopper::encode_bf16_3d(&tm_v, v, D, skv, static_cast<uint64_t>(b) * hk);
+  if (enc != 0) return kErrEncode + enc;
   if (pass == 0) {
-    const size_t smem = dq_smem_bytes<D>;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((sq + kTile - 1) / kTile, hk * g, b);
+    const dim3 grid(hq, (sq + kTile - 1) / kTile, b);
     flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-        q, k, v, kv_lens, out, dout, lse, delta, dq, hk, g, sq, skv, q_offset, causal, scale);
-  } else {
-    const size_t smem = dkdv_smem_bytes<D>;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((skv + kTile - 1) / kTile, hk, b);
-    flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, stream>>>(
-        q, k, v, kv_lens, dout, lse, delta, dk, dv, hk, g, sq, skv, q_offset, causal, scale);
+        tm_q, tm_do, tm_k, tm_v, kv_lens, out, dout, lse, delta, dq, hk, g, sq, skv, q_offset,
+        causal, scale);
+    return static_cast<int>(cudaGetLastError());
   }
+  const int split = dkdv_split(b, hk, g, sq, skv, q_offset, causal);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(split, hk * b, (skv + kTile - 1) / kTile);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, flash_bwd_dkdv_kernel<D>, tm_q, tm_do, tm_k, tm_v, kv_lens,
+                           lse, delta, dk, dv, hk, g, sq, skv, q_offset, causal, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+#define FLASH_BWD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
 // Shared memory of one block of a pass (0: dq, 1: dk/dv) at head dim d, or 0
 // for a d the kernels are not built for.
 extern "C" int flash_bwd_smem_bytes(int pass, int d) {
 #define FLASH_BWD_SMEM(D) \
   if (d == D) return static_cast<int>(pass == 0 ? dq_smem_bytes<D> : dkdv_smem_bytes<D>);
-  FLASH_BWD_SMEM(16) FLASH_BWD_SMEM(32) FLASH_BWD_SMEM(48) FLASH_BWD_SMEM(64)
-  FLASH_BWD_SMEM(80) FLASH_BWD_SMEM(96) FLASH_BWD_SMEM(112) FLASH_BWD_SMEM(128)
+  FLASH_BWD_DIMS(FLASH_BWD_SMEM)
 #undef FLASH_BWD_SMEM
+  return 0;
+}
+
+// Blocks of a pass (0: dq, 1: dk/dv) that one SM holds at once at head dim
+// d (cudaOccupancyMaxActiveBlocksPerMultiprocessor), in *blocks.  Returns a
+// cudaError_t (0 on success).
+extern "C" int flash_bwd_occupancy(int pass, int d, int* blocks) {
+#define FLASH_BWD_OCC(D)                                                                   \
+  if (d == D) {                                                                            \
+    const void* kernel = pass == 0 ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>) \
+                                   : reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<D>); \
+    const size_t smem = pass == 0 ? dq_smem_bytes<D> : dkdv_smem_bytes<D>;                 \
+    cudaError_t err = cudaFuncSetAttribute(                                                \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));      \
+    if (err == cudaSuccess)                                                                \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem); \
+    return static_cast<int>(err);                                                          \
+  }
+  FLASH_BWD_DIMS(FLASH_BWD_OCC)
+#undef FLASH_BWD_OCC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The schedule of a pass (0: dq, 1: dk/dv) at these shapes: out[0..2] the
+// grid's x, y and z, out[3] the cluster's size along x (the dk/dv pass's
+// split).  Returns a cudaError_t (0 on success).
+extern "C" int flash_bwd_plan(int pass, int b, int hk, int g, int sq, int skv, int q_offset,
+                              int causal, int* out) {
+  if ((pass != 0 && pass != 1) || b < 0 || hk <= 0 || g <= 0 || sq < 0 || skv < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (pass == 0) {
+    out[0] = hk * g;
+    out[1] = (sq + kTile - 1) / kTile;
+    out[2] = b;
+    out[3] = 1;
+  } else {
+    const int split = dkdv_split(b, hk, g, sq, skv, q_offset, causal);
+    out[0] = split;
+    out[1] = hk * b;
+    out[2] = (skv + kTile - 1) / kTile;
+    out[3] = split;
+  }
   return 0;
 }
 
 // One pass of the backward.  q, out, dout, dq (B, Hk*G, Sq, d); k, v, dk, dv
 // (B, Hk, Skv, d): bf16, contiguous, 16-byte aligned; kv_lens (B,) int32; lse
-// and delta (B, Hk*G, Sq) float32.  Pass 0 (dq) reads q, k, v, kv_lens, out,
-// dout and lse and writes delta and dq; pass 1 (dk/dv) reads q, k, v,
-// kv_lens, dout, lse and delta and writes dk and dv, and must follow pass 0
-// on the stream.  d is a multiple of 16 up to 128.  Returns a cudaError_t (0
-// on success).
+// and delta (B, Hk*G, Sq) float32, contiguous (read a float at a time).  Pass 0 (dq) reads q, k,
+// v, kv_lens, out, dout and lse and writes delta and dq; pass 1 (dk/dv)
+// reads q, k, v, kv_lens, dout, lse and delta and writes dk and dv, and must
+// follow pass 0 on the stream.  d is a multiple of 16 up to 128.  Returns a
+// cudaError_t (0 on success), or 10000 + the CUresult of a failed tensor-map
+// encode.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* kv_lens,
                                 const void* out, const void* dout, const void* lse, void* delta,
                                 void* dq, void* dk, void* dv, int pass, int b, int hk, int g,
@@ -520,12 +763,12 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
   if (d == D)                                                                               \
     return launch<D>(qb, kb, vb, lens, ob, dob, lf, df, dqb, dkb, dvb, pass, b, hk, g, sq, \
                      skv, q_offset, causal, scale, st);
-  FLASH_BWD_CASE(16) FLASH_BWD_CASE(32) FLASH_BWD_CASE(48) FLASH_BWD_CASE(64)
-  FLASH_BWD_CASE(80) FLASH_BWD_CASE(96) FLASH_BWD_CASE(112) FLASH_BWD_CASE(128)
+  FLASH_BWD_DIMS(FLASH_BWD_CASE)
 #undef FLASH_BWD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {
+  if (code >= kErrEncode) return "cuTensorMapEncodeTiled failed (code - 10000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

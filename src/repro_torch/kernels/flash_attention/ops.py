@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,8 +41,11 @@ LIBRARY = KernelLibrary(
 BWD_LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu", "flash_bwd",
     {"flash_bwd_launch": ([_p] * 11 + [_i] * 9 + [_f, _p], ctypes.c_int),
-     "flash_bwd_smem_bytes": ([_i, _i], ctypes.c_int)},
-    error_fn="flash_bwd_error_string")
+     "flash_bwd_smem_bytes": ([_i, _i], ctypes.c_int),
+     "flash_bwd_plan": ([_i] * 8 + [_p], ctypes.c_int),
+     "flash_bwd_occupancy": ([_i, _i, _p], ctypes.c_int)},
+    error_fn="flash_bwd_error_string",
+    includes=[Path(__file__).resolve().parents[1] / "csrc" / "hopper.cuh"])
 
 # The kernel's online-softmax steps: whole 16-key chunks of its 64-key tiles.
 KERNEL_BLOCK_KS = (16, 32, 64)
@@ -54,6 +57,11 @@ HEAD_DIMS = tuple((d, d) for d in range(16, 257, 16)) + ((192, 128), (24, 16))
 # head dims the backward is built for (equal key and value dims); MLA's
 # (192, 128) waits for MoE/MLA training (ROADMAP.md)
 BWD_HEAD_DIMS = tuple(range(16, 129, 16))
+# K3-bwd's schedule (flash_bwd.cu: kTile, kSlots, kMaxSplit, kMinChunk): rows
+# or keys a tile; the slots the dk/dv pass's cut aims at (an H100's 132 SMs
+# x 2 blocks), the most chunks a key tile's walk is cut into, and the fewest
+# steps a chunk is cut down to
+BWD_TILE, BWD_SLOTS, BWD_MAX_SPLIT, BWD_MIN_CHUNK = 64, 264, 8, 4
 
 
 def kernel_block_k(block_k: int, skv: int) -> Optional[int]:
@@ -142,6 +150,86 @@ def flash_fwd(
 
 
 flash_fwd.launches = 0
+
+
+def bwd_tiles_seeing(j: int, nq: int, sq: int, q_offset: int, causal: bool) -> int:
+    """Query tiles of ``BWD_TILE`` rows that the dk/dv pass walks for key
+    tile j: every tile, or (causal) those from the tile of the first row that
+    sees the tile's first key; 0 when no row does (``tiles_seeing``)."""
+    if not causal:
+        return nq
+    first = j * BWD_TILE - q_offset
+    return 0 if first >= sq else nq - max(first, 0) // BWD_TILE
+
+
+def bwd_split(b: int, hk: int, g: int, sq: int, skv: int, q_offset: int, causal: bool) -> int:
+    """The dk/dv pass's split (``dkdv_split``): the smallest of 1, 2, 4, 8
+    chunks a key tile's walk of G x n_j steps is cut into such that the
+    longest chunk is no longer than the mean load of a slot (all steps over
+    ``BWD_SLOTS``), stopping before chunks fall under ``BWD_MIN_CHUNK``
+    steps.  A function of the shapes alone, not of kv_lens or the card."""
+    nq, nk = -(-sq // BWD_TILE), -(-skv // BWD_TILE)
+    works = [g * bwd_tiles_seeing(j, nq, sq, q_offset, causal) for j in range(nk)]
+    total, longest = sum(works) * hk * b, max(works, default=0)
+    split = 1
+    while (split < BWD_MAX_SPLIT and -(-longest // split) * BWD_SLOTS > total
+           and -(-longest // (2 * split)) >= BWD_MIN_CHUNK):
+        split *= 2
+    return split
+
+
+def bwd_grid(pass_no: int, b: int, hk: int, g: int, sq: int, skv: int, q_offset: int,
+             causal: bool) -> tuple:
+    """(grid x, y, z, cluster size) of a pass, as the library's
+    ``flash_bwd_plan`` reports it: the dq pass (Hq, ceil(Sq / 64), B), its
+    y read from the last query tile down; the dk/dv pass (split, Hk x B,
+    ceil(Skv / 64)) in clusters of ``split`` along x."""
+    if pass_no == 0:
+        return hk * g, -(-sq // BWD_TILE), b, 1
+    split = bwd_split(b, hk, g, sq, skv, q_offset, causal)
+    return split, hk * b, -(-skv // BWD_TILE), split
+
+
+class BwdUnit(NamedTuple):
+    """One block of the dk/dv pass: key tile ``key_tile`` of KV head
+    ``kv_head`` in batch row ``batch``, chunk ``chunk`` of its walk, which is
+    steps [first, last) of the key tile's G x n_j steps; ``visits`` lists the
+    (query head, query tile) of each step it runs, in order."""
+    key_tile: int
+    kv_head: int
+    batch: int
+    chunk: int
+    first: int
+    last: int
+    visits: tuple
+
+
+def bwd_plan(b: int, hk: int, g: int, sq: int, skv: int, kv_lens, q_offset: int,
+             causal: bool) -> list:
+    """The dk/dv pass's schedule, the CPU mirror of ``flash_bwd_dkdv_kernel``:
+    its blocks in launch order (key tile slowest, then batch and KV head,
+    then chunk).  Key tile j's walk is step i at query head kv_head * G + i
+    // n_j and query tile (nq - n_j) + i % n_j, cut into ``bwd_split``
+    chunks of ceil(G n_j / split) steps; chunk c is the cluster's block of
+    rank c, and the chunks' partials are summed in rank order.  A key tile
+    starting at or past its row's kv_len runs no step."""
+    split = bwd_split(b, hk, g, sq, skv, q_offset, causal)
+    nq, nk = -(-sq // BWD_TILE), -(-skv // BWD_TILE)
+    lens = [min(max(int(x), 0), skv) for x in kv_lens]
+    units = []
+    for j in range(nk):
+        per_head = bwd_tiles_seeing(j, nq, sq, q_offset, causal)
+        work = g * per_head
+        span = -(-work // split)
+        for batch in range(b):
+            for kvh in range(hk):
+                for chunk in range(split):
+                    first = min(work, chunk * span)
+                    last = min(work, first + span) if j * BWD_TILE < lens[batch] else first
+                    visits = tuple((kvh * g + i // per_head, nq - per_head + i % per_head)
+                                   for i in range(first, last))
+                    units.append(BwdUnit(j, kvh, batch, chunk, first, last, visits))
+    return units
 
 
 def _bwd_pass(pass_no: int, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale: float,

@@ -50,6 +50,16 @@ CASES = [  # b, hq, hk, sq, skv, d, kv_lens, q_offset
     (2, 10, 2, 21, 153, 64, [150, 87], 129),  # q_offset > 0, kv_lens < Skv
     (1, 4, 4, 128, 128, 48, [0], 0),          # a row of no keys
     (8, 32, 32, 128, 128, 64, None, 0),       # stablelm-1.6b's attention
+    # the Hopper design's edges: the dk/dv pass's cut (split 1, 2, 4, 8),
+    # tiles of 64 rows, the K tile zeroed past kv_len
+    (2, 4, 2, 10, 10, 32, [10, 7], 0),        # S below one tile
+    (1, 16, 2, 256, 256, 64, None, 0),        # G 8, an even number of key tiles (split 4)
+    (1, 8, 1, 512, 512, 96, None, 0),         # G 8, one KV head (split 8)
+    (1, 10, 2, 192, 192, 112, None, 0),       # G 5, an odd number of key tiles (split 4)
+    (2, 40, 8, 1024, 1024, 128, [1024, 611], 0),  # qwen3-14b ragged (split 2)
+    (2, 10, 2, 100, 300, 80, [260, 300], 200),  # q_offset > 0, kv_len < Skv, D 80
+    (3, 6, 3, 150, 150, 64, [0, 1, 150], 0),  # kv_len 0 and 1 in one batch
+    (8, 32, 32, 128, 128, 64, [128, 100, 77, 64, 63, 17, 1, 128], 0),  # B 8 ragged
 ]
 
 
@@ -77,6 +87,49 @@ def test_bwd_kernel_matches_plain(card, b, hq, hk, sq, skv, d, lens, q_offset):
     again = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
     for g, a in zip(got, again):
         assert torch.equal(g, a)  # the sum order is fixed: the same bits
+
+
+@pytest.mark.parametrize("d", fa_ops.BWD_HEAD_DIMS)
+def test_bwd_every_head_dim(card, d):
+    """Every head dim the backward is built for (one panel of 64 columns up
+    to 64, two past it), G 2 with a ragged batch, two runs the same bits."""
+    test_bwd_kernel_matches_plain(card, 2, 4, 2, 100, 100, d, [100, 70], 0)
+
+
+@pytest.mark.parametrize("b, hq, hk, sq, skv, d, lens, q_offset", CASES)
+def test_library_plan_matches_mirror(card, b, hq, hk, sq, skv, d, lens, q_offset):
+    """The library's grid and cluster for each pass (``flash_bwd_plan``) are
+    ``ops.bwd_grid``'s, the CPU mirror the plan tests hold."""
+    import ctypes
+
+    lib = fa_ops.BWD_LIBRARY.load()
+    for pass_no in (0, 1):
+        out = (ctypes.c_int * 4)()
+        assert lib.flash_bwd_plan(pass_no, b, hk, hq // hk, sq, skv, q_offset, 1, out) == 0
+        assert tuple(out) == fa_ops.bwd_grid(pass_no, b, hk, hq // hk, sq, skv, q_offset, True)
+
+
+@pytest.mark.parametrize("b, hq, hk, s, lens, nan_from", [
+    (2, 4, 2, 96, [96, 40], 40),         # the tile that straddles kv_len is the first
+    (2, 10, 2, 600, [600, 450], 450),    # G 5, the dk/dv pass cut in chunks, tile 7 straddles
+])
+def test_bwd_ignores_nan_in_the_straddling_tile(card, b, hq, hk, s, lens, nan_from):
+    """K and V hold NaN from kv_len on, inside the tile that straddles it: dq
+    and the keys below kv_len are unchanged bit for bit in both passes, and
+    dk and dv past kv_len are 0."""
+    q, k, v, do = _inputs(card, 4, b, hq, hk, s, s, 64)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    kw = dict(causal=True, sm_scale=0.125, q_offset=0)
+    out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+    clean = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+    k2, v2 = k.clone(), v.clone()
+    k2[-1, :, nan_from:] = float("nan")
+    v2[-1, :, nan_from:] = float("nan")
+    dirty = fa_ops.flash_bwd(q, k2, v2, kv_lens, out, lse, do, **kw)
+    assert torch.equal(clean[0], dirty[0])
+    assert torch.equal(clean[1][..., :nan_from, :], dirty[1][..., :nan_from, :])
+    assert torch.equal(clean[2][..., :nan_from, :], dirty[2][..., :nan_from, :])
+    assert not bool(dirty[1][-1, :, nan_from:].any()) and not bool(dirty[2][-1, :, nan_from:].any())
 
 
 def test_bwd_ignores_nan_past_kv_len(card):
