@@ -4,6 +4,7 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --k6-times DIR   # only K6's times, K6 built from DIR
   python3 chip_smoke.py --k3bwd-times DIR   # only K3-bwd's times, built from DIR
+  python3 chip_smoke.py --scan-times DIR   # only phases 13 and 17, K4 built from DIR
 
 It drives the port's paths, each with every kernel launch count set to 0
 just before it and read just after: the Hemingway loop on the local SDCA
@@ -145,8 +146,9 @@ of which exits non-zero on failure:
   16. the longer serve run of phase 11 on falcon-mamba-7b;
   17. K4's time per launch at the prefill and the decode shape against its
       bound and its plain version's time (no single PyTorch call computes a
-      selective scan), each body's device time from the profiler; both rows
-      in the kernels line;
+      selective scan), each body's device time from the profiler (over the
+      launches it recorded) and from a CUDA graph; both rows in the kernels
+      line;
   18. K2's latent form and K3 at (dk 192, dv 128) against their plain
       versions on the card, in bf16: K2 at deepseek-v2's decode shape (B 8,
       128 heads, r 512, dr 64, page 16, 68 pages) with ragged lengths, at
@@ -186,8 +188,9 @@ of which exits non-zero on failure:
       steps;
   23a. K3 with the rows' log-sum-exp against its plain version at
       stablelm-1.6b's training shape (B 8, 32 heads, S 128, D 64) and
-      qwen3-14b's (40 over 8 heads, S 2048, D 128), full and ragged kv_lens:
-      the output the same bits as without the lse;
+      qwen3-14b's (40 over 8 heads, S 2048, D 128), full and ragged kv_lens,
+      and deepseek-moe-16b's (B 8, 16 heads, S 128, D 128): the output the
+      same bits as without the lse;
   23b. K3-bwd (the flash backward's dq and dk/dv passes) against its plain
       version at the same shapes (G 1 and 5, ragged kv_lens), within the
       stated tolerance, two runs the same bits; the library's schedule
@@ -203,7 +206,27 @@ of which exits non-zero on failure:
       plain versions on the CPU, the same weights: losses within the stated
       tolerance;
   23e. a checkpoint round trip of the smoke trainer on the card: saved at step
-      4, restored into a fresh ``Trainer``, steps 5-8 bit for bit.
+      4, restored into a fresh ``Trainer``, steps 5-8 bit for bit;
+  24a. (slice 14) K4 with its tile states (y and h the same bits as without,
+      y, h and the states within phase 13's tolerance of the plain
+      version's) and K4-bwd, the selective scan's backward, against its
+      plain version at falcon-mamba-7b's training shape (B 8, S 128, Dn
+      8192, N 16, bf16) and across tiles (B 1, S 1000), within the stated
+      tolerance, two launches the same bits; its reduction alone against its
+      plain version, bit for bit;
+  24b. K4-bwd's time a call beside its bound and its plain version's, and
+      its reduction's alone;
+  24c. main path 7: ``Trainer`` on falcon-mamba-7b at full width, 8 of its 64
+      layers, the settings of 23c: losses and grad norms finite, K4 = 2 x 8 x
+      steps (full remat), K4-bwd's scan pass and its reduction 8 x steps
+      each, no other kernel; peak memory and a profiled window;
+  24d. main path 8: ``Trainer`` on deepseek-moe-16b at full width, its dense
+      head layer and 2 MoE layers (64 routed experts top-6 at the training
+      capacity, 2 shared): losses, aux (> 0) and grad norms finite, K3 = 2 x 3
+      x steps, each K3-bwd pass 3 x steps, no other kernel; then one step's
+      loss, aux and gradients taken twice, the same bits;
+  24e. the smoke falcon-mamba and deepseek-moe trainers 8 steps on the card
+      against the plain versions on the CPU, as 23d.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's and
 K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
@@ -213,8 +236,12 @@ has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
 ``flash_fwd_mla``, and K2-latent at full rows one,
 ``paged_latent_decode_full``; K3-bwd's two passes, ``flash_bwd_dq`` and
 ``flash_bwd_dkdv``, replace the reference's custom-VJP backward, no Pallas
-kernel, and count their launches on the training path), the card's
-``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+kernel, and count their launches on the training paths; K4-bwd's scan
+pass, ``selective_scan_bwd``, and its reduction,
+``selective_scan_bwd_reduce``, replace the reference's autodiff of its
+chunked scan, no Pallas kernel, and count their launches on the Mamba
+training path), the card's ``nvidia-smi`` line,
+and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import gc
@@ -340,7 +367,9 @@ def kernel_wrappers():
             "flash_decode": fd_ops.flash_decode,
             "paged_latent_decode": fd_ops.paged_latent_decode,
             "local_sgd": local_sgd_ops.local_sgd, "flash_bwd_dq": fa_ops.flash_bwd_dq,
-            "flash_bwd_dkdv": fa_ops.flash_bwd_dkdv}
+            "flash_bwd_dkdv": fa_ops.flash_bwd_dkdv,
+            "selective_scan_bwd": ss_ops.selective_scan_bwd,
+            "selective_scan_bwd_reduce": ss_ops.selective_scan_bwd_reduce}
 
 
 def reset_launches() -> None:
@@ -2293,7 +2322,9 @@ def scan_kernel_timings(dev, cfg):
     prefill shape (its tile body) and the decode shape (its decode body).
     Back-to-back calls at the decode shape are bound by the host (the
     wrapper's checks and the ctypes call), so each body's own device time is
-    also read from a profiler window, by kernel name."""
+    also read from a profiler window, by kernel name (its total over the
+    launches the window recorded, each kernel's name and launches in the
+    window printed), and from a CUDA graph of 20 calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2319,22 +2350,50 @@ def scan_kernel_timings(dev, cfg):
                 for _ in range(20):
                     ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h)
                 torch.cuda.synchronize()
-            device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                            if body in e.key) / 1e3 / 20
-            if device_ms > 0:
+            seen = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            recorded = sum(e.count for e in seen if body in e.key)
+            if recorded:
+                device_ms = sum(e.self_device_time_total for e in seen
+                                if body in e.key) / 1e3 / recorded
                 break
         if device_ms <= 0:
             fail(f"three profiler windows saw no {body}")
+        in_graph = graph_ms(lambda: ops.selective_scan(x, dt, a, b_ssm, c_ssm, d, h), reps=20)
+        print("  profiler window of 20 calls: " + "; ".join(
+            f"{e.key[:90]} x {e.count}, {e.self_device_time_total / 1e3:.4f} ms" for e in seen))
         print(f"selective_scan {label} B={shape['bt']} S={shape['s']} Dn={dn} N={n}: kernel "
               f"{ms:.4f} ms a call by CUDA events, {device_ms:.4f} ms of device time a launch "
-              f"({body}, profiler), plain {plain:.3f} ms, bound {bound:.4f} ms ({by}: "
+              f"({body}, profiler, over {recorded} recorded launches), {in_graph:.4f} ms a call "
+              f"from a CUDA graph, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}: "
               f"{mb:.2f} MB at 3.35 TB/s; {n_exp / 1e6:.1f} M exponentials at "
               f"{EXP_PER_S / 1e12:.2f} T/s), kernel at {100 * bound / ms:.2f}% of bound "
               f"({100 * bound / device_ms:.2f}% by device time); no single PyTorch call "
               "computes a selective scan")
         timings[label] = (ms, plain, None, bound, by, f"B={shape['bt']} S={shape['s']}",
-                          {"timed_by": EAGER, "device_ms": device_ms, "body": body})
+                          {"timed_by": EAGER, "device_ms": device_ms, "graph_ms": in_graph,
+                           "body": body})
     return timings
+
+
+def scan_times_main(checkout: Path) -> None:
+    """``python3 chip_smoke.py --scan-times DIR``: phases 13 and 17 (K4
+    against its plain version, then its times: CUDA events, profiler device
+    time by kernel name, CUDA graph) with K4 built from the checkout at DIR,
+    the times printed as one JSON line, so that two versions of K4 compare
+    within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(checkout / "src"))
+    from repro_torch.configs import get_config
+
+    print(f"card: {nvidia_smi_line()}; K4 from {checkout}")
+    dev, cfg = torch.device("cuda"), get_config(MAMBA)
+    scan_kernel_vs_plain(dev, cfg)
+    times = scan_kernel_timings(dev, cfg)
+    print(json.dumps({"scan_times": str(checkout), **{
+        label: {"ms": row[0], **row[6]} for label, row in times.items()}}))
 
 
 def latent_inputs(torch, gen, cfg, b, npp, lengths=None, page=16):
@@ -2587,7 +2646,8 @@ LSE_TOL = 1e-5
 BWD_SHAPES = (("stablelm-1.6b", 8, 32, 32, 128, 64, None),
               ("stablelm-1.6b ragged", 8, 32, 32, 128, 64, (128, 100, 77, 64, 63, 17, 1, 128)),
               ("qwen3-14b S 2048", 1, 40, 8, 2048, 128, None),
-              ("qwen3-14b ragged", 2, 40, 8, 1024, 128, (1024, 611)))
+              ("qwen3-14b ragged", 2, 40, 8, 1024, 128, (1024, 611)),
+              ("deepseek-moe-16b", 8, 16, 16, 128, 128, None))
 BWD_TIMED = ("stablelm-1.6b", "qwen3-14b S 2048")  # the kernels line's row: the first
 # The training path: the reference CLI's defaults (launch/train.py:309-311)
 # at full width, all layers, AdamW at lr 1e-3, remat "full"; then a window
@@ -2899,14 +2959,15 @@ def training_step_split(trainer) -> None:
     """Where a training step's device time goes: a window of
     TRAIN_PROFILED_STEPS more steps, device activity only (tracing the
     host's operators too would slow the host, which sets part of the step),
-    split into the matrix products (cuBLAS), the flash kernels (K3, K3-bwd)
-    and the rest (elementwise passes of the optimizer, the master copy and
+    split into the matrix products (cuBLAS), the port's kernels (K3, K3-bwd,
+    K4, K4-bwd) and the rest (elementwise passes of the optimizer, the master copy and
     the gradients' gather, reductions, the loss), beside the steps' wall
     time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     n = TRAIN_PROFILED_STEPS
+    ours = ("flash_", "selective_scan")  # the port's kernels on the training paths
     events = None
     for _ in range(3):  # a profiler window now and then records no kernel: take another
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2918,11 +2979,12 @@ def training_step_split(trainer) -> None:
     wall_ms = 1e3 * sum(r["step_time"] for r in trainer.records[-n:]) / n
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     gemm_ms = sum(e.self_device_time_total for e in events if is_gemm(e.key)) / 1e3 / n
-    flash_ms = sum(e.self_device_time_total for e in events if "flash_" in e.key) / 1e3 / n
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if any(k in e.key for k in ours)) / 1e3 / n
     print(f"a profiled step ({n} steps): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"(share {busy_ms / wall_ms:.3f}): matrix products {gemm_ms:.1f} ms, flash kernels "
-          f"{flash_ms:.2f} ms, the rest (elementwise, reductions, copies) "
-          f"{busy_ms - gemm_ms - flash_ms:.1f} ms")
+          f"(share {busy_ms / wall_ms:.3f}): matrix products {gemm_ms:.1f} ms, the port's "
+          f"kernels (flash, selective scan) {flash_ms:.2f} ms, the rest (elementwise, "
+          f"reductions, copies) {busy_ms - gemm_ms - flash_ms:.1f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device {e.self_device_time_total / 1e3 / n:8.3f} ms a step  "
               f"x{e.count // n:5d}  {e.key[:90]}")
@@ -2930,30 +2992,33 @@ def training_step_split(trainer) -> None:
         fail("the profiler saw no device time in the training steps")
 
 
-def smoke_trainer(device, **kw):
+def smoke_trainer(device, arch=TRAIN_ARCH, **kw):
     from repro_torch.launch.train import Trainer, TrainerOptions
 
-    return Trainer(TrainerOptions(arch=TRAIN_ARCH, smoke=True, steps=8, seq_len=32,
+    return Trainer(TrainerOptions(arch=arch, smoke=True, steps=8, seq_len=32,
                                   global_batch=4, log_every=0, device=device, **kw))
 
 
-def training_kernels_vs_plain(dev) -> None:
-    """Phase 23d: the smoke trainer (stablelm-1.6b smoke, bf16, remat none)
-    for 8 steps through the kernels on the card and through the plain
-    versions on the CPU, from the card's initial weights and state."""
-    phase(f"small-input check: the smoke {TRAIN_ARCH} trainer, 8 steps on the card (K3, K3-bwd) "
-          "vs the plain versions on the CPU, the same weights")
-    card = smoke_trainer(dev)
-    cpu = smoke_trainer("cpu")
+def training_kernels_vs_plain(dev, arch=TRAIN_ARCH,
+                              kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")) -> None:
+    """Phases 23d and 24e: the smoke trainer (bf16, remat none) for 8 steps
+    through the kernels on the card and through the plain versions on the
+    CPU, from the card's initial weights and state; each of ``kernels``
+    launched once a layer a step, no other kernel."""
+    phase(f"small-input check: the smoke {arch} trainer, 8 steps on the card "
+          f"({', '.join(kernels)}) vs the plain versions on the CPU, the same weights")
+    card = smoke_trainer(dev, arch)
+    cpu = smoke_trainer("cpu", arch)
     cpu.set_state(card.params, card.opt_state)
     reset_launches()
     card.train_some(8)
     counts = read_launches()
     cpu.train_some(8)
     layers = card.cfg.n_layers
-    want = {"flash_fwd": 8 * layers, "flash_bwd_dq": 8 * layers, "flash_bwd_dkdv": 8 * layers}
-    if {k: counts[k] for k in want} != want:
+    want = {name: 8 * layers if name in kernels else 0 for name in counts}
+    if counts != want:
         fail(f"smoke training launches {counts}, expected {want}")
+    want = {name: want[name] for name in kernels}
     worst = 0.0
     for (step, got), (_, ref) in zip(card.history, cpu.history):
         worst = max(worst, abs(got - ref) / abs(ref))
@@ -2995,6 +3060,306 @@ def checkpoint_round_trip(dev, workdir: Path) -> None:
         fail("the restored trainer's steps 5-8 differ from the unstopped run's")
 
 
+# ------------------------------------------------- Mamba and MoE training
+
+# K4-bwd against its plain version on the card.  The kernel recomputes the
+# states with K4's tile scan (ex2.approx, a tree over the lanes) and scans
+# the adjoint as a tree too, where the plain version runs both serially with
+# the true exp; their sums over n, channels, time and sequences are in the
+# same order, but the kernel fuses a product into each.  As for K4's forward
+# (SCAN_RTOL_OF_MAX: float32 roundings a step that decay with the state),
+# twice its limit for the two scans: each gradient within 2^-12 of its
+# largest magnitude, a bf16 gradient within that plus one bf16 ulp
+# (tests/test_torch_ssm_scan_bwd_gpu.py states the same).  A fault (a wrong
+# tile, lane or carry) shows as errors of the order of the values.
+SCAN_BWD_RTOL_OF_MAX = 2.0 ** -12
+# falcon-mamba-7b's training shape (the trainer's B 8, S 128) and one that
+# crosses tiles (four, the last ragged) at its widths
+SCAN_BWD_SHAPES = (("training", 8, 128), ("tiles", 1, 1000))
+# The two training paths, at full width and a cut depth: falcon-mamba-7b's
+# first 8 of its 64 layers (1.37 B parameters; the 64 layers' 7.27 B fit no
+# card with float32 master weights and AdamW's moments), deepseek-moe-16b's
+# dense head layer and its first 2 MoE layers of 27 (1.68 B; a fourth layer
+# would add 0.59 B and pass 70 GB at the 31 bytes a parameter stablelm-1.6b's
+# training path measured, PERF.md)
+MOE = "deepseek-moe-16b"
+MAMBA_TRAIN_LAYERS, MOE_TRAIN_LAYERS = 8, 3
+
+
+def scan_bwd_bound(bt, s, dn, n, d_block):
+    """(bound ms, by what, MB, exponentials, the design's own MB) of the
+    gradient K4-bwd computes: x, dy and dx (bf16), dt and ddt (float32), B,
+    C, dB and dC (bf16), A, D, dA and dD, each read or written once; per (b,
+    t, d, n) one exponential (the states' recomputation) and 16 float32
+    operations (the state's step 3, the adjoint's 3, the terms of dx, ddt,
+    dA, dB and dC 10).  What this design adds is no part of the function's
+    bytes and is returned beside the bound: the tile states it reads (B x
+    ceil(S / 256) x Dn N float32) and the partials of dB and dC it writes
+    and reads again (ceil(Dn / d_block) blocks of B S N float32 each,
+    twice)."""
+    tiles = 4 * bt * (-(-s // 256)) * dn * n
+    partials = 2 * 2 * 4 * (-(-dn // d_block)) * bt * s * n
+    nbytes = (3 * 2 + 2 * 4) * bt * s * dn + 4 * 2 * bt * s * n + 4 * 2 * (dn * n + dn)
+    n_exp = bt * s * dn * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n_exp / EXP_PER_S, 16 * n_exp / F32_FLOPS_PER_S) * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, nbytes / 1e6, n_exp, {"tile_states_mb": tiles / 1e6,
+                                                             "partials_mb": partials / 1e6}
+
+
+def reduce_parts(torch, gen, dev, bt, s, dn, n, d_block):
+    """Partials of K4-bwd's reduction at (Bt, S, Dn, N, d_block), random:
+    the reduction's inputs, its outputs (bf16 dB and dC) and its bytes."""
+    n_blocks = -(-dn // d_block)
+    parts = tuple(torch.randn(shape, generator=gen, device=dev) for shape in (
+        (n_blocks, bt, s, n), (n_blocks, bt, s, n), (bt, dn, n), (bt, dn)))
+    outs = (torch.empty((bt, s, n), dtype=torch.bfloat16, device=dev),
+            torch.empty((bt, s, n), dtype=torch.bfloat16, device=dev),
+            torch.empty((dn, n), dtype=torch.float32, device=dev),
+            torch.empty((dn,), dtype=torch.float32, device=dev))
+    nbytes = sum(4 * p.numel() for p in parts) + sum(o.element_size() * o.numel() for o in outs)
+    return parts, outs, nbytes
+
+
+def scan_bwd_inputs(torch, gen, cfg, bt, s):
+    x, dt, a, b_ssm, c_ssm, d, _ = scan_inputs(torch, gen, cfg, bt, s)
+    d = torch.randn(d.shape, generator=gen, device=d.device)
+    dy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    return (x, dt, a, b_ssm, c_ssm, d), dy
+
+
+def scan_bwd_vs_plain(dev, cfg) -> tuple:
+    """Phase 24a: K4 with its tile states against the plain version at
+    SCAN_BWD_SHAPES (y and h the same bits as without them; y, h and the
+    states within phase 13's tolerance of the plain version's), then K4-bwd
+    against its plain version there, two launches the same bits, and its
+    reduction alone against its plain version, on partials of the training
+    shape.  Returns the largest absolute error of any gradient, and the
+    reduction's."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import (
+        selective_scan_bwd_ref,
+        selective_scan_ref,
+        sum_partials_ref,
+    )
+
+    mc = cfg.mamba
+    dn, n = mc.expand * cfg.d_model, mc.d_state
+    d_block = ops.default_bwd_d_block(n)
+    phase(f"K4-bwd vs plain ({MAMBA}: Dn {dn}, N {n}, bf16 x and dy; d_block {d_block}, "
+          f"{ops.bwd_smem_bytes(n, d_block)} bytes of shared memory a block)")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    worst = 0.0
+    for label, bt, s in SCAN_BWD_SHAPES:
+        args, dy = scan_bwd_inputs(torch, gen, cfg, bt, s)
+        y0, h0 = ops.selective_scan(*args)
+        y, h, tiles = ops.selective_scan(*args, return_tile_states=True)
+        want_y, want_h, want_tiles = selective_scan_ref(*args, return_tile_states=True)
+        tile_err = float((tiles - want_tiles).abs().max())
+        err_h = float((h - want_h).abs().max())
+        ulps = bf16_ulps(y, want_y, SCAN_RTOL_OF_MAX * float(want_y.float().abs().max()))
+        if not (torch.equal(y, y0) and torch.equal(h, h0)):
+            fail(f"K4 at {label}: y or h moved with the tile states")
+        if tile_err > SCAN_RTOL_OF_MAX * float(want_tiles.abs().max()) or \
+                err_h > SCAN_RTOL_OF_MAX * float(want_h.abs().max()) or ulps > MAX_BF16_ULPS:
+            fail(f"K4 with tile states at {label}: states off by {tile_err:.3g}, h by {err_h:.3g}, "
+                 f"y {ulps:.0f} bf16 ulp past the atol")
+        got = ops.selective_scan_bwd(*args, dy, tiles)
+        again = ops.selective_scan_bwd(*args, dy, tiles)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fail(f"K4-bwd at {label}: two launches gave different bits")
+        want = selective_scan_bwd_ref(*args, dy, d_block=d_block)
+        errs = []
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+            scale = float(w.float().abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            worst = max(worst, err)
+            atol = SCAN_BWD_RTOL_OF_MAX * scale
+            bad = (bf16_ulps(g.float(), w.float(), atol) > MAX_BF16_ULPS
+                   if g.dtype == torch.bfloat16 else err > atol)
+            if bad or not bool(torch.isfinite(g.float()).all()):
+                fail(f"K4-bwd at {label}: {name} off by {err:.3g} (max |{name}| {scale:.3g})")
+            errs.append(f"{name} {err:.3g} ({err / scale:.2e} of max {scale:.3g})")
+        print(f"{label} (B {bt}, S {s}, {-(-s // 256)} tiles): K4's y and h the same bits with "
+              f"tile states; against the plain version max|dh| {err_h:.3g} (max|h| "
+              f"{float(want_h.abs().max()):.3g}), y within {ulps:.0f} bf16 ulp past "
+              f"{SCAN_RTOL_OF_MAX:.2e} max|y|, states within {tile_err:.3g}; K4-bwd two launches "
+              f"bitwise; max |kernel - plain|: {', '.join(errs)}")
+    print(f"tolerance: K4's y, h and states as phase 13's; each gradient within "
+          f"{SCAN_BWD_RTOL_OF_MAX:.2e} of its max |value|, bf16 ones plus {MAX_BF16_ULPS} bf16 ulp")
+    bt, s = SCAN_BWD_SHAPES[0][1:]
+    parts, outs, _ = reduce_parts(torch, gen, dev, bt, s, dn, n, d_block)
+    ops.selective_scan_bwd_reduce(parts, outs)
+    torch.cuda.synchronize()
+    reduce_err = 0.0
+    for name, part, out in zip(("dB", "dC", "dA", "dD"), parts, outs):
+        want = sum_partials_ref(part, out.dtype)
+        reduce_err = max(reduce_err, float((out.float() - want.float()).abs().max()))
+        if not torch.equal(out, want):
+            fail(f"K4-bwd's reduction: {name} differs from its plain version")
+    print(f"selective_scan_bwd_reduce on random partials of the training shape ({parts[0].shape[0]} "
+          f"channel blocks, B {bt}): each output the plain version's bits (the same additions "
+          f"in the same order, one rounding to bf16)")
+    return worst, reduce_err
+
+
+def scan_bwd_timings(dev, cfg) -> dict:
+    """Phase 24b: K4-bwd's time a call (its two launches) at SCAN_BWD_SHAPES
+    by CUDA events after warm-up, beside its bound and its plain version's
+    time; no single PyTorch call computes it; then its reduction's alone at
+    the training shape, beside the reduction's bound, its plain version's
+    and the four ``torch.sum`` calls that compute it.  Returns the kernels
+    line's rows of both."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref, sum_partials_ref
+
+    phase("K4-bwd timings (CUDA events, after warm-up)")
+    mc = cfg.mamba
+    dn, n = mc.expand * cfg.d_model, mc.d_state
+    d_block = ops.default_bwd_d_block(n)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    row = {}
+    for label, bt, s in SCAN_BWD_SHAPES:
+        args, dy = scan_bwd_inputs(torch, gen, cfg, bt, s)
+        _, _, tiles = ops.selective_scan(*args, return_tile_states=True)
+        ms = cuda_ms(lambda: ops.selective_scan_bwd(*args, dy, tiles), reps=20)
+        fwd_ms = cuda_ms(lambda: ops.selective_scan(*args, return_tile_states=True), reps=20)
+        plain = cuda_ms(lambda: selective_scan_bwd_ref(*args, dy, d_block=d_block), reps=2,
+                        warmup=1)
+        bound, by, mb, n_exp, own = scan_bwd_bound(bt, s, dn, n, d_block)
+        own_mb = own["tile_states_mb"] + own["partials_mb"]
+        print(f"selective_scan_bwd {label} B={bt} S={s} Dn={dn} N={n}: {ms:.4f} ms a call (scan "
+              f"pass and reduction), plain {plain:.3f} ms, bound {bound:.4f} ms ({by}: {mb:.2f} MB "
+              f"at 3.35 TB/s; {n_exp / 1e6:.1f} M exponentials at {EXP_PER_S / 1e12:.2f} T/s), "
+              f"{100 * bound / ms:.2f}% of bound; the design's own traffic, {own_mb:.2f} MB more "
+              f"({own_mb / 3.35e3:.4f} ms at 3.35 TB/s): the tile states read "
+              f"{own['tile_states_mb']:.2f} MB, the partials of dB and dC written and read again "
+              f"{own['partials_mb']:.2f} MB; K4 forward with tile states {fwd_ms:.4f} ms; no "
+              "single PyTorch call computes it")
+        if label == SCAN_BWD_SHAPES[0][0]:
+            row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+                   "bound_by": by, "shape": f"B {bt}, S {s}, Dn {dn}, N {n}, bf16, d_block "
+                   f"{d_block}", "ms_covers": "the scan pass and the reduction it calls", **own,
+                   "forward_with_tile_states_ms": fwd_ms}
+        else:
+            row.update({f"ms_at B {bt} S {s}": ms, f"bound_ms_at B {bt} S {s}": bound,
+                        f"plain_ms_at B {bt} S {s}": plain})
+    bt, s = SCAN_BWD_SHAPES[0][1:]
+    parts, outs, nbytes = reduce_parts(torch, gen, dev, bt, s, dn, n, d_block)
+    ms = cuda_ms(lambda: ops.selective_scan_bwd_reduce(parts, outs), reps=20)
+    plain = cuda_ms(lambda: [sum_partials_ref(p, o.dtype) for p, o in zip(parts, outs)], reps=5)
+    sums = cuda_ms(lambda: [torch.sum(p, 0, dtype=torch.float32).to(o.dtype)
+                            for p, o in zip(parts, outs)], reps=20)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"selective_scan_bwd_reduce at the training shape ({parts[0].shape[0]} channel blocks): "
+          f"{ms:.4f} ms a launch, plain {plain:.4f} ms, bound {bound:.4f} ms (bytes: "
+          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s), {100 * bound / ms:.2f}% of bound; four torch.sum "
+          f"calls over the first axis {sums:.4f} ms (no single call)")
+    reduce_row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+                  "bound_by": "bytes", "torch_sum_calls_ms": sums,
+                  "shape": f"{parts[0].shape[0]} blocks x B {bt}, S {s}, N {n} (dB, dC, bf16); "
+                  f"B {bt} x Dn {dn}, N {n} (dA, dD)"}
+    return row, reduce_row
+
+
+def mamba_moe_training_path(arch, n_layers, path_no, per_layer) -> dict:
+    """Phases 24c and 24d: ``Trainer`` on ``arch`` at full width and
+    ``n_layers`` layers (``TrainerOptions.cfg``), the stablelm path's
+    settings: seq 128, global batch 8, AdamW at lr 1e-3, remat "full",
+    TRAIN_STEPS steps.  Gates: losses, aux and grad norms finite (aux > 0
+    with MoE); each kernel of ``per_layer`` launched that many times a layer
+    a step, no other kernel.  Returns the launches and the trainer."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    full = get_config(arch)
+    phase(f"main path {path_no}: LM training, Trainer on {arch} at full width, {n_layers} of "
+          f"{full.n_layers} layers, seq {TRAIN_SEQ}, global batch {TRAIN_BATCH}, AdamW lr 1e-3, "
+          f"remat full, {TRAIN_STEPS} steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(TrainerOptions(arch=arch, smoke=False, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH, log_every=0,
+                                     cfg=dataclasses.replace(full, n_layers=n_layers)))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    n_params = sum(p.numel() for p in trainer.lm.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B parameters; remat {trainer.rt.remat}; state built in "
+          f"{build_s:.1f} s")
+    if (cfg.d_model, cfg.vocab_size) != (full.d_model, full.vocab_size) or \
+            cfg.n_layers != n_layers or trainer.rt.remat != "full":
+        fail(f"the training path did not run {arch} at full width with full remat")
+    reset_launches()
+    trainer.run()
+    counts = read_launches()
+    records = trainer.records
+    times = [r["step_time"] for r in records[1:]]
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print("losses: " + ", ".join(f"{r['loss']:.4f}" for r in records))
+    print("aux: " + ", ".join(f"{r['aux']:.6f}" for r in records))
+    print("grad norms: " + ", ".join(f"{r['grad_norm']:.4f}" for r in records))
+    print(f"step ms: first {1e3 * records[0]['step_time']:.1f}, then median {1e3 * med:.1f} "
+          f"(min {1e3 * min(times):.1f}, max {1e3 * max(times):.1f}); "
+          f"{TRAIN_SEQ * TRAIN_BATCH / med:.0f} tokens/s; peak device memory {peak:.3f} GB "
+          "(host clock around each step, synchronised)")
+    moe = cfg.moe is not None
+    if len(records) != TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and math.isfinite(r["aux"])
+            and (r["aux"] > 0) == moe for r in records):
+        fail(f"training {arch}: {len(records)} steps, losses, aux or grad norms wrong")
+    expected = {name: per_layer.get(name, 0) * n_layers * TRAIN_STEPS for name in counts}
+    print("launches: " + ", ".join(f"{name} {counts[name]} = {per_layer[name]} x {n_layers} x "
+                                   f"{TRAIN_STEPS}" for name in per_layer))
+    if counts != expected:
+        fail(f"training {arch}: launches {counts}, expected {expected}")
+    training_step_split(trainer)
+    return counts, trainer
+
+
+def moe_gradient_bits(trainer) -> None:
+    """Phase 24d, continued: the loss, aux and every gradient of one step of
+    the MoE trainer's LM, taken twice from the same weights and batch, the
+    same bits."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    lm = trainer.lm
+    batch = SyntheticTokens(lm.cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0).next_batch()
+    batch = {k: torch.as_tensor(v, device=lm.device) for k, v in batch.items()}
+    runs = []
+    for _ in range(2):
+        for p in lm.parameters():
+            p.grad = None
+        loss, extra = lm.loss_fn(batch, trainer.rt)
+        loss.backward()
+        runs.append((loss.detach(), extra["aux"].detach(),
+                     [p.grad.clone() for p in lm.parameters()]))
+    for p in lm.parameters():
+        p.grad = None
+    (l1, a1, g1), (l2, a2, g2) = runs
+    same = torch.equal(l1, l2) and torch.equal(a1, a2) and all(
+        torch.equal(x, y) for x, y in zip(g1, g2))
+    print(f"one step's gradient twice from the same weights and batch: loss {float(l1):.6f}, aux "
+          f"{float(a1):.6f}, {len(g1)} gradient tensors; bit_identical={'yes' if same else 'NO'}")
+    if not same:
+        fail("the MoE training step's gradients differ between two runs")
+
+
 def static_serve_path(lm) -> dict:
     """Phase 10c: the serve CLI's static mode, ``Server.generate``, at full
     width on phase 10's qwen3-14b: batch 4, prompts of 16 tokens, 16
@@ -3030,6 +3395,8 @@ def main() -> None:
         return k6_times_main(Path(sys.argv[2]).resolve())
     if sys.argv[1:2] == ["--k3bwd-times"] and len(sys.argv) == 3:
         return k3bwd_times_main(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--scan-times"] and len(sys.argv) == 3:
+        return scan_times_main(Path(sys.argv[2]).resolve())
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -3050,8 +3417,8 @@ def main() -> None:
 
     phase("build")
     builds = build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fa_ops.BWD_LIBRARY, fd_ops.LIBRARY,
-               fd_ops.DECODE_LIBRARY, fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY,
-               local_sgd_build.LIBRARY])
+                        fd_ops.DECODE_LIBRARY, fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY,
+                        ss_ops.BWD_LIBRARY, local_sgd_build.LIBRARY])
 
     k1, problem, p_star = hemingway_path(dev)
     k6_err = local_sgd_vs_plain(dev, problem)
@@ -3138,8 +3505,31 @@ def main() -> None:
     train_counts = training_path(dev)
     training_kernels_vs_plain(dev)
     checkpoint_round_trip(dev, workdir)
-    by_path["flash_fwd"]["training"] = train_counts["flash_fwd"]
+
+    cfg = get_config(MAMBA)
+    errs["selective_scan_bwd"], errs["selective_scan_bwd_reduce"] = scan_bwd_vs_plain(dev, cfg)
+    scan_bwd, scan_reduce = scan_bwd_timings(dev, cfg)
+    mamba_counts, trainer = mamba_moe_training_path(
+        MAMBA, MAMBA_TRAIN_LAYERS, 7,
+        {"selective_scan": 2, "selective_scan_bwd": 1, "selective_scan_bwd_reduce": 1})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_counts, trainer = mamba_moe_training_path(
+        MOE, MOE_TRAIN_LAYERS, 8, {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1})
+    moe_gradient_bits(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_kernels_vs_plain(dev, MAMBA, ("selective_scan", "selective_scan_bwd",
+                                           "selective_scan_bwd_reduce"))
+    training_kernels_vs_plain(dev, MOE)
+    by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
+                                training_moe=moe_counts["flash_fwd"])
     launches["flash_fwd"] = sum(by_path["flash_fwd"].values())
+    by_path["selective_scan"] = {"cli": launches["selective_scan"],
+                                 "training_mamba": mamba_counts["selective_scan"]}
+    launches["selective_scan"] = sum(by_path["selective_scan"].values())
 
     kernels = [k1, k6]
     for name, source, replaces in (
@@ -3180,9 +3570,29 @@ def main() -> None:
                         "status": "redesigned, PR 23: wgmma on TMA-staged 128-byte-swizzled "
                         "tiles, the dk/dv pass cut in chunks summed in a cluster (the port's "
                         "own kernel, a custom-VJP backward, no Pallas kernel)",
-                        "launches": train_counts[name],
-                        "launches_by_path": {"training": train_counts[name]},
+                        "launches": train_counts[name] + moe_counts[name],
+                        "launches_by_path": {"training": train_counts[name],
+                                             "training_moe": moe_counts[name]},
                         "timed_by": EAGER, **bwd[name]})
+    kernels.append({"name": "selective_scan_bwd", "route": "cuda",
+                    "source": "src/repro_torch/kernels/ssm_scan/csrc/selective_scan_bwd.cu",
+                    "replaces": "src/repro/kernels/ssm_scan/ops.py:30",
+                    "status": "new: the gradient the reference takes by JAX autodiff of "
+                    "its chunked scan (no Pallas kernel); a scan pass over tiles in reverse "
+                    "whose partials selective_scan_bwd_reduce sums, no atomics",
+                    "launches": mamba_counts["selective_scan_bwd"],
+                    "launches_by_path": {"training_mamba": mamba_counts["selective_scan_bwd"]},
+                    "max_abs_err": errs["selective_scan_bwd"], "timed_by": EAGER, **scan_bwd})
+    kernels.append({"name": "selective_scan_bwd_reduce", "route": "cuda",
+                    "source": "src/repro_torch/kernels/ssm_scan/csrc/selective_scan_bwd.cu",
+                    "replaces": "src/repro/kernels/ssm_scan/ops.py:30",
+                    "status": "new: K4-bwd's second launch, the partials of dB, dC, dA and dD "
+                    "summed in a fixed order",
+                    "launches": mamba_counts["selective_scan_bwd_reduce"],
+                    "launches_by_path": {
+                        "training_mamba": mamba_counts["selective_scan_bwd_reduce"]},
+                    "max_abs_err": errs["selective_scan_bwd_reduce"], "timed_by": EAGER,
+                    **scan_reduce})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,26 +70,22 @@
 // compiler contracts nothing and the decode body repeats the prefill body's
 // bits.  The association differs from the plain version's serial loop
 // by a few float32 roundings a step, which decay with the state.
+//
+// For training the prefill body also stores the state before each tile
+// (h_tiles), from which the backward (selective_scan_bwd.cu) restarts each
+// tile; the tile, its lane scan and the staged rows' layout live in
+// scan_tile.cuh, which both kernels include.
 // The kernel launches on the caller's stream, allocates nothing and does not
 // synchronise.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "scan_tile.cuh"
 
 namespace {
 
+using namespace scan_tile;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kItems = 8;             // consecutive positions a lane
-constexpr int kTile = 32 * kItems;    // positions a warp scans together
-// A staged row of a tile: position t at tile_slot(t) = t + 4 (t / 32), so
-// lane l's 8 positions are 8 l + 4 (l / 4) .. + 7, two 16-byte reads, and a
-// quarter warp's reads cover all 32 banks once; 292 floats keep every row
-// 16-byte aligned.
-constexpr int kLd = kTile + 4 * (kTile / 32) + 4;
 constexpr int kStepThreads = 256;     // the decode body's block
-constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ inline size_t smem_bytes(int n, int d_block) {
   // B and C [n][kLd]; x then y, and dt [d_block][kLd]; carries [2][d_block][n]
@@ -97,97 +93,14 @@ __host__ __device__ inline size_t smem_bytes(int n, int d_block) {
           2 * static_cast<size_t>(d_block) * n) * 4;
 }
 
-__device__ __forceinline__ int tile_slot(int t) { return t + 4 * (t >> 5); }
-
-// Lane l's 8 consecutive values of a staged row, and their store.
-__device__ __forceinline__ void read8(const float* row, int lane, float (&v)[kItems]) {
-  const float4* p = reinterpret_cast<const float4*>(row + tile_slot(kItems * lane));
-  const float4 lo = p[0], hi = p[1];
-  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-}
-__device__ __forceinline__ void write8(float* row, int lane, const float (&v)[kItems]) {
-  float4* p = reinterpret_cast<float4*>(row + tile_slot(kItems * lane));
-  p[0] = make_float4(v[0], v[1], v[2], v[3]);
-  p[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A row of K contiguous elements of a T array as raw 16-byte words, or one
-// element a word where the row is not 16-byte aligned (vec false) or K
-// elements do not fill whole words.
-template <typename T, int K>
-struct RawRow {
-  static constexpr int kPer = 16 / sizeof(T);   // elements a 16-byte word
-  static constexpr bool kWords = K % kPer == 0;
-  static constexpr int kN = kWords ? K / kPer : K;
-  uint4 w[kWords ? K / kPer : 1];
-  float f[kWords ? 1 : K];
-
-  __device__ __forceinline__ void load(const T* src, bool in, bool vec) {
-    if constexpr (kWords) {
-      if (vec) {
-#pragma unroll
-        for (int q = 0; q < kN; ++q) {
-          w[q] = in ? reinterpret_cast<const uint4*>(src)[q] : make_uint4(0, 0, 0, 0);
-        }
-        return;
-      }
-      const T* p = src;
-#pragma unroll
-      for (int q = 0; q < kN; ++q) {
-        alignas(16) T e[kPer];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) e[k] = in ? p[q * kPer + k] : T(0.f);
-        w[q] = *reinterpret_cast<const uint4*>(e);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < K; ++k) f[k] = in ? to_float(src[k]) : 0.f;
-    }
-  }
-  // element k as float32 (exact for bf16)
-  __device__ __forceinline__ float at(int k) const {
-    if constexpr (!kWords) {
-      return f[k];
-    } else if constexpr (sizeof(T) == 4) {
-      const uint4& u = w[k / 4];
-      const unsigned b = (k % 4 == 0) ? u.x : (k % 4 == 1) ? u.y : (k % 4 == 2) ? u.z : u.w;
-      return __uint_as_float(b);
-    } else {
-      const uint4& u = w[k / 8];
-      const int j = (k % 8) / 2;
-      const unsigned b = j == 0 ? u.x : j == 1 ? u.y : j == 2 ? u.z : u.w;
-      return __uint_as_float(k % 2 == 0 ? b << 16 : b & 0xffff0000u);
-    }
-  }
-};
-
 template <typename T, int N, int DB>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_tile_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                            const float* __restrict__ a_mat, const T* __restrict__ b_mat,
                            const T* __restrict__ c_mat, const float* __restrict__ d_vec,
-                           float* __restrict__ h, T* __restrict__ y, int s, int dn,
-                           long long b_sb, long long b_st, long long c_sb, long long c_st,
-                           int vec) {
+                           float* __restrict__ h, T* __restrict__ y,
+                           float* __restrict__ h_tiles, int s, int dn, long long b_sb,
+                           long long b_st, long long c_sb, long long c_st, int vec) {
   static_assert(kThreads == kTile, "a thread stages one position of a tile");
   extern __shared__ __align__(16) float smem[];
   float* bs = smem;               // [N][kLd]
@@ -211,6 +124,17 @@ selective_scan_tile_kernel(const T* __restrict__ x, const float* __restrict__ dt
   const int n_tiles = (s + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int t0 = tile * kTile;
+    if (h_tiles != nullptr) {  // the state before the tile, for the backward
+      // each thread stores the carries it loaded (tile 0) or that a barrier
+      // has published since (the tile before's last steps)
+      const float* carry = hs + (tile & 1) * DB * N;
+      for (int i = tid; i < DB * N; i += kThreads) {
+        const int d = d0 + i / N;
+        if (d < dn) {
+          h_tiles[((static_cast<size_t>(b) * n_tiles + tile) * dn + d) * N + i % N] = carry[i];
+        }
+      }
+    }
     // staging: thread t loads position t0 + t's row of B and C (the N
     // states) and of x and dt (the block's channels), 16 bytes a load where
     // aligned, and stores it where the lanes that scan it read it
@@ -280,29 +204,7 @@ selective_scan_tile_kernel(const T* __restrict__ x, const float* __restrict__ dt
           av[i] = ex2(__fmul_rn(dtv[i], a2));
           bv[i] = __fmul_rn(dtx[i], bn[i]);
         }
-        // the lane's 8 pairs combined in order
-        float pa = av[0], pb = bv[0];
-#pragma unroll
-        for (int i = 1; i < kItems; ++i) {
-          pb = __fmaf_rn(av[i], pb, bv[i]);
-          pa = __fmul_rn(pa, av[i]);
-        }
-        // inclusive scan of the lanes' pairs: (qa, qb) o (pa, pb), the lanes
-        // below off combining with the identity (1, 0), which leaves them
-        // as they are
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          float qa = __shfl_up_sync(0xffffffffu, pa, off);
-          float qb = __shfl_up_sync(0xffffffffu, pb, off);
-          qa = lane >= off ? qa : 1.f;
-          qb = lane >= off ? qb : 0.f;
-          pb = __fmaf_rn(pa, qb, pb);
-          pa = __fmul_rn(qa, pa);
-        }
-        const float carry = carry_in[c * N + n];
-        float hv = __fmaf_rn(pa, carry, pb);          // the state after this lane
-        hv = __shfl_up_sync(0xffffffffu, hv, 1);       // ... after the lane before
-        if (lane == 0) hv = carry;
+        float hv = state_before_lane(av, bv, carry_in[c * N + n], lane);
 #pragma unroll
         for (int i = 0; i < kItems; ++i) {
           hv = __fmaf_rn(av[i], hv, bv[i]);
@@ -396,8 +298,8 @@ selective_scan_step_kernel(const T* __restrict__ x, const float* __restrict__ dt
 
 template <typename T, int N, int DB>
 int launch_tile(const void* x, const void* dt, const void* a_mat, const void* b_mat,
-                const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
-                long long b_sb, long long b_st, long long c_sb, long long c_st,
+                const void* c_mat, const void* d_vec, void* h, void* y, void* h_tiles, int bt,
+                int s, int dn, long long b_sb, long long b_st, long long c_sb, long long c_st,
                 cudaStream_t stream) {
   const size_t smem = smem_bytes(N, DB);
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
@@ -417,16 +319,17 @@ int launch_tile(const void* x, const void* dt, const void* a_mat, const void* b_
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a_mat), static_cast<const T*>(b_mat),
       static_cast<const T*>(c_mat), static_cast<const float*>(d_vec),
-      static_cast<float*>(h), static_cast<T*>(y), s, dn, b_sb, b_st, c_sb, c_st, vec);
+      static_cast<float*>(h), static_cast<T*>(y), static_cast<float*>(h_tiles), s, dn, b_sb,
+      b_st, c_sb, c_st, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int N>
 int launch_n(const void* x, const void* dt, const void* a_mat, const void* b_mat,
-             const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
-             int d_block, long long b_sb, long long b_st, long long c_sb, long long c_st,
+             const void* c_mat, const void* d_vec, void* h, void* y, void* h_tiles, int bt, int s,
+             int dn, int d_block, long long b_sb, long long b_st, long long c_sb, long long c_st,
              cudaStream_t stream) {
-  if (s == 1) {
+  if (s == 1 && h_tiles == nullptr) {
     const bool vec = ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(a_mat)) &
                       15) == 0;
     const long long threads = static_cast<long long>(bt) * dn;
@@ -441,8 +344,8 @@ int launch_n(const void* x, const void* dt, const void* a_mat, const void* b_mat
   switch (d_block) {
 #define SSM_DB(DB) \
     case DB:                                                                      \
-      return launch_tile<T, N, DB>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, b_sb, \
-                                   b_st, c_sb, c_st, stream);
+      return launch_tile<T, N, DB>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, h_tiles, bt, s, dn, \
+                                   b_sb, b_st, c_sb, c_st, stream);
     SSM_DB(8) SSM_DB(16) SSM_DB(32)
 #undef SSM_DB
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -451,14 +354,14 @@ int launch_n(const void* x, const void* dt, const void* a_mat, const void* b_mat
 
 template <typename T>
 int launch_t(const void* x, const void* dt, const void* a_mat, const void* b_mat,
-             const void* c_mat, const void* d_vec, void* h, void* y, int bt, int s, int dn,
-             int n, int d_block, long long b_sb, long long b_st, long long c_sb, long long c_st,
-             cudaStream_t stream) {
+             const void* c_mat, const void* d_vec, void* h, void* y, void* h_tiles, int bt, int s,
+             int dn, int n, int d_block, long long b_sb, long long b_st, long long c_sb,
+             long long c_st, cudaStream_t stream) {
   switch (n) {
 #define SSM_CASE(N) \
     case N:                                                                          \
-      return launch_n<T, N>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, d_block, b_sb, \
-                            b_st, c_sb, c_st, stream);
+      return launch_n<T, N>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, h_tiles, bt, s, dn, d_block, \
+                            b_sb, b_st, c_sb, c_st, stream);
     SSM_CASE(4) SSM_CASE(8) SSM_CASE(16) SSM_CASE(32)
 #undef SSM_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -472,20 +375,23 @@ int launch_t(const void* x, const void* dt, const void* a_mat, const void* b_mat
 // x's type, element (b, t, n) at b * sb + t * st + n; h (Bt, Dn, N) float32,
 // read and overwritten; y (Bt, S, Dn) in x's type.  N is 4, 8, 16 or 32;
 // d_block (channels a block of the prefill body) 8, 16 or 32; S = 1 runs the
-// decode body, which has no d_block.  Returns a cudaError_t (0 on success).
+// decode body, which has no d_block.  h_tiles, when not null, (Bt,
+// ceil(S / 256), Dn, N) float32, receives the state before each tile of 256
+// positions (the backward's restarts); it takes the prefill body at any S and
+// changes no bit of y or h.  Returns a cudaError_t (0 on success).
 extern "C" int selective_scan_launch(const void* x, const void* dt, const void* a_mat,
                                      const void* b_mat, const void* c_mat, const void* d_vec,
-                                     void* h, void* y, int bt, int s, int dn, int n,
-                                     int x_is_bf16, int d_block, long long b_sb,
+                                     void* h, void* y, void* h_tiles, int bt, int s, int dn,
+                                     int n, int x_is_bf16, int d_block, long long b_sb,
                                      long long b_st, long long c_sb, long long c_st,
                                      void* stream) {
   auto* st = static_cast<cudaStream_t>(stream);
   if (x_is_bf16) {
-    return launch_t<__nv_bfloat16>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n,
-                                   d_block, b_sb, b_st, c_sb, c_st, st);
+    return launch_t<__nv_bfloat16>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, h_tiles, bt, s, dn,
+                                   n, d_block, b_sb, b_st, c_sb, c_st, st);
   }
-  return launch_t<float>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, bt, s, dn, n, d_block, b_sb,
-                         b_st, c_sb, c_st, st);
+  return launch_t<float>(x, dt, a_mat, b_mat, c_mat, d_vec, h, y, h_tiles, bt, s, dn, n,
+                         d_block, b_sb, b_st, c_sb, c_st, st);
 }
 
 // Shared memory one block of the prefill body needs at state size n and

@@ -16,12 +16,25 @@ the kernel against: the kernel scans time as an associative scan in fixed
 tiles and sums over n in order, so the two differ by a few float32
 roundings a step (``tests/test_torch_block_scan.py`` models the kernel's
 grouping).
+
+``selective_scan_bwd_ref`` is the plain version of K4-bwd, the gradient of
+the same recurrence from zero state: the serial forward again, then the
+adjoint g_t = a_{t+1} g_{t+1} + dy_t C_t serially in reverse, and its sums in
+float32 in the order K4-bwd takes them (over n in order; over the channels
+in groups of 8, then a block's groups, then the blocks; over time a lane's 8
+positions, the 32 lanes halving, the tiles from the last, then the
+sequences).  The kernel fuses some products into its sums and scans time as
+a tree, so the two differ by a few float32 roundings.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+SCAN_TILE = 256  # positions of K4's and K4-bwd's tiles (scan_tile.cuh's kTile)
+LANES, LANE_ITEMS = 32, 8  # a tile's lanes and each lane's positions
+CHANNEL_ROUND = 8  # K4-bwd's channels a round (one a warp)
 
 
 def lane_sum(p: torch.Tensor) -> torch.Tensor:
@@ -41,9 +54,13 @@ def selective_scan_ref(
     C: torch.Tensor,  # (Bt, S, N)
     D: torch.Tensor,  # (Dn,)
     h: Optional[torch.Tensor] = None,  # (Bt, Dn, N) initial state
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (Bt, S, Dn) in x's dtype, h_last (Bt, Dn, N) float32).
-    ``h`` is read, not written."""
+    *,
+    return_tile_states: bool = False,
+):
+    """Returns (y (Bt, S, Dn) in x's dtype, h_last (Bt, Dn, N) float32),
+    with ``return_tile_states`` also the state before each tile of
+    ``SCAN_TILE`` positions, (Bt, ceil(S / SCAN_TILE), Dn, N).  ``h`` is
+    read, not written."""
     bt, s, dn = x.shape
     n = A.shape[1]
     xf, dtf = x.float(), dt.float()
@@ -51,10 +68,113 @@ def selective_scan_ref(
     state = (torch.zeros((bt, dn, n), dtype=torch.float32, device=x.device) if h is None
              else h.float().clone())
     y = torch.empty((bt, s, dn), dtype=torch.float32, device=x.device)
+    tiles = []
     for t in range(s):
+        if t % SCAN_TILE == 0:
+            tiles.append(state)
         dtt, xt = dtf[:, t], xf[:, t]  # (Bt, Dn)
         decay = torch.exp(dtt[..., None] * af)  # (Bt, Dn, N)
         bx = (dtt * xt)[..., None] * bf[:, t, None, :]
         state = decay * state + bx
         y[:, t] = lane_sum(state * cf[:, t, None, :]) + df * xt
-    return y.to(x.dtype), state
+    if not return_tile_states:
+        return y.to(x.dtype), state
+    tile_states = (torch.stack(tiles, dim=1) if tiles
+                   else torch.zeros((bt, 0, dn, n), dtype=torch.float32, device=x.device))
+    return y.to(x.dtype), state, tile_states
+
+
+def _sum_in_order(terms: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` one term at a time, in order."""
+    total = terms.select(dim, 0)
+    for i in range(1, terms.shape[dim]):
+        total = total + terms.select(dim, i)
+    return total
+
+
+def sum_partials_ref(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K4-bwd's reduction: ``part``'s sum over its first axis, one float32
+    addition at a time in order, rounded once to ``dtype``."""
+    return _sum_in_order(part.float(), 0).to(dtype)
+
+
+def _channel_sum(terms: torch.Tensor, d_block: int) -> torch.Tensor:
+    """Sum (..., Dn, N) over Dn in K4-bwd's order: each round's 8 channels in
+    order, a block's rounds in order, then the blocks in order (channels past
+    Dn are zeros)."""
+    dn = terms.shape[-2]
+    blocks = -(-dn // d_block)
+    pad = blocks * d_block - dn
+    if pad:
+        terms = torch.cat([terms, terms.new_zeros(terms.shape[:-2] + (pad, terms.shape[-1]))],
+                          dim=-2)
+    terms = terms.reshape(terms.shape[:-2] + (blocks, d_block // CHANNEL_ROUND, CHANNEL_ROUND,
+                                              terms.shape[-1]))
+    per_round = _sum_in_order(terms, -2)
+    return _sum_in_order(_sum_in_order(per_round, -2), -2)
+
+
+def _time_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum (Bt, S, ...) over the sequences and time in K4-bwd's order: per
+    tile a lane's 8 positions in order, the 32 lanes by halving (the xor
+    butterfly's value), the tiles from the last to the first, then the
+    sequences in order (positions past S are zeros)."""
+    bt, s = terms.shape[:2]
+    tiles = -(-s // SCAN_TILE)
+    pad = tiles * SCAN_TILE - s
+    if pad:
+        terms = torch.cat([terms, terms.new_zeros((bt, pad) + terms.shape[2:])], dim=1)
+    terms = terms.reshape((bt, tiles, LANES, LANE_ITEMS) + terms.shape[2:])
+    per_lane = _sum_in_order(terms, 3)  # (Bt, tiles, 32, ...)
+    per_tile = lane_sum(per_lane.movedim(2, -1))  # (Bt, tiles, ...)
+    return _sum_in_order(_sum_in_order(per_tile.flip(1), 1), 0)
+
+
+def selective_scan_bwd_ref(
+    x: torch.Tensor,  # (Bt, S, Dn)
+    dt: torch.Tensor,  # (Bt, S, Dn)
+    A: torch.Tensor,  # (Dn, N)
+    B: torch.Tensor,  # (Bt, S, N)
+    C: torch.Tensor,  # (Bt, S, N)
+    D: torch.Tensor,  # (Dn,)
+    dy: torch.Tensor,  # (Bt, S, Dn)
+    *,
+    d_block: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The exact gradient of ``selective_scan_ref`` from zero state with
+    respect to (x, dt, A, B, C, D), given dy: (dx in x's dtype, ddt float32,
+    dA float32, dB and dC in B's and C's dtypes, dD float32).  With a_t =
+    exp(dt_t A) and the adjoint g_t = a_{t+1} g_{t+1} + dy_t C_t:
+    dx_t = D dy_t + dt_t sum_n g_t B_t, ddt_t = sum_n g_t A a_t h_{t-1} +
+    x_t sum_n g_t B_t, dA = sum_{b,t} dt_t g_t a_t h_{t-1}, dB_t = sum_d g_t
+    dt_t x_t, dC_t = sum_d dy_t h_t, dD = sum_{b,t} dy_t x_t.  ``d_block`` is
+    K4-bwd's channels a block (``ops.default_bwd_d_block(N)``), which orders
+    dB's and dC's sums."""
+    bt, s, dn = x.shape
+    n = A.shape[1]
+    xf, dtf, dyf = x.float(), dt.float(), dy.float()
+    af, bf, cf, df = A.float(), B.float(), C.float(), D.float()
+    states = torch.zeros((bt, s + 1, dn, n), dtype=torch.float32, device=x.device)
+    decays = torch.ones((bt, s + 1, dn, n), dtype=torch.float32, device=x.device)
+    dtx = dtf * xf
+    for t in range(s):  # states[:, t + 1] is h_t, states[:, t] h_{t-1}
+        decays[:, t] = torch.exp(dtf[:, t, :, None] * af)
+        states[:, t + 1] = decays[:, t] * states[:, t] + dtx[:, t, :, None] * bf[:, t, None, :]
+    g = torch.empty((bt, s, dn, n), dtype=torch.float32, device=x.device)
+    after = torch.zeros((bt, dn, n), dtype=torch.float32, device=x.device)  # a_{t+1} g_{t+1}
+    for t in reversed(range(s)):
+        g[:, t] = after + dyf[:, t, :, None] * cf[:, t, None, :]
+        after = decays[:, t] * g[:, t]
+    q = g * decays[:, :s] * states[:, :s]  # g_t a_t h_{t-1}
+    s1 = torch.zeros((bt, s, dn), dtype=torch.float32, device=x.device)
+    s2 = torch.zeros_like(s1)
+    for i in range(n):  # over n in order
+        s1 = s1 + g[..., i] * bf[:, :, None, i]
+        s2 = s2 + af[:, i] * q[..., i]
+    dx = dtf * s1 + df * dyf
+    ddt = xf * s1 + s2
+    dA = _time_sum(dtf[..., None] * q)
+    dD = _time_sum(dyf * xf)
+    dB = _channel_sum(g * dtx[..., None], d_block)
+    dC = _channel_sum(dyf[..., None] * states[:, 1:], d_block)
+    return dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), dD

@@ -14,6 +14,7 @@ chunked prefill, whose row blocks are the monolithic prefill's, and
 batch runs them at the decode step's shape.  A matrix product's row, and the
 MoE's output for a token, depend on the other rows only through the shape
 (``repro_torch.serve.engine``), so a position gets the same bits in each.
+Training's MoE dispatch is the exception: one over the whole batch.
 """
 from __future__ import annotations
 
@@ -110,6 +111,21 @@ def fill_param(t: torch.Tensor, init: str, scale: float, generator: torch.Genera
         mamba_mod.init_mamba_param(t, init, generator)
 
 
+def _mix(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+         n_valid: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x plus the layer's mixer of ln1(x), and the mixer's cache (prefill's
+    arithmetic over the whole sequence; ``apply_block``)."""
+    h = by_rows(lambda xr: rms_norm(xr, p.ln1, cfg.norm_eps), x, rt.prefill_rows)
+    if p.spec.mixer == "attn":
+        kv_lens = None if n_valid is None else torch.full(
+            (x.shape[0],), int(n_valid), dtype=torch.int32, device=x.device)
+        mixer = mla_mod.apply_mla if cfg.mla else attn_mod.apply_attention
+        y, cache = mixer(p.mixer, h, cfg, rt, kv_lens=kv_lens)
+    else:
+        y, cache = mamba_mod.apply_mamba(p.mixer, h, cfg, rt, n_valid=n_valid)
+    return x + y, cache
+
+
 def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
                 n_valid: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -118,28 +134,29 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     position ``n_valid - 1`` (default the last).  Positions from ``n_valid``
     on are padding.  The norms and the MLP run over blocks of
     ``rt.prefill_rows`` positions, as the mixers' projections do."""
-    rows = rt.prefill_rows
-    h = by_rows(lambda xr: rms_norm(xr, p.ln1, cfg.norm_eps), x, rows)
-    if p.spec.mixer == "attn":
-        kv_lens = None if n_valid is None else torch.full(
-            (x.shape[0],), int(n_valid), dtype=torch.int32, device=x.device)
-        mixer = mla_mod.apply_mla if cfg.mla else attn_mod.apply_attention
-        y, cache = mixer(p.mixer, h, cfg, rt, kv_lens=kv_lens)
-    else:
-        y, cache = mamba_mod.apply_mamba(p.mixer, h, cfg, rt, n_valid=n_valid)
-    x = x + y
+    x, cache = _mix(p, x, cfg, rt, n_valid)
     if p.ffn is None:
         return x, cache
     return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg),
-                   x, rows), cache
+                   x, rt.prefill_rows), cache
 
 
-def apply_block_train(p: Block, x: torch.Tensor, *, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
+def apply_block_train(p: Block, x: torch.Tensor, *, cfg: ArchConfig,
+                      rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward of one layer (mode "train" in the reference):
     the prefill's arithmetic over the whole sequence, differentiable, its
-    K/V not kept.  Attention takes its gradient through the flash
-    backward (K3-bwd)."""
-    return apply_block(p, x, cfg, rt)[0]
+    cache not kept.  Returns (x, aux), aux the MoE router's loss (a float32
+    0-d tensor, 0 for other FFNs).  Attention takes its gradient through the
+    flash backward (K3-bwd), Mamba through the selective scan's (K4-bwd).  A
+    MoE FFN dispatches once over all B x S tokens at the training capacity,
+    as ``moe.py:229-236`` does, never by row blocks: the capacity depends on
+    the dispatch's tokens."""
+    if p.spec.ffn != "moe":
+        return apply_block(p, x, cfg, rt)[0], torch.zeros((), dtype=torch.float32,
+                                                          device=x.device)
+    x, _ = _mix(p, x, cfg, rt)
+    y, aux = moe_mod.apply_moe(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), cfg, train=True)
+    return x + y, aux
 
 
 def apply_block_prefill_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -162,8 +179,8 @@ def apply_block_prefill_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Ru
 
 
 def _ffn(p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The layer's FFN: SwiGLU, or the MoE's dropless eval (one dispatch over
-    the rows given: one row block)."""
+    """The layer's FFN in prefill and decode: SwiGLU, or the MoE's dropless
+    eval (one dispatch over the rows given: one row block)."""
     if p.spec.ffn == "moe":
         return moe_mod.apply_moe(p.ffn, h, cfg)
     return apply_mlp(p.ffn, h)

@@ -105,9 +105,11 @@ def apply_mamba(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     """Prefill: x (B, S, d) -> (out (B, S, d), state {"h", "conv"} after
     position ``n_valid - 1``, default the last).  The products run over
     blocks of ``rt.prefill_rows`` positions; the conv and the scan span the
-    whole sequence."""
+    whole sequence.  Also the training forward (``n_valid`` None): with grad
+    the scan is ``SelectiveScan`` (K4, then K4-bwd in the backward) from
+    zero state."""
     mc = cfg.mamba
-    b, s, _ = x.shape
+    s = x.shape[1]
     di, cw = mc.expand * cfg.d_model, mc.d_conv
     n = s if n_valid is None else int(n_valid)
     rows = rt.prefill_rows
@@ -116,11 +118,10 @@ def apply_mamba(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     xp = F.pad(x_in.float(), (0, 0, cw - 1, 0))  # zeros before position 0
     x_conv = _conv([xp[:, k:k + s] for k in range(cw)], p).to(x.dtype)
     dt, b_ssm, c_ssm = _split_xdb(p, x_conv, cfg, rows)
-    if n < s:
+    if n < s:  # the serve engine's padding (in place: never on the training path)
         dt[:, n:] = 0.0
         x_conv[:, n:] = 0
-    h = torch.zeros((b, di, mc.d_state), dtype=torch.float32, device=x.device)
-    y, h = selective_scan(x_conv, dt, -torch.exp(p["A_log"]), b_ssm, c_ssm, p["D"], h)
+    y, h = selective_scan(x_conv, dt, -torch.exp(p["A_log"]), b_ssm, c_ssm, p["D"])
     out = by_rows(lambda r: r @ p["out_proj"], y * F.silu(z), rows)
     tail = F.pad(x_in[:, max(0, n - (cw - 1)):n], (0, 0, max(0, cw - 1 - n), 0))
     return out, {"h": h, "conv": tail.transpose(1, 2).contiguous()}

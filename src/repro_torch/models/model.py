@@ -1,16 +1,17 @@
 """The LM for the dense attention archs (qwen3-14b), the pure Mamba archs
-(falcon-mamba-7b) and DeepSeek-V2 (MLA attention, MoE FFNs, a dense head
-layer): the serving entry points of ``repro/models/model.py``, and its
-training entry point for the dense archs.
+(falcon-mamba-7b), DeepSeek-MoE (MoE FFNs, a dense head layer) and
+DeepSeek-V2 (MLA attention, MoE FFNs, a dense head layer): the serving
+entry points of ``repro/models/model.py``, and its training entry point.
 
 * ``loss_fn(batch)`` — the counterpart of ``LM.loss_fn`` (``model.py:150``):
-  next-token cross-entropy of a training batch, differentiable in the
+  next-token cross-entropy of a training batch plus the MoE layers' router
+  aux loss, summed over the layers in order, differentiable in the
   parameters once ``trainable()`` has set their ``requires_grad``; each
   layer runs under the Runtime's ``remat`` policy, attention through the
-  flash forward and its backward (K3, K3-bwd).  Dense archs only
-  (stablelm-1.6b, the qwen archs): MoE, MLA and Mamba training, whose
-  gradients (the MoE's aux loss and capacity, K4's backward, K3-bwd at
-  (192, 128)) are not ported, raise (ROADMAP.md).
+  flash forward and its backward (K3, K3-bwd), Mamba through the selective
+  scan and its backward (K4, K4-bwd), a MoE FFN at the training capacity.
+  MLA training (K3-bwd at (192, 128)) and the frontends are not ported and
+  raise (ROADMAP.md).
 
 * ``prefill(tokens)`` — the counterpart of ``LM.prefill`` (``model.py:171``):
   a full-sequence causal forward; returns one position's logits and each
@@ -29,8 +30,8 @@ each ``period[0]`` with a dense FFN) and its ``lax.scan`` over the stacked
 periods become one loop over ``n_layers`` ``Block`` entries of a
 ``ModuleList``, in ``cfg.layer_specs()`` order: layer l < k is a head layer,
 layer l >= k is ``period[(l - k) % len(period)]``.  Archs with a frontend
-are not ported yet and raise, and so do jamba and deepseek-moe-16b, whose
-blocks would construct but which no parity test holds yet (ROADMAP.md).
+are not ported yet and raise, and so does jamba, whose blocks would
+construct but which no parity test holds yet (ROADMAP.md).
 
 The model holds weights only: kernel geometry and the paged decode's
 implementation come with each call, as a ``Runtime`` (the serve engine's).
@@ -61,7 +62,7 @@ DEFAULT_RUNTIME = Runtime()
 
 
 # archs whose blocks construct but whose port no parity test holds yet
-NOT_YET_HELD = ("jamba", "deepseek-moe")
+NOT_YET_HELD = ("jamba",)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -77,15 +78,14 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for what the port does not train yet: every arch but the dense
-    attention ones."""
+    """Raise for what the port does not train yet: MLA attention (K3-bwd at
+    its (192, 128) head dims) and, through ``check_supported``, the
+    frontend archs and jamba."""
     check_supported(cfg)
-    dense = cfg.mla is None and all(s.mixer == "attn" and s.ffn in ("dense", "none")
-                                    for s in cfg.period)
-    if not dense or cfg.first_k_dense:
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense archs only; MoE, MLA and Mamba "
-            "training wait for their gradients (ROADMAP.md)")
+            f"{cfg.name}: the port does not train MLA yet (K3-bwd at its (192, 128) head "
+            "dims); see ROADMAP.md")
 
 
 class LM(nn.Module):
@@ -134,8 +134,8 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------------
     def trainable(self, flag: bool = True) -> "LM":
-        """Set every parameter's ``requires_grad`` (dense archs only, which
-        ``check_trainable`` checks when ``flag``)."""
+        """Set every parameter's ``requires_grad`` (the archs
+        ``check_trainable`` admits, when ``flag``)."""
         if flag:
             check_trainable(self.cfg)
         for param in self.parameters():
@@ -148,20 +148,22 @@ class LM(nn.Module):
         loss_mask (B, S).  Returns (loss, {"ce", "aux", "tokens"}) as the
         reference's ``loss_fn``: the embedding, each layer's block (under
         ``rt.remat``), the final norm and the head in the config's dtype,
-        the cross-entropy in float32; aux is 0 for the dense archs."""
+        the cross-entropy in float32; aux, the MoE layers' router losses
+        summed over the layers in order (0 without MoE), is added to it."""
         cfg = self.cfg
         check_trainable(cfg)
         tokens = batch["tokens"].to(self.device)
         labels = batch["labels"].to(self.device)
         mask = batch.get("loss_mask")
         x = embed_tokens(self.embed, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
-            x = rt.remat_call(functools.partial(blocks_mod.apply_block_train, layer, cfg=cfg,
-                                                rt=rt), x)
+            x, layer_aux = rt.remat_call(functools.partial(blocks_mod.apply_block_train, layer,
+                                                           cfg=cfg, rt=rt), x)
+            aux = aux + layer_aux
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = lm_logits(self._head(), x)
         ce = softmax_cross_entropy(logits, labels, None if mask is None else mask.to(self.device))
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return ce + aux, {"ce": ce, "aux": aux,
                           "tokens": torch.tensor(float(labels.numel()), device=self.device)}
 

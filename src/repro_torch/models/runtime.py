@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -75,9 +75,9 @@ class Runtime:
         if self.decode_rows is not None and self.decode_rows < 1:
             raise ValueError(f"decode_rows={self.decode_rows} must be positive")
 
-    def remat_call(self, fn: Callable[[torch.Tensor], torch.Tensor],
-                   x: torch.Tensor) -> torch.Tensor:
-        """``fn(x)`` under the ``remat`` policy (a no-op without grad)."""
+    def remat_call(self, fn: Callable[[torch.Tensor], Any], x: torch.Tensor) -> Any:
+        """``fn(x)`` under the ``remat`` policy (a no-op without grad): its
+        outputs as ``fn`` returns them, a layer's (x, aux) pair too."""
         if self.remat == "none" or not torch.is_grad_enabled():
             return fn(x)
         from torch.utils import checkpoint as ckpt

@@ -4,7 +4,9 @@ restored from one.
 The port's ``CheckpointManager`` writes format 2 in the reference's tree
 layout; the reference's manager restores it, and the port's restores the
 reference's, bit for bit (float32 master parameters, AdamW's state, int32
-counts, and a bf16 leaf stored as its uint16 bits).  A port ``Trainer``
+counts, and a bf16 leaf stored as its uint16 bits), for the dense, the
+Mamba and the MoE trees (the smoke stablelm, falcon-mamba and deepseek-moe,
+whose dense first layer sits in ``head_layers``), through the port's LM.  A port ``Trainer``
 restored from a step continues with the same losses and parameters as one
 that never stopped, bit for bit on the CPU (the same operations on the same
 values); ``run()`` survives a simulated failure the same way.  A torn
@@ -27,20 +29,31 @@ from repro.models.model import LM as RefLM
 from repro.training import optimizers as ref_opt
 from repro_torch.checkpoint import CheckpointManager, CorruptCheckpoint
 from repro_torch.configs import get_smoke_config
-from repro_torch.convert import tree_from_numpy, tree_to_numpy
+from repro_torch.convert import load_tree_into_lm, tree_from_lm, tree_from_numpy, tree_to_numpy
 from repro_torch.launch.train import Trainer, TrainerOptions
+from repro_torch.models.model import LM
 from repro_torch.runtime.failures import FailureInjector
 from repro_torch.training import optimizers as port_opt
 from repro_torch.training.tree import tree_leaves
 
 
-def _ref_state():
-    cfg = dataclasses.replace(ref_smoke_config("stablelm-1.6b"), n_layers=2, dtype="float32")
+# the smoke configs at 2 layers: attention and SwiGLU; Mamba; a dense head
+# layer (``head_layers``) and a MoE layer with a shared expert
+ARCHS = ["stablelm-1.6b", "falcon-mamba-7b", "deepseek-moe-16b"]
+
+
+def _ref_state(arch="stablelm-1.6b"):
+    cfg = dataclasses.replace(ref_smoke_config(arch), n_layers=2, dtype="float32")
     params, _ = RefLM(cfg).init(jax.random.PRNGKey(3))
     params = jax.tree.map(np.asarray, params)
     opt = ref_opt.adamw()
     _, state = opt.update(params, opt.init(params), params, np.float32(1e-3))
     return params, jax.tree.map(np.asarray, state)
+
+
+def _port_lm(arch):
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=2, dtype="float32")
+    return LM(cfg, device="cpu")
 
 
 def _same_bits(got, want):
@@ -52,9 +65,15 @@ def _same_bits(got, want):
         assert np.array_equal(g.reshape(-1).view(np.uint8), w.reshape(-1).view(np.uint8))
 
 
-def test_port_checkpoint_restores_in_reference(tmp_path):
-    params, state = _ref_state()
-    tree = {"params": tree_from_numpy(params, "cpu"), "opt_state": tree_from_numpy(state, "cpu"),
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_checkpoint_restores_in_reference(tmp_path, arch):
+    """The port's LM's tree (``tree_from_lm``, the reference's layout: for
+    Mamba ``in_proj``, ``conv_w/b``, ``x_proj``, ``dt_w/b``, ``A_log``, ``D``,
+    ``out_proj``; for MoE ``router``, ``w_gate/up/down``, ``sh_*``; the dense
+    head in ``head_layers``) saved by the port restores in the reference."""
+    params, state = _ref_state(arch)
+    lm = load_tree_into_lm(_port_lm(arch), params)
+    tree = {"params": tree_from_lm(lm), "opt_state": tree_from_numpy(state, "cpu"),
             "extra": {"half": torch.randn(3, 5).to(torch.bfloat16)}}
     CheckpointManager(tmp_path).save_async(7, tree, metadata={"arch": "x"}).wait()
     got, meta = RefManager(tmp_path).restore()
@@ -66,8 +85,11 @@ def test_port_checkpoint_restores_in_reference(tmp_path):
                {"params": params, "opt_state": state})
 
 
-def test_reference_checkpoint_restores_in_port(tmp_path):
-    params, state = _ref_state()
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reference_checkpoint_restores_in_port(tmp_path, arch):
+    """The reverse: the reference's checkpoint restores in the port and
+    loads into its LM, whose tree gives the same bits back."""
+    params, state = _ref_state(arch)
     half = np.arange(12, dtype=np.float32).reshape(3, 4).astype(ml_dtypes.bfloat16)
     RefManager(tmp_path).save_async(3, {"params": params, "opt_state": state,
                                         "extra": {"half": half}},
@@ -80,6 +102,8 @@ def test_reference_checkpoint_restores_in_port(tmp_path):
                {"params": params, "opt_state": state})
     assert isinstance(got["opt_state"]["count"], torch.Tensor)
     assert got["opt_state"]["count"].dtype == torch.int32
+    lm = load_tree_into_lm(_port_lm(arch), got["params"])
+    _same_bits(tree_to_numpy(tree_from_lm(lm)), params)
 
 
 def _opts(tmp_path, **kw):

@@ -69,6 +69,14 @@ def test_stablelm_prefill_and_paged_decode_match_reference(dtype):
     _check_prefill_and_paged_decode(dtype, "stablelm-1.6b")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_moe_prefill_and_paged_decode_match_reference(dtype):
+    """deepseek-moe-16b (a dense head layer, then MoE FFNs, dropless in
+    prefill and decode), which the trainer trains too, under the same
+    bounds."""
+    _check_prefill_and_paged_decode(dtype, "deepseek-moe-16b")
+
+
 def _check_prefill_and_paged_decode(dtype, arch):
     ref_lm, params, port = _setup(dtype, arch)
     rng = np.random.RandomState(0)
@@ -140,7 +148,6 @@ def test_prefill_padding_is_inert():
 def test_unported_archs_raise():
     from repro_torch.models.model import LM
 
-    for arch in ("jamba-1.5-large-398b", "deepseek-moe-16b", "musicgen-medium",
-                 "internvl2-76b"):
+    for arch in ("jamba-1.5-large-398b", "musicgen-medium", "internvl2-76b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LM(get_smoke_config(arch), device="cpu")

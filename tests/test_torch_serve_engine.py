@@ -50,7 +50,7 @@ from repro_torch.models.model import LM
 from repro_torch.serve import SCRATCH_PAGE, CapacityPlanner, ServeEngine
 
 ENGINE = dict(max_batch=4, page_size=16, max_seq=96, collect_logits=True)
-ARCHS = ["qwen3-14b", "falcon-mamba-7b", "deepseek-v2-236b"]
+ARCHS = ["qwen3-14b", "falcon-mamba-7b", "deepseek-v2-236b", "deepseek-moe-16b"]
 LOGITS_ATOL = 1e-4
 
 

@@ -3,10 +3,14 @@ the data pipeline and the trainer CLI) against the JAX package, at the smoke
 configs cut to 2 layers, in float32, the reference's weights converted
 through numpy.
 
+falcon-mamba-7b trains through the selective scan's plain backward,
+deepseek-moe-16b through the MoE's training capacity, whose drops the test
+sees happen, and its router aux loss.
+
 Tolerances, float32 throughout:
-* the loss within 1e-5 relative, and every gradient leaf within 1e-4 of the
-  leaf's max |g| (the same arithmetic summed in another order: measured
-  about 1e-6 of it);
+* the loss, and the aux loss, within 1e-5 of the loss, and every gradient
+  leaf within 1e-4 of the leaf's max |g| (the same arithmetic summed in
+  another order: measured about 1e-6 of it);
 * the remat modes the same function: loss and gradients within 1e-6 of
   max |g| of ``remat="none"``'s;
 * train steps: loss within 1e-5 relative, grad_norm within 1e-4 relative,
@@ -38,13 +42,14 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import lm_params_from_numpy, tree_from_lm, tree_from_numpy, tree_to_numpy
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch import train as train_cli
+from repro_torch.models import moe as port_moe
 from repro_torch.models.model import LM
 from repro_torch.models.runtime import Runtime
 from repro_torch.training import optimizers as port_opt
 from repro_torch.training import trainer as port_trainer
 from repro_torch.training.tree import tree_leaves
 
-ARCHS = ["stablelm-1.6b", "qwen3-14b"]
+ARCHS = ["stablelm-1.6b", "qwen3-14b", "falcon-mamba-7b", "deepseek-moe-16b"]
 RT = Runtime(block_q=16, block_k=16)
 SEQ, BATCH = 32, 4
 
@@ -72,8 +77,16 @@ def _leaf_pairs(got_tree, want_tree):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_grads_match_reference(arch):
+def test_loss_and_grads_match_reference(arch, monkeypatch):
     ref, params, port = _models(arch)
+    loads = []  # (tokens routed to each expert, capacity) of each MoE dispatch
+    dispatch = port_moe.dispatch_compute_combine
+
+    def counting_dispatch(xt, ids, probs, wg, wu, wd, cap=None):
+        loads.append((torch.bincount(ids.reshape(-1), minlength=wg.shape[0]), cap))
+        return dispatch(xt, ids, probs, wg, wu, wd, cap)
+
+    monkeypatch.setattr(port_moe, "dispatch_compute_combine", counting_dispatch)
     batch = _batches(1)[0]
     (want_loss, want_aux), want_g = jax.jit(jax.value_and_grad(ref.loss_fn, has_aux=True))(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -88,7 +101,12 @@ def test_loss_and_grads_match_reference(arch):
         assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
         ce = float(aux["ce"].detach())
         assert abs(ce - float(want_aux["ce"])) <= 1e-5 * abs(float(want_loss))
-        assert float(aux["aux"]) == 0.0 and float(aux["tokens"]) == float(want_aux["tokens"])
+        got_aux = float(aux["aux"].detach())
+        assert abs(got_aux - float(want_aux["aux"])) <= 1e-5 * abs(float(want_loss))
+        assert float(aux["tokens"]) == float(want_aux["tokens"])
+    if port.cfg.moe is not None:  # the training capacity drops tokens here
+        assert float(want_aux["aux"]) > 0 and loads
+        assert any(int(counts.max()) > cap for counts, cap in loads)
     for got, want in _leaf_pairs(grads["none"], want_g):
         scale = np.abs(want).max()
         assert np.abs(got - want).max() <= 1e-4 * scale + 1e-12, (got.shape, scale)
@@ -202,8 +220,20 @@ def test_trainer_cli_on_the_cpu():
             train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "deepseek-moe-16b"])
+def test_trainer_cli_trains_mamba_and_moe_on_the_cpu(arch, capsys):
+    """The CLI trains the two archs (smoke); the aux loss reaches the step
+    records and the CLI's final line, as the reference's trainer logs it:
+    the MoE router's, 0 without MoE."""
+    last = train_cli.main(["--arch", arch, "--smoke", "--steps", "2", "--seq-len", "16",
+                           "--global-batch", "2", "--device", "cpu"])
+    assert np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
+    assert (last["aux"] > 0) == (arch == "deepseek-moe-16b")
+    assert last["loss"] == pytest.approx(last["ce"] + last["aux"], rel=1e-6)
+    assert "'aux'" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-1.5-large-398b"])
 def test_unported_archs_refuse_training(arch):
-    lm = LM(get_smoke_config(arch), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.trainable()
+        LM(get_smoke_config(arch), device="cpu").trainable()
