@@ -5,6 +5,7 @@
   python3 chip_smoke.py --k6-times DIR   # only K6's times, K6 built from DIR
   python3 chip_smoke.py --k3bwd-times DIR   # only K3-bwd's times, built from DIR
   python3 chip_smoke.py --scan-times DIR   # only phases 13 and 17, K4 built from DIR
+  python3 chip_smoke.py --scan-bwd-times DIR   # K4-bwd from DIR and from here, in turns
 
 It drives the port's paths, each with every kernel launch count set to 0
 just before it and read just after: the Hemingway loop on the local SDCA
@@ -214,8 +215,9 @@ of which exits non-zero on failure:
       8192, N 16, bf16) and across tiles (B 1, S 1000), within the stated
       tolerance, two launches the same bits; its reduction alone against its
       plain version, bit for bit;
-  24b. K4-bwd's time a call beside its bound and its plain version's, and
-      its reduction's alone;
+  24b. K4-bwd's time a call beside its bound and its plain version's, its
+      plan (lanes, channels a block, clusters) and the card's occupancy
+      (blocks an SM, registers), and its reduction's alone;
   24c. main path 7: ``Trainer`` on falcon-mamba-7b at full width, 8 of its 64
       layers, the settings of 23c: losses and grad norms finite, K4 = 2 x 8 x
       steps (full remat), K4-bwd's scan pass and its reduction 8 x steps
@@ -2988,6 +2990,12 @@ def training_step_split(trainer) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device {e.self_device_time_total / 1e3 / n:8.3f} ms a step  "
               f"x{e.count // n:5d}  {e.key[:90]}")
+    mine = sorted((e for e in events if any(k in e.key for k in ours)),
+                  key=lambda e: -e.self_device_time_total)
+    print("the port's kernels a step: " + "; ".join(
+        f"{e.key.split('<')[0].split('::')[-1]} {e.self_device_time_total / 1e3 / n:.3f} ms x "
+        f"{e.count // n} ({e.self_device_time_total / 1e3 / max(e.count, 1):.4f} ms each)"
+        for e in mine))
     if busy_ms <= 0:
         fail("the profiler saw no device time in the training steps")
 
@@ -3095,10 +3103,12 @@ def scan_bwd_bound(bt, s, dn, n, d_block):
     dA, dB and dC 10).  What this design adds is no part of the function's
     bytes and is returned beside the bound: the tile states it reads (B x
     ceil(S / 256) x Dn N float32) and the partials of dB and dC it writes
-    and reads again (ceil(Dn / d_block) blocks of B S N float32 each,
-    twice)."""
+    and reads again (one a cluster of channel blocks, ``ref.bwd_cluster``,
+    of B S N float32 each, twice)."""
+    from repro_torch.kernels.ssm_scan.ref import bwd_cluster
+
     tiles = 4 * bt * (-(-s // 256)) * dn * n
-    partials = 2 * 2 * 4 * (-(-dn // d_block)) * bt * s * n
+    partials = 2 * 2 * 4 * bwd_cluster(dn, d_block)[1] * bt * s * n
     nbytes = (3 * 2 + 2 * 4) * bt * s * dn + 4 * 2 * bt * s * n + 4 * 2 * (dn * n + dn)
     n_exp = bt * s * dn * n
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3110,8 +3120,11 @@ def scan_bwd_bound(bt, s, dn, n, d_block):
 
 def reduce_parts(torch, gen, dev, bt, s, dn, n, d_block):
     """Partials of K4-bwd's reduction at (Bt, S, Dn, N, d_block), random:
-    the reduction's inputs, its outputs (bf16 dB and dC) and its bytes."""
-    n_blocks = -(-dn // d_block)
+    the reduction's inputs (dB's and dC's one a cluster of channel blocks),
+    its outputs (bf16 dB and dC) and its bytes."""
+    from repro_torch.kernels.ssm_scan.ref import bwd_cluster
+
+    n_blocks = bwd_cluster(dn, d_block)[1]
     parts = tuple(torch.randn(shape, generator=gen, device=dev) for shape in (
         (n_blocks, bt, s, n), (n_blocks, bt, s, n), (bt, dn, n), (bt, dn)))
     outs = (torch.empty((bt, s, n), dtype=torch.bfloat16, device=dev),
@@ -3148,12 +3161,12 @@ def scan_bwd_vs_plain(dev, cfg) -> tuple:
 
     mc = cfg.mamba
     dn, n = mc.expand * cfg.d_model, mc.d_state
-    d_block = ops.default_bwd_d_block(n)
-    phase(f"K4-bwd vs plain ({MAMBA}: Dn {dn}, N {n}, bf16 x and dy; d_block {d_block}, "
-          f"{ops.bwd_smem_bytes(n, d_block)} bytes of shared memory a block)")
+    phase(f"K4-bwd vs plain ({MAMBA}: Dn {dn}, N {n}, bf16 x and dy)")
     gen = torch.Generator(device=dev).manual_seed(24)
     worst = 0.0
     for label, bt, s in SCAN_BWD_SHAPES:
+        d_block = ops.default_bwd_d_block(n, bt, s, dn)
+        print(f"{label}: {scan_bwd_plan(ops, n, bt, s, dn)}")
         args, dy = scan_bwd_inputs(torch, gen, cfg, bt, s)
         y0, h0 = ops.selective_scan(*args)
         y, h, tiles = ops.selective_scan(*args, return_tile_states=True)
@@ -3192,6 +3205,7 @@ def scan_bwd_vs_plain(dev, cfg) -> tuple:
     print(f"tolerance: K4's y, h and states as phase 13's; each gradient within "
           f"{SCAN_BWD_RTOL_OF_MAX:.2e} of its max |value|, bf16 ones plus {MAX_BF16_ULPS} bf16 ulp")
     bt, s = SCAN_BWD_SHAPES[0][1:]
+    d_block = ops.default_bwd_d_block(n, bt, s, dn)
     parts, outs, _ = reduce_parts(torch, gen, dev, bt, s, dn, n, d_block)
     ops.selective_scan_bwd_reduce(parts, outs)
     torch.cuda.synchronize()
@@ -3202,8 +3216,8 @@ def scan_bwd_vs_plain(dev, cfg) -> tuple:
         if not torch.equal(out, want):
             fail(f"K4-bwd's reduction: {name} differs from its plain version")
     print(f"selective_scan_bwd_reduce on random partials of the training shape ({parts[0].shape[0]} "
-          f"channel blocks, B {bt}): each output the plain version's bits (the same additions "
-          f"in the same order, one rounding to bf16)")
+          f"clusters of channel blocks, B {bt}): each output the plain version's bits (the same "
+          f"additions in the same order, one rounding to bf16)")
     return worst, reduce_err
 
 
@@ -3222,50 +3236,158 @@ def scan_bwd_timings(dev, cfg) -> dict:
     phase("K4-bwd timings (CUDA events, after warm-up)")
     mc = cfg.mamba
     dn, n = mc.expand * cfg.d_model, mc.d_state
-    d_block = ops.default_bwd_d_block(n)
     gen = torch.Generator(device=dev).manual_seed(25)
     row = {}
     for label, bt, s in SCAN_BWD_SHAPES:
+        d_block = ops.default_bwd_d_block(n, bt, s, dn)
+        occ = ops.bwd_occupancy(n, bt, s, dn, torch.bfloat16)
         args, dy = scan_bwd_inputs(torch, gen, cfg, bt, s)
         _, _, tiles = ops.selective_scan(*args, return_tile_states=True)
         ms = cuda_ms(lambda: ops.selective_scan_bwd(*args, dy, tiles), reps=20)
+        in_graph = graph_ms(lambda: ops.selective_scan_bwd(*args, dy, tiles), reps=20)
         fwd_ms = cuda_ms(lambda: ops.selective_scan(*args, return_tile_states=True), reps=20)
         plain = cuda_ms(lambda: selective_scan_bwd_ref(*args, dy, d_block=d_block), reps=2,
                         warmup=1)
         bound, by, mb, n_exp, own = scan_bwd_bound(bt, s, dn, n, d_block)
         own_mb = own["tile_states_mb"] + own["partials_mb"]
         print(f"selective_scan_bwd {label} B={bt} S={s} Dn={dn} N={n}: {ms:.4f} ms a call (scan "
-              f"pass and reduction), plain {plain:.3f} ms, bound {bound:.4f} ms ({by}: {mb:.2f} MB "
+              f"pass and reduction; {in_graph:.4f} from a CUDA graph), plain {plain:.3f} ms, bound "
+              f"{bound:.4f} ms ({by}: {mb:.2f} MB "
               f"at 3.35 TB/s; {n_exp / 1e6:.1f} M exponentials at {EXP_PER_S / 1e12:.2f} T/s), "
               f"{100 * bound / ms:.2f}% of bound; the design's own traffic, {own_mb:.2f} MB more "
               f"({own_mb / 3.35e3:.4f} ms at 3.35 TB/s): the tile states read "
               f"{own['tile_states_mb']:.2f} MB, the partials of dB and dC written and read again "
               f"{own['partials_mb']:.2f} MB; K4 forward with tile states {fwd_ms:.4f} ms; no "
-              "single PyTorch call computes it")
+              f"single PyTorch call computes it; {scan_bwd_plan(ops, n, bt, s, dn)}")
         if label == SCAN_BWD_SHAPES[0][0]:
             row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
                    "bound_by": by, "shape": f"B {bt}, S {s}, Dn {dn}, N {n}, bf16, d_block "
                    f"{d_block}", "ms_covers": "the scan pass and the reduction it calls", **own,
-                   "forward_with_tile_states_ms": fwd_ms}
+                   "graph_ms": in_graph, "forward_with_tile_states_ms": fwd_ms, "plan": occ}
         else:
             row.update({f"ms_at B {bt} S {s}": ms, f"bound_ms_at B {bt} S {s}": bound,
-                        f"plain_ms_at B {bt} S {s}": plain})
+                        f"plain_ms_at B {bt} S {s}": plain, f"graph_ms_at B {bt} S {s}": in_graph,
+                        f"plan_at B {bt} S {s}": occ,
+                        f"partials_mb_at B {bt} S {s}": own["partials_mb"]})
     bt, s = SCAN_BWD_SHAPES[0][1:]
+    d_block = ops.default_bwd_d_block(n, bt, s, dn)
     parts, outs, nbytes = reduce_parts(torch, gen, dev, bt, s, dn, n, d_block)
     ms = cuda_ms(lambda: ops.selective_scan_bwd_reduce(parts, outs), reps=20)
+    in_graph = graph_ms(lambda: ops.selective_scan_bwd_reduce(parts, outs), reps=20)
     plain = cuda_ms(lambda: [sum_partials_ref(p, o.dtype) for p, o in zip(parts, outs)], reps=5)
     sums = cuda_ms(lambda: [torch.sum(p, 0, dtype=torch.float32).to(o.dtype)
                             for p, o in zip(parts, outs)], reps=20)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"selective_scan_bwd_reduce at the training shape ({parts[0].shape[0]} channel blocks): "
-          f"{ms:.4f} ms a launch, plain {plain:.4f} ms, bound {bound:.4f} ms (bytes: "
-          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s), {100 * bound / ms:.2f}% of bound; four torch.sum "
+    print(f"selective_scan_bwd_reduce at the training shape ({parts[0].shape[0]} clusters): "
+          f"{ms:.4f} ms a launch by events (the wrapper's host time), {in_graph:.4f} from a CUDA "
+          f"graph, plain {plain:.4f} ms, bound {bound:.4f} ms (bytes: {nbytes / 1e6:.2f} MB at "
+          f"3.35 TB/s), {100 * bound / in_graph:.2f}% of bound from the graph; four torch.sum "
           f"calls over the first axis {sums:.4f} ms (no single call)")
-    reduce_row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
-                  "bound_by": "bytes", "torch_sum_calls_ms": sums,
+    reduce_row = {"ms": ms, "graph_ms": in_graph, "plain_ms": plain, "library_ms": None,
+                  "bound_ms": bound, "bound_by": "bytes", "torch_sum_calls_ms": sums,
                   "shape": f"{parts[0].shape[0]} blocks x B {bt}, S {s}, N {n} (dB, dC, bf16); "
                   f"B {bt} x Dn {dn}, N {n} (dA, dD)"}
     return row, reduce_row
+
+
+def scan_bwd_plan(ops, n, bt, s, dn) -> str:
+    """K4-bwd's plan at (Bt, S, Dn, N) and what the card's occupancy
+    calculator makes of it, as text."""
+    import torch
+
+    o = ops.bwd_occupancy(n, bt, s, dn, torch.bfloat16)
+    return (f"plan: {o['lanes']} lanes a channel's tile, d_block {o['d_block']}, clusters of "
+            f"{o['cluster']} blocks ({o['clusters']} a sequence), {o['smem_bytes']} bytes of "
+            f"shared memory a block; the card: {o['blocks_per_sm']} blocks an SM, "
+            f"{o['active_clusters']} clusters at once, {o['registers']} registers a thread")
+
+
+def load_ops_from(checkout: Path, name: str):
+    """The selective scan's ``ops`` module of the checkout at DIR, loaded
+    beside this tree's under another name: its kernels build from DIR's
+    sources into DIR's build directory; the rest it imports
+    (``kernels/_build.py``, the plain versions) is this tree's."""
+    import importlib.util
+
+    path = checkout / "src" / "repro_torch" / "kernels" / "ssm_scan" / "ops.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def scan_bwd_times_main(checkout: Path) -> None:
+    """``python3 chip_smoke.py --scan-bwd-times DIR``: K4 and K4-bwd built
+    from the checkout at DIR (the parent) and from this tree, in one
+    process.  At SCAN_BWD_SHAPES: K4's y, h and tile states from both, bit
+    for bit; each K4-bwd against the plain version (this tree's within the
+    stated tolerance, the parent's error printed) and two launches bitwise;
+    then each K4-bwd's time a call (its scan pass and reduction, CUDA
+    events, 20 calls after warm-up) in turns: parent, this tree, this
+    tree, parent; printed as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref
+
+    parent = load_ops_from(checkout, "parent_ssm_scan_ops")
+    print(f"card: {nvidia_smi_line()}; parent K4 and K4-bwd from {checkout}")
+    build_all([ops.LIBRARY, ops.BWD_LIBRARY, parent.LIBRARY, parent.BWD_LIBRARY])
+    dev, cfg = torch.device("cuda"), get_config(MAMBA)
+    mc = cfg.mamba
+    dn, n = mc.expand * cfg.d_model, mc.d_state
+    gen = torch.Generator(device=dev).manual_seed(26)
+    versions = {"parent": parent, "change": ops}
+    result = {"scan_bwd_times": str(checkout)}
+    for label, bt, s in SCAN_BWD_SHAPES:
+        args, dy = scan_bwd_inputs(torch, gen, cfg, bt, s)
+        fwd = {k: m.selective_scan(*args, return_tile_states=True) for k, m in versions.items()}
+        same = all(torch.equal(a, b) for a, b in zip(fwd["parent"], fwd["change"]))
+        print(f"{label} (B {bt}, S {s}): K4's y, h and tile states, parent and change: "
+              f"{'the same bits' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"K4's forward moved at {label}")
+        tiles = fwd["change"][2]
+        want = selective_scan_bwd_ref(*args, dy, d_block=ops.default_bwd_d_block(n, bt, s, dn))
+        row = {"plan": ops.bwd_occupancy(n, bt, s, dn, torch.bfloat16)}
+        for k, m in versions.items():
+            got = m.selective_scan_bwd(*args, dy, tiles)
+            again = m.selective_scan_bwd(*args, dy, tiles)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(g, a) for g, a in zip(got, again))
+            errs = {}
+            for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+                scale = float(w.float().abs().max())
+                err = float((g.float() - w.float()).abs().max())
+                atol = SCAN_BWD_RTOL_OF_MAX * scale
+                bad = (bf16_ulps(g.float(), w.float(), atol) > MAX_BF16_ULPS
+                       if g.dtype == torch.bfloat16 else err > atol)
+                errs[name] = err / scale
+                if k == "change" and (bad or not bitwise):
+                    fail(f"K4-bwd at {label}: {name} off by {err:.3g} (max {scale:.3g}) or two "
+                         "launches differ")
+            row[f"{k}_rel_err"] = errs
+            print(f"  {k}: two launches {'bitwise' if bitwise else 'DIFFERENT'}; max |kernel - "
+                  "plain| / max |plain|: " + ", ".join(f"{a} {e:.2e}" for a, e in errs.items()))
+        for k in ("parent", "change", "change", "parent"):
+            m = versions[k]
+            row.setdefault(k, []).append(cuda_ms(lambda: m.selective_scan_bwd(*args, dy, tiles),
+                                                 reps=20))
+        for k, m in versions.items():  # the device's time, without the wrappers' host time
+            row[f"{k} graph"] = graph_ms(lambda: m.selective_scan_bwd(*args, dy, tiles), reps=20)
+        bound, by, mb, _, own = scan_bwd_bound(bt, s, dn, n, ops.default_bwd_d_block(n, bt, s, dn))
+        row.update(bound_ms=bound, bound_by=by, mb=mb, **own)
+        print(f"  ms a call in turns: parent {row['parent'][0]:.4f}, change "
+              f"{row['change'][0]:.4f}, change {row['change'][1]:.4f}, parent "
+              f"{row['parent'][1]:.4f} (from a CUDA graph: "
+              f"parent {row['parent graph']:.4f}, change {row['change graph']:.4f}); bound "
+              f"{bound:.4f} ({by}); {scan_bwd_plan(ops, n, bt, s, dn)}")
+        result[label] = row
+    print(json.dumps(result))
 
 
 def mamba_moe_training_path(arch, n_layers, path_no, per_layer) -> dict:
@@ -3397,6 +3519,8 @@ def main() -> None:
         return k3bwd_times_main(Path(sys.argv[2]).resolve())
     if sys.argv[1:2] == ["--scan-times"] and len(sys.argv) == 3:
         return scan_times_main(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--scan-bwd-times"] and len(sys.argv) == 3:
+        return scan_bwd_times_main(Path(sys.argv[2]).resolve())
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -3577,17 +3701,19 @@ def main() -> None:
     kernels.append({"name": "selective_scan_bwd", "route": "cuda",
                     "source": "src/repro_torch/kernels/ssm_scan/csrc/selective_scan_bwd.cu",
                     "replaces": "src/repro/kernels/ssm_scan/ops.py:30",
-                    "status": "new: the gradient the reference takes by JAX autodiff of "
-                    "its chunked scan (no Pallas kernel); a scan pass over tiles in reverse "
-                    "whose partials selective_scan_bwd_reduce sums, no atomics",
+                    "status": "redesigned for Hopper: half-warp half tiles at S <= 128, "
+                    "dB and dC summed over a warp's terms in registers and over the warps once a "
+                    "pair of states, two blocks an SM, then over clusters of 2 channel blocks "
+                    "through distributed shared memory (the gradient the reference takes by JAX "
+                    "autodiff of its chunked scan, no Pallas kernel); no atomics",
                     "launches": mamba_counts["selective_scan_bwd"],
                     "launches_by_path": {"training_mamba": mamba_counts["selective_scan_bwd"]},
                     "max_abs_err": errs["selective_scan_bwd"], "timed_by": EAGER, **scan_bwd})
     kernels.append({"name": "selective_scan_bwd_reduce", "route": "cuda",
                     "source": "src/repro_torch/kernels/ssm_scan/csrc/selective_scan_bwd.cu",
                     "replaces": "src/repro/kernels/ssm_scan/ops.py:30",
-                    "status": "new: K4-bwd's second launch, the partials of dB, dC, dA and dD "
-                    "summed in a fixed order",
+                    "status": "K4-bwd's second launch, the partials of dB and dC (one a "
+                    "cluster of channel blocks), dA and dD summed in a fixed order",
                     "launches": mamba_counts["selective_scan_bwd_reduce"],
                     "launches_by_path": {
                         "training_mamba": mamba_counts["selective_scan_bwd_reduce"]},

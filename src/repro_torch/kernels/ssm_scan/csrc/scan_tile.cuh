@@ -110,9 +110,13 @@ struct RawRow {
 // lane's 8 pairs (a_i, b_i) and the state carried into the tile, returns
 // the state after the lane before (the carry itself at lane 0), from which
 // the lane runs its 8 steps h = a_i h + b_i.  The lane's pairs are combined
-// in order, serially; the 32 lanes' products by an inclusive Hillis-Steele
-// scan with __shfl_up_sync in five stages, the lanes below the offset
-// combining with the identity (1, 0), which leaves them as they are.
+// in order, serially; the kLanes lanes' products by an inclusive
+// Hillis-Steele scan with __shfl_up_sync (five stages at 32 lanes), the
+// lanes below the offset combining with the identity (1, 0), which leaves
+// them as they are.  kLanes 16 scans each half-warp on its own (``lane`` is
+// the lane within it): K4-bwd's half tiles of 128 positions, whose values
+// are those of the 32-lane scan with (1, 0) pairs in lanes 16-31.
+template <int kLanes = 32>
 __device__ __forceinline__ float state_before_lane(const float (&av)[kItems],
                                                    const float (&bv)[kItems], float carry,
                                                    int lane) {
@@ -123,16 +127,16 @@ __device__ __forceinline__ float state_before_lane(const float (&av)[kItems],
     pa = __fmul_rn(pa, av[i]);
   }
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    float qa = __shfl_up_sync(0xffffffffu, pa, off);
-    float qb = __shfl_up_sync(0xffffffffu, pb, off);
+  for (int off = 1; off < kLanes; off <<= 1) {
+    float qa = __shfl_up_sync(0xffffffffu, pa, off, kLanes);
+    float qb = __shfl_up_sync(0xffffffffu, pb, off, kLanes);
     qa = lane >= off ? qa : 1.f;
     qb = lane >= off ? qb : 0.f;
     pb = __fmaf_rn(pa, qb, pb);
     pa = __fmul_rn(qa, pa);
   }
-  float hv = __fmaf_rn(pa, carry, pb);          // the state after this lane
-  hv = __shfl_up_sync(0xffffffffu, hv, 1);       // ... after the lane before
+  float hv = __fmaf_rn(pa, carry, pb);                   // the state after this lane
+  hv = __shfl_up_sync(0xffffffffu, hv, 1, kLanes);       // ... after the lane before
   return lane == 0 ? carry : hv;
 }
 

@@ -47,7 +47,11 @@ import torch
 
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
 from repro_torch.kernels.ssm_scan.ref import (
+    BWD_WARPS,
     SCAN_TILE,
+    bwd_cluster,
+    bwd_lanes,
+    bwd_round,
     selective_scan_bwd_ref,
     selective_scan_ref,
     sum_partials_ref,
@@ -62,9 +66,10 @@ LIBRARY = KernelLibrary(
     error_fn="selective_scan_error_string", includes=[_CSRC / "scan_tile.cuh"])
 BWD_LIBRARY = KernelLibrary(
     _CSRC / "selective_scan_bwd.cu", "selective_scan_bwd",
-    {"selective_scan_bwd_launch": ([_p] * 14 + [_i] * 6 + [_ll] * 4 + [_p], ctypes.c_int),
+    {"selective_scan_bwd_launch": ([_p] * 14 + [_i] * 8 + [_ll] * 4 + [_p], ctypes.c_int),
      "selective_scan_bwd_reduce_launch": ([_p] * 8 + [_i] * 6 + [_p], ctypes.c_int),
-     "selective_scan_bwd_smem_bytes": ([_i, _i], ctypes.c_int)},
+     "selective_scan_bwd_smem_bytes": ([_i] * 3, ctypes.c_int),
+     "selective_scan_bwd_occupancy": ([_i] * 6 + [_p], ctypes.c_int)},
     error_fn="selective_scan_bwd_error_string", includes=[_CSRC / "scan_tile.cuh"])
 
 KERNEL_STATE_SIZES = (4, 8, 16, 32)  # N: the kernel's instantiations
@@ -72,24 +77,36 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_D_BLOCKS = (8, 16, 32)  # channels a block of the prefill body (8 warps)
 DEFAULT_D_BLOCK = 16  # the serve path's value
 DEFAULT_CHUNK = 128  # the reference's default, which the kernel does not use
-# K4-bwd: channels a block of its scan pass, a multiple of its 8 warps (a
-# round of channels a warp each); more channels a block, fewer partials of dB
-# and dC for the reduction to read.  It takes the most of these whose shared
-# memory fits: 64, and 32 at N 32.
-BWD_D_BLOCKS = (32, 64)
-BWD_WARPS = 8
+# K4-bwd: channels a block of its scan pass, a multiple of its round (8
+# warps of 2 channels at S <= 128, of 1 above); more channels a block, fewer
+# partials of dB and dC (one a cluster of 2 blocks: 512 channels at S <= 128).
+# 256 at S <= 128 and 32 above (where the tile's rows leave room for no more
+# at two blocks an SM), halved while the grid would have fewer blocks than the
+# card has SMs (down to one round).
+BWD_D_BLOCK = {16: 256, 32: 32}  # by bwd_lanes(S)
+BWD_FILL_BLOCKS = 132  # an H100's SMs
 
 
-def bwd_smem_bytes(n: int, d_block: int) -> int:
+def bwd_smem_bytes(n: int, d_block: int, lanes: int) -> int:
     """csrc/selective_scan_bwd.cu's bwd_smem_bytes: B, C and the tile's dB
-    and dC sums [n][kLd]; x, dt, dy and the warps' two buffers of dB and dC
-    terms [8][kLd]; the adjoint carries, dA's sums [d_block][n]; dD's."""
-    ld = SCAN_TILE + 4 * (SCAN_TILE // 32) + 4  # kLd
-    return 4 * ((4 * n + 7 * BWD_WARPS) * ld + 3 * d_block * n + d_block)
+    and dC sums [n][ld]; the warps' terms [2 bufs at 16 lanes, 1 at 32][2
+    states][8 warps][dB, dC][ld] (a round's x, dt and dy staged over them);
+    the adjoint carries and dA's sums [d_block][n]; dD's; ld = 9 lanes
+    floats (a half tile's or a tile's staged row)."""
+    ld = 8 * lanes + lanes
+    rows = 4 * n + (2 if lanes == 16 else 1) * 2 * BWD_WARPS * 2
+    return 4 * (rows * ld + 2 * d_block * n + d_block)
 
 
-def default_bwd_d_block(n: int) -> int:
-    return max(d for d in BWD_D_BLOCKS if bwd_smem_bytes(n, d) <= MAX_SMEM_PER_BLOCK)
+def default_bwd_d_block(n: int, bt: int, s: int, dn: int) -> int:
+    """K4-bwd's channels a block at (Bt, S, Dn, N): BWD_D_BLOCK at the
+    tile's lanes, halved while Bt x ceil(Dn / d_block) < BWD_FILL_BLOCKS and
+    d_block exceeds the round.  Its shared memory fits a block at every N."""
+    d_block = BWD_D_BLOCK[bwd_lanes(s)]
+    while d_block > bwd_round(s) and bt * -(-dn // d_block) < BWD_FILL_BLOCKS:
+        d_block //= 2
+    assert bwd_smem_bytes(n, d_block, bwd_lanes(s)) <= MAX_SMEM_PER_BLOCK
+    return d_block
 
 
 def scan_d_block(x: torch.Tensor, A: torch.Tensor, d_block: int, tuned: bool) -> int:
@@ -234,7 +251,9 @@ def selective_scan_bwd(
     (``return_tile_states``), from which K4-bwd restarts each tile; the
     plain version recomputes the states and ignores it.  K4-bwd's channels a
     block (``default_bwd_d_block``) order the sums of dB and dC in both."""
-    d_block = default_bwd_d_block(A.shape[-1])
+    bt, s, dn = x.shape
+    n = A.shape[-1]
+    d_block = default_bwd_d_block(n, bt, s, dn)
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, dt, A, B, C, D, dy, d_block=d_block)
     if h_tiles is None:
@@ -253,8 +272,9 @@ def selective_scan_bwd(
         return tuple(g.zero_() for g in grads)
     dx, ddt, dA, dB, dC, dD = grads
     lib = BWD_LIBRARY.load()
-    n_blocks = -(-dn // d_block)
-    part_b = torch.empty((n_blocks, bt, s, n), dtype=torch.float32, device=x.device)
+    lanes = bwd_lanes(s)
+    cluster, groups = bwd_cluster(dn, d_block)
+    part_b = torch.empty((groups, bt, s, n), dtype=torch.float32, device=x.device)
     part_c = torch.empty_like(part_b)
     part_a = torch.empty((bt, dn, n), dtype=torch.float32, device=x.device)
     part_d = torch.empty((bt, dn), dtype=torch.float32, device=x.device)
@@ -264,8 +284,8 @@ def selective_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             D.data_ptr(), dy.data_ptr(), h_tiles.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
             part_b.data_ptr(), part_c.data_ptr(), part_a.data_ptr(), part_d.data_ptr(), bt, s,
-            dn, n, int(x.dtype == torch.bfloat16), d_block, B.stride(0), B.stride(1),
-            C.stride(0), C.stride(1), stream)
+            dn, n, int(x.dtype == torch.bfloat16), d_block, lanes, cluster, B.stride(0),
+            B.stride(1), C.stride(0), C.stride(1), stream)
     BWD_LIBRARY.check(err, "selective_scan_bwd kernel")
     selective_scan_bwd.launches += 1
     selective_scan_bwd_reduce((part_b, part_c, part_a, part_d), (dB, dC, dA, dD))
@@ -275,11 +295,27 @@ def selective_scan_bwd(
 selective_scan_bwd.launches = 0
 
 
+def bwd_occupancy(n: int, bt: int, s: int, dn: int, dtype: torch.dtype) -> dict:
+    """What the card makes of K4-bwd's scan pass at (Bt, S, Dn, N) in
+    ``dtype``: its plan (d_block, lanes, blocks a cluster, clusters, shared
+    memory a block), the blocks an SM and clusters at once that the
+    occupancy calculator gives, and the kernel's registers a thread."""
+    d_block, lanes = default_bwd_d_block(n, bt, s, dn), bwd_lanes(s)
+    cluster, groups = bwd_cluster(dn, d_block)
+    out = (ctypes.c_int * 3)()
+    err = BWD_LIBRARY.load().selective_scan_bwd_occupancy(
+        int(dtype == torch.bfloat16), n, lanes, d_block, cluster, dn, ctypes.addressof(out))
+    BWD_LIBRARY.check(err, "selective_scan_bwd occupancy query")
+    return {"d_block": d_block, "lanes": lanes, "cluster": cluster, "clusters": groups,
+            "smem_bytes": bwd_smem_bytes(n, d_block, lanes), "blocks_per_sm": out[0],
+            "active_clusters": out[1], "registers": out[2]}
+
+
 def selective_scan_bwd_reduce(parts: Tuple[torch.Tensor, ...],
                               outs: Tuple[torch.Tensor, ...]) -> None:
     """K4-bwd's second launch: writes each of ``outs`` (dB, dC (Bt, S, N) in
     B's dtype, dA (Dn, N), dD (Dn,) float32) as the sum of its partial,
-    ``parts`` (float32, (blocks, Bt, S, N) twice, then (Bt, Dn, N) and (Bt,
+    ``parts`` (float32, (clusters, Bt, S, N) twice, then (Bt, Dn, N) and (Bt,
     Dn)), over the first axis in order, one float32 addition at a time,
     rounded once to the output's dtype.  CPU tensors take the plain version
     (``ref.sum_partials_ref``)."""
@@ -289,9 +325,9 @@ def selective_scan_bwd_reduce(parts: Tuple[torch.Tensor, ...],
         for part, out in zip(parts, outs):
             out.copy_(sum_partials_ref(part, out.dtype))
         return
-    n_blocks, bt, s, n = part_b.shape
+    n_parts, bt, s, n = part_b.shape
     dn = part_a.shape[1]
-    want = ((part_b, (n_blocks, bt, s, n), torch.float32), (part_c, part_b.shape, torch.float32),
+    want = ((part_b, (n_parts, bt, s, n), torch.float32), (part_c, part_b.shape, torch.float32),
             (part_a, (bt, dn, n), torch.float32), (part_d, (bt, dn), torch.float32),
             (dB, (bt, s, n), dB.dtype), (dC, (bt, s, n), dB.dtype),
             (dA, (dn, n), torch.float32), (dD, (dn,), torch.float32))
@@ -307,7 +343,7 @@ def selective_scan_bwd_reduce(parts: Tuple[torch.Tensor, ...],
     with torch.cuda.device(part_b.device):
         err = lib.selective_scan_bwd_reduce_launch(
             part_b.data_ptr(), part_c.data_ptr(), part_a.data_ptr(), part_d.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), bt, s, dn, n, n_blocks,
+            dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), bt, s, dn, n, n_parts,
             int(dB.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     BWD_LIBRARY.check(err, "selective_scan_bwd reduction")
     selective_scan_bwd_reduce.launches += 1

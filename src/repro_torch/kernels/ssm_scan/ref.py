@@ -21,10 +21,12 @@ grouping).
 the same recurrence from zero state: the serial forward again, then the
 adjoint g_t = a_{t+1} g_{t+1} + dy_t C_t serially in reverse, and its sums in
 float32 in the order K4-bwd takes them (over n in order; over the channels
-in groups of 8, then a block's groups, then the blocks; over time a lane's 8
-positions, the 32 lanes halving, the tiles from the last, then the
-sequences).  The kernel fuses some products into its sums and scans time as
-a tree, so the two differ by a few float32 roundings.
+as ``_channel_sum`` says: at S <= 128 the two channels of a warp, then a
+round's 8 warps in order, then a block's rounds, then the blocks of a
+cluster in rank order, then the clusters; over time a lane's 8 positions,
+the lanes halving, the tiles from the last, then the sequences).  The
+kernel fuses some products into its sums and scans time as a tree, so the
+two differ by a few float32 roundings.
 """
 from __future__ import annotations
 
@@ -34,7 +36,11 @@ import torch
 
 SCAN_TILE = 256  # positions of K4's and K4-bwd's tiles (scan_tile.cuh's kTile)
 LANES, LANE_ITEMS = 32, 8  # a tile's lanes and each lane's positions
-CHANNEL_ROUND = 8  # K4-bwd's channels a round (one a warp)
+BWD_WARPS = 8  # K4-bwd's warps a block
+# K4-bwd's blocks a cluster at most: an H100 holds 132 clusters of 2 blocks at
+# once at two blocks an SM, all 264 slots, but only 62 of 4 and 30 of 8 (its
+# occupancy query), so larger clusters leave a wave part-empty
+BWD_MAX_CLUSTER = 2
 
 
 def lane_sum(p: torch.Tensor) -> torch.Tensor:
@@ -98,20 +104,49 @@ def sum_partials_ref(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return _sum_in_order(part.float(), 0).to(dtype)
 
 
-def _channel_sum(terms: torch.Tensor, d_block: int) -> torch.Tensor:
-    """Sum (..., Dn, N) over Dn in K4-bwd's order: each round's 8 channels in
-    order, a block's rounds in order, then the blocks in order (channels past
-    Dn are zeros)."""
-    dn = terms.shape[-2]
+def bwd_lanes(s: int) -> int:
+    """Lanes K4-bwd scans a channel's tile with: 16 (a half-warp a channel,
+    a half tile of 128 positions) when S <= 128, else 32."""
+    return LANES // 2 if s <= SCAN_TILE // 2 else LANES
+
+
+def bwd_round(s: int) -> int:
+    """K4-bwd's channels a round: 8 warps of 32 / bwd_lanes(S) channels."""
+    return BWD_WARPS * LANES // bwd_lanes(s)
+
+
+def bwd_cluster(dn: int, d_block: int) -> Tuple[int, int]:
+    """(blocks a cluster, clusters) of K4-bwd's channel blocks over Dn: as
+    few clusters of at most BWD_MAX_CLUSTER as cover the blocks, each as
+    small as that allows."""
     blocks = -(-dn // d_block)
-    pad = blocks * d_block - dn
+    groups = -(-blocks // BWD_MAX_CLUSTER)
+    return -(-blocks // groups), groups
+
+
+def _channel_partials(terms: torch.Tensor, d_block: int, lanes: int) -> torch.Tensor:
+    """K4-bwd's partials of a sum of (..., Dn, N) over Dn, one a cluster,
+    (clusters, ..., N): at 16 lanes the two channels of a warp added, then
+    a round's 8 warps in order, a block's rounds in order, and the blocks of
+    a cluster in rank order (channels past the last block are zeros)."""
+    dn, n = terms.shape[-2:]
+    pair = LANES // lanes
+    cluster, groups = bwd_cluster(dn, d_block)
+    pad = groups * cluster * d_block - dn
     if pad:
-        terms = torch.cat([terms, terms.new_zeros(terms.shape[:-2] + (pad, terms.shape[-1]))],
-                          dim=-2)
-    terms = terms.reshape(terms.shape[:-2] + (blocks, d_block // CHANNEL_ROUND, CHANNEL_ROUND,
-                                              terms.shape[-1]))
-    per_round = _sum_in_order(terms, -2)
-    return _sum_in_order(_sum_in_order(per_round, -2), -2)
+        terms = torch.cat([terms, terms.new_zeros(terms.shape[:-2] + (pad, n))], dim=-2)
+    terms = terms.reshape(terms.shape[:-2] + (groups, cluster, d_block // (BWD_WARPS * pair),
+                                              BWD_WARPS, pair, n))
+    per_warp = terms[..., 0, :] + terms[..., 1, :] if pair == 2 else terms[..., 0, :]
+    per_round = _sum_in_order(per_warp, -2)
+    per_block = _sum_in_order(per_round, -2)
+    return _sum_in_order(per_block, -2).movedim(-2, 0)
+
+
+def _channel_sum(terms: torch.Tensor, d_block: int, lanes: int) -> torch.Tensor:
+    """Sum (..., Dn, N) over Dn in K4-bwd's order: its partials
+    (``_channel_partials``), then the clusters in order."""
+    return _sum_in_order(_channel_partials(terms, d_block, lanes), 0)
 
 
 def _time_sum(terms: torch.Tensor) -> torch.Tensor:
@@ -175,6 +210,7 @@ def selective_scan_bwd_ref(
     ddt = xf * s1 + s2
     dA = _time_sum(dtf[..., None] * q)
     dD = _time_sum(dyf * xf)
-    dB = _channel_sum(g * dtx[..., None], d_block)
-    dC = _channel_sum(dyf[..., None] * states[:, 1:], d_block)
+    lanes = bwd_lanes(s)
+    dB = _channel_sum(g * dtx[..., None], d_block, lanes)
+    dC = _channel_sum(dyf[..., None] * states[:, 1:], d_block, lanes)
     return dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), dD

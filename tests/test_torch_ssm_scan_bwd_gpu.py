@@ -87,7 +87,9 @@ def kernel_grads(args, dy):
 
 def check_against_plain(args, dy):
     got = kernel_grads(args, dy)
-    want = selective_scan_bwd_ref(*args, dy, d_block=ops.default_bwd_d_block(args[2].shape[1]))
+    bt, s, dn = args[0].shape
+    want = selective_scan_bwd_ref(*args, dy,
+                                  d_block=ops.default_bwd_d_block(args[2].shape[1], bt, s, dn))
     for name, g, w in zip(NAMES, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.isfinite(g.float()).all(), name
@@ -100,13 +102,18 @@ def check_against_plain(args, dy):
 
 
 @pytest.mark.parametrize("bt, s, dn, n, dtype", [
-    (8, 128, 8192, 16, torch.bfloat16),   # falcon-mamba-7b's training shape
+    (8, 128, 8192, 16, torch.bfloat16),   # falcon-mamba-7b's training shape: half tiles
     (1, 1000, 8192, 16, torch.bfloat16),  # four tiles, the last ragged
     (2, 257, 96, 4, torch.bfloat16),      # one position into the second tile
     (2, 256, 64, 8, torch.float32),       # a tile exactly
-    (3, 45, 100, 8, torch.float32),       # ragged channel rounds and blocks
+    (3, 45, 100, 8, torch.float32),       # ragged channel rounds, 7 blocks, 4 clusters
     (1, 600, 64, 32, torch.bfloat16),     # three tiles at N 32
     (2, 1, 128, 16, torch.bfloat16),      # one position
+    (2, 64, 200, 4, torch.float32),       # half tiles at N 4
+    (4, 129, 520, 16, torch.float32),     # one position past a half tile: 32 lanes
+    (3, 100, 136, 16, torch.bfloat16),    # 9 blocks in 5 clusters, a block and a half past Dn
+    (2, 128, 1000, 32, torch.float32),    # half tiles at N 32
+    (1, 1088, 264, 8, torch.bfloat16),    # five tiles, the last ragged; Dn ragged
 ])
 def test_bwd_kernel_matches_plain(card, bt, s, dn, n, dtype):
     gen = torch.Generator(device=card).manual_seed(bt + s + dn + n)
@@ -115,23 +122,26 @@ def test_bwd_kernel_matches_plain(card, bt, s, dn, n, dtype):
 
 @pytest.mark.parametrize("n", ops.KERNEL_STATE_SIZES)
 def test_bwd_two_launches_bitwise(card, n):
-    """Every state size (d_block 64, and 32 at N 32) across a tile boundary
-    with a ragged channel block: within the tolerance, and two launches the
-    same bits."""
+    """Every state size across a tile boundary and in a half tile, with a
+    ragged channel block and clusters: within the tolerance, and two
+    launches the same bits."""
     gen = torch.Generator(device=card).manual_seed(n)
-    args, dy = scan_inputs(gen, 2, 300, 136, n, torch.bfloat16)
-    got = check_against_plain(args, dy)
-    again = kernel_grads(args, dy)
-    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for s in (300, 100):
+        args, dy = scan_inputs(gen, 2, s, 136, n, torch.bfloat16)
+        got = check_against_plain(args, dy)
+        again = kernel_grads(args, dy)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 @pytest.mark.parametrize("n_blocks, bt, s, dn, n, dtype", [
-    (128, 8, 128, 8192, 16, torch.bfloat16),  # falcon-mamba-7b's training shape
+    (16, 8, 128, 8192, 16, torch.bfloat16),  # falcon-mamba-7b's training shape: 16 clusters
     (3, 2, 45, 100, 8, torch.float32),        # ragged, float32 outputs
+    (11, 1, 7, 99, 4, torch.bfloat16),        # dD one output a thread (Dn not a multiple of 4)
 ])
 def test_reduction_matches_plain_bitwise(card, n_blocks, bt, s, dn, n, dtype):
     """K4-bwd's second launch alone: each output its partials' sum over the
-    first axis in order, rounded once, the plain version's bits."""
+    first axis in order, rounded once, the plain version's bits (four
+    outputs a thread where the count allows, else one)."""
     gen = torch.Generator(device=card).manual_seed(n_blocks)
     parts = tuple(torch.randn(shape, generator=gen, device=card) for shape in (
         (n_blocks, bt, s, n), (n_blocks, bt, s, n), (bt, dn, n), (bt, dn)))
@@ -180,12 +190,25 @@ def test_selective_scan_autograd_on_the_card(card):
 
 
 def test_shared_memory_mirror(card):
-    """The library's shared memory a block at every (N, d_block) equals the
-    CPU mirror, from which the wrapper picks d_block (64, 32 at N 32)."""
+    """The library's shared memory a block at every (N, d_block, lanes)
+    equals the CPU mirror, which the wrapper's plan checks."""
     lib = ops.BWD_LIBRARY.load()
     for n in ops.KERNEL_STATE_SIZES:
         for d_block in (8, 16, 32, 64):
-            assert lib.selective_scan_bwd_smem_bytes(n, d_block) == ops.bwd_smem_bytes(n, d_block)
+            for lanes in (16, 32):
+                assert lib.selective_scan_bwd_smem_bytes(n, d_block, lanes) == \
+                    ops.bwd_smem_bytes(n, d_block, lanes)
+
+
+def test_occupancy_at_the_training_shape(card):
+    """At falcon-mamba-7b's training shape (B 8, S 128, Dn 8192, N 16, bf16)
+    the scan pass runs two blocks of 8 warps an SM (the card's occupancy
+    query), at most 128 registers a thread, and the card holds every
+    cluster of 2 at once (132); at B 1, S 1000 (32 lanes) too."""
+    for bt, s in ((8, 128), (1, 1000)):
+        occ = ops.bwd_occupancy(16, bt, s, 8192, torch.bfloat16)
+        assert occ["blocks_per_sm"] >= 2 and occ["active_clusters"] >= 128, occ
+        assert occ["registers"] <= 128 and occ["cluster"] == 2, occ
 
 
 def test_bwd_refuses_what_it_does_not_take(card):
