@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --k6-times DIR   # only K6's times, K6 built from DIR
-  python3 chip_smoke.py --k3bwd-times DIR   # only K3-bwd's times, built from DIR
+  python3 chip_smoke.py --k3bwd-times DIR   # K3-bwd from DIR and from here: bits, times
   python3 chip_smoke.py --scan-times DIR   # only phases 13 and 17, K4 built from DIR
   python3 chip_smoke.py --scan-bwd-times DIR   # K4-bwd from DIR and from here, in turns
 
@@ -228,7 +228,26 @@ of which exits non-zero on failure:
       x steps, each K3-bwd pass 3 x steps, no other kernel; then one step's
       loss, aux and gradients taken twice, the same bits;
   24e. the smoke falcon-mamba and deepseek-moe trainers 8 steps on the card
-      against the plain versions on the CPU, as 23d.
+      against the plain versions on the CPU, as 23d;
+  26a. (slice 16) phase 23a also at deepseek-v2-236b's training shape (B 8,
+      128 heads, S 128, DK 192, DV 128), full and ragged, and at the smoke
+      deepseek-v2's (24, 16);
+  26b. phase 23b at the same shapes and at a key side cut in 4 at DK 192 (B
+      1, 4 heads, S 2048): K3-bwd at (192, 128) is the dq pass, the dv pass
+      and the dk pass, at (24, 16) the dq and the dk/dv pass, each launch
+      counted; ptxas's lines and the card's occupancy for every pair and
+      launch; each launch's time (CUDA events; CUDA graph) beside its bound
+      and the whole backward's, the plain backward's and SDPA's backward in
+      turns, with the backends SDPA can take at dk != dv and the kernels its
+      dispatch launches;
+  26c. main path 9: ``Trainer`` on deepseek-v2-236b at full width, its dense
+      head layer alone (1 of 60: MLA at 128 heads of (192, 128), the dense FFN
+      of 12,288), the settings of 23c: losses and grad norms finite, aux 0 (no
+      MoE layer runs), K3 = 2 x 1 x steps, K3-bwd's dq, dv and dk passes 1 x
+      steps each, no other kernel, peak memory; then one step's loss and
+      gradients taken twice, the same bits;
+  26d. the smoke deepseek-v2 trainer (MLA at (24, 16), MoE layers) 8 steps on
+      the card against the plain versions on the CPU, as 23d.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's and
 K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
@@ -236,8 +255,9 @@ K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
 kernel, and counts its launches on the menu and chaos paths; K4's decode body
 has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
 ``flash_fwd_mla``, and K2-latent at full rows one,
-``paged_latent_decode_full``; K3-bwd's two passes, ``flash_bwd_dq`` and
-``flash_bwd_dkdv``, replace the reference's custom-VJP backward, no Pallas
+``paged_latent_decode_full``; K3-bwd's launches, ``flash_bwd_dq``,
+``flash_bwd_dkdv`` and, at MLA's (192, 128), ``flash_bwd_dv`` and
+``flash_bwd_dk``, replace the reference's custom-VJP backward, no Pallas
 kernel, and count their launches on the training paths; K4-bwd's scan
 pass, ``selective_scan_bwd``, and its reduction,
 ``selective_scan_bwd_reduce``, replace the reference's autodiff of its
@@ -369,7 +389,8 @@ def kernel_wrappers():
             "flash_decode": fd_ops.flash_decode,
             "paged_latent_decode": fd_ops.paged_latent_decode,
             "local_sgd": local_sgd_ops.local_sgd, "flash_bwd_dq": fa_ops.flash_bwd_dq,
-            "flash_bwd_dkdv": fa_ops.flash_bwd_dkdv,
+            "flash_bwd_dkdv": fa_ops.flash_bwd_dkdv, "flash_bwd_dv": fa_ops.flash_bwd_dv,
+            "flash_bwd_dk": fa_ops.flash_bwd_dk,
             "selective_scan_bwd": ss_ops.selective_scan_bwd,
             "selective_scan_bwd_reduce": ss_ops.selective_scan_bwd_reduce}
 
@@ -2644,13 +2665,27 @@ def mla_kernel_timings(dev, cfg, errs):
 # ex2.approx, within 1e-5 (1 + |lse|) of the plain version's.
 BWD_ATOL_OF_MAX = 2.0 ** -12
 LSE_TOL = 1e-5
-# The shapes K3 with lse and K3-bwd are held at: (name, B, Hq, Hk, S, D, kv_lens)
-BWD_SHAPES = (("stablelm-1.6b", 8, 32, 32, 128, 64, None),
-              ("stablelm-1.6b ragged", 8, 32, 32, 128, 64, (128, 100, 77, 64, 63, 17, 1, 128)),
-              ("qwen3-14b S 2048", 1, 40, 8, 2048, 128, None),
-              ("qwen3-14b ragged", 2, 40, 8, 1024, 128, (1024, 611)),
-              ("deepseek-moe-16b", 8, 16, 16, 128, 128, None))
-BWD_TIMED = ("stablelm-1.6b", "qwen3-14b S 2048")  # the kernels line's row: the first
+# The shapes K3 with lse and K3-bwd are held at: (name, B, Hq, Hk, S, DK, DV, kv_lens)
+RAGGED_8 = (128, 100, 77, 64, 63, 17, 1, 128)
+BWD_SHAPES = (("stablelm-1.6b", 8, 32, 32, 128, 64, 64, None),
+              ("stablelm-1.6b ragged", 8, 32, 32, 128, 64, 64, RAGGED_8),
+              ("qwen3-14b S 2048", 1, 40, 8, 2048, 128, 128, None),
+              ("qwen3-14b ragged", 2, 40, 8, 1024, 128, 128, (1024, 611)),
+              ("deepseek-moe-16b", 8, 16, 16, 128, 128, 128, None),
+              # MLA: deepseek-v2-236b's training shape (K and V re-expanded to
+              # its 128 heads) and a cut key side (split 4) at DK 192; the
+              # smoke deepseek-v2's (24, 16)
+              ("deepseek-v2-236b", 8, 128, 128, 128, 192, 128, None),
+              ("deepseek-v2-236b ragged", 8, 128, 128, 128, 192, 128, RAGGED_8),
+              ("deepseek-v2 cut, S 2048", 1, 4, 4, 2048, 192, 128, None),
+              ("smoke deepseek-v2", 8, 4, 4, 128, 24, 16, RAGGED_8),
+              ("smoke deepseek-v2 cut", 1, 8, 1, 512, 24, 16, None))
+# the kernels line's rows: the first; the rest are printed beside it.  The
+# equal-dim ones are also those ``--k3bwd-times`` compares with a parent
+BWD_TIMED = ("stablelm-1.6b", "qwen3-14b S 2048")
+MLA_BWD_TIMED = ("deepseek-v2-236b", "deepseek-v2 cut, S 2048")
+# K3-bwd's launches by the wrapper's name (ops.py: BWD_DQ .. BWD_DK)
+BWD_PASS_NAMES = ("flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_dv", "flash_bwd_dk")
 # The training path: the reference CLI's defaults (launch/train.py:309-311)
 # at full width, all layers, AdamW at lr 1e-3, remat "full"; then a window
 # of steps profiled for device activity only
@@ -2670,110 +2705,225 @@ TRAIN_LOSS_RTOL = 1e-2
 STATIC_ARGV = ["--arch", QWEN, "--batch", "4", "--prompt-len", "16", "--gen", "16"]
 
 
-def bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens):
+def bwd_inputs(torch, dev, gen, b, hq, hk, s, d, dv, lens):
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     kv_lens = torch.tensor(lens if lens else [s] * b, dtype=torch.int32, device=dev)
-    return bf16(b, hq, s, d), bf16(b, hk, s, d), bf16(b, hk, s, d), bf16(b, hq, s, d), kv_lens
+    return bf16(b, hq, s, d), bf16(b, hk, s, d), bf16(b, hk, s, dv), bf16(b, hq, s, dv), kv_lens
 
 
-def bwd_flops_bytes(b, hq, hk, s, d, lens, pass_no):
-    """The operations and bytes of one pass over these inputs: the causal
-    pairs each row sees (key < kv_len), 2 D FLOPs a pair for each product
-    (the dq pass: S, dP, dS K; the dk/dv pass: S, dP, P^T dO, dS^T Q); each
-    input read once, each output written once."""
+def bwd_flops_bytes(b, hq, hk, s, d, dv, lens, pass_no):
+    """The operations and bytes of one K3-bwd launch over these inputs: the
+    causal pairs each row sees (key < kv_len), 2 DK or 2 DV FLOPs a pair for
+    each product (the dq pass: S, dP, dS K; the dk/dv pass: S, dP, P^T dO,
+    dS^T Q; the dv pass: S, P^T dO; the dk pass: S, dP, dS^T Q); each input
+    read once, each output written once.  Pass None: the whole backward, the
+    function and not the design (q, k, v, out, dout read; dq, dk, dv
+    written; its 5 products S, dP, P^T dO, dS K and dS^T Q, where the passes
+    recompute S and dP: 6 DK + 4 DV FLOPs a pair)."""
     lens = lens or (s,) * b
-    pairs = sum(sum(min(length, r + 1) for r in range(s)) for length in lens)
-    flops = (3 if pass_no == 0 else 4) * 2 * d * pairs * hq
-    q_bytes, kv_bytes = b * hq * s * d * 2, b * hk * s * d * 2
-    row_f32 = b * hq * s * 4
-    if pass_no == 0:  # q, k, v, out, dout, lse in; dq, delta out
-        nbytes = 4 * q_bytes + 2 * kv_bytes + 2 * row_f32
-    else:  # q, k, v, dout, lse, delta in; dk, dv out
-        nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_f32
-    return flops, nbytes
+    pairs = sum(sum(min(length, r + 1) for r in range(s)) for length in lens) * hq
+    q_b, o_b = b * hq * s * d * 2, b * hq * s * dv * 2  # q or dq; out or dout
+    k_b, v_b = b * hk * s * d * 2, b * hk * s * dv * 2  # k or dk; v or dv
+    rows = b * hq * s * 4  # lse or delta
+    flops_by_pass = {0: 4 * d + 2 * dv, 1: 4 * d + 4 * dv, 2: 2 * d + 2 * dv,
+                     3: 4 * d + 2 * dv, None: 6 * d + 4 * dv}
+    bytes_by_pass = {0: 2 * q_b + k_b + v_b + 2 * o_b + 2 * rows,  # q k v out dout lse; dq delta
+                     1: q_b + 2 * k_b + 2 * v_b + o_b + 2 * rows,  # q k v dout lse delta; dk dv
+                     2: q_b + k_b + v_b + o_b + rows,              # q k dout lse; dv
+                     3: q_b + 2 * k_b + v_b + o_b + 2 * rows,      # q k v dout lse delta; dk
+                     None: 2 * q_b + 2 * k_b + 2 * v_b + 2 * o_b}
+    return flops_by_pass[pass_no] * pairs, bytes_by_pass[pass_no]
 
 
-def k3bwd_times(dev, fa_ops) -> dict:
-    """K3-bwd's times at ``BWD_TIMED``'s shapes through the wrappers alone
-    (``flash_fwd`` with the lse, ``flash_bwd_dq``, ``flash_bwd_dkdv``), which
-    every version of K3-bwd has, so that ``--k3bwd-times`` runs it on another
-    checkout: each pass's ms and SDPA's backward (dq, dk and dv together),
-    in turns: kernel, SDPA, kernel, SDPA (CUDA events, 20 calls each, after
-    warm-up); then each pass replayed from a CUDA graph of 20 calls, the
-    device's time without the wrapper's host time (warm L2).  Returns
-    {shape name: {"flash_bwd_dq": [ms, ms], "flash_bwd_dkdv": [..],
-    "sdpa": [..], "flash_bwd_dq graph": ms, "flash_bwd_dkdv graph": ms}}."""
-    import torch
+def bwd_bound(b, hq, hk, s, d, dv, lens, pass_no) -> tuple:
+    """(bound ms, "operations" or "bytes", the text of the reckoning)."""
+    flops, nbytes = bwd_flops_bytes(b, hq, hk, s, d, dv, lens, pass_no)
+    ops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    text = (f"{flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; "
+            f"{nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms:.4f} ms")
+    return max(ops_ms, bytes_ms), by, text
+
+
+def bwd_launches(fa_ops, d, dv) -> list:
+    """(name, wrapper) of each K3-bwd launch at (d, dv) in launch order: the
+    dq pass, then the key side's pass or passes.  A checkout from before the
+    key side could be split (no ``bwd_key_passes``) runs the dk/dv pass."""
+    key = fa_ops.bwd_key_passes(d, dv) if hasattr(fa_ops, "bwd_key_passes") else (1,)
+    return [(BWD_PASS_NAMES[p], getattr(fa_ops, BWD_PASS_NAMES[p])) for p in (0, *key)]
+
+
+def sdpa_backward(torch, q, k, v, do):
+    """One call of PyTorch's fused attention backward (dq, dk and dv together),
+    causal, under the backend its dispatch takes at these shapes."""
     import torch.nn.functional as F
+
+    hq, hk = q.shape[1], k.shape[1]
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=hq != hk)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+
+def sdpa_backend(torch, q, k, v) -> str:
+    """The backends that compute the causal forward and backward at these
+    shapes when each is the only one allowed, and the kernels PyTorch's
+    dispatch (every backend allowed) launches for a backward, by device
+    time a call (profiler over 5 calls; a window that records no kernel is
+    taken again)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    do = torch.ones(*q.shape[:3], v.shape[3], dtype=q.dtype, device=q.device)
+    able = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # why each refused backend refuses
+                sdpa_backward(torch, q, k, v, do)()
+            able.append(backend.name)
+        except RuntimeError:
+            pass
+    call = sdpa_backward(torch, q, k, v, do)
+    call()
+    torch.cuda.synchronize()
+    kernels = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                         key=lambda e: -e.self_device_time_total)
+        if kernels:
+            break
+    return (f"runs alone: {', '.join(able) or 'none'}; the dispatch's kernels, by device "
+            "time a call: " + ("; ".join(
+                f"{e.key[:80]} x{e.count} {e.self_device_time_total / 1e3 / e.count:.4f} ms"
+                for e in kernels[:4]) or "none recorded"))
+
+
+def k3bwd_times(dev, versions: dict, shapes) -> dict:
+    """K3-bwd's times at ``shapes`` (names of BWD_SHAPES) through the
+    wrappers alone (``flash_fwd`` with the lse, then each launch's wrapper),
+    which every version of K3-bwd has, so that ``--k3bwd-times`` runs a
+    parent's beside this tree's: each launch's ms by CUDA events (20 calls
+    each, after warm-up), the versions in turns (parent, change, change,
+    parent; one version: twice), with SDPA's backward (dq, dk and dv
+    together) after each; then each launch replayed from a CUDA
+    graph of 20 calls, the device's time without the wrapper's host time
+    (warm L2).  Returns {shape: {version: {launch: [ms, ms], launch + "
+    graph": ms}, "sdpa": [..]}}."""
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(23)
     times = {}
-    for name, b, hq, hk, s, d, lens in BWD_SHAPES:
-        if name not in BWD_TIMED:
+    order = list(versions) + list(reversed(versions))
+    for name, b, hq, hk, s, d, dv, lens in BWD_SHAPES:
+        if name not in shapes:
             continue
-        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens)
+        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, dv, lens)
         kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
+        fa_ops = versions[order[0]]
         out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
         delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
-        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=hq != hk)
-        row = {"flash_bwd_dq": [], "flash_bwd_dkdv": [], "sdpa": []}
-        for _ in range(2):
-            for f in ("flash_bwd_dq", "flash_bwd_dkdv"):
-                row[f].append(cuda_ms(lambda: getattr(fa_ops, f)(
+        sdpa_call = sdpa_backward(torch, q, k, v, do)
+        row = {label: {} for label in versions} | {"sdpa": []}
+        for label in order:
+            for kernel, wrapper in bwd_launches(versions[label], d, dv):
+                row[label].setdefault(kernel, []).append(cuda_ms(lambda: wrapper(
                     q, k, v, kv_lens, out, lse, do, delta, grads, **kw), reps=20))
-            row["sdpa"].append(cuda_ms(lambda: torch.autograd.grad(
-                ref_out, (qs, ks, vs), do, retain_graph=True), reps=20))
-        for f in ("flash_bwd_dq", "flash_bwd_dkdv"):  # the device's time, without the host's
-            row[f + " graph"] = graph_ms(lambda: getattr(fa_ops, f)(
-                q, k, v, kv_lens, out, lse, do, delta, grads, **kw), reps=20)
+            row["sdpa"].append(cuda_ms(sdpa_call, reps=20))
+        for label, fa in versions.items():  # the device's time, without the host's
+            for kernel, wrapper in bwd_launches(fa, d, dv):
+                row[label][kernel + " graph"] = graph_ms(lambda: wrapper(
+                    q, k, v, kv_lens, out, lse, do, delta, grads, **kw), reps=20)
         times[name] = row
-        del qs, ks, vs, ref_out
+        del sdpa_call
     return times
 
 
 def k3bwd_times_main(checkout: Path) -> None:
-    """``python3 chip_smoke.py --k3bwd-times DIR``: ``k3bwd_times`` with
-    K3 and K3-bwd built from the checkout at DIR, printed as one JSON line,
-    so that two versions of K3-bwd compare within one call."""
+    """``python3 chip_smoke.py --k3bwd-times DIR``: K3 and K3-bwd built from
+    the checkout at DIR (the parent) and from this tree, in one process.  At
+    every equal-dim shape of BWD_SHAPES both backwards from the same inputs,
+    forward and lse, dq, dk and dv the same bits (the equal-dim instances
+    keep their code and bits); then ``k3bwd_times`` at BWD_TIMED's shapes,
+    parent, change, change, parent, printed as one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    sys.path.insert(0, str(checkout / "src"))
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    print(f"card: {nvidia_smi_line()}; K3-bwd from {checkout}")
-    fa_ops.BWD_LIBRARY.load()
-    times = k3bwd_times(torch.device("cuda"), fa_ops)
-    print(json.dumps({"k3bwd_times": str(checkout), **times}))
+    parent = load_ops_from(checkout, "parent_flash_attention_ops", "flash_attention")
+    print(f"card: {nvidia_smi_line()}; parent K3 and K3-bwd from {checkout}")
+    build_all([fa_ops.LIBRARY, fa_ops.BWD_LIBRARY, parent.LIBRARY, parent.BWD_LIBRARY])
+    dev = torch.device("cuda")
+    versions = {"parent": parent, "change": fa_ops}
+    gen = torch.Generator(device=dev).manual_seed(24)
+    bits = {}
+    for name, b, hq, hk, s, d, dv, lens in BWD_SHAPES:
+        if d != dv:
+            continue
+        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, dv, lens)
+        kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
+        runs = {}
+        for label, m in versions.items():
+            out, lse = m.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+            runs[label] = (out, lse, *m.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw))
+        same = all(torch.equal(x, y) for x, y in zip(runs["parent"], runs["change"]))
+        bits[name] = same
+        print(f"{name} (B {b}, Hq {hq}, Hk {hk}, S {s}, D {d}): K3's output and lse and "
+              f"K3-bwd's dq, dk, dv, parent and change: "
+              f"{'the same bits' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"K3-bwd's equal-dim instance moved at {name}")
+    times = k3bwd_times(dev, versions, BWD_TIMED)
+    for name, row in times.items():
+        for kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
+            p, c = row["parent"][kernel], row["change"][kernel]
+            print(f"  {name} {kernel}: parent {p[0]:.4f}, change {c[0]:.4f}, change {c[1]:.4f}, "
+                  f"parent {p[1]:.4f} ms (graph: parent {row['parent'][kernel + ' graph']:.4f}, "
+                  f"change {row['change'][kernel + ' graph']:.4f}); SDPA {row['sdpa']}")
+    print(json.dumps({"k3bwd_times": str(checkout), "same_bits": bits, **times}))
 
 
 def bwd_ptxas(log: str) -> None:
-    """Phase 23b: ptxas's registers and spills of both passes at each head
-    dim, from the library's build log."""
+    """Phases 23b and 26b: ptxas's registers and spills of every launch at
+    each (DK, DV) pair (the key side's kernel by its pass: 1 dk/dv, 2 dv,
+    3 dk), from the library's build log."""
     entry = ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line
-        for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"):
+        for kernel in ("flash_bwd_dq_kernel", "flash_bwd_key_kernel"):
             if kernel in entry and ("registers" in line or "spill" in line):
-                d = entry.split(kernel + "ILi")[1].split("E")[0]
+                args = [int(x) for x in entry.split(kernel + "I")[1].split("EEv")[0]
+                        .replace("Li", " ").replace("E", " ").split()]
+                what = (f"flash_bwd_dq (DK {args[0]}, DV {args[1]})" if len(args) == 2 else
+                        f"{BWD_PASS_NAMES[args[2]]} (DK {args[0]}, DV {args[1]})")
                 text = line.split("ptxas info", 1)[-1].lstrip(" :").strip()
-                print(f"  ptxas: {kernel.replace('_kernel', '')} D {d}: {text}")
+                print(f"  ptxas: {what}: {text}")
 
 
 def flash_bwd_vs_plain(dev, build_log: str) -> dict:
-    """Phases 23a and 23b: K3 with the rows' lse, and K3-bwd, against their
-    plain versions on the card at stablelm-1.6b's and qwen3-14b's training
-    shapes, MHA and G 5, full and ragged kv_lens; two runs of the backward
-    the same bits; the library's schedule against the CPU mirror; each
-    pass's time (CUDA events, after warm-up) beside its bound, the plain
-    backward's and SDPA's flash backward's, SDPA in turns with the kernel.
-    Returns the kernels line's rows' numbers."""
+    """Phases 23a/23b and 26a/26b: K3 with the rows' lse, and K3-bwd,
+    against their plain versions on the card at the training shapes of
+    BWD_SHAPES (equal dims; MLA's (192, 128) and the smoke pair (24, 16)),
+    MHA and G 5, full and ragged kv_lens, key sides cut and not; two runs of
+    the backward the same bits; the library's schedule against the CPU
+    mirror; ptxas's registers and spills and the card's occupancy for every
+    launch; each launch's time (CUDA events, after warm-up; from a CUDA
+    graph) beside its bound, the plain backward's and SDPA's backward's,
+    SDPA in turns with the kernel.  Returns the kernels line's rows'
+    numbers."""
     import ctypes
 
     import torch
@@ -2781,25 +2931,29 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
-    phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b and qwen3-14b training shapes)")
+    phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b, qwen3-14b, deepseek-moe-16b "
+          "and deepseek-v2-236b training shapes, the smoke deepseek-v2's (24, 16))")
     bwd_ptxas(build_log)
     gen = torch.Generator(device=dev).manual_seed(22)
-    worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
+    worst = {"flash_fwd_lse": 0.0, **{name: 0.0 for name in BWD_PASS_NAMES}}
     lib = fa_ops.BWD_LIBRARY.load()
     occupancy = {}
-    for d in sorted({shape[5] for shape in BWD_SHAPES}):
-        for pass_no, kernel in enumerate(("dq", "dk/dv")):
+    for d, dv in fa_ops.BWD_HEAD_DIMS:
+        for pass_no in (fa_ops.BWD_DQ, *fa_ops.bwd_key_passes(d, dv)):
             blocks = ctypes.c_int()
-            fa_ops.BWD_LIBRARY.check(lib.flash_bwd_occupancy(pass_no, d, ctypes.byref(blocks)),
+            fa_ops.BWD_LIBRARY.check(lib.flash_bwd_occupancy(pass_no, d, dv, ctypes.byref(blocks)),
                                      "flash_bwd_occupancy")
-            occupancy[f"{kernel} D {d}"] = blocks.value
-    print(f"  blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor): {occupancy}")
-    for name, b, hq, hk, s, d, lens in BWD_SHAPES:
-        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens)
+            occupancy[f"{BWD_PASS_NAMES[pass_no]} ({d}, {dv})"] = (
+                blocks.value, lib.flash_bwd_smem_bytes(pass_no, d, dv))
+    print("  blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and shared "
+          f"memory a block: {occupancy}")
+    for name, b, hq, hk, s, d, dv, lens in BWD_SHAPES:
+        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, dv, lens)
         kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
         plain_kw = dict(kw, block_q=64, block_k=64)
+        passes = (fa_ops.BWD_DQ, *fa_ops.bwd_key_passes(d, dv))
         plan = []
-        for pass_no in (0, 1):
+        for pass_no in passes:
             got = (ctypes.c_int * 4)()
             fa_ops.BWD_LIBRARY.check(lib.flash_bwd_plan(pass_no, b, hk, hq // hk, s, s, 0, 1, got),
                                      "flash_bwd_plan")
@@ -2808,6 +2962,8 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
                 fail(f"K3-bwd's plan at {name}, pass {pass_no}: the library's {tuple(got)}, "
                      f"ops.bwd_grid's {want}")
             plan.append(want)
+        if "cut" in name and plan[1][3] < 2:
+            fail(f"{name}: the key side is not cut ({plan[1]})")
         units = fa_ops.bwd_plan(b, hk, hq // hk, s, s, kv_lens.tolist(), 0, True)
         steps = [len(u.visits) for u in units]
         out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
@@ -2821,38 +2977,46 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
         worst["flash_fwd_lse"] = max(worst["flash_fwd_lse"], lse_err)
         if out_ulps > MAX_BF16_ULPS or lse_err > LSE_TOL or not bool(torch.isfinite(lse).all()):
             fail(f"K3 with lse at {name}: output {out_ulps:.2f} ulps, lse {lse_err:.3g} relative")
+        before = read_launches()
         got = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+        ran = {n: read_launches()[n] - before[n] for n in BWD_PASS_NAMES}
+        if ran != {n: int(i in passes) for i, n in enumerate(BWD_PASS_NAMES)}:
+            fail(f"K3-bwd at {name} ran {ran}, expected passes {passes}")
         again = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             fail(f"K3-bwd at {name}: two runs gave different bits")
         want = flash_bwd_ref(q, k, v, kv_lens, out, lse, do, **plain_kw)
         errs = []
+        key = [BWD_PASS_NAMES[p] for p in passes[1:]]
         for grad, g, w in zip(("dq", "dk", "dv"), got, want):
             scale = float(w.float().abs().max())
             ulps = bf16_ulps(g.float(), w.float(), BWD_ATOL_OF_MAX * scale)
             err = float((g.float() - w.float()).abs().max())
             errs.append(f"{grad} {err:.3g} (max |{grad}| {scale:.3g}, {ulps:.2f} ulps past the "
                         "atol)")
-            key = "flash_bwd_dq" if grad == "dq" else "flash_bwd_dkdv"
-            worst[key] = max(worst[key], err)
+            by = ["flash_bwd_dq"] if grad == "dq" else [
+                n for n in key if n == "flash_bwd_dkdv" or n == f"flash_bwd_{grad}"]
+            for kernel in by:
+                worst[kernel] = max(worst[kernel], err)
             if ulps > MAX_BF16_ULPS or not bool(torch.isfinite(g).all()):
                 fail(f"K3-bwd at {name}: {grad} off by {ulps:.2f} bf16 ulps past "
                      f"{BWD_ATOL_OF_MAX} x max|{grad}|")
-        print(f"{name} (B {b}, Hq {hq}, Hk {hk}, S {s}, D {d}, kv_lens "
+        ran_names = ", ".join(BWD_PASS_NAMES[p] for p in passes)
+        print(f"{name} (B {b}, Hq {hq}, Hk {hk}, S {s}, DK {d}, DV {dv}, kv_lens "
               f"{'full' if lens is None else list(lens)}): K3 output with lse = without, bit for "
-              f"bit; lse within {lse_err:.3g} of plain; K3-bwd two runs bitwise; max |kernel - "
-              f"plain|: {', '.join(errs)}")
-        print(f"  schedule = ops.bwd_grid: dq grid {plan[0][:3]}, dk/dv grid {plan[1][:3]} in "
-              f"clusters of {plan[1][3]}; dk/dv blocks {len(steps)}, steps {sum(steps)} (longest "
-              f"block {max(steps)}, mean over {fa_ops.BWD_SLOTS} slots "
-              f"{sum(steps) / fa_ops.BWD_SLOTS:.2f}); dq blocks {plan[0][0] * plan[0][1] * b} "
-              f"against {fa_ops.BWD_SLOTS} slots")
+              f"bit; lse within {lse_err:.3g} of plain; K3-bwd ({ran_names}) two runs bitwise; "
+              f"max |kernel - plain|: {', '.join(errs)}")
+        print(f"  schedule = ops.bwd_grid: dq grid {plan[0][:3]}, key side grid {plan[1][:3]} in "
+              f"clusters of {plan[1][3]} ({len(passes) - 1} launch(es)); key blocks {len(steps)}, "
+              f"steps {sum(steps)} (longest block {max(steps)}, mean over {fa_ops.BWD_SLOTS} "
+              f"slots {sum(steps) / fa_ops.BWD_SLOTS:.2f}); dq blocks "
+              f"{plan[0][0] * plan[0][1] * b} against {fa_ops.BWD_SLOTS} slots")
     rows = {}
-    timed = k3bwd_times(dev, fa_ops)
-    for name, b, hq, hk, s, d, lens in BWD_SHAPES:
-        if name not in BWD_TIMED:
+    timed = k3bwd_times(dev, {"change": fa_ops}, BWD_TIMED + MLA_BWD_TIMED)
+    for name, b, hq, hk, s, d, dv, lens in BWD_SHAPES:
+        if name not in timed:
             continue
-        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, lens)
+        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, dv, lens)
         kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
         plain_kw = dict(kw, block_q=64, block_k=64)
         out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
@@ -2861,36 +3025,40 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
                                                   **kw), reps=20)
         plain = cuda_ms(lambda: flash_bwd_ref(q, k, v, kv_lens, out, lse, do, **plain_kw),
                         reps=2, warmup=1)
-        t = timed[name]
-        lib_ms = sum(t["sdpa"]) / 2
-        print(f"  {name}: K3 at block_k 64 {fwd_ms:.4f} ms, with lse {lse_ms:.4f} ms; plain "
-              f"backward {plain:.3f} ms; SDPA's backward (causal{', GQA' if hq != hk else ''}) "
-              f"{t['sdpa'][0]:.4f} and {t['sdpa'][1]:.4f} ms for dq, dk and dv together, in "
-              f"turns with the kernel's {sum(t['flash_bwd_dq']) / 2 + sum(t['flash_bwd_dkdv']) / 2:.4f}")
-        for pass_no, kernel in enumerate(("flash_bwd_dq", "flash_bwd_dkdv")):
+        t, lib_ms = timed[name]["change"], sum(timed[name]["sdpa"]) / 2
+        launches = bwd_launches(fa_ops, d, dv)
+        total = sum(sum(t[kernel]) / 2 for kernel, _ in launches)
+        whole, whole_by, whole_text = bwd_bound(b, hq, hk, s, d, dv, lens, None)
+        print(f"  {name} (DK {d}, DV {dv}): K3 at block_k 64 {fwd_ms:.4f} ms, with lse "
+              f"{lse_ms:.4f} ms; plain backward {plain:.3f} ms; SDPA's backward (causal"
+              f"{', GQA' if hq != hk else ''}) {timed[name]['sdpa'][0]:.4f} and "
+              f"{timed[name]['sdpa'][1]:.4f} ms for dq, dk and dv together, in turns with the "
+              f"kernel's {total:.4f} ({len(launches)} launches); the whole backward's bound "
+              f"{whole:.4f} ms ({whole_by}: {whole_text})")
+        if d != dv:
+            print(f"  SDPA at (DK {d}, DV {dv}): {sdpa_backend(torch, q, k, v)}")
+        for kernel, _ in launches:
+            pass_no = BWD_PASS_NAMES.index(kernel)
             ms = sum(t[kernel]) / 2
-            flops, nbytes = bwd_flops_bytes(b, hq, hk, s, d, lens, pass_no)
-            ops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            bound = max(ops_ms, bytes_ms)
-            by = "operations" if ops_ms >= bytes_ms else "bytes"
-            print(f"  {kernel}: {t[kernel][0]:.4f} and {t[kernel][1]:.4f} ms ({t[kernel + ' graph']:.4f} "
-                  f"from a CUDA graph), bound {bound:.4f} "
-                  f"ms ({by}: {flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {ops_ms:.4f} ms; "
-                  f"{nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms:.4f} ms), "
-                  f"{100 * bound / ms:.2f}% of bound; the hi/lo split of p and ds doubles "
-                  f"{1 if pass_no == 0 else 2} of its products on the tensor cores")
-            if name == BWD_TIMED[0]:
-                rows[kernel] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                                "bound_ms": bound, "bound_by": by,
-                                "graph_ms": t[kernel + " graph"],
-                                "shape": f"B {b}, Hq {hq}, Hk {hk}, S {s}, D {d}",
-                                "plain_and_library_cover": "dq, dk and dv together"}
+            bound, by, text = bwd_bound(b, hq, hk, s, d, dv, lens, pass_no)
+            doubled = {0: 1, 1: 2, 2: 1, 3: 1}[pass_no]
+            print(f"  {kernel}: {t[kernel][0]:.4f} and {t[kernel][1]:.4f} ms "
+                  f"({t[kernel + ' graph']:.4f} from a CUDA graph), bound {bound:.4f} ms ({by}: "
+                  f"{text}), {100 * bound / ms:.2f}% of bound; the hi/lo split of p and ds "
+                  f"doubles {doubled} of its products on the tensor cores")
+            at = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bound,
+                  "bound_by": by, "graph_ms": t[kernel + " graph"],
+                  "shape": f"B {b}, Hq {hq}, Hk {hk}, S {s}, DK {d}, DV {dv}",
+                  "plain_and_library_cover": "dq, dk and dv together"}
+            if kernel not in rows:
+                rows[kernel] = at
             else:
                 rows[kernel].update({f"ms_at {name}": ms, f"bound_ms_at {name}": bound,
                                      f"library_ms_at {name}": lib_ms,
                                      f"graph_ms_at {name}": t[kernel + " graph"]})
-        if name == BWD_TIMED[0]:
-            rows["flash_fwd_lse"] = {"ms": lse_ms, "ms_without_lse": fwd_ms}
+        if name in (BWD_TIMED[0], MLA_BWD_TIMED[0]):
+            rows["flash_fwd_lse" if d == dv else "flash_fwd_mla_lse"] = {
+                "ms": lse_ms, "ms_without_lse": fwd_ms}
     for key, err in worst.items():
         rows.setdefault(key, {})["max_abs_err"] = err
     return rows
@@ -3092,6 +3260,15 @@ SCAN_BWD_SHAPES = (("training", 8, 128), ("tiles", 1, 1000))
 # training path measured, PERF.md)
 MOE = "deepseek-moe-16b"
 MAMBA_TRAIN_LAYERS, MOE_TRAIN_LAYERS = 8, 3
+# Main path 9 (phase 26c): deepseek-v2-236b at full width, its dense head
+# layer alone, 1 of 60: MLA at 128 heads of (192, 128), K3-bwd's dv and dk
+# passes, and the dense FFN of 12,288.  With the embedding and the head (2 x
+# 102,400 x 5,120) that is 1.387 B parameters, ~43 GB at the ~31 bytes a
+# parameter stablelm-1.6b's path measured; one MoE layer (160 routed experts
+# and 2 shared, each 3 x 5,120 x 1,536, with its MLA) adds ~3.97 B, ~123 GB,
+# so no MoE layer of deepseek-v2 fits one card: the smoke deepseek-v2 holds
+# MLA and MoE together (phase 26d)
+MLA_TRAIN_LAYERS = 1
 
 
 def scan_bwd_bound(bt, s, dn, n, d_block):
@@ -3302,14 +3479,15 @@ def scan_bwd_plan(ops, n, bt, s, dn) -> str:
             f"{o['active_clusters']} clusters at once, {o['registers']} registers a thread")
 
 
-def load_ops_from(checkout: Path, name: str):
-    """The selective scan's ``ops`` module of the checkout at DIR, loaded
-    beside this tree's under another name: its kernels build from DIR's
-    sources into DIR's build directory; the rest it imports
-    (``kernels/_build.py``, the plain versions) is this tree's."""
+def load_ops_from(checkout: Path, name: str, family: str = "ssm_scan"):
+    """The ``ops`` module of a kernel family (``ssm_scan``,
+    ``flash_attention``) of the checkout at DIR, loaded beside this tree's
+    under another name: its kernels build from DIR's sources into DIR's
+    build directory; the rest it imports (``kernels/_build.py``, the plain
+    versions) is this tree's."""
     import importlib.util
 
-    path = checkout / "src" / "repro_torch" / "kernels" / "ssm_scan" / "ops.py"
+    path = checkout / "src" / "repro_torch" / "kernels" / family / "ops.py"
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -3391,12 +3569,13 @@ def scan_bwd_times_main(checkout: Path) -> None:
 
 
 def mamba_moe_training_path(arch, n_layers, path_no, per_layer) -> dict:
-    """Phases 24c and 24d: ``Trainer`` on ``arch`` at full width and
+    """Phases 24c, 24d and 26c: ``Trainer`` on ``arch`` at full width and
     ``n_layers`` layers (``TrainerOptions.cfg``), the stablelm path's
     settings: seq 128, global batch 8, AdamW at lr 1e-3, remat "full",
     TRAIN_STEPS steps.  Gates: losses, aux and grad norms finite (aux > 0
-    with MoE); each kernel of ``per_layer`` launched that many times a layer
-    a step, no other kernel.  Returns the launches and the trainer."""
+    where a MoE layer runs, else 0); each kernel of ``per_layer`` launched
+    that many times a layer a step, no other kernel.  Returns the launches
+    and the trainer."""
     import statistics
 
     import torch
@@ -3438,7 +3617,7 @@ def mamba_moe_training_path(arch, n_layers, path_no, per_layer) -> dict:
           f"(min {1e3 * min(times):.1f}, max {1e3 * max(times):.1f}); "
           f"{TRAIN_SEQ * TRAIN_BATCH / med:.0f} tokens/s; peak device memory {peak:.3f} GB "
           "(host clock around each step, synchronised)")
-    moe = cfg.moe is not None
+    moe = any(spec.ffn == "moe" for spec in cfg.layer_specs())  # a MoE layer runs
     if len(records) != TRAIN_STEPS or not all(
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and math.isfinite(r["aux"])
             and (r["aux"] > 0) == moe for r in records):
@@ -3453,9 +3632,9 @@ def mamba_moe_training_path(arch, n_layers, path_no, per_layer) -> dict:
 
 
 def moe_gradient_bits(trainer) -> None:
-    """Phase 24d, continued: the loss, aux and every gradient of one step of
-    the MoE trainer's LM, taken twice from the same weights and batch, the
-    same bits."""
+    """Phases 24d and 26c, continued: the loss, aux and every gradient of
+    one step of the trainer's LM, taken twice from the same weights and
+    batch, the same bits."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticTokens
@@ -3479,7 +3658,7 @@ def moe_gradient_bits(trainer) -> None:
     print(f"one step's gradient twice from the same weights and batch: loss {float(l1):.6f}, aux "
           f"{float(a1):.6f}, {len(g1)} gradient tensors; bit_identical={'yes' if same else 'NO'}")
     if not same:
-        fail("the MoE training step's gradients differ between two runs")
+        fail(f"the {lm.cfg.name} training step's gradients differ between two runs")
 
 
 def static_serve_path(lm) -> dict:
@@ -3645,12 +3824,22 @@ def main() -> None:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    mla_counts, trainer = mamba_moe_training_path(
+        DEEPSEEK, MLA_TRAIN_LAYERS, 9,
+        {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dv": 1, "flash_bwd_dk": 1})
+    moe_gradient_bits(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     training_kernels_vs_plain(dev, MAMBA, ("selective_scan", "selective_scan_bwd",
                                            "selective_scan_bwd_reduce"))
     training_kernels_vs_plain(dev, MOE)
+    training_kernels_vs_plain(dev, DEEPSEEK)  # MLA at (24, 16): the dk/dv pass, and MoE
     by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
                                 training_moe=moe_counts["flash_fwd"])
     launches["flash_fwd"] = sum(by_path["flash_fwd"].values())
+    by_path["flash_fwd_mla"]["training_mla"] = mla_counts["flash_fwd"]
+    launches["flash_fwd_mla"] = sum(by_path["flash_fwd_mla"].values())
     by_path["selective_scan"] = {"cli": launches["selective_scan"],
                                  "training_mamba": mamba_counts["selective_scan"]}
     launches["selective_scan"] = sum(by_path["selective_scan"].values())
@@ -3687,17 +3876,27 @@ def main() -> None:
                                lse_shape=bwd["flash_bwd_dq"]["shape"] + ", block_k 64",
                                ms_without_lse_there=bwd["flash_fwd_lse"]["ms_without_lse"],
                                lse_max_rel_err=bwd["flash_fwd_lse"]["max_abs_err"])
-    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        if name == "flash_fwd_mla":
+            kernels[-1].update(lse_ms=bwd["flash_fwd_mla_lse"]["ms"],
+                               lse_shape=bwd["flash_bwd_dv"]["shape"] + ", block_k 64",
+                               ms_without_lse_there=bwd["flash_fwd_mla_lse"]["ms_without_lse"])
+    bwd_status = ("redesigned for Hopper: wgmma on TMA-staged 128-byte-swizzled tiles, the key "
+                  "side cut in chunks summed in a cluster (the port's own kernel, a custom-VJP "
+                  "backward, no Pallas kernel)")
+    for name, status in (
+            ("flash_bwd_dq", bwd_status + "; templated on (DK, DV)"),
+            ("flash_bwd_dkdv", bwd_status),
+            ("flash_bwd_dv", "the key side's dv at MLA's (192, 128), where dk and dv "
+             "would not fit one walk's registers; the dk/dv pass's schedule"),
+            ("flash_bwd_dk", "the key side's dk at MLA's (192, 128), after the dv "
+             "pass; the dk/dv pass's schedule")):
+        paths = {"training": train_counts[name], "training_moe": moe_counts[name],
+                 "training_mla": mla_counts[name]}
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "replaces": "src/repro/kernels/flash_attention/ops.py:118",
-                        "status": "redesigned, PR 23: wgmma on TMA-staged 128-byte-swizzled "
-                        "tiles, the dk/dv pass cut in chunks summed in a cluster (the port's "
-                        "own kernel, a custom-VJP backward, no Pallas kernel)",
-                        "launches": train_counts[name] + moe_counts[name],
-                        "launches_by_path": {"training": train_counts[name],
-                                             "training_moe": moe_counts[name]},
-                        "timed_by": EAGER, **bwd[name]})
+                        "status": status, "launches": sum(paths.values()),
+                        "launches_by_path": paths, "timed_by": EAGER, **bwd[name]})
     kernels.append({"name": "selective_scan_bwd", "route": "cuda",
                     "source": "src/repro_torch/kernels/ssm_scan/csrc/selective_scan_bwd.cu",
                     "replaces": "src/repro/kernels/ssm_scan/ops.py:30",

@@ -5,17 +5,20 @@ plain versions (ref.py) for CPU tensors.
 ``flash_attention`` is the model-facing call, with the signature of
 ``repro/kernels/flash_attention/ops.py::flash_attention`` (grouped GQA,
 ``kv_lens``, static ``q_offset``, a value dim that may differ from the key
-dim, as MLA's prefill needs).  When q, k or v requires grad it runs through
-``FlashAttention``, a ``torch.autograd.Function`` whose forward is K3 with
-the rows' log-sum-exp and whose backward is K3-bwd, the counterpart of the
-reference's ``jax.custom_vjp`` (``ops.py:46``, ``defvjp`` at ``:213``);
-otherwise it runs the forward alone, as the serve paths do.
+dim, as MLA's prefill and training need).  When q, k or v requires grad it
+runs through ``FlashAttention``, a ``torch.autograd.Function`` whose forward
+is K3 with the rows' log-sum-exp and whose backward is K3-bwd, the
+counterpart of the reference's ``jax.custom_vjp`` (``ops.py:46``,
+``defvjp`` at ``:213``); otherwise it runs the forward alone, as the serve
+paths do.
 
-``flash_fwd`` and the backward's two passes ``flash_bwd_dq`` and
-``flash_bwd_dkdv`` are the kernels' wrappers: a CUDA tensor goes to the
-kernel or the call raises, nothing falls back to the plain version, and each
-wrapper's ``launches`` counts its kernel's launches and only those.
-``flash_bwd`` runs both passes (or, on CPU tensors, ``flash_bwd_ref``).
+``flash_fwd`` and the backward's passes ``flash_bwd_dq``, ``flash_bwd_dkdv``
+and, where dk's and dv's accumulators do not fit one walk (MLA's (192,
+128)), ``flash_bwd_dv`` and ``flash_bwd_dk`` are the kernels' wrappers: a
+CUDA tensor goes to the kernel or the call raises, nothing falls back to the
+plain version, and each wrapper's ``launches`` counts its kernel's launches
+and only those.  ``flash_bwd`` runs the dq pass and the key side's pass or
+passes (``bwd_key_passes``), or, on CPU tensors, ``flash_bwd_ref``.
 
 ``decode_attention`` is the reference's plain one-token decode over a
 contiguous cache (``ops.py:245``); it is not a kernel.
@@ -40,10 +43,10 @@ LIBRARY = KernelLibrary(
     error_fn="flash_fwd_error_string")
 BWD_LIBRARY = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu", "flash_bwd",
-    {"flash_bwd_launch": ([_p] * 11 + [_i] * 9 + [_f, _p], ctypes.c_int),
-     "flash_bwd_smem_bytes": ([_i, _i], ctypes.c_int),
+    {"flash_bwd_launch": ([_p] * 11 + [_i] * 10 + [_f, _p], ctypes.c_int),
+     "flash_bwd_smem_bytes": ([_i, _i, _i], ctypes.c_int),
      "flash_bwd_plan": ([_i] * 8 + [_p], ctypes.c_int),
-     "flash_bwd_occupancy": ([_i, _i, _p], ctypes.c_int)},
+     "flash_bwd_occupancy": ([_i, _i, _i, _p], ctypes.c_int)},
     error_fn="flash_bwd_error_string",
     includes=[Path(__file__).resolve().parents[1] / "csrc" / "hopper.cuh"])
 
@@ -54,11 +57,15 @@ NEG_INF = -1e30
 # (key dim, value dim) pairs the kernel is built for: equal dims, multiples
 # of 16 up to 256, and MLA's prefill, DeepSeek-V2's and its smoke variant's
 HEAD_DIMS = tuple((d, d) for d in range(16, 257, 16)) + ((192, 128), (24, 16))
-# head dims the backward is built for (equal key and value dims); MLA's
-# (192, 128) waits for MoE/MLA training (ROADMAP.md)
-BWD_HEAD_DIMS = tuple(range(16, 129, 16))
+# (key dim, value dim) pairs the backward is built for (flash_bwd.cu:
+# FLASH_BWD_DIMS): equal dims, multiples of 16 up to 128, and MLA's
+# training, DeepSeek-V2's (192, 128) and its smoke variant's (24, 16)
+BWD_HEAD_DIMS = tuple((d, d) for d in range(16, 129, 16)) + ((192, 128), (24, 16))
+# K3-bwd's passes (flash_bwd.cu: kPassDq .. kPassDk): the dq pass, then the
+# key side as one dk/dv pass or as a dv pass and a dk pass
+BWD_DQ, BWD_DKDV, BWD_DV, BWD_DK = 0, 1, 2, 3
 # K3-bwd's schedule (flash_bwd.cu: kTile, kSlots, kMaxSplit, kMinChunk): rows
-# or keys a tile; the slots the dk/dv pass's cut aims at (an H100's 132 SMs
+# or keys a tile; the slots the key side's cut aims at (an H100's 132 SMs
 # x 2 blocks), the most chunks a key tile's walk is cut into, and the fewest
 # steps a chunk is cut down to
 BWD_TILE, BWD_SLOTS, BWD_MAX_SPLIT, BWD_MIN_CHUNK = 64, 264, 8, 4
@@ -152,6 +159,16 @@ def flash_fwd(
 flash_fwd.launches = 0
 
 
+def bwd_key_passes(dk: int, dv: int) -> tuple:
+    """The key side's launches at (dk, dv) (``kFusedKeys``): the dk/dv pass
+    where dk's and dv's float32 accumulators, 64-column panels of each, hold
+    at most 256 columns, as at D 128 (every equal pair and (24, 16)); else
+    the dv pass and then the dk pass ((192, 128): dk and dv alone would take
+    160 registers a thread)."""
+    panels = -(-dk // 64) + -(-dv // 64)
+    return (BWD_DKDV,) if panels <= 4 else (BWD_DV, BWD_DK)
+
+
 def bwd_tiles_seeing(j: int, nq: int, sq: int, q_offset: int, causal: bool) -> int:
     """Query tiles of ``BWD_TILE`` rows that the dk/dv pass walks for key
     tile j: every tile, or (causal) those from the tile of the first row that
@@ -182,9 +199,10 @@ def bwd_grid(pass_no: int, b: int, hk: int, g: int, sq: int, skv: int, q_offset:
              causal: bool) -> tuple:
     """(grid x, y, z, cluster size) of a pass, as the library's
     ``flash_bwd_plan`` reports it: the dq pass (Hq, ceil(Sq / 64), B), its
-    y read from the last query tile down; the dk/dv pass (split, Hk x B,
-    ceil(Skv / 64)) in clusters of ``split`` along x."""
-    if pass_no == 0:
+    y read from the last query tile down; each pass of the key side (the
+    dk/dv pass, or the dv and the dk pass) (split, Hk x B, ceil(Skv / 64))
+    in clusters of ``split`` along x."""
+    if pass_no == BWD_DQ:
         return hk * g, -(-sq // BWD_TILE), b, 1
     split = bwd_split(b, hk, g, sq, skv, q_offset, causal)
     return split, hk * b, -(-skv // BWD_TILE), split
@@ -206,13 +224,14 @@ class BwdUnit(NamedTuple):
 
 def bwd_plan(b: int, hk: int, g: int, sq: int, skv: int, kv_lens, q_offset: int,
              causal: bool) -> list:
-    """The dk/dv pass's schedule, the CPU mirror of ``flash_bwd_dkdv_kernel``:
-    its blocks in launch order (key tile slowest, then batch and KV head,
-    then chunk).  Key tile j's walk is step i at query head kv_head * G + i
-    // n_j and query tile (nq - n_j) + i % n_j, cut into ``bwd_split``
-    chunks of ceil(G n_j / split) steps; chunk c is the cluster's block of
-    rank c, and the chunks' partials are summed in rank order.  A key tile
-    starting at or past its row's kv_len runs no step."""
+    """The key side's schedule, the CPU mirror of ``flash_bwd_key_kernel``
+    (each of its passes runs it): its blocks in launch order (key tile
+    slowest, then batch and KV head, then chunk).  Key tile j's walk is
+    step i at query head kv_head * G + i // n_j and query tile (nq - n_j) +
+    i % n_j, cut into ``bwd_split`` chunks of ceil(G n_j / split) steps;
+    chunk c is the cluster's block of rank c, and the chunks' partials are
+    summed in rank order.  A key tile starting at or past its row's kv_len
+    runs no step."""
     split = bwd_split(b, hk, g, sq, skv, q_offset, causal)
     nq, nk = -(-sq // BWD_TILE), -(-skv // BWD_TILE)
     lens = [min(max(int(x), 0), skv) for x in kv_lens]
@@ -234,17 +253,18 @@ def bwd_plan(b: int, hk: int, g: int, sq: int, skv: int, kv_lens, q_offset: int,
 
 def _bwd_pass(pass_no: int, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale: float,
               q_offset: int, causal: bool) -> None:
-    """Launch one pass of K3-bwd (0: delta and dq, 1: dk and dv) into the
-    tensors of ``grads`` (dq, dk, dv; a pass writes only its own)."""
+    """Launch one pass of K3-bwd (``BWD_DQ``: delta and dq, ``BWD_DKDV``: dk
+    and dv, ``BWD_DV``: dv, ``BWD_DK``: dk) into the tensors of ``grads``
+    (dq, dk, dv; a pass writes only its own)."""
     b, hq, sq, d = q.shape
-    hk, skv = k.shape[1], k.shape[2]
+    hk, skv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = grads
     lib = BWD_LIBRARY.load()
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), pass_no, b, hk, hq // hk, sq, skv, d, int(q_offset),
+            dv.data_ptr(), pass_no, b, hk, hq // hk, sq, skv, d, dv_dim, int(q_offset),
             int(bool(causal)), ctypes.c_float(sm_scale), torch.cuda.current_stream().cuda_stream)
     BWD_LIBRARY.check(err, f"flash_bwd pass {pass_no} kernel")
 
@@ -253,29 +273,49 @@ def flash_bwd_dq(q, k, v, lens32, out, lse, dout, delta, grads, *, sm_scale: flo
                  q_offset: int, causal: bool) -> None:
     """K3-bwd's dq pass: writes delta = rowsum(dout * out) and dq.  Inputs
     as ``flash_bwd`` checks them."""
-    _bwd_pass(0, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset, causal)
+    _bwd_pass(BWD_DQ, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset, causal)
     flash_bwd_dq.launches += 1
 
 
 def flash_bwd_dkdv(q, k, v, lens32, out, lse, dout, delta, grads, *, sm_scale: float,
                    q_offset: int, causal: bool) -> None:
     """K3-bwd's dk/dv pass: reads the dq pass's delta, writes dk and dv."""
-    _bwd_pass(1, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset, causal)
+    _bwd_pass(BWD_DKDV, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset,
+              causal)
     flash_bwd_dkdv.launches += 1
+
+
+def flash_bwd_dv(q, k, v, lens32, out, lse, dout, delta, grads, *, sm_scale: float,
+                 q_offset: int, causal: bool) -> None:
+    """K3-bwd's dv pass, where the key side is two launches: writes dv."""
+    _bwd_pass(BWD_DV, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset, causal)
+    flash_bwd_dv.launches += 1
+
+
+def flash_bwd_dk(q, k, v, lens32, out, lse, dout, delta, grads, *, sm_scale: float,
+                 q_offset: int, causal: bool) -> None:
+    """K3-bwd's dk pass, where the key side is two launches: reads the dq
+    pass's delta, writes dk."""
+    _bwd_pass(BWD_DK, q, k, v, lens32, out, lse, dout, delta, grads, sm_scale, q_offset, causal)
+    flash_bwd_dk.launches += 1
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
+flash_bwd_dv.launches = 0
+flash_bwd_dk.launches = 0
+# each key-side pass's wrapper
+BWD_KEY_WRAPPERS = {BWD_DKDV: flash_bwd_dkdv, BWD_DV: flash_bwd_dv, BWD_DK: flash_bwd_dk}
 
 
 def flash_bwd(
-    q: torch.Tensor,  # (B, Hq, Sq, D) bfloat16
-    k: torch.Tensor,  # (B, Hk, Skv, D)
-    v: torch.Tensor,  # (B, Hk, Skv, D)
+    q: torch.Tensor,  # (B, Hq, Sq, Dk) bfloat16
+    k: torch.Tensor,  # (B, Hk, Skv, Dk)
+    v: torch.Tensor,  # (B, Hk, Skv, Dv)
     kv_lens: torch.Tensor,  # (B,)
-    out: torch.Tensor,  # (B, Hq, Sq, D), the forward's output
+    out: torch.Tensor,  # (B, Hq, Sq, Dv), the forward's output
     lse: torch.Tensor,  # (B, Hq, Sq) float32, the forward's log-sum-exp
-    dout: torch.Tensor,  # (B, Hq, Sq, D)
+    dout: torch.Tensor,  # (B, Hq, Sq, Dv)
     *,
     causal: bool = True,
     sm_scale: float,
@@ -285,24 +325,26 @@ def flash_bwd(
 ):
     """(dq, dk, dv) of the flash forward, in q's, k's and v's dtypes.  CPU
     tensors run ``flash_bwd_ref`` (at ``block_q`` x ``block_k`` tiles); CUDA
-    tensors run K3-bwd's two passes, whose blocking is their own, or
-    raise."""
+    tensors run K3-bwd's dq pass and the key side's pass or passes
+    (``bwd_key_passes``), whose blocking is their own, or raise."""
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, kv_lens, out, lse, dout, causal=causal, sm_scale=sm_scale,
                              q_offset=q_offset, block_q=block_q, block_k=block_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd runs on cpu or cuda tensors, not {q.device}")
     b, hq, sq, d = q.shape
-    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: the "
-                         "backward takes equal key and value dims")
-    hk, skv = k.shape[1], k.shape[2]
+    if (k.dim() != 4 or v.dim() != 4 or k.shape[0] != b or k.shape[3] != d
+            or tuple(v.shape[:3]) != tuple(k.shape[:3])):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: k must "
+                         "match q's batch and key dim, v k's but for its value dim")
+    hk, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     if hq % hk:
         raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the backward is built for equal dims, multiples of 16 "
-                         "up to 128 (MLA's (192, 128) waits for MoE/MLA training, ROADMAP.md)")
-    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
+    if (d, dv) not in BWD_HEAD_DIMS:
+        raise ValueError(f"(dk, dv) = ({d}, {dv}): the backward is built for equal dims, "
+                         "multiples of 16 up to 128, and (192, 128) and (24, 16)")
+    o_shape = (b, hq, sq, dv)
+    for name, t, shape in (("out", out, o_shape), ("dout", dout, o_shape),
                            ("lse", lse, q.shape[:3]), ("kv_lens", kv_lens, (b,))):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
@@ -324,7 +366,8 @@ def flash_bwd(
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     kw = dict(sm_scale=sm_scale, q_offset=q_offset, causal=causal)
     flash_bwd_dq(q, k, v, lens32, out, lse, dout, delta, grads, **kw)
-    flash_bwd_dkdv(q, k, v, lens32, out, lse, dout, delta, grads, **kw)
+    for pass_no in bwd_key_passes(d, dv):
+        BWD_KEY_WRAPPERS[pass_no](q, k, v, lens32, out, lse, dout, delta, grads, **kw)
     return grads
 
 

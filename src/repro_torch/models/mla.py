@@ -1,16 +1,21 @@
 """Multi-head Latent Attention (DeepSeek-V2): the counterpart of
-``repro/models/mla.py``'s serving paths.
+``repro/models/mla.py``'s prefill, its training forward and its serving
+paths.
 
 Queries come through a low-rank bottleneck (``wq_a``, ``q_a_norm``,
 ``wq_b``); keys and values through one compressed latent ``c_kv`` of width
 ``kv_lora_rank`` (``wkv_a``, ``kv_a_norm``) and one rotary key slice ``k_pe``
 shared by every head.  The cache holds only (c_kv, k_pe): the MLA memory win.
 
-* ``apply_mla`` (prefill, ``mla.py:107``): K and V re-expanded from the
-  latent by ``wkv_b``, then MHA causal attention with qk dim nope + rope and
-  v dim ``v_head_dim`` on the flash forward (K3 with dk 192, dv 128 at full
-  width).  The projections, norms and rope run over blocks of
-  ``rt.prefill_rows`` positions, as ``attention.apply_attention`` does.
+* ``apply_mla`` (prefill and training, ``mla.py:107``, modes "prefill" and
+  "train"): K and V re-expanded from the latent by ``wkv_b``, then MHA
+  causal attention with qk dim nope + rope and v dim ``v_head_dim`` on the
+  flash forward (K3 with dk 192, dv 128 at full width).  The projections,
+  norms and rope run over blocks of ``rt.prefill_rows`` positions, as
+  ``attention.apply_attention`` does.  Under grad it is differentiable: the
+  attention takes its gradient through the flash backward (K3-bwd at (192,
+  128), or (24, 16) in the smoke config), and ``blocks.apply_block_train``
+  drops the cache it returns.
 * ``apply_mla_decode_paged`` (``mla.py:180``, the absorbed path): scatter the
   new token's (c_kv, k_pe) into its page, fold ``W_uk`` into the query
   (``q_lat``), attend in latent space over the latent pool in place (K2's

@@ -9,9 +9,10 @@ entry points of ``repro/models/model.py``, and its training entry point.
   parameters once ``trainable()`` has set their ``requires_grad``; each
   layer runs under the Runtime's ``remat`` policy, attention through the
   flash forward and its backward (K3, K3-bwd), Mamba through the selective
-  scan and its backward (K4, K4-bwd), a MoE FFN at the training capacity.
-  MLA training (K3-bwd at (192, 128)) and the frontends are not ported and
-  raise (ROADMAP.md).
+  scan and its backward (K4, K4-bwd), a MoE FFN at the training capacity;
+  MLA's attention at its unequal key and value dims (K3-bwd at (192, 128)
+  as a dv and a dk pass, at the smoke config's (24, 16) as one).  The
+  frontends and jamba are not ported and raise (ROADMAP.md).
 
 * ``prefill(tokens)`` — the counterpart of ``LM.prefill`` (``model.py:171``):
   a full-sequence causal forward; returns one position's logits and each
@@ -77,17 +78,6 @@ def check_supported(cfg: ArchConfig) -> None:
             "see ROADMAP.md for the slice that brings it")
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for what the port does not train yet: MLA attention (K3-bwd at
-    its (192, 128) head dims) and, through ``check_supported``, the
-    frontend archs and jamba."""
-    check_supported(cfg)
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not train MLA yet (K3-bwd at its (192, 128) head "
-            "dims); see ROADMAP.md")
-
-
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         super().__init__()
@@ -134,10 +124,9 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------------
     def trainable(self, flag: bool = True) -> "LM":
-        """Set every parameter's ``requires_grad`` (the archs
-        ``check_trainable`` admits, when ``flag``)."""
-        if flag:
-            check_trainable(self.cfg)
+        """Set every parameter's ``requires_grad``.  Every arch the LM is
+        built for trains (``check_supported`` refuses the rest at
+        construction)."""
         for param in self.parameters():
             param.requires_grad_(flag)
         return self
@@ -151,7 +140,6 @@ class LM(nn.Module):
         the cross-entropy in float32; aux, the MoE layers' router losses
         summed over the layers in order (0 without MoE), is added to it."""
         cfg = self.cfg
-        check_trainable(cfg)
         tokens = batch["tokens"].to(self.device)
         labels = batch["labels"].to(self.device)
         mask = batch.get("loss_mask")

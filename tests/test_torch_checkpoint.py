@@ -5,8 +5,9 @@ The port's ``CheckpointManager`` writes format 2 in the reference's tree
 layout; the reference's manager restores it, and the port's restores the
 reference's, bit for bit (float32 master parameters, AdamW's state, int32
 counts, and a bf16 leaf stored as its uint16 bits), for the dense, the
-Mamba and the MoE trees (the smoke stablelm, falcon-mamba and deepseek-moe,
-whose dense first layer sits in ``head_layers``), through the port's LM.  A port ``Trainer``
+Mamba, the MoE and the MLA + MoE trees (the smoke stablelm, falcon-mamba,
+deepseek-moe and deepseek-v2, whose dense first layers sit in
+``head_layers``), through the port's LM.  A port ``Trainer``
 restored from a step continues with the same losses and parameters as one
 that never stopped, bit for bit on the CPU (the same operations on the same
 values); ``run()`` survives a simulated failure the same way.  A torn
@@ -38,8 +39,9 @@ from repro_torch.training.tree import tree_leaves
 
 
 # the smoke configs at 2 layers: attention and SwiGLU; Mamba; a dense head
-# layer (``head_layers``) and a MoE layer with a shared expert
-ARCHS = ["stablelm-1.6b", "falcon-mamba-7b", "deepseek-moe-16b"]
+# layer (``head_layers``) and a MoE layer with a shared expert; the same
+# with MLA attention
+ARCHS = ["stablelm-1.6b", "falcon-mamba-7b", "deepseek-moe-16b", "deepseek-v2-236b"]
 
 
 def _ref_state(arch="stablelm-1.6b"):

@@ -1,8 +1,10 @@
-"""K3-bwd's schedule on the CPU: ``ops.bwd_plan``, the mirror of the dk/dv
-pass's blocks (``flash_bwd_dkdv_kernel``: a key tile's walk over its G query
+"""K3-bwd's schedule on the CPU: ``ops.bwd_plan``, the mirror of the key
+side's blocks (``flash_bwd_key_kernel``: a key tile's walk over its G query
 heads and the query tiles that see it, cut into ``bwd_split`` chunks, one a
 block of a cluster, their float32 partials summed in rank order), and a
-float32 model of the dk/dv sums taken in that order.
+float32 model of the dk/dv sums taken in that order.  The key side is one
+dk/dv pass, or at MLA's (192, 128) a dv pass and a dk pass, each on the
+same schedule (``ops.bwd_key_passes``).
 
 Proved over a grid of shapes: every visible (key tile, query head, query
 tile) is visited exactly once; no key tile has two owners (one cluster whose
@@ -45,6 +47,9 @@ SHAPES = [  # b, hk, g, sq, skv, kv_lens, q_offset, causal
     (1, 4, 2, 192, 192, None, 0, True),             # an odd number of key tiles
     (1, 4, 2, 256, 256, None, 0, True),             # an even number
     (2, 2, 3, 200, 150, None, 0, False),            # not causal
+    (8, 128, 1, 128, 128, None, 0, True),           # deepseek-v2-236b's (MLA, 128 heads)
+    (8, 128, 1, 128, 128, (128, 100, 77, 64, 63, 17, 1, 128), 0, True),
+    (1, 4, 1, 2048, 2048, None, 0, True),           # MLA heads cut in 4 at S 2048
 ]
 
 
@@ -171,23 +176,26 @@ def test_qwen3_cut_halves_the_longest_block():
 
 
 def dkdv_by_plan(q, k, v, kv_lens, out, lse, dout, *, sm_scale, q_offset, causal):
-    """dk and dv summed as the dk/dv pass sums them, in float32: each block
+    """dk and dv summed as the key side sums them, in float32: each block
     of ``bwd_plan`` accumulates P^T dO and dS^T Q over its steps in order
     (64 x 64 tiles, p = exp(s - lse) masked to 0, ds = p (dP - delta)), and
-    a key tile's partials are summed in rank order; dk scaled once."""
+    a key tile's partials are summed in rank order; dk scaled once.  Where
+    the key side is a dv and a dk pass, each runs this schedule and these
+    sums for its own gradient."""
     b, hq, sq, d = q.shape
     _, hk, skv, _ = k.shape
+    d_v = v.shape[3]
     g = hq // hk
     qf, kf, vf, dof = (x.double().float() for x in (q, k, v, dout))
     delta = (dout.float() * out.float()).sum(-1)
     dk = torch.zeros(b, hk, skv, d)
-    dv = torch.zeros(b, hk, skv, d)
+    dv = torch.zeros(b, hk, skv, d_v)
     partial = {}
     for u in ops.bwd_plan(b, hk, g, sq, skv, kv_lens.tolist(), q_offset, causal):
         k0 = u.key_tile * TILE
         keys = torch.arange(k0, min(k0 + TILE, skv))
         acc_k = torch.zeros(len(keys), d)
-        acc_v = torch.zeros(len(keys), d)
+        acc_v = torch.zeros(len(keys), d_v)
         for head, qt in u.visits:
             rows = torch.arange(qt * TILE, min(qt * TILE + TILE, sq))
             s = (kf[u.batch, u.kv_head, keys] @ qf[u.batch, head, rows].T) * sm_scale
@@ -208,19 +216,22 @@ def dkdv_by_plan(q, k, v, kv_lens, out, lse, dout, *, sm_scale, q_offset, causal
     return dk, dv
 
 
-MODEL_CASES = [  # b, hq, hk, sq, skv, d, kv_lens, q_offset
+MODEL_CASES = [  # b, hq, hk, sq, skv, d or (dk, dv), kv_lens, q_offset
     (1, 8, 1, 512, 512, 16, None, 0),        # split 8
     (1, 10, 2, 200, 200, 16, None, 0),       # split 4, S not a multiple of the tile
     (2, 8, 2, 260, 260, 16, [260, 140], 0),  # split 4, ragged
     (2, 6, 2, 21, 153, 16, [150, 87], 129),  # q_offset > 0, kv_lens < Skv
+    (1, 2, 2, 512, 512, (192, 128), [512], 0),  # MLA's dims, split 2: the dv and the dk pass
+    (1, 8, 1, 512, 512, (24, 16), [400], 0),     # the smoke deepseek-v2's, split 8, ragged
 ]
 
 
 @pytest.mark.parametrize("b, hq, hk, sq, skv, d, lens, q_offset", MODEL_CASES)
 def test_chunked_sum_matches_plain_and_reference(b, hq, hk, sq, skv, d, lens, q_offset):
+    d, dv = (d, d) if isinstance(d, int) else d
     rng = np.random.RandomState(3)
     q, k, v, do = (rng.randn(*shape).astype(np.float32) for shape in
-                   ((b, hq, sq, d), (b, hk, skv, d), (b, hk, skv, d), (b, hq, sq, d)))
+                   ((b, hq, sq, d), (b, hk, skv, d), (b, hk, skv, dv), (b, hq, sq, dv)))
     kl = np.full(b, skv, np.int32) if lens is None else np.asarray(lens, np.int32)
     assert ops.bwd_split(b, hk, hq // hk, sq, skv, q_offset, True) > 1 or q_offset
     t = [torch.from_numpy(x) for x in (q, k, v)]
@@ -237,3 +248,24 @@ def test_chunked_sum_matches_plain_and_reference(b, hq, hk, sq, skv, d, lens, q_
     for got, plain, ref in ((got_k, plain_k, ref_k), (got_v, plain_v, ref_v)):
         np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=ATOL_VJP)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=ATOL_VJP)
+
+
+@pytest.mark.parametrize("d, dv", ops.BWD_HEAD_DIMS)
+def test_key_passes_by_pair(d, dv):
+    """The key side's launches at each pair the backward is built for: the
+    dk/dv pass where dk's and dv's 64-column panels are at most 4, as at D
+    128 (every equal pair, (24, 16)); the dv and then the dk pass at MLA's
+    (192, 128).  Each of them runs the one schedule, ``bwd_grid`` the same
+    for every key pass."""
+    passes = ops.bwd_key_passes(d, dv)
+    if (d, dv) == (192, 128):
+        assert passes == (ops.BWD_DV, ops.BWD_DK)
+    else:
+        assert passes == (ops.BWD_DKDV,) and -(-d // 64) + -(-dv // 64) <= 4
+    for shape in ((8, 128, 1, 128, 128, 0, True), (1, 4, 1, 2048, 2048, 0, True),
+                  (2, 2, 5, 33, 33, 0, True)):
+        grids = {ops.bwd_grid(p, *shape) for p in (ops.BWD_DKDV, ops.BWD_DV, ops.BWD_DK)}
+        assert len(grids) == 1
+        assert ops.bwd_grid(ops.BWD_DQ, *shape)[:3] == (shape[1] * shape[2],
+                                                        -(-shape[3] // TILE), shape[0])
+    assert ops.bwd_split(1, 4, 1, 2048, 2048, 0, True) == 4  # the card's cut case at DK 192

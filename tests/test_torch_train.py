@@ -5,7 +5,9 @@ through numpy.
 
 falcon-mamba-7b trains through the selective scan's plain backward,
 deepseek-moe-16b through the MoE's training capacity, whose drops the test
-sees happen, and its router aux loss.
+sees happen, and its router aux loss; deepseek-v2-236b through MLA (the
+flash backward at unequal key and value dims, (24, 16) in the smoke
+config) and the same MoE.
 
 Tolerances, float32 throughout:
 * the loss, and the aux loss, within 1e-5 of the loss, and every gradient
@@ -49,7 +51,8 @@ from repro_torch.training import optimizers as port_opt
 from repro_torch.training import trainer as port_trainer
 from repro_torch.training.tree import tree_leaves
 
-ARCHS = ["stablelm-1.6b", "qwen3-14b", "falcon-mamba-7b", "deepseek-moe-16b"]
+ARCHS = ["stablelm-1.6b", "qwen3-14b", "falcon-mamba-7b", "deepseek-moe-16b",
+         "deepseek-v2-236b"]
 RT = Runtime(block_q=16, block_k=16)
 SEQ, BATCH = 32, 4
 
@@ -220,20 +223,20 @@ def test_trainer_cli_on_the_cpu():
             train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "deepseek-moe-16b", "deepseek-v2-236b"])
 def test_trainer_cli_trains_mamba_and_moe_on_the_cpu(arch, capsys):
-    """The CLI trains the two archs (smoke); the aux loss reaches the step
-    records and the CLI's final line, as the reference's trainer logs it:
-    the MoE router's, 0 without MoE."""
+    """The CLI trains the archs (smoke): Mamba, MoE, and MLA with MoE; the
+    aux loss reaches the step records and the CLI's final line, as the
+    reference's trainer logs it: the MoE router's, 0 without MoE."""
     last = train_cli.main(["--arch", arch, "--smoke", "--steps", "2", "--seq-len", "16",
                            "--global-batch", "2", "--device", "cpu"])
     assert np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
-    assert (last["aux"] > 0) == (arch == "deepseek-moe-16b")
+    assert (last["aux"] > 0) == (arch != "falcon-mamba-7b")
     assert last["loss"] == pytest.approx(last["ce"] + last["aux"], rel=1e-6)
     assert "'aux'" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
 def test_unported_archs_refuse_training(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         LM(get_smoke_config(arch), device="cpu").trainable()
