@@ -26,8 +26,12 @@ engine on K3 with a value dim of 128 against a key dim of 192 (prefill) and
 K2's MLA latent form (decode).  The deepseek-v2 path runs 6 of its 60 layers
 (one dense head layer and five MoE layers, 21.25 B parameters, 42.5 GB of
 bf16): at full depth its 471 GB of weights fit no single card, and at this
-depth the card holds it alone once falcon-mamba-7b is freed.  Phases, each
-of which exits non-zero on failure:
+depth the card holds it alone once falcon-mamba-7b is freed.  Training runs
+stablelm-1.6b, falcon-mamba-7b, deepseek-moe-16b, deepseek-v2-236b and
+musicgen-medium (all 48 layers, after its 64 conditioning frames) at full
+width; internvl2-76b serves at full width and 16 of its 80 layers, every
+request with 256 patch embeddings; jamba's smoke period serves and trains.
+Phases, each of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
    2. build: compiles every kernel from the sources here, one nvcc each, all
@@ -247,7 +251,46 @@ of which exits non-zero on failure:
       steps each, no other kernel, peak memory; then one step's loss and
       gradients taken twice, the same bits;
   26d. the smoke deepseek-v2 trainer (MLA at (24, 16), MoE layers) 8 steps on
-      the card against the plain versions on the CPU, as 23d.
+      the card against the plain versions on the CPU, as 23d;
+  27a. (slice 17, every arch of the catalog) phase 9 for qwen1.5-110b,
+      qwen3-32b, jamba (its bf16 top-2 routing can flip at near ties between
+      the card and the CPU: the CPU's MoE takes the card's experts where they
+      differ, each such row a near tie or the phase fails, the count
+      printed; float32 is no option, K3 takes bf16 only), internvl2-76b and
+      musicgen-medium (their prompts after 8 frontend embeddings); phase 8's
+      K3 and K2 cases at internvl2-76b's heads (64 over 8, D 128) and
+      musicgen-medium's (24 of MHA, D 64); 23a and 23b also at
+      musicgen-medium's training rows (B 8, 24 heads, S 192 = 64 frames +
+      128 tokens), timed;
+  27b. the contiguous cache's ``decode_step`` teacher-forced on the card
+      through every smoke arch (the frontend's positions first, through
+      ``frontend_embed``) against one prefill of the row, within the
+      reference test's atol 0.1, rtol 0.05, the MoE at capacity_factor 100;
+      then musicgen-medium at full width, 64 frames + 8 tokens;
+  27c. main path 10: ``Trainer`` on musicgen-medium at full width and depth
+      (48 layers, d_model 1536, 24 heads), seq 128 after 64 conditioning
+      frames (the pipeline's synthetic embeddings), the settings of 23c:
+      losses and grad norms finite, aux 0, K3 = 2 x 48 x steps, K3-bwd's dq
+      and dk/dv passes 48 x steps each, no other kernel; peak memory and a
+      profiled window; then the 8 steps again from the same seed with K3 and
+      K3-bwd swapped for their plain versions on the card, each loss within
+      1% of the kernels';
+  27d. main path 11: internvl2-76b at full width, 16 of its 80 layers, every
+      request with 256 patch embeddings: ``ServeEngine`` over the CLI's
+      8-request trace (max_batch 4, max_seq 1024: patches and prompt in one
+      1024-row prefill block), 8/8, K3 = 16 x prefills, K2 = 16 x decode
+      steps; the trace again on a cold engine sharing the weights, the same
+      tokens; ``Server.generate`` at batch 4, 16 tokens, 16 generated; TTFT,
+      decode step, tokens/s, peak memory; then K3 at its prefill block and
+      K2 at its decode step timed beside their bounds, plain versions and
+      SDPA;
+  27e. jamba's smoke period on the card: the serve CLI's ``--continuous``
+      path (8/8, ``bit_identical=yes``; K3 and K2 once an attention layer a
+      prefill or decode step, K4 once a Mamba layer), the smoke trainer card
+      vs CPU through K3, K3-bwd, K4 and K4-bwd (each counted by the layers of
+      its mixer's kind), one step's gradient twice the same bits;
+  27f. the smoke internvl2-76b and musicgen-medium trainers card vs CPU, as
+      23d, and a checkpoint round trip of musicgen-medium's, as 23e.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's and
 K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
@@ -265,6 +308,7 @@ chunked scan, no Pallas kernel, and count their launches on the Mamba
 training path), the card's ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -346,7 +390,8 @@ DEEPSEEK = "deepseek-v2-236b"
 DEEPSEEK_LAYERS = 6  # one dense head layer and five MoE layers of the 60
 PATH_KERNELS = {QWEN: {"flash_fwd": (1, 0), "paged_decode": (0, 1)},
                 MAMBA: {"selective_scan": (1, 1)},
-                DEEPSEEK: {"flash_fwd": (1, 0), "paged_latent_decode": (0, 1)}}
+                DEEPSEEK: {"flash_fwd": (1, 0), "paged_latent_decode": (0, 1)},
+                "internvl2-76b": {"flash_fwd": (1, 0), "paged_decode": (0, 1)}}
 LONG_PROMPT, LONG_GEN, LONG_BATCH = 1024, 64, 8
 
 # The autotuner: timed calls per candidate (one warm-up is added), and the
@@ -1128,7 +1173,8 @@ def random_pages(torch, gen, dev, b, npp, n_pages):
 
 
 def serve_kernels_vs_plain(dev, cfg):
-    """Phase 8.  Returns the largest absolute error of each kernel."""
+    """Phases 8 and 27a (internvl2-76b's and musicgen-medium's heads).
+    Returns the largest absolute error of each kernel."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1136,7 +1182,7 @@ def serve_kernels_vs_plain(dev, cfg):
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import paged_decode_stream
 
-    phase(f"K3 and K2 vs plain (bf16, {QWEN}: Hk {cfg.n_kv_heads}, "
+    phase(f"K3 and K2 vs plain (bf16, {cfg.name}: Hk {cfg.n_kv_heads}, "
           f"G {cfg.n_heads // cfg.n_kv_heads}, head_dim {cfg.head_dim})")
     hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1369,10 +1415,13 @@ def mla_chunk_verify_kernels_vs_plain(dev, cfg) -> dict:
     return errs
 
 
-def small_lm_check(dev, arch):
-    """Phases 9 and 14: the smoke LM on the card against the plain versions
-    on the CPU, same weights: prefill logits, then 8 teacher-forced decode
-    steps."""
+def small_lm_check(dev, arch, pin_routing=False):
+    """Phases 9, 14, 19 and 27a: the smoke LM on the card against the plain
+    versions on the CPU, same weights: prefill logits, then 8 teacher-forced
+    decode steps; a frontend arch's prompts after their embeddings (8
+    frontend positions, synthetic as the reference draws them).  With
+    ``pin_routing`` the CPU's MoE takes the card's top-k experts where the
+    two differ, each such row a near tie (``pinned_routing``)."""
     import copy
 
     import numpy as np
@@ -1382,7 +1431,8 @@ def small_lm_check(dev, arch):
     from repro_torch.models.model import LM
     from repro_torch.serve.cache import init_paged_cache, write_prefill
 
-    phase(f"small-input check: smoke {arch} on the card vs the plain versions on the CPU")
+    phase(f"small-input check: smoke {arch} on the card vs the plain versions on the CPU"
+          + (", the CPU's MoE on the card's experts where they differ" if pin_routing else ""))
     cfg = get_smoke_config(arch)
     cpu = LM(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
     card = copy.deepcopy(cpu).to(dev)
@@ -1390,6 +1440,8 @@ def small_lm_check(dev, arch):
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 37)))
     forced = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 2)))
     tables = torch.tensor([[3, 7, 1, 10], [5, 2, 11, 8]], dtype=torch.int32)
+    f = cfg.n_frontend_tokens
+    fe = torch.from_numpy((0.02 * rng.randn(1, f, cfg.d_model)).astype(np.float32)) if f else None
     worst = [0.0, 0.0]
 
     def compare(got, want, what):
@@ -1403,23 +1455,79 @@ def small_lm_check(dev, arch):
             fail(f"small LM {what}: max |d| {float(err.max())}, mean {float(err.mean())}, "
                  f"max |logit| {scale}")
 
-    caches = []
-    for model in (card, cpu):
-        cache = init_paged_cache(model, num_pages=12, page_size=16, max_batch=2)
-        for slot, n in enumerate((37, 21)):
-            _, pre = model.prefill(prompt[:, :n])
-            write_prefill(cache, pre, slot=slot, page_ids=list(tables[slot, :-(-n // 16)]),
-                          page_size=16)
-        caches.append(cache)
-    compare(card.prefill(prompt)[0], cpu.prefill(prompt)[0], "prefill")
-    lengths = torch.tensor([37, 21], dtype=torch.int32)
-    for step in range(8):
-        got, _ = card.decode_step_paged(forced[step], lengths.to(dev), caches[0], tables.to(dev))
-        want, _ = cpu.decode_step_paged(forced[step], lengths, caches[1], tables)
-        compare(got, want, f"decode step {step}")
-        lengths += 1
+    with pinned_routing(arch) if pin_routing else contextlib.nullcontext():
+        caches = []
+        for model in (card, cpu):
+            cache = init_paged_cache(model, num_pages=12, page_size=16, max_batch=2)
+            for slot, n in enumerate((37, 21)):
+                _, pre = model.prefill(prompt[:, :n], fe)
+                write_prefill(cache, pre, slot=slot,
+                              page_ids=list(tables[slot, :-(-(f + n) // 16)]), page_size=16)
+            caches.append(cache)
+        compare(card.prefill(prompt, fe)[0], cpu.prefill(prompt, fe)[0], "prefill")
+        lengths = torch.tensor([f + 37, f + 21], dtype=torch.int32)
+        for step in range(8):
+            got, _ = card.decode_step_paged(forced[step], lengths.to(dev), caches[0],
+                                            tables.to(dev))
+            want, _ = cpu.decode_step_paged(forced[step], lengths, caches[1], tables)
+            compare(got, want, f"decode step {step}")
+            lengths += 1
     print(f"prefill + 8 decode steps: max |d| {worst[0]:.4f}, mean |d| {worst[1]:.5f} of the "
           f"largest logit (limits {LM_MAX_OF_SCALE}, {LM_MEAN_OF_SCALE})")
+
+
+@contextlib.contextmanager
+def pinned_routing(arch):
+    """The MoE's ``route`` patched for a card-vs-CPU comparison of one model
+    run on both, the card first at each call: the card's top-k expert ids
+    are kept in order of the calls, and the CPU's call of the same place
+    takes them where its own top-k set differs.  A difference must be a
+    near tie: the CPU's router logits of its k-th and (k+1)-th experts
+    within LM_MAX_OF_SCALE of the row's largest |logit|, else the check
+    fails (a fault routes far from a tie).  The probabilities are the CPU's
+    own for the experts taken.  Prints how many rows differed."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    route, queue, seen = moe_mod.route, [], {"rows": 0, "flipped": 0, "gap": 0.0}
+
+    def pinned(p, x, cfg, train=False):
+        out = route(p, x, cfg, train)
+        if train:
+            return out
+        ids, probs = out
+        if x.device.type != "cpu":
+            queue.append(ids.detach().cpu())
+            return out
+        card = queue.pop(0)
+        k = cfg.moe.top_k
+        logits = x.float() @ p["router"].float()
+        differ = (card.sort(dim=-1).values != ids.sort(dim=-1).values).any(dim=-1)
+        seen["rows"] += ids.shape[0]
+        if bool(differ.any()):
+            top = logits.sort(dim=-1, descending=True).values
+            gap = ((top[:, k - 1] - top[:, k]) / top.abs().amax(dim=-1))[differ]
+            seen["flipped"] += int(differ.sum())
+            seen["gap"] = max(seen["gap"], float(gap.max()))
+            if float(gap.max()) > LM_MAX_OF_SCALE:
+                fail(f"{arch}: the card's experts differ from the CPU's at a router gap of "
+                     f"{float(gap.max()):.3g} of the largest logit: not a near tie")
+            ids = torch.where(differ[:, None], card, ids)
+            probs = torch.softmax(logits, dim=-1).gather(-1, ids)
+            if cfg.moe.norm_topk:
+                probs = probs / torch.clamp(probs.sum(dim=-1, keepdim=True), min=1e-9)
+        return ids, probs
+
+    moe_mod.route = pinned
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+        print(f"{arch}: the card's and the CPU's top-k expert sets differ in {seen['flipped']} "
+              f"of {seen['rows']} routed rows, each a near tie (largest gap "
+              f"{seen['gap']:.3g} of the row's largest |router logit|, limit "
+              f"{LM_MAX_OF_SCALE}); the CPU took the card's experts there")
 
 
 def k5_inputs(torch, gen, b, hq, hk, s, d, lengths=None):
@@ -2672,6 +2780,11 @@ BWD_SHAPES = (("stablelm-1.6b", 8, 32, 32, 128, 64, 64, None),
               ("qwen3-14b S 2048", 1, 40, 8, 2048, 128, 128, None),
               ("qwen3-14b ragged", 2, 40, 8, 1024, 128, 128, (1024, 611)),
               ("deepseek-moe-16b", 8, 16, 16, 128, 128, 128, None),
+              # musicgen-medium's training rows: 64 conditioning frames + 128
+              # tokens, 24 heads of MHA at D 64
+              ("musicgen-medium", 8, 24, 24, 192, 64, 64, None),
+              ("musicgen-medium ragged", 8, 24, 24, 192, 64, 64,
+               (192, 150, 129, 128, 65, 64, 1, 192)),
               # MLA: deepseek-v2-236b's training shape (K and V re-expanded to
               # its 128 heads) and a cut key side (split 4) at DK 192; the
               # smoke deepseek-v2's (24, 16)
@@ -2682,7 +2795,7 @@ BWD_SHAPES = (("stablelm-1.6b", 8, 32, 32, 128, 64, 64, None),
               ("smoke deepseek-v2 cut", 1, 8, 1, 512, 24, 16, None))
 # the kernels line's rows: the first; the rest are printed beside it.  The
 # equal-dim ones are also those ``--k3bwd-times`` compares with a parent
-BWD_TIMED = ("stablelm-1.6b", "qwen3-14b S 2048")
+BWD_TIMED = ("stablelm-1.6b", "qwen3-14b S 2048", "musicgen-medium")
 MLA_BWD_TIMED = ("deepseek-v2-236b", "deepseek-v2 cut, S 2048")
 # K3-bwd's launches by the wrapper's name (ops.py: BWD_DQ .. BWD_DK)
 BWD_PASS_NAMES = ("flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_dv", "flash_bwd_dk")
@@ -2931,8 +3044,9 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
-    phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b, qwen3-14b, deepseek-moe-16b "
-          "and deepseek-v2-236b training shapes, the smoke deepseek-v2's (24, 16))")
+    phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b, qwen3-14b, deepseek-moe-16b, "
+          "musicgen-medium and deepseek-v2-236b training shapes, the smoke deepseek-v2's "
+          "(24, 16))")
     bwd_ptxas(build_log)
     gen = torch.Generator(device=dev).manual_seed(22)
     worst = {"flash_fwd_lse": 0.0, **{name: 0.0 for name in BWD_PASS_NAMES}}
@@ -3177,10 +3291,11 @@ def smoke_trainer(device, arch=TRAIN_ARCH, **kw):
 
 def training_kernels_vs_plain(dev, arch=TRAIN_ARCH,
                               kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")) -> None:
-    """Phases 23d and 24e: the smoke trainer (bf16, remat none) for 8 steps
-    through the kernels on the card and through the plain versions on the
-    CPU, from the card's initial weights and state; each of ``kernels``
-    launched once a layer a step, no other kernel."""
+    """Phases 23d, 24e, 26d, 27e and 27f: the smoke trainer (bf16, remat
+    none) for 8 steps through the kernels on the card and through the plain
+    versions on the CPU, from the card's initial weights and state; each of
+    ``kernels`` launched once a step a layer whose mixer runs it (attention:
+    K3, K3-bwd; Mamba: K4, K4-bwd), no other kernel."""
     phase(f"small-input check: the smoke {arch} trainer, 8 steps on the card "
           f"({', '.join(kernels)}) vs the plain versions on the CPU, the same weights")
     card = smoke_trainer(dev, arch)
@@ -3190,8 +3305,9 @@ def training_kernels_vs_plain(dev, arch=TRAIN_ARCH,
     card.train_some(8)
     counts = read_launches()
     cpu.train_some(8)
-    layers = card.cfg.n_layers
-    want = {name: 8 * layers if name in kernels else 0 for name in counts}
+    kinds = layers_by_mixer(card.cfg)  # each kernel once a layer of its mixer's kind a step
+    want = {name: 8 * kinds["mamba" if name.startswith("selective_scan") else "attn"]
+            if name in kernels else 0 for name in counts}
     if counts != want:
         fail(f"smoke training launches {counts}, expected {want}")
     want = {name: want[name] for name in kernels}
@@ -3205,22 +3321,23 @@ def training_kernels_vs_plain(dev, arch=TRAIN_ARCH,
         fail(f"the smoke trainer's losses on the card part from the CPU's: {worst:.3g}")
 
 
-def checkpoint_round_trip(dev, workdir: Path) -> None:
-    """Phase 23e: the smoke trainer on the card saves at step 4 (and 8); a
-    fresh trainer restores step 4 and runs steps 5-8: losses, parameters and
-    optimizer state bit for bit those of the run that never stopped."""
+def checkpoint_round_trip(dev, workdir: Path, arch=TRAIN_ARCH) -> None:
+    """Phases 23e and 27f: the smoke trainer on the card saves at step 4
+    (and 8); a fresh trainer restores step 4 and runs steps 5-8: losses,
+    parameters and optimizer state bit for bit those of the run that never
+    stopped."""
     import torch
 
     from repro_torch.training.tree import tree_leaves
 
-    phase("checkpoint round trip on the card: save at step 4, restore into a fresh Trainer, "
-          "steps 5-8 bit for bit")
+    phase(f"checkpoint round trip on the card ({arch}): save at step 4, restore into a fresh "
+          "Trainer, steps 5-8 bit for bit")
     ckpt = workdir / "ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    a = smoke_trainer(dev, ckpt_dir=str(ckpt), ckpt_every=4)
+    a = smoke_trainer(dev, arch, ckpt_dir=str(ckpt), ckpt_every=4)
     a.train_some(8)
     a.ckpt.wait()
-    b = smoke_trainer(dev, ckpt_dir=str(ckpt), ckpt_every=100)
+    b = smoke_trainer(dev, arch, ckpt_dir=str(ckpt), ckpt_every=100)
     if not b.restore(4) or b.step != 4:
         fail("the fresh trainer did not restore step 4")
     b.train_some(4)
@@ -3689,6 +3806,373 @@ def static_serve_path(lm) -> dict:
     return counts
 
 
+# ------------------------------------------- the rest of the catalog (slice 17)
+
+JAMBA = "jamba-1.5-large-398b"
+INTERNVL = "internvl2-76b"
+MUSICGEN = "musicgen-medium"
+# 27a: the smoke archs no earlier phase holds on the card against the CPU
+CATALOG_SMOKE = ("qwen1.5-110b", "qwen3-32b", JAMBA, INTERNVL, MUSICGEN)
+# main path 10: musicgen-medium trained at full width and all 48 layers
+MUSICGEN_LAYERS = 48
+# main path 11: internvl2-76b served at full width, 16 of its 80 layers
+# (15.79 B parameters, 31.6 GB of bf16; depth only), max_seq 1024, so that a
+# request's 256 patches and prompt prefill in one 1024-row block
+INTERNVL_LAYERS, INTERNVL_MAX_SEQ = 16, 1024
+INTERNVL_STATIC = dict(batch=4, prompt_len=16, gen=16)
+# 27b: the tokens after the frontend positions (the reference test's 8)
+DECODE_TOKENS = 8
+# 27b's bound: the reference's test_decode_matches_prefill_logits
+DECODE_ATOL, DECODE_RTOL = 0.1, 0.05
+
+
+def layers_by_mixer(cfg) -> dict:
+    """{"attn": n, "mamba": n}: the layers each mixer kind runs."""
+    specs = cfg.layer_specs()
+    return {kind: sum(spec.mixer == kind for spec in specs) for kind in ("attn", "mamba")}
+
+
+def contiguous_decode_check(dev) -> None:
+    """Phase 27b: the contiguous cache's ``decode_step`` teacher-forced
+    through every smoke arch on the card (the frontend's positions first,
+    through ``frontend_embed``, then 8 tokens, from ``init_cache``) against
+    one ``prefill`` of the whole row, within the reference test's atol 0.1,
+    rtol 0.05, the MoE at its capacity_factor 100; then musicgen-medium at
+    full width (48 layers, 64 frames + 8 tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.models.model import LM
+
+    phase("27b: teacher-forced decode_step (the contiguous cache) vs prefill on the card, every "
+          f"smoke arch, then {MUSICGEN} at full width")
+
+    def check(cfg):
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                   capacity_factor=100.0))
+        lm = LM(cfg, dev).init_params(torch.Generator(device=dev).manual_seed(1))
+        rng = np.random.RandomState(1)
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, DECODE_TOKENS))).to(dev)
+        f = cfg.n_frontend_tokens
+        fe = torch.from_numpy((0.02 * rng.randn(2, f, cfg.d_model)).astype(np.float32)).to(dev)
+        reset_launches()
+        want, _ = lm.prefill(tokens, fe if f else None)
+        cache = lm.init_cache(2, f + DECODE_TOKENS + 1)
+        lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+        for t in range(f + DECODE_TOKENS):
+            if t < f:
+                got, cache = lm.decode_step(tokens[:, 0], lengths, cache, frontend_embed=fe[:, t])
+            else:
+                got, cache = lm.decode_step(tokens[:, t - f], lengths, cache)
+            lengths += 1
+        counts = {k: v for k, v in read_launches().items() if v}
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        worst = float((err / (DECODE_ATOL + DECODE_RTOL * want.abs())).max())
+        print(f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {f} frontend "
+              f"positions + {DECODE_TOKENS} tokens): max |decode - prefill| {float(err.max()):.4f}"
+              f" (max |logit| {float(want.abs().max()):.3f}), {worst:.3f} of the bound; "
+              f"launches {counts}")
+        if not bool(torch.isfinite(got).all()) or worst > 1.0:
+            fail(f"{cfg.name}: teacher-forced decode_step does not reproduce prefill's logits")
+
+    for arch in ARCH_IDS:
+        check(get_smoke_config(arch))
+    check(get_config(MUSICGEN))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """K3 and K3-bwd's wrappers swapped for their plain versions
+    (``flash_fwd_ref``, ``flash_bwd_ref`` at 64 x 64 tiles), which run on the
+    card's tensors: a reference path for a whole training run."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    kernels = fa_ops.flash_fwd, fa_ops.flash_bwd
+
+    def fwd(q, k, v, kv_lens, *, causal=True, sm_scale, q_offset=0, block_q=16, block_k=16,
+            return_lse=False):
+        return fa_ref.flash_fwd_ref(q, k, v, kv_lens, causal=causal, sm_scale=sm_scale,
+                                    q_offset=q_offset, block_q=64, block_k=64,
+                                    return_lse=return_lse)
+
+    def bwd(q, k, v, kv_lens, out, lse, dout, *, causal=True, sm_scale, q_offset=0,
+            block_q=16, block_k=16):
+        return fa_ref.flash_bwd_ref(q, k, v, kv_lens, out, lse, dout, causal=causal,
+                                    sm_scale=sm_scale, q_offset=q_offset, block_q=64,
+                                    block_k=64)
+
+    fa_ops.flash_fwd, fa_ops.flash_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        fa_ops.flash_fwd, fa_ops.flash_bwd = kernels
+
+
+def training_vs_plain_flash(losses, opts) -> None:
+    """Phase 27c, continued: main path 10's 8 steps again from the same seed
+    with K3 and K3-bwd swapped for their plain versions on the card; each
+    step's loss within TRAIN_LOSS_RTOL of the kernels' (the two differ by
+    the bf16 rounding of attention's outputs and gradients, whose effect
+    the Adam steps carry on).  ``losses`` are the kernels' run's, ``opts``
+    its ``TrainerOptions``; the caller has freed its trainer."""
+    import torch
+
+    from repro_torch.launch.train import Trainer
+
+    with plain_flash():
+        plain = Trainer(opts)
+        plain.run()
+    want = [r["loss"] for r in plain.records]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    print("the same 8 steps, K3 and K3-bwd swapped for their plain versions on the card: "
+          "losses " + ", ".join(f"{x:.4f}" for x in want) + f"; the kernels' within "
+          f"{worst:.3g} of them (limit {TRAIN_LOSS_RTOL})")
+    if len(want) != len(losses) or worst > TRAIN_LOSS_RTOL:
+        fail(f"main path 10's losses part from the plain flash path's: {worst:.3g}")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontend_kernel_timings(dev) -> dict:
+    """Phase 27d, continued: K3 at main path 11's prefill block (B 1, 64
+    query heads over 8, D 128, 1024 rows of which the first 290 are real:
+    256 patches and a 34-token prompt; CUDA events) and K2 at its decode
+    step (B 4, lengths 300-330 over 64 pages of 16; a CUDA graph, L2
+    flushed), each beside its bound for what this input needs, its plain
+    version's time and one PyTorch call's (SDPA over the real rows; over
+    the gathered dense KV)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_stream
+
+    hk, g, d = 8, 8, 128
+    hq = hk * g
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    rows = {}
+    s, n = INTERNVL_MAX_SEQ, 290
+    q, k, v = bf16(1, hq, s, d), bf16(1, hk, s, d), bf16(1, hk, s, d)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, lens, sm_scale=d ** -0.5), reps=10)
+    plain = cuda_ms(lambda: flash_fwd_ref(q, k, v, lens, causal=True, sm_scale=d ** -0.5,
+                                          q_offset=0, block_q=16, block_k=16), reps=2, warmup=1)
+    qr, kr, vr = q[:, :, :n], k[:, :, :n], v[:, :, :n]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                                         enable_gqa=True), reps=20)
+    pairs = sum(min(i + 1, n) for i in range(s))  # each row's keys, the padding rows' too
+    nbytes = 2 * hq * s * d * 2 + 2 * hk * n * d * 2  # q, out; the real rows of k, v
+    flops = 4 * hq * d * pairs
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    bound, by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"flash_fwd at main path 11's prefill block (Sq=Skv={s}, kv_len {n}, Hq {hq}, Hk {hk}, "
+          f"D {d}, block_k 16): kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA over the {n} real "
+          f"rows {lib:.4f} ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB), kernel at {100 * bound / ms:.2f}% of bound")
+    rows["flash_fwd"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                         "bound_by": by, "shape": f"B 1, Hq {hq}, Hk {hk}, S {s}, kv_len {n}"}
+
+    b, page, npp = 4, 16, INTERNVL_MAX_SEQ // 16
+    lengths = [300, 310, 320, 330]
+    n_pages = 1 + b * npp
+    kp, vp = bf16(n_pages, hk, page, d), bf16(n_pages, hk, page, d)
+    tables = random_pages(torch, gen, dev, b, npp, n_pages)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    qd = bf16(b, hk, g, d)
+    ctx = npp * page
+    idx = tables.long()
+    k_dense = kp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
+    v_dense = vp[idx].movedim(2, 1).reshape(b, hk, ctx, d).contiguous()
+    mask = (torch.arange(ctx, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    q_sdpa = qd.reshape(b, hq, 1, d)
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+
+    def call():
+        return fd_ops.paged_decode(qd, kp, vp, lens, tables, scale=d ** -0.5,
+                                   pages_per_program=K2_ROW_PAGES_PER_PROGRAM)
+
+    ms = graph_ms(call, reps=50, flush=flush)
+    eager = cuda_ms(call, reps=50)
+    plain = cuda_ms(lambda: paged_decode_stream(qd, kp, vp, lens, tables, scale=d ** -0.5,
+                                                pages_per_program=K2_ROW_PAGES_PER_PROGRAM),
+                    reps=5, warmup=1)
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(q_sdpa, k_dense, v_dense,
+                                                          attn_mask=mask, enable_gqa=True),
+                   reps=50, flush=flush)
+    valid = sum(lengths)
+    nbytes = 2 * valid * hk * d * 2 + 2 * b * hq * d * 2 + b * npp * 4 + b * 4
+    flops = 4 * valid * hq * d
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    bound, by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"paged_decode at main path 11's decode step (B {b}, lengths {lengths}, Hk {hk}, G {g}, "
+          f"D {d}, ppp {K2_ROW_PAGES_PER_PROGRAM}): kernel {ms:.4f} ms (CUDA graph, L2 flushed; "
+          f"eager {eager:.4f}), plain {plain:.3f} ms, SDPA with a length mask on the gathered "
+          f"dense KV {lib:.4f} ms (CUDA graph, L2 flushed), bound {bound:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB), kernel at {100 * bound / ms:.2f}% of bound")
+    rows["paged_decode"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                            "bound_by": by, "eager_ms": eager, "timed_by": GRAPH_COLD_L2,
+                            "shape": f"B {b}, Hk {hk}, G {g}, D {d}, lengths {lengths}"}
+    return rows
+
+
+def frontend_serve_path(dev) -> dict:
+    """Phase 27d, main path 11: internvl2-76b at full width, 16 of its 80
+    layers, every request with 256 patch embeddings: ``ServeEngine`` over the
+    serve CLI's 8-request mixed trace (max_batch 4, page 16, max_seq 1024),
+    8/8 served, K3 = 16 x prefills and K2 = 16 x decode steps; the same trace
+    on a cold engine sharing the weights, the same tokens; ``Server.generate``
+    at batch 4, 16 tokens and their embeddings, 16 generated; TTFT, decode
+    step, tokens/s, peak memory.  Returns the path's launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import random_lm
+
+    full = get_config(INTERNVL)
+    cfg = dataclasses.replace(full, n_layers=INTERNVL_LAYERS)
+    phase(f"main path 11: serving {INTERNVL} at full width, {INTERNVL_LAYERS} of "
+          f"{full.n_layers} layers, {cfg.n_frontend_tokens} patch embeddings a request "
+          f"(ServeEngine, the CLI's mixed trace; a cold engine; Server.generate)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = random_lm(cfg, dev, 0)
+    torch.cuda.synchronize()
+    params = list(lm.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads}, {sum(p.numel() for p in params) / 1e9:.3f} B parameters, weights "
+          f"{sum(p.numel() * p.element_size() for p in params) / 1e9:.3f} GB, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if (cfg.d_model, cfg.n_heads, cfg.d_ff) != (full.d_model, full.n_heads, full.d_ff):
+        fail("main path 11 is not internvl2-76b at full width")
+    specs = serve._mixed_trace_specs(cfg, 16, 8, 0)
+    geometry = dict(max_batch=4, page_size=16, max_seq=INTERNVL_MAX_SEQ)
+    runs, total = [], {name: 0 for name in kernel_wrappers()}
+    for which in ("warm", "cold"):
+        eng = ServeEngine("", lm=lm, **geometry)
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, gen, arrival_step=arr, frontend_embeds=fe)
+                for p, gen, arr, fe in specs]
+        stats = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        prefills, steps = eng.prefills_run, stats["decode_steps"]
+        decode_ms = [1e3 * e.step_s for e in eng.events("serve_step") if e.op == "decode"]
+        ttft = [1e3 * r.prefill_s for r in reqs]
+        print(f"{which} engine: served {stats['requests_finished']}/8 in {eng.step_count} steps, "
+              f"{seconds:.1f} s; {prefills} prefills (TTFT p50 {statistics.median(ttft):.1f} ms, "
+              f"max {max(ttft):.1f}; prefill rows a block {eng.rt.prefill_rows}), {steps} "
+              f"decode steps (median {statistics.median(decode_ms):.1f} ms, mean batch "
+              f"{stats['mean_batch']:.2f}, {stats['decode_tok_per_s']:.1f} tok/s); "
+              f"flash_fwd {counts['flash_fwd']} = {cfg.n_layers} x {prefills}, paged_decode "
+              f"{counts['paged_decode']} = {cfg.n_layers} x {steps}")
+        if stats["requests_finished"] != 8 or stats["prefix_hits"]:
+            fail(f"main path 11 ({which}): served {stats['requests_finished']}/8, "
+                 f"{stats['prefix_hits']} prefix hits")
+        check_path_launches(INTERNVL, counts, cfg.n_layers, prefills, steps,
+                            f"main path 11 ({which})")
+        runs.append([list(r.generated) for r in reqs])
+        total = {name: total[name] + counts[name] for name in total}
+        del eng
+    if runs[0] != runs[1]:
+        fail("main path 11: the cold engine's tokens differ from the warm engine's")
+    print("the cold engine sharing the weights: the same tokens, every request")
+    rng = np.random.RandomState(0)
+    st = INTERNVL_STATIC
+    prompts = rng.randint(0, cfg.vocab_size, (st["batch"], st["prompt_len"])).astype(np.int32)
+    fe = (0.02 * rng.randn(st["batch"], cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    server = serve.Server("", lm=lm, max_seq=st["prompt_len"] + cfg.n_frontend_tokens
+                          + st["gen"] + 8)
+    reset_launches()
+    res = server.generate(prompts, st["gen"], fe)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    eng = server._engine
+    prefills, steps = eng.prefills_run, eng.stats()["decode_steps"]
+    print(f"Server.generate: tokens {res['tokens'].shape}, prefill {1e3 * res['prefill_s']:.1f} "
+          f"ms ({st['batch']} requests of {cfg.n_frontend_tokens} + {st['prompt_len']} "
+          f"positions), decode {res['decode_tok_per_s']:.1f} tok/s over "
+          f"{1e3 * res['decode_s']:.1f} ms; {prefills} prefills, {steps} decode steps")
+    if res["tokens"].shape != (st["batch"], st["gen"]) or not np.all(
+            (res["tokens"] >= 0) & (res["tokens"] < cfg.vocab_size)):
+        fail(f"main path 11: Server.generate returned tokens {res['tokens'].shape}")
+    check_path_launches(INTERNVL, counts, cfg.n_layers, prefills, steps,
+                        "main path 11 (Server.generate)")
+    total = {name: total[name] + counts[name] for name in total}
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del server, eng, lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def jamba_smoke_paths(dev) -> None:
+    """Phase 27e: jamba's smoke period on the card (7 Mamba layers,
+    attention at position 4, top-2 MoE on the odd layers): the serve CLI's
+    ``--continuous`` path (8/8, prefix reuse ``bit_identical=yes``; K3 and K2
+    once an attention layer a prefill or decode step, K4 once a Mamba
+    layer), the smoke trainer card vs CPU through K3, K3-bwd, K4 and K4-bwd,
+    and one step's gradient twice, the same bits."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    phase(f"27e: python -m repro_torch.launch.serve --arch {JAMBA} --smoke --continuous "
+          "(on the card)")
+    reset_launches()
+    try:
+        result = serve.main(["--arch", JAMBA, "--smoke", "--continuous"])
+    except SystemExit as e:
+        fail(f"the jamba serve CLI exited with {e.code}")
+    counts = read_launches()
+    warm, cold = result["engines"]
+    prefills = sum(e.prefills_run for e in (warm, cold))
+    steps = sum(e.stats()["decode_steps"] for e in (warm, cold))
+    kinds = layers_by_mixer(warm.cfg)
+    expected = {name: 0 for name in counts}
+    expected.update(flash_fwd=kinds["attn"] * prefills, paged_decode=kinds["attn"] * steps,
+                    selective_scan=kinds["mamba"] * (prefills + steps))
+    step_launches = kernel_wrappers()["selective_scan"].step_launches
+    print(f"{warm.cfg.name}: {kinds['attn']} attention and {kinds['mamba']} Mamba layers; "
+          f"{prefills} prefills, {steps} decode steps; launches {counts} (K4's decode body "
+          f"{step_launches})")
+    if result["served"] != 8 or counts != expected or step_launches != kinds["mamba"] * steps:
+        fail(f"jamba serve CLI: served {result['served']}, launches {counts}, expected "
+             f"{expected}")
+    del warm, cold, result
+    training_kernels_vs_plain(dev, JAMBA, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
+                                           "selective_scan", "selective_scan_bwd",
+                                           "selective_scan_bwd_reduce"))
+    trainer = smoke_trainer(dev, JAMBA)
+    moe_gradient_bits(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
 def main() -> None:
     import torch
 
@@ -3835,9 +4319,35 @@ def main() -> None:
                                            "selective_scan_bwd_reduce"))
     training_kernels_vs_plain(dev, MOE)
     training_kernels_vs_plain(dev, DEEPSEEK)  # MLA at (24, 16): the dk/dv pass, and MoE
+
+    # slice 17: the rest of the catalog (phases 27a-27f)
+    for arch in CATALOG_SMOKE:
+        small_lm_check(dev, arch, pin_routing=arch == JAMBA)
+    for arch in (INTERNVL, MUSICGEN):
+        for name, err in serve_kernels_vs_plain(dev, get_config(arch)).items():
+            errs[name] = max(errs[name], err)
+    contiguous_decode_check(dev)
+    musicgen_counts, trainer = mamba_moe_training_path(
+        MUSICGEN, MUSICGEN_LAYERS, 10, {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1})
+    losses, opts = [r["loss"] for r in trainer.records[:TRAIN_STEPS]], trainer.opts
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_vs_plain_flash(losses, opts)
+    internvl_counts = frontend_serve_path(dev)
+    frontend_rows = frontend_kernel_timings(dev)
+    jamba_smoke_paths(dev)
+    training_kernels_vs_plain(dev, INTERNVL)
+    training_kernels_vs_plain(dev, MUSICGEN)
+    checkpoint_round_trip(dev, workdir, MUSICGEN)
+
     by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
-                                training_moe=moe_counts["flash_fwd"])
+                                training_moe=moe_counts["flash_fwd"],
+                                training_musicgen=musicgen_counts["flash_fwd"],
+                                serve_internvl2=internvl_counts["flash_fwd"])
     launches["flash_fwd"] = sum(by_path["flash_fwd"].values())
+    by_path["paged_decode"]["serve_internvl2"] = internvl_counts["paged_decode"]
+    launches["paged_decode"] = sum(by_path["paged_decode"].values())
     by_path["flash_fwd_mla"]["training_mla"] = mla_counts["flash_fwd"]
     launches["flash_fwd_mla"] = sum(by_path["flash_fwd_mla"].values())
     by_path["selective_scan"] = {"cli": launches["selective_scan"],
@@ -3871,6 +4381,9 @@ def main() -> None:
                         "library_ms": lib, "shape": shape,
                         **({"launches_by_path": by_path[name]} if name in by_path else {}),
                         **(how[0] if how else {"timed_by": EAGER})})
+        if name in frontend_rows:
+            kernels[-1].update({f"{key}_at main path 11": value
+                                for key, value in frontend_rows[name].items()})
         if name == "flash_fwd":
             kernels[-1].update(lse_ms=bwd["flash_fwd_lse"]["ms"],
                                lse_shape=bwd["flash_bwd_dq"]["shape"] + ", block_k 64",
@@ -3891,7 +4404,7 @@ def main() -> None:
             ("flash_bwd_dk", "the key side's dk at MLA's (192, 128), after the dv "
              "pass; the dk/dv pass's schedule")):
         paths = {"training": train_counts[name], "training_moe": moe_counts[name],
-                 "training_mla": mla_counts[name]}
+                 "training_mla": mla_counts[name], "training_musicgen": musicgen_counts[name]}
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "replaces": "src/repro/kernels/flash_attention/ops.py:118",

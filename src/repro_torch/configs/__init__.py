@@ -4,7 +4,7 @@
 
 The architecture files are copies of ``repro.configs`` (pure data, no JAX);
 arch ids use the assignment's dashed names, e.g. ``qwen3-14b``.  The port's
-``LM`` runs the dense attention archs and raises for the others.
+``LM`` runs every arch of the registry.
 """
 from __future__ import annotations
 

@@ -63,7 +63,8 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
     holding the reference's parameters.
 
     ``params`` is the reference's param tree (``repro.models.model.LM.init``)
-    with numpy leaves: ``embed``, ``final_norm``, ``lm_head``, with
+    with numpy leaves: ``embed``, ``final_norm``, ``lm_head``, a frontend
+    arch's ``frontend_proj``, with
     ``first_k_dense`` head layers ``head_layers`` (a tuple of unstacked
     layer dicts), and ``periods``, whose leaves are stacked over the periods:
     for an attention layer ``pos<i>/{ln1, mixer/{wq, wk, wv, wo, q_norm,
@@ -84,8 +85,8 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
 
 def param_layout(lm: LM) -> Iterator[LayoutEntry]:
     """Each of the LM's parameter tensors with its place in the reference's
-    param tree: ``embed``, ``final_norm``, ``lm_head``; layer l < k =
-    ``first_k_dense`` at ``("head_layers", l, ...)``; layer l >= k at
+    param tree: ``embed``, ``final_norm``, ``lm_head``, ``frontend_proj``;
+    layer l < k = ``first_k_dense`` at ``("head_layers", l, ...)``; layer l >= k at
     ``("periods", "pos<(l - k) % P>", ...)``, index ``(l - k) // P`` of its
     stacked leaves (``lm_params_from_numpy``'s docstring)."""
     cfg = lm.cfg
@@ -93,6 +94,8 @@ def param_layout(lm: LM) -> Iterator[LayoutEntry]:
     yield ("final_norm",), None, lm.final_norm
     if lm.lm_head is not None:
         yield ("lm_head",), None, lm.lm_head
+    if lm.frontend_proj is not None:
+        yield ("frontend_proj",), None, lm.frontend_proj
     k, period = cfg.first_k_dense, len(cfg.period)
     for i, layer in enumerate(lm.layers):
         if i < k:

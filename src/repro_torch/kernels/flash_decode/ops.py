@@ -55,7 +55,7 @@ from repro_torch.kernels.flash_decode.ref import (
     paged_decode_gather,
     paged_decode_stream,
 )
-from repro_torch.models.runtime import DEFAULT_PAGES_PER_PROGRAM, PAGED_IMPLS
+from repro_torch.models.runtime import DEFAULT_PAGES_PER_PROGRAM, POOL_IMPLS
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -228,8 +228,8 @@ def paged_decode_attention(
     hk, page = k_pages.shape[1], k_pages.shape[2]
     if hq % hk:
         raise ValueError(f"Hq={hq} not a multiple of Hk={hk}")
-    if impl not in PAGED_IMPLS:
-        raise ValueError(f"impl={impl!r} not in {PAGED_IMPLS}")
+    if impl not in POOL_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {POOL_IMPLS}")
     scale = float(sm_scale) if sm_scale is not None else 1.0 / (d ** 0.5)
     if pages_per_program is None:
         ppp = pages_per_program_for(b, hq, hk, d, page, page_tables.shape[1], q.dtype,
@@ -355,8 +355,8 @@ def paged_latent_decode_attention(
     versions with the pool passed as K and V and a size-1 head axis, as the
     reference calls them.  ``pages_per_program=None`` consults the tuner's
     cache at ``latent_shape``, falling back to ``DEFAULT_PAGES_PER_PROGRAM``."""
-    if impl not in PAGED_IMPLS:
-        raise ValueError(f"impl={impl!r} not in {PAGED_IMPLS}")
+    if impl not in POOL_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {POOL_IMPLS}")
     b, h, r = q_lat.shape
     page, npp = ckv_pages.shape[1], page_tables.shape[1]
     if pages_per_program is None:

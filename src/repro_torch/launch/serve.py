@@ -47,12 +47,20 @@ Without ``--continuous`` the CLI runs the reference's static batch
 continuous engine), and prints the tokens' shape, the prefill ms and the
 decode tokens/s.
 
+A frontend arch (internvl2-76b, musicgen-medium) gets synthetic embeddings,
+as in the reference: the trace's requests each carry theirs
+(``_mixed_trace_specs``), and the static batch draws (batch, F, d) of them
+after the prompts (``repro/launch/serve.py:445-448``).  Its ``--continuous``
+run serves the trace, then stops with a ``ValueError`` at the prefix-reuse
+check, whose prompts carry no embeddings: the reference's CLI stops at the
+same place, its prefill's assert.
+
 Differences from the reference's CLI: ``--smoke`` is off by default, so the
 default is the full config; without ``--device cpu`` it runs on the card or
 raises; the router and tracing are not ported yet (ROADMAP.md), nor a mesh
-or frontend embeddings for ``Server``; the cold and the baseline engines
-share the warm engine's weights instead of building second copies, and run
-the same ``--paged-impl``.
+for ``Server``; the cold and the baseline engines share the warm engine's
+weights instead of building second copies, and run the same
+``--paged-impl``.
 """
 from __future__ import annotations
 
@@ -106,19 +114,18 @@ class Server:
 
     def generate(self, prompts: np.ndarray, gen_tokens: int,
                  frontend_embeds: Optional[np.ndarray] = None, greedy: bool = True) -> Dict:
-        """prompts: (B, P) int32.  Returns the generated tokens (B,
-        gen_tokens), ``prefill_s`` (the requests' prefill seconds, summed),
-        ``decode_s`` (this call's decode steps' seconds) and
-        ``decode_tok_per_s``."""
+        """prompts: (B, P) int32; a frontend arch's ``frontend_embeds``
+        (B, F, d).  Returns the generated tokens (B, gen_tokens),
+        ``prefill_s`` (the requests' prefill seconds, summed), ``decode_s``
+        (this call's decode steps' seconds) and ``decode_tok_per_s``."""
         if not greedy:
             raise ValueError("only greedy decoding is supported")
-        if frontend_embeds is not None:
-            raise NotImplementedError("frontend embeddings are not ported yet (ROADMAP.md, "
-                                      "queue 1 item 5)")
         b, _ = prompts.shape
         eng = self._make_engine(b)
         n_before = len(eng.events("serve_step"))  # the engine may be reused across calls
-        reqs = [eng.submit(np.asarray(prompts[i], np.int32), gen_tokens) for i in range(b)]
+        reqs = [eng.submit(np.asarray(prompts[i], np.int32), gen_tokens,
+                           frontend_embeds=None if frontend_embeds is None else frontend_embeds[i])
+                for i in range(b)]
         eng.run()
         tokens = np.stack([np.asarray(r.generated, np.int32) for r in reqs])
         this_call = [e for e in eng.events("serve_step")[n_before:] if e.batch > 0]
@@ -160,7 +167,14 @@ def _mixed_trace_specs(cfg, page_size: int, n_requests: int,
 def _verify_prefix_reuse(eng: ServeEngine, seed: int) -> Tuple[bool, ServeEngine]:
     """Serve one prefix-sharing prompt on the warm engine and the same prompt
     on a cold engine sharing its weights; logits must match bit for bit.
-    Returns (passed, the cold engine)."""
+    Returns (passed, the cold engine).  Raises ``ValueError`` for a frontend
+    arch, which needs embeddings with every prompt: these prompts carry none
+    (the reference's check fails there at its prefill's assert)."""
+    if eng.cfg.frontend != "none":
+        raise ValueError(
+            f"{eng.cfg.name}: the prefix-reuse check serves prompts without frontend "
+            f"embeddings, and a {eng.cfg.frontend} arch needs them with every prompt; "
+            "the reference's --continuous CLI stops here too")
     rng = np.random.RandomState(seed + 1)
     ps = eng.page_size
     head = rng.randint(0, eng.cfg.vocab_size, 2 * ps).astype(np.int32)
@@ -379,12 +393,16 @@ def static_batch(args: argparse.Namespace, cfg: Optional[ArchConfig] = None,
     server = Server(args.arch, smoke=args.smoke, max_seq=args.prompt_len + args.gen + 8,
                     page_size=args.page_size, lm=lm, device=args.device)
     rng = np.random.RandomState(args.seed)
-    prompts = rng.randint(0, server.cfg.vocab_size,
-                          (args.batch, args.prompt_len)).astype(np.int32)
-    res = server.generate(prompts, args.gen)
+    served = server.cfg
+    prompts = rng.randint(0, served.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    fe = None
+    if served.n_frontend_tokens:
+        fe = rng.randn(args.batch, served.n_frontend_tokens,
+                       served.d_model).astype(np.float32) * 0.02
+    res = server.generate(prompts, args.gen, fe)
     print(f"generated {res['tokens'].shape} tokens; prefill {res['prefill_s'] * 1e3:.0f} ms, "
           f"decode {res['decode_tok_per_s']:.1f} tok/s")
-    return dict(res, server=server, prompts=prompts)
+    return dict(res, server=server, prompts=prompts, frontend_embeds=fe)
 
 
 def _serve_replay(eng: ServeEngine, specs: List[TraceSpec], seed: int, speculate: int) -> List:

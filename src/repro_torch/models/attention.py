@@ -3,8 +3,11 @@ QKV bias, partial rotary; prefill and chunked prefill through the flash
 forward (K3), training through K3 and its backward (K3-bwd: ``apply_attention``
 with grad enabled) and paged decode through paged flash decode (K2).  Counterparts
 of ``repro/models/attention.py:70`` (``_project_qkv``), ``:98``
-(``apply_attention``), ``:128`` (``apply_attention_decode_paged``) and
-``:167`` (``apply_attention_prefill_paged``).
+(``apply_attention``), ``:128`` (``apply_attention_decode_paged``), ``:167``
+(``apply_attention_prefill_paged``) and ``:207`` (``apply_attention_decode``,
+the contiguous cache's decode step: the plain ``decode_attention``, as the
+reference's jnp one, whose length-0 rows get the mean of V where K5 gives
+zeros).
 
 The projections, qk-norm, rope and output projection run over row blocks of
 fixed shape: ``rt.prefill_rows`` positions in prefill and chunked prefill,
@@ -23,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import decode_attention, flash_attention
 from repro_torch.kernels.flash_decode.ops import (
     paged_decode_attention,
     paged_prefill_attention,
@@ -161,6 +164,29 @@ def apply_attention_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtim
     out = paged_decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"], lengths + 1,
                                  page_tables, impl=rt.paged_impl,
                                  pages_per_program=rt.pages_per_program)
+    y = by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * cfg.head_dim) @ p["wo"], out,
+                 rows)
+    return y[:, None, :]
+
+
+def apply_attention_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                           cache: Dict[str, torch.Tensor], lengths: torch.Tensor
+                           ) -> torch.Tensor:
+    """Decode of one new token per row, x (B, 1, d), against the contiguous
+    cache {"k", "v"} (B, Hk, max_seq, hd) (``LM.init_cache``, or a prefill's
+    cache), which it updates in place: each row's new K/V written at its
+    length, then ``decode_attention`` over ``lengths + 1`` positions.  The
+    reference's write (``attention.py:222-226``) is functional.  The
+    projections run over blocks of ``rt.decode_rows`` rows."""
+    b = x.shape[0]
+    rows = rt.decode_rows or b
+    lengths = lengths.to(torch.int32)
+    parts = [_project_qkv(p, x[r], cfg, lengths[r, None]) for r in row_blocks(b, rows)]
+    q, k, v = (torch.cat(t, dim=0) for t in zip(*parts))
+    at = torch.arange(b, device=x.device)
+    cache["k"][at, :, lengths.long()] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][at, :, lengths.long()] = v[:, 0].to(cache["v"].dtype)
+    out = decode_attention(q[:, 0], cache["k"], cache["v"], lengths + 1)
     y = by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * cfg.head_dim) @ p["wo"], out,
                  rows)
     return y[:, None, :]

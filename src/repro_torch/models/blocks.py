@@ -2,8 +2,9 @@
 residual, then, unless the layer's ffn is "none", ln2 -> SwiGLU or MoE ->
 residual.  Counterparts of ``repro/models/blocks.py``'s ``init_block`` (:22),
 ``apply_block`` (:56) for prefill and, without its cache, training
-(``apply_block_train``), ``apply_block_decode_paged`` (:98) and
-``apply_block_prefill_paged`` (:141) for chunked prefill, dispatching on
+(``apply_block_train``), ``apply_block_decode_paged`` (:98),
+``apply_block_prefill_paged`` (:141) for chunked prefill and
+``apply_block_decode`` (:182) for the contiguous cache, dispatching on
 the layer's ``LayerSpec`` (and on ``cfg.mla`` for the attention mixer) as
 there.
 
@@ -194,14 +195,31 @@ def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Run
     pools), or a Mamba layer's slot-major state (which the lengths and page
     tables do not index).  The norms and the FFN run over blocks of
     ``rt.decode_rows`` rows."""
-    rows = rt.decode_rows or x.shape[0]
-    h = by_batch(lambda xb: rms_norm(xb, p.ln1, cfg.norm_eps), x, rows)
     if p.spec.mixer == "attn":
-        mixer = (mla_mod.apply_mla_decode_paged if cfg.mla
-                 else attn_mod.apply_attention_decode_paged)
-        x = x + mixer(p.mixer, h, cfg, rt, cache, lengths, page_tables)
-    else:
-        x = x + mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache)
+        attend = (mla_mod.apply_mla_decode_paged if cfg.mla
+                  else attn_mod.apply_attention_decode_paged)
+        return _decode(p, x, cfg, rt, lambda h: attend(p.mixer, h, cfg, rt, cache, lengths,
+                                                       page_tables))
+    return _decode(p, x, cfg, rt, lambda h: mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache))
+
+
+def apply_block_decode(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                       cache: Dict[str, torch.Tensor], lengths: torch.Tensor) -> torch.Tensor:
+    """``apply_block_decode_paged`` against the contiguous cache
+    (``LM.init_cache``): an attention layer's K/V (B, Hk, max_seq, hd) or
+    MLA's latents (B, max_seq, r), written at each row's length, or a Mamba
+    layer's state; updated in place."""
+    if p.spec.mixer == "attn":
+        attend = mla_mod.apply_mla_decode if cfg.mla else attn_mod.apply_attention_decode
+        return _decode(p, x, cfg, rt, lambda h: attend(p.mixer, h, cfg, rt, cache, lengths))
+    return _decode(p, x, cfg, rt, lambda h: mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache))
+
+
+def _decode(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, mix) -> torch.Tensor:
+    """One decode step of a layer: x plus ``mix(ln1(x))``, then the FFN; the
+    norms and the FFN over blocks of ``rt.decode_rows`` rows."""
+    rows = rt.decode_rows or x.shape[0]
+    x = x + mix(by_batch(lambda xb: rms_norm(xb, p.ln1, cfg.norm_eps), x, rows))
     if p.ffn is None:
         return x
     return by_batch(lambda xb: xb + _ffn(p, rms_norm(xb, p.ln2, cfg.norm_eps), cfg), x, rows)

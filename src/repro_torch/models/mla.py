@@ -32,8 +32,15 @@ The row-wise steps run over row blocks of fixed shape: ``rt.prefill_rows``
 positions in prefill and chunked prefill, ``rt.decode_rows`` batch rows in
 decode (``repro_torch.models.runtime``).
 
-Not ported: the contiguous decode (``apply_mla_decode``) and
-``paged_impl="legacy"`` (ROADMAP.md).
+* ``apply_mla_decode`` (``mla.py:147``): the contiguous latent cache's
+  decode step (``LM.decode_step``), the new latents written at each row's
+  length, then ``_mla_decode_attn`` (``mla.py:295``) over the row, absorbed
+  (``rt.mla_absorb``: scores against c_kv and k_pe, the context in latent
+  space) or naive (K/V re-expanded from the latents a chunk of 2048
+  positions at a time under an online softmax, the reference's default).
+  ``paged_impl="legacy"`` in ``apply_mla_decode_paged`` (``mla.py:214-224``)
+  gathers the request's latent pages into a contiguous row and runs the same
+  function.  Both are plain PyTorch, as the reference's are plain jnp.
 
 Parameters are one layer's dict with the reference's names, shapes and
 initialisers (``mla.py:44-69``); the up-projections are stored flattened,
@@ -52,6 +59,9 @@ from repro_torch.kernels.flash_decode.ops import gather_pages, paged_latent_deco
 from repro_torch.models.attention import scatter_positions
 from repro_torch.models.layers import apply_rope, by_batch, by_rows, rms_norm, row_blocks
 from repro_torch.models.runtime import Runtime
+
+NEG_INF = -1e30
+MLA_DECODE_CHUNK = 2048  # the reference's ``chunk`` of the naive form
 
 
 def mla_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], str, float]]:
@@ -192,25 +202,26 @@ def apply_mla_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     ``mla.py:209-214`` is functional).  Every row's latents are scattered
     before any row attends; the projections and ``W_uk`` / ``W_uv`` run over
     blocks of ``rt.decode_rows`` rows.  Idle slots write page 0, the scratch
-    page, which no live row reads.  Returns y (B, 1, d)."""
+    page, which no live row reads.  With ``rt.paged_impl == "legacy"`` each
+    row's pages are gathered into a contiguous row and ``_mla_decode_attn``
+    attends over it, absorbed or not as ``rt.mla_absorb`` says.  Returns
+    y (B, 1, d)."""
     m = cfg.mla
     b, h = x.shape[0], cfg.n_heads
     rows = rt.decode_rows or b
     lengths = lengths.to(torch.int32)
-    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
-    wk, wv = wkv_b[..., :m.qk_nope_head_dim], wkv_b[..., m.qk_nope_head_dim:]
-
-    def project(xb, positions):
-        q_nope, q_pe = _mla_q(p, xb, cfg, positions)
-        ckv_new, kpe_new = _mla_kv_latent(p, xb, cfg, positions)
-        q_lat = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], wk)  # (B, H, r)
-        return q_lat, q_pe[:, 0], ckv_new[:, 0], kpe_new[:, 0]
-
-    parts = [project(x[r], lengths[r, None]) for r in row_blocks(b, rows)]
-    q_lat, q_pe, ckv_new, kpe_new = (torch.cat(t, dim=0) for t in zip(*parts))
+    q_nope, q_pe, ckv_new, kpe_new = _project_decode(p, x, cfg, lengths, rows)
     pid, offset = scatter_positions(page_tables, lengths, rt.page_size)
     cache["ckv"][pid, offset] = ckv_new.to(cache["ckv"].dtype)
     cache["kpe"][pid, offset] = kpe_new.to(cache["kpe"].dtype)
+    if rt.paged_impl == "legacy":
+        out = _mla_decode_attn(p, q_nope, q_pe, gather_pages(cache["ckv"], page_tables),
+                               gather_pages(cache["kpe"], page_tables), lengths + 1, cfg,
+                               absorb=rt.mla_absorb)
+        return by_batch(lambda o: o.reshape(o.shape[0], h * m.v_head_dim) @ p["wo"], out,
+                        rows)[:, None, :]
+    wk, wv = _split_wkv_b(p, cfg)
+    q_lat = by_batch(lambda qn: torch.einsum("bhe,rhe->bhr", qn, wk), q_nope, rows)  # (B, H, r)
     ctx_lat = paged_latent_decode_attention(
         q_lat.contiguous(), q_pe.contiguous(), cache["ckv"], cache["kpe"], lengths + 1,
         page_tables, sm_scale=sm_scale(cfg), impl=rt.paged_impl,
@@ -221,3 +232,99 @@ def apply_mla_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
         return out.reshape(ctx.shape[0], h * m.v_head_dim) @ p["wo"]
 
     return by_batch(out_proj, ctx_lat, rows)[:, None, :]
+
+
+def _project_decode(p, x: torch.Tensor, cfg: ArchConfig, lengths: torch.Tensor, rows: int):
+    """The decode step's q_nope (B, H, nope), q_pe (B, H, rope) and new
+    latents c_kv (B, r), k_pe (B, rope) at positions ``lengths``, over
+    blocks of ``rows`` rows."""
+    def project(xb, positions):
+        q_nope, q_pe = _mla_q(p, xb, cfg, positions)
+        ckv_new, kpe_new = _mla_kv_latent(p, xb, cfg, positions)
+        return q_nope[:, 0], q_pe[:, 0], ckv_new[:, 0], kpe_new[:, 0]
+
+    parts = [project(x[r], lengths[r, None]) for r in row_blocks(x.shape[0], rows)]
+    return tuple(torch.cat(t, dim=0) for t in zip(*parts))
+
+
+def _split_wkv_b(p, cfg: ArchConfig):
+    """(W_uk (r, H, nope), W_uv (r, H, v)): ``wkv_b`` split per head."""
+    m = cfg.mla
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    return wkv_b[..., :m.qk_nope_head_dim], wkv_b[..., m.qk_nope_head_dim:]
+
+
+def apply_mla_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                     cache: Dict[str, torch.Tensor], lengths: torch.Tensor) -> torch.Tensor:
+    """Decode of one new token per row, x (B, 1, d), against the contiguous
+    latent cache {"ckv" (B, max_seq, r), "kpe" (B, max_seq, rope)}
+    (``LM.init_cache``, or a prefill's cache), which it updates in place:
+    each row's new latents written at its length, then ``_mla_decode_attn``
+    over ``lengths + 1`` positions (``mla.py:147-178``; the reference's write
+    is functional).  The projections run over blocks of ``rt.decode_rows``
+    rows.  Returns y (B, 1, d)."""
+    m = cfg.mla
+    b = x.shape[0]
+    rows = rt.decode_rows or b
+    lengths = lengths.to(torch.int32)
+    q_nope, q_pe, ckv_new, kpe_new = _project_decode(p, x, cfg, lengths, rows)
+    at, pos = torch.arange(b, device=x.device), lengths.long()
+    cache["ckv"][at, pos] = ckv_new.to(cache["ckv"].dtype)
+    cache["kpe"][at, pos] = kpe_new.to(cache["kpe"].dtype)
+    out = _mla_decode_attn(p, q_nope, q_pe, cache["ckv"], cache["kpe"], lengths + 1, cfg,
+                           absorb=rt.mla_absorb)
+    return by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * m.v_head_dim) @ p["wo"],
+                    out, rows)[:, None, :]
+
+
+def _mla_decode_attn(p, q_nope: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
+                     kpe: torch.Tensor, lens: torch.Tensor, cfg: ArchConfig, *,
+                     absorb: bool, chunk: int = MLA_DECODE_CHUNK) -> torch.Tensor:
+    """Decode attention over a contiguous latent row (``mla.py:295-370``):
+    q_nope (B, H, nope), q_pe (B, H, rope), ckv (B, S, r), kpe (B, S, rope),
+    lens (B,) the valid positions including the new token.  Returns
+    (B, H, v) in the config's dtype.
+
+    Absorbed: ``q_lat = q_nope W_uk`` in the config's dtype, scores
+    ``q_lat . ckv + q_pe . kpe`` accumulated in float32, the softmax in
+    float32 over the masked scores, p rounded to the config's dtype for the
+    latent context (float32 sums), which is rounded before ``W_uv``.
+    Naive: chunks of ``chunk`` positions, each chunk's K and V re-expanded
+    from its latents by ``wkv_b`` in the config's dtype, scores and the
+    online softmax in float32, the output rounded once at the end."""
+    m = cfg.mla
+    b, h = q_nope.shape[0], cfg.n_heads
+    s_max = ckv.shape[1]
+    scale = sm_scale(cfg)
+    dtype = q_nope.dtype
+    lens = lens.to(ckv.device)
+    if absorb:
+        wk, wv = _split_wkv_b(p, cfg)
+        q_lat = torch.einsum("bhe,rhe->bhr", q_nope, wk)
+        scores = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+                  + torch.einsum("bhe,bse->bhs", q_pe.float(), kpe.float())) * scale
+        mask = torch.arange(s_max, device=ckv.device)[None, :] < lens[:, None]
+        scores = torch.where(mask[:, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        ctx_lat = torch.einsum("bhs,bsr->bhr", probs.to(dtype).float(), ckv.float())
+        return torch.einsum("bhr,rhe->bhe", ctx_lat.to(dtype), wv)
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    acc = torch.zeros((b, h, m.v_head_dim), dtype=torch.float32, device=ckv.device)
+    mx = torch.full((b, h), NEG_INF, dtype=torch.float32, device=ckv.device)
+    l = torch.zeros((b, h), dtype=torch.float32, device=ckv.device)
+    qn, qp = q_nope.float(), q_pe.float()
+    for j in range(max(1, -(-s_max // chunk))):
+        span = slice(j * chunk, min((j + 1) * chunk, s_max))
+        kv_j = torch.einsum("bsr,rhe->bshe", ckv[:, span], wkv_b)
+        k_nope, v_j = kv_j[..., :m.qk_nope_head_dim], kv_j[..., m.qk_nope_head_dim:]
+        s_j = (torch.einsum("bhe,bshe->bhs", qn, k_nope.float())
+               + torch.einsum("bhe,bse->bhs", qp, kpe[:, span].float())) * scale
+        valid = torch.arange(span.start, span.stop, device=ckv.device)[None, :] < lens[:, None]
+        s_j = torch.where(valid[:, None, :], s_j, NEG_INF)
+        mx_new = torch.maximum(mx, s_j.amax(dim=-1))
+        alpha = torch.exp(mx - mx_new)
+        pj = torch.where(valid[:, None, :], torch.exp(s_j - mx_new[..., None]), 0.0)
+        l = l * alpha + pj.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhs,bshe->bhe", pj, v_j.float())
+        mx = mx_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)

@@ -1,7 +1,9 @@
-"""The LM for the dense attention archs (qwen3-14b), the pure Mamba archs
-(falcon-mamba-7b), DeepSeek-MoE (MoE FFNs, a dense head layer) and
-DeepSeek-V2 (MLA attention, MoE FFNs, a dense head layer): the serving
-entry points of ``repro/models/model.py``, and its training entry point.
+"""The LM for every arch of the catalog: the dense attention archs (qwen3,
+qwen1.5 with its QKV bias, stablelm), the pure Mamba archs (falcon-mamba),
+jamba's hybrid period (Mamba and attention layers, MoE on the odd ones),
+DeepSeek-MoE (MoE FFNs, a dense head layer), DeepSeek-V2 (MLA attention, MoE
+FFNs, a dense head layer) and the frontend stubs (internvl2's vision,
+musicgen's audio): the entry points of ``repro/models/model.py``.
 
 * ``loss_fn(batch)`` — the counterpart of ``LM.loss_fn`` (``model.py:150``):
   next-token cross-entropy of a training batch plus the MoE layers' router
@@ -11,12 +13,11 @@ entry points of ``repro/models/model.py``, and its training entry point.
   flash forward and its backward (K3, K3-bwd), Mamba through the selective
   scan and its backward (K4, K4-bwd), a MoE FFN at the training capacity;
   MLA's attention at its unequal key and value dims (K3-bwd at (192, 128)
-  as a dv and a dk pass, at the smoke config's (24, 16) as one).  The
-  frontends and jamba are not ported and raise (ROADMAP.md).
-
-* ``prefill(tokens)`` — the counterpart of ``LM.prefill`` (``model.py:171``):
-  a full-sequence causal forward; returns one position's logits and each
-  layer's K/V (attention), latents (MLA) or recurrent state (Mamba).
+  as a dv and a dk pass, at the smoke config's (24, 16) as one).
+* ``prefill(tokens, frontend_embeds)`` — the counterpart of ``LM.prefill``
+  (``model.py:171``): a full-sequence causal forward; returns one position's
+  logits and each layer's K/V (attention), latents (MLA) or recurrent state
+  (Mamba).
 * ``prefill_chunk(tokens, n_valid, cache, page_tables, s0=...)`` — the
   counterpart of ``LM.prefill_chunk`` (``model.py:250``): one chunk of a
   chunked prefill into the paged pools (attention archs), run over the
@@ -25,14 +26,24 @@ entry points of ``repro/models/model.py``, and its training entry point.
   counterpart of ``LM.decode_step_paged`` (``model.py:289``): one token per
   row against the paged pools and the slot-major Mamba state, which it
   updates in place; a speculative verify step's folded batch too.
+* ``init_cache(batch, max_seq)`` and ``decode_step(tokens, lengths, cache,
+  frontend_embed)`` — the counterparts of ``model.py:181`` and ``:214``: a
+  zero contiguous cache (per layer K/V (B, Hk, max_seq, hd), MLA's latents
+  (B, max_seq, r), or the Mamba state) and one token per row against it,
+  updated in place; ``frontend_embed`` teacher-forces one frontend position.
+
+The frontend stub (``model.py:55-59``, ``:101-112``): a frontend arch's
+inputs are precomputed embeddings (B, F, d) that ``frontend_proj`` (d, d)
+projects and that go before the token embeddings; ``loss_fn`` drops their F
+positions before the head, ``prefill`` refuses a frontend arch's tokens
+without them, as the reference asserts.  The product is plain
+``torch.matmul``, as the reference's is outside any kernel.
 
 The reference's ``first_k_dense`` unrolled head layers (``model.py:60-66``,
 each ``period[0]`` with a dense FFN) and its ``lax.scan`` over the stacked
 periods become one loop over ``n_layers`` ``Block`` entries of a
 ``ModuleList``, in ``cfg.layer_specs()`` order: layer l < k is a head layer,
-layer l >= k is ``period[(l - k) % len(period)]``.  Archs with a frontend
-are not ported yet and raise, and so does jamba, whose blocks would
-construct but which no parity test holds yet (ROADMAP.md).
+layer l >= k is ``period[(l - k) % len(period)]``.
 
 The model holds weights only: kernel geometry and the paged decode's
 implementation come with each call, as a ``Runtime`` (the serve engine's).
@@ -62,26 +73,9 @@ LayerCache = Dict[str, torch.Tensor]  # {"k", "v"}, {"ckv", "kpe"} or {"h", "con
 DEFAULT_RUNTIME = Runtime()
 
 
-# archs whose blocks construct but whose port no parity test holds yet
-NOT_YET_HELD = ("jamba",)
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port's LM does not run yet."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port runs no {cfg.frontend} frontend yet; "
-            "see ROADMAP.md for the slices that bring the rest")
-    if cfg.name.startswith(NOT_YET_HELD):
-        raise NotImplementedError(
-            f"{cfg.name}: not held against the reference by a parity test yet; "
-            "see ROADMAP.md for the slice that brings it")
-
-
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
@@ -95,6 +89,7 @@ class LM(nn.Module):
         self.final_norm = nn.Parameter(torch.empty(d, dtype=torch.float32, device=device),
                                        requires_grad=False)
         self.lm_head = None if cfg.tie_embeddings else matrix(d, vocab)
+        self.frontend_proj = matrix(d, d) if cfg.frontend != "none" else None
         self.layers = nn.ModuleList(
             blocks_mod.Block(cfg, spec, self.dtype, device) for spec in cfg.layer_specs())
 
@@ -115,6 +110,8 @@ class LM(nn.Module):
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
             blocks_mod.fill_param(self.lm_head, "normal", 1.0 / math.sqrt(d), generator)
+        if self.frontend_proj is not None:
+            blocks_mod.fill_param(self.frontend_proj, "normal", 1.0 / math.sqrt(d), generator)
         for layer in self.layers:
             layer.init_params(generator)
         return self
@@ -122,34 +119,51 @@ class LM(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed.T if self.lm_head is None else self.lm_head
 
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      frontend_embeds: Optional[torch.Tensor]) -> Tuple[torch.Tensor, int]:
+        """(x, n_front): the token embeddings (B, S, d), after a frontend
+        arch's projected embeddings (B, F, d) in its config's dtype
+        (``model.py:101-112``), and F (0 without a frontend)."""
+        x = embed_tokens(self.embed, tokens.to(self.device))
+        if self.frontend_proj is None:
+            return x, 0
+        if frontend_embeds is None:
+            raise ValueError(f"{self.cfg.name} needs frontend_embeds")
+        fe = self._project_frontend(frontend_embeds)
+        return torch.cat([fe, x], dim=1), fe.shape[1]
+
+    def _project_frontend(self, fe: torch.Tensor) -> torch.Tensor:
+        """Frontend embeddings (..., d) through ``frontend_proj``, in the
+        config's dtype."""
+        return fe.to(self.device, self.dtype) @ self.frontend_proj
+
     # ------------------------------------------------------------------
     def trainable(self, flag: bool = True) -> "LM":
-        """Set every parameter's ``requires_grad``.  Every arch the LM is
-        built for trains (``check_supported`` refuses the rest at
-        construction)."""
+        """Set every parameter's ``requires_grad``: every arch trains."""
         for param in self.parameters():
             param.requires_grad_(flag)
         return self
 
     def loss_fn(self, batch: Dict[str, torch.Tensor], rt: Runtime = DEFAULT_RUNTIME
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: tokens (B, S), labels (B, S) already shifted, optional
-        loss_mask (B, S).  Returns (loss, {"ce", "aux", "tokens"}) as the
-        reference's ``loss_fn``: the embedding, each layer's block (under
-        ``rt.remat``), the final norm and the head in the config's dtype,
-        the cross-entropy in float32; aux, the MoE layers' router losses
-        summed over the layers in order (0 without MoE), is added to it."""
+        """batch: tokens (B, S), labels (B, S) already shifted, a frontend
+        arch's frontend_embeds (B, F, d), optional loss_mask (B, S).  Returns
+        (loss, {"ce", "aux", "tokens"}) as the reference's ``loss_fn``: the
+        embedding, each layer's block (under ``rt.remat``) over the F + S
+        positions, the final norm and the head over the last S in the
+        config's dtype, the cross-entropy in float32; aux, the MoE layers'
+        router losses summed over the layers in order (0 without MoE), is
+        added to it."""
         cfg = self.cfg
-        tokens = batch["tokens"].to(self.device)
         labels = batch["labels"].to(self.device)
         mask = batch.get("loss_mask")
-        x = embed_tokens(self.embed, tokens)
+        x, n_front = self._embed_inputs(batch["tokens"], batch.get("frontend_embeds"))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
             x, layer_aux = rt.remat_call(functools.partial(blocks_mod.apply_block_train, layer,
                                                            cfg=cfg, rt=rt), x)
             aux = aux + layer_aux
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        x = rms_norm(x[:, n_front:], self.final_norm, cfg.norm_eps)
         logits = lm_logits(self._head(), x)
         ce = softmax_cross_entropy(logits, labels, None if mask is None else mask.to(self.device))
         return ce + aux, {"ce": ce, "aux": aux,
@@ -157,23 +171,27 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, n_valid: Optional[int] = None,
-                rt: Runtime = DEFAULT_RUNTIME) -> Tuple[torch.Tensor, List[LayerCache]]:
-        """tokens (B, S) int.  Returns (logits (B, V) at position
-        ``n_valid - 1`` (default the last), per-layer cache: {"k", "v"} of
-        shape (B, Hk, S, hd) for attention, {"ckv" (B, S, r), "kpe" (B, S,
-        rope)} for MLA, the state {"h", "conv"} after position
-        ``n_valid - 1`` for Mamba).  Positions from ``n_valid`` on
-        are padding: causality keeps them out of every earlier position's
-        result, the attention reads no key among them (so padded rows cost
-        it little), and the Mamba scan holds its state across them."""
+    def prefill(self, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor] = None, *,
+                n_valid: Optional[int] = None, rt: Runtime = DEFAULT_RUNTIME
+                ) -> Tuple[torch.Tensor, List[LayerCache]]:
+        """tokens (B, S) int, after a frontend arch's ``frontend_embeds``
+        (B, F, d) (F = 0 without a frontend).  Returns (logits (B, V) at
+        position ``F + n_valid - 1`` (default the last), per-layer cache over
+        the F + S positions: {"k", "v"} of shape (B, Hk, F + S, hd) for
+        attention, {"ckv" (B, F + S, r), "kpe" (B, F + S, rope)} for MLA, the
+        state {"h", "conv"} after position ``F + n_valid - 1`` for Mamba).
+        Token positions from ``n_valid`` on are padding: causality keeps
+        them out of every earlier position's result, the attention reads no
+        key among them (so padded rows cost it little), and the Mamba scan
+        holds its state across them."""
         cfg = self.cfg
-        x = embed_tokens(self.embed, tokens.to(self.device))
+        x, n_front = self._embed_inputs(tokens, frontend_embeds)
+        last = n_front + (tokens.shape[1] if n_valid is None else int(n_valid))
         caches = []
         for layer in self.layers:
-            x, c = blocks_mod.apply_block(layer, x, cfg, rt, n_valid=n_valid)
+            x, c = blocks_mod.apply_block(layer, x, cfg, rt,
+                                          n_valid=None if n_valid is None else last)
             caches.append(c)
-        last = tokens.shape[1] if n_valid is None else int(n_valid)
         x = rms_norm(x[:, last - 1:last], self.final_norm, cfg.norm_eps)
         return lm_logits(self._head(), x)[:, 0], caches
 
@@ -234,6 +252,59 @@ class LM(nn.Module):
         x = embed_tokens(self.embed, tokens.to(self.device)[:, None])
         for layer, c in zip(self.layers, cache):
             x = blocks_mod.apply_block_decode_paged(layer, x, cfg, rt, c, lengths, page_tables)
+        return by_batch(lambda xb: lm_logits(self._head(),
+                                             rms_norm(xb, self.final_norm, cfg.norm_eps)[:, 0]),
+                        x, rt.decode_rows or x.shape[0]), cache
+
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int) -> List[LayerCache]:
+        """A zero contiguous cache for ``decode_step`` (``model.py:181``), a
+        dict a layer: {"k", "v"} (B, Hk, max_seq, hd) for attention,
+        {"ckv" (B, max_seq, r), "kpe" (B, max_seq, rope)} for MLA, in the
+        config's dtype, the state {"h" (B, Dn, N) float32, "conv" (B, Dn,
+        d_conv - 1)} for Mamba."""
+        cfg = self.cfg
+
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        cache: List[LayerCache] = []
+        for layer in self.layers:
+            if layer.spec.mixer == "attn" and cfg.mla is not None:
+                m = cfg.mla
+                cache.append({"ckv": zeros(batch, max_seq, m.kv_lora_rank),
+                              "kpe": zeros(batch, max_seq, m.qk_rope_head_dim)})
+            elif layer.spec.mixer == "attn":
+                shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+                cache.append({"k": zeros(*shape), "v": zeros(*shape)})
+            else:
+                mc = cfg.mamba
+                di = mc.expand * cfg.d_model
+                cache.append({"h": zeros(batch, di, mc.d_state, dtype=torch.float32),
+                              "conv": zeros(batch, di, mc.d_conv - 1)})
+        return cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                    cache: List[LayerCache], frontend_embed: Optional[torch.Tensor] = None,
+                    rt: Runtime = DEFAULT_RUNTIME) -> Tuple[torch.Tensor, List[LayerCache]]:
+        """tokens (B,) int; lengths (B,) the current fill (also the new
+        token's position); cache ``init_cache``'s, or a prefill's at
+        ``max_seq`` positions.  ``frontend_embed`` (B, d), when given, is
+        projected through ``frontend_proj`` and decoded in place of the token
+        embedding, teacher-forcing one frontend position (``tokens`` is then
+        not read).  Returns (logits (B, V), cache), the cache updated in
+        place (``model.py:214-246``)."""
+        cfg = self.cfg
+        if frontend_embed is not None:
+            if self.frontend_proj is None:
+                raise ValueError(f"{cfg.name} has no frontend")
+            x = self._project_frontend(frontend_embed[:, None])
+        else:
+            x = embed_tokens(self.embed, tokens.to(self.device)[:, None])
+        lengths = lengths.to(self.device)
+        for layer, c in zip(self.layers, cache):
+            x = blocks_mod.apply_block_decode(layer, x, cfg, rt, c, lengths)
         return by_batch(lambda xb: lm_logits(self._head(),
                                              rms_norm(xb, self.final_norm, cfg.norm_eps)[:, 0]),
                         x, rt.decode_rows or x.shape[0]), cache

@@ -22,7 +22,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
-PAGED_IMPLS = ("kernel", "stream", "gather")
+# the paged decode's implementations over the pools (K2 and its two plain
+# versions), and the Runtime's, which adds MLA's "legacy" gather
+POOL_IMPLS = ("kernel", "stream", "gather")
+PAGED_IMPLS = POOL_IMPLS + ("legacy",)
 REMAT_MODES = ("none", "full", "dots")
 DEFAULT_PAGES_PER_PROGRAM = 4  # repro/kernels/flash_decode/ops.py:47
 # Rows per matrix product in prefill.  Fewer rows waste less on padding
@@ -49,8 +52,14 @@ class Runtime:
     pages_per_program: Optional[int] = None
     # paged decode: "kernel" (K2 for CUDA tensors, its plain version for CPU
     # tensors), "stream" or "gather" (the two plain versions, bit-identical
-    # to each other; taken on any device only when named)
+    # to each other; taken on any device only when named); MLA also takes
+    # "legacy", the reference's gather of the latent pages into a
+    # contiguous row and its ``_mla_decode_attn`` (``mla.py:214-224``)
     paged_impl: str = "kernel"
+    # MLA's contiguous and legacy decode: attend in the latent space with
+    # W_uk and W_uv absorbed (True), or re-expand K/V from the latents a
+    # chunk at a time (False, the reference's default, ``runtime.py:24``)
+    mla_absorb: bool = False
     # prefill runs its row-wise steps (norms, projections, rope, MLP) over
     # blocks of this many rows, each one product of fixed shape; the serve
     # engine pads prompts to whole blocks (repro_torch.serve.engine)

@@ -28,8 +28,15 @@ logits (below):
   the longest prefix that greedy one-token decode would have emitted.
 
 For archs with recurrent layers both knobs raise, as in the reference, whose
-Mamba state has no positional form; so do frontend embeddings.  Not yet: the
-sharded data plane and span tracing (ROADMAP.md).
+Mamba state has no positional form.  Not yet: the sharded data plane and
+span tracing (ROADMAP.md).
+
+A frontend arch's request (internvl2's patches, musicgen's conditioning
+frames) carries ``frontend_embeds`` (F, d), F = ``n_frontend_tokens``
+(``repro/serve/engine.py:240-345``): its F positions go before the prompt's
+and count in ``max_seq``, its monolithic prefill takes them (never chunked),
+and it registers no prefix: its pages hold positions that depend on the
+embeddings, which the prefix cache's keys do not see.
 
 DeepSeek-V2's MLA layers keep page-major latent pools ("ckv", "kpe") in
 place of K/V, and its MoE layers run the reference's dropless eval
@@ -109,9 +116,6 @@ from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
 from repro_torch.serve.speculate import NgramProposer
 from repro_torch.telemetry import Event, MemorySink, ServeStepEvent, Tracker
-
-NOT_PORTED = "not ported yet: see ROADMAP.md (the serve slice's later modules)"
-
 
 def random_lm(cfg: ArchConfig, device: DeviceLike, seed: int) -> LM:
     """``cfg``'s LM on ``device`` (the card when None) with random weights
@@ -233,15 +237,23 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int, arrival_step: int = 0,
                frontend_embeds: Optional[np.ndarray] = None) -> Request:
+        """Queue a request.  A frontend arch's request needs
+        ``frontend_embeds`` (n_frontend_tokens, d_model), which another
+        arch's does not take."""
+        cfg = self.cfg
         if frontend_embeds is not None:
-            raise NotImplementedError(f"frontend embeddings are {NOT_PORTED}")
+            frontend_embeds = np.asarray(frontend_embeds, np.float32)
+        want = (cfg.n_frontend_tokens, cfg.d_model) if cfg.frontend != "none" else None
+        got = None if frontend_embeds is None else frontend_embeds.shape
+        if got != want:
+            raise ValueError(f"{cfg.name}: frontend_embeds of shape {got}, expected {want}")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        total = len(prompt) + max_new_tokens
+        total = len(prompt) + self._n_front(frontend_embeds) + max_new_tokens
         if total > self.max_seq:
             raise ValueError(
                 f"prompt+generation needs {total} positions > max_seq={self.max_seq}")
         req = Request(rid=self._rid, prompt=prompt, max_new_tokens=max_new_tokens,
-                      arrival_step=arrival_step)
+                      arrival_step=arrival_step, frontend_embeds=frontend_embeds)
         if self.collect_logits:
             req.logits_trace = []
         self._rid += 1
@@ -249,13 +261,18 @@ class ServeEngine:
         return req
 
     # ------------------------------------------------------------------
-    def _prefill(self, prompt: np.ndarray):
-        """Prefill over whole row blocks (module docstring): returns (last
-        real position's logits on the host as float32, cache)."""
-        rows = self.rt.prefill_rows
-        tokens = np.zeros(-(-len(prompt) // rows) * rows, np.int64)
+    def _n_front(self, frontend_embeds: Optional[np.ndarray]) -> int:
+        return 0 if frontend_embeds is None else self.cfg.n_frontend_tokens
+
+    def _prefill(self, prompt: np.ndarray, frontend_embeds: Optional[np.ndarray] = None):
+        """Prefill over whole row blocks (module docstring), the frontend's
+        positions first: returns (last real position's logits on the host as
+        float32, cache)."""
+        rows, n_front = self.rt.prefill_rows, self._n_front(frontend_embeds)
+        tokens = np.zeros(-(-(n_front + len(prompt)) // rows) * rows - n_front, np.int64)
         tokens[:len(prompt)] = prompt
-        logits, cache = self.lm.prefill(torch.from_numpy(tokens)[None].to(self.device),
+        fe = None if frontend_embeds is None else torch.from_numpy(frontend_embeds)[None]
+        logits, cache = self.lm.prefill(torch.from_numpy(tokens)[None].to(self.device), fe,
                                         n_valid=len(prompt), rt=self.rt)
         self.prefills_run += 1
         return logits[0].float().cpu().numpy(), cache
@@ -277,13 +294,15 @@ class ServeEngine:
             self.cache = restore_state(self.cache, req.full_entry.state, slot)
         else:
             t0 = time.perf_counter()
-            logits, pre_cache = self._prefill(req.prompt)
+            logits, pre_cache = self._prefill(req.prompt, req.frontend_embeds)
             req.prefill_s = time.perf_counter() - t0
             self.cache = write_prefill(self.cache, pre_cache, slot=slot,
                                        page_ids=req.page_ids, page_size=self.page_size,
                                        skip_pages=req.n_shared_pages,
-                                       n_tokens=len(req.prompt))
-            self._register_prompt(req, logits)
+                                       n_tokens=self._n_front(req.frontend_embeds)
+                                       + len(req.prompt))
+            if req.frontend_embeds is None:
+                self._register_prompt(req, logits)
         self._activate(req, logits)
 
     def _activate(self, req: Request, logits: np.ndarray) -> None:
@@ -295,7 +314,7 @@ class ServeEngine:
             req.logits_trace.append(np.asarray(logits, np.float32).copy())
         req.state = RequestState.RUNNING
         req.first_token_step = self.step_count
-        self.lengths[slot] = len(req.prompt)
+        self.lengths[slot] = self._n_front(req.frontend_embeds) + len(req.prompt)
         row = self._table_row(req)
         self.page_tables[slot] = row
         self.page_tables_dev[slot] = torch.from_numpy(row).to(self.device)
@@ -309,9 +328,11 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _use_chunked(self, req: Request) -> bool:
         """Chunked prefill applies when there is new prompt to stream in:
-        skipped prefills are free, and an all-shared prompt head takes the
-        monolithic prefill so that the last position's logits exist."""
-        return (self.prefill_chunk is not None and not req.prefill_skipped
+        skipped prefills are free, a frontend's embeddings take the
+        monolithic prefill, and an all-shared prompt head takes it too, so
+        that the last position's logits exist."""
+        return (self.prefill_chunk is not None and req.frontend_embeds is None
+                and not req.prefill_skipped
                 and req.n_shared_pages * self.page_size < len(req.prompt))
 
     def _prefill_chunk_step(self, req: Request, n_tokens: int) -> None:

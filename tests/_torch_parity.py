@@ -58,6 +58,27 @@ def reference_ssp_indices(seed: int, t: int, m: int, h: int, nl: int) -> np.ndar
     return np.array(jax.vmap(lambda k: jax.random.randint(k, (h,), 0, nl))(keys))
 
 
+def randomize_qkv_bias(params, seed: int = 0):
+    """A reference param tree (numpy leaves, mutable dicts) with qwen1.5's
+    QKV biases ``bq``/``bk``/``bv``, zeros at init, drawn from N(0, 0.1^2)
+    in place, so that a parity test exercises them.  Returns the tree."""
+    rng = np.random.RandomState(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            for key, value in node.items():
+                if key in ("bq", "bk", "bv"):
+                    node[key] = (0.1 * rng.randn(*np.shape(value))).astype(np.float32)
+                else:
+                    walk(value)
+        elif isinstance(node, (tuple, list)):
+            for item in node:
+                walk(item)
+
+    walk(params)
+    return params
+
+
 def assert_within_bf16_ulp(got: np.ndarray, want: np.ndarray, atol: float = 0.0) -> None:
     """Each element of ``got`` within ``atol`` plus one bf16 ulp of ``want``:
     the spacing of bf16 values (7 stored significand bits) at the larger

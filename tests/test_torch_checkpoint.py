@@ -7,7 +7,9 @@ reference's, bit for bit (float32 master parameters, AdamW's state, int32
 counts, and a bf16 leaf stored as its uint16 bits), for the dense, the
 Mamba, the MoE and the MLA + MoE trees (the smoke stablelm, falcon-mamba,
 deepseek-moe and deepseek-v2, whose dense first layers sit in
-``head_layers``), through the port's LM.  A port ``Trainer``
+``head_layers``), jamba's hybrid period (8 layers, its leaves stacked per
+position) and a frontend arch's (musicgen's ``frontend_proj``), through the
+port's LM.  A port ``Trainer``
 restored from a step continues with the same losses and parameters as one
 that never stopped, bit for bit on the CPU (the same operations on the same
 values); ``run()`` survives a simulated failure the same way.  A torn
@@ -40,12 +42,18 @@ from repro_torch.training.tree import tree_leaves
 
 # the smoke configs at 2 layers: attention and SwiGLU; Mamba; a dense head
 # layer (``head_layers``) and a MoE layer with a shared expert; the same
-# with MLA attention
-ARCHS = ["stablelm-1.6b", "falcon-mamba-7b", "deepseek-moe-16b", "deepseek-v2-236b"]
+# with MLA attention; musicgen's frontend projection; and jamba at its
+# period of 8 (Mamba and attention mixers, dense and MoE FFNs)
+ARCHS = ["stablelm-1.6b", "falcon-mamba-7b", "deepseek-moe-16b", "deepseek-v2-236b",
+         "musicgen-medium", "jamba-1.5-large-398b"]
+
+
+def _layers(arch):
+    return max(2, len(get_smoke_config(arch).period))
 
 
 def _ref_state(arch="stablelm-1.6b"):
-    cfg = dataclasses.replace(ref_smoke_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(ref_smoke_config(arch), n_layers=_layers(arch), dtype="float32")
     params, _ = RefLM(cfg).init(jax.random.PRNGKey(3))
     params = jax.tree.map(np.asarray, params)
     opt = ref_opt.adamw()
@@ -54,7 +62,7 @@ def _ref_state(arch="stablelm-1.6b"):
 
 
 def _port_lm(arch):
-    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=_layers(arch), dtype="float32")
     return LM(cfg, device="cpu")
 
 

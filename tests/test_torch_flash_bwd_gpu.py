@@ -67,6 +67,8 @@ CASES = [  # b, hq, hk, sq, skv, d, dv, kv_lens, q_offset
     (2, 10, 2, 100, 300, 80, 80, [260, 300], 200),  # q_offset > 0, kv_len < Skv, D 80
     (3, 6, 3, 150, 150, 64, 64, [0, 1, 150], 0),  # kv_len 0 and 1 in one batch
     (8, 32, 32, 128, 128, 64, 64, [128, 100, 77, 64, 63, 17, 1, 128], 0),  # B 8 ragged
+    (8, 24, 24, 192, 192, 64, 64, None, 0),       # musicgen-medium's training: 64 frames + 128
+    (8, 24, 24, 192, 192, 64, 64, [192, 150, 129, 128, 65, 64, 1, 192], 0),  # ragged
     # unequal key and value dims: MLA's (192, 128), the dv and the dk pass,
     # and the smoke deepseek-v2's (24, 16), one dk/dv pass
     (8, 128, 128, 128, 128, 192, 128, None, 0),   # deepseek-v2-236b's training shape

@@ -12,6 +12,17 @@ frameworks choose differently (fused SwiGLU, where products round), so
 single activations differ by bf16 steps (2^-8 relative) that the residual
 stream carries on; logits within 3% of the largest logit's magnitude,
 and their mean difference within 0.5%.
+
+The rest of the catalog under the same bounds: qwen1.5-110b (QKV bias,
+drawn at random here: it is zeros at init), qwen3-32b (qk-norm, 64 heads
+over 8 at full width) in both dtypes, jamba (its smoke period of 8: Mamba layers,
+attention at position 4, top-2 MoE on the odd layers) in float32.  jamba's
+bf16 logits miss the bf16 bounds: its top-2 routing flips at near ties
+between the two frameworks' bf16 roundings (ROADMAP.md, queue 3), so in
+bf16 it is held to the port's own guarantees instead
+(tests/test_torch_serve_engine.py's bitwise prefix reuse,
+tests/test_torch_train.py's gradient the same bits twice).  The frontend
+archs: tests/test_torch_frontend.py.
 """
 import dataclasses
 
@@ -21,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import randomize_qkv_bias
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.models.model import LM as RefLM
 from repro.models.runtime import Runtime as RefRuntime
@@ -45,7 +57,8 @@ def _setup(dtype, arch="qwen3-14b"):
     ref_lm = RefLM(ref_cfg, RefRuntime(remat="none", block_q=16, block_k=16, page_size=PAGE,
                                        paged_impl="stream"))
     params, _ = ref_lm.init(jax.random.PRNGKey(0))
-    port = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params), device="cpu")
+    params = randomize_qkv_bias(jax.tree.map(np.array, params))
+    port = lm_params_from_numpy(cfg, params, device="cpu")
     return ref_lm, params, port
 
 
@@ -75,6 +88,16 @@ def test_deepseek_moe_prefill_and_paged_decode_match_reference(dtype):
     prefill and decode), which the trainer trains too, under the same
     bounds."""
     _check_prefill_and_paged_decode(dtype, "deepseek-moe-16b")
+
+
+@pytest.mark.parametrize("arch, dtype", [
+    ("qwen1.5-110b", "float32"), ("qwen1.5-110b", "bfloat16"),
+    ("qwen3-32b", "float32"), ("qwen3-32b", "bfloat16"),
+    ("jamba-1.5-large-398b", "float32")])
+def test_catalog_prefill_and_paged_decode_match_reference(arch, dtype):
+    """The archs no other parity test above holds, under the same bounds
+    (the module docstring on jamba in bf16)."""
+    _check_prefill_and_paged_decode(dtype, arch)
 
 
 def _check_prefill_and_paged_decode(dtype, arch):
@@ -143,11 +166,3 @@ def test_prefill_padding_is_inert():
         for name in ("k", "v"):
             assert g[name].shape[2] == 64
             _close(g[name][:, :, :37].numpy(), w[name].numpy().astype(np.float64), "float32")
-
-
-def test_unported_archs_raise():
-    from repro_torch.models.model import LM
-
-    for arch in ("jamba-1.5-large-398b", "musicgen-medium", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LM(get_smoke_config(arch), device="cpu")

@@ -25,6 +25,13 @@ qwen3-14b is: float32 token streams and logits against the reference engine
 (both MoE evals dropless), and in bf16 prefix reuse across prefill row
 blocks bitwise.
 
+qwen1.5-110b (its QKV biases drawn at random in the reference engine's
+weights: they are zeros at init), qwen3-32b and jamba (its smoke period of
+8: 7 Mamba layers, attention at position 4, top-2 MoE on the odd layers)
+are held as qwen3-14b is; jamba's bf16 check is the bitwise prefix reuse,
+its bf16 routing flipping at near ties against the reference's
+(tests/test_torch_lm.py).  The frontend archs: tests/test_torch_frontend.py.
+
 falcon-mamba (smoke: 1 Mamba layer, d_inner 128, d_state 4) is held the
 same way: float32 token streams and logits against the reference engine on
 the same trace (every prompt there has at least the 3 tokens the
@@ -36,11 +43,12 @@ reference.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import check_prefix_reuse_across_row_blocks
+from _torch_parity import check_prefix_reuse_across_row_blocks, randomize_qkv_bias
 from repro.launch.serve import _mixed_trace_specs as ref_trace_specs
 from repro.serve import ServeEngine as RefServeEngine
 from repro_torch.configs import get_smoke_config
@@ -50,7 +58,8 @@ from repro_torch.models.model import LM
 from repro_torch.serve import SCRATCH_PAGE, CapacityPlanner, ServeEngine
 
 ENGINE = dict(max_batch=4, page_size=16, max_seq=96, collect_logits=True)
-ARCHS = ["qwen3-14b", "falcon-mamba-7b", "deepseek-v2-236b", "deepseek-moe-16b"]
+ARCHS = ["qwen3-14b", "falcon-mamba-7b", "deepseek-v2-236b", "deepseek-moe-16b",
+         "qwen1.5-110b", "qwen3-32b", "jamba-1.5-large-398b"]
 LOGITS_ATOL = 1e-4
 
 
@@ -78,6 +87,7 @@ def test_trace_copy_is_the_reference_trace():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_engine_token_streams_match_reference_in_float32(arch):
     ref = Float32RefEngine(arch, smoke=True, seed=0, **ENGINE)
+    ref.params = jax.tree.map(jnp.asarray, randomize_qkv_bias(jax.tree.map(np.array, ref.params)))
     specs = ref_trace_specs(ref.cfg, 16, 8, 0)
     assert min(len(p) for p, _, _, _ in specs) >= 3
     ref_reqs = _serve(ref, specs)
@@ -115,13 +125,19 @@ def test_cli_serves_the_trace_and_prefix_reuse_is_bit_identical(capsys, arch):
 
 def test_cli_without_continuous_is_refused():
     """Without --continuous the CLI runs the static batch (Server.generate,
-    tests/test_torch_serve_static.py) and no longer exits; what that mode
-    does not serve yet, a frontend arch, is refused."""
+    tests/test_torch_serve_static.py) and no longer exits, a frontend arch's
+    too, its embeddings drawn after the prompts; what is refused is a
+    frontend arch's --continuous run at its prefix-reuse check, whose
+    prompts carry no embeddings, where the reference's CLI stops too
+    (tests/test_torch_frontend.py)."""
     res = port_cli.main(["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "4",
                          "--gen", "2"])
     assert res["tokens"].shape == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_cli.main(["--arch", "musicgen-medium", "--smoke", "--device", "cpu"])
+    res = port_cli.main(["--arch", "musicgen-medium", "--smoke", "--device", "cpu", "--batch",
+                         "2", "--prompt-len", "4", "--gen", "2"])
+    assert res["tokens"].shape == (2, 2) and res["frontend_embeds"].shape == (2, 8, 64)
+    with pytest.raises(ValueError, match="prefix-reuse check"):
+        port_cli.main(["--arch", "musicgen-medium", "--smoke", "--continuous", "--device", "cpu"])
 
 
 def _recording_engine(lm, paged_impl, handed_out):
@@ -162,14 +178,15 @@ def test_bf16_stream_and_gather_streams_bitwise_and_scratch_never_handed_out():
 
 
 def test_unported_engine_options_raise():
-    """What the engine still refuses: chunked prefill and speculation on an
-    arch with recurrent layers (as the reference does), frontend embeddings
-    (not ported), and a request past ``max_seq``."""
+    """What the engine refuses: chunked prefill and speculation on an arch
+    with recurrent layers (as the reference does), frontend embeddings for
+    an arch without a frontend (tests/test_torch_frontend.py holds the
+    frontend archs'), and a request past ``max_seq``."""
     for kw in (dict(prefill_chunk=8), dict(speculate=2)):
         with pytest.raises(ValueError, match="attention-only"):
             ServeEngine("falcon-mamba-7b", device="cpu", **kw)
     eng = ServeEngine("qwen3-14b", device="cpu", max_seq=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="frontend_embeds"):
         eng.submit(np.arange(8), 4, frontend_embeds=np.zeros((2, eng.cfg.d_model), np.float32))
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(np.arange(30), 4)

@@ -58,6 +58,8 @@ def _bf16(gen, *shape):
     (1, 8, 5, 17, 17, 128, None, 0),         # qwen3-14b's heads
     (2, 2, 5, 21, 53, 64, [50, 37], 29),     # q_offset > 0, kv_lens < Skv
     (1, 1, 1, 1, 1, 256, None, 0),
+    (8, 24, 1, 192, 192, 64, None, 0),       # musicgen-medium's training rows: 64 + 128
+    (1, 8, 8, 1024, 1024, 128, [290], 0),    # internvl2-76b's prefill block: 256 + 34
 ])
 def test_flash_fwd_kernel_matches_plain(card, b, hk, g, sq, skv, d, lens, q_offset):
     gen = torch.Generator(device=card).manual_seed(sq * d)
@@ -174,6 +176,22 @@ def test_paged_decode_split_kv_matches_plain(card, ppp):
     torch.cuda.synchronize()
     assert fd_ops.paged_decode.launches == 1  # the split and combine kernels: one call
     want = paged_decode_stream(q, kp, vp, lens, tables, scale=128 ** -0.5, pages_per_program=ppp)
+    assert torch.isfinite(got.float()).all() and not got[0].float().abs().any()
+    assert_within_bf16_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                           atol=V_ATOL * float(vp.float().abs().max()))
+
+
+@pytest.mark.parametrize("hk, g, d", [(8, 8, 128), (24, 1, 64)])
+def test_paged_decode_at_the_frontend_archs_heads(card, hk, g, d):
+    """K2 at internvl2-76b's 64 query heads over 8 KV heads (G 8, D 128)
+    and musicgen-medium's 24 heads of MHA (D 64), every split length."""
+    gen = torch.Generator(device=card).manual_seed(hk * g)
+    q, kp, vp, lens, tables = _paged_case(gen, card, 8, 68, SPLIT_LENGTHS, hk=hk, g=g, d=d)
+    fd_ops.paged_decode.launches = 0
+    got = fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5, pages_per_program=4)
+    torch.cuda.synchronize()
+    assert fd_ops.paged_decode.launches == 1
+    want = paged_decode_stream(q, kp, vp, lens, tables, scale=d ** -0.5, pages_per_program=4)
     assert torch.isfinite(got.float()).all() and not got[0].float().abs().any()
     assert_within_bf16_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
                            atol=V_ATOL * float(vp.float().abs().max()))
