@@ -30,7 +30,10 @@ depth the card holds it alone once falcon-mamba-7b is freed.  Training runs
 stablelm-1.6b, falcon-mamba-7b, deepseek-moe-16b, deepseek-v2-236b and
 musicgen-medium (all 48 layers, after its 64 conditioning frames) at full
 width; internvl2-76b serves at full width and 16 of its 80 layers, every
-request with 256 patch embeddings; jamba's smoke period serves and trains.
+request with 256 patch embeddings; jamba's smoke period serves and trains;
+qwen3-14b and falcon-mamba-7b serve at full width through the
+prefix-affinity router over two replicas, one handed off to a fresh engine
+mid-run, every span traced, and the telemetry CLI reads the run's log.
 Phases, each of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
@@ -290,10 +293,42 @@ Phases, each of which exits non-zero on failure:
       vs CPU through K3, K3-bwd, K4 and K4-bwd (each counted by the layers of
       its mixer's kind), one step's gradient twice the same bits;
   27f. the smoke internvl2-76b and musicgen-medium trainers card vs CPU, as
-      23d, and a checkpoint round trip of musicgen-medium's, as 23e.
+      23d, and a checkpoint round trip of musicgen-medium's, as 23e;
+  28a. (slice 18) main path 12, on phase 10's qwen3-14b before it is freed:
+      ``python -m repro_torch.launch.serve --arch qwen3-14b --continuous
+      --router --replicas 2 --migrate-at 3 --trace F --router-log G
+      --tune-cache <the CLI's file>`` in process: 8/8 served by the single
+      engine and the fleet, ``routed fleet vs single engine:
+      bit_identical=yes``, a handoff with requests in flight, the trace
+      file's schema valid, the spans' decode time within 5% of the engines'
+      step times, prefix reuse ``bit_identical=yes``, K3 = 40 x prefills and
+      K2 = 40 x decode steps of the five engines the run built (the single
+      and cold engines, two replicas, the replaced one and its destination),
+      no other kernel; each replica's decode step median and tokens/s, the
+      handoff's ms (and its parts) and MB, the span count, the attribution
+      table, the peak memory; then the same CLI without ``--trace`` and with
+      ``--trace --trace-clock steps`` in turns (off, on, on, off), each run
+      gated as above, the decode step's median printed for each, the two
+      step-clock trace files byte for byte the same;
+  28b. the same router CLI on phase 15's falcon-mamba-7b (K4 = 64 x
+      (prefills + decode steps), its decode body 64 x decode steps, of the
+      five engines); then an engine-level handoff on the card with a
+      request in flight: the Mamba layers' slot-major state and the
+      full-prompt entry's state the same bits on the destination, the page
+      tables mirrored, the stored prompt served again from its entry on
+      both with the same tokens, restore launching no kernel;
+  28c. ``python -m repro_torch.telemetry summarize G --strict`` (exit 0,
+      per-replica lines) and ``trace G --perfetto OUT --flame --tune-cache
+      <the CLI's file> --n-layers 40`` (exit 0, ``kernel/flash_decode_paged@b``
+      rows) in process on 28a's log; ``monitor_serve_events`` over its
+      serve_step rows with the per-token objective at 1.5 x their median
+      per-token latency: the alert count as they are, and at least one
+      alert, kept by ``CapacityPlanner.ingest``, with every step time
+      doubled from the midpoint.
 The last lines are one JSON object with every kernel's summary (its
-``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's and
-K2-latent's ``launches`` sum their serve paths', ``launches_by_path``; K6's row,
+``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's,
+K2-latent's and K4's ``launches`` sum their paths', ``launches_by_path``
+(``serve_router``: main path 12's run, or 28b's for K4); K6's row,
 ``local_sgd``, replaces the reference's compiled ``lax.scan``, no Pallas
 kernel, and counts its launches on the menu and chaos paths; K4's decode body
 has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
@@ -4173,6 +4208,289 @@ def jamba_smoke_paths(dev) -> None:
 
 
 
+# ------------------------------ the router, migration and tracing (slice 18)
+
+# Main path 12 (phase 28a): the serve CLI's routed fleet with a mid-run
+# handoff and span tracing on phase 10's qwen3-14b (28b: on phase 15's
+# falcon-mamba-7b)
+ROUTER_ARGV = ["--router", "--replicas", "2", "--migrate-at", "3"]
+# 28c's SLO: the per-token objective at this multiple of the run's median
+# per-token latency
+SLO_TARGET_OF_MEDIAN = 1.5
+
+
+def router_engines(result) -> list:
+    """Every engine the router CLI built: the single engine and the prefix
+    check's cold one, the fleet's replicas and the engine the handoff
+    replaced."""
+    routed = result["routed"]
+    return [*result["engines"], *routed["router"].engines, *routed["replaced"]]
+
+
+def run_router_cli(argv, lm, what) -> tuple:
+    """``serve.main(argv, lm=lm)`` with every kernel's count set to 0 just
+    before; returns the result, the counts and the seconds it took."""
+    from repro_torch.launch import serve
+
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = serve.main(argv, lm=lm)
+    except SystemExit as e:
+        fail(f"{what}: the serve CLI exited with {e.code}")
+    return result, read_launches(), time.perf_counter() - t0
+
+
+def decode_step_ms(engines) -> list:
+    """The decode steps' times (ms) of ``engines``' serve_step events."""
+    return [1e3 * e.step_s for eng in engines for e in eng.events("serve_step")
+            if e.op == "decode"]
+
+
+def check_router_run(arch, result, counts, what) -> dict:
+    """The gates every router CLI run passes: 8/8 served by the single
+    engine and the fleet, ``bit_identical=yes``, a handoff with requests in
+    flight, and the path's kernels launched once a layer for each prefill
+    and decode step of every engine the run built, no other kernel.
+    Returns the prefills and decode steps."""
+    routed = result["routed"]
+    engines = router_engines(result)
+    prefills = sum(e.prefills_run for e in engines)
+    steps = sum(e.stats()["decode_steps"] for e in engines)
+    n_layers = engines[0].cfg.n_layers
+    if result["served"] != 8 or routed["stats"]["requests_finished"] != 8:
+        fail(f"{what}: served {result['served']}/8, the fleet finished "
+             f"{routed['stats']['requests_finished']}/8")
+    if routed["bit_identical"] is not True:
+        fail(f"{what}: the routed fleet's tokens are not the single engine's")
+    migration = routed["migration"]
+    if migration is None or migration["in_flight"] < 1:
+        fail(f"{what}: no handoff with a request in flight ({migration})")
+    check_path_launches(arch, counts, n_layers, prefills, steps, what)
+    if arch == MAMBA:
+        step_launches = kernel_wrappers()["selective_scan"].step_launches
+        if step_launches != n_layers * steps:
+            fail(f"{what}: {step_launches} decode-body launches, not {n_layers} x {steps}")
+    return {"prefills": prefills, "decode_steps": steps}
+
+
+def router_path(arch, lm, path_no, workdir: Path, tune_cache=None) -> dict:
+    """Phases 28a and 28b: ``python -m repro_torch.launch.serve --arch ARCH
+    --continuous --router --replicas 2 --migrate-at 3 --trace F --router-log
+    G`` in process on ``lm`` (and ``--tune-cache``): the gates of
+    ``check_router_run``, the trace file's schema and the spans reconciled
+    with the step times within 5% (the CLI exits 1 otherwise; checked again
+    here), each replica's decode step and tokens/s, the handoff's ms and MB.
+    Returns the kernels' launches, the files and the numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.telemetry.trace import load_perfetto, validate_perfetto
+
+    trace, log = workdir / f"trace_{arch}.json", workdir / f"router_{arch}.jsonl"
+    argv = ["--arch", arch, "--continuous", *ROUTER_ARGV, "--trace", str(trace),
+            "--router-log", str(log)]
+    if tune_cache is not None:
+        argv += ["--tune-cache", str(tune_cache)]
+    phase(f"main path {path_no}: python -m repro_torch.launch.serve {' '.join(argv)} "
+          f"(full width, {lm.cfg.n_layers} layers, the model of the plain run)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result, counts, seconds = run_router_cli(argv, lm, f"{arch} router")
+    ran = check_router_run(arch, result, counts, f"{arch} router CLI")
+    routed, info = result["routed"], result["routed"]["migration"]
+    errs = validate_perfetto(load_perfetto(trace))
+    rel = result["trace"]["reconcile"]
+    if errs or rel is None or rel > 0.05:
+        fail(f"{arch} trace: schema {errs[:3]}, reconciliation {rel}")
+    per_replica = {}
+    for r in range(len(routed["router"].engines)):
+        mine = [e for eng in [*routed["router"].engines, *routed["replaced"]]
+                for e in eng.events("serve_step") if e.replica == r and e.op == "decode"]
+        busy = sum(e.step_s for e in mine)
+        per_replica[r] = {"decode_steps": len(mine),
+                          "decode_step_ms_median": float(np.median([1e3 * e.step_s
+                                                                    for e in mine])),
+                          "tok_per_s": sum(e.committed for e in mine) / busy if busy else 0.0}
+    if arch == MAMBA:  # K4's decode body runs the decode steps, its tile body the prefills
+        ran["selective_scan_step_launches"] = kernel_wrappers()["selective_scan"].step_launches
+    out = {"arch": arch, "cli_s": seconds, **ran, "per_replica": per_replica,
+           "dispatch_per_replica": routed["stats"]["dispatch_per_replica"],
+           "affinity_hits": routed["stats"]["affinity_hits"],
+           "handoff_ms": 1e3 * info["wall_s"], "handoff_mb": info["nbytes"] / 1e6,
+           **{f"handoff_{part}_ms": 1e3 * info[f"{part}_s"]
+              for part in ("snapshot", "build", "restore")},
+           "handoff_in_flight": info["in_flight"], "handoff_pages": info["pages_in_use"],
+           "handoff_leaves": info["n_shards"], "spans": result["trace"]["spans"],
+           "span_reconciliation": rel,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **{f"{name}_launches": counts[name] for name in PATH_KERNELS[arch]}}
+    print(json.dumps({"router_path": out}))
+    for name, (per_prefill, per_step) in PATH_KERNELS[arch].items():
+        terms = " + ".join(t for t, on in (("prefills", per_prefill), ("decode steps", per_step))
+                           if on)
+        print(f"{name} launches {counts[name]} = {lm.cfg.n_layers} x ({terms}) of the "
+              f"{len(router_engines(result))} engines the CLI built")
+    return {"launches": counts, "trace": trace, "log": log, **out}
+
+
+def trace_cost_and_replay(lm, workdir: Path, tune_cache) -> dict:
+    """Phase 28a's tail: the router CLI again without ``--trace`` and with
+    it, in turns (off, on, on, off; the traced runs on the step clock),
+    every run's gates checked, the decode step's median over each run's
+    engines printed; the two step-clock runs' trace files byte for byte the
+    same."""
+    import numpy as np
+
+    base = ["--arch", QWEN, "--continuous", *ROUTER_ARGV, "--tune-cache", str(tune_cache)]
+    phase(f"28a: the router CLI without --trace and with --trace --trace-clock steps, in "
+          f"turns (off, on, on, off); the two traced runs' files byte for byte")
+    medians, files = {"off": [], "on": []}, []
+    for turn, traced in enumerate((False, True, True, False)):
+        argv = list(base)
+        if traced:
+            files.append(workdir / f"trace_steps_{turn}.json")
+            argv += ["--trace", str(files[-1]), "--trace-clock", "steps"]
+        result, counts, _ = run_router_cli(argv, lm, f"router turn {turn}")
+        check_router_run(QWEN, result, counts, f"router turn {turn}")
+        times = decode_step_ms(router_engines(result))
+        key = "on" if traced else "off"
+        medians[key].append(float(np.median(times)))
+        print(f"turn {turn} (--trace {key}): decode step median {medians[key][-1]:.3f} ms over "
+              f"{len(times)} steps")
+    same = files[0].read_bytes() == files[1].read_bytes()
+    out = {"decode_step_ms_median_traced": medians["on"],
+           "decode_step_ms_median_untraced": medians["off"],
+           "steps_clock_files_identical": same, "steps_clock_file_bytes": files[0].stat().st_size}
+    print(json.dumps({"trace_cost": out}))
+    if not same:
+        fail("two runs at --trace-clock steps wrote different trace files")
+    return out
+
+
+def mamba_handoff_state(lm) -> None:
+    """Phase 28b's state check on the card: an engine on ``lm`` serves a
+    page-aligned prompt (stored whole, the Mamba layers' state after it
+    with it) and a second request; at a step boundary with that request in
+    flight it is snapshotted and restored onto a fresh engine: the slot-major
+    state and the full-prompt entries' states the same bits, the page tables
+    mirrored on the card, and both engines' next tokens (the stored prompt
+    served again from its entry) the same."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeEngine, restore_engine, snapshot_engine
+    from repro_torch.serve.migrate import snapshot_nbytes
+
+    phase(f"28b: {MAMBA}'s slot-major state and full-prompt entries across a handoff "
+          "(ServeEngine, snapshot_engine / restore_engine on the card)")
+    rng = np.random.RandomState(28)
+    aligned = rng.randint(0, lm.cfg.vocab_size, 32).astype(np.int32)
+    make = lambda: ServeEngine("", lm=lm, max_batch=4, page_size=16, max_seq=96)  # noqa: E731
+    src = make()
+    src.submit(aligned, 2)
+    src.run()
+    src.submit(rng.randint(0, lm.cfg.vocab_size, 21).astype(np.int32), 8)
+    for _ in range(3):
+        src.step()
+    in_flight = [r.rid for r in src.scheduler.slots if r is not None]
+    reset_launches()
+    snap = snapshot_engine(src)
+    dst = make()
+    restore_engine(dst, snap)
+    launched = read_launches()
+    full = list(src.prefix._full.items())
+    same_state = all(torch.equal(dst.cache[i][n], src.cache[i][n])
+                     for i in range(len(src.cache)) for n in src.cache[i])
+    same_entries = [k for k, _ in full] == list(dst.prefix._full) and all(
+        torch.equal(a[n], b[n]) for k, e in full
+        for a, b in zip(dst.prefix._full[k].state, e.state) for n in a if a[n] is not None)
+    tables = torch.equal(dst.page_tables_dev.cpu(), torch.from_numpy(src.page_tables))
+    again = [eng.submit(aligned.copy(), 4) for eng in (src, dst)]
+    src.run()
+    dst.run()
+    print(f"snapshot {snapshot_nbytes(snap) / 1e6:.2f} MB of state in {len(snap['cache'])} "
+          f"layers; {len(full)} full-prompt entries; requests in flight {in_flight}; state the "
+          f"same bits {same_state}, entries "
+          f"{same_entries}, page tables {tables}; the stored prompt again: skipped "
+          f"{[r.prefill_skipped for r in again]}, tokens equal "
+          f"{again[0].generated == again[1].generated}; restore launched {launched}")
+    if not (same_state and same_entries and tables and full and in_flight
+            and all(r.prefill_skipped for r in again)
+            and again[0].generated == again[1].generated and not any(launched.values())):
+        fail(f"{MAMBA}: the handoff did not carry the state")
+
+
+def telemetry_paths(path, tune_cache, n_layers) -> dict:
+    """Phase 28c on phase 28a's router log: ``python -m repro_torch.telemetry
+    summarize LOG --strict`` (exit 0, per-replica lines) and ``trace LOG
+    --perfetto OUT --flame --tune-cache CACHE --n-layers 40`` (exit 0, the
+    ``kernel/flash_decode_paged@b`` rows) in process; then the SLO monitor
+    over the log's serve_step rows, the per-token objective at 1.5 x the
+    run's median per-token latency, on the stream as it is and with every
+    step time doubled from its midpoint (at least one alert must fire
+    there, and ``CapacityPlanner.ingest`` keep it); and, since the default
+    cooldown of 16 observations can hide the second half of a short stream
+    behind an alert in its first, both streams again with no cooldown, the
+    alerts at or after the midpoint counted (at least one on the doubled
+    stream).  A step at batch 1 costs its whole time a token, several times
+    a batch of 4's, so the healthy stream alerts too at 1.5 x the median."""
+    import contextlib
+    import dataclasses as dc
+    import io
+
+    import numpy as np
+
+    from repro_torch.serve import CapacityPlanner
+    from repro_torch.telemetry import read_events
+    from repro_torch.telemetry.__main__ import main as telemetry
+    from repro_torch.telemetry.trace import SloConfig, monitor_serve_events
+
+    def cli(argv):
+        print(f"$ python -m repro_torch.telemetry {' '.join(argv)}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = telemetry(argv)
+        print(buf.getvalue(), end="")
+        return rc, buf.getvalue()
+
+    phase("28c: python -m repro_torch.telemetry summarize|trace on main path 12's router log; "
+          "the SLO monitor over its serve_step rows")
+    rc, text = cli(["summarize", str(path), "--strict"])
+    if rc != 0 or "per-replica:" not in text or "replica 1:" not in text:
+        fail(f"telemetry summarize exited {rc} or printed no per-replica lines")
+    perfetto = path.with_suffix(".perfetto.json")
+    rc, text = cli(["trace", str(path), "--perfetto", str(perfetto), "--flame",
+                    "--tune-cache", str(tune_cache), "--n-layers", str(n_layers)])
+    kernel_rows = [line for line in text.splitlines()
+                   if line.startswith("kernel/flash_decode_paged@b")]
+    if rc != 0 or not kernel_rows:
+        fail(f"telemetry trace exited {rc}, kernel rows {kernel_rows}")
+    steps = sorted((e for e in read_events(path) if e.kind == "serve_step"
+                    and e.op in ("decode", "verify")), key=lambda e: e.step)
+    per_token = [e.step_s / max(e.committed, 1) for e in steps]
+    target = SLO_TARGET_OF_MEDIAN * float(np.median(per_token))
+    half = len(steps) // 2
+    slowed = steps[:half] + [dc.replace(e, step_s=2.0 * e.step_s) for e in steps[half:]]
+    healthy_alerts = monitor_serve_events(steps, per_token=SloConfig(target=target))
+    slowed_alerts = monitor_serve_events(slowed, per_token=SloConfig(target=target))
+    late = {name: sum(a.step >= steps[half].step for a in monitor_serve_events(
+                stream, per_token=SloConfig(target=target, cooldown=0)))
+            for name, stream in (("healthy", steps), ("2x", slowed))}
+    planner = CapacityPlanner()
+    planner.ingest(slowed_alerts)
+    out = {"per_token_target_ms": 1e3 * target, "serve_steps": len(steps),
+           "alerts_healthy": len(healthy_alerts), "alerts_2x_from_midpoint": len(slowed_alerts),
+           "first_alert_step": slowed_alerts[0].step if slowed_alerts else None,
+           "midpoint_step": steps[half].step, "planner_slo_alerts": len(planner.slo_alerts),
+           "alerts_from_midpoint_no_cooldown": late, "kernel_rows": kernel_rows}
+    print(json.dumps({"slo": out}))
+    if not slowed_alerts or len(planner.slo_alerts) != len(slowed_alerts) or not late["2x"]:
+        fail(f"no SLO alert on the 2x stream ({len(slowed_alerts)}; {late['2x']} from its "
+             f"midpoint without cooldown), or the planner kept {len(planner.slo_alerts)}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4244,6 +4562,11 @@ def main() -> None:
     static_counts = static_serve_path(lm)
     for name in ("flash_fwd", "paged_decode"):
         by_path[name]["static_serve"] = static_counts[name]
+    routed = router_path(QWEN, lm, 12, workdir, tune_cache=tuner["files"]["cli"])
+    for name in ("flash_fwd", "paged_decode"):
+        by_path[name]["serve_router"] = routed["launches"][name]
+    trace_cost_and_replay(lm, workdir, tuner["files"]["cli"])
+    telemetry_paths(routed["log"], tuner["files"]["cli"], lm.cfg.n_layers)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -4256,6 +4579,8 @@ def main() -> None:
     launches["selective_scan_step"] = mamba_launches["selective_scan_step"]
     launches["selective_scan"] = mamba_launches["selective_scan"] - launches["selective_scan_step"]
     long_serve_run(MAMBA, lm)
+    mamba_routed = router_path(MAMBA, lm, "12b", workdir)
+    mamba_handoff_state(lm)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -4350,9 +4675,14 @@ def main() -> None:
     launches["paged_decode"] = sum(by_path["paged_decode"].values())
     by_path["flash_fwd_mla"]["training_mla"] = mla_counts["flash_fwd"]
     launches["flash_fwd_mla"] = sum(by_path["flash_fwd_mla"].values())
-    by_path["selective_scan"] = {"cli": launches["selective_scan"],
-                                 "training_mamba": mamba_counts["selective_scan"]}
+    router_step = mamba_routed["selective_scan_step_launches"]
+    by_path["selective_scan"] = {
+        "cli": launches["selective_scan"], "training_mamba": mamba_counts["selective_scan"],
+        "serve_router": mamba_routed["launches"]["selective_scan"] - router_step}
     launches["selective_scan"] = sum(by_path["selective_scan"].values())
+    by_path["selective_scan_step"] = {"cli": launches["selective_scan_step"],
+                                      "serve_router": router_step}
+    launches["selective_scan_step"] = sum(by_path["selective_scan_step"].values())
 
     kernels = [k1, k6]
     for name, source, replaces in (

@@ -8,6 +8,9 @@ and the static batch through the ``Server`` facade.
       --tune-cache results/tune_cache_torch.json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
       --continuous --device cpu --prefill-chunk 8 --speculate 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \\
+      --device cpu --router --replicas 2 --migrate-at 3 --trace trace.json \\
+      --trace-clock steps --router-log router.jsonl
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
       --batch 4 --prompt-len 16 --gen 16 --device cpu
 
@@ -40,6 +43,26 @@ shape, verify steps included; the value used is printed.  The planner
 counts every ``flash_decode_paged`` entry of the file, so give it one
 holding this model's shapes only.
 
+``--router`` (``repro/launch/serve.py:261-355``) replays the trace through a
+prefix-affinity ``Router`` over ``--replicas N`` engines (0: the fitted
+capacity plan's m, else 2) with ``--spill-slack`` tokens of slack, prints the
+dispatches, affinity hits and per-replica planner stats, and prints
+``routed fleet vs single engine: bit_identical=yes|NO``, exiting 1 on NO;
+``--router-log PATH`` writes the router's and replicas' events as JSONL
+(``python -m repro_torch.telemetry summarize|trace PATH`` reads it).
+``--migrate-at STEP`` hands replica ``--migrate-replica R`` off to a fresh
+engine at router step STEP with its requests in flight
+(``repro_torch.serve.migrate``) and prints the handoff's requests, pages,
+MB and ms.  ``--trace PATH`` traces every engine's and the router's spans,
+writes them as a Perfetto/chrome://tracing JSON (the router's fleet when
+``--router``), exits 1 if the file fails the schema check, prints the
+attribution report (``--tune-cache``'s kernel rows joined in) and, with
+``--trace-clock wall``, the spans' decode, verify and chunk time against
+the engines' own step times, exiting 1 past 5%; ``--trace-clock steps``
+counts clock ticks instead, so that two runs write the same file byte for
+byte.  ``--migrate-at`` implies ``--router``; ``--router`` or ``--trace``
+implies ``--continuous``.
+
 Without ``--continuous`` the CLI runs the reference's static batch
 (``repro/launch/serve.py:439-456``): ``--batch`` random prompts of
 ``--prompt-len`` tokens from ``--seed``, ``--gen`` tokens each, through
@@ -57,10 +80,11 @@ same place, its prefill's assert.
 
 Differences from the reference's CLI: ``--smoke`` is off by default, so the
 default is the full config; without ``--device cpu`` it runs on the card or
-raises; the router and tracing are not ported yet (ROADMAP.md), nor a mesh
-for ``Server``; the cold and the baseline engines share the warm engine's
-weights instead of building second copies, and run the same
-``--paged-impl``.
+raises; ``--tp`` (a tensor-parallel replica) is not ported, nor a mesh for
+``Server`` (ROADMAP.md, queue 1 item 7); the cold and the baseline engines,
+the router's replicas and the migration's destination all share the warm
+engine's weights instead of building copies of their own (29.5 GB each at
+qwen3-14b's full width), and run the same ``--paged-impl``.
 """
 from __future__ import annotations
 
@@ -272,7 +296,35 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="seed the capacity planner with measured paged-decode kernel "
                          "timings from this autotuner config cache, and run paged decode "
                          "at its tuned pages_per_program")
-    return ap.parse_args(argv)
+    ap.add_argument("--router", action="store_true",
+                    help="replay the trace through a prefix-affinity router over N replicas "
+                         "and assert bit-identical outputs (implies --continuous)")
+    ap.add_argument("--replicas", type=int, default=0, metavar="N",
+                    help="replica count for --router (0 = the fitted capacity planner's "
+                         "min-replicas answer)")
+    ap.add_argument("--spill-slack", type=int, default=512, metavar="TOKENS",
+                    help="router overflow spill: an affinity winner more than this many "
+                         "pending tokens above the fleet minimum forfeits the request")
+    ap.add_argument("--migrate-at", type=int, default=None, metavar="STEP",
+                    help="live migration drill: at router step STEP, hand one replica off "
+                         "to a freshly built engine and keep serving (implies --router)")
+    ap.add_argument("--migrate-replica", type=int, default=0, metavar="R",
+                    help="which replica --migrate-at hands off (default 0)")
+    ap.add_argument("--router-log", default=None, metavar="PATH",
+                    help="dump the combined router + replica event stream as JSONL")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="hierarchical span tracing: write a Perfetto/chrome://tracing JSON "
+                         "span tree and print the attribution report (implies --continuous)")
+    ap.add_argument("--trace-clock", default="wall", choices=["wall", "steps"],
+                    help="span timestamp source: wall (measured; reconciled against the "
+                         "engines' step times) or steps (a tick clock; same-seed runs write "
+                         "byte-identical trace files)")
+    args = ap.parse_args(argv)
+    if args.migrate_at is not None:
+        args.router = True
+    if args.router or args.trace:
+        args.continuous = True
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
@@ -288,8 +340,11 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
     speculative run was replayed through (``baseline``) and whether the
     replay gave the same tokens (``bit_identical``; both None without the
     knobs), the tuned
-    kernel rows seeded and the paged decode's ``pages_per_program``; exits 1
-    if the prefix-reuse check or the replay check fails."""
+    kernel rows seeded and the paged decode's ``pages_per_program``, the
+    router run's results (``routed``, ``_run_router``'s; None without
+    ``--router``) and the trace's (``trace``, ``_export_trace``'s; None
+    without ``--trace``); exits 1 if the prefix-reuse check, the replay
+    check, the routed fleet's check or a trace check fails."""
     args = parse_args(argv)
     if not args.continuous:
         return static_batch(args, cfg, lm)
@@ -304,8 +359,10 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
     prefill_chunk = _resolve_prefill_chunk(args.prefill_chunk, args.smoke, device.type)
     geometry = dict(max_batch=args.max_batch, page_size=args.page_size,
                     max_seq=64 + args.page_size * 2, seed=args.seed, paged_impl=args.paged_impl)
+    clock = _trace_clock_factory(args)
     eng = ServeEngine(args.arch, smoke=args.smoke, prefill_chunk=prefill_chunk,
-                      speculate=args.speculate, lm=lm, device=args.device, **geometry)
+                      speculate=args.speculate, lm=lm, device=args.device,
+                      trace=bool(args.trace), trace_clock=clock(), **geometry)
     specs = _mixed_trace_specs(eng.cfg, eng.page_size, args.requests, args.seed)
     reqs = [eng.submit(prompt, gen, arrival_step=arrival, frontend_embeds=fe)
             for prompt, gen, arrival, fe in specs]
@@ -344,23 +401,25 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
             sys.exit(1)
 
     planner = CapacityPlanner()
-    tune_rows, ppp = 0, None
+    tune_rows, ppp, tune_evs = 0, None, []
     if tune_cache is not None:
         from repro_torch.kernels import tune
 
         n_layers = eng.cfg.n_layers
-        tune_rows = planner.ingest(tune.tune_events(tune_cache), n_layers=n_layers)
+        tune_evs = tune.tune_events(tune_cache)
+        tune_rows = planner.ingest(tune_evs, n_layers=n_layers)
         print(f"capacity plan: seeded with {tune_rows} measured kernel row(s) "
               f"from {args.tune_cache} (x{n_layers} layers)")
         if any(spec.mixer == "attn" for spec in eng.cfg.period):
             ppp = _decode_pages_per_program(eng)
     planner.ingest(eng.events("serve_step"))
-    plan = None
+    plan = fitted = None
     try:
         planner.fit()
     except ValueError as e:
         print(f"capacity plan: insufficient telemetry ({e})")
     else:
+        fitted = planner
         t1, t8 = planner.step_time(1), planner.step_time(8)
         print(f"f(b) step model: t(1)={t1*1e3:.1f} ms  t(8)={t8*1e3:.1f} ms  "
               f"coeffs={planner.step_model.coefficients()}")
@@ -373,13 +432,36 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
         else:
             print(f"capacity plan: no feasible operating point ({plan.reason})")
 
+    routed = None
+    if args.router:
+        n_replicas = args.replicas
+        if n_replicas <= 0:
+            n_replicas = plan.m if plan else 2
+            print(f"router: --replicas 0 -> planner min-replicas answer m={n_replicas}")
+
+        def make_engine(i: int) -> ServeEngine:
+            return ServeEngine("", lm=eng.lm, prefill_chunk=prefill_chunk,
+                               speculate=args.speculate, replica_id=i, trace=bool(args.trace),
+                               trace_clock=clock(), **geometry)
+
+        routed = _run_router(args, specs, reqs, n_replicas, make_engine, clock)
+
+    traced = None
+    if args.trace:
+        trace_events = (routed["router"].all_events() if routed is not None
+                        else list(eng.events()))
+        busy = sum(e.step_s for e in trace_events if getattr(e, "kind", "") == "serve_step")
+        traced = _export_trace(args, list(trace_events) + list(tune_evs), fitted, busy,
+                               eng.cfg.n_layers)
+
     ok, cold = _verify_prefix_reuse(eng, args.seed)
     if not ok:
         print("FAIL: prefix-reuse verification")
         sys.exit(1)
     return {"stats": stats, "served": len(done), "requests": len(specs), "planner": planner,
             "plan": plan, "engines": (eng, cold), "baseline": base,
-            "bit_identical": identical, "tune_rows": tune_rows, "pages_per_program": ppp}
+            "bit_identical": identical, "tune_rows": tune_rows, "pages_per_program": ppp,
+            "routed": routed, "trace": traced}
 
 
 def static_batch(args: argparse.Namespace, cfg: Optional[ArchConfig] = None,
@@ -412,6 +494,121 @@ def _serve_replay(eng: ServeEngine, specs: List[TraceSpec], seed: int, speculate
             for prompt, gen, arrival, fe in specs]
     eng.run()
     return reqs + (_document_extension(eng, seed) if speculate else [])
+
+
+def _trace_clock_factory(args):
+    """Per-engine trace clock: a fresh ``CountingClock`` for ``--trace-clock
+    steps`` (span values deterministic, so same-seed runs write byte-identical
+    trace files), ``None`` (the wall clock) otherwise."""
+    if args.trace and args.trace_clock == "steps":
+        from repro_torch.telemetry.trace import CountingClock
+
+        return lambda: CountingClock()
+    return lambda: None
+
+
+def _export_trace(args, events, planner, busy_s: float, n_layers: int) -> Dict:
+    """Write the Perfetto trace and print the attribution report, its decode
+    and verify spans priced by ``planner`` (a fitted ``CapacityPlanner``, or
+    None) (``repro/launch/serve.py:224-258``); exits 1 if the file fails the
+    schema check or, on the wall clock, if the spans of the engine ops that
+    ``serve_step`` events time (decode, verify, chunked prefill: a
+    monolithic prefill is booked on its request, not the step stream) differ
+    from those events' time by more than 5%.  Returns the span count and
+    the reconciliation's relative difference (None on the step clock)."""
+    from repro_torch.telemetry.trace import (
+        attribute,
+        format_attribution,
+        load_perfetto,
+        validate_perfetto,
+        write_perfetto,
+    )
+
+    n = write_perfetto(args.trace, events)
+    errs = validate_perfetto(load_perfetto(args.trace))
+    if errs:
+        print(f"FAIL: trace schema: {errs[:5]}")
+        sys.exit(1)
+    print(f"trace: {n} spans -> {args.trace} (Perfetto/chrome://tracing)")
+    attr = attribute(events, planner=planner, n_layers=n_layers)
+    print(format_attribution(attr))
+    engine_ops = ("engine.decode", "engine.verify", "engine.prefill_chunk")
+    span_busy = sum(r.measured_s for r in attr.rows if r.component in engine_ops)
+    out = {"spans": n, "reconcile": None}
+    if args.trace_clock == "steps":
+        print("trace: deterministic step clock (wall reconciliation n/a)")
+        return out
+    if busy_s > 0:
+        rel = abs(span_busy - busy_s) / busy_s
+        out["reconcile"] = rel
+        print(f"trace: span/engine wall reconciliation "
+              f"{span_busy:.3f}s vs {busy_s:.3f}s ({rel:.2%})")
+        if rel > 0.05:
+            print("FAIL: trace spans do not reconcile with engine wall time")
+            sys.exit(1)
+    return out
+
+
+def _run_router(args, specs: List[TraceSpec], reference, n_replicas: int, make_engine,
+                clock) -> Dict:
+    """Replay the trace through a prefix-affinity router over ``n_replicas``
+    engines from ``make_engine(i)`` (``repro/launch/serve.py:261-355``), with
+    ``--migrate-at``'s handoff, and exit 1 unless every request's tokens are
+    the single engine's (``reference``, its requests in trace order).
+    Returns the router, whether the tokens matched, its stats, the
+    migration's (None without one) and the engines the handoff replaced."""
+    from repro_torch.serve import Router
+    from repro_torch.serve.migrate import migrate_replica
+
+    engines = [make_engine(i) for i in range(n_replicas)]
+    router = Router(engines, spill_slack=args.spill_slack, trace=bool(args.trace),
+                    trace_clock=clock())
+    routed = [router.submit(prompt, gen, arrival_step=arrival, frontend_embeds=fe)
+              for prompt, gen, arrival, fe in specs]
+    info, replaced = None, []
+    if args.migrate_at is not None:
+        while not router.drained:
+            if router.step_count >= 100_000:
+                raise RuntimeError("trace did not drain in 100000 steps")
+            if router.step_count == args.migrate_at:
+                info = migrate_replica(router, args.migrate_replica,
+                                       lambda: make_engine(args.migrate_replica))
+                replaced.append(info["source"])
+                print(f"migration: replica {info['replica']} handed off at "
+                      f"step {args.migrate_at} — {info['in_flight']} "
+                      f"requests in flight, {info['pages_in_use']} pages, "
+                      f"{info['nbytes'] / 1e6:.2f} MB cache in "
+                      f"{info['wall_s'] * 1e3:.0f} ms")
+            router.step()
+        if info is None:
+            print(f"migration: trace drained before step {args.migrate_at} "
+                  f"(no handoff performed)")
+        rstats = router.stats()
+    else:
+        rstats = router.run()
+    print(f"router: {rstats['dispatched']} requests over "
+          f"{n_replicas} replicas {rstats['dispatch_per_replica']}, "
+          f"affinity hit rate {rstats['affinity_hit_rate']:.2f} "
+          f"({rstats['affinity_hits']} hits, {rstats['spills']} spills)")
+    identical = all(rr.generated == ref.generated for rr, ref in zip(routed, reference))
+    print(f"routed fleet vs single engine: bit_identical={'yes' if identical else 'NO'}")
+
+    planner = CapacityPlanner()
+    planner.ingest(router.all_events())
+    for idx, s in planner.replica_stats().items():
+        print(f"  replica {idx}: {int(s['dispatches'])} dispatched, "
+              f"{int(s['affinity_hits'])} affinity hits, "
+              f"{int(s['decode_tokens'])} tokens @ {s['tok_per_s']:.1f} tok/s")
+    print(f"measured effective replicas: "
+          f"{planner.measured_effective_replicas():.2f}/{n_replicas}")
+    if args.router_log:
+        n = router.to_jsonl(args.router_log)
+        print(f"router log: {n} events -> {args.router_log}")
+    if not identical:
+        print("FAIL: routed outputs diverge from the single-engine reference")
+        sys.exit(1)
+    return {"router": router, "bit_identical": identical, "stats": rstats,
+            "migration": info, "replaced": replaced}
 
 
 def _decode_pages_per_program(eng: ServeEngine) -> int:

@@ -28,8 +28,21 @@ logits (below):
   the longest prefix that greedy one-token decode would have emitted.
 
 For archs with recurrent layers both knobs raise, as in the reference, whose
-Mamba state has no positional form.  Not yet: the sharded data plane and
-span tracing (ROADMAP.md).
+Mamba state has no positional form.  Not yet: the sharded data plane
+(ROADMAP.md, queue 1 item 7).
+
+Span tracing (``trace=True``, the reference's ``repro/serve/engine.py:193-232``)
+puts a ``SpanTracer`` on the engine's bus: ``engine.step`` around each step,
+``engine.prefill`` around a monolithic prefill (``skipped=True`` for a
+whole-prompt hit), ``engine.prefill_chunk``, ``engine.decode`` and
+``engine.verify``, and the scheduler's ``scheduler.join``, ``pages.alloc``
+and ``pages.evict``.  Each engine span closes after the host has read the
+scope's logits, which waits for the device's work, and lies inside the
+window its ``serve_step`` event times, so span and step times reconcile;
+tracing off, a scope is a no-op context and the step does nothing more.
+IDs are deterministic (``("serve", arch, seed, replica_id)``); ``trace_clock``
+(a ``CountingClock``) makes the timestamps so too.  ``replica_id`` (set by a
+``Router``) tags the spans and the ``serve_step`` events.
 
 A frontend arch's request (internvl2's patches, musicgen's conditioning
 frames) carries ``frontend_embeds`` (F, d), F = ``n_frontend_tokens``
@@ -95,7 +108,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from contextlib import nullcontext
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +130,7 @@ from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
 from repro_torch.serve.speculate import NgramProposer
 from repro_torch.telemetry import Event, MemorySink, ServeStepEvent, Tracker
+from repro_torch.telemetry.trace import SpanTracer
 
 def random_lm(cfg: ArchConfig, device: DeviceLike, seed: int) -> LM:
     """``cfg``'s LM on ``device`` (the card when None) with random weights
@@ -142,6 +157,9 @@ class ServeEngine:
         speculate: int = 0,
         lm: Optional[LM] = None,
         device: DeviceLike = None,
+        replica_id: int = -1,
+        trace: bool = False,
+        trace_clock: Optional[Callable[[], float]] = None,
     ):
         """``lm`` is an already-built model to serve (its config and device
         are used, and its weights are shared, not copied); otherwise a model
@@ -149,7 +167,9 @@ class ServeEngine:
         weights from a generator seeded with ``seed``.  ``paged_impl`` is the
         paged decode's (``Runtime.paged_impl``): ``"kernel"`` runs K2 on the
         card and its plain version on the CPU.  ``num_pages`` sizes the page
-        pool (default: every slot's full row, plus the scratch page)."""
+        pool (default: every slot's full row, plus the scratch page).
+        ``replica_id``, ``trace`` and ``trace_clock``: the reference's span
+        tracing and replica tag (module docstring)."""
         self.cfg = lm.cfg if lm is not None else self.config_for(arch, smoke)
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
@@ -193,6 +213,11 @@ class ServeEngine:
         self.next_tokens = np.zeros(max_batch, np.int64)
         self.tracker = Tracker([MemorySink()])
         self._t_s = 0.0
+        self.spans: Optional[SpanTracer] = (
+            SpanTracer(self.tracker, trace=("serve", self.cfg.name, seed, replica_id),
+                       replica=replica_id, clock=trace_clock) if trace else None)
+        self.scheduler.tracer = self.spans
+        self.replica_id = replica_id
         self.step_count = 0
         self.prefills_run = 0
         # the pages_per_program the last verify step's paged decode ran at
@@ -202,6 +227,12 @@ class ServeEngine:
     @staticmethod
     def config_for(arch: str, smoke: bool) -> ArchConfig:
         return get_smoke_config(arch) if smoke else get_config(arch)
+
+    def _sp(self, name: str, **attrs):
+        """Span scope when tracing is on, else a free no-op context."""
+        if self.spans is None:
+            return nullcontext()
+        return self.spans.span(name, step=self.step_count, **attrs)
 
     def decode_pages_per_program(self) -> Tuple[int, bool, Dict[str, int]]:
         """(pages_per_program, tuned, shape): the paged decode's blocking for
@@ -290,11 +321,15 @@ class ServeEngine:
         """Prefill (or reuse a stored prefill) and seed the decode slot."""
         slot = req.slot
         if req.prefill_skipped:
-            logits = req.full_entry.last_logits
-            self.cache = restore_state(self.cache, req.full_entry.state, slot)
+            with self._sp("prefill", component="engine.prefill", rid=req.rid,
+                          tokens=len(req.prompt), skipped=True):
+                logits = req.full_entry.last_logits
+                self.cache = restore_state(self.cache, req.full_entry.state, slot)
         else:
             t0 = time.perf_counter()
-            logits, pre_cache = self._prefill(req.prompt, req.frontend_embeds)
+            with self._sp("prefill", component="engine.prefill", rid=req.rid,
+                          tokens=len(req.prompt)):
+                logits, pre_cache = self._prefill(req.prompt, req.frontend_embeds)
             req.prefill_s = time.perf_counter() - t0
             self.cache = write_prefill(self.cache, pre_cache, slot=slot,
                                        page_ids=req.page_ids, page_size=self.page_size,
@@ -345,10 +380,13 @@ class ServeEngine:
         chunk = np.zeros(self.prefill_chunk, np.int64)
         chunk[:n_tokens] = req.prompt[s0: s0 + n_tokens]
         t0 = time.perf_counter()
-        logits, self.cache = self.lm.prefill_chunk(
-            torch.from_numpy(chunk)[None].to(self.device), n_tokens, self.cache,
-            torch.from_numpy(self._table_row(req))[None].to(self.device), s0=s0, rt=self.rt)
-        logits = logits[0].float().cpu().numpy()
+        with self._sp("prefill_chunk", component="engine.prefill_chunk", rid=req.rid,
+                      tokens=n_tokens, s0=s0):
+            logits, self.cache = self.lm.prefill_chunk(
+                torch.from_numpy(chunk)[None].to(self.device), n_tokens, self.cache,
+                torch.from_numpy(self._table_row(req))[None].to(self.device), s0=s0,
+                rt=self.rt)
+            logits = logits[0].float().cpu().numpy()
         dt = time.perf_counter() - t0
         req.prefill_s += dt
         req.prefill_pos += n_tokens
@@ -375,6 +413,10 @@ class ServeEngine:
         within its token budget, then run one batched decode (or draft
         verify) step and retire finished requests.  Returns the number of
         requests that contributed decode tokens."""
+        with self._sp("step", component="engine.step"):
+            return self._step_inner()
+
+    def _step_inner(self) -> int:
         for req in self.scheduler.admit_ready(self.step_count):
             if self._use_chunked(req):
                 req.state = RequestState.PREFILLING
@@ -395,11 +437,12 @@ class ServeEngine:
             self.step_count += 1
             return len(decoding)
         t0 = time.perf_counter()
-        logits, self.cache = self.lm.decode_step_paged(
-            torch.from_numpy(self.next_tokens).to(self.device),
-            torch.from_numpy(self.lengths).to(self.device),
-            self.cache, self.page_tables_dev, rt=self._step_runtime())
-        logits_np = logits.float().cpu().numpy()
+        with self._sp("decode", component="engine.decode", batch=len(decoding)):
+            logits, self.cache = self.lm.decode_step_paged(
+                torch.from_numpy(self.next_tokens).to(self.device),
+                torch.from_numpy(self.lengths).to(self.device),
+                self.cache, self.page_tables_dev, rt=self._step_runtime())
+            logits_np = logits.float().cpu().numpy()
         dt = time.perf_counter() - t0
         self._emit("decode", batch=len(decoding), step_s=dt, committed=len(decoding))
         for req in decoding:
@@ -460,10 +503,12 @@ class ServeEngine:
         rt = self._step_runtime()
         self.verify_pages_per_program = rt.pages_per_program
         t0 = time.perf_counter()
-        logits, self.cache = self.lm.decode_step_paged(
-            torch.from_numpy(toks).to(self.device), torch.from_numpy(lens).to(self.device),
-            self.cache, torch.from_numpy(pts).to(self.device), rt=rt)
-        logits_np = logits.float().cpu().numpy()
+        with self._sp("verify", component="engine.verify", batch=len(decoding),
+                      rows=b * t_rows):
+            logits, self.cache = self.lm.decode_step_paged(
+                torch.from_numpy(toks).to(self.device), torch.from_numpy(lens).to(self.device),
+                self.cache, torch.from_numpy(pts).to(self.device), rt=rt)
+            logits_np = logits.float().cpu().numpy()
         dt = time.perf_counter() - t0
         total_committed = total_drafted = 0
         for req in decoding:
@@ -501,10 +546,12 @@ class ServeEngine:
         self._t_s += step_s
         self.tracker.emit(ServeStepEvent(step=self.step_count, step_s=step_s, op=op,
                                          batch=batch, committed=committed, drafted=drafted,
-                                         prefill_tokens=prefill_tokens, t_s=self._t_s))
+                                         prefill_tokens=prefill_tokens, t_s=self._t_s,
+                                         replica=self.replica_id))
 
     def events(self, kind: Optional[str] = None) -> List[Event]:
-        """Typed events on the engine's bus (``serve_step`` rows)."""
+        """Typed events on the engine's bus (``serve_step`` rows and, when
+        tracing, ``span`` rows)."""
         return self.tracker.events(kind)
 
     # ------------------------------------------------------------------

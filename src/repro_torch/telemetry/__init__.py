@@ -1,10 +1,13 @@
 """The port's telemetry bus: copies of ``repro.telemetry``'s events, tracker,
-io and streaming-refit modules (pure Python and numpy, no JAX), enough for
-the serve engine's ``serve_step`` events, the capacity planner and the chaos
-loop's drift and refit events.
+io and streaming-refit modules, its span tracing (``trace/``: spans, the
+Perfetto export, attribution, SLO burn rate) and its CLI (``python -m
+repro_torch.telemetry summarize|trace``), all pure Python and numpy, no JAX.
+They carry the serve engine's ``serve_step`` events and spans, the router's
+dispatch events, migration's ``ckpt_cost``, the capacity planner and the
+chaos loop's drift and refit events.
 
-Left for later slices: span tracing (``trace/``) and the reference's
-``log_from_device`` bridge from jit-compiled JAX code (see ROADMAP.md).
+Not copied: the reference's ``log_from_device``, its bridge from
+jit-compiled JAX code to the bus, which the port has no use for.
 """
 
 from .events import (

@@ -53,7 +53,11 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.training.optimizers", "repro_torch.training.trainer",
                    "repro_torch.training.tree", "repro_torch.data.pipeline",
                    "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
-                   "repro_torch.launch.train", "repro_torch.kernels.flash_attention.ref"):
+                   "repro_torch.launch.train", "repro_torch.kernels.flash_attention.ref",
+                   "repro_torch.telemetry.trace", "repro_torch.telemetry.trace.spans",
+                   "repro_torch.telemetry.trace.export", "repro_torch.telemetry.trace.attribution",
+                   "repro_torch.telemetry.trace.slo", "repro_torch.telemetry.__main__",
+                   "repro_torch.serve.router", "repro_torch.serve.migrate"):
         assert module in report["imported"]
 
 
@@ -99,6 +103,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: serve.main(["--arch", "deepseek-v2-236b", "--smoke", "--continuous"]),
         lambda: serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--continuous"]),
         lambda: serve.main(["--smoke", "--continuous"]),
+        lambda: serve.main(["--smoke", "--router", "--replicas", "2", "--migrate-at", "3"]),
+        lambda: serve.main(["--smoke", "--trace", str(tmp_path / "t.json")]),
         lambda: serve.main(["--smoke", "--batch", "2", "--prompt-len", "4", "--gen", "2"]),
         lambda: serve.Server("qwen3-14b").generate(np.zeros((1, 4), np.int32), 2),
         lambda: train.main(["--smoke", "--steps", "1"]),

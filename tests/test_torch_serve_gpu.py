@@ -264,3 +264,25 @@ def test_smoke_engine_prefix_reuse_across_row_blocks_on_the_card(card):
     lm = LM(get_smoke_config("qwen3-14b"), device=card).init_params(
         torch.Generator(device=card).manual_seed(0))
     check_prefix_reuse_across_row_blocks(lm)
+
+
+def test_smoke_router_and_handoff_on_the_card(card, capsys, tmp_path):
+    """The serve CLI's routed fleet with a mid-run handoff and tracing on the
+    card: its tokens the single engine's, the kernels launched once a layer
+    for every prefill and decode step of every engine the CLI built (the
+    handoff's source and destination both), and the spans reconciled with
+    the step times."""
+    fa_ops.flash_fwd.launches = fd_ops.paged_decode.launches = 0
+    result = serve_cli.main(["--arch", "qwen3-14b", "--smoke", "--router", "--replicas", "2",
+                             "--migrate-at", "3", "--trace", str(tmp_path / "t.json")])
+    out = capsys.readouterr().out
+    assert "routed fleet vs single engine: bit_identical=yes" in out
+    routed = result["routed"]
+    assert routed["bit_identical"] and routed["migration"]["in_flight"] > 0
+    engines = [*result["engines"], *routed["router"].engines, *routed["replaced"]]
+    assert len({id(e) for e in engines}) == 5
+    n_layers = get_smoke_config("qwen3-14b").n_layers
+    stats = [e.stats() for e in engines]
+    assert fa_ops.flash_fwd.launches == n_layers * sum(s["prefills_run"] for s in stats)
+    assert fd_ops.paged_decode.launches == n_layers * sum(s["decode_steps"] for s in stats)
+    assert result["trace"]["spans"] > 0 and result["trace"]["reconcile"] <= 0.05
