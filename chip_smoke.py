@@ -33,7 +33,10 @@ width; internvl2-76b serves at full width and 16 of its 80 layers, every
 request with 256 patch embeddings; jamba's smoke period serves and trains;
 qwen3-14b and falcon-mamba-7b serve at full width through the
 prefix-affinity router over two replicas, one handed off to a fresh engine
-mid-run, every span traced, and the telemetry CLI reads the run's log.
+mid-run, every span traced, and the telemetry CLI reads the run's log;
+qwen3-14b serves tensor-parallel (``--tp 2``: two ranks on the one card,
+each holding half of every layer's heads and channels) at full width, and
+falcon-mamba-7b so at a cut depth.
 Phases, each of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
@@ -324,11 +327,44 @@ Phases, each of which exits non-zero on failure:
       serve_step rows with the per-token objective at 1.5 x their median
       per-token latency: the alert count as they are, and at least one
       alert, kept by ``CapacityPlanner.ingest``, with every step time
-      doubled from the midpoint.
+      doubled from the midpoint;
+  29a. (slice 19) on phase 10's qwen3-14b before it is freed: the CLI's
+      trace through one unsharded engine, every step's logits kept;
+  29b. a one-rank NCCL group and a (1, 1) mesh in this process: the trace
+      through ``ServeEngine(lm=..., mesh=...)``, phase 10's model itself,
+      every token and every step's logits bit for bit 29a's, K3 and K2 once
+      a layer a prefill and a decode step;
+  29c. the model freed, main path 13: ``python -m repro_torch.launch.serve
+      --arch qwen3-14b --continuous --tp 2 --router --replicas 2
+      --tune-cache <the CLI's file>`` in process: two ranks spawned on the
+      card (gloo: they share it), each drawing its half of phase 10's
+      weights from seed 0, the CLI returning every rank's report; the CLI's
+      gates (``bit_identical=yes`` for the fleet against a single 2-way
+      engine and for the prefix reuse, the ranks' streams the same), the
+      ranks' tokens and logits the same bits, and on each rank K3 = 40 x
+      prefills and K2 = 40 x decode steps of its 4 engines, no other kernel
+      (none in this process); each request's logits at every step up to and
+      with its first token that differs from 29a's within phase 9's bf16
+      bounds of 29a's, the count of equal token streams printed (a bf16 near
+      tie may flip one), each rank's decode step median and peak memory;
+  29d. main path 13b, after phase 16's model is freed: falcon-mamba-7b at 8
+      of its 64 layers from seed 0 through one unsharded engine on the card
+      (29a's trace), freed, then the same CLI on that config (K4 = 8 x
+      (prefills + decode steps) on each rank, its decode body 8 x decode
+      steps), held against that engine as 29c against 29a.
+  29e. K3 and K2 against their plain versions at a rank's heads (phases 8
+      and 8b at qwen3-14b's local config, 20 query heads over 4 KV heads)
+      and K4 at a rank's channels (phase 13 at Dn 4096), the local configs
+      ``ShardingPlan.local_config``'s, the errors folded into the kernels
+      line; then each timed once there (half the heads or channels of
+      phases 12 and 17's shapes), beside its bound: the kernels unchanged,
+      their rows in the kernels line gain the numbers ``..._at main path
+      13``.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's,
 K2-latent's and K4's ``launches`` sum their paths', ``launches_by_path``
-(``serve_router``: main path 12's run, or 28b's for K4); K6's row,
+(``serve_router``: main path 12's run, or 28b's for K4; ``serve_tp``: main
+path 13's, or 13b's for K4, summed over its two ranks); K6's row,
 ``local_sgd``, replaces the reference's compiled ``lax.scan``, no Pallas
 kernel, and counts its launches on the menu and chaos paths; K4's decode body
 has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
@@ -1399,7 +1435,8 @@ def chunk_verify_kernels_vs_plain(dev, cfg) -> dict:
     from repro_torch.kernels.flash_decode.ref import paged_decode_stream
 
     hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    phase(f"K3 at chunked prefill's shapes and K2 over a verify fold (bf16, {QWEN})")
+    phase(f"K3 at chunked prefill's shapes and K2 over a verify fold (bf16, {cfg.name}: "
+          f"Hk {hk}, G {g})")
     gen = torch.Generator(device=dev).manual_seed(10)
     errs = {"flash_fwd": chunk_kernel_vs_monolithic(torch, gen, hk * g, hk, d, d, d ** -0.5)}
     page, npp = 16, LONG_PAGES
@@ -2394,7 +2431,7 @@ def scan_inputs(torch, gen, cfg, bt, s, n_valid=None):
     import math
 
     mc = cfg.mamba
-    dn, n, dtr = mc.expand * cfg.d_model, mc.d_state, mc.resolved_dt_rank(cfg.d_model)
+    dn, n, dtr = mc.resolved_d_inner(cfg.d_model), mc.d_state, mc.resolved_dt_rank(cfg.d_model)
     dev = gen.device
     x = torch.randn((bt, s, dn), generator=gen, device=dev).to(torch.bfloat16)
     u = torch.rand((bt, s, dn), generator=gen, device=dev)
@@ -2448,7 +2485,8 @@ def scan_kernel_vs_plain(dev, cfg):
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
     mc = cfg.mamba
-    phase(f"K4 vs plain ({MAMBA}: Dn {mc.expand * cfg.d_model}, N {mc.d_state}, bf16 x)")
+    phase(f"K4 vs plain ({cfg.name}: Dn {mc.resolved_d_inner(cfg.d_model)}, N {mc.d_state}, "
+          f"bf16 x)")
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {"tile": 0.0, "step": 0.0}
     cases = [(cfg, shape) for shape in SCAN_CASES]
@@ -4491,6 +4529,301 @@ def telemetry_paths(path, tune_cache, n_layers) -> dict:
     return out
 
 
+# ------------------------------------ tensor-parallel serving (slice 19)
+
+# Main path 13 (phase 29c): the serve CLI with --tp 2 on qwen3-14b at full
+# width and all 40 layers, two ranks sharing the card (gloo), the routed fleet
+# of two 2-way replicas against a single 2-way engine; 29d: falcon-mamba-7b
+# the same way at 8 of its 64 layers
+TP_ARGV = ["--continuous", "--tp", "2", "--router", "--replicas", "2"]
+TP_WORLD = 2
+TP_MAMBA_LAYERS = 8
+# the CLI's trace geometry (launch/serve.py: max_batch 4, pages of 16,
+# max_seq 64 + 2 pages, seed 0, 8 requests)
+TP_GEOMETRY = dict(max_batch=4, page_size=16, max_seq=96, seed=0)
+
+
+def single_card_trace(lm, name="29a") -> dict:
+    """Phase 29a, on phase 10's qwen3-14b before it is freed (and 29d's, on
+    falcon-mamba-7b at main path 13b's depth): the CLI's 8-request trace
+    through one unsharded engine, each request's tokens and every step's
+    logits kept on the host (29b's and main path 13's yardstick)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import _mixed_trace_specs
+    from repro_torch.serve import ServeEngine
+
+    phase(f"{name}: the CLI's trace through one unsharded engine on {lm.cfg.name} at "
+          f"{lm.cfg.n_layers} layers, every step's logits kept")
+    eng = ServeEngine("", lm=lm, collect_logits=True, **TP_GEOMETRY)
+    reqs = [eng.submit(p, gen, arrival_step=arr)
+            for p, gen, arr, _ in _mixed_trace_specs(lm.cfg, 16, 8, 0)]
+    eng.run()
+    return {"tokens": [list(r.generated) for r in reqs],
+            "logits": [np.stack(r.logits_trace) for r in reqs]}
+
+
+def nccl_world_one(lm, reference: dict, workdir: Path) -> None:
+    """Phase 29b, on phase 10's qwen3-14b before it is freed: a one-rank
+    NCCL group and a (1, 1) mesh in this process, the CLI's trace through
+    ``ServeEngine(lm=lm, mesh=mesh)``: the model served is phase 10's itself,
+    every request's tokens and every step's logits bit for bit the unsharded
+    engine's (``single_card_trace``), K3 and K2 once a layer a prefill and a
+    decode step."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh, mesh_shape
+    from repro_torch.launch.serve import _mixed_trace_specs
+    from repro_torch.serve import ServeEngine
+
+    phase("29b: a world-size-1 NCCL group, (1, 1) mesh, at full width: bit for bit the "
+          "unsharded engine")
+    _, backend = init_distributed(0, 1, str(workdir / "nccl_world_one"))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        reset_launches()
+        eng = ServeEngine("", lm=lm, mesh=mesh, collect_logits=True, **TP_GEOMETRY)
+        reqs = [eng.submit(p, gen, arrival_step=arr)
+                for p, gen, arr, _ in _mixed_trace_specs(lm.cfg, 16, 8, 0)]
+        eng.run()
+        counts = read_launches()
+    finally:
+        dist.destroy_process_group()
+    same = [r.generated == want and len(r.logits_trace) == len(logits) and all(
+        np.array_equal(a, b) for a, b in zip(r.logits_trace, logits))
+        for r, want, logits in zip(reqs, reference["tokens"], reference["logits"])]
+    print(f"backend {backend}, mesh {mesh_shape(mesh)}, the model phase 10's itself "
+          f"{eng.lm is lm}; requests bit for bit the unsharded engine's: {sum(same)}/8")
+    if backend != "nccl" or eng.lm is not lm or not all(same):
+        fail("the (1, 1) mesh is not bit for bit the unsharded engine")
+    check_path_launches(QWEN, counts, lm.cfg.n_layers, eng.prefills_run,
+                        eng.stats()["decode_steps"], "the (1, 1) mesh")
+
+
+def tp_path(arch, path_no, workdir: Path, tune_cache=None, cfg=None, reference=None) -> dict:
+    """Phases 29c and 29d: ``python -m repro_torch.launch.serve --arch ARCH
+    --continuous --tp 2 --router --replicas 2`` (and ``--tune-cache``) in
+    process, on ``cfg`` (a cut depth) when given: the CLI spawns the two
+    ranks, which build their halves of the model from seed 0, each matrix
+    the single card's, sliced, and returns every rank's report.  Gates: the
+    CLI's own (``bit_identical=yes`` for the fleet and the prefix reuse, the
+    ranks' streams the same; it exits 1 otherwise), the ranks' token streams
+    and logits equal, and on each rank the path's kernels once a layer a
+    prefill and a decode step of the engines it built, no other kernel,
+    none in this process.  Against ``reference`` (``single_card_trace`` on
+    the same weights): every request's logits at every step up to and with
+    its first token that differs from the single card's (the steps whose
+    inputs are the same tokens) within the bf16 bounds of phase 9, and the
+    count of token streams equal to the single card's printed (a bf16 near
+    tie may flip one; the first divergence printed).  Prints each rank's
+    decode step median and peak memory.  Returns the launches summed over
+    the ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, *TP_ARGV]
+    if tune_cache is not None:
+        argv += ["--tune-cache", str(tune_cache)]
+    depth = "all layers" if cfg is None else f"{cfg.n_layers} layers"
+    phase(f"main path {path_no}: python -m repro_torch.launch.serve {' '.join(argv)} "
+          f"(full width, {depth}; {TP_WORLD} ranks on the one card)")
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = serve.main(argv, cfg=cfg)
+    except SystemExit as e:
+        fail(f"{arch} --tp {TP_WORLD}: the serve CLI exited with {e.code}")
+    seconds = time.perf_counter() - t0
+    if any(read_launches().values()):
+        fail(f"{arch} --tp: this process launched {read_launches()}; the ranks launch")
+    reports = summary["reports"]
+    ranks_logits_same = all(
+        len(rep["logits"]) == len(reports[0]["logits"]) and all(
+            np.array_equal(a, b) for a, b in zip(rep["logits"], reports[0]["logits"]))
+        for rep in reports)
+    if summary["routed_bit_identical"] is not True or not summary["ranks_same"] \
+            or [rep["rank"] for rep in reports] != list(range(TP_WORLD)) \
+            or any(rep["tokens"] != reports[0]["tokens"] for rep in reports) \
+            or not ranks_logits_same:
+        fail(f"{arch} --tp: fleet {summary['routed_bit_identical']}, ranks the same "
+             f"{summary['ranks_same']}, their logits the same bits {ranks_logits_same}")
+    per_rank = []
+    for rep in reports:
+        n = rep["n_layers"]
+        counts = {k: v for k, v in rep["launches"].items() if k != "selective_scan_step"}
+        steps = rep["decode_steps"] + rep["verify_steps"]
+        check_path_launches(arch, counts, n, rep["prefills"], steps,
+                            f"{arch} --tp rank {rep['rank']}")
+        if arch == MAMBA and rep["launches"]["selective_scan_step"] != n * rep["decode_steps"]:
+            fail(f"rank {rep['rank']}: {rep['launches']['selective_scan_step']} decode-body "
+                 f"launches, not {n} x {rep['decode_steps']}")
+        per_rank.append({"rank": rep["rank"], "device": rep["device"],
+                         "backend": rep["backend"], "prefills": rep["prefills"],
+                         "decode_steps": rep["decode_steps"], "engines": rep["n_engines"],
+                         "decode_step_ms_median": 1e3 * float(np.median(rep["decode_step_s"])),
+                         "peak_memory_gb": rep["peak_memory_gb"],
+                         **{f"{k}_launches": v for k, v in rep["launches"].items() if v}})
+    out = {"arch": arch, "cli_s": seconds, "world": TP_WORLD, "mesh": summary["mesh"],
+           "backend": summary["backend"], "per_rank": per_rank}
+    if reference is not None:
+        out.update(against_single_card(arch, reports[0], reference))
+    print(json.dumps({"tp_path": out}))
+    launches = {}
+    for rep in reports:
+        for k, v in rep["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, **out}
+
+
+def against_single_card(arch, got: dict, reference: dict) -> dict:
+    """Main path 13's rank 0 report ``got`` against ``single_card_trace``'s
+    ``reference``: for each request, its logits at every step up to and with
+    the first token that differs from the single card's (the steps whose
+    inputs are the same tokens), each within LM_MAX_OF_SCALE (max) and
+    LM_MEAN_OF_SCALE (mean) of that step's largest single-card logit, and
+    finite.  Prints the worst of the first steps and of all steps held, and
+    the count of equal token streams with the first divergence."""
+    import numpy as np
+
+    worst = {"first": [0.0, 0.0], "all": [0.0, 0.0]}
+    held = 0
+    for i, (logits, want, toks, want_toks) in enumerate(zip(
+            got["logits"], reference["logits"], got["tokens"], reference["tokens"])):
+        if not (len(logits) == len(toks) == len(want) == len(want_toks)):
+            fail(f"{arch} --tp: request {i} has {len(logits)} logits for {len(toks)} tokens, "
+                 f"the single card {len(want)} for {len(want_toks)}")
+        n = next((j for j, (x, y) in enumerate(zip(toks, want_toks)) if x != y),
+                 len(toks) - 1) + 1
+        for t in range(n):
+            ref = want[t].astype(np.float64)
+            scale = float(np.abs(ref).max())
+            err = np.abs(logits[t].astype(np.float64) - ref)
+            rel = [float(err.max()) / scale, float(err.mean()) / scale]
+            for key in ("first", "all")[t > 0:]:
+                worst[key] = [max(w, r) for w, r in zip(worst[key], rel)]
+            if not np.isfinite(logits[t]).all() or rel[0] > LM_MAX_OF_SCALE \
+                    or rel[1] > LM_MEAN_OF_SCALE:
+                fail(f"{arch} --tp: request {i}'s logits at step {t} off the single card's: "
+                     f"max |d| {float(err.max())}, mean {float(err.mean())}, max |logit| "
+                     f"{scale}")
+        held += n
+    equal = [a == b for a, b in zip(got["tokens"], reference["tokens"])]
+    first = next(((i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y))
+                  for i, (a, b) in enumerate(zip(got["tokens"], reference["tokens"]))
+                  if a != b), None)
+    print(f"against the single card: first-step logits within {worst['first'][0]:.2e} (max) "
+          f"and {worst['first'][1]:.2e} (mean) of the largest logit, all {held} steps held "
+          f"within {worst['all'][0]:.2e} and {worst['all'][1]:.2e} (limits "
+          f"{LM_MAX_OF_SCALE}, {LM_MEAN_OF_SCALE}); token streams equal "
+          f"{sum(equal)}/{len(equal)}"
+          + (f", the first divergence at request {first[0]}, token {first[1]}" if first else ""))
+    return {"first_logits_max_of_scale": worst["first"][0],
+            "first_logits_mean_of_scale": worst["first"][1],
+            "steps_held": held, "logits_max_of_scale": worst["all"][0],
+            "logits_mean_of_scale": worst["all"][1],
+            "streams_equal_to_single_card": sum(equal), "first_divergence": first}
+
+
+def tp_local_config(cfg):
+    """A rank's config under ``--tp 2``: ``ShardingPlan.local_config`` on a
+    stand-in (1, 2) mesh, as rank 0 of the CLI's mesh resolves it."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.dist.partitioning import Rules
+    from repro_torch.serve.sharding import ShardingPlan
+
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((1, TP_WORLD), dtype=object))
+    return ShardingPlan(mesh=mesh, rules=Rules.for_serving(mesh), rank=0).local_config(cfg)
+
+
+def tp_kernels_vs_plain(dev) -> dict:
+    """Phase 29e's checks: K3 and K2 against their plain versions at a
+    rank's heads (phases 8 and 8b on qwen3-14b's local config: 20 query
+    heads over 4 KV heads, G 5), and K4's tile and decode bodies at a rank's
+    channels (phase 13 on falcon-mamba-7b's: Dn 4096), at those phases'
+    tolerances.  Returns the largest absolute error of each kernel."""
+    from repro_torch.configs import get_config
+
+    qwen = tp_local_config(get_config(QWEN))
+    errs = serve_kernels_vs_plain(dev, qwen)
+    for name, err in chunk_verify_kernels_vs_plain(dev, qwen).items():
+        errs[name] = max(errs[name], err)
+    mamba = tp_local_config(get_config(MAMBA))
+    errs["selective_scan"], errs["selective_scan_step"] = scan_kernel_vs_plain(dev, mamba)
+    return errs
+
+
+def tp_kernel_timings(dev) -> dict:
+    """Phase 29e: K3, K2 and K4 once at a rank's widths under ``--tp 2``,
+    the kernels line's shapes with half the heads (K3: 20 over 4 at Sq =
+    Skv = 2048; K2: B 8, context 1088, 4 KV heads of G 5, ppp 4, from a
+    CUDA graph with the L2 flushed) or half the channels (K4: B 1, S 1024,
+    Dn 4096), each beside its bound at that shape.  Returns {kernel: {ms,
+    bound_ms, bound_by, shape}}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+
+    phase(f"29e: K3, K2 and K4 timed at a rank's widths under --tp {TP_WORLD}")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def row(name, ms, nbytes, flops, shape, rate=BF16_FLOPS_PER_S):
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound = max(bytes_ms, ops_ms)
+        print(f"{name} at {shape}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+              f"{100 * bound / ms:.2f}% of bound")
+        out[name] = {"ms": ms, "bound_ms": bound, "bound_by": by, "shape": shape}
+
+    cfg = tp_local_config(get_config(QWEN))
+    hk, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    hq, s = hk * g, 2048
+    q, k, v = bf16(1, hq, s, d), bf16(1, hk, s, d), bf16(1, hk, s, d)
+    lens = torch.tensor([s], dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, lens, sm_scale=d ** -0.5), reps=10)
+    row("flash_fwd", ms, (2 * hq + 2 * hk) * s * d * 2, 4 * hq * d * s * (s + 1) // 2,
+        f"Sq=Skv={s} Hq={hq} Hk={hk}")
+
+    b, ctx, page, ppp = LONG_BATCH, LONG_PROMPT + LONG_GEN, 16, K2_ROW_PAGES_PER_PROGRAM
+    npp = ctx // page
+    n_pages = 1 + b * npp
+    kp, vp = bf16(n_pages, hk, page, d), bf16(n_pages, hk, page, d)
+    tables = random_pages(torch, gen, dev, b, npp, n_pages)
+    lens = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    q = bf16(b, hk, g, d)
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+    ms = graph_ms(lambda: fd_ops.paged_decode(q, kp, vp, lens, tables, scale=d ** -0.5,
+                                              pages_per_program=ppp), reps=50, flush=flush)
+    row("paged_decode", ms, 2 * b * hk * ctx * d * 2 + 2 * b * hq * d * 2 + b * npp * 4 + b * 4,
+        4 * b * hq * ctx * d, f"B={b} context={ctx} Hk={hk} G={g} ppp={ppp}")
+
+    mcfg = tp_local_config(get_config(MAMBA))
+    dn, n = mcfg.mamba.resolved_d_inner(mcfg.d_model), mcfg.mamba.d_state
+    x, dt, a, b_ssm, c_ssm, dd, h = scan_inputs(torch, gen, mcfg, **PREFILL_SCAN)
+    ms = cuda_ms(lambda: ss_ops.selective_scan(x, dt, a, b_ssm, c_ssm, dd, h), reps=20)
+    bound, by, _, _ = scan_bound(PREFILL_SCAN["bt"], PREFILL_SCAN["s"], dn, n,
+                                 PREFILL_SCAN["n_valid"])
+    print(f"selective_scan at B=1 S={PREFILL_SCAN['s']} Dn={dn}: kernel {ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), kernel at {100 * bound / ms:.2f}% of bound")
+    out["selective_scan"] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                             "shape": f"B=1 S={PREFILL_SCAN['s']} Dn={dn}"}
+    print(json.dumps({"tp_kernel_timings": out}))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4514,6 +4847,7 @@ def main() -> None:
     from repro_torch.kernels.local_sgd import build as local_sgd_build
     from repro_torch.kernels.sdca import build as sdca_build
     from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.serve.engine import random_lm
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -4567,9 +4901,14 @@ def main() -> None:
         by_path[name]["serve_router"] = routed["launches"][name]
     trace_cost_and_replay(lm, workdir, tuner["files"]["cli"])
     telemetry_paths(routed["log"], tuner["files"]["cli"], lm.cfg.n_layers)
+    single_card = single_card_trace(lm)
+    nccl_world_one(lm, single_card, workdir)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
+    tp = tp_path(QWEN, 13, workdir, tune_cache=tuner["files"]["cli"], reference=single_card)
+    for name in ("flash_fwd", "paged_decode"):
+        by_path[name]["serve_tp"] = tp["launches"][name]
     timings = serve_kernel_timings(dev, cfg, tuned_ppp)
 
     cfg = get_config(MAMBA)
@@ -4584,8 +4923,18 @@ def main() -> None:
     del lm
     gc.collect()
     torch.cuda.empty_cache()
+    mamba_cut = dataclasses.replace(get_config(MAMBA), n_layers=TP_MAMBA_LAYERS)
+    lm = random_lm(mamba_cut, dev, 0)
+    mamba_single = single_card_trace(lm, "29d (the single card)")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba_tp = tp_path(MAMBA, "13b", workdir, cfg=mamba_cut, reference=mamba_single)
     scan = scan_kernel_timings(dev, cfg)
     timings["selective_scan"], timings["selective_scan_step"] = scan["prefill"], scan["decode"]
+    for name, err in tp_kernels_vs_plain(dev).items():
+        errs[name] = max(errs[name], err)
+    tp_rows = tp_kernel_timings(dev)
 
     cfg = dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
     mla_errs = mla_kernels_vs_plain(dev, cfg)
@@ -4676,12 +5025,14 @@ def main() -> None:
     by_path["flash_fwd_mla"]["training_mla"] = mla_counts["flash_fwd"]
     launches["flash_fwd_mla"] = sum(by_path["flash_fwd_mla"].values())
     router_step = mamba_routed["selective_scan_step_launches"]
+    tp_step = mamba_tp["launches"]["selective_scan_step"]
     by_path["selective_scan"] = {
         "cli": launches["selective_scan"], "training_mamba": mamba_counts["selective_scan"],
-        "serve_router": mamba_routed["launches"]["selective_scan"] - router_step}
+        "serve_router": mamba_routed["launches"]["selective_scan"] - router_step,
+        "serve_tp": mamba_tp["launches"]["selective_scan"] - tp_step}
     launches["selective_scan"] = sum(by_path["selective_scan"].values())
     by_path["selective_scan_step"] = {"cli": launches["selective_scan_step"],
-                                      "serve_router": router_step}
+                                      "serve_router": router_step, "serve_tp": tp_step}
     launches["selective_scan_step"] = sum(by_path["selective_scan_step"].values())
 
     kernels = [k1, k6]
@@ -4714,6 +5065,9 @@ def main() -> None:
         if name in frontend_rows:
             kernels[-1].update({f"{key}_at main path 11": value
                                 for key, value in frontend_rows[name].items()})
+        if name in tp_rows:
+            kernels[-1].update({f"{key}_at main path 13": value
+                                for key, value in tp_rows[name].items()})
         if name == "flash_fwd":
             kernels[-1].update(lse_ms=bwd["flash_fwd_lse"]["ms"],
                                lse_shape=bwd["flash_bwd_dq"]["shape"] + ", block_k 64",

@@ -63,9 +63,15 @@ class MambaConfig:
     expand: int = 2
     d_conv: int = 4
     dt_rank: int = 0  # 0 => ceil(d_model / 16)
+    # 0 => expand * d_model; else a tensor-parallel rank's share of it
+    # (repro_torch.serve.sharding.local_config)
+    d_inner: int = 0
 
     def resolved_dt_rank(self, d_model: int) -> int:
         return self.dt_rank or int(math.ceil(d_model / 16))
+
+    def resolved_d_inner(self, d_model: int) -> int:
+        return self.d_inner or self.expand * d_model
 
 
 @dataclass(frozen=True)

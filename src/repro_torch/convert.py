@@ -110,7 +110,7 @@ def param_layout(lm: LM) -> Iterator[LayoutEntry]:
                 yield base + (group, name), n, t
 
 
-def _set(tree: Dict, path: Tuple[Any, ...], value) -> None:
+def set_path(tree: Dict, path: Tuple[Any, ...], value) -> None:
     node = tree
     for key in path[:-1]:
         node = node.setdefault(key, {})
@@ -123,13 +123,13 @@ def _get(tree, path: Tuple[Any, ...]):
     return tree
 
 
-def _tuples(node):
+def tuples(node):
     """Dicts keyed 0..n-1 (head_layers) become tuples, as in the reference."""
     if not isinstance(node, dict):
         return node
     if node and all(isinstance(key, int) for key in node):
-        return tuple(_tuples(node[i]) for i in range(len(node)))
-    return {key: _tuples(value) for key, value in node.items()}
+        return tuple(tuples(node[i]) for i in range(len(node)))
+    return {key: tuples(value) for key, value in node.items()}
 
 
 @torch.no_grad()
@@ -143,12 +143,12 @@ def tree_from_lm(lm: LM, *, grads: bool = False, dtype: torch.dtype = torch.floa
         value = t.grad if grads else t
         value = torch.zeros_like(t) if value is None else value
         if n is None:
-            _set(tree, path, value.to(dtype, copy=True))
+            set_path(tree, path, value.to(dtype, copy=True))
         else:
             stacks.setdefault(path, []).append(value)
     for path, parts in stacks.items():
-        _set(tree, path, torch.stack([part.to(dtype) for part in parts]))
-    return _tuples(tree)
+        set_path(tree, path, torch.stack([part.to(dtype) for part in parts]))
+    return tuples(tree)
 
 
 @torch.no_grad()

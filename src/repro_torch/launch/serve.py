@@ -78,18 +78,43 @@ run serves the trace, then stops with a ``ValueError`` at the prefix-reuse
 check, whose prompts carry no embeddings: the reference's CLI stops at the
 same place, its prefill's assert.
 
+``--tp K`` (K >= 2; ``repro/launch/serve.py:38-45, 270-300``) serves
+tensor-parallel over K ranks, one process each (``torch.multiprocessing``
+spawn, rendezvous through a file in a fresh temporary directory): each rank
+joins the process group (``nccl`` when every rank has a card of its own,
+``gloo`` when ranks share one or run on the CPU, with ``--device cpu``;
+``repro_torch.launch.mesh``), builds a (1, K) mesh and its slice of the
+model (``repro_torch.serve.sharding``: drawn one matrix at a time from
+``--seed``, each matrix the unsharded model's), and runs the whole CLI on
+it: every engine of the run (the single one, the cold one, the baseline,
+the router's replicas) is a K-way engine sharing the rank's weights, so the
+routed fleet is compared against a single engine on the same mesh, as in
+the reference.  Rank 0 alone prints and writes files, and prints
+``tensor parallel: K-way over mesh {...}, backend ...``; at the end the
+ranks' token streams are checked to be the same (a hash), exiting 1
+otherwise.  Each rank reports its kernel launches, the engines' prefills
+and steps, the single engine's token streams and every step's logits, its
+decode step times and peak memory; ``main`` returns rank 0's summary with
+every rank's report under ``reports``.  A rank on the CPU runs one thread.
+
 Differences from the reference's CLI: ``--smoke`` is off by default, so the
 default is the full config; without ``--device cpu`` it runs on the card or
-raises; ``--tp`` (a tensor-parallel replica) is not ported, nor a mesh for
-``Server`` (ROADMAP.md, queue 1 item 7); the cold and the baseline engines,
-the router's replicas and the migration's destination all share the warm
-engine's weights instead of building copies of their own (29.5 GB each at
-qwen3-14b's full width), and run the same ``--paged-impl``.
+raises; the cold and the baseline engines, the router's replicas and the
+migration's destination all share the warm engine's weights instead of
+building copies of their own (29.5 GB each at qwen3-14b's full width), and
+run the same ``--paged-impl``; ``--tp`` spawns a process a rank where the
+reference forces host devices in one process, and a migration under
+``--tp`` is refused (ROADMAP.md, queue 1 item 7).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import io
+import os
 import sys
+import tempfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -109,15 +134,18 @@ class Server:
     request is admitted at step 0 and decoded by the continuous engine.
     ``lm``, the port's addition, is an already-built model to serve (its
     weights shared); else the engine builds ``arch``'s with random weights
-    from ``seed`` on ``device`` (the card when None).  A mesh and sharding
-    rules wait for the sharded data plane (ROADMAP.md, queue 1 item 7)."""
+    from ``seed`` on ``device`` (the card when None).  A ``mesh`` (and
+    optionally ``rules``) runs the sharded data plane
+    (``repro_torch.serve.sharding``): called on every rank of the mesh's
+    group, each serving with its slice of the model."""
 
     def __init__(self, arch: str, smoke: bool = True, max_seq: int = 128, mesh=None,
                  rules=None, seed: int = 0, page_size: int = 16, lm: Optional[LM] = None,
                  device=None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("Server with a mesh: the sharded data plane is not "
-                                      "ported yet (ROADMAP.md, queue 1 item 7)")
+        if rules is not None and mesh is None:
+            raise ValueError("sharding rules without a mesh")
+        self.mesh = mesh
+        self.rules = rules
         self.arch = arch
         self.smoke = smoke
         self.max_seq = max_seq
@@ -133,7 +161,8 @@ class Server:
             lm = self._lm if self._engine is None else self._engine.lm
             self._engine = ServeEngine(self.arch, smoke=self.smoke, max_batch=batch,
                                        page_size=self.page_size, max_seq=self.max_seq,
-                                       seed=self.seed, lm=lm, device=self.device)
+                                       seed=self.seed, lm=lm, device=self.device,
+                                       mesh=self.mesh, rules=self.rules)
         return self._engine
 
     def generate(self, prompts: np.ndarray, gen_tokens: int,
@@ -211,7 +240,7 @@ def _verify_prefix_reuse(eng: ServeEngine, seed: int) -> Tuple[bool, ServeEngine
     eng.run()
     cold = ServeEngine("", max_batch=eng.max_batch, page_size=ps, max_seq=eng.max_seq,
                        seed=eng.seed, collect_logits=True, paged_impl=eng.rt.paged_impl,
-                       lm=eng.lm)
+                       lm=eng.lm, mesh=eng.rt.mesh, rules=eng.rt.rules)
     rB_cold = cold.submit(pB, 4)
     cold.run()
     shared = rB.n_shared_pages
@@ -319,7 +348,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="span timestamp source: wall (measured; reconciled against the "
                          "engines' step times) or steps (a tick clock; same-seed runs write "
                          "byte-identical trace files)")
+    ap.add_argument("--tp", type=int, default=1, metavar="K",
+                    help="tensor parallelism: serve over K ranks, one process each, every "
+                         "engine K-way (K >= 2)")
     args = ap.parse_args(argv)
+    if args.tp < 1:
+        ap.error(f"--tp must be >= 1, got {args.tp}")
     if args.migrate_at is not None:
         args.router = True
     if args.router or args.trace:
@@ -328,7 +362,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
-         lm: Optional[LM] = None) -> Dict:
+         lm: Optional[LM] = None, mesh=None) -> Dict:
     """Run the ``--continuous`` path, or without it the static batch
     (``static_batch``).  ``cfg``, when given, is the config to
     serve in place of ``--arch`` / ``--smoke`` (a caller's cut one, such as
@@ -344,10 +378,24 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
     router run's results (``routed``, ``_run_router``'s; None without
     ``--router``) and the trace's (``trace``, ``_export_trace``'s; None
     without ``--trace``); exits 1 if the prefix-reuse check, the replay
-    check, the routed fleet's check or a trace check fails."""
-    args = parse_args(argv)
+    check, the routed fleet's check or a trace check fails.  With ``--tp
+    K`` it runs ``tensor_parallel`` (the ranks) and returns its summary;
+    ``mesh`` is the rank's mesh there, every engine serving on it, the
+    single engine keeping every step's logits for the rank's report."""
+    return run(parse_args(argv), cfg, lm, mesh)
+
+
+def run(args: argparse.Namespace, cfg: Optional[ArchConfig] = None, lm: Optional[LM] = None,
+        mesh=None) -> Dict:
+    """``main`` on parsed arguments."""
+    if args.tp > 1 and mesh is None:
+        if lm is not None:
+            raise ValueError("--tp builds each rank's slice of the model: pass cfg, not lm")
+        return tensor_parallel(args, cfg)
+    if mesh is not None and lm is None:
+        lm = _rank_model(args, cfg, mesh)
     if not args.continuous:
-        return static_batch(args, cfg, lm)
+        return static_batch(args, cfg, lm, mesh)
     tune_cache = None
     if args.tune_cache:
         from repro_torch.kernels import tune
@@ -358,11 +406,13 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
     device = lm.device if lm is not None else resolve_device(args.device)
     prefill_chunk = _resolve_prefill_chunk(args.prefill_chunk, args.smoke, device.type)
     geometry = dict(max_batch=args.max_batch, page_size=args.page_size,
-                    max_seq=64 + args.page_size * 2, seed=args.seed, paged_impl=args.paged_impl)
+                    max_seq=64 + args.page_size * 2, seed=args.seed, paged_impl=args.paged_impl,
+                    mesh=mesh)
     clock = _trace_clock_factory(args)
     eng = ServeEngine(args.arch, smoke=args.smoke, prefill_chunk=prefill_chunk,
                       speculate=args.speculate, lm=lm, device=args.device,
-                      trace=bool(args.trace), trace_clock=clock(), **geometry)
+                      trace=bool(args.trace), trace_clock=clock(),
+                      collect_logits=mesh is not None, **geometry)
     specs = _mixed_trace_specs(eng.cfg, eng.page_size, args.requests, args.seed)
     reqs = [eng.submit(prompt, gen, arrival_step=arrival, frontend_embeds=fe)
             for prompt, gen, arrival, fe in specs]
@@ -461,19 +511,141 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None,
     return {"stats": stats, "served": len(done), "requests": len(specs), "planner": planner,
             "plan": plan, "engines": (eng, cold), "baseline": base,
             "bit_identical": identical, "tune_rows": tune_rows, "pages_per_program": ppp,
-            "routed": routed, "trace": traced}
+            "routed": routed, "trace": traced, "served_requests": reqs}
+
+
+def _rank_model(args: argparse.Namespace, cfg: Optional[ArchConfig], mesh) -> LM:
+    """The rank's slice of the served model, drawn from ``--seed`` one
+    matrix at a time (``ShardingPlan.shard_params``)."""
+    from repro_torch.dist.partitioning import Rules
+    from repro_torch.serve.sharding import ShardingPlan
+
+    cfg = cfg if cfg is not None else ServeEngine.config_for(args.arch, args.smoke)
+    plan = ShardingPlan(mesh=mesh, rules=Rules.for_serving(mesh))
+    return plan.shard_params(cfg, args.device, seed=args.seed)
+
+
+def tensor_parallel(args: argparse.Namespace, cfg: Optional[ArchConfig] = None) -> Dict:
+    """``--tp K``: spawn K ranks (``torch.multiprocessing``, the ``spawn``
+    start method), each running ``_rank_main``; wait for all of them.  A
+    rank that fails stops the others; its exit code is the CLI's (a rank's
+    exception is raised here).  Returns rank 0's report (``_rank_report``)
+    with every rank's under ``reports``, in rank order."""
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_tp_") as tmp:
+        init_file = os.path.join(tmp, "rendezvous")
+        ctx = mp.start_processes(_rank_main, args=(args, cfg, init_file, tmp),
+                                 nprocs=args.tp, join=False, start_method="spawn")
+        try:
+            while not ctx.join():
+                pass
+        except mp.ProcessExitedException as e:
+            sys.exit(e.exit_code if e.exit_code and e.exit_code > 0 else 1)
+        reports = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                   for r in range(args.tp)]
+    return dict(reports[0], reports=reports)
+
+
+def _rank_main(rank: int, args: argparse.Namespace, cfg: Optional[ArchConfig], init_file: str,
+               out_dir: str) -> None:
+    """One rank of ``--tp K``: join the group, build the (1, K) mesh, run
+    the CLI on it (rank 0 printing and writing files), check that every
+    rank's token streams are the same, and write its report to
+    ``out_dir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh, mesh_shape
+
+    world = args.tp
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        torch.set_num_threads(1)
+    device, backend = init_distributed(rank, world, init_file, args.device, verbose=rank == 0)
+    mesh = make_debug_mesh(1, world)
+    if rank:  # rank 0 alone prints and writes files
+        args.trace = args.router_log = None
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    with quiet:
+        print(f"tensor parallel: {world}-way over mesh {mesh_shape(mesh)}, backend {backend}")
+        result = run(args, cfg, None, mesh)
+        engines = _result_engines(result)
+        digest = _token_digest(engines)
+        lo_hi = torch.tensor([digest, -digest], dtype=torch.int64, device=device)
+        dist.all_reduce(lo_hi, op=dist.ReduceOp.MAX)
+        same = int(lo_hi[0]) == digest == -int(lo_hi[1])
+        print(f"ranks' token streams: {'the same' if same else 'DIFFER'} on all {world} ranks "
+              f"(hash {digest & 0xFFFFFFFFFFFF:012x})")
+    summary = {"rank": rank, "world": world, "backend": backend, "device": str(device),
+               "mesh": mesh_shape(mesh), "served": result.get("served"),
+               "bit_identical": result.get("bit_identical"),
+               "routed_bit_identical": (result["routed"] or {}).get("bit_identical")
+               if "routed" in result else None,
+               "ranks_same": same, "digest": digest}
+    torch.save(_rank_report(result, engines, device, summary),
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    if not same:
+        sys.exit(1)
+
+
+def _result_engines(result: Dict) -> List[ServeEngine]:
+    """Every engine a CLI run built: the single and cold engines, the
+    baseline and the router's replicas."""
+    engines = [e for e in result.get("engines", ()) if e is not None]
+    if result.get("baseline") is not None:
+        engines.append(result["baseline"])
+    if result.get("routed"):
+        engines += list(result["routed"]["router"].engines) + list(result["routed"]["replaced"])
+    return engines
+
+
+def _token_digest(engines: List[ServeEngine]) -> int:
+    """A 63-bit hash of every finished request's token stream, engine by
+    engine in order."""
+    h = hashlib.sha256()
+    for eng in engines:
+        for req in sorted(eng.scheduler.finished, key=lambda r: r.rid):
+            h.update(np.asarray([req.rid, *req.generated], np.int64).tobytes())
+        h.update(b"|")
+    return int.from_bytes(h.digest()[:8], "little") >> 1
+
+
+def _rank_report(result: Dict, engines: List[ServeEngine], device, summary: Dict) -> Dict:
+    """One rank's report: its summary, its kernel launches, each engine's
+    prefills and decode / verify steps, the single engine's token streams
+    and each request's logits (steps x vocab, float32), the decode steps'
+    times (s) and the peak memory."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+
+    steps = [e for eng in engines for e in eng.events("serve_step")]
+    return dict(summary, launches=launch_counts(),
+                prefills=sum(eng.prefills_run for eng in engines),
+                decode_steps=sum(e.op == "decode" and e.batch > 0 for e in steps),
+                verify_steps=sum(e.op == "verify" for e in steps),
+                chunk_steps=sum(e.op == "prefill" for e in steps),
+                n_layers=engines[0].cfg.n_layers, n_engines=len(engines),
+                tokens=[list(r.generated) for r in result.get("served_requests", [])],
+                logits=[np.stack(r.logits_trace) for r in result.get("served_requests", [])],
+                decode_step_s=[e.step_s for e in steps if e.op == "decode"],
+                peak_memory_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                                if device.type == "cuda" else None))
 
 
 def static_batch(args: argparse.Namespace, cfg: Optional[ArchConfig] = None,
-                 lm: Optional[LM] = None) -> Dict:
+                 lm: Optional[LM] = None, mesh=None) -> Dict:
     """The CLI without ``--continuous`` (``repro/launch/serve.py:439-456``):
     ``args.batch`` prompts of ``args.prompt_len`` random tokens from
-    ``args.seed`` through ``Server.generate``.  Returns its result and the
-    server."""
+    ``args.seed`` through ``Server.generate`` (on ``mesh`` when given).
+    Returns its result and the server."""
     if lm is None and cfg is not None:
         lm = random_lm(cfg, args.device, args.seed)
     server = Server(args.arch, smoke=args.smoke, max_seq=args.prompt_len + args.gen + 8,
-                    page_size=args.page_size, lm=lm, device=args.device)
+                    page_size=args.page_size, lm=lm, device=args.device, mesh=mesh)
     rng = np.random.RandomState(args.seed)
     served = server.cfg
     prompts = rng.randint(0, served.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
@@ -484,7 +656,8 @@ def static_batch(args: argparse.Namespace, cfg: Optional[ArchConfig] = None,
     res = server.generate(prompts, args.gen, fe)
     print(f"generated {res['tokens'].shape} tokens; prefill {res['prefill_s'] * 1e3:.0f} ms, "
           f"decode {res['decode_tok_per_s']:.1f} tok/s")
-    return dict(res, server=server, prompts=prompts, frontend_embeds=fe)
+    return dict(res, server=server, prompts=prompts, frontend_embeds=fe,
+                engines=(server._engine,))
 
 
 def _serve_replay(eng: ServeEngine, specs: List[TraceSpec], seed: int, speculate: int) -> List:

@@ -17,6 +17,14 @@ Parameters are one layer's dict of tensors: ``wq`` (d, H*hd), ``wk`` and
 ``wv`` (d, Hk*hd), ``wo`` (H*hd, d), stored flattened as in the reference,
 plus ``q_norm``/``k_norm`` (hd,) with qk-norm and ``bq``/``bk``/``bv`` with
 QKV bias.
+
+Under a mesh (``rt.mesh``) the model is a tensor-parallel rank's: ``cfg``
+holds its local widths (its ``n_heads / K`` query and ``n_kv_heads / K`` KV
+heads, the same group size G), the projections are its column slices and
+``wo`` its row slice (``repro_torch.serve.sharding``), so every function
+here, and K3 and K2 within, runs unchanged at the rank's heads; ``wo``'s
+partial products are summed over the "model" group
+(``repro_torch.dist.collectives.all_reduce_sum``).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.collectives import all_reduce_sum
 from repro_torch.kernels.flash_attention.ops import decode_attention, flash_attention
 from repro_torch.kernels.flash_decode.ops import (
     paged_decode_attention,
@@ -94,7 +103,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     out = flash_attention(qt, kt, vt, causal=True, kv_lens=kv_lens,
                           block_q=rt.block_q, block_k=rt.block_k)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), {"k": kt, "v": vt}
+    y = all_reduce_sum(by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), rt.model_group())
+    return y, {"k": kt, "v": vt}
 
 
 def scatter_positions(page_tables: torch.Tensor, positions: torch.Tensor, page: int):
@@ -136,7 +146,7 @@ def apply_attention_prefill_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runti
                                   block_q=rt.block_q, block_k=rt.block_k)
     y = x.new_zeros((1, s, cfg.n_heads * cfg.head_dim))
     y[:, rows] = out.transpose(1, 2).reshape(1, n_valid, cfg.n_heads * cfg.head_dim)
-    return by_rows(lambda o: o @ p["wo"], y, rt.prefill_rows)
+    return all_reduce_sum(by_rows(lambda o: o @ p["wo"], y, rt.prefill_rows), rt.model_group())
 
 
 def apply_attention_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -166,7 +176,7 @@ def apply_attention_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtim
                                  pages_per_program=rt.pages_per_program)
     y = by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * cfg.head_dim) @ p["wo"], out,
                  rows)
-    return y[:, None, :]
+    return all_reduce_sum(y, rt.model_group())[:, None, :]
 
 
 def apply_attention_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -189,4 +199,4 @@ def apply_attention_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     out = decode_attention(q[:, 0], cache["k"], cache["v"], lengths + 1)
     y = by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * cfg.head_dim) @ p["wo"], out,
                  rows)
-    return y[:, None, :]
+    return all_reduce_sum(y, rt.model_group())[:, None, :]

@@ -16,6 +16,10 @@ batch runs them at the decode step's shape.  A matrix product's row, and the
 MoE's output for a token, depend on the other rows only through the shape
 (``repro_torch.serve.engine``), so a position gets the same bits in each.
 Training's MoE dispatch is the exception: one over the whole batch.
+
+Under a mesh (``rt.mesh``) the SwiGLU's ``w_gate``/``w_up`` are a
+tensor-parallel rank's columns and ``w_down`` its rows, and their product is
+summed over the "model" group (``repro_torch.dist.collectives``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.dist.collectives import all_reduce_sum
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
@@ -77,16 +82,22 @@ class Block(nn.Module):
         if spec.ffn == "none":
             self.ffn = None
 
+    def init_entries(self):
+        """(tensor, initialiser, scale) of each parameter, in the order
+        ``init_params`` draws them."""
+        yield self.ln1, "ones", 0.0
+        if self.ln2 is not None:
+            yield self.ln2, "ones", 0.0
+        for group, shapes in self.specs.items():
+            params = getattr(self, group)
+            for name, (_, init, scale) in shapes.items():
+                yield params[name], init, scale
+
     def init_params(self, generator: torch.Generator) -> None:
         """The reference's distributions and scales, one matrix at a time
         (float32 draws on the generator's device, then cast)."""
-        self.ln1.fill_(1.0)
-        if self.ln2 is not None:
-            self.ln2.fill_(1.0)
-        for group, shapes in self.specs.items():
-            params = getattr(self, group)
-            for name, (shape, init, scale) in shapes.items():
-                fill_param(params[name], init, scale, generator)
+        for t, init, scale in self.init_entries():
+            fill_param(t, init, scale, generator)
 
 
 def fill_param(t: torch.Tensor, init: str, scale: float, generator: torch.Generator) -> None:
@@ -138,7 +149,7 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     x, cache = _mix(p, x, cfg, rt, n_valid)
     if p.ffn is None:
         return x, cache
-    return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg),
+    return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg, rt),
                    x, rt.prefill_rows), cache
 
 
@@ -176,15 +187,16 @@ def apply_block_prefill_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Ru
     x = x + mixer(p.mixer, h, cfg, rt, cache, page_tables, s0=s0, n_valid=n_valid, base=base)
     if p.ffn is None:
         return x
-    return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg), x, rows)
+    return by_rows(lambda xr: xr + _ffn(p, rms_norm(xr, p.ln2, cfg.norm_eps), cfg, rt), x, rows)
 
 
-def _ffn(p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The layer's FFN in prefill and decode: SwiGLU, or the MoE's dropless
-    eval (one dispatch over the rows given: one row block)."""
+def _ffn(p: Block, h: torch.Tensor, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
+    """The layer's FFN in prefill and decode: SwiGLU (summed over the
+    "model" group), or the MoE's dropless eval (one dispatch over the rows
+    given: one row block)."""
     if p.spec.ffn == "moe":
         return moe_mod.apply_moe(p.ffn, h, cfg)
-    return apply_mlp(p.ffn, h)
+    return all_reduce_sum(apply_mlp(p.ffn, h), rt.model_group())
 
 
 def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -200,7 +212,8 @@ def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Run
                   else attn_mod.apply_attention_decode_paged)
         return _decode(p, x, cfg, rt, lambda h: attend(p.mixer, h, cfg, rt, cache, lengths,
                                                        page_tables))
-    return _decode(p, x, cfg, rt, lambda h: mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache))
+    return _decode(p, x, cfg, rt,
+                   lambda h: mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache, rt))
 
 
 def apply_block_decode(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -212,7 +225,8 @@ def apply_block_decode(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     if p.spec.mixer == "attn":
         attend = mla_mod.apply_mla_decode if cfg.mla else attn_mod.apply_attention_decode
         return _decode(p, x, cfg, rt, lambda h: attend(p.mixer, h, cfg, rt, cache, lengths))
-    return _decode(p, x, cfg, rt, lambda h: mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache))
+    return _decode(p, x, cfg, rt,
+                   lambda h: mamba_mod.apply_mamba_decode(p.mixer, h, cfg, cache, rt))
 
 
 def _decode(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, mix) -> torch.Tensor:
@@ -222,4 +236,4 @@ def _decode(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, mix) -> tor
     x = x + mix(by_batch(lambda xb: rms_norm(xb, p.ln1, cfg.norm_eps), x, rows))
     if p.ffn is None:
         return x
-    return by_batch(lambda xb: xb + _ffn(p, rms_norm(xb, p.ln2, cfg.norm_eps), cfg), x, rows)
+    return by_batch(lambda xb: xb + _ffn(p, rms_norm(xb, p.ln2, cfg.norm_eps), cfg, rt), x, rows)

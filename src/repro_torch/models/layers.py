@@ -1,6 +1,6 @@
-"""Shared model layers: RMSNorm, NeoX rotary embeddings, SwiGLU MLP,
-embeddings, the LM head and the training loss (counterparts of
-``repro/models/layers.py``).
+"""Shared model layers: RMSNorm, NeoX rotary embeddings, SwiGLU MLP, the LM
+head and the training loss (counterparts of ``repro/models/layers.py``; the
+embedding lookup is ``repro_torch.dist.collectives.vocab_parallel_embed``).
 
 The reference keeps float32 master weights and casts them to ``cfg.dtype`` at
 each use.  The port stores each matrix in ``cfg.dtype`` once (norm scales stay
@@ -84,10 +84,6 @@ def by_batch(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     if x.shape[0] <= rows:
         return fn(x)
     return torch.cat([fn(x[r]) for r in row_blocks(x.shape[0], rows)], dim=0)
-
-
-def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens]
 
 
 def lm_logits(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

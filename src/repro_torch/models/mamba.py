@@ -25,6 +25,15 @@ conv tail is taken from the ``d_conv - 1`` real positions before
 ``n_valid``, with zeros before position 0.  The reference takes it as the
 last ``d_conv - 1`` positions of the sequence (``mamba.py:122``), which at a
 prompt shorter than that raises or repeats a position; the port does not.
+
+Under a mesh (``rt.mesh``) the model is a tensor-parallel rank's: ``cfg``
+holds its share of the inner width (``MambaConfig.d_inner``: Dn / K
+channels), ``in_proj`` its columns of each half (x and z), ``conv_w``,
+``conv_b``, ``dt_w``, ``dt_b``, ``A_log`` and ``D`` its channels, and
+``x_proj`` and ``out_proj`` its rows (``repro_torch.serve.sharding``).  K4
+scans the rank's channels; ``x_proj``'s and ``out_proj``'s partial products
+are summed over the "model" group, so dt's low-rank input and B and C are
+the whole sums on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.collectives import all_reduce_sum
 from repro_torch.kernels.ssm_scan.ops import selective_scan
 from repro_torch.models.layers import by_rows
 from repro_torch.models.runtime import Runtime
@@ -49,7 +59,7 @@ def mamba_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], str, float
     a log-uniform draw in [1e-3, 1e-1] for ``dt_b``, log(1..N) for
     ``A_log`` (S4D-real), zeros and ones."""
     mc = cfg.mamba
-    d, di, n = cfg.d_model, mc.expand * cfg.d_model, mc.d_state
+    d, di, n = cfg.d_model, mc.resolved_d_inner(cfg.d_model), mc.d_state
     dtr = mc.resolved_dt_rank(d)
     return {
         "in_proj": ((d, 2 * di), "normal", 1.0 / math.sqrt(d)),
@@ -89,12 +99,13 @@ def _conv(taps: List[torch.Tensor], p) -> torch.Tensor:
     return F.silu(acc + p["conv_b"])
 
 
-def _split_xdb(p, x_conv: torch.Tensor, cfg: ArchConfig, rows: int):
+def _split_xdb(p, x_conv: torch.Tensor, cfg: ArchConfig, rows: int, group=None):
     """x_conv (B, S, Dn) -> dt (B, S, Dn) float32, and B, C (B, S, N) as
-    views of x_proj's output (``mamba.py:_split_xdb``)."""
+    views of x_proj's output (``mamba.py:_split_xdb``), summed over
+    ``group``."""
     mc = cfg.mamba
     dtr, n = mc.resolved_dt_rank(cfg.d_model), mc.d_state
-    xdb = by_rows(lambda r: r @ p["x_proj"], x_conv, rows)
+    xdb = all_reduce_sum(by_rows(lambda r: r @ p["x_proj"], x_conv, rows), group)
     dt_raw, b_ssm, c_ssm = xdb.split([dtr, n, n], dim=-1)
     dt = by_rows(lambda r: F.softplus((r @ p["dt_w"]).float() + p["dt_b"]), dt_raw, rows)
     return dt, b_ssm, c_ssm
@@ -110,37 +121,39 @@ def apply_mamba(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     zero state."""
     mc = cfg.mamba
     s = x.shape[1]
-    di, cw = mc.expand * cfg.d_model, mc.d_conv
+    di, cw = mc.resolved_d_inner(cfg.d_model), mc.d_conv
     n = s if n_valid is None else int(n_valid)
     rows = rt.prefill_rows
     xz = by_rows(lambda r: r @ p["in_proj"], x, rows)
     x_in, z = xz.split(di, dim=-1)
     xp = F.pad(x_in.float(), (0, 0, cw - 1, 0))  # zeros before position 0
     x_conv = _conv([xp[:, k:k + s] for k in range(cw)], p).to(x.dtype)
-    dt, b_ssm, c_ssm = _split_xdb(p, x_conv, cfg, rows)
+    group = rt.model_group()
+    dt, b_ssm, c_ssm = _split_xdb(p, x_conv, cfg, rows, group)
     if n < s:  # the serve engine's padding (in place: never on the training path)
         dt[:, n:] = 0.0
         x_conv[:, n:] = 0
     y, h = selective_scan(x_conv, dt, -torch.exp(p["A_log"]), b_ssm, c_ssm, p["D"])
-    out = by_rows(lambda r: r @ p["out_proj"], y * F.silu(z), rows)
+    out = all_reduce_sum(by_rows(lambda r: r @ p["out_proj"], y * F.silu(z), rows), group)
     tail = F.pad(x_in[:, max(0, n - (cw - 1)):n], (0, 0, max(0, cw - 1 - n), 0))
     return out, {"h": h, "conv": tail.transpose(1, 2).contiguous()}
 
 
-def apply_mamba_decode(p, x: torch.Tensor, cfg: ArchConfig,
-                       state: Dict[str, torch.Tensor]) -> torch.Tensor:
+def apply_mamba_decode(p, x: torch.Tensor, cfg: ArchConfig, state: Dict[str, torch.Tensor],
+                       rt: Optional[Runtime] = None) -> torch.Tensor:
     """One decode step of x (B, 1, d) from ``state`` {"h" (B, Dn, N) float32,
     "conv" (B, Dn, d_conv - 1)}, which it updates in place.  Returns
     (B, 1, d)."""
+    group = None if rt is None else rt.model_group()
     mc = cfg.mamba
-    di, cw = mc.expand * cfg.d_model, mc.d_conv
+    di, cw = mc.resolved_d_inner(cfg.d_model), mc.d_conv
     xz = x[:, 0] @ p["in_proj"]
     x_in, z = xz.split(di, dim=-1)
     conv = state["conv"]
     taps = [conv[..., k].float() for k in range(cw - 1)] + [x_in.float()]
     x_conv = _conv(taps, p).to(x.dtype)[:, None]  # (B, 1, Dn)
-    dt, b_ssm, c_ssm = _split_xdb(p, x_conv, cfg, 1)
+    dt, b_ssm, c_ssm = _split_xdb(p, x_conv, cfg, 1, group)
     y, _ = selective_scan(x_conv, dt, -torch.exp(p["A_log"]), b_ssm, c_ssm, p["D"],
                           state["h"])
     conv.copy_(torch.cat([conv[..., 1:], x_in[..., None].to(conv.dtype)], dim=-1))
-    return ((y[:, 0] * F.silu(z)) @ p["out_proj"])[:, None]
+    return all_reduce_sum((y[:, 0] * F.silu(z)) @ p["out_proj"], group)[:, None]

@@ -47,22 +47,38 @@ layer l >= k is ``period[(l - k) % len(period)]``.
 
 The model holds weights only: kernel geometry and the paged decode's
 implementation come with each call, as a ``Runtime`` (the serve engine's).
+
+A tensor-parallel rank's model (``shard``, built by
+``repro_torch.serve.sharding.ShardingPlan.shard_params``) holds its slice of
+every parameter under a config of its local widths (``n_heads / K``,
+``n_kv_heads / K``, ``d_ff / K``, the Mamba inner width / K; ``vocab_size``
+the whole vocabulary's).  Its embedding and head hold its rows of a
+vocab-sharded vocabulary: the lookup masks the tokens outside them and sums
+over the "model" group, and the logits are gathered to the full vocabulary
+on every rank before anything reads them (``repro_torch.dist.collectives``).
+Its serving entry points take the group from the call's ``Runtime``
+(``rt.mesh``), whose "model" axis must be the shard's world.
+
+``param_axes()`` and ``cache_axes()`` give the reference's logical-axes
+trees (``model.py:82``, ``:201``) from ``repro_torch.models.param``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.collectives import gather_vocab, vocab_parallel_embed
 from repro_torch.models import blocks as blocks_mod
+from repro_torch.models import param as param_mod
 from repro_torch.models.layers import (
     by_batch,
-    embed_tokens,
     lm_logits,
     rms_norm,
     softmax_cross_entropy,
@@ -71,15 +87,36 @@ from repro_torch.models.runtime import Runtime
 
 LayerCache = Dict[str, torch.Tensor]  # {"k", "v"}, {"ckv", "kpe"} or {"h", "conv"}
 DEFAULT_RUNTIME = Runtime()
+# (the tensor, its initialiser, its scale), in the order init_params draws
+InitEntry = Tuple[torch.Tensor, str, float]
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """The slice of the weights a tensor-parallel rank holds: rank ``rank``
+    of ``world`` along the mesh's "model" axis; ``vocab`` says whether the
+    embedding's and the head's vocabulary rows are split over the ranks;
+    ``whole`` is the whole model's config."""
+
+    rank: int
+    world: int
+    vocab: bool
+    whole: ArchConfig
 
 
 class LM(nn.Module):
-    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
+                 shard: Optional[Shard] = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.shard = shard
         self.dtype = getattr(torch, cfg.dtype)
         d, vocab = cfg.d_model, cfg.vocab_size
+        self.vocab_start = 0
+        if shard is not None and shard.vocab:
+            vocab //= shard.world
+            self.vocab_start = shard.rank * vocab
 
         def matrix(*shape):
             return nn.Parameter(torch.empty(shape, dtype=self.dtype, device=device),
@@ -97,6 +134,19 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def init_entries(self) -> Iterator[InitEntry]:
+        """Every parameter with its initialiser and scale, in the order
+        ``init_params`` draws them."""
+        d = self.cfg.d_model
+        yield self.embed, "normal", 1.0 / math.sqrt(d)
+        yield self.final_norm, "ones", 0.0
+        if self.lm_head is not None:
+            yield self.lm_head, "normal", 1.0 / math.sqrt(d)
+        if self.frontend_proj is not None:
+            yield self.frontend_proj, "normal", 1.0 / math.sqrt(d)
+        for layer in self.layers:
+            yield from layer.init_entries()
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "LM":
         """Random weights with the reference's initialisers (``layers.py``,
@@ -104,27 +154,84 @@ class LM(nn.Module):
         float32 from ``generator`` (on its own device) one matrix (one
         expert's matrix) at a time and stored in the config's dtype.  The
         draws are not JAX's: the CPU tests load the reference's weights
-        through ``repro_torch.convert`` instead."""
-        d = self.cfg.d_model
-        blocks_mod.fill_param(self.embed, "normal", 1.0 / math.sqrt(d), generator)
-        self.final_norm.fill_(1.0)
-        if self.lm_head is not None:
-            blocks_mod.fill_param(self.lm_head, "normal", 1.0 / math.sqrt(d), generator)
-        if self.frontend_proj is not None:
-            blocks_mod.fill_param(self.frontend_proj, "normal", 1.0 / math.sqrt(d), generator)
-        for layer in self.layers:
-            layer.init_params(generator)
+        through ``repro_torch.convert`` instead.  A rank's slice of a
+        sharded model is drawn by ``ShardingPlan.shard_params``, from the
+        whole model's draws."""
+        if self.shard is not None and self.shard.world > 1:
+            raise ValueError("a tensor-parallel rank's weights come from "
+                             "ShardingPlan.shard_params, not init_params")
+        for t, init, scale in self.init_entries():
+            blocks_mod.fill_param(t, init, scale, generator)
         return self
+
+    def leaf_axes(self) -> Iterator[Tuple[Tuple, torch.Tensor, param_mod.Axes]]:
+        """Each parameter with its path in the reference's param tree
+        (``convert.param_layout``) and its logical axes, one a dim."""
+        from repro_torch.convert import param_layout
+
+        owner = {id(p): blk.spec for blk in self.layers for p in blk.parameters()}
+        for path, _, t in param_layout(self):
+            if len(path) == 1:
+                yield path, t, param_mod.TOP_AXES[path[0]]
+                continue
+            group = path[-2] if len(path) > 3 else path[-1]
+            yield path, t, param_mod.layer_param_axes(self.cfg, owner[id(t)], group, path[-1])
+
+    def param_axes(self) -> Dict:
+        """The logical axes of every parameter as the reference's tree
+        (``repro.models.model.LM.param_axes``): a period layer's leaves
+        with a leading "layers" axis."""
+        from repro_torch.convert import set_path, tuples
+
+        tree: Dict = {}
+        for path, _, axes in self.leaf_axes():
+            set_path(tree, path, axes if path[0] != "periods" else ("layers",) + axes)
+        return tuples(tree)
+
+    def cache_axes(self) -> Dict:
+        """The logical axes of the serving cache's leaves as the reference's
+        tree (``model.py:201-210``): {"head": one dict a head layer,
+        "periods": {"pos<i>": leading "layers" axis}}; the port's per-layer
+        cache (``repro_torch.serve.cache``) holds the same leaves, its pools'
+        dims in the same order."""
+        cfg = self.cfg
+        head_spec = dataclasses.replace(cfg.period[0], ffn="dense")
+        return {"head": tuple(param_mod.layer_cache_axes(cfg, head_spec)
+                              for _ in range(cfg.first_k_dense)),
+                "periods": {f"pos{i}": {k: ("layers",) + v for k, v in
+                                        param_mod.layer_cache_axes(cfg, spec).items()}
+                            for i, spec in enumerate(cfg.period)}}
+
+    def _vocab_group(self, rt: Runtime):
+        """The "model" group that the embedding and head sum and gather over
+        (None when the vocabulary is not split), after checking that the
+        call's mesh is the one the weights were sliced for."""
+        world = 1 if self.shard is None else self.shard.world
+        if rt.model_world() != world:
+            raise ValueError(f"the model holds a slice for {world} rank(s) along 'model', the "
+                             f"runtime's mesh has {rt.model_world()}")
+        if self.shard is None or not self.shard.vocab:
+            return None
+        return rt.model_group()
+
+    def _embed_tokens(self, tokens: torch.Tensor, rt: Runtime) -> torch.Tensor:
+        return vocab_parallel_embed(self.embed, tokens.to(self.device), self.vocab_start,
+                                    self._vocab_group(rt))
+
+    def _logits(self, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+        """The head over x (..., d), gathered to the whole vocabulary."""
+        return gather_vocab(lm_logits(self._head(), x), self.vocab_start, self.cfg.vocab_size,
+                            self._vocab_group(rt))
 
     def _head(self) -> torch.Tensor:
         return self.embed.T if self.lm_head is None else self.lm_head
 
-    def _embed_inputs(self, tokens: torch.Tensor,
-                      frontend_embeds: Optional[torch.Tensor]) -> Tuple[torch.Tensor, int]:
+    def _embed_inputs(self, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor],
+                      rt: Runtime = DEFAULT_RUNTIME) -> Tuple[torch.Tensor, int]:
         """(x, n_front): the token embeddings (B, S, d), after a frontend
         arch's projected embeddings (B, F, d) in its config's dtype
         (``model.py:101-112``), and F (0 without a frontend)."""
-        x = embed_tokens(self.embed, tokens.to(self.device))
+        x = self._embed_tokens(tokens, rt)
         if self.frontend_proj is None:
             return x, 0
         if frontend_embeds is None:
@@ -155,6 +262,9 @@ class LM(nn.Module):
         router losses summed over the layers in order (0 without MoE), is
         added to it."""
         cfg = self.cfg
+        if rt.mesh is not None or self.shard is not None:
+            raise NotImplementedError("training on a mesh (FSDP over 'data', Rules.default) is "
+                                      "not ported yet (ROADMAP.md, queue 1 item 7)")
         labels = batch["labels"].to(self.device)
         mask = batch.get("loss_mask")
         x, n_front = self._embed_inputs(batch["tokens"], batch.get("frontend_embeds"))
@@ -185,7 +295,7 @@ class LM(nn.Module):
         key among them (so padded rows cost it little), and the Mamba scan
         holds its state across them."""
         cfg = self.cfg
-        x, n_front = self._embed_inputs(tokens, frontend_embeds)
+        x, n_front = self._embed_inputs(tokens, frontend_embeds, rt)
         last = n_front + (tokens.shape[1] if n_valid is None else int(n_valid))
         caches = []
         for layer in self.layers:
@@ -193,7 +303,7 @@ class LM(nn.Module):
                                           n_valid=None if n_valid is None else last)
             caches.append(c)
         x = rms_norm(x[:, last - 1:last], self.final_norm, cfg.norm_eps)
-        return lm_logits(self._head(), x)[:, 0], caches
+        return self._logits(x, rt)[:, 0], caches
 
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, n_valid: int, cache: List[LayerCache],
@@ -223,12 +333,12 @@ class LM(nn.Module):
         ids = torch.zeros((1, -(-(s0 + n - base) // rows) * rows), dtype=torch.int64,
                           device=self.device)
         ids[:, span] = tokens[:, :n].to(self.device)
-        x = embed_tokens(self.embed, ids)
+        x = self._embed_tokens(ids, rt)
         for layer, c in zip(self.layers, cache):
             x = blocks_mod.apply_block_prefill_paged(layer, x, cfg, rt, c, page_tables, s0=s0,
                                                      n_valid=n, base=base)
         x = rms_norm(x[:, span.stop - 1:span.stop], self.final_norm, cfg.norm_eps)
-        return lm_logits(self._head(), x)[:, 0], cache
+        return self._logits(x, rt)[:, 0], cache
 
     @torch.no_grad()
     def decode_step_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -249,11 +359,11 @@ class LM(nn.Module):
         Returns (logits (B, V), cache), the pools and states updated in
         place."""
         cfg = self.cfg
-        x = embed_tokens(self.embed, tokens.to(self.device)[:, None])
+        x = self._embed_tokens(tokens[:, None], rt)
         for layer, c in zip(self.layers, cache):
             x = blocks_mod.apply_block_decode_paged(layer, x, cfg, rt, c, lengths, page_tables)
-        return by_batch(lambda xb: lm_logits(self._head(),
-                                             rms_norm(xb, self.final_norm, cfg.norm_eps)[:, 0]),
+        return by_batch(lambda xb: self._logits(rms_norm(xb, self.final_norm, cfg.norm_eps)[:, 0],
+                                                rt),
                         x, rt.decode_rows or x.shape[0]), cache
 
     # ------------------------------------------------------------------
@@ -279,7 +389,7 @@ class LM(nn.Module):
                 cache.append({"k": zeros(*shape), "v": zeros(*shape)})
             else:
                 mc = cfg.mamba
-                di = mc.expand * cfg.d_model
+                di = mc.resolved_d_inner(cfg.d_model)
                 cache.append({"h": zeros(batch, di, mc.d_state, dtype=torch.float32),
                               "conv": zeros(batch, di, mc.d_conv - 1)})
         return cache
@@ -301,10 +411,10 @@ class LM(nn.Module):
                 raise ValueError(f"{cfg.name} has no frontend")
             x = self._project_frontend(frontend_embed[:, None])
         else:
-            x = embed_tokens(self.embed, tokens.to(self.device)[:, None])
+            x = self._embed_tokens(tokens[:, None], rt)
         lengths = lengths.to(self.device)
         for layer, c in zip(self.layers, cache):
             x = blocks_mod.apply_block_decode(layer, x, cfg, rt, c, lengths)
-        return by_batch(lambda xb: lm_logits(self._head(),
-                                             rms_norm(xb, self.final_norm, cfg.norm_eps)[:, 0]),
+        return by_batch(lambda xb: self._logits(rms_norm(xb, self.final_norm, cfg.norm_eps)[:, 0],
+                                                rt),
                         x, rt.decode_rows or x.shape[0]), cache

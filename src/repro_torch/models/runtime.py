@@ -1,8 +1,16 @@
 """Runtime options threaded through the model: kernel geometry, the paged
-decode implementation, the row blocks of the row-wise steps and, for
-training, rematerialisation.  The counterpart of
-``repro.models.runtime.Runtime`` without a mesh or sharding rules (the port
-runs on one card; ROADMAP.md).
+decode implementation, the row blocks of the row-wise steps, the device mesh
+and its sharding rules and, for training, rematerialisation.  The
+counterpart of ``repro.models.runtime.Runtime``.
+
+``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh`` with axes ("data",
+"model")) and ``rules`` (``repro_torch.dist.partitioning.Rules``; None:
+``Rules.for_serving(mesh)``) are the reference's fields
+(``runtime.py:19-20``).  The serve engine builds its ``ShardingPlan`` from
+them (``repro_torch.serve.sharding``), and the model's forward reads the
+"model" axis' process group from ``mesh`` for its collectives
+(``model_group``); the trainer takes no mesh yet (ROADMAP.md, queue 1
+item 7).
 
 ``remat`` (``runtime.py:25``, ``remat_wrap`` at ``:43-50``) applies to the
 training forward, one layer at a time (the reference wraps one period, which
@@ -21,6 +29,8 @@ import functools
 from typing import Any, Callable, Optional
 
 import torch
+
+from repro_torch.dist.partitioning import MODEL_AXIS, Rules, mesh_axes
 
 # the paged decode's implementations over the pools (K2 and its two plain
 # versions), and the Runtime's, which adds MLA's "legacy" gather
@@ -73,6 +83,8 @@ class Runtime:
     # reference's Runtime defaults to "full" and its LM to "none"; the port's
     # default Runtime plays the LM's part.
     remat: str = "none"
+    mesh: Optional[Any] = None
+    rules: Optional[Rules] = None
 
     def __post_init__(self):
         if self.remat not in REMAT_MODES:
@@ -83,6 +95,21 @@ class Runtime:
             raise ValueError(f"prefill_rows={self.prefill_rows} must be positive")
         if self.decode_rows is not None and self.decode_rows < 1:
             raise ValueError(f"decode_rows={self.decode_rows} must be positive")
+
+    def model_world(self) -> int:
+        """The size of the mesh's "model" axis (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        names, shape = mesh_axes(self.mesh)
+        return dict(zip(names, shape)).get(MODEL_AXIS, 1)
+
+    def model_group(self):
+        """The process group of this rank's "model" axis, or None without a
+        mesh or at a model axis of size 1 (the collectives are then the
+        identity: ``repro_torch.dist.collectives``)."""
+        if self.model_world() == 1:
+            return None
+        return self.mesh.get_group(MODEL_AXIS)
 
     def remat_call(self, fn: Callable[[torch.Tensor], Any], x: torch.Tensor) -> Any:
         """``fn(x)`` under the ``remat`` policy (a no-op without grad): its

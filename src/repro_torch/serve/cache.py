@@ -46,7 +46,7 @@ def init_paged_cache(lm, *, num_pages: int, page_size: int, max_batch: int) -> C
                           for name in ("k", "v")})
         else:
             mc = cfg.mamba
-            di = mc.expand * cfg.d_model
+            di = mc.resolved_d_inner(cfg.d_model)
             cache.append({
                 "h": torch.zeros((max_batch, di, mc.d_state), dtype=torch.float32,
                                  device=lm.device),

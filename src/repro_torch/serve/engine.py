@@ -28,8 +28,17 @@ logits (below):
   the longest prefix that greedy one-token decode would have emitted.
 
 For archs with recurrent layers both knobs raise, as in the reference, whose
-Mamba state has no positional form.  Not yet: the sharded data plane
-(ROADMAP.md, queue 1 item 7).
+Mamba state has no positional form.
+
+The sharded data plane (``mesh=`` and ``rules=``, the reference's
+``repro/serve/engine.py:209-219``): the engine's ``Runtime`` carries the mesh,
+and its ``ShardingPlan`` (``repro_torch.serve.sharding``) gives the rank's
+model (built one matrix at a time from ``seed``, or sliced from a whole
+``lm``; a rank's model given as ``lm`` is served as it is), checks the
+rank's paged cache and traces its dispatches.  Every rank runs this engine
+whole: the host loop, the scheduler and the prefix cache are the same on
+each, tokens, lengths and page tables stay replicated, and the logits each
+step reads are the same bits on every rank.
 
 Span tracing (``trace=True``, the reference's ``repro/serve/engine.py:193-232``)
 puts a ``SpanTracer`` on the engine's bus: ``engine.step`` around each step,
@@ -128,6 +137,7 @@ from repro_torch.serve.cache import (
 from repro_torch.serve.paging import SCRATCH_PAGE, PagePool
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
+from repro_torch.serve.sharding import ShardingPlan
 from repro_torch.serve.speculate import NgramProposer
 from repro_torch.telemetry import Event, MemorySink, ServeStepEvent, Tracker
 from repro_torch.telemetry.trace import SpanTracer
@@ -160,6 +170,8 @@ class ServeEngine:
         replica_id: int = -1,
         trace: bool = False,
         trace_clock: Optional[Callable[[], float]] = None,
+        mesh=None,
+        rules=None,
     ):
         """``lm`` is an already-built model to serve (its config and device
         are used, and its weights are shared, not copied); otherwise a model
@@ -169,7 +181,9 @@ class ServeEngine:
         card and its plain version on the CPU.  ``num_pages`` sizes the page
         pool (default: every slot's full row, plus the scratch page).
         ``replica_id``, ``trace`` and ``trace_clock``: the reference's span
-        tracing and replica tag (module docstring)."""
+        tracing and replica tag (module docstring).  ``mesh`` (a
+        ``DeviceMesh`` with axes ("data", "model")) and ``rules`` run the
+        sharded data plane (module docstring)."""
         self.cfg = lm.cfg if lm is not None else self.config_for(arch, smoke)
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
@@ -187,8 +201,23 @@ class ServeEngine:
         # independent of what follows them and of the step's shape (module
         # docstring)
         self.rt = Runtime(block_q=16, block_k=16, page_size=page_size, paged_impl=paged_impl,
-                          prefill_rows=min(PREFILL_ROWS, max_seq), decode_rows=max_batch)
-        self.lm = lm if lm is not None else random_lm(self.cfg, self.device, seed)
+                          prefill_rows=min(PREFILL_ROWS, max_seq), decode_rows=max_batch,
+                          mesh=mesh, rules=rules)
+        self.plan = ShardingPlan.for_runtime(self.rt)
+        if self.plan is None:
+            self.lm = lm if lm is not None else random_lm(self.cfg, self.device, seed)
+        elif lm is None:
+            self.lm = self.plan.shard_params(self.cfg, self.device, seed=seed)
+        elif lm.shard is None:
+            self.lm = self.plan.shard_params(lm.cfg, source=lm)
+        elif lm.shard.world == self.plan.world and lm.shard.rank == self.plan.model_rank:
+            self.lm = lm
+        else:
+            raise ValueError(f"lm holds rank {lm.shard.rank} of {lm.shard.world}'s slice, the "
+                             f"mesh puts this engine at rank {self.plan.model_rank} of "
+                             f"{self.plan.world}")
+        whole_cfg = self.lm.cfg if self.lm.shard is None else self.lm.shard.whole
+        self.cfg = self.lm.cfg
         self.max_batch = max_batch
         self.page_size = page_size
         self.max_seq = max_seq
@@ -217,6 +246,13 @@ class ServeEngine:
             SpanTracer(self.tracker, trace=("serve", self.cfg.name, seed, replica_id),
                        replica=replica_id, clock=trace_clock) if trace else None)
         self.scheduler.tracer = self.spans
+        self._decode = self.lm.decode_step_paged
+        self._chunk = self.lm.prefill_chunk
+        if self.plan is not None:
+            self.cache = self.plan.shard_cache(self.cache, whole_cfg)
+            self.page_tables_dev = self.plan.put_replicated(self.page_tables_dev)
+            self._decode = self.plan.decode_fn(self.lm, tracer=self.spans)
+            self._chunk = self.plan.prefill_chunk_fn(self.lm, tracer=self.spans)
         self.replica_id = replica_id
         self.step_count = 0
         self.prefills_run = 0
@@ -382,7 +418,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         with self._sp("prefill_chunk", component="engine.prefill_chunk", rid=req.rid,
                       tokens=n_tokens, s0=s0):
-            logits, self.cache = self.lm.prefill_chunk(
+            logits, self.cache = self._chunk(
                 torch.from_numpy(chunk)[None].to(self.device), n_tokens, self.cache,
                 torch.from_numpy(self._table_row(req))[None].to(self.device), s0=s0,
                 rt=self.rt)
@@ -438,7 +474,7 @@ class ServeEngine:
             return len(decoding)
         t0 = time.perf_counter()
         with self._sp("decode", component="engine.decode", batch=len(decoding)):
-            logits, self.cache = self.lm.decode_step_paged(
+            logits, self.cache = self._decode(
                 torch.from_numpy(self.next_tokens).to(self.device),
                 torch.from_numpy(self.lengths).to(self.device),
                 self.cache, self.page_tables_dev, rt=self._step_runtime())
@@ -505,7 +541,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         with self._sp("verify", component="engine.verify", batch=len(decoding),
                       rows=b * t_rows):
-            logits, self.cache = self.lm.decode_step_paged(
+            logits, self.cache = self._decode(
                 torch.from_numpy(toks).to(self.device), torch.from_numpy(lens).to(self.device),
                 self.cache, torch.from_numpy(pts).to(self.device), rt=rt)
             logits_np = logits.float().cpu().numpy()

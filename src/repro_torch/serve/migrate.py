@@ -51,6 +51,7 @@ import torch
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.prefix import FullPromptEntry, _chain_key
 from repro_torch.serve.scheduler import Request, RequestState
+from repro_torch.serve.sharding import mesh_world_size
 from repro_torch.telemetry import CkptCostEvent
 
 SNAPSHOT_FORMAT = 1
@@ -162,6 +163,16 @@ def _unpack_request(d: Dict[str, Any], full: Dict[str, FullPromptEntry]) -> Requ
 # ---------------------------------------------------------------------------
 
 
+def _refuse_sharded(engine: ServeEngine) -> None:
+    """A sharded engine's state is split over its ranks, whose handoff is
+    not ported (the reference's is a ``device_put`` onto the destination's
+    shardings); a (1, 1) mesh's is the unsharded engine's."""
+    if engine.plan is not None and mesh_world_size(engine.plan.mesh) > 1:
+        raise NotImplementedError(
+            f"migrating a sharded engine ({mesh_world_size(engine.plan.mesh)} ranks) is not "
+            "ported yet (ROADMAP.md, queue 1 item 7)")
+
+
 def snapshot_engine(engine: ServeEngine) -> Dict[str, Any]:
     """Consistent host-side snapshot of one engine's full serving state.
 
@@ -170,6 +181,7 @@ def snapshot_engine(engine: ServeEngine) -> Dict[str, Any]:
     and builtin containers, and a reference to the served ``LM`` for the
     geometry check — safe to hold across the source engine's teardown.
     """
+    _refuse_sharded(engine)
     p = engine.prefix
     prefix = {
         "pages": list(p._pages.items()),
@@ -253,6 +265,7 @@ def restore_engine(engine: ServeEngine, snap: Dict[str, Any]) -> Dict[int, Reque
     and finished) so callers holding handles into the source engine — the
     ``Router`` — can re-point them at the destination's objects.
     """
+    _refuse_sharded(engine)
     _check_compatible(engine, snap)
     device = engine.device
     engine.cache = [{name: leaf.to(device, copy=True) for name, leaf in layer.items()}

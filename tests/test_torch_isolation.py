@@ -57,7 +57,11 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.telemetry.trace", "repro_torch.telemetry.trace.spans",
                    "repro_torch.telemetry.trace.export", "repro_torch.telemetry.trace.attribution",
                    "repro_torch.telemetry.trace.slo", "repro_torch.telemetry.__main__",
-                   "repro_torch.serve.router", "repro_torch.serve.migrate"):
+                   "repro_torch.serve.router", "repro_torch.serve.migrate",
+                   "repro_torch.dist", "repro_torch.dist.partitioning",
+                   "repro_torch.dist.treeutil", "repro_torch.dist.collectives",
+                   "repro_torch.models.param", "repro_torch.serve.sharding",
+                   "repro_torch.launch.mesh"):
         assert module in report["imported"]
 
 
@@ -80,7 +84,7 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from repro_torch.configs import cocoa_mnist
     from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh, serve, train
     from repro_torch.models.model import LM
     from repro_torch.kernels import tune
     from repro_torch.kernels.tune import __main__ as tune_cli
@@ -115,6 +119,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
                             cache=tune.ConfigCache(None)),
         lambda: chaos_train.main(["--seed", "0", "--steps", "20"]),
         lambda: run_chaos_sim(0, steps=20),
+        lambda: mesh.rank_device(1),
+        lambda: mesh.init_distributed(0, 1, str(tmp_path / "rendezvous")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

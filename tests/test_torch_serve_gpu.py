@@ -286,3 +286,24 @@ def test_smoke_router_and_handoff_on_the_card(card, capsys, tmp_path):
     assert fa_ops.flash_fwd.launches == n_layers * sum(s["prefills_run"] for s in stats)
     assert fd_ops.paged_decode.launches == n_layers * sum(s["decode_steps"] for s in stats)
     assert result["trace"]["spans"] > 0 and result["trace"]["reconcile"] <= 0.05
+
+
+def test_smoke_tp2_on_the_card(card):
+    """``--tp 2`` on the card: two ranks sharing it over gloo (or a card
+    each over nccl), every engine 2-way; the routed fleet the single TP
+    engine's tokens, the ranks' streams the same, and on each rank K3 once a
+    layer a prefill and K2 once a layer a decode step at the rank's heads,
+    no other kernel."""
+    summary = serve_cli.main(["--arch", "qwen3-14b", "--smoke", "--router", "--replicas", "2",
+                              "--tp", "2"])
+    assert summary["routed_bit_identical"] is True and summary["ranks_same"] is True
+    reports = summary["reports"]
+    assert [rep["rank"] for rep in reports] == [0, 1]
+    assert reports[0]["tokens"] == reports[1]["tokens"]
+    assert all(np.array_equal(a, b) for a, b in zip(reports[0]["logits"], reports[1]["logits"]))
+    for rep in reports:
+        n = rep["n_layers"]
+        launches = {k: v for k, v in rep["launches"].items() if v}
+        assert launches == {"flash_fwd": n * rep["prefills"],
+                            "paged_decode": n * rep["decode_steps"]}, launches
+        assert rep["device"].startswith("cuda")

@@ -9,6 +9,7 @@ would be an unfair demand; in float32 the LM agrees to about 1e-6
 (tests/test_torch_lm.py), so the token streams must be identical.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -52,11 +53,18 @@ def test_static_cli_runs_the_server(capsys):
 
 
 def test_server_refuses_what_is_not_ported():
-    """A mesh is not ported yet; frontend embeddings are, for the frontend
-    archs (tests/test_torch_frontend.py), and an arch without a frontend
-    refuses them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_cli.Server("qwen3-14b", mesh=object())
+    """A mesh is ported (tests/test_torch_tp.py), but not MLA over more than
+    one rank, which the server refuses by name (a stand-in mesh of 2 ranks:
+    the plan refuses before it needs a process group); rules need a mesh.
+    Frontend embeddings are ported, for the frontend archs
+    (tests/test_torch_frontend.py), and an arch without a frontend refuses
+    them."""
+    mesh = SimpleNamespace(axis_names=("data", "model"), devices=np.empty((1, 2)))
+    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP.md"):
+        port_cli.Server("deepseek-v2-236b", smoke=True, device="cpu", mesh=mesh).generate(
+            np.zeros((1, 4), np.int32), 2)
+    with pytest.raises(ValueError, match="without a mesh"):
+        port_cli.Server("qwen3-14b", rules=object())
     server = port_cli.Server("qwen3-14b", smoke=True, device="cpu")
     with pytest.raises(ValueError, match="frontend_embeds"):
         server.generate(np.zeros((1, 4), np.int32), 2, frontend_embeds=np.zeros((1, 8, 64)))
