@@ -36,7 +36,10 @@ prefix-affinity router over two replicas, one handed off to a fresh engine
 mid-run, every span traced, and the telemetry CLI reads the run's log;
 qwen3-14b serves tensor-parallel (``--tp 2``: two ranks on the one card,
 each holding half of every layer's heads and channels) at full width, and
-falcon-mamba-7b so at a cut depth.
+falcon-mamba-7b so at a cut depth; stablelm-1.6b trains with each gradient
+compression scheme, and 2-way on a data mesh (FSDP over "data", two ranks
+sharing the card) at full width and depth, its checkpoint moving between
+data 2 and data 1, and the LM chaos loop drives the smoke trainer.
 Phases, each of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
@@ -360,6 +363,34 @@ Phases, each of which exits non-zero on failure:
       phases 12 and 17's shapes), beside its bound: the kernels unchanged,
       their rows in the kernels line gain the numbers ``..._at main path
       13``.
+  30a. (slice 20) main path 14a: ``python -m repro_torch.launch.train --arch
+      stablelm-1.6b --steps 4 --seq-len 128 --global-batch 8 --compression S``
+      in process for S in int8, topk and powersgd, at full width and depth:
+      losses and grad norms finite, K3 = 2 x 24 x 4 and each K3-bwd pass
+      24 x 4, nothing else; step times and peak memory printed;
+  30b. the smoke trainer with each scheme on the card against the plain
+      versions on the CPU, each step's loss within 1%;
+  30c. main path 14: stablelm-1.6b at full width and depth, 4 steps on one
+      card (freed), then on a world-size-1 NCCL group's (1, 1) mesh in this
+      process, bit for bit (losses, grad norms, the final state's bits), then
+      on a (2, 1) data mesh: two ranks on the one card over gloo
+      (``run_data_parallel``), each holding half of every float32 master and
+      AdamW leaf (FSDP over "data") and training on its 4 rows of the global
+      batch of 8: each step's loss within 0.5% of the single card's, K3 =
+      2 x 24 x 4 and each K3-bwd pass 24 x 4 on each rank, none in this
+      process, a rank's float32 state 49-52% of the single card's; each
+      rank's step times and peak memory printed;
+  30d. the elastic leg at full width and 4 of 24 layers: a checkpoint at
+      data 2 (whole leaves, gathered), restored at data 1 (``restore``,
+      ``rescale_training_state`` on a (1, 1) NCCL mesh) and again at data 2
+      (``restore_sharded`` on two new ranks): the placed state the saved bits
+      each time (``Trainer.state_digest``), the next step's loss within 0.5%
+      of the unresized run's, the save's and restores' wall times printed;
+  30e. the LM chaos loop on the smoke stablelm-1.6b: ``python -m
+      repro_torch.launch.train --chaos TRACE --steps 30`` on a generated
+      trace, and ``run_chaos_lm`` on the reference test's crafted 70-step
+      trace with its gates (a resize, a mitigation, a restore, the last loss
+      below the first by 0.5); K3 and K3-bwd once a layer an executed step.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's,
 K2-latent's and K4's ``launches`` sum their paths', ``launches_by_path``
@@ -4824,6 +4855,386 @@ def tp_kernel_timings(dev) -> dict:
     return out
 
 
+# ---------------------------------------- slice 20: elastic LM training
+
+# Main path 14 (phases 30a-30e): stablelm-1.6b at full width and depth, the
+# training path's settings (seq 128, global batch 8, AdamW lr 1e-3, remat
+# full), 4 steps a run: with each compression scheme on one card, then on a
+# data mesh of 2 ranks sharing the card over gloo (FSDP over "data", 4 rows a
+# rank).  The ranks sum their loss shares, gradients and norms in another
+# order than one card, and each rank's matrix products see 4 rows, not 8, so
+# cuBLAS may sum them otherwise and bf16 round them otherwise: each step's
+# loss within 0.5% of the single card's (PERF.md's prediction for PR 30,
+# written before the first run), five times the spread a bf16 rounding of
+# the logits gives the smoke losses (phase 23d measured 1.1e-4 relative);
+# the float32 state a rank holds within 49-52% of the single card's (the
+# replicated norm scales and biases are the rest).
+DP_WORLD, DP_STEPS = 2, 4
+DP_TIMEOUT_S = 600  # a group of ranks still running after this is killed
+DP_LOSS_RTOL = 5e-3
+DP_STATE_SHARE = (0.49, 0.52)
+COMPRESSION_SCHEMES = ("int8", "topk", "powersgd")
+# Phase 30d, the elastic leg: 4 of the 24 layers at full width (the
+# checkpoint of params and both moments is 7.4 GB, not 19.7), a checkpoint
+# at data 2 after the first of two steps; the second is the unresized run's
+# next step
+ELASTIC_LAYERS, ELASTIC_STEPS = 4, 2
+# Phase 30e: the trainer CLI's --chaos on a generated trace, and the reference
+# test's crafted 70-step trace (tests/test_chaos.py::test_chaos_lm_loop_end_to_end)
+CHAOS_CLI_STEPS = 30
+
+
+def dp_opts(**kw) -> dict:
+    return dict(arch=TRAIN_ARCH, smoke=False, steps=DP_STEPS, seq_len=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, log_every=0, **kw)
+
+
+def training_launches_expected(counts: dict, layers: int, steps: int, remat: str,
+                               what: str) -> None:
+    """K3 once a layer a step (twice under full remat) and each K3-bwd pass
+    once, no other kernel."""
+    expected = {name: 0 for name in counts}
+    expected.update(flash_fwd=(2 if remat == "full" else 1) * layers * steps,
+                    flash_bwd_dq=layers * steps, flash_bwd_dkdv=layers * steps)
+    if counts != expected:
+        fail(f"{what}: launches {counts}, expected {expected}")
+
+
+def step_summary(records) -> str:
+    import statistics
+
+    times = [r["step_time"] for r in records[1:]] or [records[0]["step_time"]]
+    losses = ", ".join("%.5f" % r["loss"] for r in records)
+    norms = ", ".join("%.4f" % r["grad_norm"] for r in records)
+    return (f"losses {losses}; grad norms {norms}; step ms first "
+            f"{1e3 * records[0]['step_time']:.1f}, then median {1e3 * statistics.median(times):.1f}")
+
+
+def state_bytes(trainer) -> int:
+    """The float32 master and optimizer state a trainer (or a rank) holds."""
+    from repro_torch.training.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(trainer.params) + tree_leaves(trainer.opt_state))
+
+
+def compression_path() -> dict:
+    """Phase 30a, main path 14a: ``python -m repro_torch.launch.train --arch
+    stablelm-1.6b --steps 4 --seq-len 128 --global-batch 8 --compression S``
+    in process for each scheme, at full width and depth.  Gates: losses and
+    grad norms finite, K3 = 2 x 24 x 4 and each K3-bwd pass 24 x 4, nothing
+    else launched.  Prints the step times and the peak memory.  Returns the
+    launches summed over the schemes."""
+    import torch
+
+    from repro_torch.launch import train as train_cli
+
+    total = {}
+    for scheme in COMPRESSION_SCHEMES:
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(DP_STEPS), "--seq-len", str(TRAIN_SEQ),
+                "--global-batch", str(TRAIN_BATCH), "--compression", scheme]
+        phase(f"main path 14a: python -m repro_torch.launch.train {' '.join(argv)}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer = train_cli.run(argv)
+        counts = read_launches()
+        records = trainer.records
+        print(f"{scheme}: {step_summary(records)}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if len(records) != DP_STEPS or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+            fail(f"--compression {scheme}: {len(records)} steps, losses or grad norms not finite")
+        training_launches_expected(counts, trainer.cfg.n_layers, DP_STEPS, trainer.rt.remat,
+                                   f"--compression {scheme}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def compression_small_check(dev) -> None:
+    """Phase 30b: the smoke trainer with each scheme, 8 steps on the card
+    (K3, K3-bwd) against the plain versions on the CPU from the card's
+    weights, each step's loss within TRAIN_LOSS_RTOL."""
+    for scheme in COMPRESSION_SCHEMES:
+        phase(f"30b: small-input check, the smoke {TRAIN_ARCH} trainer with --compression "
+              f"{scheme}, card vs CPU")
+        card = smoke_trainer(dev, compression=scheme)
+        cpu = smoke_trainer("cpu", compression=scheme)
+        cpu.set_state(card.params, card.opt_state)
+        card.train_some(8)
+        cpu.train_some(8)
+        worst = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(card.history, cpu.history))
+        print(f"{scheme}: card {[round(x, 5) for _, x in card.history]}, CPU "
+              f"{[round(x, 5) for _, x in cpu.history]}; largest relative difference "
+              f"{worst:.3g} (limit {TRAIN_LOSS_RTOL})")
+        if worst > TRAIN_LOSS_RTOL or len(card.history) != 8:
+            fail(f"--compression {scheme}: the card's losses part from the CPU's ({worst:.3g})")
+
+
+def fsdp_path(workdir: Path) -> dict:
+    """Phase 30c, main path 14: stablelm-1.6b at full width and depth on
+    one card for DP_STEPS steps (freed), then the same from the same seed on
+    a world-size-1 NCCL group's (1, 1) mesh in this process, bit for bit
+    (every loss and grad norm, and the final state's bits by
+    ``Trainer.state_digest``), then on a (2, 1) data mesh: two ranks spawned
+    on the one card over gloo (``run_data_parallel``), each drawing the
+    whole model from seed 0 and keeping its blocks.  Gates: each rank's
+    losses within DP_LOSS_RTOL of the single card's, the ranks' the same,
+    K3 = 2 x 24 x steps and each K3-bwd pass 24 x steps on each rank at its
+    4 rows, none in this process, each rank's float32 state within
+    DP_STATE_SHARE of the single card's.  Returns the launches by run."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh, mesh_shape
+    from repro_torch.launch.train import Trainer, TrainerOptions, run_data_parallel
+
+    phase(f"30c: {TRAIN_ARCH} at full width, {DP_STEPS} steps on one card (the yardstick)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    single = Trainer(TrainerOptions(**dp_opts()))
+    single.train_some(DP_STEPS)
+    counts = {"single": read_launches()}
+    ref = {"records": single.records, "digest": single.state_digest(),
+           "state_bytes": state_bytes(single)}
+    layers, remat = single.cfg.n_layers, single.rt.remat
+    print(f"one card: {step_summary(ref['records'])}; float32 state "
+          f"{ref['state_bytes'] / 1e9:.3f} GB; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    training_launches_expected(counts["single"], layers, DP_STEPS, remat, "one card")
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("30c: a world-size-1 NCCL group, (1, 1) mesh, at full width: bit for bit one card")
+    _, backend = init_distributed(0, 1, str(workdir / "nccl_train_world_one"))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        reset_launches()
+        one = Trainer(TrainerOptions(**dp_opts(), mesh=mesh))
+        one.train_some(DP_STEPS)
+        counts["mesh_1x1"] = read_launches()
+        same = ([(r["loss"], r["grad_norm"]) for r in one.records] ==
+                [(r["loss"], r["grad_norm"]) for r in ref["records"]])
+        same_state = one.state_digest() == ref["digest"]
+        del one
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"backend {backend}, mesh {mesh_shape(mesh)}: losses and grad norms the same bits "
+          f"{same}, the final state the same bits {same_state}")
+    if backend != "nccl" or not same or not same_state:
+        fail("the (1, 1) mesh trainer is not bit for bit the single card's")
+    training_launches_expected(counts["mesh_1x1"], layers, DP_STEPS, remat, "the (1, 1) mesh")
+
+    phase(f"main path 14: {TRAIN_ARCH} at full width and depth on a ({DP_WORLD}, 1) data mesh, "
+          f"{DP_WORLD} ranks on the one card, global batch {TRAIN_BATCH}, {DP_STEPS} steps")
+    reset_launches()
+    t0 = time.perf_counter()
+    reports = run_data_parallel(DP_WORLD, {"opts": dp_opts(), "steps": DP_STEPS},
+                                timeout_s=DP_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if any(read_launches().values()):
+        fail(f"the data mesh: this process launched {read_launches()}; the ranks launch")
+    worst = 0.0
+    per_rank = []
+    for rep in reports:
+        print(f"rank {rep['rank']} ({rep['device']}, {rep['backend']}): "
+              f"{step_summary(rep['records'])}; float32 state {rep['state_bytes'] / 1e9:.3f} GB "
+              f"({rep['state_bytes'] / ref['state_bytes']:.4f} of one card's); peak "
+              f"{rep['peak_memory_gb']:.3f} GB")
+        for got, want in zip(rep["records"], ref["records"]):
+            worst = max(worst, abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        share = rep["state_bytes"] / ref["state_bytes"]
+        if len(rep["records"]) != DP_STEPS or not DP_STATE_SHARE[0] <= share <= DP_STATE_SHARE[1]:
+            fail(f"rank {rep['rank']}: {len(rep['records'])} steps, state share {share:.4f}")
+        training_launches_expected(rep["launches"], rep["n_layers"], DP_STEPS, rep["remat"],
+                                   f"the data mesh's rank {rep['rank']}")
+        per_rank.append({"rank": rep["rank"], "backend": rep["backend"],
+                         "device": rep["device"], "peak_memory_gb": rep["peak_memory_gb"],
+                         "state_share": share,
+                         "step_ms": [1e3 * r["step_time"] for r in rep["records"]],
+                         "losses": [r["loss"] for r in rep["records"]]})
+    if [r["loss"] for r in reports[0]["records"]] != [r["loss"] for r in reports[1]["records"]]:
+        fail("the ranks report different losses")
+    print(f"the ranks' losses within {worst:.3g} of one card's (limit {DP_LOSS_RTOL}); "
+          f"{seconds:.1f} s for the spawn, the builds and the steps")
+    if worst > DP_LOSS_RTOL:
+        fail(f"the data mesh's losses part from one card's: {worst:.3g}")
+    print(json.dumps({"fsdp_path": {"world": DP_WORLD, "cli_s": seconds, "loss_rel_diff": worst,
+                                    "per_rank": per_rank,
+                                    "one_card_step_ms": [1e3 * r["step_time"]
+                                                         for r in ref["records"]]}}))
+    counts["data_mesh"] = {}
+    for rep in reports:
+        for k, v in rep["launches"].items():
+            counts["data_mesh"][k] = counts["data_mesh"].get(k, 0) + v
+    return counts
+
+
+
+def elastic_path(workdir: Path) -> dict:
+    """Phase 30d, the elastic leg, at full width and ELASTIC_LAYERS layers
+    (``reduced: depth only``): two ranks at data 2 take a step, write a
+    checkpoint (whole leaves, gathered, by rank 0) and take the next step
+    (the unresized run's); the checkpoint restored at data 1 (a world-size-1
+    NCCL group's (1, 1) mesh in this process, through ``CheckpointManager.
+    restore`` and ``rescale_training_state``, as ``TrainerExecutor`` places
+    it) and again at data 2 (two new ranks, through ``restore_sharded``).
+    Gates: the placed state gathered back the same bits as the saved one
+    (``Trainer.state_digest``) after each placement; the next step's loss
+    within DP_LOSS_RTOL of the unresized run's; K3 and K3-bwd as the
+    training path's.  Prints the save's and the restores' wall times
+    (``last_timing``; the reads are warm: the file cache is not dropped).
+    Returns the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.launch.train import Trainer, TrainerOptions, run_data_parallel
+    from repro_torch.runtime.elastic import rescale_training_state
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=ELASTIC_LAYERS)
+    ckpt = workdir / "elastic_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    opts = dict(dp_opts(cfg=cfg, ckpt_dir=str(ckpt), ckpt_every=10 ** 9),
+                steps=ELASTIC_STEPS)
+    phase(f"30d: the elastic leg, {TRAIN_ARCH} at full width and {ELASTIC_LAYERS} of 24 layers: "
+          f"data {DP_WORLD}, a checkpoint after step 1, then step 2")
+    counts = {}
+    first = run_data_parallel(DP_WORLD, {"opts": opts, "steps": ELASTIC_STEPS, "save_after": 1},
+                              timeout_s=DP_TIMEOUT_S)
+    saved = first[0]["saved_digest"]
+    unresized = first[0]["records"][1]["loss"]
+    save = first[0]["save_timing"]
+    print(f"data {DP_WORLD}: {step_summary(first[0]['records'])}; saved step "
+          f"{first[0]['saved_step']}: {save['bytes'] / 1e9:.3f} GB in {save['wall_s']:.3f} s")
+    if any(rep["saved_digest"] != saved for rep in first) or first[0]["saved_step"] != 1:
+        fail("the ranks' gathered states at the checkpoint differ")
+    for rep in first:
+        training_launches_expected(rep["launches"], ELASTIC_LAYERS, ELASTIC_STEPS, rep["remat"],
+                                   f"30d data {DP_WORLD} rank {rep['rank']}")
+        for k, v in rep["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+
+    phase("30d: the checkpoint placed at data 1 (restore, rescale_training_state), one step")
+    init_distributed(0, 1, str(workdir / "nccl_elastic_world_one"))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        t = Trainer(TrainerOptions(**opts, mesh=mesh))
+        tree, meta = t.ckpt.restore(1)
+        placed = rescale_training_state(tree, mesh, t.rules, t.param_axes, t.opt, t.device)
+        del tree
+        t.params, t.opt_state = placed["params"], placed["opt_state"]
+        t.data.load_state_dict(meta["data_state"])
+        t.step = int(meta["step"])
+        del placed
+        same = t.state_digest() == saved
+        restore_one = t.ckpt.last_timing("restore")
+        reset_launches()
+        t.train_some(1)
+        launches = read_launches()
+        loss_one = t.records[-1]["loss"]
+        del t
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"data 1: the placed state the saved bits {same}; restore {restore_one['wall_s']:.3f} s "
+          f"({restore_one['bytes'] / 1e9:.3f} GB); next loss {loss_one:.6f}, unresized "
+          f"{unresized:.6f}")
+    training_launches_expected(launches, ELASTIC_LAYERS, 1, "full", "30d data 1")
+    for k, v in launches.items():
+        counts[k] = counts.get(k, 0) + v
+    if not same or abs(loss_one - unresized) > DP_LOSS_RTOL * abs(unresized):
+        fail("the state placed at data 1 differs, or its next loss parts from the unresized run's")
+
+    phase(f"30d: the checkpoint placed at data {DP_WORLD} again (restore_sharded), one step")
+    again = run_data_parallel(DP_WORLD, {"opts": opts, "steps": 1, "restore": 1},
+                              timeout_s=DP_TIMEOUT_S)
+    for rep in again:
+        loss = rep["records"][-1]["loss"]
+        print(f"rank {rep['rank']}: the placed state the saved bits "
+              f"{rep['placed_digest'] == saved}; restore {rep['restore_timing']['wall_s']:.3f} s "
+              f"(placed in {rep['restore_s']:.3f} s); next loss {loss:.6f}")
+        training_launches_expected(rep["launches"], ELASTIC_LAYERS, 1, rep["remat"],
+                                   f"30d data {DP_WORLD} again, rank {rep['rank']}")
+        for k, v in rep["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        if rep["placed_digest"] != saved or abs(loss - unresized) > DP_LOSS_RTOL * abs(unresized):
+            fail(f"rank {rep['rank']}: the state placed at data {DP_WORLD} differs, or its next "
+                 "loss parts from the unresized run's")
+    print(json.dumps({"elastic_path": {
+        "layers": ELASTIC_LAYERS, "checkpoint_gb": save["bytes"] / 1e9, "save_s": save["wall_s"],
+        "restore_s_data_1": restore_one["wall_s"],
+        "restore_s_data_2": [rep["restore_timing"]["wall_s"] for rep in again],
+        "next_loss_unresized": unresized, "next_loss_data_1": loss_one,
+        "next_loss_data_2": [rep["records"][-1]["loss"] for rep in again]}}))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return counts
+
+
+def chaos_lm_path(workdir: Path) -> dict:
+    """Phase 30e: the LM chaos loop on the smoke stablelm-1.6b (the
+    executor's config, as the reference's is), on the card: ``python -m
+    repro_torch.launch.train --chaos TRACE --steps 30`` in process on a
+    trace it generates, then ``run_chaos_lm`` on the reference test's crafted
+    70-step trace with that test's gates (a resize, a mitigation, a restore,
+    the last loss below the first by 0.5).  Each run: losses finite, and K3
+    and K3-bwd once a layer an executed step (remat none; the step of a
+    preemption restores and runs none), no other kernel.
+    Returns the launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime.chaos import ChaosEvent, ChaosTrace
+
+    smoke_layers = get_smoke_config(TRAIN_ARCH).n_layers
+    trace = workdir / "chaos_trace.json"
+    trace.unlink(missing_ok=True)
+    argv = ["--chaos", str(trace), "--steps", str(CHAOS_CLI_STEPS),
+            "--ckpt-dir", str(workdir / "chaos_ckpt")]
+    phase(f"30e: python -m repro_torch.launch.train {' '.join(argv)}")
+    counts = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    log = train_cli.run(argv)
+    runs = [("--chaos", log, time.perf_counter() - t0, read_launches())]
+    phase("30e: run_chaos_lm on the crafted 70-step trace (a straggler at 30, a preemption at 50)")
+    crafted = ChaosTrace(seed=0, n_hosts=4, steps=70, events=[
+        ChaosEvent(step=30, kind="straggler_on", host=0, magnitude=3.0, duration=8),
+        ChaosEvent(step=50, kind="preempt", host=0)])
+    reset_launches()
+    t0 = time.perf_counter()
+    log = train_cli.run_chaos_lm(TRAIN_ARCH, crafted, str(workdir / "chaos_ckpt_crafted"))
+    runs.append(("crafted", log, time.perf_counter() - t0, read_launches()))
+    for name, log, seconds, launches in runs:
+        losses = [r["objective"] for r in log.rows]
+        print(f"{name}: {len(log.rows)} steps in {seconds:.1f} s, resizes {log.n_resizes()}, "
+              f"mitigations {log.n_mitigations()}, restores "
+              f"{sum(1 for r in log.rows if r.get('restore'))}, final m {log.meta['final_m']}, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"the chaos loop ({name}): a loss not finite")
+        executed = sum(1 for r in log.rows if not r.get("restore"))  # a failure's step is lost
+        training_launches_expected(launches, smoke_layers, executed, "none",
+                                   f"the chaos loop ({name})")
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+    log = runs[1][1]
+    losses = [r["objective"] for r in log.rows]
+    if len(log.rows) != 70 or log.n_resizes() < 1 or log.n_mitigations() < 1 or not any(
+            r.get("restore") for r in log.rows) or not losses[-1] < losses[0] - 0.5:
+        fail("the chaos loop on the crafted trace misses the reference test's gates")
+    if len(runs[0][1].rows) != CHAOS_CLI_STEPS:
+        fail(f"--chaos ran {len(runs[0][1].rows)} steps, not {CHAOS_CLI_STEPS}")
+    return counts
+
 def main() -> None:
     import torch
 
@@ -5015,10 +5426,20 @@ def main() -> None:
     training_kernels_vs_plain(dev, MUSICGEN)
     checkpoint_round_trip(dev, workdir, MUSICGEN)
 
+    # slice 20: elastic LM training (phases 30a-30e, main path 14)
+    slice20 = {"training_compression": compression_path()}
+    compression_small_check(dev)
+    fsdp = fsdp_path(workdir)
+    slice20.update(training_fsdp=fsdp["data_mesh"],
+                   training_fsdp_one_card={k: fsdp["single"][k] + fsdp["mesh_1x1"][k]
+                                           for k in fsdp["single"]},
+                   training_elastic=elastic_path(workdir), chaos_lm=chaos_lm_path(workdir))
+
     by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
                                 training_moe=moe_counts["flash_fwd"],
                                 training_musicgen=musicgen_counts["flash_fwd"],
-                                serve_internvl2=internvl_counts["flash_fwd"])
+                                serve_internvl2=internvl_counts["flash_fwd"],
+                                **{path: c["flash_fwd"] for path, c in slice20.items()})
     launches["flash_fwd"] = sum(by_path["flash_fwd"].values())
     by_path["paged_decode"]["serve_internvl2"] = internvl_counts["paged_decode"]
     launches["paged_decode"] = sum(by_path["paged_decode"].values())
@@ -5088,7 +5509,8 @@ def main() -> None:
             ("flash_bwd_dk", "the key side's dk at MLA's (192, 128), after the dv "
              "pass; the dk/dv pass's schedule")):
         paths = {"training": train_counts[name], "training_moe": moe_counts[name],
-                 "training_mla": mla_counts[name], "training_musicgen": musicgen_counts[name]}
+                 "training_mla": mla_counts[name], "training_musicgen": musicgen_counts[name],
+                 **{path: c[name] for path, c in slice20.items()}}
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "replaces": "src/repro/kernels/flash_attention/ops.py:118",

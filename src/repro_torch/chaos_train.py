@@ -10,19 +10,25 @@ adaptive loop against it:
 
 with the SSP local-SGD executor's worker chains on the local-SGD kernel,
 and finally REPLAYS the emitted run log from the same seed, asserting the
-(m, objective, decision) sequence is bit-identical.  Runs on the CUDA device
-unless ``--device`` names another.
+(m, objective, decision) sequence is bit-identical.  With ``--lm`` the
+executor is the real (smoke) stablelm-1.6b trainer instead
+(``repro_torch.launch.train.run_chaos_lm``): real losses, checkpoint
+restores and elastic re-shards, on a trace of ``n_hosts=4``; as in the
+reference, that run is not replayed.  Runs on the CUDA device unless
+``--device`` names another.
 
   python -m repro_torch.chaos_train --seed 0
   python -m repro_torch.chaos_train --seed 0 --out run.json
   python -m repro_torch.chaos_train --seed 0 --device cpu
+  python -m repro_torch.chaos_train --lm --seed 0 --steps 40 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 from typing import Optional, Sequence
 
-from repro_torch.runtime.chaos import ChaosRunLog, replay, run_chaos_sim
+from repro_torch.runtime.chaos import ChaosRunLog, ChaosTrace, replay, run_chaos_sim
 
 
 def summarize(log: ChaosRunLog) -> None:
@@ -47,19 +53,24 @@ def main(argv: Optional[Sequence[str]] = None) -> ChaosRunLog:
                     help="write the run log here (.json for the legacy "
                          "blob, .jsonl for the telemetry event log)")
     ap.add_argument("--lm", action="store_true",
-                    help="drive the LM trainer (its chaos executor is not yet in the port)")
+                    help="drive the real (smoke) LM trainer instead of the convex BSP "
+                         "simulator")
     ap.add_argument("--no-replay", action="store_true",
                     help="skip the replay determinism check")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     if args.lm:
-        raise NotImplementedError(
-            "--lm drives the LM trainer through its chaos executor (TrainerExecutor), "
-            "which the port does not have yet (ROADMAP.md, queue 1 item 8)")
-    log = run_chaos_sim(args.seed, steps=args.steps, device=args.device)
-    summarize(log)
-    if not args.no_replay:
+        from repro_torch.launch.train import run_chaos_lm
+
+        trace = ChaosTrace.generate(args.seed, args.steps, n_hosts=4)
+        with tempfile.TemporaryDirectory() as td:
+            log = run_chaos_lm("stablelm-1.6b", trace, td, seed=args.seed, device=args.device)
+        summarize(log)
+    else:
+        log = run_chaos_sim(args.seed, steps=args.steps, device=args.device)
+        summarize(log)
+    if not args.lm and not args.no_replay:
         again = replay(log, device=args.device)
         if again.signature() != log.signature():
             raise RuntimeError("replay diverged from the original run")

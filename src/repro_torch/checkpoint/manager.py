@@ -27,11 +27,14 @@ writers across processes.
   complete step with a ``RuntimeWarning``; it also reads format 1
   (``arrays.npz`` and ``COMMITTED``).
 * Retention keeps the newest ``keep`` complete steps.
+* ``restore_sharded`` restores, then places each leaf by its entry of a
+  sharding tree (``repro_torch.runtime.elastic.LeafSharding``): the rank's
+  block on its device, or the whole leaf where the entry is None; so a
+  checkpoint of whole leaves restores onto a mesh of any shape.
 * Every save and restore appends ``{op, step, wall_s, bytes}`` to
-  ``timings`` (``last_timing``).
-
-``restore_sharded`` (placing shards onto a mesh) waits for the sharded
-trainer (ROADMAP.md).
+  ``timings`` (``last_timing``); ``restore_sharded`` records its restore as
+  ``restore`` does (the placement after it is not in ``wall_s``, as in the
+  reference).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from repro_torch.telemetry.io import (
     atomic_write_text,
     file_lock,
 )
+from repro_torch.training.tree import tree_map
 
 FORMAT_VERSION = 2
 
@@ -130,7 +134,7 @@ def _from_file(arr: np.ndarray, name: str) -> torch.Tensor:
         return torch.from_numpy(bits.view(np.int16 if view is np.uint16 else np.uint8)).view(dtype)
     if name != str(arr.dtype):
         raise CorruptCheckpoint(f"a leaf stored as {arr.dtype} claims dtype {name}")
-    return torch.from_numpy(np.array(arr, order="C"))
+    return torch.from_numpy(arr if arr.flags.c_contiguous else np.array(arr, order="C"))
 
 
 class CheckpointWrite:
@@ -311,8 +315,12 @@ class CheckpointManager:
     @staticmethod
     def _load_npz(path: Path, dtypes: Dict[str, str]) -> Dict[str, torch.Tensor]:
         try:
+            out = {}
             with np.load(path) as z:
-                return {k: _from_file(z[k], dtypes.get(k, str(z[k].dtype))) for k in z.files}
+                for k in z.files:
+                    arr = z[k]  # each member read once
+                    out[k] = _from_file(arr, dtypes.get(k) or str(arr.dtype))
+            return out
         except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
             raise CorruptCheckpoint(f"{path.name}: unreadable shard: {e}")
 
@@ -366,6 +374,17 @@ class CheckpointManager:
             return tree, meta
         assert last_err is not None
         raise last_err
+
+    def restore_sharded(self, shardings, step: Optional[int] = None) -> Tuple[Any, Dict]:
+        """Restore and place each leaf with the given sharding tree (the
+        restored tree's structure; a None entry keeps the whole leaf on the
+        host): works across different mesh shapes (elastic rescale)."""
+        host, meta = self.restore(step)
+
+        def place(x, sh):
+            return sh.place(x) if sh is not None else x
+
+        return tree_map(place, host, shardings), meta
 
     # ------------------------------------------------------------------
     def last_timing(self, op: str) -> Optional[Dict[str, Any]]:

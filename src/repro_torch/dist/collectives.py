@@ -26,6 +26,23 @@ operations bit for bit.
 
 All-reduce results are the same bits on every rank, so the ranks' residual
 streams, logits and greedy tokens stay in step.
+
+The trainer's data plane, over the mesh's "data" group (FSDP, each rank
+holding a contiguous block of a leaf along one dim,
+``repro_torch.runtime.elastic.LeafSharding``):
+
+* ``all_reduce_``: the sum over the group, in place;
+* ``gather_blocks``: the ranks' blocks along ``dim`` to the whole tensor on
+  every rank: ``all_gather_into_tensor`` on NCCL; on gloo, which takes only
+  ``broadcast`` and ``all_reduce`` for CUDA tensors, an ``all_reduce`` into
+  a whole tensor filled with -0.0 around the rank's block.  Each element
+  then has one term and -0.0s, and -0.0 + x is x for every x (+0.0 and
+  -0.0 included), so the result is the blocks' bits;
+* ``reduce_scatter_blocks``: the sum over the group of whole tensors, the
+  rank's block of it kept: ``reduce_scatter_tensor`` on NCCL, an
+  ``all_reduce`` and the rank's slice on gloo.
+
+Either raises for a backend other than the two: nothing falls back.
 """
 from __future__ import annotations
 
@@ -75,3 +92,56 @@ def gather_vocab(logits: torch.Tensor, vocab_start: int, vocab_size: int,
     full[..., vocab_start:vocab_start + logits.shape[-1]] = logits
     dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
     return full.to(logits.dtype)
+
+
+def _backend(group: dist.ProcessGroup) -> str:
+    backend = str(dist.get_backend(group)).lower()
+    if backend not in ("nccl", "gloo"):
+        raise NotImplementedError(f"the data plane's collectives run on nccl or gloo, not "
+                                  f"{backend}")
+    return backend
+
+
+def all_reduce_(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Sum ``x`` over ``group`` in place and return it (``x`` itself when
+    ``group`` is None)."""
+    if group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def gather_blocks(local: torch.Tensor, dim: int, group: Optional[dist.ProcessGroup]
+                  ) -> torch.Tensor:
+    """The whole tensor from the ranks' contiguous blocks along ``dim``
+    (rank r of the group holds block r), on every rank, bit for bit."""
+    if group is None:
+        return local
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    moved = local.movedim(dim, 0).contiguous()
+    whole = torch.empty((world * moved.shape[0], *moved.shape[1:]), dtype=local.dtype,
+                        device=local.device)
+    if _backend(group) == "nccl":
+        dist.all_gather_into_tensor(whole, moved, group=group)
+    else:
+        whole.fill_(-0.0)
+        whole[rank * moved.shape[0]:(rank + 1) * moved.shape[0]] = moved
+        dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=group)
+    return whole.movedim(0, dim)
+
+
+def reduce_scatter_blocks(whole: torch.Tensor, dim: int,
+                          group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Rank r's block r along ``dim`` of the sum of ``whole`` over
+    ``group``, contiguous (``whole`` itself when ``group`` is None).  On
+    gloo ``whole`` is summed in place."""
+    if group is None:
+        return whole
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n = whole.shape[dim] // world
+    if _backend(group) == "nccl":
+        moved = whole.movedim(dim, 0).contiguous()
+        out = torch.empty((n, *moved.shape[1:]), dtype=whole.dtype, device=whole.device)
+        dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=group)
+        return out.movedim(0, dim).contiguous()
+    dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=group)
+    return whole.narrow(dim, rank * n, n).contiguous()

@@ -8,7 +8,8 @@ into the axes tuples, so these walkers treat a tuple whose elements are all
 ``str | None`` as a leaf.
 
 Used by ``repro_torch.serve.sharding`` (a placement per parameter and cache
-leaf).
+leaf), ``repro_torch.runtime.elastic`` (a sharding per training-state leaf)
+and the optimizers' ``init_axes``.
 """
 from __future__ import annotations
 

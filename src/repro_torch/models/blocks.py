@@ -162,12 +162,14 @@ def apply_block_train(p: Block, x: torch.Tensor, *, cfg: ArchConfig,
     flash backward (K3-bwd), Mamba through the selective scan's (K4-bwd).  A
     MoE FFN dispatches once over all B x S tokens at the training capacity,
     as ``moe.py:229-236`` does, never by row blocks: the capacity depends on
-    the dispatch's tokens."""
+    the dispatch's tokens.  On a data mesh the tokens are the rank's rows
+    and aux its share (``moe.apply_moe``)."""
     if p.spec.ffn != "moe":
         return apply_block(p, x, cfg, rt)[0], torch.zeros((), dtype=torch.float32,
                                                           device=x.device)
     x, _ = _mix(p, x, cfg, rt)
-    y, aux = moe_mod.apply_moe(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), cfg, train=True)
+    y, aux = moe_mod.apply_moe(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), cfg, train=True,
+                               group=rt.data_group())
     return x + y, aux
 
 

@@ -91,14 +91,28 @@ def lm_logits(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Mean token cross-entropy with a float32 log-sum-exp
     (``layers.py:110-121``): logits (..., V), labels (...,) int; with
-    ``mask`` (...,) the masked mean ``sum(nll * mask) / max(sum(mask), 1)``."""
+    ``mask`` (...,) the masked mean ``sum(nll * mask) / max(sum(mask), 1)``.
+
+    With ``group`` (a data group whose ranks hold the other rows) this
+    rank's share of the global mean: its summed NLL over the token count
+    (or the mask's sum) summed over the group; the shares sum to the
+    global mean."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
+    if group is not None:
+        from repro_torch.dist.collectives import all_reduce_
+
+        if mask is None:
+            count = torch.tensor(float(nll.numel()), device=nll.device)
+        else:
+            mask = mask.to(nll.dtype)
+            nll, count = nll * mask, mask.sum().detach()
+        return nll.sum() / torch.clamp(all_reduce_(count, group), min=1.0)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -13,7 +13,9 @@ musicgen's audio): the entry points of ``repro/models/model.py``.
   flash forward and its backward (K3, K3-bwd), Mamba through the selective
   scan and its backward (K4, K4-bwd), a MoE FFN at the training capacity;
   MLA's attention at its unequal key and value dims (K3-bwd at (192, 128)
-  as a dv and a dk pass, at the smoke config's (24, 16) as one).
+  as a dv and a dk pass, at the smoke config's (24, 16) as one).  On a
+  data mesh (the trainer's FSDP over "data") it takes the rank's rows and
+  returns the rank's share of the global loss.
 * ``prefill(tokens, frontend_embeds)`` — the counterpart of ``LM.prefill``
   (``model.py:171``): a full-sequence causal forward; returns one position's
   logits and each layer's K/V (attention), latents (MLA) or recurrent state
@@ -74,7 +76,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.collectives import gather_vocab, vocab_parallel_embed
+from repro_torch.dist.collectives import all_reduce_, gather_vocab, vocab_parallel_embed
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models import param as param_mod
 from repro_torch.models.layers import (
@@ -102,6 +104,18 @@ class Shard:
     world: int
     vocab: bool
     whole: ArchConfig
+
+
+TRAINER_TP = ("training with tensor parallelism (a mesh whose 'model' axis is larger than 1) "
+              "is not ported: the trainer's tensor parallelism, ROADMAP.md queue 1 item 7")
+
+
+def check_trainable_mesh(rt: Runtime, shard=None) -> None:
+    """Raise ``NotImplementedError`` by name for a training mesh with a
+    "model" axis larger than 1, or a tensor-parallel rank's model: the
+    trainer shards over "data" only and never silently replicates."""
+    if rt.model_world() > 1 or shard is not None:
+        raise NotImplementedError(TRAINER_TP)
 
 
 class LM(nn.Module):
@@ -260,11 +274,20 @@ class LM(nn.Module):
         positions, the final norm and the head over the last S in the
         config's dtype, the cross-entropy in float32; aux, the MoE layers'
         router losses summed over the layers in order (0 without MoE), is
-        added to it."""
+        added to it.
+
+        On a data mesh (``rt.data_group()`` not None) the batch is this
+        rank's rows of the global batch and loss, ce and aux are the rank's
+        shares of the reference's global values (what GSPMD computes for
+        the global batch), so that their sums over the ranks are those
+        values and the summed gradients theirs: the CE is the rank's summed
+        token NLL over the global token count (``loss_mask``'s sum over the
+        group), the aux the rank's share of each MoE layer's
+        (``repro_torch.models.moe.route``); ``tokens`` is the global
+        count.  A mesh whose "model" axis is larger than 1 raises."""
         cfg = self.cfg
-        if rt.mesh is not None or self.shard is not None:
-            raise NotImplementedError("training on a mesh (FSDP over 'data', Rules.default) is "
-                                      "not ported yet (ROADMAP.md, queue 1 item 7)")
+        check_trainable_mesh(rt, self.shard)
+        group = rt.data_group()
         labels = batch["labels"].to(self.device)
         mask = batch.get("loss_mask")
         x, n_front = self._embed_inputs(batch["tokens"], batch.get("frontend_embeds"))
@@ -275,9 +298,10 @@ class LM(nn.Module):
             aux = aux + layer_aux
         x = rms_norm(x[:, n_front:], self.final_norm, cfg.norm_eps)
         logits = lm_logits(self._head(), x)
-        ce = softmax_cross_entropy(logits, labels, None if mask is None else mask.to(self.device))
-        return ce + aux, {"ce": ce, "aux": aux,
-                          "tokens": torch.tensor(float(labels.numel()), device=self.device)}
+        ce = softmax_cross_entropy(logits, labels, None if mask is None else mask.to(self.device),
+                                   group=group)
+        tokens = torch.tensor(float(labels.numel()), device=self.device)
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": all_reduce_(tokens, group)}
 
     # ------------------------------------------------------------------
     @torch.no_grad()

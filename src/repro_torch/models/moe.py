@@ -38,7 +38,12 @@ too (``_RepeatRows``): no atomics (autograd's backward of a gather that takes a
 row k times is an accumulating scatter), so the same inputs give the same
 bits on the card, forward and backward.
 
-Not ported: the expert-parallel ``shard_map`` and 2-D paths (ROADMAP.md).
+On a data mesh (the trainer's FSDP over "data", "model" of size 1) the
+reference takes its ``shard_map`` path, whose blocks are the data shards:
+each rank dispatches its own rows at their capacity, and the aux loss is a
+function of the whole batch (``apply_moe(group=...)``).  Not ported: the
+expert-parallel split of that path over "model" and the 2-D path
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -84,10 +89,18 @@ def capacity(t: int, moe: Optional[MoEConfig] = None, train: bool = False) -> in
     return max(cap, 1)
 
 
-def route(p, x: torch.Tensor, cfg: ArchConfig, train: bool = False):
+def route(p, x: torch.Tensor, cfg: ArchConfig, train: bool = False, group=None):
     """Router in float32, ``moe.py:97``: x (T, d) -> ids (T, k) int64, probs
     (T, k) float32, and with ``train`` the aux loss (a float32 0-d tensor,
-    0 where the config's ``router_aux_loss`` is 0) as a third value."""
+    0 where the config's ``router_aux_loss`` is 0) as a third value.
+
+    With ``group`` (a data group whose ranks route the batch's other rows)
+    the aux is this rank's share of the whole batch's, as the reference
+    routes the global batch before its ``shard_map`` (``moe.py:226``): fe,
+    the routed fractions (no gradient), from the assignment counts and the
+    token count summed over the group, and the rank's me term its
+    probabilities' sum over the global token count, so that the shares sum
+    to E sum(me fe) x router_aux_loss of the whole batch."""
     moe = cfg.moe
     logits = x.float() @ p["router"].float()
     probs_full = torch.softmax(logits, dim=-1)
@@ -99,8 +112,18 @@ def route(p, x: torch.Tensor, cfg: ArchConfig, train: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if moe.router_aux_loss > 0:
         e = moe.n_routed_experts
-        me = probs_full.reshape(-1, e).mean(0)
-        fe = F.one_hot(ids.reshape(-1), e).float().mean(0)
+        if group is None:
+            me = probs_full.reshape(-1, e).mean(0)
+            fe = F.one_hot(ids.reshape(-1), e).float().mean(0)
+        else:
+            from repro_torch.dist.collectives import all_reduce_
+
+            probs_full = probs_full.reshape(-1, e)
+            counts = F.one_hot(ids.reshape(-1), e).float().sum(0)
+            n = torch.tensor([float(probs_full.shape[0])], device=x.device)
+            counts = all_reduce_(torch.cat([counts, n]), group)
+            me = probs_full.sum(0) / counts[e]
+            fe = counts[:e] / (counts[e] * moe.top_k)
         aux = e * torch.sum(me * fe) * moe.router_aux_loss
     return ids, probs, aux
 
@@ -169,14 +192,17 @@ def shared_ffn(p, xt: torch.Tensor) -> torch.Tensor:
     return h @ p["sh_down"]
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, train: bool = False):
+def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, train: bool = False, group=None):
     """``apply_moe`` without a mesh, ``moe.py:214``: x (B, S, d) -> y (B, S,
     d), one dispatch over all B * S tokens; with ``train`` the training
-    capacity and (y, aux)."""
+    capacity and (y, aux).  With ``group`` (training on a data mesh) x is
+    this rank's rows: the capacity counts them alone, as the reference's
+    ``shard_map`` block does (``moe.py:226-259``), and aux is the rank's
+    share of the whole batch's (``route``)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     if train:
-        ids, probs, aux = route(p, xt, cfg, train=True)
+        ids, probs, aux = route(p, xt, cfg, train=True, group=group)
         cap = capacity(b * s, cfg.moe, train=True)
     else:
         ids, probs = route(p, xt, cfg)

@@ -9,8 +9,10 @@ counterpart of ``repro.models.runtime.Runtime``.
 (``runtime.py:19-20``).  The serve engine builds its ``ShardingPlan`` from
 them (``repro_torch.serve.sharding``), and the model's forward reads the
 "model" axis' process group from ``mesh`` for its collectives
-(``model_group``); the trainer takes no mesh yet (ROADMAP.md, queue 1
-item 7).
+(``model_group``).  The trainer runs on a data mesh (``"model"`` of size
+1, ``Rules.default``: FSDP over "data"), and the training forward reads the
+"data" group (``data_group``) for its loss shares
+(``repro_torch.models.model.LM.loss_fn``).
 
 ``remat`` (``runtime.py:25``, ``remat_wrap`` at ``:43-50``) applies to the
 training forward, one layer at a time (the reference wraps one period, which
@@ -37,6 +39,7 @@ from repro_torch.dist.partitioning import MODEL_AXIS, Rules, mesh_axes
 POOL_IMPLS = ("kernel", "stream", "gather")
 PAGED_IMPLS = POOL_IMPLS + ("legacy",)
 REMAT_MODES = ("none", "full", "dots")
+DATA_AXIS = "data"
 DEFAULT_PAGES_PER_PROGRAM = 4  # repro/kernels/flash_decode/ops.py:47
 # Rows per matrix product in prefill.  Fewer rows waste less on padding
 # (the serve engine pads prompts to whole blocks), more rows make fewer
@@ -110,6 +113,21 @@ class Runtime:
         if self.model_world() == 1:
             return None
         return self.mesh.get_group(MODEL_AXIS)
+
+    def data_world(self) -> int:
+        """The size of the mesh's "data" axis (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        names, shape = mesh_axes(self.mesh)
+        return dict(zip(names, shape)).get(DATA_AXIS, 1)
+
+    def data_group(self):
+        """The process group of this rank's "data" axis, or None without a
+        mesh or at a data axis of size 1 (the training forward then runs
+        the unsharded arithmetic)."""
+        if self.data_world() == 1:
+            return None
+        return self.mesh.get_group(DATA_AXIS)
 
     def remat_call(self, fn: Callable[[torch.Tensor], Any], x: torch.Tensor) -> Any:
         """``fn(x)`` under the ``remat`` policy (a no-op without grad): its

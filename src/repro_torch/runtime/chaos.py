@@ -391,9 +391,8 @@ class ChaosRunLog:
 class ChaosLoop:
     """Drives an executor through a ChaosTrace under closed-loop control.
 
-    The executor contract (duck-typed; see ``optim.simcluster.SSPLocalSGD``;
-    the reference's ``launch.train.TrainerExecutor`` waits for the port's
-    trainer):
+    The executor contract (duck-typed; see ``optim.simcluster.SSPLocalSGD``
+    and ``launch.train.TrainerExecutor``):
 
       * ``m`` (int attribute) — current data-parallel degree
       * ``outer_step(sync_mask: Dict[host, bool]) -> float`` — one outer

@@ -45,7 +45,8 @@ would have to split (``NotImplementedError`` naming ROADMAP.md):
   takes the model axis), query heads sharded without their KV heads, or a
   Mamba inner width or FFN width that does not divide K;
 * a parameter sharded over any axis but "model" (``Rules.default``'s FSDP
-  over "data" is the trainer's mesh): queue 1 item 7.
+  over "data" is the trainer's mesh, ``repro_torch.training.trainer``;
+  serving keeps each parameter whole over "data"): queue 1 item 7.
 
 The reference refuses ``paged_impl="pallas"`` at world size > 1, its kernel
 being host-compiled; the port does not: K2 runs rank-locally over the rank's
@@ -151,8 +152,8 @@ class ShardingPlan:
             for ax, e in zip(axes, spec):
                 if any(a != MODEL_AXIS and self.rules.axis_sizes[a] > 1
                        for a in entry_axes(e)):
-                    raise _refuse(f"{name} sharded over {e}: only 'model' is placed here, "
-                                  "the trainer's FSDP over 'data' is not ported", 7)
+                    raise _refuse(f"{name} sharded over {e}: only 'model' is placed here; "
+                                  "FSDP over 'data' is the trainer's", 7)
                 if ax == "embed" and self.sharded(e):
                     raise _refuse(f"{name}'s d_model dim sharded ({spec}): the serve plan "
                                   "keeps d_model whole", 7)

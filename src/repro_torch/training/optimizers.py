@@ -11,8 +11,19 @@ checkpoint of either package restores into the other.  ``update`` runs under
 reference.  Scalars are float32 tensors on the parameters' device, as the
 reference's are float32 arrays.
 
-``init_axes`` (the state's sharding axes) waits for the sharded trainer
-(ROADMAP.md).
+``init_axes`` maps the params' logical-axes tree onto the state's, as the
+reference's does (``optimizers.py:71-72``, ``:129-138``): the state is
+sharded like its parameter (``repro_torch.runtime.elastic``).
+
+On a data mesh (``repro_torch.training.trainer``) every leaf is the rank's
+block, and ``update`` takes ``shards``, the params' tree of
+``LeafSharding``: AdamW is elementwise and needs no collective; Adafactor's
+statistics are means over whole dims (``vr`` over the last, ``vc`` over the
+second-to-last, ``denom`` over ``vr``'s last, the update's RMS over the
+whole leaf), so where such a dim is split over the ranks the partial sums
+are summed over the group and divided by the whole dim's size.  A leaf
+split nowhere runs the unsharded arithmetic, so a mesh of one rank is the
+unsharded optimizer bit for bit.
 """
 from __future__ import annotations
 
@@ -21,14 +32,16 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.dist.treeutil import map_axes
 from repro_torch.training.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]  # params -> state
-    update: Callable[[Any, Any, Any, torch.Tensor], Tuple[Any, Any]]
-    # (grads, state, params, lr) -> (new_params, new_state)
+    update: Callable[..., Tuple[Any, Any]]
+    # (grads, state, params, lr, shards=None) -> (new_params, new_state)
+    init_axes: Callable[[Any], Any]  # param axes tree -> state axes tree
     name: str = "opt"
 
 
@@ -64,7 +77,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shards=None):
         count = state["count"] + 1
         cf = count.float()
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state["mu"], grads)
@@ -80,7 +93,10 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         new_params = tree_map(step, params, mu, nu)
         return new_params, {"mu": mu, "nu": nu, "count": count}
 
-    return Optimizer(init, update, name="adamw")
+    def init_axes(axes):
+        return {"mu": axes, "nu": axes, "count": ()}
+
+    return Optimizer(init, update, init_axes, name="adamw")
 
 
 # ---------------------------------------------------------------------------
@@ -100,18 +116,18 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0, decay: float = 0.
         return {"v": tree_map(leaf, params), "count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shards=None):
         count = state["count"] + 1
         cf = count.float()
         beta2 = 1.0 - torch.pow(cf, -decay)
 
-        def leaf(p, g, s):
+        def leaf(p, g, s, sh):
             gf = g.float()
             g2 = torch.square(gf) + eps
             if factored(p):
-                vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(-2)
-                denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+                vr = beta2 * s["vr"] + (1 - beta2) * _mean(g2, -1, sh)
+                vc = beta2 * s["vc"] + (1 - beta2) * _mean(g2, -2, sh)
+                denom = torch.clamp(_mean(vr, -1, sh, param_dim=-2, keepdim=True), min=eps)
                 rhat = (vr / denom)[..., None]
                 upd = gf * torch.rsqrt(rhat * vc[..., None, :] + eps)
                 new_s = {"vr": vr, "vc": vc}
@@ -120,28 +136,64 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0, decay: float = 0.
                 upd = gf * torch.rsqrt(v + eps)
                 new_s = {"v": v}
             # update clipping by RMS
-            rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+            rms = torch.sqrt(_mean_all(torch.square(upd), sh) + 1e-30)
             upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay:
                 upd = upd + weight_decay * p.float()
             return (p.float() - lr * upd).to(p.dtype), new_s
 
-        new_params, new_v = _map2(leaf, params, grads, state["v"])
+        new_params, new_v = _map2(leaf, params, grads, state["v"], shards)
         return new_params, {"v": new_v, "count": count}
 
-    return Optimizer(init, update, name="adafactor")
+    def init_axes(axes):
+        def leaf(ax):
+            ax = tuple(ax)
+            if len(ax) >= 2:
+                return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+            return {"v": ax}
+
+        return {"v": map_axes(leaf, axes), "count": ()}
+
+    return Optimizer(init, update, init_axes, name="adafactor")
 
 
-def _map2(fn, params, grads, states):
-    """``fn(p, g, s) -> (new_p, new_s)`` over the parameter leaves (``s`` a
-    leaf's state dict); returns the two new trees."""
+def _mean(x: torch.Tensor, dim: int, sh, param_dim: int = None, keepdim: bool = False):
+    """x's mean over ``dim``, the whole dim's where the parameter's dim
+    ``param_dim`` (default ``dim``) is split over the ranks (``sh``, the
+    parameter's ``LeafSharding``; None unsharded): the block's sum summed
+    over the group, over the whole dim's size."""
+    pd = dim if param_dim is None else param_dim
+    if sh is None or sh.parts(pd) == 1:
+        return x.mean(dim, keepdim=keepdim)
+    from repro_torch.dist.collectives import all_reduce_
+
+    total = all_reduce_(x.sum(dim, keepdim=keepdim), sh.group(pd))
+    return total / (x.shape[dim] * sh.parts(pd))
+
+
+def _mean_all(x: torch.Tensor, sh) -> torch.Tensor:
+    """The mean over every element of the whole leaf whose block is x."""
+    if sh is None or not sh.split_dims():
+        return torch.mean(x)
+    from repro_torch.dist.collectives import all_reduce_
+
+    total = all_reduce_(x.sum(), sh.data_group())
+    return total / (x.numel() * sh.n_blocks())
+
+
+def _map2(fn, params, grads, states, shards=None):
+    """``fn(p, g, s, sh) -> (new_p, new_s)`` over the parameter leaves (``s``
+    a leaf's state dict, ``sh`` its ``LeafSharding`` or None); returns the
+    two new trees."""
     if isinstance(params, dict):
-        out = {k: _map2(fn, params[k], grads[k], states[k]) for k in params}
+        out = {k: _map2(fn, params[k], grads[k], states[k], None if shards is None else shards[k])
+               for k in params}
         return {k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()}
     if isinstance(params, (tuple, list)):
-        out = [_map2(fn, p, g, s) for p, g, s in zip(params, grads, states)]
+        out = [_map2(fn, p, g, s, None if shards is None else shards[i])
+               for i, (p, g, s) in enumerate(zip(params, grads, states))]
         return type(params)(o[0] for o in out), type(params)(o[1] for o in out)
-    return fn(params, grads, states)
+    return fn(params, grads, states, shards)
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

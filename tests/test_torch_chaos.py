@@ -312,8 +312,18 @@ def test_port_replay_is_bit_identical(runs):
     assert np.isfinite(objs).all() and objs[-1] < objs[0] * 0.8
 
 
-def test_chaos_train_refuses_the_lm_path():
+def test_chaos_train_refuses_the_lm_path(monkeypatch):
+    """``chaos_train --lm`` runs the LM chaos loop (the port's
+    ``TrainerExecutor``; tests/test_torch_chaos_lm.py holds it against the
+    JAX package) on the CPU when asked, and refuses to run it without a card
+    otherwise: it never drops to the CPU on its own.  (Named from before the
+    port had the LM executor, when ``--lm`` was refused outright.)"""
+    import torch
+
     from repro_torch import chaos_train
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chaos_train.main(["--lm", "--device", "cpu"])
+    log = chaos_train.main(["--lm", "--steps", "8", "--device", "cpu"])
+    assert len(log.rows) == 8 and log.meta["mode"] == "lm"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos_train.main(["--lm", "--steps", "8"])

@@ -61,7 +61,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.dist", "repro_torch.dist.partitioning",
                    "repro_torch.dist.treeutil", "repro_torch.dist.collectives",
                    "repro_torch.models.param", "repro_torch.serve.sharding",
-                   "repro_torch.launch.mesh"):
+                   "repro_torch.launch.mesh", "repro_torch.runtime.elastic",
+                   "repro_torch.compression", "repro_torch.compression.gradient"):
         assert module in report["imported"]
 
 
@@ -113,6 +114,10 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: serve.Server("qwen3-14b").generate(np.zeros((1, 4), np.int32), 2),
         lambda: train.main(["--smoke", "--steps", "1"]),
         lambda: train.Trainer(train.TrainerOptions(smoke=True, steps=1)),
+        lambda: train.main(["--smoke", "--steps", "1", "--compression", "int8"]),
+        lambda: train.main(["--chaos", str(tmp_path / "trace.json"), "--steps", "4"]),
+        lambda: train.TrainerExecutor("stablelm-1.6b", 1, ckpt_dir=str(tmp_path / "ex")),
+        lambda: chaos_train.main(["--lm", "--steps", "4"]),
         lambda: tune_cli.main(["--preset", "smoke", "--families", "sdca", "--cache",
                                 str(tmp_path / "t.json")]),
         lambda: tune.ensure("sdca", tune.SWEEP_SHAPES["smoke"]["sdca"],

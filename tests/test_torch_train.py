@@ -224,13 +224,20 @@ def test_data_pipeline_matches_reference():
     assert np.array_equal(got["tokens"], ref.next_batch()["tokens"])
 
 
-def test_trainer_cli_on_the_cpu():
-    last = train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--steps", "3", "--seq-len",
-                           "16", "--global-batch", "2", "--device", "cpu"])
+def test_trainer_cli_on_the_cpu(tmp_path):
+    """The CLI trains, plain and with ``--compression`` (whose metrics are
+    the reference's compression path's, loss and grad_norm); ``--chaos``
+    runs the LM chaos loop on a generated trace (tests/test_torch_chaos_lm.py
+    holds both against the JAX package)."""
+    common = ["--arch", "stablelm-1.6b", "--smoke", "--steps", "3", "--seq-len", "16",
+              "--global-batch", "2", "--device", "cpu"]
+    last = train_cli.main(common)
     assert np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
-    for flag in (["--compression", "int8"], ["--chaos", "trace.json"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu", *flag])
+    last = train_cli.main(common + ["--compression", "int8"])
+    assert set(last) == {"loss", "grad_norm", "step_time"} and np.isfinite(last["loss"])
+    log = train_cli.main(common + ["--chaos", str(tmp_path / "trace.json"),
+                                   "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert len(log.rows) == 3 and (tmp_path / "trace.json").exists()
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "deepseek-moe-16b", "deepseek-v2-236b",
