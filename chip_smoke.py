@@ -39,7 +39,12 @@ each holding half of every layer's heads and channels) at full width, and
 falcon-mamba-7b so at a cut depth; stablelm-1.6b trains with each gradient
 compression scheme, and 2-way on a data mesh (FSDP over "data", two ranks
 sharing the card) at full width and depth, its checkpoint moving between
-data 2 and data 1, and the LM chaos loop drives the smoke trainer.
+data 2 and data 1, and the LM chaos loop drives the smoke trainer; the
+fleet scheduler runs its three scenarios through its CLI, and
+``python -m repro_torch.fleet_day --real-convex`` drives a training job's
+SSP local-SGD executor on K6 at the paper's 60000 x 784 through the 24 h
+day and through the drift and migrate scenarios, whose job the scheduler
+resizes.
 Phases, each of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
@@ -391,13 +396,32 @@ Phases, each of which exits non-zero on failure:
       trace, and ``run_chaos_lm`` on the reference test's crafted 70-step
       trace with its gates (a resize, a mitigation, a restore, the last loss
       below the first by 0.5); K3 and K3-bwd once a layer an executed step.
+  31a. (slice 21) ``python -m repro_torch.launch.fleet`` in process over
+      the day, ``--scenario drift --drift`` and ``--scenario migrate
+      --measured --slo --spans F``: exit 0, each saved log's control
+      sequence its golden fixture's (tests/fixtures/fleet_*_seed0.json),
+      its replay the same signature, the Perfetto schema, no kernel launched;
+  31b. ``fleet_day --real-convex`` over the day, drift and migrate at the
+      example's 256 x 16, on the card and on the CPU from the same draws:
+      the golden control sequence on both, the job's sizes (m 1; 2, 8, 4,
+      2; 4, 2), each tick's objective within 1e-5 rel of the CPU's, every
+      restore placing the checkpointed bits;
+  31c. main path 15: ``python -m repro_torch.fleet_day --real-convex --n
+      60000 --d 784 --scenario S`` in process for the day, drift and
+      migrate: each run's acceptance, replay and golden checks, the job's
+      sizes, its objective finite and falling, K6's launches = the outer
+      steps and no other kernel's; then 31b's check at 60000 x 784, K6
+      against its plain version one step from each run's last iterate at
+      each m (1e-5 of the largest entry), and its us a step at each m,
+      eager (``cuda_ms``) and from a CUDA graph; each phase's wall seconds
+      printed.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's,
 K2-latent's and K4's ``launches`` sum their paths', ``launches_by_path``
 (``serve_router``: main path 12's run, or 28b's for K4; ``serve_tp``: main
 path 13's, or 13b's for K4, summed over its two ranks); K6's row,
 ``local_sgd``, replaces the reference's compiled ``lax.scan``, no Pallas
-kernel, and counts its launches on the menu and chaos paths; K4's decode body
+kernel, and counts its launches on the menu, chaos and fleet paths; K4's decode body
 has a row of its own, ``selective_scan_step``, K3 at (192, 128) one,
 ``flash_fwd_mla``, and K2-latent at full rows one,
 ``paged_latent_decode_full``; K3-bwd's launches, ``flash_bwd_dq``,
@@ -423,6 +447,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+STARTED = time.perf_counter()
 
 # H100 SXM, NVIDIA's data sheet: HBM3 rate, float32 rate outside the tensor
 # cores, and the dense bf16 tensor-core rate, at the full 700 W power limit.
@@ -520,7 +545,8 @@ def fail(message: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Prints the phase's name and the seconds since the script started."""
+    print(f"== {name}  [{time.perf_counter() - STARTED:.1f} s]", flush=True)
 
 
 def kernel_wrappers():
@@ -1207,24 +1233,28 @@ def menu_path(dev, problem, p_star) -> int:
     return counts["local_sgd"]
 
 
+def cpu_ssp_draws(t, m, h, nl):
+    """SSPLocalSGD's draws of outer step t made on the CPU (its own rule,
+    ``step_seed``), so that the card and the CPU run the same rows."""
+    import torch
+
+    from repro_torch.optim.simcluster import step_seed
+
+    return torch.randint(0, nl, (m, h), generator=torch.Generator().manual_seed(
+        step_seed(0, t)))
+
+
 def chaos_path(dev) -> int:
     """Phase 7d.  A small-input check of the chaos loop (the card against
     the CPU on the same draws), then the main path: ``python -m
     repro_torch.chaos_train --seed 0`` in process on the card, run and
     replay.  Returns K6's launches on it."""
-    import torch
-
     from repro_torch import chaos_train
-    from repro_torch.optim.simcluster import step_seed
     from repro_torch.runtime.chaos import run_chaos_sim
 
     phase("small-input check: the chaos loop on the card vs the CPU, 60 steps, the same draws")
-
-    def cpu_draws(t, m, h, nl):
-        return torch.randint(0, nl, (m, h), generator=torch.Generator().manual_seed(
-            step_seed(0, t)))
-
-    card, cpu = (run_chaos_sim(0, steps=60, device=d, indices=cpu_draws) for d in (dev, "cpu"))
+    card, cpu = (run_chaos_sim(0, steps=60, device=d, indices=cpu_ssp_draws)
+                 for d in (dev, "cpu"))
     for got, want in zip(card.rows, cpu.rows):
         if any(got.get(k) != want.get(k) for k in ("m", "events", "mitigation", "decision",
                                                       "restore")) or \
@@ -5235,6 +5265,299 @@ def chaos_lm_path(workdir: Path) -> dict:
         fail(f"--chaos ran {len(runs[0][1].rows)} steps, not {CHAOS_CLI_STEPS}")
     return counts
 
+# ------------------------------------------------------- the fleet (slice 21)
+# Main path 15 (phases 31a-31c).  31a: the fleet CLI over its three scenarios
+# (argv, the golden fixture its control sequence must equal); the migrate run
+# also writes spans and streams the SLO monitor.  31b: fleet_day
+# --real-convex over its three scenarios at the example's 256 x 16 on the
+# card against the CPU on the same draws (phase 7d's bound: the same SGD
+# chain in float32, its dot summed in another order).  31c: the same three
+# at the paper's 60000 x 784, on the card's own draws (the main path), then
+# on the CPU's against the CPU, and K6 against its plain version at each m.
+FLEET_CLI_RUNS = ((["--scenario", "day"], "fleet_golden_seed0.json"),
+                  (["--scenario", "drift", "--drift"], "fleet_drift_seed0.json"),
+                  (["--scenario", "migrate", "--measured", "--slo"],
+                   "fleet_migration_seed0.json"))
+FLEET_OBJ_RTOL = 1e-5
+FLEET_PAPER = dict(n=60000, d=784)
+# fleet_day's scenario -> the sizes its training job runs at, in order, at
+# seed 0: the day's job_sweep at one, the others resized by the scheduler
+FLEET_SIZES = {"day": [1], "drift": [2, 8, 4, 2], "migrate": [4, 2]}
+
+
+@contextlib.contextmanager
+def recording_ssp():
+    """``SSPLocalSGD`` swapped for a subclass that records, for the executors
+    fleet_day builds meanwhile: each outer step's (t, m) and objective, and
+    for each restore whether the iterate placed is the checkpoint's bits."""
+    import torch
+
+    from repro_torch.optim import simcluster
+
+    record = {"executors": [], "steps": [], "objectives": [], "restores": []}
+
+    class Recording(simcluster.SSPLocalSGD):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            record["executors"].append(self)
+
+        def restore(self):
+            super().restore()
+            saved = self._ckpt[0]
+            record["restores"].append((self.t, torch.equal(
+                self.w.cpu().view(torch.int32), saved.view(torch.int32))))
+
+        def outer_step(self, sync_mask=None):
+            record["steps"].append((self.t, self.m))
+            record["objectives"].append(super().outer_step(sync_mask))
+            return record["objectives"][-1]
+
+    original = simcluster.SSPLocalSGD
+    simcluster.SSPLocalSGD = Recording
+    try:
+        yield record
+    finally:
+        simcluster.SSPLocalSGD = original
+
+
+def size_runs(steps) -> list:
+    """The sizes (m) of successive outer steps, each run of one size once."""
+    return [m for i, (_, m) in enumerate(steps) if i == 0 or steps[i - 1][1] != m]
+
+
+def job_objectives(log, scenario: str) -> list:
+    """The objective of the scenario's training job in each row of the run
+    log (None where it took no outer step)."""
+    from repro_torch import fleet_day
+
+    job = fleet_day.SCENARIOS[scenario][2]
+    return [r["jobs"][job].get("obj") for r in log.rows]
+
+
+def quiet_call(fn, argv, out: Path):
+    """``fn(argv)`` with its standard output written to ``out``; prints the
+    output's lines but the per-tick decisions.  Returns what fn returns."""
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        result = fn(argv)
+    out.write_text(text.getvalue())
+    print("\n".join(line for line in text.getvalue().splitlines()
+                    if not line.startswith("    tick")))
+    return result
+
+
+def golden_fleet_log(name: str):
+    from repro_torch.fleet import FleetRunLog
+
+    return FleetRunLog.load(ROOT / "tests" / "fixtures" / name)
+
+
+def fleet_cli_path(workdir: Path) -> dict:
+    """Phase 31a: ``python -m repro_torch.launch.fleet`` in process over
+    the three scenarios, the migrate run with ``--spans`` and ``--slo``: exit
+    0 (the CLI checks its replay), each saved log's control sequence the
+    golden fixture's and its replay the same signature, the Perfetto file's
+    schema, no kernel launched (the fleet touches no device).  The CLI's
+    output goes to a file beside the log; its summary lines are printed.
+    Returns the wall seconds of each run."""
+    from repro_torch.fleet import FleetRunLog, replay
+    from repro_torch.launch import fleet as fleet_cli
+    from repro_torch.telemetry.trace import load_perfetto, validate_perfetto
+
+    seconds = {}
+    spans = workdir / "fleet_spans.json"
+    for argv, golden in FLEET_CLI_RUNS:
+        scenario = argv[1]
+        out = workdir / f"fleet_{scenario}.json"
+        argv = argv + ["--out", str(out)] + (["--spans", str(spans)] if scenario == "migrate"
+                                             else [])
+        phase(f"31a: python -m repro_torch.launch.fleet {' '.join(argv)}")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = quiet_call(fleet_cli.main, argv, workdir / f"fleet_{scenario}.txt")
+        seconds[scenario] = time.perf_counter() - t0
+        counts = read_launches()
+        if rc != 0 or any(counts.values()):
+            fail(f"31a ({scenario}): exit {rc}, launches {counts}")
+        log = FleetRunLog.load(out)
+        if log.control_signature() != golden_fleet_log(golden).control_signature():
+            fail(f"31a ({scenario}): the control sequence is not {golden}'s")
+        if replay(log).signature() != log.signature():
+            fail(f"31a ({scenario}): the saved log does not replay")
+        print(f"{scenario}: {len(log.rows)} ticks, {log.n_decisions()} decisions, the control "
+              f"sequence {golden}'s, replay identical, {seconds[scenario]:.2f} s")
+    payload = load_perfetto(spans)
+    n_spans = sum(1 for r in payload["traceEvents"] if r.get("ph") == "X")
+    errs = validate_perfetto(payload)
+    if errs or not n_spans:
+        fail(f"31a: the fleet's Perfetto file: {n_spans} spans, problems {errs[:5]}")
+    print(f"{spans.name}: {n_spans} spans, the Perfetto schema holds")
+    return seconds
+
+
+def fleet_day_vs_cpu(dev, what: str, n: int, d: int) -> dict:
+    """``fleet_day``'s three scenarios with their training job on
+    SSPLocalSGD over an n x d problem, on the card and on the CPU from the
+    same draws (``cpu_ssp_draws``): the golden control sequence on both, the
+    same (t, m) a step and the sizes FLEET_SIZES gives (every resize
+    re-partitions), each tick's objective within FLEET_OBJ_RTOL of the
+    CPU's, every restore placing the checkpointed bits.  Returns the wall
+    seconds, the worst relative gap and the card's executors."""
+    import torch
+
+    from repro_torch import fleet_day
+
+    t0 = time.perf_counter()
+    worst, executors = 0.0, {}
+    for scenario, sizes in FLEET_SIZES.items():
+        golden = golden_fleet_log(fleet_day.SCENARIOS[scenario][3]).control_signature()
+        runs = {}
+        for where in (dev, "cpu"):
+            with recording_ssp() as record:
+                log, executor = fleet_day.run_day(0, scenario=scenario, real_convex=True,
+                                                  n=n, d=d, device=where,
+                                                  indices=cpu_ssp_draws)
+            if executor.problem.device.type != torch.device(where).type:
+                fail(f"{what} ({scenario}): the executor ran on {executor.problem.device}, "
+                     f"not {where}")
+            if log.control_signature() != golden:
+                fail(f"{what} ({scenario}): the control sequence on {where} is not the golden's")
+            runs[str(where)] = (log, record)
+        (card, card_rec), (cpu, cpu_rec) = runs[str(dev)], runs["cpu"]
+        if card_rec["steps"] != cpu_rec["steps"] or size_runs(card_rec["steps"]) != sizes:
+            fail(f"{what} ({scenario}): the card stepped at sizes {size_runs(card_rec['steps'])},"
+                 f" the CPU at {size_runs(cpu_rec['steps'])}, expected {sizes}")
+        got, want = job_objectives(card, scenario), job_objectives(cpu, scenario)
+        if [g is None for g in got] != [w is None for w in want]:
+            fail(f"{what} ({scenario}): the objective is in other rows on the card than on "
+                 "the CPU")
+        gap = max(abs(g - w) / abs(w) for g, w in zip(got, want) if w is not None)
+        if not gap <= FLEET_OBJ_RTOL:
+            fail(f"{what} ({scenario}): objectives part from the CPU's: max rel {gap:.3g}")
+        restores = card_rec["restores"] + cpu_rec["restores"]
+        if not all(same for _, same in restores):
+            fail(f"{what} ({scenario}): restores {restores}: the iterate placed is not the "
+                 "checkpoint's bits")
+        worst = max(worst, gap)
+        executors[scenario] = card_rec["executors"][0]
+        print(f"{what} ({scenario}): {len(card_rec['steps'])} outer steps at m {sizes}, the "
+              f"golden control sequence on both, objectives within {gap:.3g} rel of the CPU's "
+              f"({card_rec['objectives'][0]:.7f} -> {card_rec['objectives'][-1]:.7f}), "
+              f"{len(card_rec['restores'])} restore(s) a run at the checkpointed bits")
+    seconds = time.perf_counter() - t0
+    print(f"{what}: {seconds:.2f} s for the six runs")
+    return {"seconds": seconds, "max_rel_gap": worst, "executors": executors}
+
+
+def fleet_k6_vs_plain_and_times(executors) -> tuple:
+    """K6 against its plain version at the shapes main path 15 gives it (h
+    = 1, the smooth hinge, each m the scenarios ran, the paper's 60000 x
+    784), from each run's last iterate and step count, within
+    LOCAL_SGD_RTOL_OF_MAX of the largest entry; then its time a step at each
+    m, eager (``cuda_ms``, the wrapper's host time in it) and from a CUDA
+    graph (the device's).  Returns the largest absolute error and the times
+    by m."""
+    import torch
+
+    from repro_torch.kernels.local_sgd import ops
+    from repro_torch.kernels.local_sgd.ref import local_sgd_ref
+    from repro_torch.optim.cocoa import partition
+
+    err, times = 0.0, {}
+    for scenario, sizes in FLEET_SIZES.items():
+        executor = executors[scenario]
+        p = executor.problem
+        for m in sorted(set(sizes)):
+            Xs, ys = partition(p.X, p.y, m)
+            W0 = executor.w.expand(m, -1).contiguous()
+            idx = cpu_ssp_draws(executor.t, m, 1, Xs.shape[1]).to(p.device)
+            args = (W0, Xs, ys, idx, float(executor.t), 1, executor.lr0, executor.t0, p.lam,
+                    p.loss, p.smooth_gamma)
+            got = ops.local_sgd(*args)
+            torch.cuda.synchronize()
+            want = local_sgd_ref(*args)
+            e = float((got - want).abs().max())
+            limit = LOCAL_SGD_RTOL_OF_MAX * float(want.abs().max())
+            step = float((want - W0).abs().max())  # the comparison must see the step
+            if not (e <= limit < step):
+                fail(f"31c: local_sgd smooth_hinge m={m} d={p.d} h=1 t={executor.t} "
+                     f"({scenario}'s last iterate): max|dW| {e:.3e}, limit {limit:.3e}, "
+                     f"the step's largest change {step:.3e}")
+            err = max(err, e)
+            if m not in times:
+                def call():
+                    return ops.local_sgd(*args)
+
+                times[m] = {"eager_us": 1e3 * cuda_ms(call, reps=200),
+                            "graph_us": 1e3 * graph_ms(call, reps=200)}
+    n, d = executors["day"].problem.X.shape
+    print(f"31c: K6 at m {sorted(times)} ({n} x {d}, h 1, smooth hinge) against its plain "
+          f"version: max|dW| {err:.3e} (limit {LOCAL_SGD_RTOL_OF_MAX} max|W|); us a step "
+          f"{json.dumps(times)}")
+    return err, times
+
+
+def fleet_day_path(workdir: Path, dev) -> dict:
+    """Phase 31c, main path 15: ``python -m repro_torch.fleet_day
+    --real-convex --n 60000 --d 784 --scenario S`` in process on the card
+    for the day, drift and migrate, the example's loss and lambda at the
+    paper's size: exit 0 (each run's acceptance, its replay and the golden
+    control sequence, which fleet_day checks), the training job's sizes
+    FLEET_SIZES's, its objective finite and falling, K6's launches equal to
+    the outer steps run and no other kernel's.  Then the check at the same
+    size on the CPU's draws against the CPU, and K6 against its plain version
+    and timed at each m.  Returns the launches, steps, errors and times."""
+    from repro_torch import fleet_day
+
+    phase("main path 15: python -m repro_torch.fleet_day --real-convex --n 60000 --d 784 "
+          "--scenario day|drift|migrate")
+    paper = ["--real-convex", "--n", str(FLEET_PAPER["n"]), "--d", str(FLEET_PAPER["d"])]
+    runs, seconds = {}, {}
+    reset_launches()
+    for scenario in FLEET_SIZES:
+        with recording_ssp() as record:
+            t0 = time.perf_counter()
+            log = quiet_call(fleet_day.main, paper + ["--scenario", scenario],
+                             workdir / f"fleet_day_paper_{scenario}.txt")
+            seconds[scenario] = time.perf_counter() - t0
+        runs[scenario] = (log, record)
+    counts = read_launches()
+    outer_steps = sum(len(record["steps"]) for _, record in runs.values())
+    expected = {name: 0 for name in counts}
+    expected["local_sgd"] = outer_steps
+    if counts != expected or not outer_steps:
+        fail(f"main path 15: launches {counts}, expected {outer_steps} of local_sgd")
+    summary = {}
+    for scenario, (log, record) in runs.items():
+        golden = golden_fleet_log(fleet_day.SCENARIOS[scenario][3]).control_signature()
+        if log.control_signature() != golden:
+            fail(f"main path 15 ({scenario}): the control sequence is not the golden's")
+        if size_runs(record["steps"]) != FLEET_SIZES[scenario]:
+            fail(f"main path 15 ({scenario}): sizes {size_runs(record['steps'])}, expected "
+                 f"{FLEET_SIZES[scenario]}")
+        objs = record["objectives"]
+        if [o for o in job_objectives(log, scenario) if o is not None][-1] != round(objs[-1], 9) \
+                or not all(math.isfinite(o) for o in objs) or not objs[-1] < objs[0]:
+            fail(f"main path 15 ({scenario}): objectives {objs[:3]} ... {objs[-3:]}")
+        if not all(same for _, same in record["restores"]):
+            fail(f"main path 15 ({scenario}): a restore placed other bits than the checkpoint's")
+        summary[scenario] = {"seconds": seconds[scenario], "outer_steps": len(record["steps"]),
+                             "m": FLEET_SIZES[scenario], "restores": len(record["restores"]),
+                             "objective_first": objs[0], "objective_last": objs[-1]}
+    print(f"main path 15: launches {counts}, {outer_steps} outer steps; {json.dumps(summary)}")
+
+    phase("31c: fleet_day --real-convex at 60000 x 784 on the card vs the CPU, the same draws; "
+          "K6 vs plain at each m")
+    check = fleet_day_vs_cpu(dev, "31c", **FLEET_PAPER)
+    err, times = fleet_k6_vs_plain_and_times(check["executors"])
+    return {"launches": counts["local_sgd"], "outer_steps": outer_steps, "runs": summary,
+            "seconds": sum(seconds.values()), "check_seconds": check["seconds"],
+            "max_rel_gap": check["max_rel_gap"], "max_abs_err": err,
+            "k6_us_a_step_by_m": times}
+
+
 def main() -> None:
     import torch
 
@@ -5434,6 +5757,19 @@ def main() -> None:
                    training_fsdp_one_card={k: fsdp["single"][k] + fsdp["mesh_1x1"][k]
                                            for k in fsdp["single"]},
                    training_elastic=elastic_path(workdir), chaos_lm=chaos_lm_path(workdir))
+
+    # slice 21: the fleet (phases 31a-31c, main path 15)
+    fleet_seconds = fleet_cli_path(workdir)
+    phase("31b: small-input check, fleet_day --real-convex at 256 x 16 on the card vs the CPU, "
+          "the same draws, the day, drift and migrate")
+    fleet_seconds["31b"] = fleet_day_vs_cpu(dev, "31b", n=256, d=16)["seconds"]
+    fleet = fleet_day_path(workdir, dev)
+    fleet_seconds.update({"31c": fleet["seconds"], "31c_check": fleet["check_seconds"]})
+    print(f"31a-31c wall s: {json.dumps(fleet_seconds)}")
+    k6["launches_by_path"]["fleet"] = fleet["launches"]
+    k6["launches"] = sum(k6["launches_by_path"].values())
+    k6["max_abs_err"] = max(k6["max_abs_err"], fleet["max_abs_err"])
+    k6["fleet_us_a_step_by_m"] = fleet["k6_us_a_step_by_m"]
 
     by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
                                 training_moe=moe_counts["flash_fwd"],

@@ -3,6 +3,8 @@
 and a comparison to one bf16 ulp.  JAX is imported where it is used, so the
 card's tests, which run without JAX, can import this module.
 """
+import functools
+
 import numpy as np
 
 
@@ -52,10 +54,21 @@ def reference_ssp_indices(seed: int, t: int, m: int, h: int, nl: int) -> np.ndar
     """The (m, h) rows ``repro.optim.simcluster.SSPLocalSGD`` draws in outer
     step t (``fold_in(PRNGKey(seed), t)`` split over the workers, ``randint``
     each: simcluster.py:55-60, :155)."""
+    return np.array(_ssp_draw(seed, m, h, nl)(t))
+
+
+@functools.lru_cache(maxsize=None)
+def _ssp_draw(seed: int, m: int, h: int, nl: int):
+    """``reference_ssp_indices`` at one (seed, m, h, nl), jitted over t (a
+    loop of the fleet's or the chaos loop's outer steps calls it once a
+    step)."""
     import jax
 
-    keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), t), m)
-    return np.array(jax.vmap(lambda k: jax.random.randint(k, (h,), 0, nl))(keys))
+    def draw(t):
+        keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), t), m)
+        return jax.vmap(lambda k: jax.random.randint(k, (h,), 0, nl))(keys)
+
+    return jax.jit(draw)
 
 
 def randomize_qkv_bias(params, seed: int = 0):

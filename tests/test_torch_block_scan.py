@@ -24,6 +24,7 @@ grouping shows as errors of the order of the values.  Bitwise: the identity and 
 n - 1 does not depend on the padded length; and the decode body repeats the
 tile body's operations at S = 1.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ restores, and are held at OBJ_RTOL = 1e-5.  The loop's control sequence
 through the controller's convergence refits, and is held exactly; a
 decision that flipped at a near tie would show here as a control mismatch.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import json
 
 import jax.numpy as jnp

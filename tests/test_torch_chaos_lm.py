@@ -22,6 +22,7 @@ the JAX package, on the CPU.
 * ``chaos_train --lm`` and the trainer CLI's ``--chaos`` run (a short
   generated trace).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

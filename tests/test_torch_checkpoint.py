@@ -16,6 +16,7 @@ values); ``run()`` survives a simulated failure the same way.  A torn
 shard raises ``CorruptCheckpoint`` or, with fallback, restores the previous
 complete step; a format-1 step reads.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 import io
 import json

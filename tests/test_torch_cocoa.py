@@ -10,6 +10,7 @@ but leaves the objectives close.  The gap is the difference of two float32
 objectives, each rounded to its own last bit, so where it is small it also
 gets an absolute floor of four float32 spacings of the primal.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,7 @@ CPU in float32.
   grad norms within 1e-4 relative over 3 steps.  One reference run a
   scheme, module-scoped.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax.numpy as jnp

@@ -19,6 +19,7 @@ against the port's own prefill, in the configs' bf16: the reference test's
 bf16 differences ride the residual stream), with the MoE at the reference
 test's ``capacity_factor=100``.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

@@ -18,6 +18,7 @@ read only the mesh's axis names, sizes and this rank's coordinates).
   blocks put back together, and placed again at data 1 and at data 2: the
   same bits each time.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 import functools
 

@@ -8,6 +8,7 @@ XLA and PyTorch, so atol 1e-5 on outputs of size about 1.  bf16 inputs and
 outputs: the float32 arithmetic inside differs in its last bits, which can
 move the final rounding to bf16 by one step, so one bf16 ulp of the output.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ A case's head dim is D (equal key and value dims) or a pair (DK, DV): the
 smoke deepseek-v2's (24, 16), (48, 32), and MLA's (192, 128), whose
 backward the reference takes with ``dv_dim = v.shape[3]`` (``ops.py:122``).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

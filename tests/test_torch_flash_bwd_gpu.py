@@ -19,6 +19,7 @@ ulps; so one bf16 ulp of the element plus 2^-12 of the tensor's max |value|
 (chip_smoke.py states the same limit).  A fault (a wrong mask, tile or
 fragment) shows as errors of the order of the values.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import pytest
 import torch
 

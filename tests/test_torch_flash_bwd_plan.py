@@ -19,6 +19,7 @@ within ``ATOL_VJP`` (2e-5, as ``tests/test_torch_flash_bwd.py`` states for
 gradients of magnitude up to about 6) of both ``flash_bwd_ref`` and the JAX
 package's custom VJP (``_flash_bwd``).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import heapq
 
 import jax

@@ -15,6 +15,7 @@ last-bit difference may move the rounding by one step).  A row of length 0
 is held exactly: zeros for K5, the mean of V for ``decode_attention``, as in
 the reference.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

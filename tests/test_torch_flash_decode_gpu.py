@@ -18,6 +18,7 @@ reason).  K4 across d_block and chunk: bit for bit, since its grouping in
 time is fixed (tiles of 256 positions from position 0) and the chunk is the
 reference's argument, which it does not use.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import pytest
 import torch
 

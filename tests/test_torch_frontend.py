@@ -20,6 +20,7 @@ most).  Token streams in float32, as
 tests/test_torch_serve_engine.py: identical, every step's logits within
 atol 1e-4, and the smallest top-1/top-2 margin of the reference's above it.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

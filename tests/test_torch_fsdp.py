@@ -38,6 +38,7 @@ All the module's two-rank cases run in one spawned group (a module
 fixture), each rank on one thread, its rendezvous file under a temporary
 directory, never a fixed port.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

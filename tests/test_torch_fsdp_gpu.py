@@ -14,6 +14,7 @@ smoke trainers on the card against the CPU, chip_smoke.py's
 TRAIN_LOSS_RTOL): both round every activation to bf16, and the mesh sums the
 loss shares, the gradients and the norm in another order.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import pytest
 import torch
 

@@ -8,6 +8,7 @@ curves give the planner the same decisions.  With the port's own measured
 times (here on the CPU, through the plain SDCA loop) both queries stay
 feasible.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

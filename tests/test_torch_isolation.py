@@ -1,5 +1,6 @@
 """The port stands alone: it loads no JAX and nothing of the JAX package, and
 its entry points never drop to the CPU on their own."""
+import _torch_threads  # sets this worker's torch threads
 import json
 import os
 import subprocess
@@ -62,7 +63,11 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.dist.treeutil", "repro_torch.dist.collectives",
                    "repro_torch.models.param", "repro_torch.serve.sharding",
                    "repro_torch.launch.mesh", "repro_torch.runtime.elastic",
-                   "repro_torch.compression", "repro_torch.compression.gradient"):
+                   "repro_torch.compression", "repro_torch.compression.gradient",
+                   "repro_torch.fleet", "repro_torch.fleet.cluster",
+                   "repro_torch.fleet.workloads", "repro_torch.fleet.scheduler",
+                   "repro_torch.fleet.simulate", "repro_torch.launch.fleet",
+                   "repro_torch.fleet_day"):
         assert module in report["imported"]
 
 
@@ -81,7 +86,7 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_raise_without_a_card(no_card, tmp_path):
-    from repro_torch import chaos_train, quickstart
+    from repro_torch import chaos_train, fleet_day, quickstart
     from repro_torch.configs import cocoa_mnist
     from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
     from repro_torch.configs import get_smoke_config
@@ -126,6 +131,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: run_chaos_sim(0, steps=20),
         lambda: mesh.rank_device(1),
         lambda: mesh.init_distributed(0, 1, str(tmp_path / "rendezvous")),
+        lambda: fleet_day.main(["--real-convex", "--no-replay"]),
+        lambda: fleet_day.main(["--scenario", "drift", "--real-convex", "--no-replay"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -133,7 +140,7 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
 
 
 def test_explicit_cpu_runs_without_a_card(no_card, tmp_path, capsys):
-    from repro_torch import chaos_train, quickstart
+    from repro_torch import chaos_train, fleet_day, quickstart
     from repro_torch.runtime.chaos import ChaosRunLog, run_chaos_sim
 
     result = quickstart.main(["--device", "cpu", "--n", "256", "--d", "8",
@@ -149,3 +156,50 @@ def test_explicit_cpu_runs_without_a_card(no_card, tmp_path, capsys):
     assert "steps=40 " in out and "replay: identical" in out
     assert ChaosRunLog.load(tmp_path / "run.json").signature() == log.signature()
     assert run_chaos_sim(1, steps=40, device="cpu").signature() == log.signature()
+
+    log = fleet_day.main(["--real-convex", "--device", "cpu", "--no-replay"])
+    out = capsys.readouterr().out
+    assert "acceptance: all serve SLOs met" in out
+    assert any("obj" in r["jobs"]["job_sweep"] for r in log.rows)
+    log = fleet_day.main(["--scenario", "migrate", "--real-convex", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "golden: matches" in out
+    assert {r["jobs"]["job_mig"]["m"] for r in log.rows if "obj" in r["jobs"]["job_mig"]} \
+        - {0} == {2, 4}  # 0 once done
+
+
+def test_fleet_cli_makes_no_cuda_call(monkeypatch, capsys, tmp_path):
+    """The fleet, its CLI and its scenarios touch no device: any CUDA call
+    (a query, an initialisation, a tensor on the card) raises here."""
+    from repro_torch.launch import fleet
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fleet CLI made a CUDA call")
+
+    for name in ("is_available", "device_count", "init", "_lazy_init", "synchronize",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    spans = tmp_path / "spans.json"
+    assert fleet.main(["--scenario", "migrate", "--measured", "--slo",
+                       "--spans", str(spans)]) == 0
+    assert fleet.main(["--ticks", "24"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("replay: identical") == 2 and spans.exists()
+
+
+def test_torch_threads_are_the_workers_share():
+    """Under xdist each worker runs torch on its share of the cores
+    (tests/_torch_threads.py); the helper's rule, and its effect in a fresh
+    interpreter told it is one of 4 workers."""
+    cores = os.cpu_count() or 1
+    assert _torch_threads.worker_threads({}) is None
+    assert _torch_threads.worker_threads({"PYTEST_XDIST_WORKER_COUNT": "6"}) == max(1, cores // 6)
+    assert _torch_threads.worker_threads({"PYTEST_XDIST_WORKER_COUNT": str(4 * cores)}) == 1
+    if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+        assert torch.get_num_threads() == _torch_threads.worker_threads()
+    env = dict(os.environ, PYTEST_XDIST_WORKER_COUNT="4")
+    out = subprocess.run([sys.executable, "-c", "import _torch_threads, torch; "
+                          "print(torch.get_num_threads())"], env=env,
+                         cwd=ROOT / "tests", capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert int(out.stdout.split()[-1]) == max(1, cores // 4)

@@ -29,6 +29,7 @@ from it, and the splits' merge adds one rescale per split.  So 2^-16 max|v|
 (v the latent pool), twice that.  The single-p check uses the card's
 tolerance on bf16 outputs: one bf16 ulp of the output beyond 2^-14 max|v|.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

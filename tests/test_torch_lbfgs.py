@@ -13,6 +13,7 @@ iterates wander along the flattest directions by up to 5e-4 of max |w|
 while the objective does not move: there only the primal curve is held, at
 the same rtol 1e-6.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -24,6 +24,7 @@ bf16 it is held to the port's own guarantees instead
 tests/test_torch_train.py's gradient the same bits twice).  The frontend
 archs: tests/test_torch_frontend.py.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

@@ -26,6 +26,7 @@ forty times a round, a shard that is not 16-byte aligned (the 4-byte copy
 route, the same bits as the bulk route), SSP's stale start vectors at the
 paper's d, and the library's plan against ``ops.kernel_plan``.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import ctypes
 
 import pytest

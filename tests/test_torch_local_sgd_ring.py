@@ -31,6 +31,7 @@ ring, loading their rows straight into registers; the ring's code takes any
 round, and the model runs it for every length.  The kernel itself is held
 against ``local_sgd_ref`` on the card (``tests/test_torch_local_sgd_gpu.py``).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

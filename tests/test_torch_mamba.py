@@ -17,6 +17,7 @@ The reference cannot serve a prompt shorter than ``d_conv - 1`` = 3 tokens
 (see ``test_short_prompts_prefill_state_is_the_token_by_token_decode``), so
 the comparisons with it use longer prompts.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

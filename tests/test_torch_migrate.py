@@ -25,6 +25,7 @@ Identity surfaces:
   used destination; a replica out of range) and the port's (another
   ``LM``, paged-decode implementation or ``pages_per_program``).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 from functools import lru_cache
 

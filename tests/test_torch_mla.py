@@ -11,6 +11,7 @@ both sides round activations to bf16 at places the two frameworks choose
 differently, so logits within 3% of the largest logit's magnitude and their
 mean difference within 0.5% (as tests/test_torch_lm.py).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 import functools
 

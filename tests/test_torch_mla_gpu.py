@@ -21,6 +21,7 @@ bf16 once, so one bf16 ulp of the output plus 2^-14 of max|v| (v is the
 latent pool for K2's latent form; chip_smoke.py states the reason).  The
 MoE's row stability is bitwise.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import numpy as np

@@ -12,6 +12,7 @@ both sides pick the same experts, checked separately.  bf16: one rounding
 of each product's output and of the result moves by a bf16 step where the
 float32 sums differ, so within 2^-7 of the largest magnitude.  Row stability is bitwise, inside the port.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

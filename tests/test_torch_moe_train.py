@@ -12,6 +12,7 @@ another order, so values within 1e-5 of the largest magnitude and gradients
 within 1e-4 of each leaf's largest (``tests/test_torch_train.py``'s bound);
 the routing (ids, and so which assignments drop) exactly.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ online softmax, summed in another order by XLA and PyTorch); inside the port
 ``stream`` and ``gather`` are bitwise equal, as DESIGN.md §10 requires of the
 reference's pair.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

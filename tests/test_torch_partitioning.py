@@ -14,6 +14,7 @@ the reference's ``ann(...)`` trees.
   ``PartitionSpec`` at the leaf's shape.  No processes: Rules read only the
   mesh's axis names and sizes.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import numpy as np
 import pytest
 from hypothesis import given, settings

@@ -5,6 +5,7 @@ Objectives and gradients at the same (w, a) are float32 reductions taken in
 another order by XLA and by PyTorch, so they agree to rtol 1e-5; gradient
 entries near zero get an absolute floor of 1e-5 times the largest entry.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ The module is numpy arithmetic on the host, copied unchanged, and the models
 it refits are the port's copies of the reference's (Ernest's NNLS, the
 capacity planner): so the events and coefficients are held bit for bit.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import numpy as np

@@ -20,6 +20,7 @@ Identity surfaces:
   logits bit for bit one engine's (the engine's slot independence);
 * the reference's rejections of a bad fleet.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 from functools import lru_cache
 

@@ -7,6 +7,7 @@ two dot products of each step, which XLA and PyTorch sum in another order.
 The H dependent steps compound that last-bit difference, so ``a`` and ``dw``
 are held to atol 1e-5.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ step's sums, the more so: at d = MAX_D (12224) and lam n = 0.8 they differ
 by 7.7e-6 max |dw|, as much as the kernel differs from the plain version
 there, so that case runs at lam 1e-3 (lam n = 8).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import pytest
 import torch
 

@@ -22,6 +22,7 @@ steps compound that; the model shows the limits cover the new order over a
 long chain, where a fault of order shows as errors of the order of the
 values.  The kernel itself is held against ``local_sdca_ref`` on the card.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

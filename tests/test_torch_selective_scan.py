@@ -16,6 +16,7 @@ The two cases draw dt as softplus(normal) (large steps, fast decay) and as
 softplus(normal - 4) (the small steps of a Mamba model, slow decay, long
 memory).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

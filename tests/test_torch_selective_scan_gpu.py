@@ -25,6 +25,7 @@ shows as errors of the order of the values.  Bitwise: a padded position
 after position n - 1 has the same bits at every padded length; every
 d_block (the tuner's knob) gives the same bits.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import numpy as np
 import pytest
 import torch

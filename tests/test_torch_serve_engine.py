@@ -40,6 +40,7 @@ whole-prompt reuse, which restores the recurrent state, bitwise equal to
 the first serving of the prompt, as ``tests/test_serve.py`` holds the
 reference.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

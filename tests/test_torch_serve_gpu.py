@@ -25,6 +25,7 @@ of DK products, each within DK float32 epsilons of it); P V within 2^-16 of
 max|v| times the largest row sum of p (the split's 2^-17 and the float32
 sums).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,7 @@ chunks that straddle a prefill row block; a folded verify row against a
 decode-shaped call at its length.  Then the reference file's scheduler and
 proposer cases, ported.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

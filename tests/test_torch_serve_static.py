@@ -8,6 +8,7 @@ bf16 the reference's greedy logits can tie exactly, and equal bf16 streams
 would be an unfair demand; in float32 the LM agrees to about 1e-6
 (tests/test_torch_lm.py), so the token streams must be identical.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 from types import SimpleNamespace
 

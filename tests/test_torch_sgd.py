@@ -34,6 +34,7 @@ What differs from the reference, and so each tolerance:
   tolerance.  The smooth hinge runs at gamma 1 (the ERMProblem default and
   the chaos run's), where the same change moves w by under 1e-5.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

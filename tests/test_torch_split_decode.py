@@ -25,6 +25,7 @@ split's merge adds one rescale per split); the p split's error is bounded by
 2^-17 of each p (two bf16 roundings), so 2^-16 max|v| of a softmax-weighted
 output.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

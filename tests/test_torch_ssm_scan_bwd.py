@@ -23,6 +23,7 @@ padded position's gradients are exactly 0; the 16-lane scans give the
 32-lane scans' states and adjoint (up to the sign of a zero); the channel
 order's model gives the plain version's sums.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

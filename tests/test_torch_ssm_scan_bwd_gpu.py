@@ -24,6 +24,7 @@ that moved).  A fault (a wrong tile, lane or carry) shows as errors of the
 order of the values.  Bitwise: two launches, every K4 d_block's tile
 states, and the forward's y and h with and without its tile states.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import numpy as np

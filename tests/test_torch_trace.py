@@ -12,6 +12,7 @@ tune events) and ``format_attribution``'s text, and the SLO monitors' alerts
 (field for field) on a healthy and a 2x-slowdown stream.  All pure Python:
 no engine runs here.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import copy
 import json
 

@@ -17,6 +17,7 @@ Identity surfaces:
   print the same report, per-replica lines included, and with ``--strict``
   exit 1 on a corrupted row.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import json
 import os
 import subprocess

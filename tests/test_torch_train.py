@@ -30,6 +30,7 @@ Tolerances, float32 throughout:
 * the optimizers alone, on the same gradient trees: within 1e-6 relative;
 * the data pipeline: the same batches exactly.
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
 
 import jax

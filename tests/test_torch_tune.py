@@ -13,6 +13,7 @@ reference; a tuned call is held bit for bit against the same call with the
 value named explicitly; the planners' step times to rel 1e-6 (two copies of
 the same least-squares fit).
 """
+import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import json
 
 import jax.numpy as jnp
