@@ -415,6 +415,33 @@ Phases, each of which exits non-zero on failure:
       each m (1e-5 of the largest entry), and its us a step at each m,
       eager (``cuda_ms``) and from a CUDA graph; each phase's wall seconds
       printed.
+  32a. (slice 22) main path 16: ``python -m repro_torch.launch.train --arch
+      stablelm-1.6b --steps 4 --seq-len 128 --global-batch 8 --tp 2`` in
+      process: two ranks spawned on the one card over gloo, each a
+      tensor-parallel rank's model (16 of 32 heads); each rank's losses
+      within DP_LOSS_RTOL of 30c's one card, the ranks' the same, K3 = 2 x
+      24 x 4 and each K3-bwd pass 24 x 4 on each rank; a rank's step ms,
+      peak GB and collectives a step printed;
+  32b. the dry-run's counter (``repro_torch.dist.op_costs``) on that
+      training step at a (1, 1) stand-in mesh, on "meta" and then on the
+      card (zeros): the same FLOPs, bytes and kernel records as integers,
+      the predicted peak (arguments + temp) within MEMORY_RTOL of
+      ``max_memory_allocated``; the predicted max(t_compute, t_memory)
+      beside the measured step median, no gate;
+  32c. the tuner on the card for K2 at qwen3-14b's decode shape at b 128
+      (device time by CUDA events, the wall clock beside it, each kept
+      candidate's both and which blocking each picks); then ``python -m
+      repro_torch.launch.dryrun`` for qwen3-14b x every shape x both meshes
+      with that cache, six subprocesses on the host while 32d runs: every
+      cell ``ok``, the decode cells' ``t_kernel_measured_s`` = 40 x K2's
+      measured time, the others none; each cell's dominant term and wall
+      seconds printed;
+  32d. ``make_diloco_inner_step`` on stablelm-1.6b at full width and 4 of 24
+      layers, 2 replicas x 4 inner steps and an outer sync: losses finite,
+      each replica the bits of ``make_train_step`` alone on its rows, the
+      sync the same on both, K3 and K3-bwd's launches; then the smoke
+      config on the card within DILOCO_SMOKE_RTOL of the CPU's losses,
+      from the same (CPU-drawn) weights.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's,
 K2-latent's and K4's ``launches`` sum their paths', ``launches_by_path``
@@ -431,7 +458,9 @@ kernel, and count their launches on the training paths; K4-bwd's scan
 pass, ``selective_scan_bwd``, and its reduction,
 ``selective_scan_bwd_reduce``, replace the reference's autodiff of its
 chunked scan, no Pallas kernel, and count their launches on the Mamba
-training path), the card's ``nvidia-smi`` line,
+training path; K3's and K3-bwd's paths add ``training_tp`` (32a, both
+ranks), ``dryrun_counted_step`` (32b) and ``diloco`` (32d), K2's
+``tuner_b128`` (32c)), the card's ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -439,6 +468,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -5104,6 +5134,7 @@ def fsdp_path(workdir: Path) -> dict:
     for rep in reports:
         for k, v in rep["launches"].items():
             counts["data_mesh"][k] = counts["data_mesh"].get(k, 0) + v
+    counts["one_card_records"] = ref["records"]  # main path 16's yardstick (32a)
     return counts
 
 
@@ -5557,6 +5588,404 @@ def fleet_day_path(workdir: Path, dev) -> dict:
             "max_rel_gap": check["max_rel_gap"], "max_abs_err": err,
             "k6_us_a_step_by_m": times}
 
+# ------------------------------------- the dry-run, TP training, DiLoCo (slice 22)
+# Main path 16 (phase 32a): the trainer CLI's --tp 2 on stablelm-1.6b at full
+# width and depth, PR 22's settings, 4 steps; its losses against 30c's one
+# card on the same batches (DP_LOSS_RTOL).  32b: the dry-run's counter on the
+# same training step (seq 128 x batch 8, a (1, 1) stand-in mesh) on "meta" and
+# then on the card: the same FLOPs, bytes and kernel records as integers, the
+# predicted peak (arguments + temp) within MEMORY_RTOL of the card's.  32c:
+# the tuner on the card for K2 at qwen3-14b's decode shape at b 128 (the
+# decode_32k cell's global batch), then the dry-run CLI for qwen3-14b's cells
+# on both meshes with that cache, in subprocesses while 32d runs.  32d:
+# make_diloco_inner_step at full width and 4 of 24 layers.
+TP_TRAIN_WORLD = 2
+MEMORY_RTOL = 0.05
+# a rank draws its float32 masters one whole tensor at a time
+# (trainer.draw_blocks): while the trainer is built it holds at most its
+# blocks and one tensor's draw (float32), its stored copy (bf16) and its
+# block in both dtypes, under 10 bytes an element of the largest tensor
+INIT_BYTES_AN_ELEMENT = 10
+DECODE_TUNE_SHAPE = {"b": 128, "hk": 8, "g": 5, "d": 128, "page": 16, "npp": 2048}
+DILOCO_LAYERS, DILOCO_REPLICAS, DILOCO_STEPS = 4, 2, 4
+DILOCO_SMOKE_RTOL = 1e-3
+DRYRUN_TIMEOUT_S = 600
+
+
+def tp_train_path(one_card) -> dict:
+    """Phase 32a, main path 16: ``python -m repro_torch.launch.train --arch
+    stablelm-1.6b --steps 4 --seq-len 128 --global-batch 8 --tp 2`` in
+    process: two ranks spawned on the one card over gloo, each a
+    tensor-parallel rank's model (16 of 32 heads), drawn from seed 0 as one
+    card's.  Gates: each rank's losses within DP_LOSS_RTOL of ``one_card``'s
+    (30c's records), the ranks' the same, K3 = 2 x 24 x 4 and each K3-bwd
+    pass 24 x 4 on each rank, none in this process; each rank's peak while
+    its trainer was built within INIT_BYTES_AN_ELEMENT bytes an element of
+    the model's largest tensor above what it then holds (its blocks: it
+    never holds the whole model); the steps' peak within MEMORY_RTOL of the
+    dry-run's prediction for a (1, 2) rank's step on "meta" (arguments +
+    temp).  Prints a rank's step ms, its memory (the build's peak, what it
+    holds after, the steps' peak beside the prediction) and its
+    collectives a step; returns the launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import op_costs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_scaled_mesh
+    from repro_torch.models.model import LM
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(DP_STEPS), "--seq-len", str(TRAIN_SEQ),
+            "--global-batch", str(TRAIN_BATCH), "--tp", str(TP_TRAIN_WORLD)]
+    phase(f"main path 16: python -m repro_torch.launch.train {' '.join(argv)} "
+          f"({TP_TRAIN_WORLD} ranks on the one card over gloo)")
+    reset_launches()
+    t0 = time.perf_counter()
+    reports = train_cli.run(argv)
+    seconds = time.perf_counter() - t0
+    if any(read_launches().values()):
+        fail(f"main path 16: this process launched {read_launches()}; the ranks launch")
+    shape = ShapeSpec("train_128", TRAIN_SEQ, TRAIN_BATCH, "train")
+    program, _ = dryrun.lower_cell(TRAIN_ARCH, shape, False,
+                                   mesh=make_scaled_mesh(TP_TRAIN_WORLD, TP_TRAIN_WORLD))
+    _, meta = op_costs.count(program.fn, arguments=program.arguments)
+    del program
+    mem = meta.memory
+    predicted_gb = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 1e9
+    largest = max(t.numel() for t in LM(get_config(TRAIN_ARCH), "meta").parameters())
+    init_allowance_gb = INIT_BYTES_AN_ELEMENT * largest / 1e9
+    worst, counts, per_rank = 0.0, {}, []
+    for rep in reports:
+        calls = {k: v / DP_STEPS for k, v in rep["collectives"].items()}
+        held = rep["resident_gb"]
+        print(f"rank {rep['rank']} ({rep['device']}, {rep['backend']}): "
+              f"{step_summary(rep['records'])}; peak {rep['peak_memory_gb']:.3f} GB; "
+              f"collectives a step {calls}")
+        print(f"rank {rep['rank']} memory: the build's peak {rep['init_peak_gb']:.3f} GB, then "
+              f"held {held:.3f} GB (its LM {rep['lm_bytes'] / 1e9:.3f} GB in bf16, float32 "
+              f"masters and moments {rep['state_bytes'] / 1e9:.3f} GB, other "
+              f"{held - (rep['lm_bytes'] + rep['state_bytes']) / 1e9:.3f} GB); the steps' peak "
+              f"{rep['peak_memory_gb']:.3f} GB = held + {rep['peak_memory_gb'] - held:.3f} GB "
+              f"within a step; the dry-run's (1, {TP_TRAIN_WORLD}) rank on meta: arguments "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB + temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB = {predicted_gb:.3f} GB, ratio "
+              f"{predicted_gb / rep['peak_memory_gb']:.4f} to the steps' peak")
+        if abs(predicted_gb / rep["peak_memory_gb"] - 1) > MEMORY_RTOL:
+            fail(f"main path 16's rank {rep['rank']}: the dry-run predicts {predicted_gb:.3f} "
+                 f"GB, the steps peaked at {rep['peak_memory_gb']:.3f} GB")
+        if rep["init_peak_gb"] > held + init_allowance_gb:
+            fail(f"main path 16's rank {rep['rank']} peaked at {rep['init_peak_gb']:.3f} GB "
+                 f"while built, above the {held:.3f} GB it holds + {init_allowance_gb:.3f} GB")
+        for got, want in zip(rep["records"], one_card):
+            worst = max(worst, abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        if len(rep["records"]) != DP_STEPS:
+            fail(f"main path 16's rank {rep['rank']}: {len(rep['records'])} steps")
+        training_launches_expected(rep["launches"], rep["n_layers"], DP_STEPS, rep["remat"],
+                                   f"main path 16's rank {rep['rank']}")
+        for k, v in rep["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        per_rank.append({"rank": rep["rank"], "peak_memory_gb": rep["peak_memory_gb"],
+                         "init_peak_gb": rep["init_peak_gb"], "resident_gb": held,
+                         "lm_bytes": rep["lm_bytes"], "state_bytes": rep["state_bytes"],
+                         "dryrun_predicted_peak_gb": predicted_gb,
+                         "step_ms": [1e3 * r["step_time"] for r in rep["records"]],
+                         "losses": [r["loss"] for r in rep["records"]],
+                         "collectives_a_step": calls})
+    if len({tuple(r["loss"] for r in rep["records"]) for rep in reports}) != 1:
+        fail("main path 16: the ranks report different losses")
+    print(f"the ranks' losses within {worst:.3g} of one card's (limit {DP_LOSS_RTOL}); "
+          f"{seconds:.1f} s for the spawn and the steps")
+    if worst > DP_LOSS_RTOL:
+        fail(f"main path 16's losses part from one card's: {worst:.3g}")
+    print(json.dumps({"tp_train_path": {"world": TP_TRAIN_WORLD, "cli_s": seconds,
+                                        "loss_rel_diff": worst, "per_rank": per_rank}}))
+    return counts
+
+
+def _differing_rows(a, b, k: int = 20) -> list:
+    return [(label, a.rows.get(label), b.rows.get(label))
+            for label in sorted(set(a.rows) | set(b.rows))
+            if a.rows.get(label) != b.rows.get(label)][:k]
+
+
+def meta_vs_card(dev) -> dict:
+    """Phase 32b: the dry-run's counter (``repro_torch.dist.op_costs``) on
+    stablelm-1.6b's training step at full width, seq 128 x batch 8, a (1, 1)
+    stand-in mesh (``dryrun.lower_cell``): on "meta", then on the card with
+    real tensors (zeros).  Gates: FLOPs, bytes and each kernel's record
+    equal as integers; the predicted peak (arguments + temp) within
+    MEMORY_RTOL of ``torch.cuda.max_memory_allocated`` over the same step,
+    reset just before it.  Prints the predicted max(t_compute, t_memory)
+    beside the measured step median (no gate: the eager step is
+    host-bound).  Returns the counted step's launches."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import op_costs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_scaled_mesh
+
+    shape = ShapeSpec("train_128", TRAIN_SEQ, TRAIN_BATCH, "train")
+    phase(f"32b: the dry-run's counter on {TRAIN_ARCH}'s training step (seq {TRAIN_SEQ} x batch "
+          f"{TRAIN_BATCH}, a (1, 1) mesh) on meta, then on the card")
+    t0 = time.perf_counter()
+    program, _ = dryrun.lower_cell(TRAIN_ARCH, shape, False, mesh=make_scaled_mesh(1, 1))
+    _, meta = op_costs.count(program.fn, arguments=program.arguments)
+    meta_s = time.perf_counter() - t0
+    del program
+    program, _ = dryrun.lower_cell(TRAIN_ARCH, shape, False,
+                                   mesh=make_scaled_mesh(1, 1, device="cuda"))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    _, card = op_costs.count(program.fn, arguments=program.arguments)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    training_launches_expected(launches, 24, 1, "full", "32b's counted step")
+    mem = meta.memory
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    print(f"meta ({meta_s:.1f} s): {meta.flops} FLOPs, {meta.bytes_accessed} bytes, kernels "
+          f"{meta.kernels}; card: {card.flops} FLOPs, {card.bytes_accessed} bytes, kernels "
+          f"{card.kernels}")
+    print(f"memory: arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB + temp "
+          f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB = predicted peak {predicted / 1e9:.3f} GB; "
+          f"the card's {peak / 1e9:.3f} GB (allocated before the step {before / 1e9:.3f} GB), "
+          f"ratio {predicted / peak:.4f} (limit 1 +- {MEMORY_RTOL})")
+    if (meta.flops, meta.bytes_accessed, meta.kernels) != (card.flops, card.bytes_accessed,
+                                                           card.kernels):
+        for row in _differing_rows(meta, card):
+            print("  differs (label, meta [flops, bytes], card):", row)
+        fail("32b: the meta program's counts are not the card's")
+    if abs(predicted / peak - 1) > MEMORY_RTOL:
+        fail(f"32b: the predicted peak {predicted} B is not within {MEMORY_RTOL} of the card's "
+             f"{peak} B")
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program.fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    median = statistics.median(times[1:])
+    t_model = max(meta.flops / dryrun.PEAK_FLOPS, meta.bytes_accessed / dryrun.HBM_BW)
+    print(f"predicted max(t_compute, t_memory) {1e3 * t_model:.2f} ms, the card's step median "
+          f"{1e3 * median:.2f} ms (host clock, uncounted): predicted / measured "
+          f"{t_model / median:.4f}")
+    print(json.dumps({"meta_vs_card": {
+        "flops": meta.flops, "bytes": meta.bytes_accessed, "kernels": meta.kernels,
+        "predicted_peak_bytes": predicted, "card_peak_bytes": peak, "bytes_before": before,
+        "t_model_ms": 1e3 * t_model, "step_ms": [1e3 * t for t in times],
+        "memory_analysis": mem}}))
+    del program
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode_tune_and_dryrun_start(dev, workdir: Path) -> dict:
+    """Phase 32c, first part: the tuner on the card for ``flash_decode_paged``
+    (K2) at qwen3-14b's decode shape at b 128, its ragged lengths
+    (``roofline.ragged_lengths``; the pools hold every page), each kept
+    candidate's device time (CUDA events) beside its wall clock, and which
+    blocking each picks; then the dry-run CLI for qwen3-14b x every shape x
+    both meshes with that cache, started in subprocesses (host work: no
+    card), one a cell.  Returns what the second part needs."""
+    import torch
+
+    from repro_torch.configs import applicable_shapes, get_config
+    from repro_torch.kernels.tune import (ConfigCache, cache_key, candidates_for,
+                                          device_time_fn, ensure, roofline)
+    from repro_torch.kernels.tune.sweep import _CASES, sweep_dtype
+
+    phase(f"32c: the tuner on the card for flash_decode_paged (K2) at {QWEN}'s decode shape "
+          f"{DECODE_TUNE_SHAPE}")
+    path = workdir / "tune_decode_b128.json"
+    cache = ConfigCache(str(path))
+    reset_launches()
+    config = ensure("flash_decode_paged", DECODE_TUNE_SHAPE, device=dev, cache=cache)
+    dtype = sweep_dtype("flash_decode_paged", None, dev)
+    entry = cache.get(cache_key("flash_decode_paged", DECODE_TUNE_SHAPE, dtype, dev.type))
+    launches = read_launches()["paged_decode"]
+    valid = int(roofline.ragged_lengths(128, 2048 * 16).sum())
+    build = _CASES["flash_decode_paged"](DECODE_TUNE_SHAPE, getattr(torch, dtype), dev)
+    kept, _ = roofline.prune("flash_decode_paged", DECODE_TUNE_SHAPE,
+                             candidates_for("flash_decode_paged", DECODE_TUNE_SHAPE), dtype)
+    rows = []
+    for est in kept:
+        fn, args = build(est.config)
+        rows.append((est.config["pages_per_program"], *device_time_fn(fn, *args, iters=10)))
+    del build, fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_device = min(rows, key=lambda r: r[1])[0]
+    by_wall = min(rows, key=lambda r: r[2])[0]
+    print(f"the cache's entry: {config}, {entry['us_per_call']:.1f} us a call by CUDA events, "
+          f"{entry['wall_us_per_call']:.1f} us by the wall clock; {launches} K2 launches; "
+          f"K/V of the valid positions {2 * 8 * valid * 128 * 2 / 1e9:.2f} GB")
+    for ppp, dev_us, wall_us in rows:
+        print(f"  pages_per_program {ppp}: {dev_us:.1f} us device, {wall_us:.1f} us wall")
+    print(f"the device time picks pages_per_program {by_device}, the wall clock {by_wall}")
+    out = workdir / "dryrun_qwen3"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for shape in applicable_shapes(get_config(QWEN)):
+        for mesh in ("single", "multi"):
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", QWEN,
+                    "--shape", shape.name, "--mesh", mesh, "--tune-cache", str(path),
+                    "--out", str(out)]
+            log = open(workdir / f"dryrun_{shape.name}_{mesh}.log", "w")
+            procs.append((shape.name, mesh, log,
+                          subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT)))
+    return {"procs": procs, "out": out, "entry": entry, "launches": launches,
+            "started": time.perf_counter(), "picks": {"device": by_device, "wall": by_wall}}
+
+
+def decode_tune_and_dryrun_finish(started: dict) -> int:
+    """Phase 32c, second part: each dry-run subprocess exits 0 and writes its
+    cell, ``ok``; the decode cell carries ``t_kernel_measured_s`` = 40 x
+    K2's measured time (the cache's b 128 entry), the other cells none.
+    Prints each cell's dominant term and wall seconds.  Returns K2's
+    launches in the tuner."""
+    phase(f"32c: python -m repro_torch.launch.dryrun --arch {QWEN} --shape S --mesh M "
+          "--tune-cache F for every shape and both meshes")
+    for shape, mesh, log, proc in started["procs"]:
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"the dry-run of {QWEN} {shape} {mesh} ran past {DRYRUN_TIMEOUT_S} s")
+        log.close()
+        if rc != 0:
+            fail(f"the dry-run of {QWEN} {shape} {mesh} exited {rc}: "
+                 f"{Path(log.name).read_text()[-2000:]}")
+    measured = started["entry"]["us_per_call"] * 1e-6
+    cells = {}
+    for shape, mesh, _, _ in started["procs"]:
+        r = json.loads((started["out"] / f"{QWEN}__{shape}__{mesh}.json").read_text())
+        if r.get("status") != "ok":
+            fail(f"the dry-run's {QWEN} {shape} {mesh}: {r.get('error')}")
+        want = 40 * measured if r["kind"] == "decode" else None
+        if r.get("t_kernel_measured_s") != want or not r.get("tuned_kernel_rows"):
+            fail(f"{QWEN} {shape} {mesh}: t_kernel_measured_s {r.get('t_kernel_measured_s')}, "
+                 f"expected {want}")
+        cells[f"{shape} {mesh}"] = {k: r.get(k) for k in (
+            "dominant", "t_compute_s", "t_memory_s", "t_collective_s", "t_kernel_measured_s",
+            "compile_seconds", "useful_flops_ratio")}
+        print(f"{shape:12s} {mesh:6s} dominant {r['dominant']:10s} compute "
+              f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, collective "
+              f"{r['t_collective_s']:.4g} s, K2 measured {r.get('t_kernel_measured_s')}; "
+              f"{r['compile_seconds']:.1f} s wall")
+    print(json.dumps({"dryrun_qwen3": {"cells": cells, "picks": started["picks"],
+                                       "seconds": time.perf_counter() - started["started"]}}))
+    return started["launches"]
+
+
+def diloco_run(cfg, device, rows: int, steps: int, remat: str, draw_on=None):
+    """``make_diloco_inner_step`` over ``DILOCO_REPLICAS`` replicas of the LM
+    drawn from seed 0 by a generator on ``draw_on`` (default ``device``; the
+    CPU's draws where two devices must hold the same weights), ``steps``
+    inner steps on ``rows`` rows a replica of
+    ``SyntheticTokens`` (seed 0), then ``outer_sync``; and each replica alone
+    through ``make_train_step`` on its rows.  Returns (the inner steps'
+    metrics, the replicas' params and state, the synced params, the
+    replicas alone, the inner steps' launches)."""
+    import torch
+
+    from repro_torch.convert import tree_from_lm
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.model import LM
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.training.optimizers import get_optimizer
+    from repro_torch.training.trainer import TrainConfig, make_diloco_inner_step, make_train_step
+    from repro_torch.training.tree import tree_map
+
+    gen = torch.Generator(device=device if draw_on is None else draw_on).manual_seed(0)
+    lm = LM(cfg, device).init_params(gen).trainable()
+    one = tree_from_lm(lm)
+    opt = get_optimizer("adamw")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20, total_steps=steps)
+    rt = Runtime(remat=remat, block_q=64, block_k=64)
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, rows * DILOCO_REPLICAS, seed=0)
+    batches = [{k: v.reshape(DILOCO_REPLICAS, rows, *v.shape[1:])
+                for k, v in data.next_batch().items()} for _ in range(steps)]
+    inner, outer_sync = make_diloco_inner_step(lm, opt, tcfg, DILOCO_REPLICAS, rt=rt)
+    p = tree_map(lambda x: torch.stack([x] * DILOCO_REPLICAS), one)
+    s = tree_map(lambda *xs: torch.stack(xs), *[opt.init(one) for _ in range(DILOCO_REPLICAS)])
+    reset_launches()
+    metrics = []
+    for i, batch in enumerate(batches):
+        p, s, m = inner(p, s, batch, i)
+        metrics.append({k: v.tolist() for k, v in m.items()})
+    launches = read_launches()
+    synced = outer_sync(p)
+    step = make_train_step(lm, opt, tcfg, rt=rt)
+    alone = []
+    for r in range(DILOCO_REPLICAS):
+        pr, sr = one, opt.init(one)
+        for i, batch in enumerate(batches):
+            pr, sr, _ = step(pr, sr, {k: v[r] for k, v in batch.items()}, i)
+        alone.append((pr, sr))
+    return metrics, p, s, synced, alone, launches
+
+
+def diloco_path(dev) -> dict:
+    """Phase 32d: ``make_diloco_inner_step`` on stablelm-1.6b at full width
+    and DILOCO_LAYERS of 24 layers (``reduced``: depth only), 2 replicas x
+    4 inner steps and an outer sync on the card, remat full.  Gates: the
+    losses finite; each replica's parameters and state the same bits as
+    ``make_train_step`` alone on its rows; the outer sync the same on both
+    replicas; K3 = 2 x layers x replica steps and each K3-bwd pass layers x
+    replica steps; then the smoke config on the card within
+    DILOCO_SMOKE_RTOL of the CPU's losses.  Returns the inner steps'
+    launches."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.training.tree import tree_leaves
+
+    phase(f"32d: make_diloco_inner_step on {TRAIN_ARCH} at full width, {DILOCO_LAYERS} of 24 "
+          f"layers, {DILOCO_REPLICAS} replicas x {DILOCO_STEPS} inner steps and an outer sync")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=DILOCO_LAYERS)
+    t0 = time.perf_counter()
+    metrics, p, s, synced, alone, launches = diloco_run(cfg, dev, TRAIN_BATCH // DILOCO_REPLICAS,
+                                                        DILOCO_STEPS, "full")
+    seconds = time.perf_counter() - t0
+    losses = [m["loss"] for m in metrics]
+    print(f"losses a replica by step {losses}; {seconds:.1f} s with the replicas alone")
+    if not all(math.isfinite(x) for step in losses for x in step):
+        fail("32d: a loss is not finite")
+    for r, (pr, sr) in enumerate(alone):
+        if not all(torch.equal(a[r], b) for a, b in zip(tree_leaves(p) + tree_leaves(s),
+                                                       tree_leaves(pr) + tree_leaves(sr))):
+            fail(f"32d: replica {r} is not make_train_step alone on its rows, bit for bit")
+    if not all(torch.equal(leaf[0], leaf[1]) for leaf in tree_leaves(synced)):
+        fail("32d: the outer sync left the replicas apart")
+    training_launches_expected(launches, DILOCO_LAYERS, DILOCO_STEPS * DILOCO_REPLICAS, "full",
+                               "32d's inner steps")
+    del p, s, synced, alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("32d: small-input check, the smoke DiLoCo on the card vs the CPU")
+    smoke = get_smoke_config(TRAIN_ARCH)
+    card = diloco_run(smoke, dev, 2, DILOCO_STEPS, "none", draw_on="cpu")[0]
+    cpu = diloco_run(smoke, torch.device("cpu"), 2, DILOCO_STEPS, "none")[0]
+    worst = max(abs(a - b) / abs(b) for mc, mp in zip(card, cpu)
+                for a, b in zip(mc["loss"], mp["loss"]))
+    print(f"card {[m['loss'] for m in card]}, CPU {[m['loss'] for m in cpu]}; largest relative "
+          f"difference {worst:.3g} (limit {DILOCO_SMOKE_RTOL})")
+    if worst > DILOCO_SMOKE_RTOL:
+        fail(f"32d: the smoke DiLoCo on the card parts from the CPU's ({worst:.3g})")
+    return launches
+
+
 
 def main() -> None:
     import torch
@@ -5771,13 +6200,22 @@ def main() -> None:
     k6["max_abs_err"] = max(k6["max_abs_err"], fleet["max_abs_err"])
     k6["fleet_us_a_step_by_m"] = fleet["k6_us_a_step_by_m"]
 
+    # slice 22: TP training, the dry-run, DiLoCo (phases 32a-32d, main path 16)
+    slice22 = {"training_tp": tp_train_path(fsdp["one_card_records"]),
+               "dryrun_counted_step": meta_vs_card(dev)}
+    started = decode_tune_and_dryrun_start(dev, workdir)
+    slice22["diloco"] = diloco_path(dev)
+    k2_tuner_b128 = decode_tune_and_dryrun_finish(started)
+
     by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
                                 training_moe=moe_counts["flash_fwd"],
                                 training_musicgen=musicgen_counts["flash_fwd"],
                                 serve_internvl2=internvl_counts["flash_fwd"],
-                                **{path: c["flash_fwd"] for path, c in slice20.items()})
+                                **{path: c["flash_fwd"] for path, c in slice20.items()},
+                                **{path: c["flash_fwd"] for path, c in slice22.items()})
     launches["flash_fwd"] = sum(by_path["flash_fwd"].values())
     by_path["paged_decode"]["serve_internvl2"] = internvl_counts["paged_decode"]
+    by_path["paged_decode"]["tuner_b128"] = k2_tuner_b128
     launches["paged_decode"] = sum(by_path["paged_decode"].values())
     by_path["flash_fwd_mla"]["training_mla"] = mla_counts["flash_fwd"]
     launches["flash_fwd_mla"] = sum(by_path["flash_fwd_mla"].values())
@@ -5846,7 +6284,8 @@ def main() -> None:
              "pass; the dk/dv pass's schedule")):
         paths = {"training": train_counts[name], "training_moe": moe_counts[name],
                  "training_mla": mla_counts[name], "training_musicgen": musicgen_counts[name],
-                 **{path: c[name] for path, c in slice20.items()}}
+                 **{path: c[name] for path, c in slice20.items()},
+                 **{path: c[name] for path, c in slice22.items()}}
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "replaces": "src/repro/kernels/flash_attention/ops.py:118",

@@ -22,6 +22,11 @@ passes (``bwd_key_passes``), or, on CPU tensors, ``flash_bwd_ref``.
 
 ``decode_attention`` is the reference's plain one-token decode over a
 contiguous cache (``ops.py:245``); it is not a kernel.
+
+On "meta" tensors (the dry-run's analysis, ``repro_torch.launch.dryrun``)
+``flash_fwd`` and ``flash_bwd`` return empty outputs of the kernels'
+shapes; under the dry-run's counter each records its launches' FLOPs and
+bytes (``repro_torch.dist.op_costs.counted``) on every device alike.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist.op_costs import counted
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
 from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
@@ -81,6 +87,18 @@ def kernel_block_k(block_k: int, skv: int) -> Optional[int]:
     return bk if bk in KERNEL_BLOCK_KS else None
 
 
+def _fwd_cost(q, k, v, *args, causal: bool = True, q_offset: int = 0, **kwargs):
+    """K3's launch record (``roofline.flash_attention_cost``, over the pairs
+    the mask leaves)."""
+    from repro_torch.kernels.tune.roofline import flash_attention_cost
+
+    b, hq, sq, d = q.shape
+    return [("flash_fwd", *flash_attention_cost(b, hq, k.shape[1], sq, k.shape[2], d,
+                                                v.shape[3], q.element_size(), int(q_offset),
+                                                causal))]
+
+
+@counted(_fwd_cost)
 def flash_fwd(
     q: torch.Tensor,  # (B, Hq, Sq, Dk) bfloat16
     k: torch.Tensor,  # (B, Hk, Skv, Dk) bfloat16
@@ -104,8 +122,13 @@ def flash_fwd(
         return flash_fwd_ref(q, k, v, kv_lens, causal=causal, sm_scale=sm_scale,
                              q_offset=q_offset, block_q=block_q, block_k=block_k,
                              return_lse=return_lse)
+    if q.device.type == "meta":
+        out = torch.empty((*q.shape[:3], v.shape[3]), dtype=q.dtype, device=q.device)
+        if not return_lse:
+            return out
+        return out, torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cpu or cuda tensors, not {q.device}")
+        raise ValueError(f"flash_fwd runs on cpu, cuda or meta tensors, not {q.device}")
     b, hq, sq, d = q.shape
     if k.dim() != 4 or k.shape[0] != b:
         raise ValueError(f"k has shape {tuple(k.shape)}, q {tuple(q.shape)}")
@@ -308,6 +331,22 @@ flash_bwd_dk.launches = 0
 BWD_KEY_WRAPPERS = {BWD_DKDV: flash_bwd_dkdv, BWD_DV: flash_bwd_dv, BWD_DK: flash_bwd_dk}
 
 
+def _bwd_cost(q, k, v, kv_lens, out, lse, dout, *, causal: bool = True, q_offset: int = 0,
+              **kwargs):
+    """K3-bwd's launch records: the dq pass, then the key side's pass or
+    passes (``roofline.flash_bwd_pass_cost``)."""
+    from repro_torch.kernels.tune.roofline import flash_bwd_pass_cost
+
+    b, hq, sq, d = q.shape
+    hk, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    return [(name, *flash_bwd_pass_cost(pass_no, b, hq, hk, sq, skv, d, dv, int(q_offset),
+                                        bool(causal), q.element_size()))
+            for pass_no, name in ((BWD_DQ, "flash_bwd_dq"),
+                                  *((p, BWD_KEY_WRAPPERS[p].__name__)
+                                    for p in bwd_key_passes(d, dv)))]
+
+
+@counted(_bwd_cost)
 def flash_bwd(
     q: torch.Tensor,  # (B, Hq, Sq, Dk) bfloat16
     k: torch.Tensor,  # (B, Hk, Skv, Dk)
@@ -330,8 +369,12 @@ def flash_bwd(
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, kv_lens, out, lse, dout, causal=causal, sm_scale=sm_scale,
                              q_offset=q_offset, block_q=block_q, block_k=block_k)
+    if q.device.type == "meta":
+        delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        del delta  # the dq pass's rows, freed at the return as on the card
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_bwd runs on cpu or cuda tensors, not {q.device}")
+        raise ValueError(f"flash_bwd runs on cpu, cuda or meta tensors, not {q.device}")
     b, hq, sq, d = q.shape
     if (k.dim() != 4 or v.dim() != 4 or k.shape[0] != b or k.shape[3] != d
             or tuple(v.shape[:3]) != tuple(k.shape[:3])):

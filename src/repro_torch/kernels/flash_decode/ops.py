@@ -28,7 +28,11 @@ kernels' wrappers: a CUDA tensor goes to the kernel or the call raises,
 nothing falls back, and each wrapper's ``launches`` counts its kernel's
 launches and only those.  K2, its latent form and K5 are split-KV: one call
 launches the split kernel and, when the cache holds more than one split, the
-kernel that merges the splits; the two count as one launch.
+kernel that merges the splits; the two count as one launch.  On "meta"
+tensors (the dry-run's analysis) each returns an empty output of its
+kernel's shape, and under the dry-run's counter each records its launch's
+FLOPs and bytes on every device alike, counting every position of the
+cache (``repro_torch.dist.op_costs.counted``).
 
 ``gather_pages`` and ``paged_prefill_attention`` (``ops.py:272, 292``) are
 gathers plus the flash forward (K3) with ``kv_lens`` and a static
@@ -48,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.op_costs import counted
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
 from repro_torch.kernels.flash_attention.ops import decode_attention, flash_attention
 from repro_torch.kernels.flash_decode.ref import (
@@ -143,6 +148,16 @@ def latent_shape(b: int, h: int, r: int, dr: int, page: int, npp: int) -> dict:
     return {"b": b, "hk": 1, "g": h, "d": r, "dr": dr, "page": page, "npp": npp}
 
 
+def _paged_cost(q, k_pages, v_pages, lengths, page_tables, **kwargs):
+    """K2's launch record (``roofline.decode_cost`` over the capacity)."""
+    from repro_torch.kernels.tune.roofline import decode_cost
+
+    b, hk, g, d = q.shape
+    s = page_tables.shape[1] * k_pages.shape[2]
+    return [("paged_decode", *decode_cost(b, hk * g, hk, s, d, b * s, q.element_size()))]
+
+
+@counted(_paged_cost)
 def paged_decode(
     q: torch.Tensor,  # (B, Hk, G, d) bfloat16
     k_pages: torch.Tensor,  # (n_pages, Hk, page, d) bfloat16
@@ -157,8 +172,10 @@ def paged_decode(
     if q.device.type == "cpu":
         return paged_decode_stream(q, k_pages, v_pages, lengths, page_tables,
                                    scale=scale, pages_per_program=pages_per_program)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"paged_decode runs on cpu or cuda tensors, not {q.device}")
+        raise ValueError(f"paged_decode runs on cpu, cuda or meta tensors, not {q.device}")
     b, hk, g, d = q.shape
     if k_pages.dim() != 4 or k_pages.shape[1] != hk or k_pages.shape[3] != d:
         raise ValueError(f"k_pages has shape {tuple(k_pages.shape)}, q {tuple(q.shape)}")
@@ -247,6 +264,18 @@ def paged_decode_attention(
     return out.reshape(b, hq, v_pages.shape[3])
 
 
+def _latent_cost(q_lat, q_pe, ckv_pages, kpe_pages, lengths, page_tables, **kwargs):
+    """K2-latent's launch record (``roofline.latent_decode_cost`` over the
+    capacity)."""
+    from repro_torch.kernels.tune.roofline import latent_decode_cost
+
+    b, h, r = q_lat.shape
+    s = page_tables.shape[1] * ckv_pages.shape[1]
+    return [("paged_latent_decode", *latent_decode_cost(b, h, s, r, q_pe.shape[2], b * s,
+                                                        q_lat.element_size()))]
+
+
+@counted(_latent_cost)
 def paged_latent_decode(
     q_lat: torch.Tensor,  # (B, H, r) bfloat16
     q_pe: torch.Tensor,  # (B, H, dr) bfloat16
@@ -264,8 +293,11 @@ def paged_latent_decode(
     if q_lat.device.type == "cpu":
         return _latent_plain(paged_decode_stream, q_lat, q_pe, ckv_pages, kpe_pages, lengths,
                              page_tables, scale, pages_per_program)
+    if q_lat.device.type == "meta":
+        return torch.empty_like(q_lat)
     if q_lat.device.type != "cuda":
-        raise ValueError(f"paged_latent_decode runs on cpu or cuda tensors, not {q_lat.device}")
+        raise ValueError(f"paged_latent_decode runs on cpu, cuda or meta tensors, not "
+                         f"{q_lat.device}")
     if q_lat.dim() != 3 or q_pe.dim() != 3 or q_pe.shape[:2] != q_lat.shape[:2]:
         raise ValueError(f"q_lat {tuple(q_lat.shape)} and q_pe {tuple(q_pe.shape)} must be "
                          "(B, H, r) and (B, H, dr)")
@@ -373,6 +405,16 @@ def paged_latent_decode_attention(
                          float(sm_scale), ppp)
 
 
+def _decode_cost(q, k_cache, v_cache, lengths, **kwargs):
+    """K5's launch record (``roofline.decode_cost`` over the capacity)."""
+    from repro_torch.kernels.tune.roofline import decode_cost
+
+    b, hq, d = q.shape
+    hk, s = k_cache.shape[1], k_cache.shape[2]
+    return [("flash_decode", *decode_cost(b, hq, hk, s, d, b * s, q.element_size()))]
+
+
+@counted(_decode_cost)
 def flash_decode(
     q: torch.Tensor,  # (B, Hq, d) bfloat16
     k_cache: torch.Tensor,  # (B, Hk, S, d) bfloat16, Hq = G * Hk
@@ -387,8 +429,10 @@ def flash_decode(
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
                                 block_k=block_k)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on cpu or cuda tensors, not {q.device}")
+        raise ValueError(f"flash_decode runs on cpu, cuda or meta tensors, not {q.device}")
     if q.dim() != 3:
         raise ValueError(f"q has shape {tuple(q.shape)}, expected (B, Hq, d)")
     b, hq, d = q.shape

@@ -1,5 +1,6 @@
 """The local-SGD worker chain: the Hopper kernel (K6) for CUDA tensors, the
-plain version for CPU tensors.
+plain version for CPU tensors (on "meta" tensors an empty output, and under
+the dry-run's counter one record a call: ``repro_torch.dist.op_costs``).
 
 A CUDA tensor goes to the kernel (csrc/local_sgd.cu) or the call raises;
 nothing falls back to the plain version.  ``local_sgd.launches`` counts the
@@ -13,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.dist.op_costs import counted
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.local_sgd import build
 from repro_torch.kernels.local_sgd.ref import LOSSES, local_sgd_ref
@@ -64,6 +66,18 @@ def copy_route(X: torch.Tensor) -> str:
     return "bulk" if d % 4 == 0 and X.data_ptr() % 16 == 0 else "cp.async 4-byte"
 
 
+def _sgd_cost(W0, X, y, idx, *args, use_kernel: bool = True, **kwargs):
+    """K6's launch record (``roofline.local_sgd_cost``); None where the call
+    names the plain version."""
+    from repro_torch.kernels.tune.roofline import local_sgd_cost
+
+    if not use_kernel:
+        return None
+    m, nl, d = X.shape
+    return [("local_sgd", *local_sgd_cost(m, nl, idx.shape[-1], d, X.element_size()))]
+
+
+@counted(_sgd_cost)
 def local_sgd(
     W0: torch.Tensor,  # (m, d) float32, each worker's start vector
     X: torch.Tensor,  # (m, nl, d) float32
@@ -87,8 +101,10 @@ def local_sgd(
         raise ValueError(f"local SGD supports {LOSSES}, not {loss!r}")
     if X.device.type == "cpu" or not use_kernel:
         return local_sgd_ref(W0, X, y, idx, t, h, lr0, t0, lam, loss, gamma)
+    if X.device.type == "meta":
+        return torch.empty_like(W0)
     if X.device.type != "cuda":
-        raise ValueError(f"local_sgd runs on cpu or cuda tensors, not {X.device}")
+        raise ValueError(f"local_sgd runs on cpu, cuda or meta tensors, not {X.device}")
 
     m, nl, d = X.shape
     steps = idx.shape[1] if idx.dim() == 2 else -1

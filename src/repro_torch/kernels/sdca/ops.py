@@ -1,5 +1,6 @@
 """The local SDCA inner loop: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors.
+version for CPU tensors (on "meta" tensors an empty output, and under the
+dry-run's counter one record a call: ``repro_torch.dist.op_costs``).
 
 A CUDA tensor goes to the kernel (csrc/sdca.cu) or the call raises; nothing
 falls back to the plain version.  ``local_sdca.launches`` counts the
@@ -16,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.dist.op_costs import counted
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK
 from repro_torch.kernels.sdca import build
 from repro_torch.kernels.sdca.ref import local_sdca_ref
@@ -60,6 +62,19 @@ def kernel_plan(d: int) -> Tuple[int, int, int]:
 MAX_D = 12224
 
 
+def _sdca_cost(X, y, a, w, idx, *args, use_kernel: bool = True, tuned: bool = False,
+               **kwargs):
+    """K1's launch record (``roofline.sdca_cost``); None where the call names
+    the plain version."""
+    from repro_torch.kernels.tune.roofline import sdca_cost
+
+    if not use_kernel or tuned:
+        return None
+    m, nl, d = X.shape
+    return [("local_sdca", *sdca_cost(m, nl, idx.shape[1], d, X.element_size()))]
+
+
+@counted(_sdca_cost)
 def local_sdca(
     X: torch.Tensor,  # (m, nl, d) float32
     y: torch.Tensor,  # (m, nl) float32
@@ -87,8 +102,10 @@ def local_sdca(
                                        X.device.type))
     if X.device.type == "cpu" or not use_kernel:
         return local_sdca_ref(X, y, a, w, idx, sigma_prime, lam, n, loss, gamma)
+    if X.device.type == "meta":
+        return torch.empty_like(a), torch.empty((X.shape[0], X.shape[2]), device=X.device)
     if X.device.type != "cuda":
-        raise ValueError(f"local_sdca runs on cpu or cuda tensors, not {X.device}")
+        raise ValueError(f"local_sdca runs on cpu, cuda or meta tensors, not {X.device}")
 
     m, nl, d = X.shape
     h = idx.shape[1] if idx.dim() == 2 else -1

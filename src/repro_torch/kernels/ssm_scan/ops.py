@@ -36,6 +36,12 @@ goes to the kernel or the call raises, a CPU tensor to its plain version
 the launches of its scan pass on the card; the pass's partials go to the
 reduction's own wrapper, ``selective_scan_bwd_reduce``, whose ``launches``
 counts its launches.
+
+On "meta" tensors (the dry-run's analysis) ``selective_scan`` and
+``selective_scan_bwd`` return empty outputs of the kernels' shapes; under
+the dry-run's counter each records its launches' FLOPs and bytes on every
+device alike (``repro_torch.dist.op_costs.counted``; K4-bwd's reduction is
+recorded by ``selective_scan_bwd``).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.op_costs import counted
 from repro_torch.kernels._build import MAX_SMEM_PER_BLOCK, KernelLibrary
 from repro_torch.kernels.ssm_scan.ref import (
     BWD_WARPS,
@@ -126,7 +133,7 @@ def _check_kernel_inputs(what: str, x, dt, A, B, C, D, **more) -> Tuple[int, int
     with a last stride of 1, the rest contiguous.  ``more`` adds tensors
     by name with their expected (shape, dtype).  Returns (Bt, S, Dn, N)."""
     if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda tensors, not {x.device}")
+        raise ValueError(f"{what} runs on cpu, cuda or meta tensors, not {x.device}")
     if x.dim() != 3:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected (Bt, S, Dn)")
     bt, s, dn = x.shape
@@ -166,6 +173,14 @@ def n_tiles(s: int) -> int:
     return -(-s // SCAN_TILE)
 
 
+def _scan_cost(x, dt, A, *args, **kwargs):
+    """K4's launch record (``roofline.scan_cost``)."""
+    from repro_torch.kernels.tune.roofline import scan_cost
+
+    return [("selective_scan", *scan_cost(*x.shape, A.shape[-1], x.element_size()))]
+
+
+@counted(_scan_cost)
 def selective_scan(
     x: torch.Tensor,  # (Bt, S, Dn) bf16 or float32
     dt: torch.Tensor,  # (Bt, S, Dn) float32
@@ -198,6 +213,14 @@ def selective_scan(
             raise ValueError("under autograd the scan starts from zeros and returns y and "
                              "h_last only: pass no state")
         return SelectiveScan.apply(x, dt, A, B, C, D, d_block)
+    if x.device.type == "meta":
+        bt, s, dn = x.shape
+        h_last = (torch.empty((bt, dn, A.shape[-1]), dtype=torch.float32, device=x.device)
+                  if h is None else h)
+        tiles = (torch.empty((bt, n_tiles(s), dn, A.shape[-1]), dtype=torch.float32,
+                             device=x.device) if return_tile_states else None)
+        y = torch.empty_like(x)
+        return (y, h_last, tiles) if return_tile_states else (y, h_last)
     if x.device.type == "cpu":
         y, h_last, tiles = selective_scan_ref(x, dt, A, B, C, D, h, return_tile_states=True)
         if h is not None:
@@ -235,6 +258,19 @@ selective_scan.launches = 0
 selective_scan.step_launches = 0
 
 
+def _scan_bwd_cost(x, dt, A, *args, **kwargs):
+    """K4-bwd's launch records, its scan pass and its reduction
+    (``roofline.scan_bwd_cost``, ``scan_bwd_reduce_cost``)."""
+    from repro_torch.kernels.tune.roofline import scan_bwd_cost, scan_bwd_reduce_cost
+
+    bt, s, dn = x.shape
+    n, it = A.shape[-1], x.element_size()
+    parts = bwd_cluster(dn, default_bwd_d_block(n, bt, s, dn))[1]
+    return [("selective_scan_bwd", *scan_bwd_cost(bt, s, dn, n, it)),
+            ("selective_scan_bwd_reduce", *scan_bwd_reduce_cost(bt, s, dn, n, parts, it))]
+
+
+@counted(_scan_bwd_cost)
 def selective_scan_bwd(
     x: torch.Tensor,  # (Bt, S, Dn) bf16 or float32
     dt: torch.Tensor,  # (Bt, S, Dn) float32
@@ -256,6 +292,10 @@ def selective_scan_bwd(
     d_block = default_bwd_d_block(n, bt, s, dn)
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, dt, A, B, C, D, dy, d_block=d_block)
+    if x.device.type == "meta":
+        return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+                torch.empty((bt, s, n), dtype=B.dtype, device=x.device),
+                torch.empty((bt, s, n), dtype=C.dtype, device=x.device), torch.empty_like(D))
     if h_tiles is None:
         raise ValueError("K4-bwd restarts from the forward's tile states: pass h_tiles "
                          "(selective_scan(..., return_tile_states=True))")

@@ -32,6 +32,7 @@ from repro_torch.kernels.tune.sweep import (
     FAMILIES,
     SWEEP_SHAPES,
     candidates_for,
+    device_time_fn,
     ensure,
     measured_call,
     ragged_lengths,
@@ -50,6 +51,7 @@ __all__ = [
     "candidates_for",
     "decode_step_rows",
     "default_cache",
+    "device_time_fn",
     "ensure",
     "lookup",
     "measured_call",

@@ -95,6 +95,7 @@ class ConfigCache:
         swept: int,
         pruned: int,
         backend: str,
+        wall_us_per_call: Optional[float] = None,
     ) -> Dict:
         entry = {
             "family": family,
@@ -106,6 +107,8 @@ class ConfigCache:
             "candidates_swept": int(swept),
             "candidates_pruned": int(pruned),
         }
+        if wall_us_per_call is not None:
+            entry["wall_us_per_call"] = float(wall_us_per_call)
         self.entries[key] = entry
         return entry
 

@@ -172,6 +172,116 @@ def _resident_waves(blocks: int, smem: int) -> int:
     return _ceil_div(blocks, SMS * per_sm)
 
 
+# ---------------------------------------------------------------------------
+# Each kernel's FLOPs and bytes at any shape: the formulas ``estimate`` uses
+# for its family (at the family's shape they are that family's numbers), and
+# the records the kernels' entries make under the dry-run's counter
+# (``repro_torch.dist.op_costs``).  The entries count by shape only: every
+# position of a decode cache (the dry-run's program has no lengths to read),
+# the (query, key) pairs K3's causal mask leaves (``causal_pairs``).
+# ---------------------------------------------------------------------------
+def flash_attention_cost(b: int, hq: int, hk: int, sq: int, skv: int, dk: int, dv: int,
+                         itemsize: int, q_offset: int = 0,
+                         causal: bool = False) -> Tuple[float, float]:
+    """K3: 2 DK + 2 DV FLOPs a (query, key) pair (q k^T and p v), over the
+    whole Sq x Skv square, or with ``causal`` the pairs each row sees (as
+    ``flash_bwd_pass_cost`` counts them); q, k and v read once, the output
+    written once."""
+    flops = 2.0 * b * hq * causal_pairs(sq, skv, q_offset, causal) * (dk + dv)
+    nbytes = 1.0 * (b * hq * sq * (dk + dv) + b * hk * skv * (dk + dv)) * itemsize
+    return flops, nbytes
+
+
+def decode_cost(b: int, hq: int, hk: int, s: int, d: int, valid: int,
+                itemsize: int) -> Tuple[float, float]:
+    """K2 and K5: one query a (row, head) against a cache of ``s`` positions,
+    4 D FLOPs a position; the K and V of the ``valid`` positions (summed over
+    the rows) read once."""
+    return 4.0 * b * hq * s * d, 2.0 * hk * valid * d * itemsize
+
+
+def latent_decode_cost(b: int, h: int, s: int, r: int, dr: int, valid: int,
+                       itemsize: int) -> Tuple[float, float]:
+    """K2's latent form: q . k and p . v over r, q_pe . kpe over dr; one pool
+    is the keys and the values, so each valid position's rows are read
+    once."""
+    return 2.0 * b * h * s * (2 * r + dr), 1.0 * valid * (r + dr) * itemsize
+
+
+def scan_cost(bt: int, s: int, dn: int, n: int, itemsize: int) -> Tuple[float, float]:
+    """K4: 8 FLOPs a (row, position, channel, state); x, B, C read and y
+    written once."""
+    return 8.0 * bt * s * dn * n, 3.0 * bt * s * (dn + 2 * n) * itemsize
+
+
+def sdca_cost(m: int, nl: int, h: int, d: int, itemsize: int) -> Tuple[float, float]:
+    """K1: each of the m workers' h steps two length-d products; X, y and the
+    worker's vectors read once."""
+    return 4.0 * m * h * d, 1.0 * m * (nl * d + 2 * nl + 2 * d) * itemsize
+
+
+def local_sgd_cost(m: int, nl: int, h: int, d: int, itemsize: int) -> Tuple[float, float]:
+    """K6 (no tuner family; K1's count): each of the m workers' h steps a
+    length-d product and a length-d update; X, y, the start vectors and the
+    order read once, the vectors written once."""
+    return 4.0 * m * h * d, 1.0 * m * (nl * d + nl + 2 * d + h) * itemsize
+
+
+def causal_pairs(sq: int, skv: int, q_offset: int = 0, causal: bool = True) -> int:
+    """The (query, key) pairs a causal attention row set sees: query row r
+    (position q_offset + r) sees min(skv, q_offset + r + 1) keys."""
+    if not causal:
+        return sq * skv
+    t = max(0, min(sq, skv - q_offset))  # the rows that see fewer than skv keys
+    return t * q_offset + t * (t + 1) // 2 + (sq - t) * skv
+
+
+# K3-bwd's launches (``flash_attention.ops``' BWD_DQ, BWD_DKDV, BWD_DV,
+# BWD_DK): FLOPs a pair by products (the dq pass: S, dP, dS K; the dk/dv
+# pass: S, dP, P^T dO, dS^T Q; the dv pass: S, P^T dO; the dk pass: S, dP,
+# dS^T Q), as PERF.md's bounds count them
+_BWD_FLOPS = {0: (4, 2), 1: (4, 4), 2: (2, 2), 3: (4, 2)}
+
+
+def flash_bwd_pass_cost(pass_no: int, b: int, hq: int, hk: int, sq: int, skv: int, dk: int,
+                        dv: int, q_offset: int = 0, causal: bool = True,
+                        itemsize: int = 2) -> Tuple[float, float]:
+    """One K3-bwd launch (no tuner family: PERF.md's bound): its products over
+    the causal pairs each row sees; each input read once, each output
+    written once (q, dq: B Hq Sq DK; out, dout: B Hq Sq DV; k, dk: B Hk Skv
+    DK; v, dv: B Hk Skv DV; lse and delta float32 rows)."""
+    pairs = b * hq * causal_pairs(sq, skv, q_offset, causal)
+    q_b, o_b = b * hq * sq * dk * itemsize, b * hq * sq * dv * itemsize
+    k_b, v_b = b * hk * skv * dk * itemsize, b * hk * skv * dv * itemsize
+    rows = b * hq * sq * 4
+    a, c = _BWD_FLOPS[pass_no]
+    nbytes = {0: 2 * q_b + k_b + v_b + 2 * o_b + 2 * rows,  # q k v out dout lse; dq delta
+              1: q_b + 2 * k_b + 2 * v_b + o_b + 2 * rows,  # q k v dout lse delta; dk dv
+              2: q_b + k_b + v_b + o_b + rows,  # q k dout lse; dv
+              3: q_b + 2 * k_b + v_b + o_b + 2 * rows}[pass_no]  # q k v dout lse delta; dk
+    return float((a * dk + c * dv) * pairs), float(nbytes)
+
+
+def scan_bwd_cost(bt: int, s: int, dn: int, n: int, itemsize: int) -> Tuple[float, float]:
+    """K4-bwd's scan pass (no tuner family: PERF.md's bound): 16 float32
+    operations a (row, position, channel, state); x, dy and dx in x's
+    dtype, dt and ddt float32, B, C, dB and dC in x's dtype, A, D, dA and dD
+    float32, each read or written once."""
+    nbytes = ((3 * itemsize + 2 * 4) * bt * s * dn + 4 * itemsize * bt * s * n
+              + 4 * 2 * (dn * n + dn))
+    return 16.0 * bt * s * dn * n, float(nbytes)
+
+
+def scan_bwd_reduce_cost(bt: int, s: int, dn: int, n: int, n_parts: int,
+                         itemsize: int) -> Tuple[float, float]:
+    """K4-bwd's reduction: each partial (float32: dB's and dC's ``n_parts``
+    of (Bt, S, N), dA's (Bt, Dn, N), dD's (Bt, Dn)) added once and read
+    once; dB and dC written in x's dtype, dA and dD in float32."""
+    parts = 2 * n_parts * bt * s * n + bt * dn * n + bt * dn
+    nbytes = 4 * parts + 2 * itemsize * bt * s * n + 4 * (dn * n + dn)
+    return float(parts), float(nbytes)
+
+
 @dataclasses.dataclass
 class CandidateEstimate:
     config: Dict[str, int]
@@ -205,8 +315,7 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
     if family == "flash_attention":  # K3 at the tuner's MHA shape (G = 1)
         b, h, s, d = shape["b"], shape["h"], shape["s"], shape["d"]
         bk = k3_block_k(config["block_k"], s)  # None where the wrapper refuses it
-        flops = 4.0 * b * h * s * s * d
-        bytes_moved = 4.0 * b * h * s * d * it
+        flops, bytes_moved = flash_attention_cost(b, h, h, s, s, d, d, it)
         smem = k3_smem_bytes(1, d, 16)  # block_k does not enter
         # a block walks its last row's key tiles in order, block_k steps each
         steps = _waves(k3_blocks(b, h, s)) * _ceil_div(s, bk or config["block_k"])
@@ -215,8 +324,7 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         b, h, s, d = shape["b"], shape["h"], shape["s"], shape["d"]
         bk = min(config["block_k"], s)  # the wrapper's clamp
         lens = ragged_lengths(b, s)
-        flops = 4.0 * b * h * s * d
-        bytes_moved = 2.0 * h * int(lens.sum()) * d * it  # valid K and V, read once
+        flops, bytes_moved = decode_cost(b, h, h, s, d, int(lens.sum()), it)
         smem = decode_smem_bytes(1, d, bk)
         # split-KV: each block walks at most one split's tiles
         steps = _waves(b * h * decode_splits(s, bk)) * min(decode_tiles_per_split(bk),
@@ -229,8 +337,7 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         # the reference's count with the q_pe term: q . k and p . v over r,
         # q_pe . kpe over dr; one pool is the keys and the values, so each
         # valid position's latent and rope rows are read once
-        flops = 2.0 * b * h * s * (2 * r + dr)
-        bytes_moved = 1.0 * int(lens.sum()) * (r + dr) * it
+        flops, bytes_moved = latent_decode_cost(b, h, s, r, dr, int(lens.sum()), it)
         smem = latent_smem_bytes(r, dr)
         # split-KV: each block (one an SM) walks at most one split's tiles
         steps = (_waves(b * _ceil_div(h, LATENT_HEADS) * latent_splits(s))
@@ -243,8 +350,7 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
         ppp = min(config["pages_per_program"], npp)  # the wrapper's clamp
         s = npp * page
         lens = ragged_lengths(b, s)
-        flops = 4.0 * b * hk * g * s * d
-        bytes_moved = 2.0 * hk * int(lens.sum()) * d * it  # valid K and V, read once
+        flops, bytes_moved = decode_cost(b, hk * g, hk, s, d, int(lens.sum()), it)
         blk = ppp * page
         smem = decode_smem_bytes(g, d, blk)
         steps = _waves(b * hk * decode_splits(s, blk)) * min(decode_tiles_per_split(blk),
@@ -266,8 +372,7 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
     elif family == "ssm_scan":  # K4
         bt, s, dn, n = shape["bt"], shape["s"], shape["dn"], shape["n"]
         d_block = config["d_block"]
-        flops = 8.0 * bt * s * dn * n
-        bytes_moved = 3.0 * bt * s * (dn + 2 * n) * it
+        flops, bytes_moved = scan_cost(bt, s, dn, n, it)
         if s == 1:  # the decode body: a thread a (sequence, channel), no staging
             smem = 0
             steps = _waves(_ceil_div(bt * dn, _K4_THREADS))
@@ -280,8 +385,7 @@ def estimate(family: str, shape: Dict[str, int], config: Dict[str, int],
     elif family == "sdca":  # K1 (use_pallas 1) or its plain version (0)
         m, nl, d = shape["m"], shape["nl"], shape["d"]
         h = shape.get("h", nl)
-        flops = 4.0 * m * h * d
-        bytes_moved = m * (nl * d + 2 * nl + 2 * d) * it
+        flops, bytes_moved = sdca_cost(m, nl, h, d, it)
         fits = d <= K1_MAX_D or not config.get("use_pallas")
         smem = k1_smem_bytes(d) if config.get("use_pallas") and fits else 0
         # H dependent steps in each worker's warp, as many workers an SM as

@@ -15,7 +15,13 @@ and a kernel that fails to build or launch fails the sweep: nothing is timed
 through a plain version in its place.  On the CPU the same calls run the
 plain versions.  Entries are keyed by the device type, so the two never mix.
 Inputs come from seeded ``torch.Generator``s (the reference's PRNG bits are
-not reproduced).
+not reproduced).  On the card a candidate's ``us_per_call`` is device time,
+from CUDA events around back-to-back calls (``device_time_fn``): the
+dry-run turns it into a cell's measured kernel time
+(``repro_torch.launch.dryrun.attach_tuned_kernels``); the host's wall clock
+a call, which adds the wrapper's launch time, stays beside it as
+``wall_us_per_call``, timed over the same calls.  On the CPU both are the
+wall clock.
 
 Every family sweeps the reference's candidates but ``ssm_scan``: the
 reference sweeps ``chunk``, which groups its associative scan's terms, while
@@ -93,11 +99,15 @@ def sweep_dtype(family: str, dtype, device: torch.device) -> str:
     return name
 
 
+def _on_card(args) -> bool:
+    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+
+
 def time_fn(fn: Callable, *args, iters: int = 5) -> float:
     """Host wall-clock microseconds per call: one warm-up call, then the mean
     of ``iters`` calls, each followed by ``torch.cuda.synchronize()`` when an
     argument lies on the card."""
-    on_card = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+    on_card = _on_card(args)
 
     def call():
         fn(*args)
@@ -109,6 +119,29 @@ def time_fn(fn: Callable, *args, iters: int = 5) -> float:
     for _ in range(iters):
         call()
     return (time.perf_counter() - t0) / iters * 1e6
+
+
+def device_time_fn(fn: Callable, *args, iters: int = 5) -> Tuple[float, float]:
+    """(microseconds a call on the device that runs it, microseconds a call
+    by the host's wall clock) over the same ``iters`` calls back to back
+    after one warm-up call: on the card CUDA events bound the calls (the
+    device's time, which the host's launch time overlaps) and the wall clock
+    runs from the first call to the last one's end; on the CPU both are the
+    wall clock (``time_fn``)."""
+    if not _on_card(args):
+        us = time_fn(fn, *args, iters=iters)
+        return us, us
+    fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    return start.elapsed_time(end) / iters * 1e3, wall / iters * 1e6
 
 
 def _pow2_range(lo: int, hi: int) -> List[int]:
@@ -361,8 +394,9 @@ def sweep(
     results = []
     for est in kept:
         fn, args = build(est.config)
-        results.append((time_fn(fn, *args, iters=iters), est.config))
-    best_us, best_config = min(results, key=lambda r: r[0])
+        us, wall = device_time_fn(fn, *args, iters=iters)
+        results.append((us, est.config, wall))
+    best_us, best_config, wall_us = min(results, key=lambda r: r[0])
     entry = cache.put(
         cache_key(family, shape, name, dev.type),
         family=family,
@@ -373,6 +407,7 @@ def sweep(
         swept=len(kept),
         pruned=n_pruned,
         backend=dev.type,
+        wall_us_per_call=wall_us,
     )
     cache.save()
     # every sweep result rides the bus: a cache with its own tracker keeps

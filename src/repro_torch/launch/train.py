@@ -11,6 +11,8 @@ parallelism controller over the real trainer (observe loss -> refit g(i, m)
       --steps 8 --seq-len 32 --global-batch 2 --device cpu --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --chaos trace.json --steps 30 \\
       [--chaos-seed 0] [--chaos-out run.json] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --tp 2 \\
+      --steps 4 --seq-len 128 --global-batch 8
 
 Without ``--device cpu`` it runs on the card or raises.  Differences from
 the reference: ``--smoke`` is off by default, as in the port's serve CLI (the
@@ -22,14 +24,19 @@ values (the reference draws float32 masters with ``jax.random``); the LM's
 forward runs with the reference's ``Runtime(remat="none" if smoke else
 "full", block_q=64, block_k=64)``.
 
-``Trainer`` takes a data mesh (``TrainerOptions.mesh``, ``rules``: a
-``DeviceMesh`` of ("data", "model") with "model" of size 1, and
-``Rules.default``): each rank holds its block of every float32 master and
-optimizer-state leaf and trains on its rows of the global batch
-(``repro_torch.training.trainer``); checkpoints hold whole leaves, gathered
+``Trainer`` takes a mesh (``TrainerOptions.mesh``, ``rules``: a
+``DeviceMesh`` of ("data", "model"), and ``Rules.default``): each rank holds
+its block of every float32 master and optimizer-state leaf and trains on its
+rows of the global batch, and at a "model" axis larger than 1 a
+tensor-parallel rank's slice of the model (dense-attention and Mamba archs;
+``repro_torch.training.trainer``); checkpoints hold whole leaves, gathered
 from the ranks and written by rank 0, and restore onto a mesh of any shape
-(``CheckpointManager.restore_sharded``).  The CLI has no mesh flag, as the
-reference's has none.
+(``CheckpointManager.restore_sharded``).  ``--tp K`` spawns K ranks on a
+(1, K) mesh, one process each, over the rendezvous and backend rules of ``repro_torch.launch.mesh`` (``run_data_parallel``): rank
+0 prints the mesh, the steps and the median step; every rank's report
+(its records, its kernels' launches, its collectives a step, its peak
+memory) comes back to the caller of ``run``.  The reference's CLI has no
+mesh flag.
 """
 from __future__ import annotations
 
@@ -48,15 +55,15 @@ from repro_torch.configs import ArchConfig, get_config, get_smoke_config
 from repro_torch.convert import tree_from_lm
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.dist import collectives
 from repro_torch.dist.partitioning import Rules
-from repro_torch.models.model import LM, check_trainable_mesh
+from repro_torch.models.model import LM
 from repro_torch.models.runtime import Runtime
 from repro_torch.runtime.elastic import (
     gather_leaf,
     gather_tree,
     mesh_device,
     reshard_tree,
-    shardings_for,
 )
 from repro_torch.runtime.failures import FailureInjector, RestartPolicy, SimulatedFailure
 from repro_torch.runtime.straggler import StragglerMonitor
@@ -64,6 +71,7 @@ from repro_torch.training.optimizers import clip_by_global_norm, get_optimizer
 from repro_torch.training.trainer import (
     DataMesh,
     TrainConfig,
+    draw_blocks,
     forward_backward,
     global_metrics,
     load_blocks_into_lm,
@@ -73,6 +81,8 @@ from repro_torch.training.trainer import (
     meta_tree,
     reduce_grads,
     rescaled_config,
+    state_shardings,
+    train_lm,
 )
 from repro_torch.training.tree import tree_leaves, tree_map
 
@@ -91,7 +101,7 @@ class TrainerOptions:
     learning_rate: float = 1e-3
     local_steps: int = 1  # H>1 => local-SGD outer sync
     compression: Optional[str] = None  # int8 | topk | powersgd
-    mesh: Optional[Any] = None  # a ("data", "model") DeviceMesh, "model" of size 1
+    mesh: Optional[Any] = None  # a ("data", "model") DeviceMesh
     rules: Optional[Rules] = None  # Rules.default(mesh) when None
     failure_injector: Optional[FailureInjector] = None
     log_every: int = 10
@@ -129,9 +139,10 @@ class Trainer:
             self.device = resolve_device(opts.device)
         self.rt = Runtime(remat="none" if opts.smoke else "full", block_q=64, block_k=64,
                           mesh=self.mesh, rules=self.rules)
-        if self.mesh is not None:
-            check_trainable_mesh(self.rt)
-        self.lm = LM(cfg, self.device)
+        self.lm = train_lm(cfg, self.rt, self.device)
+        if opts.compression and self.lm.shard is not None:
+            raise NotImplementedError("gradient compression on a tensor-parallel mesh: the "
+                                      "compressor takes whole gradient leaves")
         self.param_axes = self.lm.param_axes()
         self.opt = get_optimizer(opts.optimizer)
         self.tcfg = TrainConfig(learning_rate=opts.learning_rate, warmup_steps=20,
@@ -150,14 +161,12 @@ class Trainer:
         self.data_mesh = DataMesh(self.lm, self.rt) if self.mesh is not None else None
         if self.data_mesh is not None:
             self.shardings = {"params": self.data_mesh.shardings,
-                              "opt_state": shardings_for(
-                                  self.mesh, self.rules, self.opt.init_axes(self.param_axes),
-                                  self.opt.init(meta_tree(self.lm)), self.device)}
-            if self.data_mesh.rank == 0 and opts.log_every:
+                              "opt_state": state_shardings(self.lm, self.rt, self.opt)}
+            if self.is_writer and opts.log_every:
                 import torch.distributed as dist
 
-                print(f"data mesh: {self.data_mesh.world} rank(s), backend "
-                      f"{dist.get_backend()} on {self.device.type}", flush=True)
+                print(f"mesh: {self.rt.data_world()} x {self.rt.model_world()} (data x model) "
+                      f"rank(s), backend {dist.get_backend()} on {self.device.type}", flush=True)
         self._build_state()
         self._step_fn = self._make_step()
 
@@ -165,15 +174,19 @@ class Trainer:
     @property
     def is_writer(self) -> bool:
         """Rank 0 of a mesh (or the one process) writes checkpoints."""
-        return self.data_mesh is None or self.data_mesh.rank == 0
+        if self.data_mesh is None:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_rank() == 0
 
     def _build_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.opts.seed)
-        self.lm.init_params(gen).trainable()
-        params = tree_from_lm(self.lm)
-        if self.data_mesh is not None:
-            params = reshard_tree(params, self.shardings["params"])
-        self.params = params
+        if self.data_mesh is None:
+            self.params = tree_from_lm(self.lm.init_params(gen))
+        else:  # the whole model's draws, one tensor at a time, the rank's blocks kept
+            self.params = draw_blocks(self.cfg, self.shardings["params"], gen, self.device)
+        self.lm.trainable()
         self.opt_state = self.opt.init(self.params)
         if self.data_mesh is not None:
             self._check_local_state()
@@ -236,10 +249,11 @@ class Trainer:
         rank's, so that each rank reads what rank 0 wrote."""
         if self.ckpt is not None:
             self.ckpt.wait()
-        if self.data_mesh is not None and self.data_mesh.group is not None:
+        if self.data_mesh is not None:
             import torch.distributed as dist
 
-            dist.barrier(group=self.data_mesh.group)
+            if dist.get_world_size() > 1:
+                dist.barrier()
 
     def restore(self, step: Optional[int] = None) -> bool:
         """Restore ``step`` (the newest complete one when None) from the
@@ -501,7 +515,7 @@ def run_chaos_lm(arch: str, trace, ckpt_dir: str, *, m0: int = 1, m_options=(1, 
 
 
 # ---------------------------------------------------------------------------
-# K ranks on a data mesh, one process each
+# ranks on a (data, model) mesh, one process each
 # ---------------------------------------------------------------------------
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_dv",
                     "flash_bwd_dk", "selective_scan", "selective_scan_bwd",
@@ -519,15 +533,16 @@ def _training_wrappers() -> Dict[str, Any]:
 
 
 def run_data_parallel(world: int, job: Dict[str, Any], device: DeviceLike = None,
-                      timeout_s: Optional[float] = None) -> List[Dict[str, Any]]:
+                      timeout_s: Optional[float] = None, model: int = 1
+                      ) -> List[Dict[str, Any]]:
     """Spawn ``world`` ranks (``torch.multiprocessing``, the ``spawn`` start
     method), each joining a group through a file rendezvous in a fresh
     temporary directory (``repro_torch.launch.mesh.init_distributed``: a
     card each over nccl, or gloo where they share one or run on the CPU),
-    building the (world, 1) data mesh and running ``_data_parallel_job``;
-    returns every rank's report, in rank order.  A rank that fails raises
-    here, and so does a group still running after ``timeout_s`` (its ranks
-    killed).
+    building the (world / model, model) mesh and running
+    ``_data_parallel_job``; returns every rank's report, in rank order.  A
+    rank that fails raises here, and so does a group still running after
+    ``timeout_s`` (its ranks killed).
 
     ``job``: ``opts`` (``TrainerOptions`` fields, no mesh), ``steps``, and
     optionally ``state`` (whole params and optimizer state to start from),
@@ -536,13 +551,17 @@ def run_data_parallel(world: int, job: Dict[str, Any], device: DeviceLike = None
     ``Trainer.state_digest``) and ``save_after`` (write a checkpoint after
     that many of the steps; the report has the saved state's digest).
     Each report has the steps' records, the training kernels' launches
-    over them, the rank's float32 state bytes and its peak memory."""
+    over them, the collectives by kind over them, the rank's float32 state
+    bytes, its LM's bytes and its peak memory over the steps; on the card
+    also the peak while the trainer was built and what it held then."""
+    if world % model:
+        raise ValueError(f"{world} ranks do not make a mesh with a 'model' axis of {model}")
     import tempfile
 
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_dp_") as tmp:
-        ctx = mp.start_processes(_data_parallel_rank, args=(world, job, device, tmp),
+        ctx = mp.start_processes(_data_parallel_rank, args=(world, job, device, tmp, model),
                                  nprocs=world, join=False, start_method="spawn")
         deadline = None if timeout_s is None else time.monotonic() + timeout_s
         while not ctx.join(timeout=1.0):
@@ -556,7 +575,7 @@ def run_data_parallel(world: int, job: Dict[str, Any], device: DeviceLike = None
 
 
 def _data_parallel_rank(rank: int, world: int, job: Dict[str, Any], device: DeviceLike,
-                        tmp: str) -> None:
+                        tmp: str, model: int = 1) -> None:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed, make_debug_mesh
@@ -565,7 +584,7 @@ def _data_parallel_rank(rank: int, world: int, job: Dict[str, Any], device: Devi
         torch.set_num_threads(1)
     dev, backend = init_distributed(rank, world, os.path.join(tmp, "rendezvous"), device,
                                     verbose=rank == 0)
-    report = _data_parallel_job(job, make_debug_mesh(world, 1), dev)
+    report = _data_parallel_job(job, make_debug_mesh(world // model, model), dev)
     report.update(rank=rank, world=world, backend=backend, device=str(dev))
     torch.save(report, os.path.join(tmp, f"rank{rank}.pt"))
     dist.barrier()
@@ -592,7 +611,11 @@ def _data_parallel_job(job: Dict[str, Any], mesh, dev: torch.device) -> Dict[str
     wrappers = _training_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    collectives.CALLS.clear()
     if dev.type == "cuda":
+        synchronize(dev)
+        report.update(init_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                      resident_gb=torch.cuda.memory_allocated(dev) / 1e9)
         torch.cuda.reset_peak_memory_stats(dev)
     save_after = job.get("save_after")
     if save_after is not None:
@@ -603,9 +626,11 @@ def _data_parallel_job(job: Dict[str, Any], mesh, dev: torch.device) -> Dict[str
     trainer.train_some(job["steps"] - (save_after or 0))
     report.update(
         launches={name: w.launches for name, w in wrappers.items()},
+        collectives=dict(collectives.CALLS),
         records=trainer.records, n_layers=trainer.cfg.n_layers, remat=trainer.rt.remat,
         state_bytes=sum(t.numel() * t.element_size() for t in
                         tree_leaves(trainer.params) + tree_leaves(trainer.opt_state)),
+        lm_bytes=sum(p.numel() * p.element_size() for p in trainer.lm.parameters()),
         peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None))
     return report
@@ -630,7 +655,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--tp", type=int, default=1, metavar="K",
+                    help="tensor parallelism: a 'model' axis of K ranks, one process each")
     return ap.parse_args(argv)
+
+
+def mesh_main(args: argparse.Namespace) -> List[Dict[str, Any]]:
+    """``--tp K``: the trainer on a (1, K) mesh of K spawned ranks; rank 0
+    prints its steps, then this process the mesh's summary.  Returns every
+    rank's report."""
+    opts = dict(arch=args.arch, smoke=args.smoke, steps=args.steps, seq_len=args.seq_len,
+                global_batch=args.global_batch, ckpt_dir=args.ckpt_dir,
+                optimizer=args.optimizer, compression=args.compression)
+    reports = run_data_parallel(args.tp, {"opts": opts, "steps": args.steps}, args.device,
+                                model=args.tp)
+    rep = reports[0]
+    times = [r["step_time"] for r in rep["records"][1:]]
+    print(f"mesh 1 x {args.tp} (data x model), {args.tp} rank(s), backend "
+          f"{rep['backend']} on {rep['device']}")
+    if times:
+        print(f"rank 0: median step {statistics.median(times) * 1e3:.1f} ms after the first; "
+              f"collectives a step {({k: v / args.steps for k, v in rep['collectives'].items()})}")
+    print("final:", {k: v for k, v in rep["records"][-1].items() if k != "step"})
+    return reports
 
 
 def chaos_main(args: argparse.Namespace):
@@ -666,6 +713,8 @@ def run(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     if args.chaos is not None:
         return chaos_main(args)
+    if args.tp > 1:
+        return mesh_main(args)
     opts = TrainerOptions(arch=args.arch, smoke=args.smoke, steps=args.steps,
                           seq_len=args.seq_len, global_batch=args.global_batch,
                           ckpt_dir=args.ckpt_dir, optimizer=args.optimizer,
@@ -683,7 +732,8 @@ def run(argv: Optional[Sequence[str]] = None):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """The CLI; returns the last step's metrics (``--chaos``: the run log)."""
+    """The CLI; returns the last step's metrics (``--chaos``: the run log;
+    ``--tp``: every rank's report)."""
     out = run(argv)
     return out.last if isinstance(out, Trainer) else out
 

@@ -24,7 +24,10 @@ heads, the same group size G), the projections are its column slices and
 ``wo`` its row slice (``repro_torch.serve.sharding``), so every function
 here, and K3 and K2 within, runs unchanged at the rank's heads; ``wo``'s
 partial products are summed over the "model" group
-(``repro_torch.dist.collectives.all_reduce_sum``).
+(``repro_torch.dist.collectives.all_reduce_sum``).  In training
+(``apply_attention`` under grad) the replicated input and the qk-norm
+scales, which each rank applies to its heads only, enter through
+``copy_to_model``, which sums their gradients over the group.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.collectives import all_reduce_sum
+from repro_torch.dist.collectives import all_reduce_sum, copy_to_model
 from repro_torch.kernels.flash_attention.ops import decode_attention, flash_attention
 from repro_torch.kernels.flash_decode.ops import (
     paged_decode_attention,
@@ -93,6 +96,11 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     forward over the whole sequence.  Returns (y (B, S, d), cache {"k", "v"}
     of shape (B, Hk, S, hd))."""
     b, s, _ = x.shape
+    group = rt.model_group()
+    x = copy_to_model(x, group)
+    if cfg.qk_norm and group is not None:
+        p = dict(p.items(), q_norm=copy_to_model(p["q_norm"], group),
+                 k_norm=copy_to_model(p["k_norm"], group))
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     parts = [_project_qkv(p, x[:, r], cfg, positions[:, r])
              for r in row_blocks(s, rt.prefill_rows)]
@@ -103,7 +111,7 @@ def apply_attention(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     out = flash_attention(qt, kt, vt, causal=True, kv_lens=kv_lens,
                           block_q=rt.block_q, block_k=rt.block_k)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    y = all_reduce_sum(by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), rt.model_group())
+    y = all_reduce_sum(by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), group)
     return y, {"k": kt, "v": vt}
 
 

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.dist.collectives import all_reduce_sum
+from repro_torch.dist.collectives import all_reduce_sum, copy_to_model
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
@@ -198,7 +198,8 @@ def _ffn(p: Block, h: torch.Tensor, cfg: ArchConfig, rt: Runtime) -> torch.Tenso
     given: one row block)."""
     if p.spec.ffn == "moe":
         return moe_mod.apply_moe(p.ffn, h, cfg)
-    return all_reduce_sum(apply_mlp(p.ffn, h), rt.model_group())
+    group = rt.model_group()
+    return all_reduce_sum(apply_mlp(p.ffn, copy_to_model(h, group)), group)
 
 
 def apply_block_decode_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,

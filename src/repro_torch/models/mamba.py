@@ -33,7 +33,9 @@ channels), ``in_proj`` its columns of each half (x and z), ``conv_w``,
 ``x_proj`` and ``out_proj`` its rows (``repro_torch.serve.sharding``).  K4
 scans the rank's channels; ``x_proj``'s and ``out_proj``'s partial products
 are summed over the "model" group, so dt's low-rank input and B and C are
-the whole sums on every rank.
+the whole sums on every rank.  In training their gradients, and the
+replicated input's, which each rank holds for its channels only, are
+summed over the group too (``copy_to_model``).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.collectives import all_reduce_sum
+from repro_torch.dist.collectives import all_reduce_sum, copy_to_model
 from repro_torch.kernels.ssm_scan.ops import selective_scan
 from repro_torch.models.layers import by_rows
 from repro_torch.models.runtime import Runtime
@@ -105,7 +107,8 @@ def _split_xdb(p, x_conv: torch.Tensor, cfg: ArchConfig, rows: int, group=None):
     ``group``."""
     mc = cfg.mamba
     dtr, n = mc.resolved_dt_rank(cfg.d_model), mc.d_state
-    xdb = all_reduce_sum(by_rows(lambda r: r @ p["x_proj"], x_conv, rows), group)
+    xdb = copy_to_model(all_reduce_sum(by_rows(lambda r: r @ p["x_proj"], x_conv, rows), group),
+                        group)
     dt_raw, b_ssm, c_ssm = xdb.split([dtr, n, n], dim=-1)
     dt = by_rows(lambda r: F.softplus((r @ p["dt_w"]).float() + p["dt_b"]), dt_raw, rows)
     return dt, b_ssm, c_ssm
@@ -124,11 +127,12 @@ def apply_mamba(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     di, cw = mc.resolved_d_inner(cfg.d_model), mc.d_conv
     n = s if n_valid is None else int(n_valid)
     rows = rt.prefill_rows
+    group = rt.model_group()
+    x = copy_to_model(x, group)
     xz = by_rows(lambda r: r @ p["in_proj"], x, rows)
     x_in, z = xz.split(di, dim=-1)
     xp = F.pad(x_in.float(), (0, 0, cw - 1, 0))  # zeros before position 0
     x_conv = _conv([xp[:, k:k + s] for k in range(cw)], p).to(x.dtype)
-    group = rt.model_group()
     dt, b_ssm, c_ssm = _split_xdb(p, x_conv, cfg, rows, group)
     if n < s:  # the serve engine's padding (in place: never on the training path)
         dt[:, n:] = 0.0

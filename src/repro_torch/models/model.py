@@ -59,7 +59,14 @@ vocab-sharded vocabulary: the lookup masks the tokens outside them and sums
 over the "model" group, and the logits are gathered to the full vocabulary
 on every rank before anything reads them (``repro_torch.dist.collectives``).
 Its serving entry points take the group from the call's ``Runtime``
-(``rt.mesh``), whose "model" axis must be the shard's world.
+(``rt.mesh``), whose "model" axis must be the shard's world.  So does its
+training forward (``loss_fn``): the trainer's tensor parallelism for the
+dense-attention and Mamba archs, Megatron's conjugate pair of collectives
+around each rank's slice (``repro_torch.dist.collectives``: the replicated
+activation's gradient summed where it enters a column-parallel product, a
+row-parallel product's partials summed in the forward), the vocab-parallel
+embedding and the logits gathered with their backwards.  The MoE FFN and
+MLA refuse a "model" axis larger than 1 by name (ROADMAP.md queue 1 item 10).
 
 ``param_axes()`` and ``cache_axes()`` give the reference's logical-axes
 trees (``model.py:82``, ``:201``) from ``repro_torch.models.param``.
@@ -76,7 +83,12 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.collectives import all_reduce_, gather_vocab, vocab_parallel_embed
+from repro_torch.dist.collectives import (
+    all_reduce_,
+    copy_to_model,
+    gather_vocab,
+    vocab_parallel_embed,
+)
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models import param as param_mod
 from repro_torch.models.layers import (
@@ -107,15 +119,20 @@ class Shard:
 
 
 TRAINER_TP = ("training with tensor parallelism (a mesh whose 'model' axis is larger than 1) "
-              "is not ported: the trainer's tensor parallelism, ROADMAP.md queue 1 item 7")
+              "of {what} is not ported: the MoE's expert-parallel path and MLA under tensor "
+              "parallelism, ROADMAP.md queue 1 item 10")
 
 
-def check_trainable_mesh(rt: Runtime, shard=None) -> None:
-    """Raise ``NotImplementedError`` by name for a training mesh with a
-    "model" axis larger than 1, or a tensor-parallel rank's model: the
-    trainer shards over "data" only and never silently replicates."""
-    if rt.model_world() > 1 or shard is not None:
-        raise NotImplementedError(TRAINER_TP)
+def check_trainable_mesh(rt: Runtime, cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` by name for a training mesh whose
+    "model" axis is larger than 1 under an arch with MoE FFNs or MLA: the
+    trainer never silently replicates what the reference splits."""
+    if rt.model_world() == 1:
+        return
+    if cfg.mla is not None:
+        raise NotImplementedError(TRAINER_TP.format(what=f"{cfg.name}'s MLA layers"))
+    if any(spec.ffn == "moe" for spec in cfg.layer_specs()):
+        raise NotImplementedError(TRAINER_TP.format(what=f"{cfg.name}'s MoE FFNs"))
 
 
 class LM(nn.Module):
@@ -284,20 +301,25 @@ class LM(nn.Module):
         token NLL over the global token count (``loss_mask``'s sum over the
         group), the aux the rank's share of each MoE layer's
         (``repro_torch.models.moe.route``); ``tokens`` is the global
-        count.  A mesh whose "model" axis is larger than 1 raises."""
+        count.  On a mesh whose "model" axis is larger than 1 the model is a
+        tensor-parallel rank's (``shard``): every rank of a "model" group
+        computes the same loss from the gathered logits, and each rank's
+        gradients are its slices' (the module docstring); the MoE FFN and
+        MLA raise by name, and a model sliced for another "model" axis
+        raises (``_vocab_group``)."""
+        check_trainable_mesh(rt, self.cfg if self.shard is None else self.shard.whole)
         cfg = self.cfg
-        check_trainable_mesh(rt, self.shard)
         group = rt.data_group()
         labels = batch["labels"].to(self.device)
         mask = batch.get("loss_mask")
-        x, n_front = self._embed_inputs(batch["tokens"], batch.get("frontend_embeds"))
+        x, n_front = self._embed_inputs(batch["tokens"], batch.get("frontend_embeds"), rt)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
             x, layer_aux = rt.remat_call(functools.partial(blocks_mod.apply_block_train, layer,
                                                            cfg=cfg, rt=rt), x)
             aux = aux + layer_aux
         x = rms_norm(x[:, n_front:], self.final_norm, cfg.norm_eps)
-        logits = lm_logits(self._head(), x)
+        logits = self._logits(copy_to_model(x, self._vocab_group(rt)), rt)
         ce = softmax_cross_entropy(logits, labels, None if mask is None else mask.to(self.device),
                                    group=group)
         tokens = torch.tensor(float(labels.numel()), device=self.device)

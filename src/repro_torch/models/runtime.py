@@ -39,7 +39,6 @@ from repro_torch.dist.partitioning import MODEL_AXIS, Rules, mesh_axes
 POOL_IMPLS = ("kernel", "stream", "gather")
 PAGED_IMPLS = POOL_IMPLS + ("legacy",)
 REMAT_MODES = ("none", "full", "dots")
-DATA_AXIS = "data"
 DEFAULT_PAGES_PER_PROGRAM = 4  # repro/kernels/flash_decode/ops.py:47
 # Rows per matrix product in prefill.  Fewer rows waste less on padding
 # (the serve engine pads prompts to whole blocks), more rows make fewer
@@ -114,20 +113,32 @@ class Runtime:
             return None
         return self.mesh.get_group(MODEL_AXIS)
 
+    def batch_axes(self) -> tuple:
+        """The mesh's batch (FSDP) axes, in mesh order: every axis but
+        "model" (``Rules.default``'s rule; "pod" joins "data")."""
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in mesh_axes(self.mesh)[0] if a != MODEL_AXIS)
+
     def data_world(self) -> int:
-        """The size of the mesh's "data" axis (1 without a mesh)."""
+        """The product of the mesh's batch axes' sizes (1 without a mesh)."""
         if self.mesh is None:
             return 1
-        names, shape = mesh_axes(self.mesh)
-        return dict(zip(names, shape)).get(DATA_AXIS, 1)
+        sizes = dict(zip(*mesh_axes(self.mesh)))
+        n = 1
+        for a in self.batch_axes():
+            n *= sizes[a]
+        return n
 
     def data_group(self):
-        """The process group of this rank's "data" axis, or None without a
-        mesh or at a data axis of size 1 (the training forward then runs
-        the unsharded arithmetic)."""
+        """The process group of this rank's batch axes ("data", or ("pod",
+        "data") on a stand-in mesh of two pods), or None without a mesh or
+        at a size of 1 (the training forward then runs the unsharded
+        arithmetic)."""
         if self.data_world() == 1:
             return None
-        return self.mesh.get_group(DATA_AXIS)
+        axes = tuple(a for a in self.batch_axes() if dict(zip(*mesh_axes(self.mesh)))[a] > 1)
+        return self.mesh.get_group(axes[0] if len(axes) == 1 else axes)
 
     def remat_call(self, fn: Callable[[torch.Tensor], Any], x: torch.Tensor) -> Any:
         """``fn(x)`` under the ``remat`` policy (a no-op without grad): its

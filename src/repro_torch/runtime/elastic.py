@@ -23,12 +23,21 @@ block onto the rank's device; an entry of None is the whole leaf.  The mesh
 is a ``DeviceMesh`` (its coordinates from ``get_coordinate``) or a stand-in
 with the reference's ``axis_names`` and ``devices.shape`` and, optionally,
 ``coords`` (this rank's coordinate on each axis, zeros when absent) and
-``device``.
+``device`` (``repro_torch.launch.mesh.StandInMesh``, whose groups may span
+several axes at once).
+
+One kind of leaf is cut otherwise: a dim that concatenates equal pieces
+(Mamba's ``in_proj``, its x and z halves side by side) is cut within each
+piece, the rank's block its slice of each piece side by side
+(``LeafSharding.pieces``), as the serve plan slices it
+(``repro_torch.serve.sharding``), so that a tensor-parallel rank's block
+is its model's ``in_proj``.  ``shardings_for(pieces=...)`` names such
+dims by logical axis and size.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -69,6 +78,11 @@ class LeafSharding:
     coords: Mapping[str, int]
     device: torch.device
     mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # equal pieces each dim concatenates (1: a plain dim), each cut alike
+    pieces: Tuple[int, ...] = ()
+
+    def piece_count(self, dim: int) -> int:
+        return self.pieces[dim] if dim < len(self.pieces) else 1
 
     def parts(self, dim: int) -> int:
         """The number of blocks the leaf is cut into along ``dim``."""
@@ -97,7 +111,10 @@ class LeafSharding:
         return tuple(int(n) // self.parts(d) for d, n in enumerate(shape))
 
     def block(self, shape) -> Tuple[slice, ...]:
-        """The rank's block of a whole leaf of ``shape``."""
+        """The rank's block of a whole leaf of ``shape`` (a leaf without
+        pieces: ``place`` cuts those)."""
+        if any(self.piece_count(d) > 1 and self.parts(d) > 1 for d in range(len(shape))):
+            raise ValueError("a dim of pieces is cut within each piece: use place()")
         out = []
         for d, n in enumerate(shape):
             size = int(n) // self.parts(d)
@@ -111,37 +128,53 @@ class LeafSharding:
             x = torch.as_tensor(x)
         if tuple(x.shape) and len(self.spec) != x.dim():
             raise ValueError(f"spec {self.spec} for a leaf of shape {tuple(x.shape)}")
-        local = x[self.block(x.shape)] if x.dim() else x
+        local = x
+        for d, n in enumerate(x.shape):
+            k = self.parts(d)
+            if k == 1:
+                continue
+            p = self.piece_count(d)
+            piece = int(n) // p
+            step = piece // k
+            cuts = [local.narrow(d, j * piece + self.index(d) * step, step) for j in range(p)]
+            local = cuts[0] if p == 1 else torch.cat(cuts, dim=d)
         return local.to(self.device, copy=True).contiguous()
 
     def group(self, dim: int):
         """The process group that holds the blocks along ``dim``: the mesh
-        axis' group (one axis a dim: the trainer's meshes)."""
+        axis' group (one axis a dim on a ``DeviceMesh``; a stand-in mesh's
+        group spans several)."""
         axes = entry_axes(self.spec[dim])
-        if len(axes) != 1:
+        if len(axes) == 1:
+            return self.mesh.get_group(axes[0])
+        if not getattr(self.mesh, "virtual", False):
             raise NotImplementedError(f"a dim split over the mesh axes {axes} at once")
-        return self.mesh.get_group(axes[0])
+        return self.mesh.get_group(axes)
 
-    def data_group(self):
-        """The group over which the leaf's blocks lie: its one split dim's."""
-        dims = self.split_dims()
-        if len(dims) != 1:
-            raise NotImplementedError(f"a leaf split along the dims {dims}")
-        return self.group(dims[0])
+    def dims_over(self, axes: Sequence[str]) -> Tuple[int, ...]:
+        """The split dims whose entry names one of ``axes``."""
+        return tuple(d for d in self.split_dims()
+                     if any(a in axes for a in entry_axes(self.spec[d])))
 
 
-def shardings_for(mesh, rules: Rules, axes_tree, value_tree, device=None):
+def shardings_for(mesh, rules: Rules, axes_tree, value_tree, device=None,
+                  pieces: Optional[Mapping[Tuple[str, int], int]] = None):
     """A ``LeafSharding`` tree for params or optimizer state (shape-aware:
     each leaf's spec at its whole shape; ``value_tree``'s leaves need only a
-    ``shape``: meta tensors do)."""
+    ``shape``: meta tensors do).  ``pieces`` maps (logical axis, whole
+    size) to the equal pieces such a dim concatenates (module docstring)."""
     _, shape = mesh_axes(mesh)
     sizes = dict(zip(mesh_axes(mesh)[0], shape))
     coords = mesh_coordinate(mesh)
     device = mesh_device(mesh) if device is None else torch.device(device)
+    pieces = pieces or {}
 
     def mk(leaf, ax):
-        spec = rules.param_pspec(ax, tuple(getattr(leaf, "shape", ())))
-        return LeafSharding(spec, sizes, coords, device, mesh)
+        whole = tuple(getattr(leaf, "shape", ()))
+        spec = rules.param_pspec(ax, whole)
+        cut = tuple(pieces.get((a, int(n)), 1) for a, n in zip(ax, whole))
+        return LeafSharding(spec, sizes, coords, device, mesh,
+                            cut if any(p > 1 for p in cut) else ())
 
     return map_with_axes(mk, value_tree, axes_tree)
 
@@ -176,15 +209,23 @@ def rescale_training_state(host_state: Dict[str, Any], new_mesh, rules: Rules, p
                    new_mesh, rules, axes, device)
 
 
-def gather_leaf(local: torch.Tensor, sh: Optional[LeafSharding]) -> torch.Tensor:
+def gather_leaf(local: torch.Tensor, sh: Optional[LeafSharding],
+                axes: Optional[Sequence[str]] = None) -> torch.Tensor:
     """The whole leaf from the ranks' blocks (``local`` this rank's), on
-    every rank; a leaf split nowhere is ``local`` itself."""
+    every rank; a leaf split nowhere is ``local`` itself.  With ``axes``,
+    gathered over the dims split over those mesh axes only (the trainer's
+    FSDP gather over the batch axes, a tensor-parallel rank's slices kept)."""
     from repro_torch.dist.collectives import gather_blocks
 
     if sh is None:
         return local
-    for d in sh.split_dims():
+    for d in (sh.split_dims() if axes is None else sh.dims_over(axes)):
         local = gather_blocks(local, d, sh.group(d))
+        p, k = sh.piece_count(d), sh.parts(d)
+        if p > 1:  # (rank, piece, slice) -> (piece, rank, slice)
+            n = local.shape[d]
+            local = (local.unflatten(d, (k, p, n // (k * p))).transpose(d, d + 1)
+                     .flatten(d, d + 2))
     return local
 
 

@@ -172,12 +172,15 @@ def _mean(x: torch.Tensor, dim: int, sh, param_dim: int = None, keepdim: bool = 
 
 
 def _mean_all(x: torch.Tensor, sh) -> torch.Tensor:
-    """The mean over every element of the whole leaf whose block is x."""
+    """The mean over every element of the whole leaf whose block is x (the
+    block's sum summed over the group of each split dim in turn)."""
     if sh is None or not sh.split_dims():
         return torch.mean(x)
     from repro_torch.dist.collectives import all_reduce_
 
-    total = all_reduce_(x.sum(), sh.data_group())
+    total = x.sum()
+    for d in sh.split_dims():
+        total = all_reduce_(total, sh.group(d))
     return total / (x.numel() * sh.n_blocks())
 
 

@@ -12,33 +12,49 @@ gradient of a float32 master leaf is its cast's gradient, the LM tensor's,
 in float32), sums ``microbatches`` of them in float32, clips by the global
 norm and applies the optimizer.
 
-On a data mesh (``rt.mesh`` with "model" of size 1, ``rt.rules`` the
-reference's ``Rules.default``: FSDP over "data") ``params`` and the
-optimizer state hold the rank's contiguous block of every leaf, as
-``Rules.default(mesh).param_pspec`` names it (``param_shardings``), and a
-step
+On a mesh (``rt.mesh`` with axes ("data", "model"), or a stand-in with
+"pod" too; ``rt.rules`` the reference's ``Rules.default``: FSDP over the
+batch axes, tensor parallelism over "model") ``params`` and the optimizer
+state hold the rank's block of every leaf, as
+``Rules.default(mesh).param_pspec`` names it (``param_shardings``): a
+contiguous block along a dim split over the batch axes, and the slice the
+serve plan gives a tensor-parallel rank along a dim split over "model"
+(Mamba's ``in_proj`` a slice of each half: ``LeafSharding.pieces``).  The
+LM is the rank's (``train_lm``): the whole model, or at a "model" axis of K
+> 1 a tensor-parallel rank's, at the serve plan's local widths
+(``repro_torch.serve.sharding``; dense-attention and Mamba archs only: the
+MoE FFN and MLA refuse by name, ROADMAP.md queue 1 item 10).  A step
 
-1. gathers each master leaf's blocks into the rank's LM, one leaf at a
-   time (so the rank never holds a second float32 copy of the model);
+1. gathers each master leaf's blocks over the batch axes into the rank's
+   LM, one leaf at a time (so the rank never holds a second float32 copy
+   of its slice of the model);
 2. runs forward and backward on the rank's rows of the global batch (rows
-   r B / K to (r + 1) B / K, the "batch" rule), the loss the rank's share
-   of the global loss (``LM.loss_fn``);
-3. sums each gradient over the group in float32 and keeps the rank's block;
-4. takes the global norm from the blocks' squares summed over the group,
-   a replicated leaf counted once;
+   r B / K to (r + 1) B / K over the batch axes, the "batch" rule), the
+   loss the rank's share of the global loss (``LM.loss_fn``; every rank of
+   a "model" group computes the same);
+3. sums each gradient over the batch axes in float32 and keeps the rank's
+   block (a reduce-scatter over "data" only: a tensor-parallel rank's
+   slices are its own);
+4. takes the global norm from the blocks' squares, summed over the axes
+   each leaf is split over, a leaf replicated over an axis counted once;
 5. clips, and updates the rank's blocks (``Optimizer.update(shards=...)``).
 
-The metrics are the global values on every rank.  With one rank on the
-"data" axis every collective is the identity and the step is the unmeshed
-one, bit for bit.  A "model" axis larger than 1 raises (the trainer's
-tensor parallelism, ROADMAP.md).
+The metrics are the global values on every rank.  With one rank on every
+axis each collective is the identity and the step is the unmeshed one,
+bit for bit.
 
 ``make_train_step(compressor=...)`` raises: the reference's path calls a
 ``GradientCompressor.apply`` that does not exist
 (``repro/training/trainer.py:96``); its trainer compresses in
 ``Trainer.train_some``, and so does the port's
-(``repro_torch.launch.train``).  ``make_diloco_inner_step`` waits for the
-dry-run (ROADMAP.md).
+(``repro_torch.launch.train``).
+
+``make_diloco_inner_step`` is the reference's DiLoCo inner step
+(``trainer.py:117-141``): a leading replica axis on the parameters, the
+optimizer state and the batch, each replica's ``make_train_step`` step on
+its slices (one replica after the other where the reference vmaps; each
+replica's result independent of the others'), and ``outer_sync``, the
+float32 mean over the replicas broadcast back to each.
 """
 from __future__ import annotations
 
@@ -48,12 +64,15 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import load_tree_into_lm, param_layout, set_path, tree_from_lm, tuples
-from repro_torch.dist.collectives import all_reduce_, reduce_scatter_blocks
-from repro_torch.dist.partitioning import Rules
-from repro_torch.models.model import LM, check_trainable_mesh
+from repro_torch.device import DeviceLike
+from repro_torch.dist.collectives import all_reduce_, group_rank, reduce_scatter_blocks
+from repro_torch.dist.partitioning import MODEL_AXIS, Rules, entry_axes
+from repro_torch.models.model import LM, Shard, check_trainable_mesh
+from repro_torch.models.param import TOP_AXES
 from repro_torch.models.runtime import Runtime
-from repro_torch.runtime.elastic import gather_leaf, mesh_coordinate, shardings_for
+from repro_torch.runtime.elastic import gather_leaf, shardings_for
 from repro_torch.training.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.training.tree import tree_leaves, tree_map
 
@@ -119,7 +138,10 @@ COMPRESSOR_IN_STEP = (
 # ---------------------------------------------------------------------------
 def meta_tree(lm: LM):
     """The LM's parameters in the reference's layout as float32 tensors on
-    the "meta" device: the whole leaves' shapes, no memory."""
+    the "meta" device: the whole model's leaves' shapes (a tensor-parallel
+    rank's LM too), no memory."""
+    if lm.shard is not None:
+        lm = LM(lm.shard.whole, "meta")
     stacks, tree = {}, {}
     for path, n, t in param_layout(lm):
         if n is None:
@@ -132,12 +154,88 @@ def meta_tree(lm: LM):
     return tuples(tree)
 
 
+@torch.no_grad()
+def draw_blocks(cfg: ArchConfig, shardings, generator: torch.Generator,
+                device: DeviceLike = None) -> Dict:
+    """The rank's blocks of the float32 master tree that
+    ``tree_from_lm(LM(cfg, device).init_params(generator))`` gives whole:
+    the same draws, in ``init_params``' order, one tensor at a time, each
+    drawn whole, stored in the config's dtype as the LM stores it, and cut
+    to the rank's block (``shardings``: ``param_shardings``' tree) before
+    the next is drawn.  So a rank never holds more of the model than its
+    blocks and one whole tensor."""
+    from repro_torch.convert import _get
+    from repro_torch.models.blocks import fill_param
+
+    whole = LM(cfg, "meta")
+    where = {id(t): (path, n) for path, n, t in param_layout(whole)}
+    blocks: Dict = {}
+    for t, init, scale in whole.init_entries():
+        path, n = where[id(t)]
+        sh = _get(shardings, path)
+        if n is not None:  # one layer of a leaf stacked over the periods
+            if sh.parts(0) > 1:
+                raise NotImplementedError(f"{path}: a leaf split over its periods")
+            sh = dataclasses.replace(sh, spec=sh.spec[1:], pieces=sh.pieces[1:])
+        drawn = torch.empty(t.shape, dtype=t.dtype, device=device)
+        fill_param(drawn, init, scale, generator)
+        blocks.setdefault(path, {})[n] = sh.place(drawn).to(torch.float32)
+        del drawn
+    tree: Dict = {}
+    for path, parts in blocks.items():
+        set_path(tree, path, parts[None] if None in parts
+                 else torch.stack([parts[n] for n in range(len(parts))]))
+    return tuples(tree)
+
+
+def whole_config(lm: LM) -> ArchConfig:
+    """The whole model's config (a tensor-parallel rank's LM holds its
+    local widths')."""
+    return lm.cfg if lm.shard is None else lm.shard.whole
+
+
+def train_lm(cfg: ArchConfig, rt: Runtime, device: DeviceLike = None) -> LM:
+    """The LM a rank trains, no weights drawn: the whole model, or on a mesh
+    whose "model" axis is K > 1 a tensor-parallel rank's, at the serve
+    plan's local widths (``ShardingPlan.local_config``) and the rank's
+    vocabulary rows where ``Rules.default`` splits them.  The MoE FFN and
+    MLA refuse K > 1 by name."""
+    check_trainable_mesh(rt, cfg)
+    if rt.model_world() == 1:
+        return LM(cfg, device)
+    from repro_torch.serve.sharding import ShardingPlan
+
+    plan = ShardingPlan(rt.mesh, Rules.for_serving(rt.mesh))
+    local = plan.local_config(cfg)
+    vocab = plan.sharded(Rules.default(rt.mesh).param_pspec(
+        TOP_AXES["embed"], (cfg.vocab_size, cfg.d_model))[0])
+    return LM(local, device, shard=Shard(plan.model_rank, plan.world, vocab, cfg))
+
+
+def tp_pieces(cfg: ArchConfig) -> Dict:
+    """``shardings_for``'s pieces: Mamba's ``in_proj`` columns, the x and z
+    halves of 2 Dn side by side (``serve.sharding.SPLIT_PARTS``)."""
+    if cfg.mamba is None:
+        return {}
+    return {("mamba_inner", 2 * cfg.mamba.resolved_d_inner(cfg.d_model)): 2}
+
+
 def param_shardings(lm: LM, rt: Runtime):
     """The ``LeafSharding`` tree of the LM's float32 master parameters on
     ``rt.mesh`` under ``rt.rules`` (``Rules.default`` when None)."""
-    check_trainable_mesh(rt)
+    cfg = whole_config(lm)
+    check_trainable_mesh(rt, cfg)
     rules = rt.rules or Rules.default(rt.mesh)
-    return shardings_for(rt.mesh, rules, lm.param_axes(), meta_tree(lm), lm.device)
+    return shardings_for(rt.mesh, rules, lm.param_axes(), meta_tree(lm), lm.device,
+                         pieces=tp_pieces(cfg))
+
+
+def state_shardings(lm: LM, rt: Runtime, opt: Optimizer):
+    """The ``LeafSharding`` tree of ``opt``'s state for the LM's master
+    parameters (its own axes, ``Optimizer.init_axes``)."""
+    rules = rt.rules or Rules.default(rt.mesh)
+    return shardings_for(rt.mesh, rules, opt.init_axes(lm.param_axes()),
+                         opt.init(meta_tree(lm)), lm.device, pieces=tp_pieces(whole_config(lm)))
 
 
 def local_rows(batch: Dict, rank: int, world: int) -> Dict:
@@ -149,12 +247,21 @@ def local_rows(batch: Dict, rank: int, world: int) -> Dict:
     return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
 
 
+def batch_axes(shardings) -> tuple:
+    """The mesh's axes but "model" (the FSDP and batch axes)."""
+    from repro_torch.training.tree import tree_leaves as leaves
+
+    first = leaves(shardings)[0]
+    return tuple(a for a in first.axis_sizes if a != MODEL_AXIS)
+
+
 @torch.no_grad()
 def load_blocks_into_lm(lm: LM, params, shardings) -> None:
     """Copy the master blocks into the LM's tensors: each leaf's blocks cast
     to the dtype the port stores it in (bf16 for the matrices: half the
     bytes of a float32 gather, and the same values, since the cast is
-    elementwise) and gathered whole from the ranks, one leaf at a time."""
+    elementwise) and gathered over the batch axes, one leaf at a time (a
+    tensor-parallel rank's LM holds its slices)."""
     if shardings is None:
         load_tree_into_lm(lm, params)
         return
@@ -167,23 +274,26 @@ def load_blocks_into_lm(lm: LM, params, shardings) -> None:
             tree = tree[key]
         return tree
 
+    axes = batch_axes(shardings)
     for path, targets in dsts.items():
         local = get(params, path).to(targets[0][1].dtype)
-        whole = gather_leaf(local, get(shardings, path))
+        whole = gather_leaf(local, get(shardings, path), axes)
         for n, dst in targets:
             dst.copy_(whole if n is None else whole[n])
         del whole
 
 
 def reduce_grads(grads, shardings, group, scatter: bool = True):
-    """Each gradient leaf summed over the group (float32): the rank's block
-    with ``scatter``, else the whole sum on every rank.  The identity when
-    ``group`` is None."""
+    """Each gradient leaf summed over the batch axes' group (float32): the
+    rank's block with ``scatter``, else the whole sum on every rank.  The
+    identity when ``group`` is None.  A dim split over "model" is the
+    rank's own slice and is not summed."""
     if group is None:
         return grads
+    axes = batch_axes(shardings)
 
     def leaf(g, sh):
-        dims = sh.split_dims()
+        dims = sh.dims_over(axes)
         if scatter and dims:
             return reduce_scatter_blocks(g, dims[0], sh.group(dims[0]))
         return all_reduce_(g, group)
@@ -191,22 +301,32 @@ def reduce_grads(grads, shardings, group, scatter: bool = True):
     return tree_map(leaf, grads, shardings)
 
 
+def _split_groups(sh) -> tuple:
+    """(axes, group) of each split dim of a leaf, in dim order."""
+    return tuple((entry_axes(sh.spec[d]), sh.group(d)) for d in sh.split_dims())
+
+
 @torch.no_grad()
 def clip_sharded(grads, shardings, group, max_norm: float):
-    """``clip_by_global_norm`` over a tree of blocks: the norm from the
-    split leaves' squares summed over the group and the replicated leaves'
-    counted once (``clip_by_global_norm`` itself when ``group`` is None)."""
-    if group is None:
+    """``clip_by_global_norm`` over a tree of blocks: the leaves' squares
+    summed by the set of mesh axes each leaf is split over, each sum over
+    those axes' groups, a leaf replicated over an axis counted once
+    (``clip_by_global_norm`` itself when the mesh has one rank)."""
+    if shardings is None or (group is None
+                             and not any(sh.split_dims() for sh in tree_leaves(shardings))):
         return clip_by_global_norm(grads, max_norm)
-    split = torch.zeros((), dtype=torch.float32, device=tree_leaves(grads)[0].device)
-    whole = torch.zeros_like(split)
+    zero = torch.zeros((), dtype=torch.float32, device=tree_leaves(grads)[0].device)
+    sums, groups = {}, {}
     for g, sh in zip(tree_leaves(grads), tree_leaves(shardings)):
-        sq = torch.sum(torch.square(g.float()))
-        if sh.split_dims():
-            split = split + sq
-        else:
-            whole = whole + sq
-    norm = torch.sqrt(all_reduce_(split, group) + whole)
+        key = tuple(axes for axes, _ in _split_groups(sh))
+        groups.setdefault(key, [grp for _, grp in _split_groups(sh)])
+        sums[key] = sums.get(key, zero) + torch.sum(torch.square(g.float()))
+    total = sums.pop((), zero)
+    for key, sq in sums.items():
+        for grp in groups[key]:
+            sq = all_reduce_(sq, grp)
+        total = sq + total
+    norm = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
@@ -222,15 +342,15 @@ def global_metrics(metrics: Dict[str, torch.Tensor], group, keys=("loss", "ce", 
 
 
 class DataMesh:
-    """What a train step on a data mesh needs: the master parameters'
-    shardings, the "data" group (None at one rank) and this rank's place
-    on it."""
+    """What a train step on a mesh needs: the master parameters'
+    shardings, the batch axes' group (None at one rank) and this rank's
+    place on it."""
 
     def __init__(self, lm: LM, rt: Runtime):
         self.shardings = param_shardings(lm, rt)
         self.group = rt.data_group()
         self.world = rt.data_world()
-        self.rank = mesh_coordinate(rt.mesh).get("data", 0)
+        self.rank = 0 if self.group is None else group_rank(self.group)
 
 
 def forward_backward(lm: LM, rt: Runtime, batch: Dict):
@@ -242,13 +362,15 @@ def forward_backward(lm: LM, rt: Runtime, batch: Dict):
 
 
 def make_train_step(lm: LM, opt: Optimizer, cfg: TrainConfig, compressor=None,
-                    rt: Runtime = Runtime()) -> Callable:
+                    rt: Runtime = Runtime(), local_batch: bool = False) -> Callable:
     """Returns step(params, opt_state, batch, step_idx) -> (p, s, metrics):
-    ``batch`` a dict of (B, S) tensors or arrays (the global batch),
-    ``metrics`` float32 0-d tensors on the LM's device: loss, grad_norm, lr,
-    and without microbatches the loss's ce, aux and tokens.  The LM must be
-    ``trainable()``.  With ``rt.mesh`` the step runs on the data mesh (the
-    module docstring); ``params`` and ``opt_state`` are the rank's blocks."""
+    ``batch`` a dict of (B, S) tensors or arrays (the global batch; with
+    ``local_batch`` the rank's rows of it already), ``metrics`` float32 0-d
+    tensors on the LM's device: loss, grad_norm, lr, and without
+    microbatches the loss's ce, aux and tokens.  The LM must be
+    ``trainable()`` (a tensor-parallel rank's: ``train_lm``).  With
+    ``rt.mesh`` the step runs on the mesh (the module docstring); ``params``
+    and ``opt_state`` are the rank's blocks."""
     if compressor is not None:
         raise TypeError(COMPRESSOR_IN_STEP)
     mesh = DataMesh(lm, rt) if rt.mesh is not None else None
@@ -257,7 +379,7 @@ def make_train_step(lm: LM, opt: Optimizer, cfg: TrainConfig, compressor=None,
 
     def step_fn(params, opt_state, batch, step_idx):
         batch = {k: torch.as_tensor(v, device=lm.device) for k, v in batch.items()}
-        if mesh is not None:
+        if mesh is not None and not local_batch:
             batch = local_rows(batch, mesh.rank, mesh.world)
         load_blocks_into_lm(lm, params, shardings)
         for p in lm.parameters():
@@ -282,3 +404,42 @@ def make_train_step(lm: LM, opt: Optimizer, cfg: TrainConfig, compressor=None,
         return new_params, new_opt, global_metrics(metrics, group)
 
     return step_fn
+
+
+# ---------------------------------------------------------------------------
+# Local SGD (communication-avoiding data parallelism), DiLoCo style: H inner
+# steps a replica with no gradient sync between replicas, then one mean of
+# the parameters (``repro/training/trainer.py:104-141``).
+# ---------------------------------------------------------------------------
+def _replica(tree, i: int):
+    return tree_map(lambda x: x[i], tree)
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def make_diloco_inner_step(lm: LM, opt: Optimizer, cfg: TrainConfig, n_replicas: int,
+                           rt: Runtime = Runtime()):
+    """DiLoCo-style inner step: ``make_train_step``'s step over a leading
+    replica axis of the parameters, the optimizer state and the batch
+    (``(n_replicas, per_replica_batch, ...)``), one replica after the other
+    on one device (the reference vmaps); each replica's result depends on
+    its slices only.  Returns (inner, outer_sync): ``inner(params_r,
+    opt_state_r, batch_r, step_idx) -> (params_r, opt_state_r, metrics_r)``,
+    the metrics with the replica axis too, and ``outer_sync(params_r)``, the
+    float32 mean over the replicas broadcast back to each.  Parameter
+    memory is n_replicas times one copy's (the trade the planner weighs)."""
+    base = make_train_step(lm, opt, cfg, rt=rt)
+
+    def inner(params_r, opt_state_r, batch_r, step_idx):
+        outs = [base(_replica(params_r, i), _replica(opt_state_r, i),
+                     {k: torch.as_tensor(v)[i] for k, v in batch_r.items()}, step_idx)
+                for i in range(n_replicas)]
+        return tuple(_stack([o[j] for o in outs]) for j in range(3))
+
+    def outer_sync(params_r):
+        return tree_map(lambda p: p.float().mean(dim=0, keepdim=True).to(p.dtype)
+                        .expand(n_replicas, *p.shape[1:]).contiguous(), params_r)
+
+    return inner, outer_sync

@@ -1,6 +1,7 @@
-"""The ranks of tests/test_torch_fsdp.py: a CPU process group (gloo), one
-process a rank, running jobs on a (K, 1) data mesh.  Kept apart from the
-test module so that a spawned rank imports the port alone, not JAX."""
+"""The ranks of tests/test_torch_fsdp.py and tests/test_torch_tp_train.py: a
+CPU process group (gloo), one process a rank, running jobs on a (K / M, M)
+mesh (a data mesh at M = 1).  Kept apart from the test modules so that a
+spawned rank imports the port alone, not JAX."""
 import os
 import traceback
 
@@ -11,7 +12,8 @@ class Ranks:
     """``rank_main`` started in ``world`` spawned processes on ``jobs``;
     ``results()`` waits for them (the caller may work meanwhile)."""
 
-    def __init__(self, world: int, jobs: dict, workdir: str, timeout_s: float):
+    def __init__(self, world: int, jobs: dict, workdir: str, timeout_s: float,
+                 model: int = 1):
         import time
 
         import torch.multiprocessing as mp
@@ -19,7 +21,7 @@ class Ranks:
         self.world, self.workdir = world, workdir
         self.deadline = time.monotonic() + timeout_s
         init_file = os.path.join(workdir, "rendezvous")
-        self.ctx = mp.start_processes(rank_main, args=(world, init_file, jobs, workdir),
+        self.ctx = mp.start_processes(rank_main, args=(world, init_file, jobs, workdir, model),
                                       nprocs=world, join=False, start_method="spawn")
 
     def results(self) -> list:
@@ -40,7 +42,8 @@ class Ranks:
         return out
 
 
-def rank_main(rank: int, world: int, init_file: str, jobs: dict, workdir: str) -> None:
+def rank_main(rank: int, world: int, init_file: str, jobs: dict, workdir: str,
+              model: int = 1) -> None:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed, make_debug_mesh
@@ -49,7 +52,7 @@ def rank_main(rank: int, world: int, init_file: str, jobs: dict, workdir: str) -
     results = {}
     try:
         init_distributed(rank, world, init_file, "cpu", verbose=False)
-        mesh = make_debug_mesh(world, 1)
+        mesh = make_debug_mesh(world // model, model)
         for name, job in jobs.items():
             results[name] = JOBS[job["kind"]](job, mesh, workdir)
         dist.barrier()
@@ -141,7 +144,8 @@ def moe_job(job, mesh, workdir):
 def trainer_job(job, mesh, workdir):
     """``Trainer`` on the data mesh (the smoke config, float32): its steps,
     a checkpoint at the end (whole leaves, written by rank 0), and whether
-    a "model" axis of 2 is refused by name."""
+    a "model" axis of 2 is refused by name for a MoE arch (the trainer's
+    tensor parallelism takes the dense-attention and Mamba archs)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -158,11 +162,41 @@ def trainer_job(job, mesh, workdir):
            "opt_state": _numpy_tree(state), "step": t.step}
     tp = make_debug_mesh(1, dist.get_world_size())
     try:
-        Trainer(TrainerOptions(**job["opts"], mesh=tp, device="cpu"))
+        Trainer(TrainerOptions(**dict(job["opts"], arch="deepseek-moe-16b", cfg=None), mesh=tp,
+                               device="cpu"))
         out["tp_refused"] = None
     except NotImplementedError as e:
         out["tp_refused"] = str(e)
     return out
 
 
-JOBS = {"step": step_job, "moe": moe_job, "trainer": trainer_job}
+def tp_step_job(job, mesh, workdir):
+    """``make_train_step`` on a (data, model) mesh from the reference's
+    whole weights: the rank's tensor-parallel LM (``train_lm``), its blocks
+    of the weights and of the optimizer state; each step's metrics, then the
+    params and the optimizer state gathered whole."""
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.dist.partitioning import Rules
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.runtime.elastic import gather_tree, reshard_tree
+    from repro_torch.training import optimizers, trainer
+
+    rt = Runtime(block_q=16, block_k=16, mesh=mesh, rules=Rules.default(mesh))
+    lm = trainer.train_lm(job["cfg"], rt, "cpu").trainable()
+    opt = optimizers.get_optimizer(job["optimizer"])
+    step = trainer.make_train_step(lm, opt, trainer.TrainConfig(**job["tcfg"]), rt=rt)
+    psh, osh = trainer.param_shardings(lm, rt), trainer.state_shardings(lm, rt, opt)
+    params = reshard_tree(tree_from_numpy(job["params"], "cpu"), psh)
+    state = opt.init(params)
+    metrics = []
+    for i, batch in enumerate(job["batches"]):
+        params, state, m = step(params, state, batch, i)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "params": _numpy_tree(gather_tree(params, psh)),
+            "opt_state": _numpy_tree(gather_tree(state, osh)),
+            "local_heads": lm.cfg.n_heads, "local_kv_heads": lm.cfg.n_kv_heads,
+            "split_leaves": sum(
+                1 for sh in _leaves(psh) if sh.split_dims())}
+
+
+JOBS = {"step": step_job, "moe": moe_job, "trainer": trainer_job, "tp_step": tp_step_job}

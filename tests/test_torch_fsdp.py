@@ -30,7 +30,9 @@ on the same global batch:
 * ``Trainer(mesh=...)``: 3 steps as the port's unmeshed trainer's within
   1e-5, its checkpoint (whole leaves, written by rank 0) restored by an
   unmeshed trainer at data 1 bit for bit the ranks' gathered state, and a
-  "model" axis of 2 refused by name;
+  "model" axis of 2 refused by name for a MoE arch (ROADMAP.md item 10;
+  ``tests/test_torch_tp_train.py`` holds the dense and Mamba archs' tensor
+  parallelism);
 * a (1, 1) mesh (a one-rank gloo group in this process): bit for bit the
   port's unmeshed step, and ``make_train_step(compressor=...)`` raises.
 
@@ -233,7 +235,8 @@ def test_mesh_trainer_and_its_checkpoint_at_data_one(run):
         assert [s for s, _ in g["history"]] == [s for s, _ in want]
         for (_, a), (_, b) in zip(g["history"], want):
             assert abs(a - b) <= 1e-5 * abs(b)
-        assert "the trainer's tensor parallelism" in g["tp_refused"]
+        assert "training with tensor parallelism" in g["tp_refused"]
+        assert "MoE FFNs" in g["tp_refused"] and "item 10" in g["tp_refused"]
     # the ranks' checkpoint (whole leaves) restored at data 1, no mesh
     t = Trainer(TrainerOptions(**TRAINER_OPTS, device="cpu", cfg=inputs["trainer"]["cfg"],
                                ckpt_dir=str(workdir / "ckpt")))

@@ -67,7 +67,9 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.fleet", "repro_torch.fleet.cluster",
                    "repro_torch.fleet.workloads", "repro_torch.fleet.scheduler",
                    "repro_torch.fleet.simulate", "repro_torch.launch.fleet",
-                   "repro_torch.fleet_day"):
+                   "repro_torch.fleet_day", "repro_torch.launch.inputs",
+                   "repro_torch.launch.dryrun", "repro_torch.dist.op_costs",
+                   "repro_torch.dist.op_analysis"):
         assert module in report["imported"]
 
 
