@@ -442,6 +442,54 @@ Phases, each of which exits non-zero on failure:
       sync the same on both, K3 and K3-bwd's launches; then the smoke
       config on the card within DILOCO_SMOKE_RTOL of the CPU's losses,
       from the same (CPU-drawn) weights.
+  33a. (slice 23) main path 17: ``python -m repro_torch.launch.serve --arch
+      deepseek-v2-236b --continuous --tp 2 --router --replicas 2
+      --migrate-at 3`` in process at phase 20's cut (6 of 60 layers), two
+      ranks on the one card over gloo, each drawing its half from seed 0
+      (MLA over 64 of 128 heads, 80 of 160 experts, the latent pools
+      whole; ~21.4 GB a rank, TP_MIGRATE_ARGV's reckoning); its yardstick
+      is the same trace through one unsharded engine on phase 20's model,
+      drawn again after the ranks end, its MoE routing taking rank 0's
+      experts where the two differ at a near tie (``single_card_pinned``).
+      Gates: the CLI's ``bit_identical=yes`` for the fleet (a migrated
+      replica among it) against a single 2-way engine and for the prefix
+      reuse, the ranks' tokens and logits the same bits, each request's
+      logits up to and with its first differing token within phase 9's
+      bounds of the single card, every routed row whose inputs are rank
+      0's (a prefill's, or a decode row before its request's tokens part)
+      on rank 0's experts or at a near tie (NEAR_TIE_OF_SCALE; the share
+      of rows inside it and the swap gaps printed), K3 = 6
+      x prefills and K2-latent = 6 x decode steps on each rank, no other
+      kernel; printed: the handoff's ms and MB, a rank's decode step and
+      peak GB;
+  33b. main path 18: ``python -m repro_torch.launch.train --arch
+      deepseek-moe-16b --steps 4 --seq-len 128 --global-batch 8 --tp 2``
+      in process on main path 8's cut (3 layers; ``train.run(argv,
+      cfg=...)``), two ranks over gloo: 32 of 64 experts, 8 of 16 heads and
+      half the shared width a rank; each step's loss and aux within
+      DP_LOSS_RTOL of main path 8's first 4, the ranks' the same bits, K3 =
+      2 x 3 x 4 and each K3-bwd pass 3 x 4 on each rank; a rank's step ms,
+      peak GB and collectives a step printed;
+  33c. main path 19: the same on deepseek-v2-236b's dense head layer
+      against main path 9: K3 at (192, 128) 2 x 4 and K3-bwd's dq, dv and dk
+      passes 4 times each on each rank, at 64 heads a rank;
+  33d. K2-latent and K3 at (192, 128) against their plain versions at a
+      rank's 64 heads (phases 18 and 18b on ``ShardingPlan.local_config``),
+      K3-bwd's three passes there (phase 26a's check, B 8, S 128, full and
+      ragged), then each timed once beside its bound (the kernels line's
+      ``..._at main path 17`` and ``..._at main path 19`` keys);
+  33e. the smoke jamba's contiguous decode (float32) under
+      ``rules_for_cell``'s long-context rules on a (data 2, model 2) mesh,
+      four gloo ranks on the one card (the attention cache's positions
+      split over "data" and the ranks' partial softmaxes merged in rank
+      order, the MoE's 2-D path): every step's logits within
+      LONG_DECODE_RTOL of the unsharded model's on the card, the ranks the
+      same bits, K4's decode body once a Mamba layer a step;
+  33f. ``python -m repro_torch.launch.dryrun`` for the 20 cells of
+      jamba-1.5-large-398b, deepseek-v2-236b and deepseek-moe-16b on both
+      meshes, subprocesses on the host (DRYRUN_LANES at a time) started
+      after the build: every cell ``ok``, each cell's dominant term
+      printed.
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's,
 K2-latent's and K4's ``launches`` sum their paths', ``launches_by_path``
@@ -460,7 +508,11 @@ pass, ``selective_scan_bwd``, and its reduction,
 chunked scan, no Pallas kernel, and count their launches on the Mamba
 training path; K3's and K3-bwd's paths add ``training_tp`` (32a, both
 ranks), ``dryrun_counted_step`` (32b) and ``diloco`` (32d), K2's
-``tuner_b128`` (32c)), the card's ``nvidia-smi`` line,
+``tuner_b128`` (32c); slice 23's: K3 at (192, 128) and K2-latent
+``serve_tp_mla`` (33a, both ranks), K3 and K3-bwd's dq and dk/dv passes
+``training_tp_moe`` (33b), K3 at (192, 128) and K3-bwd's dq, dv and dk
+passes ``training_tp_mla`` (33c), K4's decode body ``long_context_2x2``
+(33e, the four ranks)), the card's ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -523,6 +575,17 @@ V_ATOL_OF_MAX = 2.0 ** -14
 # logit (tests/test_torch_lm.py); the same limits as there: 3% and 0.5%.
 LM_MAX_OF_SCALE = 3e-2
 LM_MEAN_OF_SCALE = 5e-3
+# A near tie of the MoE's router between two runs of one model (27a: the card
+# against the CPU; 33a: rank 0 of the 2-way engine against one card): a row
+# whose two top-k sets differ is a near tie when every expert that one run
+# takes and the other leaves lies within NEAR_TIE_OF_SCALE of the row's
+# largest |router logit| of every expert it is exchanged for
+# (``take_near_ties``).  Twice the largest such gap of a row whose inputs
+# are the same in both runs, measured on an H100 in 33a: 1.39e-2 (of 285
+# such rows, median 2.27e-3; a row of a request whose tokens had parted
+# differed by up to 1.49); 27a's jamba card-vs-CPU rows flipped within
+# 2.2e-3.
+NEAR_TIE_OF_SCALE = 2.8e-2
 
 # K4 against its plain version on the card: the same float32 operations in
 # the same order, except that the two exp functions may differ in the last
@@ -1639,58 +1702,117 @@ def small_lm_check(dev, arch, pin_routing=False):
           f"largest logit (limits {LM_MAX_OF_SCALE}, {LM_MEAN_OF_SCALE})")
 
 
-@contextlib.contextmanager
-def pinned_routing(arch):
-    """The MoE's ``route`` patched for a card-vs-CPU comparison of one model
-    run on both, the card first at each call: the card's top-k expert ids
-    are kept in order of the calls, and the CPU's call of the same place
-    takes them where its own top-k set differs.  A difference must be a
-    near tie: the CPU's router logits of its k-th and (k+1)-th experts
-    within LM_MAX_OF_SCALE of the row's largest |logit|, else the check
-    fails (a fault routes far from a tie).  The probabilities are the CPU's
-    own for the experts taken.  Prints how many rows differed."""
+def near_tie_seen() -> dict:
+    """``take_near_ties``'s counts: the rows routed, those held (the same
+    inputs in both runs), those whose k-th and (k+1)-th logits lie within
+    NEAR_TIE_OF_SCALE (where a flip would be taken), the rows whose sets
+    differ (held, and of parted requests far from a tie, kept), and the
+    swap gaps of the differing rows taken."""
+    return {"rows": 0, "held": 0, "inside": 0, "flipped": 0, "flipped_held": 0,
+            "far_parted": 0, "gaps_held": [], "gaps_parted": []}
+
+
+def take_near_ties(arch, logits, ids, other, cfg, seen, held=None):
+    """(ids, probs) of one router call whose own top-k ``ids`` are replaced
+    by ``other`` (another run's at the same call) in the rows where the two
+    top-k sets differ at a near tie: the row's swap gap, the largest logit
+    (this run's) of an expert it takes and ``other`` leaves less the least
+    of an expert ``other`` takes and it leaves, over the row's largest
+    |logit|, within NEAR_TIE_OF_SCALE.  ``held`` (bool (T,); None: every
+    row) marks the rows whose inputs are the same in both runs: one of them
+    that differs farther from a tie fails the check (a fault routes far
+    from a tie); another row keeps its own experts (its request's tokens
+    have parted).  The probabilities are this run's own for the experts
+    taken; ``seen`` (``near_tie_seen``) gathers the counts.  probs is None
+    when nothing was taken."""
     import torch
 
+    k, t = cfg.moe.top_k, ids.shape[0]
+    held = torch.ones(t, dtype=torch.bool) if held is None else held.cpu()
+    logits_h = logits.detach().float().cpu()
+    ids_h, other_h = ids.cpu(), other.cpu()
+    top = logits_h.sort(dim=-1, descending=True).values
+    scale = logits_h.abs().amax(dim=-1)
+    seen["rows"] += t
+    seen["held"] += int(held.sum())
+    seen["inside"] += int(((top[:, k - 1] - top[:, k]) <= NEAR_TIE_OF_SCALE * scale).sum())
+    mine = torch.zeros_like(logits_h, dtype=torch.bool).scatter_(1, ids_h, True)
+    theirs = torch.zeros_like(mine).scatter_(1, other_h, True)
+    differ = (mine != theirs).any(dim=-1)
+    if not bool(differ.any()):
+        return ids, None
+    left = torch.where(mine & ~theirs, logits_h, -torch.inf).amax(dim=-1)
+    taken = torch.where(theirs & ~mine, logits_h, torch.inf).amin(dim=-1)
+    gap = (left - taken) / scale
+    near = differ & (gap <= NEAR_TIE_OF_SCALE)
+    far_held = differ & ~near & held
+    if bool(far_held.any()):
+        fail(f"{arch}: the two runs' experts differ at a swap gap of "
+             f"{float(gap[far_held].max()):.3g} of the row's largest router logit in a row "
+             f"whose inputs are the same in both (limit {NEAR_TIE_OF_SCALE}): not a near tie")
+    seen["flipped"] += int(near.sum())
+    seen["flipped_held"] += int((near & held).sum())
+    seen["far_parted"] += int((differ & ~near).sum())
+    seen["gaps_held"] += gap[differ & held].tolist()
+    seen["gaps_parted"] += gap[differ & ~held].tolist()
+    if not bool(near.any()):
+        return ids, None
+    ids = torch.where(near.to(ids.device)[:, None], other.to(ids.device), ids)
+    probs = torch.softmax(logits, dim=-1).gather(-1, ids)
+    if cfg.moe.norm_topk:
+        probs = probs / torch.clamp(probs.sum(dim=-1, keepdim=True), min=1e-9)
+    return ids, probs
+
+
+def near_tie_summary(seen: dict) -> dict:
+    """``take_near_ties``'s counts, with the share of the rows whose k-th
+    and (k+1)-th logits lie within the limit and the held swap gaps'
+    median, 99th percentile and largest."""
+    import numpy as np
+
+    gaps = np.asarray(seen["gaps_held"] or [0.0])
+    parted = np.asarray(seen["gaps_parted"] or [0.0])
+    return {"rows": seen["rows"], "held": seen["held"], "limit": NEAR_TIE_OF_SCALE,
+            "inside_share": seen["inside"] / max(seen["rows"], 1),
+            "flipped": seen["flipped"], "flipped_held": seen["flipped_held"],
+            "far_parted": seen["far_parted"],
+            "held_gap_median": float(np.median(gaps)),
+            "held_gap_p99": float(np.quantile(gaps, 0.99)), "held_gap_max": float(gaps.max()),
+            "parted_gap_max": float(parted.max())}
+
+
+@contextlib.contextmanager
+def pinned_routing(arch):
+    """The MoE's ``route_logits`` patched for a card-vs-CPU comparison of one
+    model run on both, the card first at each call: the card's top-k expert
+    ids are kept in order of the calls, and the CPU's call of the same
+    place takes them where its own top-k set differs, each such row a near
+    tie (``take_near_ties``).  Prints how many rows differed."""
     from repro_torch.models import moe as moe_mod
 
-    route, queue, seen = moe_mod.route, [], {"rows": 0, "flipped": 0, "gap": 0.0}
+    route_logits, queue, seen = moe_mod.route_logits, [], near_tie_seen()
 
-    def pinned(p, x, cfg, train=False):
-        out = route(p, x, cfg, train)
+    def pinned(logits, cfg, train=False, group=None):
+        out = route_logits(logits, cfg, train, group)
         if train:
             return out
-        ids, probs = out
-        if x.device.type != "cpu":
-            queue.append(ids.detach().cpu())
+        if logits.device.type != "cpu":
+            queue.append(out[0].detach().cpu())
             return out
-        card = queue.pop(0)
-        k = cfg.moe.top_k
-        logits = x.float() @ p["router"].float()
-        differ = (card.sort(dim=-1).values != ids.sort(dim=-1).values).any(dim=-1)
-        seen["rows"] += ids.shape[0]
-        if bool(differ.any()):
-            top = logits.sort(dim=-1, descending=True).values
-            gap = ((top[:, k - 1] - top[:, k]) / top.abs().amax(dim=-1))[differ]
-            seen["flipped"] += int(differ.sum())
-            seen["gap"] = max(seen["gap"], float(gap.max()))
-            if float(gap.max()) > LM_MAX_OF_SCALE:
-                fail(f"{arch}: the card's experts differ from the CPU's at a router gap of "
-                     f"{float(gap.max()):.3g} of the largest logit: not a near tie")
-            ids = torch.where(differ[:, None], card, ids)
-            probs = torch.softmax(logits, dim=-1).gather(-1, ids)
-            if cfg.moe.norm_topk:
-                probs = probs / torch.clamp(probs.sum(dim=-1, keepdim=True), min=1e-9)
-        return ids, probs
+        ids, probs = take_near_ties(arch, logits, out[0], queue.pop(0), cfg, seen)
+        return (ids, out[1] if probs is None else probs)
 
-    moe_mod.route = pinned
+    moe_mod.route_logits = pinned
     try:
         yield
     finally:
-        moe_mod.route = route
-        print(f"{arch}: the card's and the CPU's top-k expert sets differ in {seen['flipped']} "
-              f"of {seen['rows']} routed rows, each a near tie (largest gap "
-              f"{seen['gap']:.3g} of the row's largest |router logit|, limit "
-              f"{LM_MAX_OF_SCALE}); the CPU took the card's experts there")
+        moe_mod.route_logits = route_logits
+        got = near_tie_summary(seen)
+        print(f"{arch}: the card's and the CPU's top-k expert sets differ in {got['flipped']} "
+              f"of {got['rows']} routed rows, each a near tie (largest swap gap "
+              f"{got['held_gap_max']:.3g} of the row's largest |router logit|, limit "
+              f"{NEAR_TIE_OF_SCALE}; {100 * got['inside_share']:.2f}% of the rows have their "
+              "k-th and (k+1)-th logits within it); the CPU took the card's experts there")
 
 
 def k5_inputs(torch, gen, b, hq, hk, s, d, lengths=None):
@@ -3190,6 +3312,83 @@ def bwd_ptxas(log: str) -> None:
                 print(f"  ptxas: {what}: {text}")
 
 
+def bwd_shape_check(dev, gen, lib, worst: dict, name, b, hq, hk, s, d, dv, lens) -> None:
+    """One shape of phases 23a/26a (and 33d): K3 with lse against its plain
+    version, K3-bwd's schedule against the CPU mirror, its launches, two
+    runs bitwise, and each gradient within MAX_BF16_ULPS of the plain
+    backward's; the largest errors into ``worst``."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
+
+    q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, dv, lens)
+    kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
+    plain_kw = dict(kw, block_q=64, block_k=64)
+    passes = (fa_ops.BWD_DQ, *fa_ops.bwd_key_passes(d, dv))
+    plan = []
+    for pass_no in passes:
+        got = (ctypes.c_int * 4)()
+        fa_ops.BWD_LIBRARY.check(lib.flash_bwd_plan(pass_no, b, hk, hq // hk, s, s, 0, 1, got),
+                                 "flash_bwd_plan")
+        want = fa_ops.bwd_grid(pass_no, b, hk, hq // hk, s, s, 0, True)
+        if tuple(got) != want:
+            fail(f"K3-bwd's plan at {name}, pass {pass_no}: the library's {tuple(got)}, "
+                 f"ops.bwd_grid's {want}")
+        plan.append(want)
+    if "cut" in name and plan[1][3] < 2:
+        fail(f"{name}: the key side is not cut ({plan[1]})")
+    units = fa_ops.bwd_plan(b, hk, hq // hk, s, s, kv_lens.tolist(), 0, True)
+    steps = [len(u.visits) for u in units]
+    out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+    bare = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, **kw)
+    if not torch.equal(out, bare):
+        fail(f"K3's output at {name} moved with the lse buffer")
+    want_out, want_lse = flash_fwd_ref(q, k, v, kv_lens, return_lse=True, **plain_kw)
+    out_ulps = bf16_ulps(out.float(), want_out.float(),
+                         V_ATOL_OF_MAX * float(v.float().abs().max()))
+    lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
+    worst["flash_fwd_lse"] = max(worst["flash_fwd_lse"], lse_err)
+    if out_ulps > MAX_BF16_ULPS or lse_err > LSE_TOL or not bool(torch.isfinite(lse).all()):
+        fail(f"K3 with lse at {name}: output {out_ulps:.2f} ulps, lse {lse_err:.3g} relative")
+    before = read_launches()
+    got = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+    ran = {n: read_launches()[n] - before[n] for n in BWD_PASS_NAMES}
+    if ran != {n: int(i in passes) for i, n in enumerate(BWD_PASS_NAMES)}:
+        fail(f"K3-bwd at {name} ran {ran}, expected passes {passes}")
+    again = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"K3-bwd at {name}: two runs gave different bits")
+    want = flash_bwd_ref(q, k, v, kv_lens, out, lse, do, **plain_kw)
+    errs = []
+    key = [BWD_PASS_NAMES[p] for p in passes[1:]]
+    for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(w.float().abs().max())
+        ulps = bf16_ulps(g.float(), w.float(), BWD_ATOL_OF_MAX * scale)
+        err = float((g.float() - w.float()).abs().max())
+        errs.append(f"{grad} {err:.3g} (max |{grad}| {scale:.3g}, {ulps:.2f} ulps past the "
+                    "atol)")
+        by = ["flash_bwd_dq"] if grad == "dq" else [
+            n for n in key if n == "flash_bwd_dkdv" or n == f"flash_bwd_{grad}"]
+        for kernel in by:
+            worst[kernel] = max(worst[kernel], err)
+        if ulps > MAX_BF16_ULPS or not bool(torch.isfinite(g).all()):
+            fail(f"K3-bwd at {name}: {grad} off by {ulps:.2f} bf16 ulps past "
+                 f"{BWD_ATOL_OF_MAX} x max|{grad}|")
+    ran_names = ", ".join(BWD_PASS_NAMES[p] for p in passes)
+    print(f"{name} (B {b}, Hq {hq}, Hk {hk}, S {s}, DK {d}, DV {dv}, kv_lens "
+          f"{'full' if lens is None else list(lens)}): K3 output with lse = without, bit for "
+          f"bit; lse within {lse_err:.3g} of plain; K3-bwd ({ran_names}) two runs bitwise; "
+          f"max |kernel - plain|: {', '.join(errs)}")
+    print(f"  schedule = ops.bwd_grid: dq grid {plan[0][:3]}, key side grid {plan[1][:3]} in "
+          f"clusters of {plan[1][3]} ({len(passes) - 1} launch(es)); key blocks {len(steps)}, "
+          f"steps {sum(steps)} (longest block {max(steps)}, mean over {fa_ops.BWD_SLOTS} "
+          f"slots {sum(steps) / fa_ops.BWD_SLOTS:.2f}); dq blocks "
+          f"{plan[0][0] * plan[0][1] * b} against {fa_ops.BWD_SLOTS} slots")
+
+
 def flash_bwd_vs_plain(dev, build_log: str) -> dict:
     """Phases 23a/23b and 26a/26b: K3 with the rows' lse, and K3-bwd,
     against their plain versions on the card at the training shapes of
@@ -3206,7 +3405,7 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
 
     phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b, qwen3-14b, deepseek-moe-16b, "
           "musicgen-medium and deepseek-v2-236b training shapes, the smoke deepseek-v2's "
@@ -3225,70 +3424,8 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
                 blocks.value, lib.flash_bwd_smem_bytes(pass_no, d, dv))
     print("  blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and shared "
           f"memory a block: {occupancy}")
-    for name, b, hq, hk, s, d, dv, lens in BWD_SHAPES:
-        q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, b, hq, hk, s, d, dv, lens)
-        kw = dict(causal=True, sm_scale=d ** -0.5, q_offset=0)
-        plain_kw = dict(kw, block_q=64, block_k=64)
-        passes = (fa_ops.BWD_DQ, *fa_ops.bwd_key_passes(d, dv))
-        plan = []
-        for pass_no in passes:
-            got = (ctypes.c_int * 4)()
-            fa_ops.BWD_LIBRARY.check(lib.flash_bwd_plan(pass_no, b, hk, hq // hk, s, s, 0, 1, got),
-                                     "flash_bwd_plan")
-            want = fa_ops.bwd_grid(pass_no, b, hk, hq // hk, s, s, 0, True)
-            if tuple(got) != want:
-                fail(f"K3-bwd's plan at {name}, pass {pass_no}: the library's {tuple(got)}, "
-                     f"ops.bwd_grid's {want}")
-            plan.append(want)
-        if "cut" in name and plan[1][3] < 2:
-            fail(f"{name}: the key side is not cut ({plan[1]})")
-        units = fa_ops.bwd_plan(b, hk, hq // hk, s, s, kv_lens.tolist(), 0, True)
-        steps = [len(u.visits) for u in units]
-        out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
-        bare = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, **kw)
-        if not torch.equal(out, bare):
-            fail(f"K3's output at {name} moved with the lse buffer")
-        want_out, want_lse = flash_fwd_ref(q, k, v, kv_lens, return_lse=True, **plain_kw)
-        out_ulps = bf16_ulps(out.float(), want_out.float(),
-                             V_ATOL_OF_MAX * float(v.float().abs().max()))
-        lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
-        worst["flash_fwd_lse"] = max(worst["flash_fwd_lse"], lse_err)
-        if out_ulps > MAX_BF16_ULPS or lse_err > LSE_TOL or not bool(torch.isfinite(lse).all()):
-            fail(f"K3 with lse at {name}: output {out_ulps:.2f} ulps, lse {lse_err:.3g} relative")
-        before = read_launches()
-        got = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
-        ran = {n: read_launches()[n] - before[n] for n in BWD_PASS_NAMES}
-        if ran != {n: int(i in passes) for i, n in enumerate(BWD_PASS_NAMES)}:
-            fail(f"K3-bwd at {name} ran {ran}, expected passes {passes}")
-        again = fa_ops.flash_bwd(q, k, v, kv_lens, out, lse, do, **kw)
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            fail(f"K3-bwd at {name}: two runs gave different bits")
-        want = flash_bwd_ref(q, k, v, kv_lens, out, lse, do, **plain_kw)
-        errs = []
-        key = [BWD_PASS_NAMES[p] for p in passes[1:]]
-        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
-            scale = float(w.float().abs().max())
-            ulps = bf16_ulps(g.float(), w.float(), BWD_ATOL_OF_MAX * scale)
-            err = float((g.float() - w.float()).abs().max())
-            errs.append(f"{grad} {err:.3g} (max |{grad}| {scale:.3g}, {ulps:.2f} ulps past the "
-                        "atol)")
-            by = ["flash_bwd_dq"] if grad == "dq" else [
-                n for n in key if n == "flash_bwd_dkdv" or n == f"flash_bwd_{grad}"]
-            for kernel in by:
-                worst[kernel] = max(worst[kernel], err)
-            if ulps > MAX_BF16_ULPS or not bool(torch.isfinite(g).all()):
-                fail(f"K3-bwd at {name}: {grad} off by {ulps:.2f} bf16 ulps past "
-                     f"{BWD_ATOL_OF_MAX} x max|{grad}|")
-        ran_names = ", ".join(BWD_PASS_NAMES[p] for p in passes)
-        print(f"{name} (B {b}, Hq {hq}, Hk {hk}, S {s}, DK {d}, DV {dv}, kv_lens "
-              f"{'full' if lens is None else list(lens)}): K3 output with lse = without, bit for "
-              f"bit; lse within {lse_err:.3g} of plain; K3-bwd ({ran_names}) two runs bitwise; "
-              f"max |kernel - plain|: {', '.join(errs)}")
-        print(f"  schedule = ops.bwd_grid: dq grid {plan[0][:3]}, key side grid {plan[1][:3]} in "
-              f"clusters of {plan[1][3]} ({len(passes) - 1} launch(es)); key blocks {len(steps)}, "
-              f"steps {sum(steps)} (longest block {max(steps)}, mean over {fa_ops.BWD_SLOTS} "
-              f"slots {sum(steps) / fa_ops.BWD_SLOTS:.2f}); dq blocks "
-              f"{plan[0][0] * plan[0][1] * b} against {fa_ops.BWD_SLOTS} slots")
+    for shape in BWD_SHAPES:
+        bwd_shape_check(dev, gen, lib, worst, *shape)
     rows = {}
     timed = k3bwd_times(dev, {"change": fa_ops}, BWD_TIMED + MLA_BWD_TIMED)
     for name, b, hq, hk, s, d, dv, lens in BWD_SHAPES:
@@ -4634,11 +4771,12 @@ TP_MAMBA_LAYERS = 8
 TP_GEOMETRY = dict(max_batch=4, page_size=16, max_seq=96, seed=0)
 
 
-def single_card_trace(lm, name="29a") -> dict:
+def single_card_trace(lm, name="29a", hook=None) -> dict:
     """Phase 29a, on phase 10's qwen3-14b before it is freed (and 29d's, on
     falcon-mamba-7b at main path 13b's depth): the CLI's 8-request trace
     through one unsharded engine, each request's tokens and every step's
-    logits kept on the host (29b's and main path 13's yardstick)."""
+    logits kept on the host (29b's and main path 13's yardstick).
+    ``hook(engine, requests)`` is called before the engine runs."""
     import numpy as np
 
     from repro_torch.launch.serve import _mixed_trace_specs
@@ -4649,6 +4787,8 @@ def single_card_trace(lm, name="29a") -> dict:
     eng = ServeEngine("", lm=lm, collect_logits=True, **TP_GEOMETRY)
     reqs = [eng.submit(p, gen, arrival_step=arr)
             for p, gen, arr, _ in _mixed_trace_specs(lm.cfg, 16, 8, 0)]
+    if hook is not None:
+        hook(eng, reqs)
     eng.run()
     return {"tokens": [list(r.generated) for r in reqs],
             "logits": [np.stack(r.logits_trace) for r in reqs]}
@@ -4692,7 +4832,8 @@ def nccl_world_one(lm, reference: dict, workdir: Path) -> None:
                         eng.stats()["decode_steps"], "the (1, 1) mesh")
 
 
-def tp_path(arch, path_no, workdir: Path, tune_cache=None, cfg=None, reference=None) -> dict:
+def tp_path(arch, path_no, workdir: Path, tune_cache=None, cfg=None, reference=None,
+            cli=TP_ARGV, route_log=None) -> dict:
     """Phases 29c and 29d: ``python -m repro_torch.launch.serve --arch ARCH
     --continuous --tp 2 --router --replicas 2`` (and ``--tune-cache``) in
     process, on ``cfg`` (a cut depth) when given: the CLI spawns the two
@@ -4709,13 +4850,15 @@ def tp_path(arch, path_no, workdir: Path, tune_cache=None, cfg=None, reference=N
     count of token streams equal to the single card's printed (a bf16 near
     tie may flip one; the first divergence printed).  Prints each rank's
     decode step median and peak memory.  Returns the launches summed over
-    the ranks."""
+    the ranks (and rank 0's report, ``report0``).  ``cli`` is the CLI's
+    flags (main path 17 adds ``--migrate-at 3``: the handoff's ms and MB
+    printed); ``route_log``, a directory where rank 0 saves its MoE
+    routing call by call (``log_routing``)."""
     import numpy as np
-    import torch
 
     from repro_torch.launch import serve
 
-    argv = ["--arch", arch, *TP_ARGV]
+    argv = ["--arch", arch, *cli]
     if tune_cache is not None:
         argv += ["--tune-cache", str(tune_cache)]
     depth = "all layers" if cfg is None else f"{cfg.n_layers} layers"
@@ -4723,10 +4866,14 @@ def tp_path(arch, path_no, workdir: Path, tune_cache=None, cfg=None, reference=N
           f"(full width, {depth}; {TP_WORLD} ranks on the one card)")
     reset_launches()
     t0 = time.perf_counter()
+    if route_log is not None:  # the spawned ranks read it when they import this module
+        os.environ[ROUTE_LOG_ENV] = str(route_log)
     try:
         summary = serve.main(argv, cfg=cfg)
     except SystemExit as e:
         fail(f"{arch} --tp {TP_WORLD}: the serve CLI exited with {e.code}")
+    finally:
+        os.environ.pop(ROUTE_LOG_ENV, None)
     seconds = time.perf_counter() - t0
     if any(read_launches().values()):
         fail(f"{arch} --tp: this process launched {read_launches()}; the ranks launch")
@@ -4757,6 +4904,19 @@ def tp_path(arch, path_no, workdir: Path, tune_cache=None, cfg=None, reference=N
                          "decode_step_ms_median": 1e3 * float(np.median(rep["decode_step_s"])),
                          "peak_memory_gb": rep["peak_memory_gb"],
                          **{f"{k}_launches": v for k, v in rep["launches"].items() if v}})
+        mig = rep.get("migration")
+        if "--migrate-at" in cli and mig is None:
+            fail(f"{arch} --tp rank {rep['rank']}: no handoff took place")
+        if mig is not None:
+            print(f"rank {rep['rank']}: the handoff of replica {mig['replica']} at step "
+                  f"{cli[cli.index('--migrate-at') + 1]}: {mig['in_flight']} requests in flight, "
+                  f"{mig['pages_in_use']} pages, {mig['nbytes'] / 1e6:.3f} MB of whole cache "
+                  f"leaves in {mig['wall_s'] * 1e3:.1f} ms (snapshot, the gather over 'model' "
+                  f"included, {mig['snapshot_s'] * 1e3:.1f} ms; restore "
+                  f"{mig['restore_s'] * 1e3:.1f} ms)")
+            per_rank[-1]["migration"] = {k: mig[k] for k in (
+                "wall_s", "snapshot_s", "build_s", "restore_s", "nbytes", "in_flight",
+                "pages_in_use")}
     out = {"arch": arch, "cli_s": seconds, "world": TP_WORLD, "mesh": summary["mesh"],
            "backend": summary["backend"], "per_rank": per_rank}
     if reference is not None:
@@ -4766,7 +4926,7 @@ def tp_path(arch, path_no, workdir: Path, tune_cache=None, cfg=None, reference=N
     for rep in reports:
         for k, v in rep["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    return {"launches": launches, **out}
+    return {"launches": launches, "report0": reports[0], **out}
 
 
 def against_single_card(arch, got: dict, reference: dict) -> dict:
@@ -5986,6 +6146,540 @@ def diloco_path(dev) -> dict:
     return launches
 
 
+# ------------------------------ MoE and MLA under TP, the long context (slice 23)
+# Main path 17 (phase 33a): the serve CLI's --tp 2 --router --replicas 2
+# --migrate-at 3 on deepseek-v2-236b at phase 20's cut (6 of 60 layers: the
+# dense head layer and five MoE layers, 21.25 B parameters, 42.5 GB of bf16
+# whole), two ranks on the one card over gloo, each drawing its half from
+# seed 0, each matrix the single card's, sliced.  A rank holds MLA's wq_b and
+# wkv_b columns and wo rows (64 of 128 heads), 80 of 160 experts and the
+# router's columns, half the shared experts' and the dense FFN's widths and
+# half the vocabulary's rows, and wq_a, wkv_a and the latent norms whole
+# (5120 x 1536 + 5120 x 576, ~10.8 M parameters a layer, 65 M over the six):
+# 21.25 / 2 + 0.065 = ~10.69 B parameters, ~21.4 GB a rank, ~42.8 GB on the
+# card with both, besides the latent pools (whole on each rank, under 1 MB at
+# the CLI's 25 pages of 16 x 576) and a prefill block's dropless MoE buffer
+# (80 experts x 1024 rows x 5120 x 2 B = 0.84 GB).  The single card's run of
+# the same trace follows, on phase 20's model drawn again (42.5 GB).
+TP_MIGRATE_ARGV = TP_ARGV + ["--migrate-at", "3"]
+# main path 17's rank 0 logs its routing here (``log_routing``) for 33a
+ROUTE_LOG_ENV = "CHIP_SMOKE_ROUTE_LOG"
+# Main paths 18 and 19 (33b, 33c): main paths 8 and 9's configs and settings
+# (seq 128, global batch 8, AdamW, remat full) trained --tp 2 for DP_STEPS
+# steps, two ranks on the card, each step's loss and aux against main paths
+# 8 and 9's first DP_STEPS steps (DP_LOSS_RTOL).  deepseek-moe-16b at 3
+# layers is 1.68 B parameters, ~52 GB on one card at the ~31 bytes a
+# parameter of the training path (float32 masters, AdamW's two moments, the
+# bf16 LM, the gradients); a rank holds 32 of 64 experts, 8 of 16 heads, half
+# the shared, dense and vocabulary widths and the norms whole: ~0.84 B
+# parameters, ~26 GB a rank, ~52 GB with both.  deepseek-v2-236b's dense head
+# layer (1.387 B, ~43 GB on one card): 64 of 128 heads, half the dense FFN and
+# the vocabulary: ~0.70 B parameters, ~22 GB a rank, ~43 GB with both.
+# 33e: the smoke jamba's contiguous decode on a (data 2, model 2) mesh under
+# rules_for_cell's long-context rules (the cache's positions over "data",
+# the MoE's 2-D path), four gloo ranks on the one card, against one rank's
+# in float32 (K4 takes it): each step's logits within LONG_DECODE_RTOL of the
+# one rank's largest, ten times tests/test_torch_long_context.py's bound on the
+# CPU, for cuBLAS's and the merge's other orders of float32 sums
+LONG_DECODE_MESH, LONG_DECODE_SEQ = (2, 2), 256
+LONG_DECODE_STARTS, LONG_DECODE_STEPS, LONG_DECODE_TOKEN = (5, 250), 2, 7
+LONG_DECODE_RTOL = 1e-4
+# 33f: the 20 cells of the dry-run that the MoE and MLA archs add, on the
+# host, DRYRUN_LANES at a time from the start of the script (about 500
+# seconds of one core in all: 33f prints each cell's), read at its end
+DRYRUN_SLICE23_ARCHS = (JAMBA, DEEPSEEK, MOE)
+DRYRUN_LANES = 2
+
+
+def log_routing(directory: str) -> None:
+    """In a spawned rank of main path 17 (this module its main): rank 0's
+    MoE routing, each eval call's top-k ids saved in call order under
+    ``directory`` for 33a's yardstick (``single_card_pinned``).  The ids
+    are only read: the rank computes what it computes unlogged."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import moe as moe_mod
+
+    route_logits, count = moe_mod.route_logits, [0]
+
+    def logged(logits, cfg, train=False, group=None):
+        out = route_logits(logits, cfg, train, group)
+        if not train and dist.is_initialized() and dist.get_rank() == 0:
+            torch.save(out[0].detach().cpu(), os.path.join(directory, f"{count[0]:06d}.pt"))
+            count[0] += 1
+        return out
+
+    moe_mod.route_logits = logged
+
+
+def single_card_pinned(cfg, directory: Path, want_tokens) -> dict:
+    """Phase 33a's yardstick, after main path 17 (the two ranks' 42.8 GB and
+    phase 20's model do not fit the card together): phase 20's model drawn
+    again from seed 0, the CLI's trace through one unsharded engine
+    (``single_card_trace``), its MoE routing taking rank 0's experts call
+    by call where the two top-k sets differ at a near tie
+    (``take_near_ties``).  A routed row is held while its inputs are rank
+    0's: a prefill's rows (the prompts are the same), and a decode row of a
+    request whose tokens so far are rank 0's (``want_tokens``: those are
+    the steps whose logits ``against_single_card`` holds); a held row that
+    differs farther from a tie fails.  A decode row of a request whose
+    tokens have parted, or of an idle slot, keeps its own experts there.
+    bf16 rounding of the ranks' sums moves deepseek-v2's router inputs, and
+    its top-6 of 160 experts change at a near tie in about 8% of the routed
+    rows (this phase prints the counts); a flipped expert moves a token's
+    logits by percents, so without the pin the bounds would hold the
+    routing's ties, not the sharded arithmetic.  Returns the reference and
+    ``near_tie_summary``'s counts (``near_ties``)."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import random_lm
+
+    route_logits, seen = moe_mod.route_logits, near_tie_seen()
+    files = iter(sorted(directory.glob("*.pt")))
+    rows_held = [None]  # the running engine call's held rows: None outside one
+
+    def hook(eng, reqs):
+        index = {id(r): i for i, r in enumerate(reqs)}
+        prefill, decode = eng._prefill, eng._decode
+
+        def held_prefill(*args, **kwargs):
+            rows_held[0] = "all"
+            try:
+                return prefill(*args, **kwargs)
+            finally:
+                rows_held[0] = None
+
+        def held_decode(tokens, *args, **kwargs):
+            held = torch.zeros(tokens.shape[0], dtype=torch.bool)
+            for r in eng.scheduler.decoding:
+                want = want_tokens[index[id(r)]]
+                held[r.slot] = list(r.generated) == list(want[:len(r.generated)])
+            rows_held[0] = held
+            try:
+                return decode(tokens, *args, **kwargs)
+            finally:
+                rows_held[0] = None
+
+        eng._prefill, eng._decode = held_prefill, held_decode
+
+    def pinned(logits, cfg, train=False, group=None):
+        out = route_logits(logits, cfg, train, group)
+        if train:
+            return out
+        held = rows_held[0]
+        if isinstance(held, str):
+            held = None  # a prefill: every row held
+        elif held is None or held.shape[0] != logits.shape[0]:
+            fail(f"33a: a routing call of {logits.shape[0]} rows outside a prefill or a "
+                 "decode step of the engine's slots")
+        other = torch.load(next(files)).to(logits.device)
+        ids, probs = take_near_ties(DEEPSEEK, logits, out[0], other, cfg, seen, held=held)
+        return (ids, out[1] if probs is None else probs)
+
+    lm = random_lm(cfg, "cuda", 0)
+    moe_mod.route_logits = pinned
+    try:
+        reference = single_card_trace(lm, "33a (the single card, its routing pinned to rank "
+                                          "0's at near ties)", hook=hook)
+    finally:
+        moe_mod.route_logits = route_logits
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = near_tie_summary(seen)
+    print(f"the single card's and rank 0's top-6 expert sets differ in {got['flipped_held']} "
+          f"of the {got['held']} held rows (of {got['rows']} routed), each a near tie, where the "
+          f"single card took rank 0's experts: swap gaps median {got['held_gap_median']:.3g}, "
+          f"99th percentile {got['held_gap_p99']:.3g}, largest {got['held_gap_max']:.3g} of the "
+          f"row's largest |router logit| (limit {NEAR_TIE_OF_SCALE}; "
+          f"{100 * got['inside_share']:.2f}% of the routed rows have their 6th and 7th logits "
+          f"within it); rows of parted requests or idle slots: "
+          f"{got['flipped'] - got['flipped_held']} taken at a near tie, {got['far_parted']} "
+          f"farther (largest gap {got['parted_gap_max']:.3g}) kept")
+    return dict(reference, near_ties=got)
+
+
+def dryrun_slice23_start(workdir: Path) -> dict:
+    """Phase 33f, first part: ``python -m repro_torch.launch.dryrun --arch A
+    --shape S --mesh M`` for every cell of jamba-1.5-large-398b,
+    deepseek-v2-236b and deepseek-moe-16b, subprocesses on the host
+    (DRYRUN_LANES at a time, one thread each) writing under ``workdir``
+    (made anew), started after the build."""
+    from repro_torch.configs import applicable_shapes, get_config
+
+    phase(f"33f: the dry-run's cells of {', '.join(DRYRUN_SLICE23_ARCHS)} started on the host, "
+          f"{DRYRUN_LANES} at a time")
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    out = workdir / "cells"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cells = [(arch, shape.name, mesh) for arch in DRYRUN_SLICE23_ARCHS
+             for shape in applicable_shapes(get_config(arch)) for mesh in ("single", "multi")]
+
+    def run(cell):
+        arch, shape, mesh = cell
+        t0 = time.perf_counter()
+        with open(workdir / f"dryrun23_{arch}_{shape}_{mesh}.log", "w") as log:
+            try:
+                rc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                     arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
+                                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                    timeout=DRYRUN_TIMEOUT_S).returncode
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+        return rc, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(DRYRUN_LANES)
+    return {"pool": pool, "out": out, "started": time.perf_counter(),
+            "futures": [(cell, pool.submit(run, cell)) for cell in cells]}
+
+
+def dryrun_slice23_finish(started: dict) -> dict:
+    """Phase 33f, second part: every subprocess exits 0 and writes its cell,
+    ``ok``; each cell's dominant term and times printed."""
+    phase("33f: python -m repro_torch.launch.dryrun on the MoE and MLA archs' cells, both "
+          "meshes")
+    cells = {}
+    for (arch, shape, mesh), future in started["futures"]:
+        rc, seconds = future.result()
+        if rc != 0:
+            fail(f"the dry-run of {arch} {shape} {mesh} exited {rc}")
+        r = json.loads((started["out"] / f"{arch}__{shape}__{mesh}.json").read_text())
+        if r.get("status") != "ok":
+            fail(f"the dry-run's {arch} {shape} {mesh}: {r.get('error')}")
+        cells[f"{arch} {shape} {mesh}"] = {k: r.get(k) for k in (
+            "dominant", "t_compute_s", "t_memory_s", "t_collective_s", "compile_seconds",
+            "collective_wire_by_axis_per_device")}
+        print(f"{arch:22s} {shape:12s} {mesh:6s} dominant {r['dominant']:10s} compute "
+              f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, collective "
+              f"{r['t_collective_s']:.4g} s (wire bytes by axis "
+              f"{r['collective_wire_by_axis_per_device']}); {seconds:.1f} s wall")
+    started["pool"].shutdown()
+    seconds = time.perf_counter() - started["started"]
+    print(json.dumps({"dryrun_slice23": {"cells": cells, "seconds": seconds}}))
+    return cells
+
+
+def tp_train_moe_mla_path(arch, n_layers, path_no, single, per_layer) -> dict:
+    """Phases 33b and 33c, main paths 18 and 19: ``python -m
+    repro_torch.launch.train --arch ARCH --steps 4 --seq-len 128
+    --global-batch 8 --tp 2`` in process on main path 8's or 9's cut
+    (``train.run(argv, cfg=...)``: the CLI has no depth flag), two ranks on
+    the one card over gloo.  Gates: each step's loss and aux within
+    DP_LOSS_RTOL of ``single``'s (main path 8's or 9's records, the same
+    batches and weights), the ranks' the same bits, each kernel of
+    ``per_layer`` that many times a layer a step on each rank and no other,
+    none in this process.  Prints a rank's step ms, peak GB and
+    collectives a step; returns the launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+
+    argv = ["--arch", arch, "--steps", str(DP_STEPS), "--seq-len", str(TRAIN_SEQ),
+            "--global-batch", str(TRAIN_BATCH), "--tp", str(TP_TRAIN_WORLD)]
+    cut = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    phase(f"main path {path_no}: python -m repro_torch.launch.train {' '.join(argv)} (full "
+          f"width, {n_layers} of {get_config(arch).n_layers} layers; {TP_TRAIN_WORLD} ranks on "
+          "the one card over gloo)")
+    reset_launches()
+    t0 = time.perf_counter()
+    reports = train_cli.run(argv, cfg=cut)
+    seconds = time.perf_counter() - t0
+    if any(read_launches().values()):
+        fail(f"main path {path_no}: this process launched {read_launches()}; the ranks launch")
+    worst = {"loss": 0.0, "aux": 0.0}
+    counts, per_rank = {}, []
+    for rep in reports:
+        calls = {k: v / DP_STEPS for k, v in rep["collectives"].items()}
+        aux = ", ".join(f"{rec['aux']:.6f}" for rec in rep["records"])
+        print(f"rank {rep['rank']} ({rep['device']}, {rep['backend']}): "
+              f"{step_summary(rep['records'])}; aux {aux}; peak {rep['peak_memory_gb']:.3f} GB "
+              f"(the build's {rep['init_peak_gb']:.3f}); collectives a step {calls}")
+        if len(rep["records"]) != DP_STEPS:
+            fail(f"main path {path_no}'s rank {rep['rank']}: {len(rep['records'])} steps")
+        for got, want in zip(rep["records"], single):
+            for key in worst:  # aux is 0 without a MoE layer (main path 19): then got's
+                diff = abs(got[key] - want[key])
+                worst[key] = max(worst[key], diff / abs(want[key]) if want[key] else diff)
+        expected = {name: per_layer.get(name, 0) * n_layers * DP_STEPS
+                    for name in rep["launches"]}
+        if rep["launches"] != expected:
+            fail(f"main path {path_no}'s rank {rep['rank']}: launches {rep['launches']}, "
+                 f"expected {expected}")
+        for k, v in rep["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        per_rank.append({"rank": rep["rank"], "peak_memory_gb": rep["peak_memory_gb"],
+                         "init_peak_gb": rep["init_peak_gb"],
+                         "step_ms": [1e3 * r["step_time"] for r in rep["records"]],
+                         "losses": [r["loss"] for r in rep["records"]],
+                         "aux": [r["aux"] for r in rep["records"]],
+                         "collectives_a_step": calls})
+    if len({tuple((r["loss"], r["aux"]) for r in rep["records"]) for rep in reports}) != 1:
+        fail(f"main path {path_no}: the ranks report different losses or aux")
+    print("launches a rank: " + ", ".join(f"{name} {reports[0]['launches'][name]} = "
+                                           f"{per_layer[name]} x {n_layers} x {DP_STEPS}"
+                                           for name in per_layer))
+    print(f"the ranks' losses within {worst['loss']:.3g} and aux within {worst['aux']:.3g} of "
+          f"one card's (limit {DP_LOSS_RTOL}); {seconds:.1f} s for the spawn and the steps")
+    if max(worst.values()) > DP_LOSS_RTOL:
+        fail(f"main path {path_no}'s losses or aux part from one card's: {worst}")
+    print(json.dumps({f"tp_train_path_{path_no}": {"arch": arch, "layers": n_layers,
+                                                   "world": TP_TRAIN_WORLD, "cli_s": seconds,
+                                                   "rel_diff": worst, "per_rank": per_rank}}))
+    return counts
+
+
+def tp_mla_kernels(dev) -> tuple:
+    """Phase 33d: K2-latent and K3 at (192, 128) against their plain versions
+    at a rank's 64 heads (phases 18 and 18b on ``tp_local_config`` of
+    deepseek-v2-236b), K3-bwd's dq, dv and dk passes there (phase 26a's check
+    at the training shape, B 8, S 128, full and ragged); then each timed once
+    beside its bound: K2-latent at phase 22's shape (B 8, context 1088,
+    ragged) from a CUDA graph with the L2 flushed, K3 at S 1024 and K3-bwd's
+    passes at B 8, S 128 by CUDA events.  Returns (errors, {kernel: {ms,
+    bound_ms, bound_by, shape}})."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models.mla import sm_scale
+
+    local = tp_local_config(dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS))
+    m, h = local.mla, local.n_heads
+    r, dr = m.kv_lora_rank, m.qk_rope_head_dim
+    dk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    phase(f"33d: K2-latent, K3 ({dk}, {dv}) and K3-bwd against their plain versions at a "
+          f"rank's {h} heads under --tp {TP_WORLD}")
+    errs = mla_kernels_vs_plain(dev, local)
+    for name, err in mla_chunk_verify_kernels_vs_plain(dev, local).items():
+        errs[name] = max(errs[name], err)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    worst = {"flash_fwd_lse": 0.0, **{name: 0.0 for name in BWD_PASS_NAMES}}
+    lib = fa_ops.BWD_LIBRARY.load()
+    for lens in (None, RAGGED_8):
+        bwd_shape_check(dev, gen, lib, worst, f"deepseek-v2-236b at {h} heads a rank", 8, h, h,
+                        TRAIN_SEQ, dk, dv, lens)
+    errs.update({name: worst[name] for name in BWD_PASS_NAMES if worst[name]})
+    phase(f"33d: K2-latent, K3 ({dk}, {dv}) and K3-bwd timed at a rank's {h} heads")
+    rows = {}
+
+    def row(name, ms, nbytes, flops, shape):
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound = max(bytes_ms, ops_ms)
+        print(f"{name} at {shape}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s, {flops / 1e9:.3f} GFLOP at 989 TFLOP/s), "
+              f"kernel at {100 * bound / ms:.2f}% of bound")
+        rows[name] = {"ms": ms, "bound_ms": bound, "bound_by": by, "shape": shape}
+
+    b, npp, ppp = LONG_BATCH, LONG_PAGES, K2_ROW_PAGES_PER_PROGRAM
+    q_lat, q_pe, ckv, kpe, lens, tables = latent_inputs(torch, gen, local, b, npp)
+    valid = int(lens.sum())
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+    ms = graph_ms(lambda: fd_ops.paged_latent_decode(q_lat, q_pe, ckv, kpe, lens, tables,
+                                                     scale=sm_scale(local), pages_per_program=ppp),
+                  reps=50, flush=flush)
+    row("paged_latent_decode", ms,
+        valid * (r + dr) * 2 + b * h * (2 * r + dr) * 2 + b * 4 + b * npp * 4,
+        2 * valid * h * (2 * r + dr), f"B={b} context={npp * 16} lengths=ragged ppp={ppp} H={h}")
+    del flush, q_lat, q_pe, ckv, kpe
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    sq = LONG_PROMPT
+    q, k, v = bf16(1, h, sq, dk), bf16(1, h, sq, dk), bf16(1, h, sq, dv)
+    kv_lens = torch.tensor([sq], dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: fa_ops.flash_fwd(q, k, v, kv_lens, sm_scale=sm_scale(local)), reps=10)
+    row("flash_fwd_mla", ms, h * sq * (2 * dk + 2 * dv) * 2,
+        2 * h * (dk + dv) * sq * (sq + 1) // 2, f"Sq=Skv={sq} H={h} dk={dk} dv={dv}")
+    q, k, v, do, kv_lens = bwd_inputs(torch, dev, gen, 8, h, h, TRAIN_SEQ, dk, dv, None)
+    kw = dict(causal=True, sm_scale=dk ** -0.5, q_offset=0)
+    out, lse = fa_ops.flash_fwd(q, k, v, kv_lens, block_k=64, return_lse=True, **kw)
+    delta = torch.empty((8, h, TRAIN_SEQ), dtype=torch.float32, device=dev)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    for name, wrapper in bwd_launches(fa_ops, dk, dv):  # the dq pass first: it writes delta
+        ms = cuda_ms(lambda: wrapper(q, k, v, kv_lens, out, lse, do, delta, grads, **kw),
+                     reps=20)
+        flops, nbytes = bwd_flops_bytes(8, h, h, TRAIN_SEQ, dk, dv, None,
+                                        BWD_PASS_NAMES.index(name))
+        row(name, ms, nbytes, flops, f"B 8, Hq {h}, Hk {h}, S {TRAIN_SEQ}, DK {dk}, DV {dv}")
+    print(json.dumps({"tp_mla_kernels": {"errors": errs, "rows": rows}}))
+    return errs, rows
+
+
+def long_context_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of phase 33e (spawned; this module is its main): the smoke
+    jamba's rank on the (data 2, model 2) mesh under the long-context rules
+    (``rules_for_cell``: the cache's positions over "data", the tokens
+    replicated, so the MoE takes its 2-D path), its blocks of the whole
+    model's float32 masters from seed 0 (``load_blocks_into_lm``: gathered
+    over "data" but for the experts' d-blocks) and of the whole cache
+    (``decode_sds``' shardings), ``LONG_DECODE_STEPS`` steps of
+    ``LM.decode_step`` from each of ``LONG_DECODE_STARTS``.  Writes its
+    logits, launches and shard counts to ``out_dir/rank<r>.pt``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import tree_from_lm
+    from repro_torch.dist.partitioning import Rules
+    from repro_torch.launch.inputs import decode_sds, rules_for_cell
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.runtime.elastic import reshard_tree
+    from repro_torch.training.trainer import load_blocks_into_lm, param_shardings, train_lm
+
+    dev, backend = init_distributed(rank, world, init_file, verbose=False)
+    mesh = make_debug_mesh(*LONG_DECODE_MESH)
+    cfg = long_context_config()
+    shape = ShapeSpec("long", LONG_DECODE_SEQ, 1, "decode")
+    rt = Runtime(mesh=mesh, rules=rules_for_cell(Rules.default(mesh), shape, mesh))
+    lm = train_lm(cfg, rt, dev)
+    shardings = param_shardings(lm, rt)
+    with torch.no_grad():
+        load_blocks_into_lm(lm, reshard_tree(tree_from_lm(long_context_whole(cfg)), shardings),
+                            shardings)
+    _, _, placed = decode_sds(cfg, shape, mesh, rt.rules, lm)
+    reset_launches()
+    step_launches = kernel_wrappers()["selective_scan"]
+    runs = []
+    for start in LONG_DECODE_STARTS:
+        cache = [{name: placed.shardings[i][name].place(leaf) for name, leaf in layer.items()}
+                 for i, layer in enumerate(long_context_cache(cfg))]
+        runs.append(long_context_steps(lm, cache, start, rt))
+    torch.cuda.synchronize()
+    torch.save({"runs": runs, "launches": read_launches(), "step_launches":
+                step_launches.step_launches, "backend": backend,
+                "shards": (lm.cfg.moe.expert_shards, lm.cfg.moe.embed_shards),
+                "cache_seq": tuple(placed.values[i]["k"].shape[2] for i, spec in
+                                   enumerate(cfg.layer_specs()) if spec.mixer == "attn")},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def long_context_config():
+    """33e's config: the smoke jamba in float32."""
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(JAMBA), dtype="float32")
+
+
+def long_context_whole(cfg):
+    """33e's whole model: ``cfg`` drawn on the CPU from seed 0."""
+    import torch
+
+    from repro_torch.models.model import LM
+
+    return LM(cfg, "cpu").init_params(torch.Generator().manual_seed(0))
+
+
+def long_context_cache(cfg) -> list:
+    """33e's whole contiguous cache for one row at LONG_DECODE_SEQ positions,
+    drawn on the CPU from seed 1 (``LM.init_cache``'s layout)."""
+    import torch
+
+    from repro_torch.models.model import LM
+
+    gen = torch.Generator().manual_seed(1)
+    cache = LM(cfg, "meta").init_cache(1, LONG_DECODE_SEQ)
+    return [{name: (torch.randn(leaf.shape, generator=gen) * 0.5).to(leaf.dtype)
+             for name, leaf in layer.items()} for layer in cache]
+
+
+def long_context_steps(lm, cache, start: int, rt) -> list:
+    """LONG_DECODE_STEPS ``decode_step``s from position ``start``, tokens
+    LONG_DECODE_TOKEN + step (fed, not sampled: a bf16 near tie cannot make
+    the runs part): each step's logits on the host, float32."""
+    import torch
+
+    logits = []
+    with torch.no_grad():
+        for step in range(LONG_DECODE_STEPS):
+            out, cache = lm.decode_step(
+                torch.tensor([LONG_DECODE_TOKEN + step], device=lm.device),
+                torch.tensor([start + step], dtype=torch.int32, device=lm.device), cache, rt=rt)
+            logits.append(out.float().cpu())
+    return logits
+
+
+def long_context_path(dev, workdir: Path) -> dict:
+    """Phase 33e: the smoke jamba's contiguous decode under the long-context
+    rules on a (data 2, model 2) mesh, four gloo ranks on the one card
+    (``long_context_rank``), against the whole model's on the card (one
+    rank, no mesh) on the same weights and cache, in float32.  Gates: every
+    step's logits within LONG_DECODE_RTOL of the one rank's largest, the
+    four ranks' logits the
+    same bits, the attention cache's positions split in two (a rank's
+    block LONG_DECODE_SEQ / 2), the MoE's experts over "model" and their
+    d_model over "data" (2, 2), and K4's decode body once a Mamba layer a
+    step on each rank and no other kernel.  A correctness path: nothing at
+    full width needs a data axis on one card."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.models.runtime import Runtime
+
+    world = LONG_DECODE_MESH[0] * LONG_DECODE_MESH[1]
+    phase(f"33e: the smoke {JAMBA}'s long-context decode on a (data {LONG_DECODE_MESH[0]}, "
+          f"model {LONG_DECODE_MESH[1]}) mesh, {world} ranks on the one card over gloo, "
+          "against one rank's")
+    out = workdir / "long_context"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.start_processes(long_context_rank, args=(world, str(out / "rendezvous"), str(out)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            fail(f"33e's ranks ran past {DP_TIMEOUT_S} s")
+    reports = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    cfg = long_context_config()
+    whole = long_context_whole(cfg).to(dev)
+    want = [long_context_steps(whole, [{k: v.to(dev) for k, v in layer.items()}
+                                       for layer in long_context_cache(cfg)], start, Runtime())
+            for start in LONG_DECODE_STARTS]
+    n_mamba = sum(spec.mixer == "mamba" for spec in cfg.layer_specs())
+    worst = 0.0
+    for rep in reports:
+        steps = len(LONG_DECODE_STARTS) * LONG_DECODE_STEPS
+        others = {k: v for k, v in rep["launches"].items() if k != "selective_scan" and v}
+        if rep["launches"]["selective_scan"] != n_mamba * steps or \
+                rep["step_launches"] != n_mamba * steps or others:
+            fail(f"33e's rank: launches {rep['launches']}, decode body {rep['step_launches']}, "
+                 f"expected {n_mamba} x {steps} of K4's decode body alone")
+        if rep["shards"] != (2, 2) or set(rep["cache_seq"]) != {LONG_DECODE_SEQ // 2}:
+            fail(f"33e's rank: shards {rep['shards']}, cache blocks {rep['cache_seq']}")
+        for got_run, want_run in zip(rep["runs"], want):
+            for got, ref in zip(got_run, want_run):
+                ref = ref.double()
+                rel = float((got.double() - ref).abs().max()) / float(ref.abs().max())
+                worst = max(worst, rel)
+                if not bool(torch.isfinite(got).all()) or rel > LONG_DECODE_RTOL:
+                    fail(f"33e: logits {rel:.3g} of the one rank's largest off")
+    same = all(torch.equal(a, b) for rep in reports[1:]
+               for run_a, run_b in zip(rep["runs"], reports[0]["runs"])
+               for a, b in zip(run_a, run_b))
+    print(f"{world} ranks ({reports[0]['backend']}), experts over model and their d_model over "
+          f"data {reports[0]['shards']}, the attention cache's blocks {reports[0]['cache_seq']} "
+          f"of {LONG_DECODE_SEQ} positions; {len(LONG_DECODE_STARTS)} runs of "
+          f"{LONG_DECODE_STEPS} steps from {LONG_DECODE_STARTS}: logits within {worst:.3g} "
+          f"of the one rank's largest (limit {LONG_DECODE_RTOL}); the ranks' logits "
+          f"the same bits: {same}; K4's decode body {reports[0]['step_launches']} launches a "
+          "rank")
+    if not same:
+        fail("33e: the ranks' logits differ")
+    del whole
+    return {"launches": sum(rep["step_launches"] for rep in reports),
+            "logits_rel_err": worst}
+
 
 def main() -> None:
     import torch
@@ -6021,6 +6715,8 @@ def main() -> None:
     builds = build_all([sdca_build.LIBRARY, fa_ops.LIBRARY, fa_ops.BWD_LIBRARY, fd_ops.LIBRARY,
                         fd_ops.DECODE_LIBRARY, fd_ops.LATENT_LIBRARY, ss_ops.LIBRARY,
                         ss_ops.BWD_LIBRARY, local_sgd_build.LIBRARY])
+    # 33f's dry-run cells: host work, started now, read at the end
+    started23 = dryrun_slice23_start(ROOT / "results" / "chip_smoke_dryrun")
 
     k1, problem, p_star = hemingway_path(dev)
     k6_err = local_sgd_vs_plain(dev, problem)
@@ -6142,6 +6838,7 @@ def main() -> None:
     moe_counts, trainer = mamba_moe_training_path(
         MOE, MOE_TRAIN_LAYERS, 8, {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1})
     moe_gradient_bits(trainer)
+    moe_records = trainer.records[:DP_STEPS]  # main path 18's yardstick
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -6149,6 +6846,7 @@ def main() -> None:
         DEEPSEEK, MLA_TRAIN_LAYERS, 9,
         {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dv": 1, "flash_bwd_dk": 1})
     moe_gradient_bits(trainer)
+    mla_records = trainer.records[:DP_STEPS]  # main path 19's yardstick
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -6205,10 +6903,38 @@ def main() -> None:
                "dryrun_counted_step": meta_vs_card(dev)}
     started = decode_tune_and_dryrun_start(dev, workdir)
     slice22["diloco"] = diloco_path(dev)
+
+    # slice 23: MoE and MLA under TP, the long context (phases 33a-33f, main
+    # paths 17-19), while 32c's dry-run cells run on the host
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek_cut = dataclasses.replace(get_config(DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
+    route_log = workdir / "route_log_33a"
+    route_log.mkdir()
+    tp17 = tp_path(DEEPSEEK, 17, workdir, cfg=deepseek_cut, cli=TP_MIGRATE_ARGV,
+                   route_log=route_log)
+    serve_tp_mla = tp17["launches"]
+    reference17 = single_card_pinned(deepseek_cut, route_log, tp17["report0"]["tokens"])
+    held = against_single_card(DEEPSEEK, tp17["report0"], reference17)
+    print(json.dumps({"main_path_17_against_single_card": held,
+                      "near_ties": reference17["near_ties"]}))
+    slice23 = {"training_tp_moe": tp_train_moe_mla_path(
+        MOE, MOE_TRAIN_LAYERS, 18, moe_records,
+        {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1}),
+        "training_tp_mla": tp_train_moe_mla_path(
+        DEEPSEEK, MLA_TRAIN_LAYERS, 19, mla_records,
+        {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dv": 1, "flash_bwd_dk": 1})}
+    errs23, rows23 = tp_mla_kernels(dev)
+    errs["paged_latent_decode"] = max(errs["paged_latent_decode"],
+                                      errs23["paged_latent_decode"])
+    errs["flash_fwd_mla"] = max(errs["flash_fwd_mla"], errs23["flash_fwd"])
+    long_context = long_context_path(dev, workdir)
     k2_tuner_b128 = decode_tune_and_dryrun_finish(started)
+    dryrun_slice23_finish(started23)
 
     by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
                                 training_moe=moe_counts["flash_fwd"],
+                                training_tp_moe=slice23["training_tp_moe"]["flash_fwd"],
                                 training_musicgen=musicgen_counts["flash_fwd"],
                                 serve_internvl2=internvl_counts["flash_fwd"],
                                 **{path: c["flash_fwd"] for path, c in slice20.items()},
@@ -6217,8 +6943,12 @@ def main() -> None:
     by_path["paged_decode"]["serve_internvl2"] = internvl_counts["paged_decode"]
     by_path["paged_decode"]["tuner_b128"] = k2_tuner_b128
     launches["paged_decode"] = sum(by_path["paged_decode"].values())
-    by_path["flash_fwd_mla"]["training_mla"] = mla_counts["flash_fwd"]
+    by_path["flash_fwd_mla"].update(training_mla=mla_counts["flash_fwd"],
+                                    serve_tp_mla=serve_tp_mla["flash_fwd"],
+                                    training_tp_mla=slice23["training_tp_mla"]["flash_fwd"])
     launches["flash_fwd_mla"] = sum(by_path["flash_fwd_mla"].values())
+    by_path["paged_latent_decode"]["serve_tp_mla"] = serve_tp_mla["paged_latent_decode"]
+    launches["paged_latent_decode"] = sum(by_path["paged_latent_decode"].values())
     router_step = mamba_routed["selective_scan_step_launches"]
     tp_step = mamba_tp["launches"]["selective_scan_step"]
     by_path["selective_scan"] = {
@@ -6227,7 +6957,8 @@ def main() -> None:
         "serve_tp": mamba_tp["launches"]["selective_scan"] - tp_step}
     launches["selective_scan"] = sum(by_path["selective_scan"].values())
     by_path["selective_scan_step"] = {"cli": launches["selective_scan_step"],
-                                      "serve_router": router_step, "serve_tp": tp_step}
+                                      "serve_router": router_step, "serve_tp": tp_step,
+                                      "long_context_2x2": long_context["launches"]}
     launches["selective_scan_step"] = sum(by_path["selective_scan_step"].values())
 
     kernels = [k1, k6]
@@ -6263,6 +6994,9 @@ def main() -> None:
         if name in tp_rows:
             kernels[-1].update({f"{key}_at main path 13": value
                                 for key, value in tp_rows[name].items()})
+        if name in rows23:  # K2-latent and K3 (192, 128) at 64 heads a rank
+            kernels[-1].update({f"{key}_at main path 17": value
+                                for key, value in rows23[name].items()})
         if name == "flash_fwd":
             kernels[-1].update(lse_ms=bwd["flash_fwd_lse"]["ms"],
                                lse_shape=bwd["flash_bwd_dq"]["shape"] + ", block_k 64",
@@ -6285,12 +7019,18 @@ def main() -> None:
         paths = {"training": train_counts[name], "training_moe": moe_counts[name],
                  "training_mla": mla_counts[name], "training_musicgen": musicgen_counts[name],
                  **{path: c[name] for path, c in slice20.items()},
-                 **{path: c[name] for path, c in slice22.items()}}
+                 **{path: c[name] for path, c in slice22.items()},
+                 **{path: c[name] for path, c in slice23.items()}}
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "replaces": "src/repro/kernels/flash_attention/ops.py:118",
                         "status": status, "launches": sum(paths.values()),
                         "launches_by_path": paths, "timed_by": EAGER, **bwd[name]})
+        if name in errs23:
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], errs23[name])
+        if name in rows23:  # the dq, dv and dk passes at 64 heads a rank
+            kernels[-1].update({f"{key}_at main path 19": value
+                                for key, value in rows23[name].items()})
     kernels.append({"name": "selective_scan_bwd", "route": "cuda",
                     "source": "src/repro_torch/kernels/ssm_scan/csrc/selective_scan_bwd.cu",
                     "replaces": "src/repro/kernels/ssm_scan/ops.py:30",
@@ -6317,6 +7057,10 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
+
+# a spawned rank of main path 17 imports this module as its main
+if __name__ == "__mp_main__" and os.environ.get(ROUTE_LOG_ENV):
+    log_routing(os.environ[ROUTE_LOG_ENV])
 
 if __name__ == "__main__":
     main()

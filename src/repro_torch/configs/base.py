@@ -44,6 +44,13 @@ class MoEConfig:
     router_aux_loss: float = 0.001
     # normalise top-k router weights to sum to one (deepseek-style)
     norm_topk: bool = True
+    # a rank's share (the port's local config, repro_torch.serve.sharding):
+    # it holds n_routed_experts / expert_shards experts (the router's
+    # columns too) and 1 / expert_shards of the shared experts' width, the
+    # experts' d_model dim cut in embed_shards blocks (the 2-D path); the
+    # routing (softmax, top-k, capacity, aux) stays the whole E's
+    expert_shards: int = 1
+    embed_shards: int = 1
 
 
 @dataclass(frozen=True)

@@ -38,6 +38,23 @@ needs one (Megatron's conjugate pair):
 All-reduce results are the same bits on every rank, so the ranks' residual
 streams, logits, losses and greedy tokens stay in step.
 
+The MoE's expert-parallel and 2-D paths (``repro_torch.models.moe``) and
+the sequence-split decode (``repro_torch.models.attention``) add two more,
+on any group (the "model" group, or the batch axes' "spare" group):
+
+* ``gather_dim``: the ranks' contiguous blocks along one dim to the whole
+  tensor on every rank (``gather_blocks``: exact), whose gradient is the
+  rank's block of the whole gradient (every rank computes the same whole
+  gradient downstream): the router's logits over "model", the 2-D path's
+  output columns over the spare axes;
+* ``split_dim``: the rank's block of a replicated tensor along one dim,
+  whose gradient is gathered from the ranks' blocks (the 2-D path's token
+  columns, each rank's experts reading its d-block).
+
+``all_reduce_sum`` and ``copy_to_model`` take any group too: the 2-D path
+sums its gate and up partials over the spare axes, and its hidden
+activation's gradient through ``copy_to_model`` on that group.
+
 The "data" group (FSDP, each rank holding a contiguous block of a leaf
 along one dim, ``repro_torch.runtime.elastic.LeafSharding``):
 
@@ -212,6 +229,54 @@ def gather_vocab(logits: torch.Tensor, vocab_start: int, vocab_size: int,
     if _differentiable(logits):
         return _GatherVocab.apply(logits, vocab_start, vocab_size, group)
     return _gather_vocab(logits, vocab_start, vocab_size, group)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return gather_blocks(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rank = group_rank(ctx.group)
+        return grad.narrow(ctx.dim, rank * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // group_size(group)
+        return x.narrow(dim, group_rank(group) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_blocks(grad.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks of ``x`` along ``dim`` (rank
+    r of ``group`` holds block r), bit for bit; its gradient is the rank's
+    block.  ``x`` itself without a group."""
+    if group is None:
+        return x
+    dim = dim % x.dim()
+    if _differentiable(x):
+        return _GatherDim.apply(x, dim, group)
+    return gather_blocks(x, dim, group)
+
+
+def split_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Rank r's block r of a replicated ``x`` along ``dim``; its gradient
+    is gathered from every rank's block.  ``x`` itself without a group."""
+    if group is None:
+        return x
+    dim = dim % x.dim()
+    if _differentiable(x):
+        return _SplitDim.apply(x, dim, group)
+    n = x.shape[dim] // group_size(group)
+    return x.narrow(dim, group_rank(group) * n, n)
 
 
 def _backend(group) -> str:

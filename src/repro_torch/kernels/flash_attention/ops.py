@@ -469,6 +469,29 @@ def flash_attention(
                      q_offset=int(q_offset), block_q=int(block_q), block_k=int(block_k))
 
 
+def decode_partials(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    lengths: torch.Tensor, sm_scale: Optional[float] = None):
+    """``decode_attention`` before its division: q (B, Hq, D), the cache
+    (B, Hk, S, D), ``lengths`` (B,) the valid positions (<= 0: none).
+    Products of the stored values accumulated in float32, masked scores set
+    to ``NEG_INF``, p rounded to v's dtype before the PV product.  Returns
+    the max and the sum (B, Hk, G, 1) and p V (B, Hk, G, D), float32: a block
+    of positions' partial, which ``models.attention.merge_partials`` merges
+    over a cache split along its sequence."""
+    b, hq, d = q.shape
+    _, hk, s, _ = k_cache.shape
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / (d ** 0.5)
+    qf = q.reshape(b, hk, hq // hk, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qf.float(), k_cache.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] < lengths.to(q.device)[:, None]  # (B, S)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    out = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return m, p.sum(dim=-1, keepdim=True), out
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, D) one new token per sequence
     k_cache: torch.Tensor,  # (B, Hk, S, D)
@@ -477,25 +500,10 @@ def decode_attention(
     *,
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """One-token decode attention with the reference's arithmetic: products
-    of the stored values accumulated in float32, masked scores set to
-    ``NEG_INF``, p rounded to v's dtype before the PV product, the sum
-    divided by ``max(l, 1e-30)``.  A row of length 0 has every score masked
-    and gets the mean of V, as in the reference.  Returns (B, Hq, D) in q's
-    dtype."""
-    b, hq, d = q.shape
-    _, hk, s, _ = k_cache.shape
-    g = hq // hk
-    scale = float(sm_scale) if sm_scale is not None else 1.0 / (d ** 0.5)
-    qf = q.reshape(b, hk, g, d)
-    scores = torch.einsum("bkgd,bksd->bkgs", qf.float(), k_cache.float()) * scale
-    pos = torch.arange(s, device=q.device)
-    mask = pos[None, :] < lengths.to(q.device)[:, None]  # (B, S)
-    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
-    l = p.sum(dim=-1, keepdim=True)
-    pv = p.to(v_cache.dtype)
-    out = torch.einsum("bkgs,bksd->bkgd", pv.float(), v_cache.float())
+    """One-token decode attention with the reference's arithmetic: the
+    partial of ``decode_partials``, its sum divided by ``max(l, 1e-30)``.  A
+    row of length 0 has every score masked and gets the mean of V, as in the
+    reference.  Returns (B, Hq, D) in q's dtype."""
+    _, l, out = decode_partials(q, k_cache, v_cache, lengths, sm_scale)
     out = out / torch.clamp(l, min=1e-30)
-    return out.reshape(b, hq, v_cache.shape[-1]).to(q.dtype)
+    return out.reshape(q.shape[0], q.shape[1], v_cache.shape[-1]).to(q.dtype)

@@ -19,16 +19,18 @@ their bytes.  Per cell this script
   3. runs the rank's step once: train, ``make_train_step`` with
      ``default_optimizer_for``; prefill, ``LM.prefill`` on the rank's
      weights gathered over the batch axes; decode, the contiguous
-     ``LM.decode_step`` over ``init_cache(b, seq_len)`` (which proves the
-     placement coherent: every local shape fits, every collective has its
-     group),
+     ``LM.decode_step`` over the cache's blocks at ``seq_len`` positions
+     (which proves the placement coherent: every local shape fits, every
+     collective has its group),
   4. records the memory analysis, the costs and the per-device collective
-     bytes in a JSON with the reference's fields.
+     bytes, by kind and mesh axis, in a JSON with the reference's fields.
 
-A cell the port cannot place (the MoE FFN and MLA at a "model" axis larger
-than 1: ROADMAP.md queue 1 item 10) is an error record, and the sweep goes
-on, as the reference's ``run_cell`` records any failure.  The module sets
-no environment variable and needs no card.
+The MoE archs run their expert-parallel path over "model" (the 2-D path,
+its sums and gathers over the batch axes, in jamba's ``long_500k``, whose
+cache is split along its sequence over those axes) and MLA its heads over
+"model".  A cell that fails is an error record, and the sweep goes on, as
+the reference's ``run_cell`` records any failure.  The module sets no
+environment variable and needs no card.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k \\
@@ -115,9 +117,9 @@ def model_flops(cfg, shape: ShapeSpec) -> float:
 
 
 def _rank_lm(cfg, rt: Runtime, kind: str):
-    """The rank's LM on the mesh's device ("meta" for the dry-run): the
-    serve plan's refusals first for a serving cell (the MoE FFN and MLA at a
-    "model" axis > 1), the trainer's for a train cell."""
+    """The rank's LM on the mesh's device ("meta" for the dry-run), checked
+    by the serve plan for a serving cell (a head, an expert count or a
+    width that would not divide the model axis)."""
     if kind != "train" and rt.model_world() > 1:
         from repro_torch.serve.sharding import ShardingPlan
 

@@ -30,10 +30,8 @@ from repro_torch.runtime.elastic import (
 from repro_torch.training.trainer import meta_tree, tp_pieces, whole_config
 from repro_torch.training.tree import tree_leaves, tree_map
 
-LONG_CONTEXT_ATTENTION = (
-    "{arch}: a decode cache sharded along its sequence over the batch axes needs a "
-    "cross-rank partial-softmax merge of the attention, which is not ported (jamba's "
-    "long_500k, ROADMAP.md queue 1 item 10)")
+# the sequence dim of the contiguous cache's leaves (LM.init_cache)
+SEQ_DIM = {"k": 2, "v": 2, "ckv": 1, "kpe": 1}
 
 
 class Placed(NamedTuple):
@@ -82,34 +80,40 @@ def batch_sds(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: Rules) -> Placed:
 def decode_sds(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: Rules,
                lm: LM) -> Tuple[Placed, Placed, Placed]:
     """(tokens, lengths, cache) stand-ins for ``LM.decode_step``: the rank's
-    rows of the batch, and ``lm.init_cache`` (the rank's LM: its KV heads or
-    Mamba channels) at those rows, each cache leaf checked against the
-    block its spec names at the whole model's shape.  A cache split along
-    its sequence (``rules_for_cell``'s long-context branch) raises for an
-    attention layer."""
+    rows of the batch, and the cache (``init_cache``'s leaves) at the block
+    each leaf's spec names at the whole model's shape, checked against the
+    rank's LM (its KV heads or Mamba channels).  Under
+    ``rules_for_cell``'s long-context branch the attention leaves hold the
+    rank's block of positions (``cache_seq`` over the batch axes; the
+    decode merges the ranks' partial softmaxes,
+    ``repro_torch.models.attention``)."""
     b = shape.global_batch
     tokens = _act(mesh, rules, ("batch",), (b,), torch.int32)
     lengths = _act(mesh, rules, ("batch",), (b,), torch.int32)
-    cache = lm.init_cache(tokens[0].shape[0], shape.seq_len)
     whole_lm = LM(cfg, "meta")
     names, sizes = mesh_axes(mesh)
-    shardings = []
-    for layer, whole, spec in zip(cache, whole_lm.init_cache(b, shape.seq_len),
-                                  cfg.layer_specs()):
+    cache, shardings = [], []
+    for whole, spec in zip(whole_lm.init_cache(b, shape.seq_len), cfg.layer_specs()):
         spec_of = param_mod.layer_cache_axes(cfg, spec)
-        specs = {}
-        for name, leaf in layer.items():
-            axes = spec_of[name]
-            pspec = rules.act_pspec(axes, tuple(whole[name].shape))
-            if name in ("k", "v", "ckv", "kpe") and pspec[axes.index("cache_seq")] is not None:
-                raise NotImplementedError(LONG_CONTEXT_ATTENTION.format(arch=cfg.name))
-            sh = LeafSharding(pspec, dict(zip(names, sizes)), mesh_coordinate(mesh),
+        layer, specs = {}, {}
+        for name, leaf in whole.items():
+            sh = LeafSharding(rules.act_pspec(spec_of[name], tuple(leaf.shape)),
+                              dict(zip(names, sizes)), mesh_coordinate(mesh),
                               mesh_device(mesh), mesh)
-            if tuple(leaf.shape) != sh.local_shape(whole[name].shape):
-                raise ValueError(f"cache leaf {name}: the rank's {tuple(leaf.shape)}, the spec "
-                                 f"{pspec} names {sh.local_shape(whole[name].shape)}")
+            layer[name] = torch.zeros(sh.local_shape(leaf.shape), dtype=leaf.dtype,
+                                      device=mesh_device(mesh))
             specs[name] = sh
+        cache.append(layer)
         shardings.append(specs)
+    for layer, own in zip(cache, lm.init_cache(tokens[0].shape[0], 1)):
+        for name, leaf in layer.items():
+            got = list(leaf.shape)
+            if name in SEQ_DIM:
+                got[SEQ_DIM[name]] = 1
+            if tuple(got) != tuple(own[name].shape):
+                raise ValueError(f"cache leaf {name}: the spec's block {tuple(leaf.shape)}, "
+                                 f"the rank's LM holds {tuple(own[name].shape)} (at one "
+                                 "position)")
     return Placed(*tokens), Placed(*lengths), Placed(cache, shardings)
 
 
@@ -150,7 +154,9 @@ def rules_for_cell(base: Rules, shape: ShapeSpec, mesh) -> Rules:
     Long-context decode (global_batch < the batch axes' size): the batch
     cannot fill the data axis, so shard the cache's sequence over it
     instead (the reference leaves the partial softmax's merge to GSPMD; the
-    port's decode_sds raises for an attention cache so sharded)."""
+    port merges the ranks' partials in rank order,
+    ``repro_torch.models.attention.split_decode_attention``), and the
+    tokens stay replicated, so the MoE takes its 2-D path."""
     if shape.kind == "decode" and mesh is not None:
         sizes = dict(zip(*mesh_axes(mesh)))
         data = sizes.get("data", 1) * sizes.get("pod", 1)

@@ -103,8 +103,14 @@ raises; the cold and the baseline engines, the router's replicas and the
 migration's destination all share the warm engine's weights instead of
 building copies of their own (29.5 GB each at qwen3-14b's full width), and
 run the same ``--paged-impl``; ``--tp`` spawns a process a rank where the
-reference forces host devices in one process, and a migration under
-``--tp`` is refused (ROADMAP.md, queue 1 item 7).
+reference forces host devices in one process.  ``--tp K`` serves every arch
+of the catalog whose heads, experts and widths divide K (MLA over the
+rank's heads, the MoE FFN on its expert-parallel path), and ``--tp K
+--router --replicas N --migrate-at S`` hands a tensor-parallel replica off
+(``repro/launch/serve.py:271-326``): every rank snapshots its replica at
+step S, the cache gathered over "model" into whole leaves, and restores it
+onto a fresh K-way engine, each rank keeping its block
+(``repro_torch.serve.migrate``).
 """
 from __future__ import annotations
 
@@ -582,13 +588,23 @@ def _rank_main(rank: int, args: argparse.Namespace, cfg: Optional[ArchConfig], i
                "bit_identical": result.get("bit_identical"),
                "routed_bit_identical": (result["routed"] or {}).get("bit_identical")
                if "routed" in result else None,
-               "ranks_same": same, "digest": digest}
+               "ranks_same": same, "digest": digest,
+               "migration": _migration_summary(result)}
     torch.save(_rank_report(result, engines, device, summary),
                os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
     if not same:
         sys.exit(1)
+
+
+def _migration_summary(result: Dict) -> Optional[Dict]:
+    """The handoff's numbers (``migrate_replica``'s, engines left out), or
+    None without one."""
+    info = (result.get("routed") or {}).get("migration")
+    if info is None:
+        return None
+    return {k: v for k, v in info.items() if k not in ("source", "destination")}
 
 
 def _result_engines(result: Dict) -> List[ServeEngine]:

@@ -13,6 +13,8 @@ parallelism controller over the real trainer (observe loss -> refit g(i, m)
       [--chaos-seed 0] [--chaos-out run.json] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --tp 2 \\
       --steps 4 --seq-len 128 --global-batch 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b --smoke --tp 2 \\
+      --steps 4 --seq-len 32 --global-batch 4 --device cpu
 
 Without ``--device cpu`` it runs on the card or raises.  Differences from
 the reference: ``--smoke`` is off by default, as in the port's serve CLI (the
@@ -28,8 +30,10 @@ forward runs with the reference's ``Runtime(remat="none" if smoke else
 ``DeviceMesh`` of ("data", "model"), and ``Rules.default``): each rank holds
 its block of every float32 master and optimizer-state leaf and trains on its
 rows of the global batch, and at a "model" axis larger than 1 a
-tensor-parallel rank's slice of the model (dense-attention and Mamba archs;
-``repro_torch.training.trainer``); checkpoints hold whole leaves, gathered
+tensor-parallel rank's slice of the model (every arch of the catalog: MLA
+over the rank's heads, the MoE FFN on its expert-parallel path, E / K
+experts a rank; ``repro_torch.training.trainer``); checkpoints hold whole
+leaves, gathered
 from the ranks and written by rank 0, and restore onto a mesh of any shape
 (``CheckpointManager.restore_sharded``).  ``--tp K`` spawns K ranks on a
 (1, K) mesh, one process each, over the rendezvous and backend rules of ``repro_torch.launch.mesh`` (``run_data_parallel``): rank
@@ -660,13 +664,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def mesh_main(args: argparse.Namespace) -> List[Dict[str, Any]]:
-    """``--tp K``: the trainer on a (1, K) mesh of K spawned ranks; rank 0
-    prints its steps, then this process the mesh's summary.  Returns every
-    rank's report."""
+def mesh_main(args: argparse.Namespace, cfg: Optional[ArchConfig] = None
+              ) -> List[Dict[str, Any]]:
+    """``--tp K``: the trainer on a (1, K) mesh of K spawned ranks (on
+    ``cfg`` in place of ``--arch`` when given); rank 0 prints its steps,
+    then this process the mesh's summary.  Returns every rank's report."""
     opts = dict(arch=args.arch, smoke=args.smoke, steps=args.steps, seq_len=args.seq_len,
                 global_batch=args.global_batch, ckpt_dir=args.ckpt_dir,
-                optimizer=args.optimizer, compression=args.compression)
+                optimizer=args.optimizer, compression=args.compression, cfg=cfg)
     reports = run_data_parallel(args.tp, {"opts": opts, "steps": args.steps}, args.device,
                                 model=args.tp)
     rep = reports[0]
@@ -707,18 +712,21 @@ def chaos_main(args: argparse.Namespace):
     return log
 
 
-def run(argv: Optional[Sequence[str]] = None):
+def run(argv: Optional[Sequence[str]] = None, cfg: Optional[ArchConfig] = None):
     """The CLI's work: with ``--chaos`` the LM chaos loop's run log, else
-    the trainer after its run (its ``records`` hold every step's metrics)."""
+    the trainer after its run (its ``records`` hold every step's metrics).
+    ``cfg``, when given, is the config to train in place of ``--arch`` /
+    ``--smoke`` (a caller's cut one, such as a full-width model at fewer
+    layers: the CLI has no depth flag), with ``--tp`` too."""
     args = parse_args(argv)
     if args.chaos is not None:
         return chaos_main(args)
     if args.tp > 1:
-        return mesh_main(args)
+        return mesh_main(args, cfg)
     opts = TrainerOptions(arch=args.arch, smoke=args.smoke, steps=args.steps,
                           seq_len=args.seq_len, global_batch=args.global_batch,
                           ckpt_dir=args.ckpt_dir, optimizer=args.optimizer,
-                          compression=args.compression, device=args.device)
+                          compression=args.compression, device=args.device, cfg=cfg)
     trainer = Trainer(opts)
     last = trainer.run()
     times = [r["step_time"] for r in trainer.records[1:]]

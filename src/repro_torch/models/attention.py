@@ -28,6 +28,14 @@ partial products are summed over the "model" group
 (``apply_attention`` under grad) the replicated input and the qk-norm
 scales, which each rank applies to its heads only, enter through
 ``copy_to_model``, which sums their gradients over the group.
+
+The contiguous decode (``apply_attention_decode``) also runs over a cache
+split along its sequence (the long-context cell's rules, ``rt.seq_group()``):
+each rank holds a block of positions, the rank holding the new token's
+position writes its K/V (``write_owned``), and each rank's partial
+(max, sum, p V: ``decode_partials``) is merged over the group in rank
+order (``merge_partials``), so every rank gets the same bits; the reference
+leaves this merge to GSPMD (``flash_attention/ops.py:253-258``).
 """
 from __future__ import annotations
 
@@ -37,8 +45,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.collectives import all_reduce_sum, copy_to_model
-from repro_torch.kernels.flash_attention.ops import decode_attention, flash_attention
+from repro_torch.dist.collectives import all_reduce_sum, copy_to_model, gather_dim, group_rank
+from repro_torch.kernels.flash_attention.ops import (
+    decode_attention, decode_partials, flash_attention)
 from repro_torch.kernels.flash_decode.ops import (
     paged_decode_attention,
     paged_prefill_attention,
@@ -187,6 +196,52 @@ def apply_attention_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtim
     return all_reduce_sum(y, rt.model_group())[:, None, :]
 
 
+def write_owned(cache: torch.Tensor, new: torch.Tensor, local: torch.Tensor,
+                seq_dim: int) -> None:
+    """Write each row's ``new`` (B, ...) at its position ``local`` (B,) of
+    ``cache`` (B, ..., S_block, ...) along ``seq_dim``, in place, where the
+    position falls inside this rank's block (0 <= local < S_block); other
+    rows keep what they hold (no data-dependent shape: the "meta" device
+    runs it too)."""
+    n = cache.shape[seq_dim]
+    at = torch.arange(cache.shape[0], device=cache.device)
+    pos = local.long().clamp(0, n - 1)
+    index = (at,) + (slice(None),) * (seq_dim - 1) + (pos,)
+    own = ((local >= 0) & (local < n)).reshape(-1, *([1] * (new.dim() - 1)))
+    cache[index] = torch.where(own, new.to(cache.dtype), cache[index])
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, group) -> torch.Tensor:
+    """Merge attention partials over ``group``: each rank's running max
+    ``m``, sum ``l`` (both (..., 1), float32) and unnormalised output ``o``
+    (..., D) over its block of positions, gathered to every rank and summed
+    in rank order at the common max, then normalised (``max(l, 1e-30)``, as
+    ``decode_attention``); every rank computes the same bits.  Returns
+    (..., D) float32."""
+    parts = gather_dim(torch.cat([m, l, o], dim=-1)[None], 0, group)
+    top = parts[..., :1].amax(dim=0)
+    total = out = None
+    for r in range(parts.shape[0]):
+        a = torch.exp(parts[r, ..., :1] - top)
+        term_l, term_o = parts[r, ..., 1:2] * a, parts[r, ..., 2:] * a
+        total = term_l if total is None else total + term_l
+        out = term_o if out is None else out + term_o
+    return out / torch.clamp(total, min=1e-30)
+
+
+def split_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           lengths: torch.Tensor, group, sm_scale=None) -> torch.Tensor:
+    """``decode_attention`` over a cache whose sequence is split over
+    ``group``: ``k_cache``/``v_cache`` (B, Hk, S_block, D) this rank's block,
+    ``lengths`` (B,) the valid positions counted from the block's start
+    (<= 0: none here).  The rank's partial (``decode_partials``) is merged
+    over the group (``merge_partials``).  A row with no valid position
+    anywhere gets the mean of V, as ``decode_attention``.  Returns
+    (B, Hq, D) in q's dtype."""
+    out = merge_partials(*decode_partials(q, k_cache, v_cache, lengths, sm_scale), group)
+    return out.reshape(q.shape[0], q.shape[1], v_cache.shape[-1]).to(q.dtype)
+
+
 def apply_attention_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
                            cache: Dict[str, torch.Tensor], lengths: torch.Tensor
                            ) -> torch.Tensor:
@@ -195,16 +250,29 @@ def apply_attention_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     cache), which it updates in place: each row's new K/V written at its
     length, then ``decode_attention`` over ``lengths + 1`` positions.  The
     reference's write (``attention.py:222-226``) is functional.  The
-    projections run over blocks of ``rt.decode_rows`` rows."""
+    projections run over blocks of ``rt.decode_rows`` rows.
+
+    Under a sequence split (``rt.seq_group()``, the long-context cell) the
+    cache is the rank's block of positions: the rank that holds position
+    ``lengths`` writes the new token's K/V, every rank attends over its
+    block (``split_decode_attention``), and the partials are merged over
+    the group in rank order."""
     b = x.shape[0]
     rows = rt.decode_rows or b
     lengths = lengths.to(torch.int32)
     parts = [_project_qkv(p, x[r], cfg, lengths[r, None]) for r in row_blocks(b, rows)]
     q, k, v = (torch.cat(t, dim=0) for t in zip(*parts))
-    at = torch.arange(b, device=x.device)
-    cache["k"][at, :, lengths.long()] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][at, :, lengths.long()] = v[:, 0].to(cache["v"].dtype)
-    out = decode_attention(q[:, 0], cache["k"], cache["v"], lengths + 1)
+    seq = rt.seq_group()
+    if seq is None:
+        at = torch.arange(b, device=x.device)
+        cache["k"][at, :, lengths.long()] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][at, :, lengths.long()] = v[:, 0].to(cache["v"].dtype)
+        out = decode_attention(q[:, 0], cache["k"], cache["v"], lengths + 1)
+    else:
+        local = lengths - group_rank(seq) * cache["k"].shape[2]
+        write_owned(cache["k"], k[:, 0], local, seq_dim=2)
+        write_owned(cache["v"], v[:, 0], local, seq_dim=2)
+        out = split_decode_attention(q[:, 0], cache["k"], cache["v"], local + 1, seq)
     y = by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * cfg.head_dim) @ p["wo"], out,
                  rows)
     return all_reduce_sum(y, rt.model_group())[:, None, :]

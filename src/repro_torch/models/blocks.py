@@ -19,7 +19,10 @@ Training's MoE dispatch is the exception: one over the whole batch.
 
 Under a mesh (``rt.mesh``) the SwiGLU's ``w_gate``/``w_up`` are a
 tensor-parallel rank's columns and ``w_down`` its rows, and their product is
-summed over the "model" group (``repro_torch.dist.collectives``).
+summed over the "model" group (``repro_torch.dist.collectives``); MLA runs
+over the rank's heads (``repro_torch.models.mla``) and the MoE FFN takes
+its expert-parallel or 2-D path (``repro_torch.models.moe``), both given
+the Runtime to find their groups.
 """
 from __future__ import annotations
 
@@ -168,8 +171,7 @@ def apply_block_train(p: Block, x: torch.Tensor, *, cfg: ArchConfig,
         return apply_block(p, x, cfg, rt)[0], torch.zeros((), dtype=torch.float32,
                                                           device=x.device)
     x, _ = _mix(p, x, cfg, rt)
-    y, aux = moe_mod.apply_moe(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), cfg, train=True,
-                               group=rt.data_group())
+    y, aux = moe_mod.apply_moe(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), cfg, train=True, rt=rt)
     return x + y, aux
 
 
@@ -195,9 +197,9 @@ def apply_block_prefill_paged(p: Block, x: torch.Tensor, cfg: ArchConfig, rt: Ru
 def _ffn(p: Block, h: torch.Tensor, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
     """The layer's FFN in prefill and decode: SwiGLU (summed over the
     "model" group), or the MoE's dropless eval (one dispatch over the rows
-    given: one row block)."""
+    given: one row block; its expert-parallel or 2-D path on a mesh)."""
     if p.spec.ffn == "moe":
-        return moe_mod.apply_moe(p.ffn, h, cfg)
+        return moe_mod.apply_moe(p.ffn, h, cfg, rt=rt)
     group = rt.model_group()
     return all_reduce_sum(apply_mlp(p.ffn, copy_to_model(h, group)), group)
 

@@ -45,6 +45,20 @@ decode (``repro_torch.models.runtime``).
 Parameters are one layer's dict with the reference's names, shapes and
 initialisers (``mla.py:44-69``); the up-projections are stored flattened,
 (lora, H * dim), as there.  The two latent norms are float32.
+
+Under tensor parallelism (``rt.mesh``, ``repro_torch.serve.sharding``) the
+config is a rank's (``n_heads / K``): ``wq_b`` and ``wkv_b`` hold the rank's
+columns and ``wo`` its rows, so every function here, K3 and K2's latent form
+within, runs over the rank's heads, and ``wo``'s partials are summed over
+the "model" group.  ``wq_a``, ``wkv_a``, the latent norms and the latent
+cache stay whole: every rank computes, and writes, the same latent bits.  In
+training the fork sits after those replicated down-projections and norms:
+``cq`` and [c_kv, k_pe] enter the rank's heads through ``copy_to_model``,
+whose backward sums their gradients over the group, so ``wq_a``, ``wkv_a``
+and the norms get whole gradients, the same bits on every rank.  A latent
+cache split along its sequence (``rt.seq_group()``) is refused by name: no
+cell of the catalog gives MLA one (``rules_for_cell`` splits the sequence
+only for the long-context cell, which only Mamba archs run).
 """
 from __future__ import annotations
 
@@ -54,6 +68,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.collectives import all_reduce_sum, copy_to_model
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.ops import gather_pages, paged_latent_decode_attention
 from repro_torch.models.attention import scatter_positions
@@ -87,11 +102,13 @@ def sm_scale(cfg: ArchConfig) -> float:
     return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
 
 
-def _mla_q(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """(q_nope (B, S, H, nope), q_pe (B, S, H, rope)), ``mla.py:85``."""
+def _mla_q(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, group=None):
+    """(q_nope (B, S, H, nope), q_pe (B, S, H, rope)), ``mla.py:85``; under a
+    "model" ``group`` the replicated ``cq`` enters the rank's heads through
+    ``copy_to_model``."""
     m = cfg.mla
     b, s, _ = x.shape
-    cq = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    cq = copy_to_model(rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps), group)
     q = (cq @ p["wq_b"]).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_pe = apply_rope(q[..., m.qk_nope_head_dim:], positions, theta=cfg.rope_theta)
     return q[..., :m.qk_nope_head_dim], q_pe
@@ -119,11 +136,16 @@ def _expand_kv(p, ckv: torch.Tensor, kpe: torch.Tensor, cfg: ArchConfig):
     return k, v
 
 
-def _project(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+def _project(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, group=None):
     """One row block's q (B, S, H, nope + rope), k (the same) and v
-    (B, S, H, v), and its latents (c_kv, k_pe)."""
-    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    (B, S, H, v), and its latents (c_kv, k_pe); under a "model" ``group``
+    the replicated latents enter the rank's heads through one
+    ``copy_to_model`` of [c_kv, k_pe]."""
+    q_nope, q_pe = _mla_q(p, x, cfg, positions, group)
     ckv, kpe = _mla_kv_latent(p, x, cfg, positions)
+    if group is not None and torch.is_grad_enabled():
+        both = copy_to_model(torch.cat([ckv, kpe], dim=-1), group)
+        ckv, kpe = both[..., :ckv.shape[-1]], both[..., ckv.shape[-1]:]
     k, v = _expand_kv(p, ckv, kpe, cfg)
     return torch.cat([q_nope, q_pe], dim=-1), k, v, ckv, kpe
 
@@ -135,14 +157,17 @@ def apply_mla(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
     {"ckv" (B, S, r), "kpe" (B, S, rope)})."""
     m = cfg.mla
     b, s, _ = x.shape
+    group = rt.model_group()
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    parts = [_project(p, x[:, r], cfg, positions[:, r]) for r in row_blocks(s, rt.prefill_rows)]
+    parts = [_project(p, x[:, r], cfg, positions[:, r], group)
+             for r in row_blocks(s, rt.prefill_rows)]
     q, k, v, ckv, kpe = (torch.cat(t, dim=1) for t in zip(*parts))
     out = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(), causal=True, sm_scale=sm_scale(cfg),
                           kv_lens=kv_lens, block_q=rt.block_q, block_k=rt.block_k)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * m.v_head_dim)
-    return by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), {"ckv": ckv, "kpe": kpe}
+    y = all_reduce_sum(by_rows(lambda o: o @ p["wo"], out, rt.prefill_rows), group)
+    return y, {"ckv": ckv, "kpe": kpe}
 
 
 def apply_mla_prefill_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -190,7 +215,7 @@ def apply_mla_prefill_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
                           q_offset=s0, block_q=rt.block_q, block_k=rt.block_k)
     y = x.new_zeros((1, s, cfg.n_heads * m.v_head_dim))
     y[:, rows] = out.transpose(1, 2).reshape(1, n_valid, cfg.n_heads * m.v_head_dim)
-    return by_rows(lambda o: o @ p["wo"], y, rows_r)
+    return all_reduce_sum(by_rows(lambda o: o @ p["wo"], y, rows_r), rt.model_group())
 
 
 def apply_mla_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -218,8 +243,8 @@ def apply_mla_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
         out = _mla_decode_attn(p, q_nope, q_pe, gather_pages(cache["ckv"], page_tables),
                                gather_pages(cache["kpe"], page_tables), lengths + 1, cfg,
                                absorb=rt.mla_absorb)
-        return by_batch(lambda o: o.reshape(o.shape[0], h * m.v_head_dim) @ p["wo"], out,
-                        rows)[:, None, :]
+        y = by_batch(lambda o: o.reshape(o.shape[0], h * m.v_head_dim) @ p["wo"], out, rows)
+        return all_reduce_sum(y, rt.model_group())[:, None, :]
     wk, wv = _split_wkv_b(p, cfg)
     q_lat = by_batch(lambda qn: torch.einsum("bhe,rhe->bhr", qn, wk), q_nope, rows)  # (B, H, r)
     ctx_lat = paged_latent_decode_attention(
@@ -231,7 +256,7 @@ def apply_mla_decode_paged(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
         out = torch.einsum("bhr,rhe->bhe", ctx.to(x.dtype), wv)  # (B, H, v)
         return out.reshape(ctx.shape[0], h * m.v_head_dim) @ p["wo"]
 
-    return by_batch(out_proj, ctx_lat, rows)[:, None, :]
+    return all_reduce_sum(by_batch(out_proj, ctx_lat, rows), rt.model_group())[:, None, :]
 
 
 def _project_decode(p, x: torch.Tensor, cfg: ArchConfig, lengths: torch.Tensor, rows: int):
@@ -263,6 +288,10 @@ def apply_mla_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     over ``lengths + 1`` positions (``mla.py:147-178``; the reference's write
     is functional).  The projections run over blocks of ``rt.decode_rows``
     rows.  Returns y (B, 1, d)."""
+    if rt.seq_group() is not None:
+        raise ValueError(
+            "MLA's latent cache split along its sequence: no cell of the catalog "
+            "splits an MLA arch's cache_seq (the long-context cell runs Mamba archs)")
     m = cfg.mla
     b = x.shape[0]
     rows = rt.decode_rows or b
@@ -273,8 +302,9 @@ def apply_mla_decode(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     cache["kpe"][at, pos] = kpe_new.to(cache["kpe"].dtype)
     out = _mla_decode_attn(p, q_nope, q_pe, cache["ckv"], cache["kpe"], lengths + 1, cfg,
                            absorb=rt.mla_absorb)
-    return by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * m.v_head_dim) @ p["wo"],
-                    out, rows)[:, None, :]
+    y = by_batch(lambda o: o.reshape(o.shape[0], cfg.n_heads * m.v_head_dim) @ p["wo"],
+                 out, rows)
+    return all_reduce_sum(y, rt.model_group())[:, None, :]
 
 
 def _mla_decode_attn(p, q_nope: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,

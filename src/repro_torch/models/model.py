@@ -53,8 +53,8 @@ implementation come with each call, as a ``Runtime`` (the serve engine's).
 A tensor-parallel rank's model (``shard``, built by
 ``repro_torch.serve.sharding.ShardingPlan.shard_params``) holds its slice of
 every parameter under a config of its local widths (``n_heads / K``,
-``n_kv_heads / K``, ``d_ff / K``, the Mamba inner width / K; ``vocab_size``
-the whole vocabulary's).  Its embedding and head hold its rows of a
+``n_kv_heads / K``, ``d_ff / K``, the Mamba inner width / K, E / K experts;
+``vocab_size`` the whole vocabulary's).  Its embedding and head hold its rows of a
 vocab-sharded vocabulary: the lookup masks the tokens outside them and sums
 over the "model" group, and the logits are gathered to the full vocabulary
 on every rank before anything reads them (``repro_torch.dist.collectives``).
@@ -65,8 +65,12 @@ dense-attention and Mamba archs, Megatron's conjugate pair of collectives
 around each rank's slice (``repro_torch.dist.collectives``: the replicated
 activation's gradient summed where it enters a column-parallel product, a
 row-parallel product's partials summed in the forward), the vocab-parallel
-embedding and the logits gathered with their backwards.  The MoE FFN and
-MLA refuse a "model" axis larger than 1 by name (ROADMAP.md queue 1 item 10).
+embedding and the logits gathered with their backwards, MLA over the
+rank's heads (``repro_torch.models.mla``) and the MoE FFN on its
+expert-parallel path (``repro_torch.models.moe``: E / K experts a rank).
+A rank whose MoE takes the 2-D path (a long-context decode cell's rules)
+holds its experts' d_model dim in blocks over the spare axes (its config's
+``moe.embed_shards``).
 
 ``param_axes()`` and ``cache_axes()`` give the reference's logical-axes
 trees (``model.py:82``, ``:201``) from ``repro_torch.models.param``.
@@ -116,23 +120,6 @@ class Shard:
     world: int
     vocab: bool
     whole: ArchConfig
-
-
-TRAINER_TP = ("training with tensor parallelism (a mesh whose 'model' axis is larger than 1) "
-              "of {what} is not ported: the MoE's expert-parallel path and MLA under tensor "
-              "parallelism, ROADMAP.md queue 1 item 10")
-
-
-def check_trainable_mesh(rt: Runtime, cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` by name for a training mesh whose
-    "model" axis is larger than 1 under an arch with MoE FFNs or MLA: the
-    trainer never silently replicates what the reference splits."""
-    if rt.model_world() == 1:
-        return
-    if cfg.mla is not None:
-        raise NotImplementedError(TRAINER_TP.format(what=f"{cfg.name}'s MLA layers"))
-    if any(spec.ffn == "moe" for spec in cfg.layer_specs()):
-        raise NotImplementedError(TRAINER_TP.format(what=f"{cfg.name}'s MoE FFNs"))
 
 
 class LM(nn.Module):
@@ -304,10 +291,8 @@ class LM(nn.Module):
         count.  On a mesh whose "model" axis is larger than 1 the model is a
         tensor-parallel rank's (``shard``): every rank of a "model" group
         computes the same loss from the gathered logits, and each rank's
-        gradients are its slices' (the module docstring); the MoE FFN and
-        MLA raise by name, and a model sliced for another "model" axis
-        raises (``_vocab_group``)."""
-        check_trainable_mesh(rt, self.cfg if self.shard is None else self.shard.whole)
+        gradients are its slices' (the module docstring); a model sliced
+        for another "model" axis raises (``_vocab_group``)."""
         cfg = self.cfg
         group = rt.data_group()
         labels = batch["labels"].to(self.device)

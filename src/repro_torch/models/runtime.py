@@ -12,7 +12,9 @@ them (``repro_torch.serve.sharding``), and the model's forward reads the
 (``model_group``).  The trainer runs on a data mesh (``"model"`` of size
 1, ``Rules.default``: FSDP over "data"), and the training forward reads the
 "data" group (``data_group``) for its loss shares
-(``repro_torch.models.model.LM.loss_fn``).
+(``repro_torch.models.model.LM.loss_fn``).  A long-context decode cell's
+rules split the contiguous cache's sequence over the batch axes
+(``seq_group``; ``repro_torch.models.attention``).
 
 ``remat`` (``runtime.py:25``, ``remat_wrap`` at ``:43-50``) applies to the
 training forward, one layer at a time (the reference wraps one period, which
@@ -32,7 +34,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.dist.partitioning import MODEL_AXIS, Rules, mesh_axes
+from repro_torch.dist.partitioning import MODEL_AXIS, Rules, entry_axes, mesh_axes
 
 # the paged decode's implementations over the pools (K2 and its two plain
 # versions), and the Runtime's, which adds MLA's "legacy" gather
@@ -138,6 +140,21 @@ class Runtime:
         if self.data_world() == 1:
             return None
         axes = tuple(a for a in self.batch_axes() if dict(zip(*mesh_axes(self.mesh)))[a] > 1)
+        return self.mesh.get_group(axes[0] if len(axes) == 1 else axes)
+
+    def seq_group(self):
+        """The group over which the contiguous decode cache's sequence is
+        split (the rules' ``cache_seq`` entry, ``rules_for_cell``'s
+        long-context branch: rank r of the group holds the r-th block of
+        positions), or None where the rules keep the sequence whole or its
+        axes hold one rank."""
+        if self.mesh is None or self.rules is None:
+            return None
+        sizes = dict(zip(*mesh_axes(self.mesh)))
+        axes = tuple(a for a in entry_axes(self.rules.acts.get("cache_seq"))
+                     if sizes.get(a, 1) > 1)
+        if not axes:
+            return None
         return self.mesh.get_group(axes[0] if len(axes) == 1 else axes)
 
     def remat_call(self, fn: Callable[[torch.Tensor], Any], x: torch.Tensor) -> Any:

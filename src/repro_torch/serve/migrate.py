@@ -38,6 +38,22 @@ rejects another seed, which the port rejects too), and telemetry (each
 engine keeps its own event stream).  The destination must resolve the same
 paged-decode ``pages_per_program`` as the source, as K2's splits, and so
 its bits, follow it; and run the same ``paged_impl``.
+
+A tensor-parallel engine (``mesh=`` over K ranks) snapshots the whole
+cache, as the reference's ``device_get`` does (``migrate.py:209-210``):
+each leaf's rank blocks (KV pools split along their heads, Mamba states
+along their channels; MLA's latent pools are whole) gathered over "model"
+into the whole leaf, an exact gather, and so do the prefix cache's Mamba
+state entries; every rank of the group takes part, at the same step, as
+all of them run the same host loop.  ``snapshot_nbytes`` counts the whole
+leaves.  ``restore_engine`` keeps the destination plan's block of each
+leaf (``ShardingPlan.slice_cache``, then ``shard_cache``'s check), so a
+handoff at the same K continues bit for bit.  As in the reference, whose
+``_geometry`` has no mesh, a snapshot can cross to another K: the
+destination then serves another ``LM`` (another rank's slices, or the
+whole model), which must be the same whole config (the snapshot's
+``model`` field), its weights from the same ``seed``; the token streams are
+then the identity surface (the sums over "model" round differently).
 """
 from __future__ import annotations
 
@@ -51,7 +67,6 @@ import torch
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.prefix import FullPromptEntry, _chain_key
 from repro_torch.serve.scheduler import Request, RequestState
-from repro_torch.serve.sharding import mesh_world_size
 from repro_torch.telemetry import CkptCostEvent
 
 SNAPSHOT_FORMAT = 1
@@ -95,7 +110,32 @@ def _geometry(engine: ServeEngine) -> Dict[str, Any]:
         "lm": engine.lm,
         "paged_impl": engine.rt.paged_impl,
         "pages_per_program": engine._step_runtime().pages_per_program,
+        # compared only where they apply: "lm" is compared by identity at
+        # the same "model" world, else the whole model's config
+        "world": 1 if engine.plan is None else engine.plan.world,
+        "model": _whole_config(engine),
     }
+
+
+def _whole_config(engine: ServeEngine):
+    return engine.lm.cfg if engine.lm.shard is None else engine.lm.shard.whole
+
+
+def _host_whole(engine: ServeEngine, tree, slot_major: bool = False):
+    """Host copies of ``tree``'s leaves, whole: a tensor-parallel engine's
+    gathered over "model" (``ShardingPlan.gather_cache``)."""
+    if engine.plan is None or engine.plan.world == 1:
+        return _host_copy(tree)
+    return engine.plan.gather_cache(tree, _whole_config(engine), engine.rt.model_group(),
+                                    engine.device, slot_major=slot_major)
+
+
+def _placed(engine: ServeEngine, tree, slot_major: bool = False):
+    """``tree``'s whole leaves as the destination holds them: its plan's
+    blocks (views; the caller copies)."""
+    if engine.plan is None or engine.plan.world == 1:
+        return tree
+    return engine.plan.slice_cache(tree, _whole_config(engine), slot_major=slot_major)
 
 
 def _host_copy(tree):
@@ -163,16 +203,6 @@ def _unpack_request(d: Dict[str, Any], full: Dict[str, FullPromptEntry]) -> Requ
 # ---------------------------------------------------------------------------
 
 
-def _refuse_sharded(engine: ServeEngine) -> None:
-    """A sharded engine's state is split over its ranks, whose handoff is
-    not ported (the reference's is a ``device_put`` onto the destination's
-    shardings); a (1, 1) mesh's is the unsharded engine's."""
-    if engine.plan is not None and mesh_world_size(engine.plan.mesh) > 1:
-        raise NotImplementedError(
-            f"migrating a sharded engine ({mesh_world_size(engine.plan.mesh)} ranks) is not "
-            "ported yet (ROADMAP.md, queue 1 item 7)")
-
-
 def snapshot_engine(engine: ServeEngine) -> Dict[str, Any]:
     """Consistent host-side snapshot of one engine's full serving state.
 
@@ -180,8 +210,9 @@ def snapshot_engine(engine: ServeEngine) -> Dict[str, Any]:
     inside ``step()``); the result is host data — CPU tensors, numpy arrays
     and builtin containers, and a reference to the served ``LM`` for the
     geometry check — safe to hold across the source engine's teardown.
+    On a tensor-parallel engine every rank calls it at the same step: the
+    cache's leaves are gathered over "model" into whole leaves.
     """
-    _refuse_sharded(engine)
     p = engine.prefix
     prefix = {
         "pages": list(p._pages.items()),
@@ -189,7 +220,8 @@ def snapshot_engine(engine: ServeEngine) -> Dict[str, Any]:
         "nchildren": dict(p._nchildren),
         "full": [(k, {"page_ids": list(e.page_ids),
                       "last_logits": np.asarray(e.last_logits).copy(),
-                      "state": None if e.state is None else _host_copy(e.state),
+                      "state": None if e.state is None else _host_whole(
+                          engine, e.state, slot_major=True),
                       "tokens": None if e.tokens is None else e.tokens.copy()})
                  for k, e in p._full.items()],
         "hits": p.hits,
@@ -212,7 +244,7 @@ def snapshot_engine(engine: ServeEngine) -> Dict[str, Any]:
         "lengths": engine.lengths.copy(),
         "next_tokens": engine.next_tokens.copy(),
         "page_tables": engine.page_tables.copy(),
-        "cache": _host_copy(engine.cache),
+        "cache": _host_whole(engine, engine.cache),
         "pool": {"free": list(engine.pool._free), "refcount": list(engine.pool._refcount)},
         "prefix": prefix,
         "proposer": proposer,
@@ -225,8 +257,9 @@ def snapshot_engine(engine: ServeEngine) -> Dict[str, Any]:
 
 
 def snapshot_nbytes(snap: Dict[str, Any]) -> int:
-    """The paged cache's bytes: it dominates the payload, so that is what
-    gets reported (request and prefix metadata are noise next to it)."""
+    """The paged cache's bytes (its whole leaves): it dominates the
+    payload, so that is what gets reported (request and prefix metadata
+    are noise next to it)."""
     return sum(leaf.numel() * leaf.element_size()
                for layer in snap["cache"] for leaf in layer.values())
 
@@ -242,7 +275,10 @@ def _check_compatible(engine: ServeEngine, snap: Dict[str, Any]) -> None:
     dst = _geometry(engine)
     bad = []
     for k in _GEOMETRY_FIELDS:
-        if k == "lm":
+        if k == "lm" and snap["geometry"]["world"] != dst["world"]:
+            if snap["geometry"]["model"] != dst["model"]:
+                bad.append("model: the destination serves another model than the snapshot's")
+        elif k == "lm":
             if snap["geometry"]["lm"] is not dst["lm"]:
                 bad.append("lm: the destination serves another model than the snapshot's")
         elif snap["geometry"][k] != dst[k]:
@@ -265,11 +301,13 @@ def restore_engine(engine: ServeEngine, snap: Dict[str, Any]) -> Dict[int, Reque
     and finished) so callers holding handles into the source engine — the
     ``Router`` — can re-point them at the destination's objects.
     """
-    _refuse_sharded(engine)
     _check_compatible(engine, snap)
     device = engine.device
-    engine.cache = [{name: leaf.to(device, copy=True) for name, leaf in layer.items()}
-                    for layer in snap["cache"]]
+    engine.cache = [{name: leaf.to(device, copy=True).contiguous()
+                     for name, leaf in layer.items()}
+                    for layer in _placed(engine, snap["cache"])]
+    if engine.plan is not None:
+        engine.cache = engine.plan.shard_cache(engine.cache, _whole_config(engine))
     engine.page_tables = snap["page_tables"].copy()
     engine.page_tables_dev = torch.from_numpy(engine.page_tables.copy()).to(device)
     engine.lengths = snap["lengths"].copy()
@@ -287,7 +325,8 @@ def restore_engine(engine: ServeEngine, snap: Dict[str, Any]) -> Dict[int, Reque
     p._nchildren = dict(ps["nchildren"])
     p._full = OrderedDict(
         (k, FullPromptEntry(tuple(e["page_ids"]), e["last_logits"].copy(),
-                            None if e["state"] is None else _host_copy(e["state"]),
+                            None if e["state"] is None else _host_copy(
+                                _placed(engine, e["state"], slot_major=True)),
                             None if e["tokens"] is None else e["tokens"].copy()))
         for k, e in ps["full"])
     p.hits = ps["hits"]

@@ -34,19 +34,28 @@ the 2 Dn columns, and the rank keeps its slice of each half (GSPMD would
 move the halves between ranks at the split; the port slices them so that no
 collective is needed there).
 
-What the plan refuses, by name and never by replicating a dim the model
-would have to split (``NotImplementedError`` naming ROADMAP.md):
+MLA runs over the rank's heads: ``wq_b`` and ``wkv_b`` keep the rank's
+columns and ``wo`` its rows under a local config of ``n_heads / K``, while
+``wq_a``, ``wkv_a``, the two latent norms and the latent pools ``ckv`` /
+``kpe`` stay whole (``cache_latent`` is replicated): every rank writes the
+same latent bits, K2's latent form and K3 run at the rank's heads, and
+``wo``'s partials are summed over "model".  The MoE FFN takes the
+reference's expert-parallel path (``repro_torch.models.moe``): the rank
+holds E / K experts, E / K of the router's columns (the softmax and top-k
+still run over all E, on the gathered logits) and 1 / K of the shared
+experts' width.
 
-* at world size > 1, MLA (its latent pools have no head axis) and the MoE
-  FFN (the ``expert`` axis takes the reference's ``shard_map`` path): queue 1
-  item 10;
+What the plan refuses, by name and never by replicating a dim the model
+would have to split (``NotImplementedError``):
+
 * at world size > 1, a spec that would split a head or a channel group: the
   heads or KV heads not dividing K (where ``CACHE_AXES``' ``cache_head_dim``
-  takes the model axis), query heads sharded without their KV heads, or a
-  Mamba inner width or FFN width that does not divide K;
+  takes the model axis), query heads sharded without their KV heads, MLA's
+  heads, the routed experts or the shared experts' width not dividing K,
+  or a Mamba inner width or FFN width that does not divide K;
 * a parameter sharded over any axis but "model" (``Rules.default``'s FSDP
   over "data" is the trainer's mesh, ``repro_torch.training.trainer``;
-  serving keeps each parameter whole over "data"): queue 1 item 7.
+  serving keeps each parameter whole over "data").
 
 The reference refuses ``paged_impl="pallas"`` at world size > 1, its kernel
 being host-compiled; the port does not: K2 runs rank-locally over the rank's
@@ -83,9 +92,20 @@ def mesh_world_size(mesh) -> int:
     return size
 
 
-def _refuse(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"tensor-parallel serving: {what} (ROADMAP.md, queue 1 item "
-                               f"{item})")
+def _refuse(what: str) -> NotImplementedError:
+    return NotImplementedError(f"tensor-parallel serving: {what}")
+
+
+def _group_of(cfg: ArchConfig, axes: Axes, name: str) -> str:
+    """Which kind of module a parameter belongs to, from its name and
+    logical axes (names repeat: the dense FFN's and the MoE's ``w_down``)."""
+    if "expert" in axes or name.startswith("sh_"):
+        return "moe"
+    if "mamba_inner" in axes:
+        return "mamba"
+    if name in param_mod.ATTENTION_AXES or name in param_mod.MLA_AXES:
+        return "mla" if cfg.mla is not None else "attn"
+    return "mlp" if name in param_mod.MLP_AXES else "top"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,42 +168,55 @@ class ShardingPlan:
         docstring)."""
         specs = {}
         for _, name, axes, spec in self.param_specs(LM(cfg, "meta")):
-            specs[name] = spec
+            specs[(_group_of(cfg, axes, name), name)] = spec
             for ax, e in zip(axes, spec):
                 if any(a != MODEL_AXIS and self.rules.axis_sizes[a] > 1
                        for a in entry_axes(e)):
                     raise _refuse(f"{name} sharded over {e}: only 'model' is placed here; "
-                                  "FSDP over 'data' is the trainer's", 7)
+                                  "FSDP over 'data' is the trainer's")
                 if ax == "embed" and self.sharded(e):
                     raise _refuse(f"{name}'s d_model dim sharded ({spec}): the serve plan "
-                                  "keeps d_model whole", 7)
+                                  "keeps d_model whole")
         if self.world == 1:
             return
         k = self.world
+        sharded = {key: any(self.sharded(e) for e in spec) for key, spec in specs.items()}
         if cfg.mla is not None:
-            raise _refuse(f"{cfg.name}'s MLA layers (latent pools without a head axis)", 10)
-        if any(spec.ffn == "moe" for spec in cfg.layer_specs()):
-            raise _refuse(f"{cfg.name}'s MoE FFN: its 'expert' axis needs the reference's "
-                          "shard_map path", 10)
-        sharded = {name: any(self.sharded(e) for e in spec) for name, spec in specs.items()}
-        if cfg.uses_attention:
+            if cfg.n_heads % k:
+                raise _refuse(f"{cfg.name}: its {cfg.n_heads} MLA heads do not divide {k} "
+                              "ranks; the spec would split a head")
+            if not (sharded[("mla", "wq_b")] and sharded[("mla", "wkv_b")]
+                    and sharded[("mla", "wo")]):
+                raise _refuse(f"{cfg.name}: MLA's heads are not split over 'model' "
+                              f"({specs[('mla', 'wq_b')]}, {specs[('mla', 'wo')]})")
+        elif cfg.uses_attention:
             h, hk = cfg.n_heads, cfg.n_kv_heads
-            if sharded["wq"] and h % k or sharded["wk"] and hk % k:
+            if sharded[("attn", "wq")] and h % k or sharded[("attn", "wk")] and hk % k:
                 raise _refuse(f"{cfg.name}: {h} heads over {hk} KV heads do not divide "
-                              f"{k} ranks; the spec would split a head", 10)
-            if sharded["wq"] != sharded["wk"]:
+                              f"{k} ranks; the spec would split a head")
+            if sharded[("attn", "wq")] != sharded[("attn", "wk")]:
                 raise _refuse(f"{cfg.name}: query heads sharded without their KV heads "
-                              f"(wq {specs['wq']}, wk {specs['wk']})", 10)
+                              f"(wq {specs[('attn', 'wq')]}, wk {specs[('attn', 'wk')]})")
             for layer in self.cache_specs(cfg):
                 for name in ("k", "v"):
                     if name in layer and self.sharded(layer[name][3]):
                         raise _refuse(f"{cfg.name}: the KV pool's spec {layer[name]} shards "
-                                      "cache_head_dim, splitting each head", 10)
-        for name, width, what in (("w_down", cfg.d_ff, "FFN width"),
-                                  ("out_proj", _d_inner(cfg), "Mamba inner width")):
-            if name in sharded and not sharded[name]:
+                                      "cache_head_dim, splitting each head")
+        if any(spec.ffn == "moe" for spec in cfg.layer_specs()):
+            moe = cfg.moe
+            fs = moe.n_shared_experts * moe.expert_d_ff
+            if moe.n_routed_experts % k or not sharded[("moe", "w_gate")]:
+                raise _refuse(f"{cfg.name}: its {moe.n_routed_experts} routed experts are not "
+                              f"split over {k} ranks (they do not divide them, or the rules "
+                              "keep them whole)")
+            if fs and (fs % k or not sharded[("moe", "sh_down")]):
+                raise _refuse(f"{cfg.name}: its shared experts' width {fs} is not split over "
+                              f"{k} ranks")
+        for key, width, what in ((("mlp", "w_down"), cfg.d_ff, "FFN width"),
+                                 (("mamba", "out_proj"), _d_inner(cfg), "Mamba inner width")):
+            if key in sharded and not sharded[key]:
                 raise _refuse(f"{cfg.name}: its {what} {width} is not split over {k} ranks "
-                              "(it does not divide them, or the rules keep it whole)", 10)
+                              "(it does not divide them, or the rules keep it whole)")
 
     def local_config(self, cfg: ArchConfig) -> ArchConfig:
         """The rank's config: ``cfg`` at its local widths (``check`` first)."""
@@ -197,6 +230,8 @@ class ShardingPlan:
         changes: Dict[str, Any] = {}
         if cfg.uses_attention:
             changes.update(n_heads=cfg.n_heads // k, n_kv_heads=cfg.n_kv_heads // k)
+        if cfg.moe is not None:
+            changes["moe"] = dataclasses.replace(cfg.moe, expert_shards=k)
         if cfg.d_ff:
             changes["d_ff"] = cfg.d_ff // k
         if cfg.mamba is not None:
@@ -275,6 +310,44 @@ class ShardingPlan:
                     raise ValueError(f"cache leaf {name}: {tuple(leaf.shape)}, the spec "
                                      f"{specs[name]} names {want}")
         return cache
+
+    def gather_cache(self, tree, cfg: ArchConfig, group, device, slot_major: bool = False):
+        """Host copies (CPU tensors of their own) of ``tree``'s whole leaves
+        at ``cfg``'s (the whole model's) shapes: each leaf's rank blocks
+        gathered over the "model" ``group`` (exact), moved to ``device`` for
+        the transport; every rank takes part.  ``None`` leaves stay."""
+        from repro_torch.dist.collectives import gather_blocks
+
+        out = []
+        for layer, specs in zip(tree, self.cache_specs(cfg)):
+            whole = {}
+            for name, leaf in layer.items():
+                if leaf is not None:
+                    spec = specs[name][1:] if slot_major else specs[name]
+                    for dim, e in enumerate(spec):
+                        if self.sharded(e):
+                            leaf = gather_blocks(leaf.to(device), dim, group)
+                    leaf = leaf.to("cpu", copy=True)
+                whole[name] = leaf
+            out.append(whole)
+        return out
+
+    def slice_cache(self, tree, cfg: ArchConfig, slot_major: bool = False):
+        """The rank's blocks (views) of ``tree``'s whole leaves, the slices
+        their specs name at ``cfg``'s (the whole model's) shapes."""
+        out = []
+        for layer, specs in zip(tree, self.cache_specs(cfg)):
+            part = {}
+            for name, leaf in layer.items():
+                if leaf is not None:
+                    spec = specs[name][1:] if slot_major else specs[name]
+                    for dim, e in enumerate(spec):
+                        if self.sharded(e):
+                            n = leaf.shape[dim] // self.world
+                            leaf = leaf.narrow(dim, self.model_rank * n, n)
+                part[name] = leaf
+            out.append(part)
+        return out
 
     def put_replicated(self, x: torch.Tensor) -> torch.Tensor:
         """A replicated tensor (tokens, lengths, page tables): every rank

@@ -22,8 +22,9 @@ serve plan gives a tensor-parallel rank along a dim split over "model"
 (Mamba's ``in_proj`` a slice of each half: ``LeafSharding.pieces``).  The
 LM is the rank's (``train_lm``): the whole model, or at a "model" axis of K
 > 1 a tensor-parallel rank's, at the serve plan's local widths
-(``repro_torch.serve.sharding``; dense-attention and Mamba archs only: the
-MoE FFN and MLA refuse by name, ROADMAP.md queue 1 item 10).  A step
+(``repro_torch.serve.sharding``: MLA at n_heads / K, the MoE's E / K
+experts on its expert-parallel path, dim 0 of each expert leaf over
+"model" and its ``embed`` dim over the batch axes under FSDP).  A step
 
 1. gathers each master leaf's blocks over the batch axes into the rank's
    LM, one leaf at a time (so the rank never holds a second float32 copy
@@ -69,7 +70,7 @@ from repro_torch.convert import load_tree_into_lm, param_layout, set_path, tree_
 from repro_torch.device import DeviceLike
 from repro_torch.dist.collectives import all_reduce_, group_rank, reduce_scatter_blocks
 from repro_torch.dist.partitioning import MODEL_AXIS, Rules, entry_axes
-from repro_torch.models.model import LM, Shard, check_trainable_mesh
+from repro_torch.models.model import LM, Shard
 from repro_torch.models.param import TOP_AXES
 from repro_torch.models.runtime import Runtime
 from repro_torch.runtime.elastic import gather_leaf, shardings_for
@@ -195,18 +196,28 @@ def whole_config(lm: LM) -> ArchConfig:
 
 
 def train_lm(cfg: ArchConfig, rt: Runtime, device: DeviceLike = None) -> LM:
-    """The LM a rank trains, no weights drawn: the whole model, or on a mesh
+    """The LM a rank runs, no weights drawn: the whole model, or on a mesh
     whose "model" axis is K > 1 a tensor-parallel rank's, at the serve
-    plan's local widths (``ShardingPlan.local_config``) and the rank's
-    vocabulary rows where ``Rules.default`` splits them.  The MoE FFN and
-    MLA refuse K > 1 by name."""
-    check_trainable_mesh(rt, cfg)
-    if rt.model_world() == 1:
+    plan's local widths (``ShardingPlan.local_config``: E / K experts and
+    n_heads / K MLA heads too) and the rank's vocabulary rows where
+    ``Rules.default`` splits them.  Where ``rt.rules`` (``Rules.default``
+    when None) leave the tokens replicated over spare axes (the dry-run's
+    long-context cell), its MoE experts' d_model dim is the rank's block
+    over them (``embed_shards``: the 2-D path, ``repro_torch.models.moe``)."""
+    from repro_torch.models.moe import spare_group
+
+    spare = (spare_group(rt.mesh, rt.rules or Rules.default(rt.mesh))
+             if cfg.uses_moe and rt.mesh is not None else None)
+    if rt.model_world() == 1 and spare is None:
         return LM(cfg, device)
+    from repro_torch.dist.collectives import group_size
     from repro_torch.serve.sharding import ShardingPlan
 
     plan = ShardingPlan(rt.mesh, Rules.for_serving(rt.mesh))
     local = plan.local_config(cfg)
+    if spare is not None:
+        local = dataclasses.replace(local, moe=dataclasses.replace(
+            local.moe, embed_shards=group_size(spare)))
     vocab = plan.sharded(Rules.default(rt.mesh).param_pspec(
         TOP_AXES["embed"], (cfg.vocab_size, cfg.d_model))[0])
     return LM(local, device, shard=Shard(plan.model_rank, plan.world, vocab, cfg))
@@ -224,7 +235,6 @@ def param_shardings(lm: LM, rt: Runtime):
     """The ``LeafSharding`` tree of the LM's float32 master parameters on
     ``rt.mesh`` under ``rt.rules`` (``Rules.default`` when None)."""
     cfg = whole_config(lm)
-    check_trainable_mesh(rt, cfg)
     rules = rt.rules or Rules.default(rt.mesh)
     return shardings_for(rt.mesh, rules, lm.param_axes(), meta_tree(lm), lm.device,
                          pieces=tp_pieces(cfg))
@@ -261,7 +271,9 @@ def load_blocks_into_lm(lm: LM, params, shardings) -> None:
     to the dtype the port stores it in (bf16 for the matrices: half the
     bytes of a float32 gather, and the same values, since the cast is
     elementwise) and gathered over the batch axes, one leaf at a time (a
-    tensor-parallel rank's LM holds its slices)."""
+    tensor-parallel rank's LM holds its slices, and a dim the LM holds in
+    the rank's block over the batch axes, the 2-D path's expert d-blocks,
+    is not gathered)."""
     if shardings is None:
         load_tree_into_lm(lm, params)
         return
@@ -277,7 +289,15 @@ def load_blocks_into_lm(lm: LM, params, shardings) -> None:
     axes = batch_axes(shardings)
     for path, targets in dsts.items():
         local = get(params, path).to(targets[0][1].dtype)
-        whole = gather_leaf(local, get(shardings, path), axes)
+        want = tuple(targets[0][1].shape)
+        if targets[0][0] is not None:  # one layer of a leaf stacked over the periods
+            want = (local.shape[0],) + want
+        sh = get(shardings, path)
+        # a dim the LM holds in the rank's block stays so (the 2-D path's
+        # expert d-blocks): only the others are gathered
+        whole = gather_leaf(local, sh, tuple(a for a in axes if any(
+            a in entry_axes(sh.spec[d]) and local.shape[d] != want[d]
+            for d in range(local.dim()))))
         for n, dst in targets:
             dst.copy_(whole if n is None else whole[n])
         del whole

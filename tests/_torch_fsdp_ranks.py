@@ -116,6 +116,7 @@ def moe_job(job, mesh, workdir):
 
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import moe
+    from repro_torch.models.runtime import Runtime
     from repro_torch.training.trainer import local_rows
 
     lm = lm_params_from_numpy(job["cfg"], job["params"], device="cpu")
@@ -124,15 +125,15 @@ def moe_job(job, mesh, workdir):
     loads = []
     dispatch = moe.dispatch_compute_combine
 
-    def counting(xt, ids, probs, wg, wu, wd, cap=None):
+    def counting(xt, ids, probs, wg, wu, wd, cap=None, e0=0):
         loads.append((torch.bincount(ids.reshape(-1), minlength=wg.shape[0]).numpy(), cap))
-        return dispatch(xt, ids, probs, wg, wu, wd, cap)
+        return dispatch(xt, ids, probs, wg, wu, wd, cap, e0=e0)
 
     moe.dispatch_compute_combine = counting
     try:
         group = mesh.get_group("data")
         y, aux = moe.apply_moe(lm.layers[job["layer"]].ffn, x, job["cfg"], train=True,
-                               group=group)
+                               rt=Runtime(mesh=mesh))
     finally:
         moe.dispatch_compute_combine = dispatch
     total = aux.detach().clone()
@@ -143,9 +144,9 @@ def moe_job(job, mesh, workdir):
 
 def trainer_job(job, mesh, workdir):
     """``Trainer`` on the data mesh (the smoke config, float32): its steps,
-    a checkpoint at the end (whole leaves, written by rank 0), and whether
-    a "model" axis of 2 is refused by name for a MoE arch (the trainer's
-    tensor parallelism takes the dense-attention and Mamba archs)."""
+    a checkpoint at the end (whole leaves, written by rank 0); then a MoE
+    arch's ``Trainer`` on a "model" axis of 2 (its expert-parallel path,
+    ``job["tp_cfg"]``): its first step and the rank's expert count."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -161,12 +162,11 @@ def trainer_job(job, mesh, workdir):
     out = {"history": t.history, "params": _numpy_tree(params),
            "opt_state": _numpy_tree(state), "step": t.step}
     tp = make_debug_mesh(1, dist.get_world_size())
-    try:
-        Trainer(TrainerOptions(**dict(job["opts"], arch="deepseek-moe-16b", cfg=None), mesh=tp,
-                               device="cpu"))
-        out["tp_refused"] = None
-    except NotImplementedError as e:
-        out["tp_refused"] = str(e)
+    moe = Trainer(TrainerOptions(**dict(job["opts"], arch="", cfg=job["tp_cfg"]), mesh=tp,
+                                 device="cpu"))
+    moe.train_some(1)
+    out["tp_moe"] = {"history": moe.history, "local_experts": int(
+        moe.lm.layers[-1].ffn["w_gate"].shape[0])}
     return out
 
 

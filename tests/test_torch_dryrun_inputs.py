@@ -7,12 +7,13 @@ with no mesh, through ``jax.eval_shape``) and its ``Rules`` name each leaf's
 ``PartitionSpec`` on a mesh stand-in (``FakeMesh``, as
 ``tests/test_torch_partitioning.py`` does); a leaf's local shape is its
 global shape cut by the spec.  The port's functions return meta tensors at
-one rank's local shapes.  For every arch's smoke config (on (4, 1) and,
-where the port places it, the MoE FFN and MLA aside, (4, 2)) and for
+one rank's local shapes.  For every arch's smoke config (on (4, 1) and
+(4, 2): the MoE's experts and MLA's heads over "model" too) and for
 stablelm-1.6b and qwen3-14b at full config (on the production meshes (32,
 8) and (2, 32, 8)):
 
-* ``text_seq_len``, the batch's and the decode cache's shapes and dtypes,
+* ``text_seq_len``, the batch's and the decode cache's shapes and dtypes
+  (jamba's ``long_500k`` cache split along its sequence over "data"),
   the master parameters' and the optimizer state's shapes, and
   ``rules_for_cell`` equal the reference's;
 * ``param_count`` and ``model_flops`` equal the reference's for every arch
@@ -61,10 +62,6 @@ class FakeMesh:
         self.devices = np.empty(shape)
 
 
-def _tp_capable(cfg) -> bool:
-    return cfg.mla is None and not any(s.ffn == "moe" for s in cfg.layer_specs())
-
-
 def _local(spec, shape, sizes):
     """A global shape cut by a spec (a reference ``PartitionSpec``)."""
     out = []
@@ -79,8 +76,7 @@ def _cases():
     cases = []
     for arch in ARCH_IDS:
         cfg = get_smoke_config(arch)
-        meshes = [(4, 1)] + ([(4, 2)] if _tp_capable(cfg) else [])
-        cases += [(arch, True, m) for m in meshes]
+        cases += [(arch, True, m) for m in [(4, 1), (4, 2)]]
     for arch in ("stablelm-1.6b", "qwen3-14b"):
         cases += [(arch, False, (32, 8)), (arch, False, (2, 32, 8))]
     return cases
@@ -144,11 +140,8 @@ def test_inputs_match_the_reference(arch, smoke, mesh_shape):
                 local = _local(ref_rules.act_pspec(act_axes[k], sds.shape), sds.shape, sizes)
                 assert (tuple(got[k].shape), _dtype(got[k].dtype)) == (local, str(sds.dtype))
             continue
-        if any(s.mixer == "attn" for s in cfg.layer_specs()) and \
-                ref_rules.acts["cache_seq"] is not None:
-            with pytest.raises(NotImplementedError, match="partial-softmax merge"):
-                inputs.decode_sds(cfg, shape, mesh, rules, lm)
-            continue
+        split = ref_rules.acts["cache_seq"] is not None
+        assert split == (shape.name == "long_500k")  # the cache's positions over "data"
         tokens, lengths, cache = inputs.decode_sds(cfg, shape, mesh, rules, lm)
         ref_tok, ref_len, ref_cache = ref_inputs.decode_sds(ref_cfg, ref_shape, None,
                                                            ref_rules, ref_lm)
@@ -170,6 +163,9 @@ def test_inputs_match_the_reference(arch, smoke, mesh_shape):
                 if at is not None:
                     local = local[1:]
                 assert (tuple(t.shape), _dtype(t.dtype)) == (local, str(sds.dtype)), name
+                if split and name in inputs.SEQ_DIM:
+                    dim = inputs.SEQ_DIM[name]
+                    assert t.shape[dim] == sds.shape[dim + (at is not None)] // sizes["data"]
 
 
 @pytest.fixture(scope="module")

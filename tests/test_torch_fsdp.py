@@ -30,9 +30,10 @@ on the same global batch:
 * ``Trainer(mesh=...)``: 3 steps as the port's unmeshed trainer's within
   1e-5, its checkpoint (whole leaves, written by rank 0) restored by an
   unmeshed trainer at data 1 bit for bit the ranks' gathered state, and a
-  "model" axis of 2 refused by name for a MoE arch (ROADMAP.md item 10;
-  ``tests/test_torch_tp_train.py`` holds the dense and Mamba archs' tensor
-  parallelism);
+  MoE arch's ``Trainer`` on a "model" axis of 2 (4 of 8 experts a rank, the
+  expert-parallel path) whose first step's loss is the unmeshed trainer's
+  within 1e-5 (``tests/test_torch_tp_train.py`` holds the tensor
+  parallelism of every arch against the reference);
 * a (1, 1) mesh (a one-rank gloo group in this process): bit for bit the
   port's unmeshed step, and ``make_train_step(compressor=...)`` raises.
 
@@ -76,6 +77,9 @@ CASES = {"stablelm-adamw": ("stablelm-1.6b", "adamw"),
          "mla-adamw": ("deepseek-v2-236b", "adamw")}
 TRAINER_OPTS = dict(arch="stablelm-1.6b", smoke=True, steps=10, seq_len=SEQ,
                     global_batch=BATCH, log_every=0)
+# the MoE arch trained on a "model" axis of 2 beside the data mesh
+TP_MOE_CFG = dataclasses.replace(get_smoke_config("deepseek-moe-16b"), n_layers=2,
+                                 dtype="float32")
 
 
 def _no_drop(cfg):
@@ -143,6 +147,7 @@ def _jobs(inputs):
     jobs["moe"] = dict(kind="moe", cfg=m["cfg"], params=m["params"], x=m["x"], layer=1)
     t = inputs["trainer"]
     jobs["trainer"] = dict(kind="trainer", opts=dict(TRAINER_OPTS, cfg=t["cfg"]), steps=3,
+                           tp_cfg=TP_MOE_CFG,
                            params=tree_from_numpy(t["params"], "cpu"),
                            opt_state=tree_from_numpy(t["opt_state"], "cpu"))
     return jobs
@@ -235,8 +240,14 @@ def test_mesh_trainer_and_its_checkpoint_at_data_one(run):
         assert [s for s, _ in g["history"]] == [s for s, _ in want]
         for (_, a), (_, b) in zip(g["history"], want):
             assert abs(a - b) <= 1e-5 * abs(b)
-        assert "training with tensor parallelism" in g["tp_refused"]
-        assert "MoE FFNs" in g["tp_refused"] and "item 10" in g["tp_refused"]
+        assert g["tp_moe"]["local_experts"] == TP_MOE_CFG.moe.n_routed_experts // 2
+    unmeshed = Trainer(TrainerOptions(**dict(TRAINER_OPTS, arch="", cfg=TP_MOE_CFG),
+                                      device="cpu"))
+    unmeshed.train_some(1)
+    (_, want_moe), = unmeshed.history
+    for g in got:
+        (_, loss), = g["tp_moe"]["history"]
+        assert abs(loss - want_moe) <= 1e-5 * abs(want_moe)
     # the ranks' checkpoint (whole leaves) restored at data 1, no mesh
     t = Trainer(TrainerOptions(**TRAINER_OPTS, device="cpu", cfg=inputs["trainer"]["cfg"],
                                ckpt_dir=str(workdir / "ckpt")))

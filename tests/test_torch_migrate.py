@@ -23,7 +23,14 @@ Identity surfaces:
   no page leaks once the trace drains;
 * the reference's rejections (another geometry, seed, chunk or batch; a
   used destination; a replica out of range) and the port's (another
-  ``LM``, paged-decode implementation or ``pages_per_program``).
+  ``LM``, paged-decode implementation or ``pages_per_program``);
+* under tensor parallelism, two gloo ranks on a (1, 2) mesh in float32 on
+  the reference's weights: a 2-way engine handed off at step 2 or 4 (its
+  cache gathered over "model" into whole leaves, restored as each rank's
+  block) continues bit for bit the unmigrated 2-way run (tokens and every
+  logit), the ranks alike; the same snapshot restored onto an unsharded
+  engine (K = 1, the whole model) keeps the 2-way run's token streams, the
+  identity surface across K (the sums over "model" round otherwise).
 """
 import _torch_threads  # noqa: F401  (sets this worker's torch threads)
 import dataclasses
@@ -37,6 +44,7 @@ import torch
 from repro.serve import Router as RefRouter
 from repro.serve import ServeEngine as RefServeEngine
 from repro.serve import migrate_replica as ref_migrate_replica
+from _torch_tp_ranks import Spawned
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models.model import LM
@@ -358,3 +366,49 @@ def test_bad_replica_index_is_rejected():
     router = Router([_engine(lm)])
     with pytest.raises(ValueError, match="out of range"):
         migrate_replica(router, 1, lambda: _engine(lm))
+
+
+# ---------------------------------------------------------- under tensor parallelism
+TP_STEPS = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def tp_handoffs(tmp_path_factory):
+    """Both ranks' results of the 2-way handoffs, every arch in one group."""
+    jobs = {arch: {"kind": "tp_migrate", "params": _reference(arch)[3], "specs": _specs(),
+                   "cfg": dataclasses.replace(get_smoke_config(arch), dtype="float32"),
+                   "engine": dict(GEOM), "steps": TP_STEPS} for arch in ARCHS}
+    return Spawned(2, jobs, str(tmp_path_factory.mktemp("tp_migrate")), 240).results()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp2_handoff_continues_bit_for_bit(arch, tp_handoffs):
+    cfg = get_smoke_config(arch)
+    for res in tp_handoffs:
+        got = res[arch]
+        control = got["control"]
+        for step, run in got["runs"].items():
+            assert run["in_flight"] > 0, step
+            assert run["same_k"]["tokens"] == control["tokens"], step
+            for a, b in zip(run["same_k"]["logits"], control["logits"]):
+                np.testing.assert_array_equal(a, b)
+            for layer in run["shapes"]:  # whole leaves
+                if "k" in layer:
+                    assert layer["k"][1] == cfg.n_kv_heads
+                if "h" in layer:
+                    assert layer["h"][1] == cfg.mamba.resolved_d_inner(cfg.d_model)
+            assert run["nbytes"] > 0
+    a, b = (res[arch] for res in tp_handoffs)
+    assert a["control"]["tokens"] == b["control"]["tokens"]
+    for step in TP_STEPS:
+        assert a["runs"][step]["nbytes"] == b["runs"][step]["nbytes"]
+        for x, y in zip(a["runs"][step]["same_k"]["logits"], b["runs"][step]["same_k"]["logits"]):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp2_snapshot_restored_at_k1_keeps_the_token_streams(arch, tp_handoffs):
+    for res in tp_handoffs:
+        got = res[arch]
+        for step, run in got["runs"].items():
+            assert run["k1"]["tokens"] == got["control"]["tokens"], step

@@ -53,15 +53,16 @@ def test_static_cli_runs_the_server(capsys):
     assert "generated (2, 4) tokens; prefill" in capsys.readouterr().out
 
 
-def test_server_refuses_what_is_not_ported():
-    """A mesh is ported (tests/test_torch_tp.py), but not MLA over more than
-    one rank, which the server refuses by name (a stand-in mesh of 2 ranks:
-    the plan refuses before it needs a process group); rules need a mesh.
-    Frontend embeddings are ported, for the frontend archs
-    (tests/test_torch_frontend.py), and an arch without a frontend refuses
-    them."""
-    mesh = SimpleNamespace(axis_names=("data", "model"), devices=np.empty((1, 2)))
-    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP.md"):
+def test_server_refuses_what_it_cannot_place():
+    """A mesh is ported (tests/test_torch_tp.py), MLA over K ranks too
+    (tests/test_torch_mla_tp.py), but not MLA heads that do not divide K,
+    which the server refuses by name (the smoke deepseek-v2's 4 heads on a
+    stand-in mesh of 8 ranks: the plan refuses before it needs a process
+    group); rules need a mesh.  Frontend embeddings are ported, for the
+    frontend archs (tests/test_torch_frontend.py), and an arch without a
+    frontend refuses them."""
+    mesh = SimpleNamespace(axis_names=("data", "model"), devices=np.empty((1, 8)))
+    with pytest.raises(NotImplementedError, match="4 MLA heads do not divide 8 ranks"):
         port_cli.Server("deepseek-v2-236b", smoke=True, device="cpu", mesh=mesh).generate(
             np.zeros((1, 4), np.int32), 2)
     with pytest.raises(ValueError, match="without a mesh"):

@@ -15,11 +15,16 @@ random: they are zeros at init) and falcon-mamba-7b.
   sharded engine fails on this host's JAX, so it is the yardstick the
   reference's exactness contract allows: token streams the identity surface
   at world size > 1, logits to float tolerance); the prefix-reuse check is
-  bit for bit under TP2; a migration is refused.
+  bit for bit under TP2; a migration's snapshot holds the whole cache
+  (tests/test_torch_migrate.py hands a TP2 replica off).
 * A (1, 1) mesh (a one-rank gloo group) gives the port's unsharded engine's
   tokens and logits bit for bit.
-* The refusals by name: MLA, the MoE FFN, a spec that would split a head
-  (KV heads, or the KV pool's ``cache_head_dim``), FSDP over "data".
+* The MoE and MLA archs' 2-way plans place them (E / K experts, n_heads /
+  K MLA heads, 1 / K of the shared width; tests/test_torch_mla_tp.py and
+  tests/test_torch_moe_ep.py serve and train them), and the refusals by
+  name: heads, experts or a shared width that do not divide K, a spec that
+  would split a head (KV heads, or the KV pool's ``cache_head_dim``), FSDP
+  over "data".
 * ``Server(mesh=...)`` and the serve CLI's ``--continuous --tp 2`` and
   ``--router --replicas 2 --tp 2`` (``--device cpu``, as subprocesses).
 
@@ -195,10 +200,20 @@ def test_tp2_engine_matches_the_reference_unsharded_engine(reference, ranks, arc
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_tp2_prefix_reuse_bitwise_and_migration_refused(ranks, arch):
+def test_tp2_prefix_reuse_bitwise_and_the_snapshot_whole(ranks, arch):
+    """The snapshot's leaves are whole: the rank's pools and states with
+    their split dim (KV heads, Mamba channels) doubled."""
+    cfg = _f32(arch)
     for res in ranks:
         assert res[arch]["prefix_reuse_bit_identical"] is True
-        assert "item 7" in res[arch]["migrate"]
+        for whole, local in zip(res[arch]["snapshot_shapes"], res[arch]["local_shapes"]):
+            for name, shape in whole.items():
+                dim = 1
+                want = list(local[name])
+                want[dim] *= 2
+                assert shape == tuple(want), (name, shape, local[name])
+                assert shape[dim] == (cfg.n_kv_heads if name in ("k", "v") else
+                                      cfg.mamba.resolved_d_inner(cfg.d_model))
 
 
 def test_server_on_a_mesh(reference, ranks):
@@ -242,17 +257,57 @@ def test_mesh_1x1_is_bitwise_the_unsharded_engine(reference, one_rank_group):
                 np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("arch, match", [("deepseek-v2-236b", "MLA"),
-                                         ("deepseek-moe-16b", "MoE"),
-                                         ("jamba-1.5-large-398b", "MoE")])
-def test_mla_and_moe_refused_by_name_at_world_size_2(arch, match):
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b"])
+def test_mla_and_moe_archs_place_at_world_size_2(arch):
+    """The 2-way plan of an MLA or MoE arch: each rank's tensors are its
+    slices of the whole model's draws (experts ``r E / 2 ..``, the router's
+    and the shared experts' columns, ``sh_down``'s rows, MLA's ``wq_b`` /
+    ``wkv_b`` columns and ``wo`` rows; ``wq_a``, ``wkv_a`` and the latent
+    norms whole), at the local config's widths; and the refusals of what
+    would split a head or an expert group, by name."""
+    from repro_torch.models.model import LM
+
+    cfg = get_smoke_config(arch)
+    whole = LM(cfg, "cpu").init_params(torch.Generator().manual_seed(3))
     mesh = FakeMesh((1, 2))
-    plan = ShardingPlan(mesh, Rules.for_serving(mesh), rank=0)
-    with pytest.raises(NotImplementedError, match=f"{match}.*item 10"):
-        plan.shard_params(get_smoke_config(arch), "cpu")
+    for rank in range(2):
+        plan = ShardingPlan(mesh, Rules.for_serving(mesh), rank=rank)
+        local = plan.shard_params(cfg, "cpu", seed=3)
+        lc = local.cfg
+        assert lc.moe.expert_shards == 2 and lc.moe.n_routed_experts == cfg.moe.n_routed_experts
+        assert lc.n_heads == cfg.n_heads // 2
+        for (t, name, _, spec), (dst, _, _) in zip(plan.param_specs(whole),
+                                                   local.init_entries()):
+            assert torch.equal(dst, plan.slice_param(t, name, spec)), name
+            if name in ("wq_a", "wkv_a", "q_a_norm", "kv_a_norm"):
+                assert torch.equal(dst, t), name
+        moe = next(blk.ffn for blk in local.layers if blk.spec.ffn == "moe")
+        assert moe["w_gate"].shape[0] == moe["w_down"].shape[0] == cfg.moe.n_routed_experts // 2
+        assert moe["router"].shape == (cfg.d_model, cfg.moe.n_routed_experts // 2)
+        if cfg.moe.n_shared_experts:
+            fs = cfg.moe.n_shared_experts * cfg.moe.expert_d_ff
+            assert moe["sh_gate"].shape == (cfg.d_model, fs // 2)
+            assert moe["sh_down"].shape == (fs // 2, cfg.d_model)
+    # what does not divide K is refused by name, never replicated
+    odd = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_routed_experts=6))
+    mesh4 = FakeMesh((1, 4))
+    wide = dataclasses.replace(odd, n_heads=8, n_kv_heads=4) if cfg.mla is None else \
+        dataclasses.replace(odd, n_heads=8, n_kv_heads=8)
+    with pytest.raises(NotImplementedError, match="6 routed experts are not split over 4"):
+        ShardingPlan(mesh4, Rules.for_serving(mesh4), rank=0).check(wide)
+    if cfg.mla is not None:
+        with pytest.raises(NotImplementedError, match="4 MLA heads do not divide 8 ranks"):
+            mesh8 = FakeMesh((1, 8))
+            ShardingPlan(mesh8, Rules.for_serving(mesh8), rank=0).check(cfg)
+    if cfg.moe.n_shared_experts:
+        shared = dataclasses.replace(wide, moe=dataclasses.replace(
+            wide.moe, n_routed_experts=8, expert_d_ff=66))
+        with pytest.raises(NotImplementedError, match="shared experts' width 66"):
+            ShardingPlan(mesh4, Rules.for_serving(mesh4), rank=0).check(shared)
     # a (1, 1) mesh places them whole
     mesh = FakeMesh((1, 1))
-    ShardingPlan(mesh, Rules.for_serving(mesh), rank=0).check(get_smoke_config(arch))
+    ShardingPlan(mesh, Rules.for_serving(mesh), rank=0).check(cfg)
 
 
 def test_head_splitting_specs_refused_never_replicated():
@@ -263,7 +318,7 @@ def test_head_splitting_specs_refused_never_replicated():
     "model"."""
     cfg = get_smoke_config("qwen3-14b")
     mesh4 = FakeMesh((1, 4))
-    with pytest.raises(NotImplementedError, match="split a head.*item 10"):
+    with pytest.raises(NotImplementedError, match="split a head"):
         ShardingPlan(mesh4, Rules.for_serving(mesh4), rank=0).check(cfg)
     rules = Rules.for_serving(mesh4)
     assert rules.act_pspec(("cache_batch", "act_kv_heads", "cache_seq", "cache_head_dim"),
@@ -276,7 +331,7 @@ def test_head_splitting_specs_refused_never_replicated():
     with pytest.raises(NotImplementedError, match="cache_head_dim"):
         ShardingPlan(mesh2, no_pool_heads, rank=0).check(cfg)
     fsdp = FakeMesh((2, 2))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="FSDP over 'data' is the trainer's"):
         ShardingPlan(fsdp, Rules.default(fsdp), rank=0).check(cfg)
 
 

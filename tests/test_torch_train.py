@@ -96,9 +96,9 @@ def test_loss_and_grads_match_reference(arch, monkeypatch):
     loads = []  # (tokens routed to each expert, capacity) of each MoE dispatch
     dispatch = port_moe.dispatch_compute_combine
 
-    def counting_dispatch(xt, ids, probs, wg, wu, wd, cap=None):
+    def counting_dispatch(xt, ids, probs, wg, wu, wd, cap=None, e0=0):
         loads.append((torch.bincount(ids.reshape(-1), minlength=wg.shape[0]), cap))
-        return dispatch(xt, ids, probs, wg, wu, wd, cap)
+        return dispatch(xt, ids, probs, wg, wu, wd, cap, e0=e0)
 
     monkeypatch.setattr(port_moe, "dispatch_compute_combine", counting_dispatch)
     batch = _batches(1)[0]
