@@ -44,7 +44,12 @@ fleet scheduler runs its three scenarios through its CLI, and
 ``python -m repro_torch.fleet_day --real-convex`` drives a training job's
 SSP local-SGD executor on K6 at the paper's 60000 x 784 through the 24 h
 day and through the drift and migrate scenarios, whose job the scheduler
-resizes.
+resizes; and the example trainers run as entry points of the port:
+``python -m repro_torch.autotune_lm --no-smoke`` plans m for stablelm-1.6b
+at full width and depth from its real loss curves at m = 1, 2, 4,
+``elastic_train.run`` drives the adaptive controller over the trainer on the
+card against the CPU and at full width, and ``python -m
+repro_torch.train_100m --scale 1`` trains the example's own config.
 Phases, each of which exits non-zero on failure:
 
    1. device: requires a CUDA card and prints its name and power limit;
@@ -378,14 +383,16 @@ Phases, each of which exits non-zero on failure:
   30c. main path 14: stablelm-1.6b at full width and depth, 4 steps on one
       card (freed), then on a world-size-1 NCCL group's (1, 1) mesh in this
       process, bit for bit (losses, grad norms, the final state's bits), then
-      on a (2, 1) data mesh: two ranks on the one card over gloo
+      at full width and 8 of 24 layers (``cut:``; gloo moves every gradient
+      through the host) on one card and on a (2, 1) data mesh: two ranks on
+      the one card over gloo
       (``run_data_parallel``), each holding half of every float32 master and
       AdamW leaf (FSDP over "data") and training on its 4 rows of the global
       batch of 8: each step's loss within 0.5% of the single card's, K3 =
-      2 x 24 x 4 and each K3-bwd pass 24 x 4 on each rank, none in this
+      2 x 8 x 4 and each K3-bwd pass 8 x 4 on each rank, none in this
       process, a rank's float32 state 49-52% of the single card's; each
       rank's step times and peak memory printed;
-  30d. the elastic leg at full width and 4 of 24 layers: a checkpoint at
+  30d. the elastic leg at full width and 1 of 24 layers: a checkpoint at
       data 2 (whole leaves, gathered), restored at data 1 (``restore``,
       ``rescale_training_state`` on a (1, 1) NCCL mesh) and again at data 2
       (``restore_sharded`` on two new ranks): the placed state the saved bits
@@ -490,6 +497,29 @@ Phases, each of which exits non-zero on failure:
       meshes, subprocesses on the host (DRYRUN_LANES at a time) started
       after the build: every cell ``ok``, each cell's dominant term
       printed.
+  34a. (slice 24) main path 20: ``python -m repro_torch.autotune_lm
+      --no-smoke`` in process: stablelm-1.6b at full width and depth (24
+      layers, remat "full"), 60 steps at each of m = 1, 2, 4 (seq 64, global
+      batch 2 m, one trainer at a time), g(i, m) and f(m) fitted, the
+      planner's m over 1, 2, 4, 8 (8 never run) with its predicted time;
+      each trainer's build seconds, compute_s, R^2, the active features,
+      f(m)'s coefficients and f(8), the target; K3 = 2 x 24 x 180 and each
+      K3-bwd pass 24 x 180;
+  34b. main path 21: ``elastic_train.run`` (``python -m
+      repro_torch.elastic_train``) on the smoke stablelm-1.6b (bf16: K3
+      takes no float32) on the card and on the CPU from the same CPU-drawn
+      weights, at the example's constants (a failure at step 17 restored,
+      no decision) and on a schedule of chunks of 2 that resizes: the same
+      decisions, resizes, failures, saves and restores, every loss within
+      ELASTIC_LOSS_RTOL; then at full width and 1 of 24 layers (``cut:``)
+      on a schedule that reaches the controller (chunks of 3 to 9 steps):
+      every save's and restore's wall seconds; K3 and K3-bwd once (full
+      remat: K3 twice) a layer a step run;
+  34c. main path 22: ``python -m repro_torch.train_100m --scale 1`` in
+      process: the example's config (73.7 M parameters), 200 steps, seq 256, global batch
+      4, a checkpoint every 50 steps: the parameter count, the median step,
+      the first and last loss (the last below the first), K3 and each
+      K3-bwd pass 12 x 200 (remat "none").
 The last lines are one JSON object with every kernel's summary (its
 ``timed_by`` says how ``ms`` and ``library_ms`` were timed; K3's, K2's,
 K2-latent's and K4's ``launches`` sum their paths', ``launches_by_path``
@@ -512,7 +542,9 @@ ranks), ``dryrun_counted_step`` (32b) and ``diloco`` (32d), K2's
 ``serve_tp_mla`` (33a, both ranks), K3 and K3-bwd's dq and dk/dv passes
 ``training_tp_moe`` (33b), K3 at (192, 128) and K3-bwd's dq, dv and dk
 passes ``training_tp_mla`` (33c), K4's decode body ``long_context_2x2``
-(33e, the four ranks)), the card's ``nvidia-smi`` line,
+(33e, the four ranks); slice 24's: K3 and K3-bwd's dq and dk/dv passes
+``autotune_lm`` (34a), ``elastic_train`` (34b's card runs) and
+``train_100m`` (34c)), the card's ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -3078,7 +3110,18 @@ BWD_SHAPES = (("stablelm-1.6b", 8, 32, 32, 128, 64, 64, None),
               ("deepseek-v2-236b ragged", 8, 128, 128, 128, 192, 128, RAGGED_8),
               ("deepseek-v2 cut, S 2048", 1, 4, 4, 2048, 192, 128, None),
               ("smoke deepseek-v2", 8, 4, 4, 128, 24, 16, RAGGED_8),
-              ("smoke deepseek-v2 cut", 1, 8, 1, 512, 24, 16, None))
+              ("smoke deepseek-v2 cut", 1, 8, 1, 512, 24, 16, None),
+              # the example trainers' (main paths 20-22): stablelm-1.6b at
+              # seq 64 and global batch 2 m (autotune_lm at m = 1, 2, 4;
+              # elastic_train's full-width leg), the smoke stablelm-1.6b's
+              # (4 heads over 2, D 16) at m = 1 and 4 (elastic_train's card
+              # runs), and the 100M config's (train_100m: B 4, S 256, 8 heads)
+              ("stablelm-1.6b S 64", 2, 32, 32, 64, 64, 64, None),
+              ("stablelm-1.6b S 64, B 4", 4, 32, 32, 64, 64, 64, None),
+              ("stablelm-1.6b S 64, B 8", 8, 32, 32, 64, 64, 64, None),
+              ("smoke stablelm-1.6b S 64", 2, 4, 2, 64, 16, 16, None),
+              ("smoke stablelm-1.6b S 64, B 8", 8, 4, 2, 64, 16, 16, None),
+              ("lm-100m", 4, 8, 8, 256, 64, 64, None))
 # the kernels line's rows: the first; the rest are printed beside it.  The
 # equal-dim ones are also those ``--k3bwd-times`` compares with a parent
 BWD_TIMED = ("stablelm-1.6b", "qwen3-14b S 2048", "musicgen-medium")
@@ -3409,7 +3452,7 @@ def flash_bwd_vs_plain(dev, build_log: str) -> dict:
 
     phase("K3 with lse and K3-bwd vs plain (bf16; stablelm-1.6b, qwen3-14b, deepseek-moe-16b, "
           "musicgen-medium and deepseek-v2-236b training shapes, the smoke deepseek-v2's "
-          "(24, 16))")
+          "(24, 16), the example trainers' (stablelm-1.6b at S 64, lm-100m))")
     bwd_ptxas(build_log)
     gen = torch.Generator(device=dev).manual_seed(22)
     worst = {"flash_fwd_lse": 0.0, **{name: 0.0 for name in BWD_PASS_NAMES}}
@@ -5081,7 +5124,7 @@ def tp_kernel_timings(dev) -> dict:
 # training path's settings (seq 128, global batch 8, AdamW lr 1e-3, remat
 # full), 4 steps a run: with each compression scheme on one card, then on a
 # data mesh of 2 ranks sharing the card over gloo (FSDP over "data", 4 rows a
-# rank).  The ranks sum their loss shares, gradients and norms in another
+# rank; DP_LAYERS of the layers).  The ranks sum their loss shares, gradients and norms in another
 # order than one card, and each rank's matrix products see 4 rows, not 8, so
 # cuBLAS may sum them otherwise and bf16 round them otherwise: each step's
 # loss within 0.5% of the single card's (PERF.md's prediction for PR 30,
@@ -5090,15 +5133,20 @@ def tp_kernel_timings(dev) -> dict:
 # the float32 state a rank holds within 49-52% of the single card's (the
 # replicated norm scales and biases are the rest).
 DP_WORLD, DP_STEPS = 2, 4
+# The data mesh's ranks pass every gradient and master through gloo on the
+# host (~12 s a step at 24 layers on an H100's host), so main path 14 runs 8
+# of the 24 layers (reduced: depth only; 0.81 B of the 1.64 B parameters,
+# the embedding and head 0.41 B of them), against one card at the same cut
+DP_LAYERS = 8
 DP_TIMEOUT_S = 600  # a group of ranks still running after this is killed
 DP_LOSS_RTOL = 5e-3
 DP_STATE_SHARE = (0.49, 0.52)
 COMPRESSION_SCHEMES = ("int8", "topk", "powersgd")
-# Phase 30d, the elastic leg: 4 of the 24 layers at full width (the
-# checkpoint of params and both moments is 7.4 GB, not 19.7), a checkpoint
-# at data 2 after the first of two steps; the second is the unresized run's
-# next step
-ELASTIC_LAYERS, ELASTIC_STEPS = 4, 2
+# Phase 30d, the elastic leg: 1 of the 24 layers at full width (the
+# checkpoint of params and both moments is 5.5 GB, not 19.7; the embedding
+# and head are 0.41 B of its 0.46 B parameters), a checkpoint at data 2
+# after the first of two steps; the second is the unresized run's next step
+ELASTIC_LAYERS, ELASTIC_STEPS = 1, 2
 # Phase 30e: the trainer CLI's --chaos on a generated trace, and the reference
 # test's crafted 70-step trace (tests/test_chaos.py::test_chaos_lm_loop_end_to_end)
 CHAOS_CLI_STEPS = 30
@@ -5200,16 +5248,18 @@ def fsdp_path(workdir: Path) -> dict:
     one card for DP_STEPS steps (freed), then the same from the same seed on
     a world-size-1 NCCL group's (1, 1) mesh in this process, bit for bit
     (every loss and grad norm, and the final state's bits by
-    ``Trainer.state_digest``), then on a (2, 1) data mesh: two ranks spawned
-    on the one card over gloo (``run_data_parallel``), each drawing the
-    whole model from seed 0 and keeping its blocks.  Gates: each rank's
-    losses within DP_LOSS_RTOL of the single card's, the ranks' the same,
-    K3 = 2 x 24 x steps and each K3-bwd pass 24 x steps on each rank at its
-    4 rows, none in this process, each rank's float32 state within
-    DP_STATE_SHARE of the single card's.  Returns the launches by run."""
+    ``Trainer.state_digest``), then at DP_LAYERS layers on one card and on
+    a (2, 1) data mesh: two ranks spawned on the one card over gloo
+    (``run_data_parallel``), each drawing the whole model from seed 0 and
+    keeping its blocks.  Gates: each rank's losses within DP_LOSS_RTOL of
+    the single card's at the cut, the ranks' the same, K3 = 2 x DP_LAYERS x
+    steps and each K3-bwd pass DP_LAYERS x steps on each rank at its 4 rows,
+    none in this process, each rank's float32 state within DP_STATE_SHARE of
+    the single card's at the cut.  Returns the launches by run."""
     import torch
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import init_distributed, make_debug_mesh, mesh_shape
     from repro_torch.launch.train import Trainer, TrainerOptions, run_data_parallel
 
@@ -5252,11 +5302,30 @@ def fsdp_path(workdir: Path) -> dict:
         fail("the (1, 1) mesh trainer is not bit for bit the single card's")
     training_launches_expected(counts["mesh_1x1"], layers, DP_STEPS, remat, "the (1, 1) mesh")
 
-    phase(f"main path 14: {TRAIN_ARCH} at full width and depth on a ({DP_WORLD}, 1) data mesh, "
-          f"{DP_WORLD} ranks on the one card, global batch {TRAIN_BATCH}, {DP_STEPS} steps")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=DP_LAYERS)
+    phase(f"30c: {TRAIN_ARCH} at full width and {DP_LAYERS} of 24 layers, {DP_STEPS} steps on one "
+          "card (main path 14's yardstick)")
+    print(f"cut: {TRAIN_ARCH} at full width, {DP_LAYERS} of its 24 layers (reduced: depth only), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters")
+    reset_launches()
+    single = Trainer(TrainerOptions(**dp_opts(cfg=cfg)))
+    single.train_some(DP_STEPS)
+    counts["single_cut"] = read_launches()
+    ref_cut = {"records": single.records, "state_bytes": state_bytes(single)}
+    print(f"one card: {step_summary(ref_cut['records'])}; float32 state "
+          f"{ref_cut['state_bytes'] / 1e9:.3f} GB")
+    training_launches_expected(counts["single_cut"], DP_LAYERS, DP_STEPS, remat,
+                               "one card at the cut")
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"main path 14: {TRAIN_ARCH} at full width and {DP_LAYERS} of 24 layers on a "
+          f"({DP_WORLD}, 1) data mesh, {DP_WORLD} ranks on the one card, global batch "
+          f"{TRAIN_BATCH}, {DP_STEPS} steps")
     reset_launches()
     t0 = time.perf_counter()
-    reports = run_data_parallel(DP_WORLD, {"opts": dp_opts(), "steps": DP_STEPS},
+    reports = run_data_parallel(DP_WORLD, {"opts": dp_opts(cfg=cfg), "steps": DP_STEPS},
                                 timeout_s=DP_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     if any(read_launches().values()):
@@ -5266,11 +5335,11 @@ def fsdp_path(workdir: Path) -> dict:
     for rep in reports:
         print(f"rank {rep['rank']} ({rep['device']}, {rep['backend']}): "
               f"{step_summary(rep['records'])}; float32 state {rep['state_bytes'] / 1e9:.3f} GB "
-              f"({rep['state_bytes'] / ref['state_bytes']:.4f} of one card's); peak "
+              f"({rep['state_bytes'] / ref_cut['state_bytes']:.4f} of one card's); peak "
               f"{rep['peak_memory_gb']:.3f} GB")
-        for got, want in zip(rep["records"], ref["records"]):
+        for got, want in zip(rep["records"], ref_cut["records"]):
             worst = max(worst, abs(got["loss"] - want["loss"]) / abs(want["loss"]))
-        share = rep["state_bytes"] / ref["state_bytes"]
+        share = rep["state_bytes"] / ref_cut["state_bytes"]
         if len(rep["records"]) != DP_STEPS or not DP_STATE_SHARE[0] <= share <= DP_STATE_SHARE[1]:
             fail(f"rank {rep['rank']}: {len(rep['records'])} steps, state share {share:.4f}")
         training_launches_expected(rep["launches"], rep["n_layers"], DP_STEPS, rep["remat"],
@@ -5286,10 +5355,10 @@ def fsdp_path(workdir: Path) -> dict:
           f"{seconds:.1f} s for the spawn, the builds and the steps")
     if worst > DP_LOSS_RTOL:
         fail(f"the data mesh's losses part from one card's: {worst:.3g}")
-    print(json.dumps({"fsdp_path": {"world": DP_WORLD, "cli_s": seconds, "loss_rel_diff": worst,
-                                    "per_rank": per_rank,
+    print(json.dumps({"fsdp_path": {"world": DP_WORLD, "layers": DP_LAYERS, "cli_s": seconds,
+                                    "loss_rel_diff": worst, "per_rank": per_rank,
                                     "one_card_step_ms": [1e3 * r["step_time"]
-                                                         for r in ref["records"]]}}))
+                                                         for r in ref_cut["records"]]}}))
     counts["data_mesh"] = {}
     for rep in reports:
         for k, v in rep["launches"].items():
@@ -6681,6 +6750,281 @@ def long_context_path(dev, workdir: Path) -> dict:
             "logits_rel_err": worst}
 
 
+
+# ------------------------------------------- the example trainers (slice 24)
+# Main path 20 (phase 34a): ``python -m repro_torch.autotune_lm --no-smoke``,
+# stablelm-1.6b at full width and depth (24 layers, remat "full"), the
+# reference's 60 steps at m = 1, 2, 4 (seq 64, global batch 2 m), each trainer
+# freed before the next is built.
+AUTOTUNE_ARGV = ["--no-smoke"]
+AUTOTUNE_STEPS, AUTOTUNE_MS = 60, (1, 2, 4)
+# Main path 21 (phase 34b): ``elastic_train.run`` on the smoke stablelm-1.6b,
+# on the card and on the CPU from the same weights (drawn on the CPU, seed
+# 0), at the example's constants (no decision: 6 observations against
+# min_observations 20) and on a schedule of chunks of 2 that reaches the
+# controller (on these weights it moves m 1 -> 4 at step 18, ~24 s predicted
+# against ~69 s; chunks of 4, the test's on the reference's float32 weights,
+# stay at m 1 here).  The smoke config runs in its own bf16: K3 and K3-bwd
+# take bf16 only.
+ELASTIC_RESIZE = dict(step_budget=24, chunk=2, min_observations=3, refit_every=3,
+                      target_gap=3.0)
+# Card against CPU, every step's loss.  This holds the controller's
+# decisions, the failure and the restores, not the kernels: those are held
+# at these runs' shapes by 23a/23b (BWD_SHAPES).  Both run bf16 activations
+# from the same float32 masters, rounded where cuBLAS and the CPU's library differ
+# (phase 23d: 1.1e-4 relative over 8 steps on an H100), and Adam's sign
+# flips where a gradient is within rounding of zero move a weight by up to
+# 2 lr a step on one side only, so the parting grows with the steps.  On an
+# H100 the largest difference over the example's 127 steps run was 3.9e-4,
+# over the resize schedule's 25 3.3e-4; the limit is over ten times that.
+# A fault (a wrong gradient, a step lost in a restore) parts the curves by
+# far more, and the decisions and restores are held exactly besides.
+ELASTIC_LOSS_RTOL = 5e-3
+# Then stablelm-1.6b at full width, 1 of its 24 layers (reduced: depth only;
+# the checkpoint of params and both moments is 5.5 GB, ~0.46 B parameters,
+# the embedding and head 0.41 B of them), on a schedule that reaches the
+# controller: chunks of 3 to 9 steps, its refit at the 3rd observation; the
+# example's failure at 17 lies past the budget (the smoke runs hold it).
+# Each save or restore takes ~10 s on an H100's host: 3 saves (the chunks'
+# ends) and 2 restores (the chunks' starts), 4 more if it resizes.
+ELASTIC_FULL_LAYERS = 1
+ELASTIC_FULL = dict(step_budget=9, chunk=3, min_observations=3, refit_every=3,
+                    target_gap=3.0)
+# Main path 22 (phase 34c): ``python -m repro_torch.train_100m --scale 1``,
+# the example's config (73.7 M parameters by ``param_count()``; the example
+# calls it ~107M), 200 steps, seq 256, global batch 4, a checkpoint every 50
+# steps (remat "none": one K3 a layer a step)
+TRAIN_100M_ARGV = ["--scale", "1"]
+TRAIN_100M_STEPS, TRAIN_100M_LAYERS = 200, 12
+
+
+def autotune_lm_path() -> dict:
+    """Phase 34a, main path 20: ``python -m repro_torch.autotune_lm
+    --no-smoke`` in process.  Gates: every loss finite, 60 steps at each m,
+    the planner's decision feasible (the CLI raises otherwise), and K3 = 2 x
+    24 x 180 and each K3-bwd pass 24 x 180 (remat "full"), no other kernel.
+    Returns the launches."""
+    import torch
+
+    from repro_torch import autotune_lm
+    from repro_torch.configs import get_config
+
+    phase(f"main path 20: python -m repro_torch.autotune_lm {' '.join(AUTOTUNE_ARGV)} "
+          f"({TRAIN_ARCH} at full width and depth, {AUTOTUNE_STEPS} steps at m = "
+          f"{', '.join(map(str, AUTOTUNE_MS))})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = autotune_lm.main(AUTOTUNE_ARGV)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    layers = get_config(TRAIN_ARCH).n_layers
+    curves = result["curves"]
+    steps = sum(len(c) for c in curves.values())
+    d = result["decision"]
+    summary = {
+        "last_loss": {m: float(c[-1]) for m, c in curves.items()},
+        "first_loss": {m: float(c[0]) for m, c in curves.items()},
+        "compute_s": result["compute_s"], "build_s": result["build_s"],
+        "step_s_with_comm": result["step_s"], "r2": result["r2"], "active": result["active"],
+        "f_coefficients": result["f_coefficients"], "f_s": result["f_s"],
+        "iters_to_target": result["iters"], "predicted_s": result["predicted_s"],
+        "target": result["target"], "floor": result["floor"],
+        "grad_bytes": result["grad_bytes"], "m": d.m, "predicted_time": d.predicted_time,
+        "seconds": seconds, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps({"main_path_20": summary}))
+    if sorted(curves) != list(AUTOTUNE_MS) or any(
+            len(c) != AUTOTUNE_STEPS or not all_finite(c) for c in curves.values()):
+        fail(f"main path 20: curves {dict((m, len(c)) for m, c in curves.items())}, a loss not "
+             "finite or a curve short")
+    training_launches_expected(counts, layers, steps, "full", "main path 20")
+    print(f"launches: flash_fwd {counts['flash_fwd']} = 2 x {layers} x {steps}, each K3-bwd "
+          f"pass {counts['flash_bwd_dq']} = {layers} x {steps}; planner's m {d.m}")
+    return counts
+
+
+def all_finite(values) -> bool:
+    return all(math.isfinite(float(v)) for v in values)
+
+
+def elastic_decisions(result) -> list:
+    return [(d["step"], d["m"], d["resize"], d["target_m"]) for d in result["decisions"]]
+
+
+def elastic_summary(name, result, seconds) -> None:
+    saves = [t for t in result["timings"] if t["op"] == "save"]
+    restores = [t for t in result["timings"] if t["op"] == "restore"]
+    print(f"{name}: {len(result['history'])} steps run in {seconds:.1f} s, final step "
+          f"{result['final_step']} at m {result['m']}, loss {result['history'][0][1]:.5f} -> "
+          f"{result['final_loss']:.5f}; failures at {result['failures']}; resizes "
+          f"{result['resizes']}; {len(saves)} saves, {len(restores)} restores")
+    for d in result["decisions"]:
+        print(f"  decision at step {d['step']} (m {d['m']}): resize {d['resize']} -> m "
+              f"{d['target_m']}, predicted remaining {d['predicted_remaining_current']} on m "
+              f"{d['m']}, {d['predicted_remaining_target']} on the target ({d['reason']})")
+
+
+def elastic_card_vs_cpu(name, card, cpu) -> float:
+    """The same decisions, resizes, failures, saves and restores, and every
+    step's loss within ELASTIC_LOSS_RTOL; returns the largest relative
+    difference."""
+    if elastic_decisions(card) != elastic_decisions(cpu) or card["resizes"] != cpu["resizes"]:
+        elastic_summary(f"{name} on the card", card, 0.0)
+        elastic_summary(f"{name} on the CPU", cpu, 0.0)
+        fail(f"34b ({name}): the card's decisions {elastic_decisions(card)} are not the CPU's "
+             f"{elastic_decisions(cpu)}")
+    ops = [[(t["op"], t["step"]) for t in r["timings"]] for r in (card, cpu)]
+    if card["failures"] != cpu["failures"] or ops[0] != ops[1] or \
+            [s for s, _ in card["history"]] != [s for s, _ in cpu["history"]]:
+        fail(f"34b ({name}): failures {card['failures']} / {cpu['failures']}, or the saves and "
+             "restores or the steps run differ between the card and the CPU")
+    worst = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(card["history"], cpu["history"]))
+    print(f"{name}: card losses {[round(x, 5) for _, x in card['history']]}")
+    print(f"{name}: CPU losses  {[round(x, 5) for _, x in cpu['history']]}")
+    print(f"{name}: the same decisions {elastic_decisions(card)}, failures {card['failures']} "
+          f"and {len(ops[0])} saves and restores; largest relative loss difference {worst:.3g} "
+          f"(limit {ELASTIC_LOSS_RTOL})")
+    if worst > ELASTIC_LOSS_RTOL:
+        fail(f"34b ({name}): the card's losses part from the CPU's: {worst:.3g}")
+    return worst
+
+
+def elastic_train_path(workdir: Path) -> dict:
+    """Phase 34b, main path 21: ``elastic_train.run`` (``python -m
+    repro_torch.elastic_train``) on the smoke stablelm-1.6b, card against
+    CPU from the same weights, at the example's constants (a failure at 17,
+    no decision) and on ELASTIC_RESIZE (a resize); then at full width and
+    ELASTIC_FULL_LAYERS layers on ELASTIC_FULL.  Gates: the card's and the
+    CPU's decisions, resizes, failures, saves and restores the same and
+    every loss within ELASTIC_LOSS_RTOL; the defaults decide nothing, the
+    resize schedule resizes; at full width at least one decision, losses
+    finite; K3 and K3-bwd once (full remat: K3 twice) a layer a step run.
+    Returns the card runs' launches."""
+    import torch
+
+    from repro_torch import elastic_train
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    drawn = Trainer(TrainerOptions(arch=TRAIN_ARCH, smoke=True, seq_len=64, global_batch=2,
+                                   log_every=0, device="cpu"))
+    state = drawn.whole_state()
+    layers = drawn.cfg.n_layers
+    del drawn
+    counts = {}
+    runs = {}
+    for name, schedule in (("the example's constants", {}), ("chunks of 2", ELASTIC_RESIZE)):
+        phase(f"main path 21: python -m repro_torch.elastic_train, the smoke {TRAIN_ARCH} on the "
+              f"card and on the CPU from the same weights, {name} {schedule}")
+        out = {}
+        for device in (None, "cpu"):
+            ckpt = workdir / f"elastic_train_{device or 'cuda'}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            reset_launches()
+            t0 = time.perf_counter()
+            out[device] = elastic_train.run(device=device, state=state, ckpt_dir=str(ckpt),
+                                            **schedule)
+            seconds = time.perf_counter() - t0
+            if device is None:
+                launches = read_launches()
+                training_launches_expected(launches, layers, len(out[device]["history"]),
+                                           "none", f"main path 21 ({name})")
+                for k, v in launches.items():
+                    counts[k] = counts.get(k, 0) + v
+            elastic_summary(f"{name} on {device or 'the card'}", out[device], seconds)
+            shutil.rmtree(ckpt, ignore_errors=True)
+        runs[name] = {"rtol": elastic_card_vs_cpu(name, out[None], out["cpu"]),
+                      "decisions": elastic_decisions(out[None]), "resizes": out[None]["resizes"]}
+        if out[None]["failures"] != [17]:
+            fail(f"34b ({name}): the failure at step 17 did not fire once")
+    if runs["the example's constants"]["decisions"] or not runs["chunks of 2"]["resizes"]:
+        fail("34b: the example's constants decided, or the schedule of chunks of 2 did not resize")
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=ELASTIC_FULL_LAYERS)
+    phase(f"main path 21: elastic_train.run on {TRAIN_ARCH} at full width, {ELASTIC_FULL}")
+    print(f"cut: {TRAIN_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+          f"{cfg.vocab_size}), {ELASTIC_FULL_LAYERS} of its 24 layers (reduced: depth only), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters; remat full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = workdir / "elastic_train_full"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    full = elastic_train.run(smoke=False, cfg=cfg, ckpt_dir=str(ckpt), **ELASTIC_FULL)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    elastic_summary("full width", full, seconds)
+    for t in full["timings"]:
+        print(f"  {t['op']} of step {t['step']}: {t['wall_s']:.3f} s, {t['bytes'] / 1e9:.3f} GB")
+    io_s = sum(t["wall_s"] for t in full["timings"])
+    times = [r["step_time"] for r in full["records"][1:]]
+    print(f"saves and restores {io_s:.1f} s in all (warm reads: the file cache is not dropped); "
+          f"median step {1e3 * sorted(times)[len(times) // 2]:.1f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    print(json.dumps({"main_path_21": {
+        "smoke": runs, "full_width": {
+            "layers": ELASTIC_FULL_LAYERS, "decisions": elastic_decisions(full),
+            "resizes": full["resizes"], "failures": full["failures"], "seconds": seconds,
+            "io_s": io_s, "timings": full["timings"],
+            "losses": [x for _, x in full["history"]]}}}))
+    if not full["decisions"] or not all_finite([x for _, x in full["history"]]) or \
+            full["final_step"] != ELASTIC_FULL["step_budget"]:
+        fail("34b: at full width the controller made no decision, or a loss is not finite")
+    if any(d["resize"] for d in full["decisions"]) != bool(full["resizes"]):
+        fail("34b: a resize was decided at full width but not made")
+    training_launches_expected(launches, ELASTIC_FULL_LAYERS, len(full["history"]), "full",
+                               "main path 21 at full width")
+    for k, v in launches.items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def train_100m_path() -> dict:
+    """Phase 34c, main path 22: ``python -m repro_torch.train_100m --scale
+    1`` in process.  Gates: 200 steps, every loss finite, the last below the
+    first, a checkpoint at steps 50, 100, 150, 200; K3 and each K3-bwd pass
+    12 x 200 (remat "none"), no other kernel.  Returns the launches."""
+    import torch
+
+    from repro_torch import train_100m
+
+    phase(f"main path 22: python -m repro_torch.train_100m {' '.join(TRAIN_100M_ARGV)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_100m.main(TRAIN_100M_ARGV)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    losses = [x for _, x in trainer.history]
+    saved = sorted({t["step"] for t in trainer.ckpt.timings if t["op"] == "save"})
+    cfg = trainer.cfg
+    times = [r["step_time"] for r in trainer.records[1:]]
+    print(f"{cfg.name}: {cfg.param_count() / 1e6:.1f} M parameters, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}; loss {losses[0]:.5f} -> {losses[-1]:.5f}; step ms first "
+          f"{1e3 * trainer.records[0]['step_time']:.1f}, then median "
+          f"{1e3 * sorted(times)[len(times) // 2]:.1f} (min {1e3 * min(times):.1f}, max "
+          f"{1e3 * max(times):.1f}); saves at {saved}; {seconds:.1f} s with the build; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if len(losses) != TRAIN_100M_STEPS or not all_finite(losses) or not losses[-1] < losses[0] \
+            or saved != list(range(50, TRAIN_100M_STEPS + 1, 50)):
+        fail(f"main path 22: {len(losses)} steps, loss {losses[0]} -> {losses[-1]}, saves {saved}")
+    training_launches_expected(counts, TRAIN_100M_LAYERS, TRAIN_100M_STEPS, trainer.rt.remat,
+                               "main path 22")
+    if trainer.rt.remat != "none":
+        fail(f"main path 22 ran remat {trainer.rt.remat}, not the example's none")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -6881,8 +7225,8 @@ def main() -> None:
     compression_small_check(dev)
     fsdp = fsdp_path(workdir)
     slice20.update(training_fsdp=fsdp["data_mesh"],
-                   training_fsdp_one_card={k: fsdp["single"][k] + fsdp["mesh_1x1"][k]
-                                           for k in fsdp["single"]},
+                   training_fsdp_one_card={k: fsdp["single"][k] + fsdp["mesh_1x1"][k] +
+                                           fsdp["single_cut"][k] for k in fsdp["single"]},
                    training_elastic=elastic_path(workdir), chaos_lm=chaos_lm_path(workdir))
 
     # slice 21: the fleet (phases 31a-31c, main path 15)
@@ -6932,13 +7276,21 @@ def main() -> None:
     k2_tuner_b128 = decode_tune_and_dryrun_finish(started)
     dryrun_slice23_finish(started23)
 
+    # slice 24: the example trainers as entry points (phases 34a-34c, main
+    # paths 20-22)
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice24 = {"autotune_lm": autotune_lm_path(), "elastic_train": elastic_train_path(workdir),
+               "train_100m": train_100m_path()}
+
     by_path["flash_fwd"].update(training=train_counts["flash_fwd"],
                                 training_moe=moe_counts["flash_fwd"],
                                 training_tp_moe=slice23["training_tp_moe"]["flash_fwd"],
                                 training_musicgen=musicgen_counts["flash_fwd"],
                                 serve_internvl2=internvl_counts["flash_fwd"],
                                 **{path: c["flash_fwd"] for path, c in slice20.items()},
-                                **{path: c["flash_fwd"] for path, c in slice22.items()})
+                                **{path: c["flash_fwd"] for path, c in slice22.items()},
+                                **{path: c["flash_fwd"] for path, c in slice24.items()})
     launches["flash_fwd"] = sum(by_path["flash_fwd"].values())
     by_path["paged_decode"]["serve_internvl2"] = internvl_counts["paged_decode"]
     by_path["paged_decode"]["tuner_b128"] = k2_tuner_b128
@@ -7020,7 +7372,8 @@ def main() -> None:
                  "training_mla": mla_counts[name], "training_musicgen": musicgen_counts[name],
                  **{path: c[name] for path, c in slice20.items()},
                  **{path: c[name] for path, c in slice22.items()},
-                 **{path: c[name] for path, c in slice23.items()}}
+                 **{path: c[name] for path, c in slice23.items()},
+                 **{path: c[name] for path, c in slice24.items()}}
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "replaces": "src/repro/kernels/flash_attention/ops.py:118",

@@ -69,7 +69,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.fleet.simulate", "repro_torch.launch.fleet",
                    "repro_torch.fleet_day", "repro_torch.launch.inputs",
                    "repro_torch.launch.dryrun", "repro_torch.dist.op_costs",
-                   "repro_torch.dist.op_analysis"):
+                   "repro_torch.dist.op_analysis", "repro_torch.train_100m",
+                   "repro_torch.elastic_train", "repro_torch.autotune_lm"):
         assert module in report["imported"]
 
 
@@ -88,7 +89,8 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_raise_without_a_card(no_card, tmp_path):
-    from repro_torch import chaos_train, fleet_day, quickstart
+    from repro_torch import (autotune_lm, chaos_train, elastic_train, fleet_day, quickstart,
+                             train_100m)
     from repro_torch.configs import cocoa_mnist
     from repro_torch.convert import cocoa_state_from_numpy, problem_from_numpy
     from repro_torch.configs import get_smoke_config
@@ -135,6 +137,9 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: mesh.init_distributed(0, 1, str(tmp_path / "rendezvous")),
         lambda: fleet_day.main(["--real-convex", "--no-replay"]),
         lambda: fleet_day.main(["--scenario", "drift", "--real-convex", "--no-replay"]),
+        lambda: train_100m.main(["--steps", "1"]),
+        lambda: elastic_train.main([]),
+        lambda: autotune_lm.main(["--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
